@@ -1,0 +1,91 @@
+"""Carry state and parameters across from the JAX package.
+
+The two packages share no objects: a caller (the tests, a migration script)
+turns the JAX package's state into numpy arrays and plain values, and these
+functions build the port's counterparts on a given device. Field names are
+the JAX package's (`FiberGroup`, `Params`), so ``group._asdict()`` and
+``dataclasses.asdict(params)`` pass through unchanged once their leaves are
+numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from . import params as P
+from .device import resolve_device
+from .fibers.container import FiberGroup
+from .system import BackgroundFlow, PointSources, SimState
+
+_INT_FIELDS = {"binding_body", "binding_site", "config_rank"}
+_BOOL_FIELDS = {"minus_clamped", "plus_pinned", "active"}
+
+
+def params_from_dict(d: Mapping) -> P.Params:
+    """`Params` from a mapping of the JAX `Params` fields (nested tables as
+    mappings); unknown keys are rejected so a renamed field cannot vanish."""
+    known = {f.name for f in dataclasses.fields(P.Params)}
+    unknown = set(d) - known
+    if unknown:
+        raise ValueError(f"unknown Params fields {sorted(unknown)}")
+    kw = dict(d)
+    for name, cls in (("dynamic_instability", P.DynamicInstability),
+                      ("periphery_binding", P.PeripheryBinding),
+                      ("fiber_periphery_interaction",
+                       P.FiberPeripheryInteraction)):
+        if isinstance(kw.get(name), Mapping):
+            kw[name] = cls(**kw[name])
+    if "periodic_box" in kw:
+        kw["periodic_box"] = tuple(kw["periodic_box"])
+    return P.Params(**kw)
+
+
+def group_from_numpy(leaves: Mapping, *, device, dtype=torch.float64) -> FiberGroup:
+    """`FiberGroup` from a mapping of numpy leaves named like the JAX
+    `FiberGroup` fields. Runtime node padding (``rt_mats``) is refused."""
+    if leaves.get("rt_mats") is not None:
+        raise NotImplementedError("node-padded fiber groups are not ported "
+                                  "yet (ROADMAP.md §1 item 11)")
+    kw = {}
+    for name in FiberGroup._fields:
+        v = leaves.get(name)
+        if v is None:
+            kw[name] = None
+            continue
+        t = (torch.int32 if name in _INT_FIELDS
+             else torch.bool if name in _BOOL_FIELDS else dtype)
+        kw[name] = torch.as_tensor(np.array(v), dtype=t, device=device)
+    return FiberGroup(**kw)
+
+
+def state_from_numpy(fibers, *, time: float, dt: float, points=None,
+                     background=None, device=None,
+                     dtype=torch.float64) -> SimState:
+    """`SimState` from numpy-leaf mappings: ``fibers`` is one mapping of
+    `FiberGroup` fields or a sequence of them (resolution buckets);
+    ``points`` maps the `PointSources` fields, ``background`` the
+    `BackgroundFlow` fields."""
+    device = resolve_device(device)
+    if isinstance(fibers, Mapping):
+        fib = group_from_numpy(fibers, device=device, dtype=dtype)
+    else:
+        fib = tuple(group_from_numpy(g, device=device, dtype=dtype)
+                    for g in fibers)
+    pts = bg = None
+    if points is not None:
+        points = {k: np.array(v) for k, v in points.items()}
+        pts = PointSources.make(points["position"], points["force"],
+                                points["torque"], points["time_to_live"],
+                                dtype=dtype, device=device)
+    if background is not None:
+        background = {k: np.array(v) for k, v in background.items()}
+        bg = BackgroundFlow.make(background["uniform"],
+                                 background["components"],
+                                 background["scale"], dtype=dtype,
+                                 device=device)
+    return SimState(time=float(time), dt=float(dt), fibers=fib, points=pts,
+                    background=bg)

@@ -1,0 +1,287 @@
+"""Batched fiber state and operator assembly.
+
+Counterpart of `skellysim_tpu.fibers.container`: all fibers of one resolution
+live in dense [nf, n, ...] tensors and every per-fiber operation is one
+batched call (`fd_fiber`). The ``active`` mask keeps inactive slots inert
+exactly as the JAX package does (docs/audit.md "Masking discipline"): they
+contribute zero flow, force and error and solve the identity.
+
+Slice limits: static resolutions only (no runtime node padding) and the
+direct pair evaluator only (`flow_multi`'s ring/Ewald/spectral/tree
+branches belong to ROADMAP §1 items 10 and 12).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops import kernels
+from . import fd_fiber
+from .fd_fiber import FiberScalars
+from .matrices import get_mats, torch_mats
+
+#: fibers per chunk of the dense self-mobility build (bounds the
+#: [chunk, n, n, 3, 3] intermediates at large fiber counts)
+_OSEEN_CHUNK = 1024
+
+
+class FiberGroup(NamedTuple):
+    """State of a batch of same-resolution fibers ([nf] leading axis)."""
+
+    x: torch.Tensor             # [nf, n, 3] node positions
+    tension: torch.Tensor       # [nf, n]
+    length: torch.Tensor        # [nf] target length
+    length_prev: torch.Tensor   # [nf] last accepted length
+    bending_rigidity: torch.Tensor
+    radius: torch.Tensor
+    penalty: torch.Tensor
+    beta_tstep: torch.Tensor
+    force_scale: torch.Tensor
+    v_growth: torch.Tensor
+    minus_clamped: torch.Tensor  # bool [nf]
+    plus_pinned: torch.Tensor    # bool [nf]
+    binding_body: torch.Tensor   # int32 [nf], -1 = unbound
+    binding_site: torch.Tensor   # int32 [nf]
+    active: torch.Tensor         # bool [nf]
+    #: int32 [nf] original config-order rank (trajectory wire order)
+    config_rank: Optional[torch.Tensor] = None
+
+    @property
+    def n_fibers(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def mats(self):
+        return torch_mats(self.n_nodes, self.x.dtype, self.x.device)
+
+    def scalars(self) -> FiberScalars:
+        return FiberScalars(self.length, self.length_prev, self.bending_rigidity,
+                            self.radius, self.penalty, self.beta_tstep, self.v_growth)
+
+
+class FiberCaches(NamedTuple):
+    """Per-step derived quantities. ``A_bc``/``RHS``/``lu``/``piv`` are None
+    until `update_rhs_and_bc` fills them (no placeholder allocations: at 10k
+    fibers each [nf, 4n, 4n] leaf is gigabytes)."""
+
+    xs: torch.Tensor          # [nf, n, 3]
+    xss: torch.Tensor
+    xsss: torch.Tensor
+    xssss: torch.Tensor
+    #: [nf, 3n, 3n] dense self-mobility, interleaved-xyz layout
+    stokeslet: torch.Tensor
+    force_op: Optional[torch.Tensor] = None  # [nf, 3n, 4n]
+    A_bc: Optional[torch.Tensor] = None      # [nf, 4n, 4n] (BC-applied)
+    RHS: Optional[torch.Tensor] = None       # [nf, 4n] (BC-applied)
+    lu: Optional[torch.Tensor] = None        # batched LU factors of A_bc
+    piv: Optional[torch.Tensor] = None
+
+
+def make_group(x, lengths, bending_rigidity, radius, *, eta=None,
+               penalty=fd_fiber.DEFAULT_PENALTY,
+               beta_tstep=fd_fiber.DEFAULT_BETA_TSTEP, force_scale=0.0,
+               v_growth=0.0, minus_clamped=False, binding_body=None,
+               binding_site=None, config_rank=None, dtype=torch.float64,
+               device="cpu") -> FiberGroup:
+    """FiberGroup from [nf, n, 3] positions and broadcastable per-fiber params."""
+    x = torch.as_tensor(x, dtype=dtype, device=device)
+    nf, n = x.shape[0], x.shape[1]
+    get_mats(n)  # validate resolution
+
+    def vec(v, d=dtype):
+        return torch.as_tensor(v, dtype=d, device=device).broadcast_to(
+            (nf,)).clone()
+
+    return FiberGroup(
+        x=x,
+        tension=torch.zeros((nf, n), dtype=dtype, device=device),
+        length=vec(lengths), length_prev=vec(lengths),
+        bending_rigidity=vec(bending_rigidity), radius=vec(radius),
+        penalty=vec(penalty), beta_tstep=vec(beta_tstep),
+        force_scale=vec(force_scale), v_growth=vec(v_growth),
+        minus_clamped=vec(minus_clamped, torch.bool),
+        plus_pinned=torch.zeros(nf, dtype=torch.bool, device=device),
+        binding_body=vec(-1 if binding_body is None else binding_body,
+                         torch.int32),
+        binding_site=vec(-1 if binding_site is None else binding_site,
+                         torch.int32),
+        active=torch.ones(nf, dtype=torch.bool, device=device),
+        config_rank=(torch.arange(nf, dtype=torch.int32, device=device)
+                     if config_rank is None
+                     else torch.as_tensor(config_rank, dtype=torch.int32,
+                                          device=device)),
+    )
+
+
+def as_buckets(fibers) -> tuple:
+    """None | FiberGroup | iterable of groups -> tuple of resolution buckets."""
+    if fibers is None:
+        return ()
+    if isinstance(fibers, FiberGroup):
+        return (fibers,)
+    return tuple(fibers)
+
+
+def node_positions(group: FiberGroup) -> torch.Tensor:
+    """[nf * n, 3] flattened node positions."""
+    return group.x.reshape(-1, 3)
+
+
+def node_active_flat(group: FiberGroup) -> torch.Tensor:
+    """[nf * n] bool: the node's fiber is active."""
+    return torch.repeat_interleave(group.active, group.n_nodes)
+
+
+def update_cache(group: FiberGroup, dt, eta) -> FiberCaches:
+    """Derivatives, dense self-mobility and force operator (the BC/RHS stage
+    needs the explicit flow field: `update_rhs_and_bc`)."""
+    mats = group.mats
+    sc = group.scalars()
+    xs, xss, xsss, xssss = fd_fiber.derivatives(group.x, group.length_prev,
+                                                mats)
+    nf, n3 = group.n_fibers, 3 * group.n_nodes
+    stokeslet = torch.empty((nf, n3, n3), dtype=group.x.dtype,
+                            device=group.x.device)
+    for f0 in range(0, nf, _OSEEN_CHUNK):
+        xc = group.x[f0:f0 + _OSEEN_CHUNK]
+        stokeslet[f0:f0 + _OSEEN_CHUNK] = kernels.oseen_tensor(
+            xc, xc, eta).reshape(xc.shape[0], n3, n3)
+    force_op = fd_fiber.force_operator(xs, xss, eta, sc, mats)
+    return FiberCaches(xs=xs, xss=xss, xsss=xsss, xssss=xssss,
+                       stokeslet=stokeslet, force_op=force_op)
+
+
+def update_rhs_and_bc(group: FiberGroup, caches: FiberCaches, dt, eta,
+                      v_on_fibers, f_total, f_ext,
+                      precond_dtype=None) -> FiberCaches:
+    """BC-applied A/RHS and the batched LU preconditioner.
+
+    The RHS uses the total force (motor + external), the BC rows only the
+    external force. ``precond_dtype`` stores the LU factors in a lower
+    precision (f32 for the mixed solver) while A/RHS stay in the state
+    dtype.
+    """
+    mats = group.mats
+    sc = group.scalars()
+    A = fd_fiber.build_A(caches.xs, caches.xss, caches.xsss, dt, eta, sc, mats)
+    RHS = fd_fiber.build_RHS(group.x, caches.xs, caches.xss, dt, eta, sc, mats,
+                             flow=v_on_fibers, f_external=f_total)
+    A_bc, RHS_bc = fd_fiber.apply_bc_rectangular(
+        A, RHS, group.x, caches.xs, caches.xss, dt, eta, sc, mats,
+        group.minus_clamped, group.plus_pinned, v_on_fiber=v_on_fibers,
+        f_on_fiber=f_ext)
+    del A, RHS
+    # inactive slots solve the identity so the LU stays well-posed
+    eye = torch.eye(A_bc.shape[1], dtype=A_bc.dtype, device=A_bc.device)
+    A_bc = torch.where(group.active[:, None, None], A_bc, eye)
+    RHS_bc = torch.where(group.active[:, None], RHS_bc, 0.0)
+
+    A_lu = A_bc if precond_dtype is None else A_bc.to(precond_dtype)
+    lu, piv = torch.linalg.lu_factor(A_lu)
+    return caches._replace(A_bc=A_bc, RHS=RHS_bc, lu=lu, piv=piv)
+
+
+def weighted_forces(group: FiberGroup, forces) -> torch.Tensor:
+    """Quadrature-weighted node forces 0.5 * L * w0 * f; inactive fibers
+    weigh zero (selected AFTER the product: zeroing only the weight would
+    leave 0 * inf = NaN for nonfinite stale force bits)."""
+    w0 = group.mats.weights0
+    w = 0.5 * group.length[:, None] * w0[None, :]
+    return torch.where(group.active[:, None, None], w[:, :, None] * forces,
+                       0.0)
+
+
+def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
+               subtract_self: bool = True, evaluator: str = "direct",
+               impl: str = "exact") -> torch.Tensor:
+    """Velocity at targets from every fiber node of every bucket, in ONE
+    pair-kernel pass (`skellysim_tpu.fibers.container.flow_multi`, direct
+    branch).
+
+    When ``subtract_self`` the leading targets are the concatenated fiber
+    nodes in bucket order, and each fiber's dense self-interaction is
+    subtracted (it is handled by the SBT mobility instead). That relies on
+    the pair kernel's self term being exactly zero.
+    """
+    if evaluator != "direct":
+        raise NotImplementedError(
+            f"pair evaluator {evaluator!r} is not ported yet (ROADMAP.md §1 "
+            "item 10 for ewald/tree/spectral, item 12 for ring)")
+    pos = torch.cat([node_positions(g) for g in buckets], dim=0)
+    wf = torch.cat([weighted_forces(g, f).reshape(-1, 3)
+                    for g, f in zip(buckets, forces_list)], dim=0)
+    # dead slots' weighted forces are exact zeros: pin their positions to
+    # the origin so no stale coordinate ever enters a pair kernel
+    act = torch.cat([node_active_flat(g) for g in buckets])
+    pos = torch.where(act[:, None], pos, 0.0)
+    n_fib_nodes = pos.shape[0]
+    if subtract_self:
+        # keep the leading self targets consistent with the pinned sources
+        r_trg = torch.cat([pos, r_trg[n_fib_nodes:]], dim=0)
+    vel = kernels.stokeslet_direct(pos, r_trg, wf, eta, impl=impl)
+    if subtract_self:
+        off = 0
+        for g, caches in zip(buckets, caches_list):
+            nfn = g.n_fibers * g.n_nodes
+            self_vel = torch.bmm(
+                caches.stokeslet,
+                wf[off:off + nfn].reshape(g.n_fibers, -1, 1))
+            vel[off:off + nfn] -= self_vel.reshape(-1, 3)
+            off += nfn
+    return vel
+
+
+def apply_fiber_force(group: FiberGroup, caches: FiberCaches, x_all) -> torch.Tensor:
+    """Solution [nf, 4n] -> force density on nodes [nf, n, 3]."""
+    f = torch.bmm(caches.force_op, x_all[:, :, None])[:, :, 0]  # [nf, 3n]
+    n = group.n_nodes
+    return torch.stack([f[:, :n], f[:, n:2 * n], f[:, 2 * n:]], dim=-1)
+
+
+def matvec(group: FiberGroup, caches: FiberCaches, x_all, v_fib, v_boundary) -> torch.Tensor:
+    """Block-diagonal fiber matvec [nf, 4n]."""
+    res = fd_fiber.matvec(caches.A_bc, x_all, v_fib, v_boundary, caches.xs,
+                          group.scalars(), group.mats, group.plus_pinned)
+    return torch.where(group.active[:, None], res, x_all)
+
+
+def apply_preconditioner(group: FiberGroup, caches: FiberCaches, x_all) -> torch.Tensor:
+    """Batched LU solves [nf, 4n], in the factors' (possibly lower)
+    precision and cast back — a preconditioner only approximates A^-1."""
+    out = torch.linalg.lu_solve(caches.lu, caches.piv,
+                                x_all.to(caches.lu.dtype)[:, :, None])
+    return out[:, :, 0].to(x_all.dtype)
+
+
+def step(group: FiberGroup, fiber_sol) -> FiberGroup:
+    """Advance positions/tension from the solution [nf, 4n]."""
+    n = group.n_nodes
+    x_new = torch.stack([fiber_sol[:, :n], fiber_sol[:, n:2 * n],
+                         fiber_sol[:, 2 * n:3 * n]], dim=-1)
+    t_new = fiber_sol[:, 3 * n:]
+    x_new = torch.where(group.active[:, None, None], x_new, group.x)
+    t_new = torch.where(group.active[:, None], t_new, group.tension)
+    return group._replace(x=x_new, tension=t_new, length_prev=group.length)
+
+
+def generate_constant_force(group: FiberGroup, caches: FiberCaches) -> torch.Tensor:
+    """Implicit motor force f = force_scale * xs [nf, n, 3]."""
+    return group.force_scale[:, None, None] * caches.xs
+
+
+def fiber_error(group: FiberGroup) -> torch.Tensor:
+    """Max inextensibility violation over active fibers (0-d tensor); the
+    -inf sentinel keeps inactive slots out of the max."""
+    errs = fd_fiber.fiber_error(group.x, group.length, group.mats)
+    return torch.clamp_min(
+        torch.amax(torch.where(group.active, errs, -torch.inf)), 0.0)
+
+
+def solution_size(group: FiberGroup) -> int:
+    return group.n_fibers * 4 * group.n_nodes

@@ -1,0 +1,37 @@
+"""The packed solver health word: bit constants and host-side decoding.
+
+Same bit layout as `skellysim_tpu.guard.verdict` (docs/robustness.md), so a
+health word means the same in both packages' metrics. The solver here runs
+a host-driven loop, so the word is a plain int built from host scalars.
+"""
+
+from __future__ import annotations
+
+import math
+
+NONFINITE = 1 << 0
+STAGNATION = 1 << 1
+
+#: name -> bit, in bit order (the decode table); the breakdown and
+#: dt_underflow bits arrive with the guard ladder (ROADMAP.md §1 item 13)
+HEALTH_BITS = {
+    "nonfinite": NONFINITE,
+    "stagnation": STAGNATION,
+}
+
+
+def nonfinite_word(value: float) -> int:
+    """NONFINITE where ``value`` is not finite, else 0."""
+    return 0 if math.isfinite(value) else NONFINITE
+
+
+def decode(word) -> list:
+    """The set bit names of one health word, in bit order."""
+    w = int(word)
+    return [name for name, bit in HEALTH_BITS.items() if w & bit]
+
+
+def describe(word) -> str:
+    """Log spelling: ``"stagnation|breakdown"`` or ``"ok"``."""
+    names = decode(word)
+    return "|".join(names) if names else "ok"
