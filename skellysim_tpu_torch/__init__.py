@@ -5,11 +5,12 @@ module layout and names so each counterpart is found at the same path. It
 imports torch, numpy and scipy only — never jax, never `skellysim_tpu` —
 and keeps its own copies of the small host-side modules it needs.
 
-Slice covered so far: the single-card implicit timestep of free-space fiber
-systems (fibers + point/background sources), with the pairwise Stokeslet
-sum on hand-written Hopper kernels (`ops.cuda_kernels`). Entry points run on
-the CUDA card unless the caller asks for the CPU (`--device=cpu`,
-``device="cpu"``); a missing card raises.
+Slices covered so far: the single-card implicit timestep of fibers, a
+confining periphery and rigid bodies with attached fibers, with point and
+background sources, and its precompute; the pairwise Stokeslet and
+stresslet sums run on hand-written Hopper kernels (`ops.cuda_kernels`).
+Entry points run on the CUDA card unless the caller asks for the CPU
+(`--device=cpu`, ``device="cpu"``); a missing card raises.
 """
 
 import torch as _torch

@@ -1,10 +1,10 @@
 """Config -> runnable simulation.
 
-Counterpart of `skellysim_tpu.builder` for free-space fiber configs: reads
-the TOML config and assembles `System`, the initial `SimState` and the
-`SimRNG` on the requested device (the card unless ``device="cpu"``).
-Periphery and body tables raise `NotImplementedError` (ROADMAP.md §1 items
-5 and 6).
+Counterpart of `skellysim_tpu.builder`: reads the TOML config and the
+precompute npz files (written by either package's precompute) and assembles
+`System`, the initial `SimState` and the `SimRNG` on the requested device
+(the card unless ``device="cpu"``). Deformable bodies and the serve path's
+in-process body precompute are not ported (ROADMAP.md §1 items 11 and 13).
 """
 
 from __future__ import annotations
@@ -15,11 +15,24 @@ import warnings
 import numpy as np
 import torch
 
+from .bodies import bodies as bd
 from .config import schema
 from .device import resolve_device
 from .fibers import container as fc
+from .params import resolve_precision
+from .periphery import periphery as peri
 from .system import BackgroundFlow, PointSources, System
+from .utils import quaternion as quat
 from .utils.rng import SimRNG
+
+
+def _load_npz(path: str, what: str) -> dict:
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{what} precompute file '{path}' not found — run the precompute "
+            "step first (python -m skellysim_tpu_torch.precompute)")
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 def build_fibers(cfg_fibers: list, dtype, device):
@@ -54,6 +67,97 @@ def build_fibers(cfg_fibers: list, dtype, device):
     return groups[0] if len(groups) == 1 else tuple(groups)
 
 
+def build_bodies(cfg_bodies: list, config_dir: str, dtype, device):
+    """BodyGroup (one shape/resolution) or tuple of per-(shape, n_nodes,
+    n_sites) buckets in first-appearance order; each body's config position
+    is its `config_rank` (the GLOBAL id fibers' `parent_body` refers to)."""
+    if not cfg_bodies:
+        return None
+    if any(b.shape == "deformable" for b in cfg_bodies):
+        raise NotImplementedError(
+            "the 'deformable' body is a declared but unimplemented stub in "
+            "the reference and is not ported (ROADMAP.md §1 item 11)")
+    pre_all = [_load_npz(os.path.join(config_dir, b.precompute_file), "body")
+               for b in cfg_bodies]
+
+    def runtime_quat(b):
+        # TOML orientation is [x, y, z, w]; the runtime and the trajectory
+        # wire use (w, x, y, z)
+        x, y, z, w = np.asarray(b.orientation, dtype=float)
+        return np.array([w, x, y, z])
+
+    def sites_ref(b, ns):
+        # config nucleation sites are lab-frame at t=0: ref = R(q)^T (lab -
+        # pos), i.e. (lab - pos) @ R
+        s = np.asarray(b.nucleation_sites, dtype=float).reshape(ns, 3)
+        R = quat.rotation_matrix(torch.as_tensor(runtime_quat(b))).numpy()
+        return (s - np.asarray(b.position)) @ R
+
+    by_key: dict = {}
+    for rank, (b, p) in enumerate(zip(cfg_bodies, pre_all)):
+        key = (b.shape, p["node_positions_ref"].shape[0],
+               len(b.nucleation_sites) // 3)
+        by_key.setdefault(key, []).append((rank, b, p))
+
+    def one_bucket(key, items):
+        shape, _, ns = key
+        bods = [b for _, b, _ in items]
+        pre = [p for _, _, p in items]
+        return bd.make_group(
+            np.stack([p["node_positions_ref"] for p in pre]),
+            np.stack([p["node_normals_ref"] for p in pre]),
+            np.stack([p["node_weights"] for p in pre]),
+            position=np.stack([b.position for b in bods]),
+            orientation=np.stack([runtime_quat(b) for b in bods]),
+            nucleation_sites_ref=np.stack([sites_ref(b, ns) for b in bods]),
+            external_force=np.stack([b.external_force for b in bods]),
+            external_torque=np.stack([b.external_torque for b in bods]),
+            ext_force_type=np.array(
+                [bd.EXTFORCE_OSCILLATORY
+                 if b.external_force_type == "Oscillatory"
+                 else bd.EXTFORCE_LINEAR for b in bods], dtype=np.int32),
+            osc_amplitude=np.array([b.external_oscillation_force_amplitude
+                                    for b in bods]),
+            osc_omega=np.array([2 * np.pi
+                                * b.external_oscillation_force_frequency
+                                for b in bods]),
+            osc_phase=np.array([b.external_oscillation_force_phase
+                                for b in bods]),
+            radius=np.array([b.radius for b in bods]),
+            kind=shape if shape in ("sphere", "ellipsoid") else "generic",
+            semiaxes=np.array([b.axis_length if b.shape == "ellipsoid"
+                               else [0.0, 0.0, 0.0] for b in bods]),
+            config_rank=np.array([r for r, _, _ in items], dtype=np.int32),
+            dtype=dtype, device=device)
+
+    groups = [one_bucket(key, items) for key, items in by_key.items()]
+    return groups[0] if len(groups) == 1 else tuple(groups)
+
+
+def build_periphery(cfg_periphery, config_dir: str, dtype, device,
+                    precond_dtype=None):
+    """(PeripheryState, PeripheryShape) from the config and its npz;
+    ``precond_dtype`` stores M_inv (the preconditioner) in a lower
+    precision (float32 in mixed mode)."""
+    data = _load_npz(os.path.join(config_dir, cfg_periphery.precompute_file),
+                     "periphery")
+    state = peri.make_state(data["nodes"], data["normals"],
+                            data["quadrature_weights"],
+                            data["stresslet_plus_complementary"],
+                            data["M_inv"], dtype=dtype,
+                            precond_dtype=precond_dtype, device=device)
+    shape_name = getattr(cfg_periphery, "shape", "sphere")
+    if shape_name == "sphere":
+        shape = peri.PeripheryShape(kind="sphere", radius=cfg_periphery.radius)
+    elif shape_name == "ellipsoid":
+        shape = peri.PeripheryShape(
+            kind="ellipsoid",
+            abc=(cfg_periphery.a, cfg_periphery.b, cfg_periphery.c))
+    else:
+        shape = peri.PeripheryShape(kind="generic")
+    return state, shape
+
+
 def build_point_sources(cfg_points: list, dtype, device):
     if not cfg_points:
         return None
@@ -76,26 +180,32 @@ def build_background(cfg_bg, dtype, device):
                                device=device)
 
 
-def build_simulation(config, dtype=torch.float64, device=None):
-    """Config (object or TOML path) -> (System, SimState, SimRNG)."""
+def build_simulation(config, config_dir: str = ".", dtype=torch.float64,
+                     device=None):
+    """Config (object or TOML path) -> (System, SimState, SimRNG); the
+    precompute npz files are read from ``config_dir`` (a TOML path's own
+    directory)."""
     if isinstance(config, (str, os.PathLike)):
+        config_dir = os.path.dirname(os.path.abspath(config)) or "."
         config = schema.load_config(str(config))
-    if config.periphery is not None:
-        raise NotImplementedError(
-            "configs with a periphery are not ported to skellysim_tpu_torch "
-            "yet (ROADMAP.md §1 item 5)")
-    if config.bodies:
-        raise NotImplementedError(
-            "configs with bodies are not ported to skellysim_tpu_torch yet "
-            "(ROADMAP.md §1 item 6)")
     device = resolve_device(device)
     params = schema.to_runtime_params(config.params)
     if params.pair_evaluator == "ring":
         warnings.warn("config selects pair_evaluator='ring' but a one-card "
                       "run has no mesh; using the direct evaluator")
-    system = System(params, device=device)
+    shell, shape = None, None
+    if getattr(config, "periphery", None) is not None:
+        mixed = resolve_precision(params.solver_precision,
+                                  dtype == torch.float64,
+                                  device.type) == "mixed"
+        shell, shape = build_periphery(
+            config.periphery, config_dir, dtype, device,
+            precond_dtype=torch.float32 if mixed else None)
+    system = System(params, shell_shape=shape, device=device)
     state = system.make_state(
         fibers=build_fibers(config.fibers, dtype, device),
         points=build_point_sources(config.point_sources, dtype, device),
-        background=build_background(config.background, dtype, device))
+        background=build_background(config.background, dtype, device),
+        shell=shell,
+        bodies=build_bodies(config.bodies, config_dir, dtype, device))
     return system, state, SimRNG(seed=config.params.seed)

@@ -20,7 +20,6 @@ import shutil
 import sys
 
 from .builder import build_simulation
-from .fibers.container import as_buckets
 from .io.trajectory import TrajectoryWriter
 
 TRAJECTORY_FILE = "skelly_sim.out"
@@ -44,8 +43,8 @@ def run(config_file: str, overwrite: bool = False,
 
     system, state, rng = build_simulation(config_file, device=device)
     logging.getLogger("skellysim_tpu_torch").info(
-        "device %s, %d fiber nodes", system.device,
-        sum(g.n_fibers * g.n_nodes for g in as_buckets(state.fibers)))
+        "device %s: %d fiber, %d shell and %d body nodes", system.device,
+        *system._counts(state))
     with TrajectoryWriter(traj) as writer:
         shutil.copyfile(config_file, _snapshot_path(traj, "initial_config"))
         writer.write_frame(state, rng_state=rng.dump_state())

@@ -1,5 +1,9 @@
-from .schema import (BackgroundSource, Config, Fiber, Params, Point,
-                     load_config)
+from .schema import (BackgroundSource, Body, Config, ConfigEllipsoidal,
+                     ConfigRevolution, ConfigSpherical, EllipsoidalPeriphery,
+                     Fiber, Params, Point, RevolutionPeriphery,
+                     SphericalPeriphery, load_config)
 
-__all__ = ["BackgroundSource", "Config", "Fiber", "Params", "Point",
-           "load_config"]
+__all__ = ["BackgroundSource", "Body", "Config", "ConfigEllipsoidal",
+           "ConfigRevolution", "ConfigSpherical", "EllipsoidalPeriphery",
+           "Fiber", "Params", "Point", "RevolutionPeriphery",
+           "SphericalPeriphery", "load_config"]

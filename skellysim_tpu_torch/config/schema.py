@@ -1,14 +1,16 @@
-"""Typed configuration schema <-> TOML, for the tables this slice reads.
+"""Typed configuration schema <-> TOML.
 
-Counterpart of the part of `skellysim_tpu.config.schema` that free-space
-fiber runs use: `Config` with `params`, `fibers`, `point_sources` and
-`background`, with the same field names and defaults (the names ARE the
-TOML contract), `Config.save` and `load_config`. A TOML written here loads
-in `skellysim_tpu.builder.build_simulation` and vice versa.
-
-Tables of later slices round-trip as plain data: ``bodies`` entries and a
-``periphery`` table are kept as dicts, and the builder refuses them
-(`NotImplementedError` naming the ROADMAP item).
+Counterpart of `skellysim_tpu.config.schema` for the run config: `Config`
+with `params`, `bodies`, `fibers`, `point_sources` and `background`; the
+shaped subclasses `ConfigSpherical` / `ConfigEllipsoidal` /
+`ConfigRevolution` with their `periphery` table; the same field names and
+defaults (the names ARE the TOML contract), `Config.save` and
+`load_config`, which picks the subclass by ``periphery.shape``. A TOML
+written here loads in `skellysim_tpu.builder.build_simulation` and vice
+versa. The placement helpers (`move_fibers_to_surface`,
+`generate_nucleation_sites`) make the same numpy draws in the same order as
+the JAX package's, so one `numpy.random.default_rng` seed places the same
+fibers in both.
 """
 
 from __future__ import annotations
@@ -16,15 +18,18 @@ from __future__ import annotations
 import dataclasses
 import types
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 
-from . import toml_io
+from . import param_tools, toml_io
 from .. import params as runtime_params
 
 __all__ = ["Fiber", "DynamicInstability", "PeripheryBinding", "Params",
-           "Point", "BackgroundSource", "Config", "load_config",
+           "Periphery", "SphericalPeriphery", "EllipsoidalPeriphery",
+           "RevolutionPeriphery", "EnvelopeConfig", "Body", "Point",
+           "BackgroundSource", "Config", "ConfigSpherical",
+           "ConfigEllipsoidal", "ConfigRevolution", "load_config",
            "config_from_data", "unpack", "to_runtime_params"]
 
 
@@ -34,6 +39,22 @@ def _vec3() -> List[float]:
 
 def _ivec3() -> List[int]:
     return [0, 1, 2]
+
+
+def _quat_identity() -> List[float]:
+    return [0.0, 0.0, 0.0, 1.0]
+
+
+def _random_unit_vector(rng: np.random.Generator) -> np.ndarray:
+    v = rng.normal(size=3)
+    return v / np.linalg.norm(v)
+
+
+def _min_sep_ok(x0: np.ndarray, minus_ends: list, ds_min: float) -> bool:
+    if not minus_ends:
+        return True
+    d2 = np.sum((np.asarray(minus_ends) - x0) ** 2, axis=1)
+    return bool(np.all(d2 >= ds_min * ds_min))
 
 
 @dataclass
@@ -115,6 +136,203 @@ class Params:
 
 
 @dataclass
+class Periphery:
+    """Base periphery (use a shaped subclass)."""
+    n_nodes: int = 6000
+    precompute_file: str = "periphery_precompute.npz"
+
+    def move_fibers_to_surface(self, fibers, ds_min, verbose=True,
+                               rng=None) -> None:
+        """Place fibers' minus ends uniformly on the surface pointing
+        inward, rejecting sites closer than ds_min to prior minus ends."""
+        rng = rng or np.random.default_rng()
+        ends: list = []
+        for i, fib in enumerate(fibers):
+            x0, inward = self.find_binding_site_impl(ends, ds_min, rng)
+            fib.fill_node_positions(x0, inward)
+            ends.append(x0)
+            if verbose:
+                print(f"Inserted fiber {i} at {x0}")
+
+
+@dataclass
+class SphericalPeriphery(Periphery):
+    shape: str = "sphere"
+    radius: float = 6.0
+
+    def find_binding_site_impl(self, minus_ends, ds_min, rng):
+        while True:
+            u0 = _random_unit_vector(rng)
+            x0 = 0.99999999 * self.radius * u0
+            if _min_sep_ok(x0, minus_ends, ds_min):
+                return x0, -u0
+
+
+@dataclass
+class EllipsoidalPeriphery(Periphery):
+    """(x/a)^2 + (y/b)^2 + (z/c)^2 = 1."""
+    shape: str = "ellipsoid"
+    a: float = 7.8
+    b: float = 4.16
+    c: float = 4.16
+
+    def move_fibers_to_surface(self, fibers, ds_min, verbose=True, rng=None):
+        rng = rng or np.random.default_rng()
+        # uniform-by-area trial points slightly inside the surface
+        a, b, c = self.a / 1.04, self.b / 1.04, self.c / 1.04
+
+        def surf(t, u):
+            return np.stack([a * np.cos(t) * np.sin(u),
+                             b * np.sin(t) * np.sin(u),
+                             c * np.cos(u)])
+
+        n_trials = max(5 * len(fibers), 64)
+        trials = param_tools.r_surface(n_trials, surf, 0, 2 * np.pi, 0, np.pi,
+                                       rng=rng)[0].T
+        ends: list = []
+        i_trial = 0
+        for i, fib in enumerate(fibers):
+            while True:
+                if i_trial >= n_trials:
+                    raise RuntimeError(
+                        "Unable to insert fibers; decrease density or ds_min")
+                x0 = trials[i_trial]
+                i_trial += 1
+                if _min_sep_ok(x0, ends, ds_min):
+                    break
+            normal = np.array([x0[0] / self.a ** 2, x0[1] / self.b ** 2,
+                               x0[2] / self.c ** 2])
+            normal = -normal / np.linalg.norm(normal)
+            fib.fill_node_positions(x0, normal)
+            ends.append(x0)
+            if verbose:
+                print(f"Inserted fiber {i} at {x0}")
+
+
+class EnvelopeConfig(dict):
+    """Envelope table with attribute-style access that stays a plain dict
+    for TOML round-tripping."""
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError:
+            raise AttributeError(key) from None
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+
+@dataclass
+class RevolutionPeriphery(Periphery):
+    """Surface of revolution of a height function h(x) around the x axis;
+    `envelope` keys: height (an expression of x), lower_bound,
+    upper_bound, n_nodes_target, plus free parameters the expression
+    names."""
+    shape: str = "surface_of_revolution"
+    n_nodes: int = 0
+    envelope: dict = field(default_factory=EnvelopeConfig)
+
+    def __post_init__(self):
+        if not isinstance(self.envelope, EnvelopeConfig):
+            self.envelope = EnvelopeConfig(self.envelope)
+
+    def move_fibers_to_surface(self, fibers, ds_min, verbose=True, rng=None):
+        from ..periphery.shapes import Envelope
+        rng = rng or np.random.default_rng()
+        env = Envelope(self.envelope)
+        lb, ub = self.envelope["lower_bound"], self.envelope["upper_bound"]
+
+        # CDF of the area element h(x) sqrt(dx^2 + dh^2)
+        xs = np.linspace(lb, ub, 1000)
+        h = np.maximum(env.raw_height(xs), 0.0)
+        slant = np.sqrt(np.diff(xs) ** 2 + np.diff(h) ** 2)
+        dA = 0.5 * (h[1:] + h[:-1]) * slant
+        cdf = np.concatenate([[0.0], np.cumsum(dA)])
+        cdf /= cdf[-1]
+
+        ends: list = []
+        for i, fib in enumerate(fibers):
+            while True:
+                x_t = np.interp(rng.uniform(), cdf, xs)
+                h_t = float(env.raw_height(x_t))
+                theta = 2 * np.pi * rng.uniform()
+                x0 = np.array([x_t, h_t * np.cos(theta), h_t * np.sin(theta)])
+                if _min_sep_ok(x0, ends, ds_min):
+                    break
+            if x0[0] <= env.lower_bound:
+                normal = np.array([1.0, 0.0, 0.0])
+            elif x0[0] >= env.upper_bound:
+                normal = np.array([-1.0, 0.0, 0.0])
+            else:
+                normal = np.array([float(env(x0[0]) * env.differentiate(x0[0])),
+                                   -x0[1], -x0[2]])
+                normal /= np.linalg.norm(normal)
+            fib.fill_node_positions(x0, normal)
+            ends.append(x0)
+            if verbose:
+                print(f"Inserted fiber {i} at {x0}")
+
+
+@dataclass
+class Body:
+    """One rigid body (reference `Body`)."""
+    n_nucleation_sites: int = 0
+    position: List[float] = field(default_factory=_vec3)
+    orientation: List[float] = field(default_factory=_quat_identity)
+    shape: str = "sphere"
+    radius: float = 1.0
+    n_nodes: int = 600
+    axis_length: List[float] = field(default_factory=_vec3)
+    precompute_file: str = "body_precompute.npz"
+    external_force_type: str = "Linear"
+    external_force: List[float] = field(default_factory=_vec3)
+    external_torque: List[float] = field(default_factory=_vec3)
+    nucleation_sites: List[float] = field(default_factory=list)
+    external_oscillation_force_amplitude: float = 0.0
+    external_oscillation_force_frequency: float = 0.0
+    external_oscillation_force_phase: float = 0.0
+
+    def _require_sphere(self):
+        if self.shape != "sphere":
+            raise ValueError("fiber attachment only implemented for "
+                             "spherical bodies")
+
+    def generate_nucleation_sites(self, ds_min, verbose=True,
+                                  rng=None) -> None:
+        self._require_sphere()
+        rng = rng or np.random.default_rng()
+        com = np.asarray(self.position)
+        sites: list = []
+        for isite in range(self.n_nucleation_sites):
+            while True:
+                x0 = com + self.radius * _random_unit_vector(rng)
+                if _min_sep_ok(x0, sites, ds_min):
+                    sites.append(x0)
+                    if verbose:
+                        print(f"Inserting site {isite} at {x0}")
+                    break
+        self.nucleation_sites = np.asarray(sites).ravel().tolist()
+
+    def move_fibers_to_surface(self, fibers, ds_min, verbose=True, rng=None):
+        """Place fibers on the body surface pointing outward."""
+        self._require_sphere()
+        rng = rng or np.random.default_rng()
+        com = np.asarray(self.position)
+        ends: list = []
+        for i, fib in enumerate(fibers):
+            while True:
+                u0 = _random_unit_vector(rng)
+                x0 = com + self.radius * u0
+                if _min_sep_ok(x0, ends, ds_min):
+                    break
+            fib.fill_node_positions(x0, u0)
+            ends.append(x0)
+            if verbose:
+                print(f"Inserted fiber {i} at {x0}")
+
+
+@dataclass
 class Point:
     """Point force/torque source."""
     position: List[float] = field(default_factory=_vec3)
@@ -133,26 +351,44 @@ class BackgroundSource:
 
 @dataclass
 class Config:
-    """Free-space config. ``bodies`` (dicts) and ``periphery`` (a dict or
-    None) are carried for round-tripping only; the builder refuses them."""
+    """Free-space config (no bounding volume)."""
     params: Params = field(default_factory=Params)
-    bodies: List[dict] = field(default_factory=list)
+    bodies: List[Body] = field(default_factory=list)
     fibers: List[Fiber] = field(default_factory=list)
     point_sources: List[Point] = field(default_factory=list)
     background: BackgroundSource = field(default_factory=BackgroundSource)
-    periphery: Optional[dict] = None
 
     def validate(self) -> list[str]:
-        return _validate(self)
+        problems = _validate(self)
+        for j, b in enumerate(self.bodies):
+            if getattr(b, "shape", None) == "deformable":
+                problems.append(
+                    f"bodies[{j}].shape: 'deformable' is declared but "
+                    "unimplemented in the reference; use shape = 'sphere' "
+                    "or 'ellipsoid'")
+        return problems
 
     def save(self, filename: str = "skelly_config.toml") -> None:
         problems = self.validate()
         if problems:
             raise ValueError("invalid config:\n  " + "\n  ".join(problems))
-        data = unpack(self)
-        if data["periphery"] is None:
-            del data["periphery"]
-        toml_io.dump(data, filename)
+        toml_io.dump(unpack(self), filename)
+
+
+@dataclass
+class ConfigSpherical(Config):
+    periphery: SphericalPeriphery = field(default_factory=SphericalPeriphery)
+
+
+@dataclass
+class ConfigEllipsoidal(Config):
+    periphery: EllipsoidalPeriphery = field(
+        default_factory=EllipsoidalPeriphery)
+
+
+@dataclass
+class ConfigRevolution(Config):
+    periphery: RevolutionPeriphery = field(default_factory=RevolutionPeriphery)
 
 
 def _validate(obj, prefix: str = "") -> list[str]:
@@ -175,7 +411,14 @@ def _validate(obj, prefix: str = "") -> list[str]:
                     problems.append(f"{where}[{j}]: numpy scalar; use float/int")
         elif isinstance(v, (np.floating, np.integer, np.ndarray)):
             problems.append(f"{where}: numpy type; use plain float/int/list")
-        elif v is None or isinstance(v, (bool, float, int, str, dict)):
+        elif isinstance(v, dict):
+            for k, item in v.items():
+                if not isinstance(item, (bool, float, int, str, list, dict,
+                                         np.floating, np.integer,
+                                         np.ndarray)):
+                    problems.append(f"{where}[{k!r}]: unsupported type "
+                                    f"{type(item).__name__}")
+        elif isinstance(v, (bool, float, int, str)):
             pass
         else:
             problems.append(f"{where}: unsupported type {type(v).__name__}")
@@ -215,20 +458,31 @@ def _from_dict(cls, data: dict):
 
 
 def load_config(path: str) -> Config:
-    """TOML file -> Config."""
+    """TOML file -> Config (shaped subclass chosen by periphery.shape)."""
     return config_from_data(toml_io.load(path))
 
 
 def config_from_data(data: dict) -> Config:
-    """Parsed TOML dict -> Config."""
-    return Config(
-        params=_from_dict(Params, data.get("params", {})),
-        bodies=[dict(b) for b in data.get("bodies", [])],
-        fibers=[_from_dict(Fiber, d) for d in data.get("fibers", [])],
-        point_sources=[_from_dict(Point, d)
-                       for d in data.get("point_sources", [])],
-        background=_from_dict(BackgroundSource, data.get("background", {})),
-        periphery=data.get("periphery"))
+    """Parsed TOML dict -> Config (shaped subclass chosen by
+    ``periphery.shape``)."""
+    peri = data.get("periphery")
+    if peri is None:
+        cfg = Config()
+    else:
+        cls, pcls = {
+            "sphere": (ConfigSpherical, SphericalPeriphery),
+            "ellipsoid": (ConfigEllipsoidal, EllipsoidalPeriphery),
+            "surface_of_revolution": (ConfigRevolution, RevolutionPeriphery),
+        }[peri.get("shape", "sphere")]
+        cfg = cls()
+        cfg.periphery = _from_dict(pcls, peri)
+    cfg.params = _from_dict(Params, data.get("params", {}))
+    cfg.fibers = [_from_dict(Fiber, d) for d in data.get("fibers", [])]
+    cfg.bodies = [_from_dict(Body, d) for d in data.get("bodies", [])]
+    cfg.point_sources = [_from_dict(Point, d)
+                         for d in data.get("point_sources", [])]
+    cfg.background = _from_dict(BackgroundSource, data.get("background", {}))
+    return cfg
 
 
 #: accepted pair_evaluator spellings -> runtime names (the JAX package's

@@ -3,9 +3,9 @@
 The two packages share no objects: a caller (the tests, a migration script)
 turns the JAX package's state into numpy arrays and plain values, and these
 functions build the port's counterparts on a given device. Field names are
-the JAX package's (`FiberGroup`, `Params`), so ``group._asdict()`` and
-``dataclasses.asdict(params)`` pass through unchanged once their leaves are
-numpy.
+the JAX package's (`FiberGroup`, `PeripheryState`, `BodyGroup`, `Params`),
+so ``group._asdict()`` and ``dataclasses.asdict(params)`` pass through
+unchanged once their leaves are numpy.
 """
 
 from __future__ import annotations
@@ -17,12 +17,15 @@ import numpy as np
 import torch
 
 from . import params as P
+from .bodies.bodies import BodyGroup
 from .device import resolve_device
 from .fibers.container import FiberGroup
+from .periphery.periphery import PeripheryState
 from .system import BackgroundFlow, PointSources, SimState
 
-_INT_FIELDS = {"binding_body", "binding_site", "config_rank"}
-_BOOL_FIELDS = {"minus_clamped", "plus_pinned", "active"}
+_INT_FIELDS = {"binding_body", "binding_site", "config_rank",
+               "ext_force_type"}
+_BOOL_FIELDS = {"minus_clamped", "plus_pinned", "active", "kind_sphere"}
 
 
 def params_from_dict(d: Mapping) -> P.Params:
@@ -44,33 +47,65 @@ def params_from_dict(d: Mapping) -> P.Params:
     return P.Params(**kw)
 
 
+def _tuple_from_numpy(cls, leaves: Mapping, device, dtype, keep=()):
+    """``cls`` (a NamedTuple of tensors) from numpy leaves: int/bool fields
+    keep their kind, the ``keep`` fields keep their own float dtype, every
+    other float field becomes ``dtype``."""
+    kw = {}
+    for name in cls._fields:
+        v = leaves.get(name)
+        if v is None:
+            kw[name] = None
+            continue
+        a = np.array(v)
+        t = (torch.int32 if name in _INT_FIELDS
+             else torch.bool if name in _BOOL_FIELDS
+             else torch.as_tensor(a).dtype if name in keep else dtype)
+        kw[name] = torch.as_tensor(a, dtype=t, device=device)
+    return cls(**kw)
+
+
 def group_from_numpy(leaves: Mapping, *, device, dtype=torch.float64) -> FiberGroup:
     """`FiberGroup` from a mapping of numpy leaves named like the JAX
     `FiberGroup` fields. Runtime node padding (``rt_mats``) is refused."""
     if leaves.get("rt_mats") is not None:
         raise NotImplementedError("node-padded fiber groups are not ported "
                                   "yet (ROADMAP.md §1 item 11)")
-    kw = {}
-    for name in FiberGroup._fields:
-        v = leaves.get(name)
-        if v is None:
-            kw[name] = None
-            continue
-        t = (torch.int32 if name in _INT_FIELDS
-             else torch.bool if name in _BOOL_FIELDS else dtype)
-        kw[name] = torch.as_tensor(np.array(v), dtype=t, device=device)
-    return FiberGroup(**kw)
+    return _tuple_from_numpy(FiberGroup, leaves, device, dtype)
+
+
+def shell_from_numpy(leaves: Mapping, *, device, dtype=torch.float64) -> PeripheryState:
+    """`PeripheryState` from numpy leaves named like the JAX
+    `PeripheryState` fields; M_inv keeps its own dtype (f32 in mixed mode).
+    Node-masked shells (``node_mask``) are refused."""
+    if leaves.get("node_mask") is not None:
+        raise NotImplementedError("node-masked shells are not ported yet "
+                                  "(ROADMAP.md §1 item 11)")
+    return _tuple_from_numpy(PeripheryState, leaves, device, dtype,
+                             keep=("M_inv",))
+
+
+def bodies_from_numpy(leaves, *, device, dtype=torch.float64):
+    """`BodyGroup` (one mapping of JAX `BodyGroup` fields) or a tuple of
+    buckets (a sequence of mappings)."""
+    if isinstance(leaves, Mapping):
+        return _tuple_from_numpy(BodyGroup, leaves, device, dtype)
+    return tuple(_tuple_from_numpy(BodyGroup, g, device, dtype)
+                 for g in leaves)
 
 
 def state_from_numpy(fibers, *, time: float, dt: float, points=None,
-                     background=None, device=None,
+                     background=None, shell=None, bodies=None, device=None,
                      dtype=torch.float64) -> SimState:
     """`SimState` from numpy-leaf mappings: ``fibers`` is one mapping of
-    `FiberGroup` fields or a sequence of them (resolution buckets);
+    `FiberGroup` fields, a sequence of them (resolution buckets) or None;
     ``points`` maps the `PointSources` fields, ``background`` the
-    `BackgroundFlow` fields."""
+    `BackgroundFlow` fields, ``shell`` the `PeripheryState` fields and
+    ``bodies`` the `BodyGroup` fields (or a sequence of buckets)."""
     device = resolve_device(device)
-    if isinstance(fibers, Mapping):
+    if fibers is None:
+        fib = None
+    elif isinstance(fibers, Mapping):
         fib = group_from_numpy(fibers, device=device, dtype=dtype)
     else:
         fib = tuple(group_from_numpy(g, device=device, dtype=dtype)
@@ -87,5 +122,9 @@ def state_from_numpy(fibers, *, time: float, dt: float, points=None,
                                  background["components"],
                                  background["scale"], dtype=dtype,
                                  device=device)
-    return SimState(time=float(time), dt=float(dt), fibers=fib, points=pts,
-                    background=bg)
+    return SimState(
+        time=float(time), dt=float(dt), fibers=fib, points=pts, background=bg,
+        shell=(None if shell is None
+               else shell_from_numpy(shell, device=device, dtype=dtype)),
+        bodies=(None if bodies is None
+                else bodies_from_numpy(bodies, device=device, dtype=dtype)))

@@ -1,0 +1,239 @@
+// Singular pair sums on Hopper (sm_90a): one tiled kernel, two pair
+// families, two precisions.
+//
+//   Stokeslet  u_t = scale * sum_s [ f_s / r + (d . f_s) d / r^3 ]
+//   stresslet  u_t = scale * sum_s -3 (d^T S_s d) d / r^5
+//
+// with d = x_t - x_s and pairs at r == 0 dropped (scale = 1/(8 pi eta), or 1
+// for the unscaled entry the ring evaluator will use; the stresslet's -3 is
+// part of the sum either way, as in `stresslet_pallas_block`). Positions are
+// row-major [n, 3]; the payload is [n_src, 3] forces (Stokeslet) or [n_src, 9]
+// row-major stresslet components S (Sxx..Szz); the output is [n_trg, 3].
+//
+// The four kernels and the Pallas tiles they replace:
+//   A  Stokeslet, float32   skellysim_tpu/ops/pallas_kernels.py
+//                           `_stokeslet_kernel` (via `stokeslet_pallas`)
+//   B  Stokeslet, float64   skellysim_tpu/ops/pallas_df.py
+//                           `_stokeslet_df_kernel` (via `stokeslet_pallas_df`)
+//   C  stresslet, float32   skellysim_tpu/ops/pallas_kernels.py
+//                           `_stresslet_kernel` (via `stresslet_pallas`)
+//   D  stresslet, float64   skellysim_tpu/ops/pallas_df.py
+//                           `_stresslet_df_kernel` (via `stresslet_pallas_df`)
+// The TPU tiles of B and D carried every value as a (hi, lo) pair of f32
+// words with error-free transforms (~300 f32 operations a Stokeslet pair,
+// ~420 a stresslet pair) because the TPU has no fast FP64. The H100 has
+// native FP64 units, so B and D are A's and C's loop in plain double with a
+// double rsqrt: they meet the same "f32 or f64 in, f64 out, ~1e-14 relative"
+// contract at about a tenth of the operations, and emulating double-float
+// would only reproduce what the hardware gives. The family's constant (-3
+// for the stresslet) and the scale are applied once, to the finished sum
+// (the DF stresslet needed that order to keep its compensation; here it
+// simply costs nothing).
+//
+// What bounds them on this card: arithmetic, not memory. A pair is ~18
+// (Stokeslet) or ~25 (stresslet: 3 differences, 3 for r^2, 3 for r^-5, 9 for
+// S d, 3 for d.(S d), 1 scale, 3 accumulations) FP32 issues -- FP64 for B
+// and D -- plus one rsqrt. The f32 rsqrtf is one MUFU (SFU) instruction
+// (16/clk/SM against 128 FP32 lanes/clk/SM, so the SFU is not the limit); the
+// double rsqrt is an SFU seed plus a few FP64 Newton steps. Each source is
+// read once per target block, which the L2 serves; device-memory traffic is
+// O(n_trg + n_src).
+//
+// Design, for the card and not block for block from the TPU:
+//  * one thread owns one target and keeps its three sums in registers;
+//  * each block walks ALL source tiles in a loop, each thread staging one
+//    source record (position + payload) through shared memory; that loop
+//    replaces the TPU's sequential grid axis, so there is no cross-block
+//    reduction. The stresslet's 12-word record takes 128-thread blocks, which
+//    gives ~1,000 blocks at the confined path's 128,000 fiber-node targets and
+//    fills the 132 SMs;
+//  * the staged record is 16-byte aligned, so the inner loop reads it with
+//    vector shared-memory loads (every thread of a warp reads the same record:
+//    a broadcast);
+//  * each tile's contribution is summed into a tile partial first and then
+//    added to the running sum, which keeps the f32 accumulation error near
+//    eps * (sqrt(TILE) + sqrt(n_src / TILE)) instead of eps * sqrt(n_src);
+//  * the ragged edges are masked by bounds checks (targets: `live`; sources:
+//    the tile count), never by padding with sentinel coordinates;
+//  * the r == 0 drop is a select (`r2 > 0 ? rsqrt(r2) : 0`), never a
+//    multiply: fiber nodes are sources and targets of the Stokeslet sum, body
+//    nodes of the body double layer, and their self term must be exactly
+//    zero; inactive slots and zero-density sources sitting on a target must
+//    not turn into rsqrt(0) * 0 = NaN.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ float rsqrt_t(float v) { return rsqrtf(v); }
+__device__ __forceinline__ double rsqrt_t(double v) { return rsqrt(v); }
+
+// A pair family: its block size (one staged source per thread), inner-loop
+// unroll, payload width, the constant applied to the finished sum, and the
+// pair term added to the tile partial.
+template <typename Real>
+struct Stokeslet {
+  using T = Real;
+  static constexpr int kThreads = 256;
+  static constexpr int kUnroll = 4;
+  static constexpr int kPayload = 3;
+  struct __align__(16) Record {
+    T x, y, z;
+    T p[kPayload];  // force
+  };
+  __device__ static T finish(T scale) { return scale; }
+  __device__ static void add(const Record& rec, T dx, T dy, T dz, T rinv,
+                             T& px, T& py, T& pz) {
+    const T rinv3 = rinv * rinv * rinv;
+    const T c = (dx * rec.p[0] + dy * rec.p[1] + dz * rec.p[2]) * rinv3;
+    px += rinv * rec.p[0] + c * dx;
+    py += rinv * rec.p[1] + c * dy;
+    pz += rinv * rec.p[2] + c * dz;
+  }
+};
+
+template <typename Real>
+struct Stresslet {
+  using T = Real;
+  static constexpr int kThreads = 128;
+  static constexpr int kUnroll = 2;
+  static constexpr int kPayload = 9;
+  struct __align__(16) Record {
+    T x, y, z;
+    T p[kPayload];  // S, row-major
+  };
+  __device__ static T finish(T scale) { return T(-3) * scale; }
+  __device__ static void add(const Record& rec, T dx, T dy, T dz, T rinv,
+                             T& px, T& py, T& pz) {
+    const T rinv2 = rinv * rinv;
+    const T rinv5 = rinv2 * rinv2 * rinv;
+    const T sdx = rec.p[0] * dx + rec.p[1] * dy + rec.p[2] * dz;
+    const T sdy = rec.p[3] * dx + rec.p[4] * dy + rec.p[5] * dz;
+    const T sdz = rec.p[6] * dx + rec.p[7] * dy + rec.p[8] * dz;
+    const T c = (dx * sdx + dy * sdy + dz * sdz) * rinv5;
+    px += c * dx;
+    py += c * dy;
+    pz += c * dz;
+  }
+};
+
+template <class Pair, int kUnroll>
+__global__ void __launch_bounds__(Pair::kThreads)
+pair_sum_kernel(const typename Pair::T* __restrict__ trg,
+                const typename Pair::T* __restrict__ src,
+                const typename Pair::T* __restrict__ payload,
+                typename Pair::T* __restrict__ out, int64_t n_trg,
+                int64_t n_src, typename Pair::T scale) {
+  using T = typename Pair::T;
+  using Record = typename Pair::Record;
+  constexpr int kTile = Pair::kThreads;  // sources staged per tile
+  __shared__ Record tile[kTile];
+
+  const int64_t t =
+      static_cast<int64_t>(blockIdx.x) * Pair::kThreads + threadIdx.x;
+  const bool live = t < n_trg;
+  T tx = T(0), ty = T(0), tz = T(0);
+  if (live) {
+    tx = trg[3 * t + 0];
+    ty = trg[3 * t + 1];
+    tz = trg[3 * t + 2];
+  }
+  T ux = T(0), uy = T(0), uz = T(0);
+
+  for (int64_t base = 0; base < n_src; base += kTile) {
+    const int64_t s = base + threadIdx.x;
+    __syncthreads();  // every thread is done reading the previous tile
+    if (s < n_src) {
+      Record rec;
+      rec.x = src[3 * s + 0];
+      rec.y = src[3 * s + 1];
+      rec.z = src[3 * s + 2];
+#pragma unroll
+      for (int k = 0; k < Pair::kPayload; ++k) {
+        rec.p[k] = payload[Pair::kPayload * s + k];
+      }
+      tile[threadIdx.x] = rec;
+    }
+    __syncthreads();
+
+    const int count = static_cast<int>(
+        n_src - base < kTile ? n_src - base : kTile);
+    T px = T(0), py = T(0), pz = T(0);
+#pragma unroll (kUnroll)
+    for (int j = 0; j < count; ++j) {
+      const Record rec = tile[j];
+      const T dx = tx - rec.x;
+      const T dy = ty - rec.y;
+      const T dz = tz - rec.z;
+      const T r2 = dx * dx + dy * dy + dz * dz;
+      const T rinv = r2 > T(0) ? rsqrt_t(r2) : T(0);  // select: self pair -> 0
+      Pair::add(rec, dx, dy, dz, rinv, px, py, pz);
+    }
+    ux += px;
+    uy += py;
+    uz += pz;
+  }
+
+  if (live) {
+    const T k = Pair::finish(scale);  // once, on the finished sum
+    out[3 * t + 0] = ux * k;
+    out[3 * t + 1] = uy * k;
+    out[3 * t + 2] = uz * k;
+  }
+}
+
+template <class Pair>
+int launch(const typename Pair::T* trg, const typename Pair::T* src,
+           const typename Pair::T* payload, typename Pair::T* out,
+           int64_t n_trg, int64_t n_src, typename Pair::T scale,
+           void* stream) {
+  if (n_trg <= 0) return static_cast<int>(cudaSuccess);
+  const int64_t blocks = (n_trg + Pair::kThreads - 1) / Pair::kThreads;
+  pair_sum_kernel<Pair, Pair::kUnroll>
+      <<<static_cast<unsigned int>(blocks), Pair::kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+      trg, src, payload, out, n_trg, n_src, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launcher returns cudaGetLastError() right after the launch (0 when
+// the launch was accepted); the Python wrapper raises on anything else.
+int stokeslet_f32_launch(const float* trg, const float* src,
+                         const float* payload, float* out, long long n_trg,
+                         long long n_src, float scale, void* stream) {
+  return launch<Stokeslet<float>>(trg, src, payload, out, n_trg, n_src, scale,
+                                  stream);
+}
+
+int stokeslet_f64_launch(const double* trg, const double* src,
+                         const double* payload, double* out, long long n_trg,
+                         long long n_src, double scale, void* stream) {
+  return launch<Stokeslet<double>>(trg, src, payload, out, n_trg, n_src,
+                                   scale, stream);
+}
+
+int stresslet_f32_launch(const float* trg, const float* src,
+                         const float* payload, float* out, long long n_trg,
+                         long long n_src, float scale, void* stream) {
+  return launch<Stresslet<float>>(trg, src, payload, out, n_trg, n_src, scale,
+                                  stream);
+}
+
+int stresslet_f64_launch(const double* trg, const double* src,
+                         const double* payload, double* out, long long n_trg,
+                         long long n_src, double scale, void* stream) {
+  return launch<Stresslet<double>>(trg, src, payload, out, n_trg, n_src,
+                                   scale, stream);
+}
+
+const char* pair_sums_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

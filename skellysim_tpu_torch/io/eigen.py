@@ -13,7 +13,7 @@ import numpy as np
 
 from .msgpack_lite import array_header, map_header, packb
 
-__all__ = ["mp_array_header", "mp_map_header", "mp_doubles",
+__all__ = ["mp_array_header", "mp_map_header", "mp_doubles", "pack_matrix",
            "pack_matrix_bytes", "unpack_matrix", "decode_tree"]
 
 mp_array_header = array_header
@@ -48,6 +48,20 @@ def pack_matrix_bytes(a: np.ndarray) -> bytes:
     return (mp_array_header(3 + flat.size) + EIGEN_TAG
             + packb(int(rows)) + packb(int(cols))
             + mp_doubles(flat).tobytes())
+
+
+def pack_matrix(a: np.ndarray) -> list:
+    """An ``__eigen__`` list (the form `packb` encodes; see
+    `pack_matrix_bytes` for the layout)."""
+    a = np.asarray(a, dtype=np.float64)
+    if a.ndim == 1:
+        return ["__eigen__", a.shape[0], 1] + a.tolist()
+    if a.ndim == 2 and a.shape[1] == 3:
+        return ["__eigen__", 3, a.shape[0]] + a.ravel().tolist()
+    if a.ndim == 2:
+        return ["__eigen__", a.shape[0], a.shape[1]] + a.ravel(
+            order="F").tolist()
+    raise ValueError(f"cannot encode array of shape {a.shape}")
 
 
 def unpack_matrix(d: list) -> np.ndarray:

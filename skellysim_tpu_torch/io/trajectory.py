@@ -3,9 +3,10 @@
 Counterpart of `skellysim_tpu.io.trajectory` through its pure-Python
 field-vectorized encoder: a header map, then one msgpack map per frame
 {time, dt, rng_state, fibers, bodies, shell}. Fibers are written in config
-order (`config_rank`), active slots only, so the wire matches the JAX
-package's and decodes with `skellysim_tpu.io.trajectory` and the reference
-tools. Resuming from a frame (`--resume`) is not ported yet (ROADMAP.md §1
+order (`config_rank`), active slots only; bodies as [spheres, deformables,
+ellipsoids], each kind in config order; the shell as its density. So the
+wire matches the JAX package's and decodes with `skellysim_tpu.io.trajectory`
+and the reference tools. Resuming from a frame (`--resume`) is not ported yet (ROADMAP.md §1
 item 7).
 """
 
@@ -75,6 +76,31 @@ def _fiber_chunk_bytes(group) -> list:
     return out
 
 
+def _body_maps(bodies):
+    """Bodies as [spherical, deformable, ellipsoidal] lists of maps, each
+    kind in config order (`config_rank`) across buckets."""
+    from ..bodies.bodies import as_buckets
+
+    entries = []                       # (rank, is_sphere, map)
+    for g in as_buckets(bodies):
+        pos = _np(g.position, np.float64)
+        orient = _np(g.orientation, np.float64)
+        sol = _np(g.solution, np.float64)
+        radius = _np(g.radius, np.float64).tolist()
+        kind_sphere = _np(g.kind_sphere).tolist()
+        ranks = _np(g.config_rank).tolist()
+        for i in range(pos.shape[0]):
+            entries.append((ranks[i], kind_sphere[i], {
+                "radius_": radius[i],
+                "position_": eigen.pack_matrix(pos[i]),
+                "orientation_": ["__quat__"] + orient[i].tolist(),
+                "solution_vec_": eigen.pack_matrix(sol[i]),
+            }))
+    entries.sort(key=lambda t: t[0])
+    return [[m for _, s, m in entries if s], [],
+            [m for _, s, m in entries if not s]]
+
+
 def frame_bytes(state, rng_state=None) -> bytes:
     """Raw msgpack bytes of a trajectory-v1 frame."""
     from ..fibers.container import as_buckets
@@ -96,11 +122,11 @@ def frame_bytes(state, rng_state=None) -> bytes:
         packb("dt"), packb(float(state.dt)),
         packb("rng_state"), packb(rng_state if rng_state is not None else []),
         packb("fibers"), fibers_b,
-        # no bodies in this slice: [spheres, deformables, ellipsoids]
-        packb("bodies"), packb([[], [], []]),
+        packb("bodies"), packb(_body_maps(state.bodies)),
         packb("shell"),
         eigen.mp_map_header(1) + packb("solution_vec_")
-        + eigen.pack_matrix_bytes(np.zeros(0)),
+        + eigen.pack_matrix_bytes(np.zeros(0) if state.shell is None
+                                  else _np(state.shell.density, np.float64)),
     ])
 
 

@@ -1,15 +1,21 @@
 """Pairwise Stokes kernels: the pair-kernel seam and its plain torch forms.
 
-Counterpart of `skellysim_tpu.ops.kernels` for the families this slice runs:
+Counterpart of `skellysim_tpu.ops.kernels` for the families the port runs:
 the singular Stokeslet sum (`stokeslet_direct`, the matvec's hot loop), the
-regularized Oseen tensor (`oseen_tensor`, each fiber's dense self-mobility
-block) and the point-source flows (`oseen_contract`, `rotlet`). Arrays are
-row-major ``[n, 3]`` like the JAX package; conventions are documented there.
+singular stresslet double-layer sum (`stresslet_direct`, the shell and body
+flows), the regularized Oseen tensor (`oseen_tensor`, each fiber's dense
+self-mobility block), the point-source flows (`oseen_contract`, `rotlet`) and
+the dense shell/body operator builders (`stresslet_times_normal_blocked`,
+`stresslet_times_normal_times_density`, `subtract_singularity_columns`).
+Arrays are row-major ``[n, 3]`` like the JAX package; conventions are
+documented there.
 
-On the card every Stokeslet sum runs on a hand-written kernel
-(`ops.cuda_kernels`): float32 operands on kernel A, float64 operands (and the
-f64-grade "pallas_df" tier) on kernel B. The plain blocked forms here are
-what those kernels are held against, and what runs for CPU tensors.
+On the card every Stokeslet and stresslet sum runs on a hand-written kernel
+(`ops.cuda_kernels`): float32 operands on kernels A / C, float64 operands
+(and the f64-grade "pallas_df" tier) on kernels B / D. The plain blocked
+forms here are what those kernels are held against, and what runs for CPU
+tensors. The operator builders stay plain tensor code on every device, as
+in the JAX package (which builds them outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -64,6 +70,21 @@ def stokeslet_block(trg, src, f_src):
     return rinv @ f_src + torch.einsum("ts,tsk->tk", df * rinv3, d)
 
 
+def stresslet_block(trg, src, S):
+    """Unscaled stresslet partial sum ``sum_s -3 (d.S_s.d) d / r^5`` of one
+    (target-block, source-block) pair (`skellysim_tpu.ops.kernels
+    .stresslet_block`); ``S`` is [s, 3, 3]; coincident pairs are dropped by a
+    select."""
+    d = trg[:, None, :] - src[None, :, :]
+    r2 = torch.sum(d * d, dim=-1)
+    mask = r2 > 0.0
+    rinv = torch.where(mask, torch.rsqrt(torch.where(mask, r2, 1.0)), 0.0)
+    rinv5 = rinv * rinv * rinv * rinv * rinv
+    Sd = torch.einsum("sij,tsj->tsi", S, d)
+    dSd = torch.sum(d * Sd, dim=-1)
+    return torch.einsum("ts,tsk->tk", -3.0 * dSd * rinv5, d)
+
+
 def pallas_impl_for(impl: str, *arrays) -> str:
     """Resolve ``impl="pallas"`` against the f32 tier's dtype contract: any
     float64 operand downgrades it to "exact", as in the JAX package (where
@@ -73,34 +94,51 @@ def pallas_impl_for(impl: str, *arrays) -> str:
     return impl
 
 
+def _direct(family: str, r_src, r_trg, payload, eta, impl: str):
+    """The seam's one routing rule for a pair-sum ``family`` ("stokeslet"
+    or "stresslet"): the f64-grade tier ("pallas_df") takes the f64 kernel
+    whatever the input dtype and casts back to ``r_trg.dtype`` (the JAX
+    package's DF contract: an f32 solve must not silently promote to f64);
+    "exact" and "pallas" take the kernel of the operands' own precision,
+    "pallas" with any f64 operand resolving to "exact" first."""
+    from . import cuda_kernels
+
+    f32 = getattr(cuda_kernels, f"{family}_f32")
+    f64 = getattr(cuda_kernels, f"{family}_f64")
+    if impl == "pallas_df":
+        return f64(r_src, r_trg, payload, eta).to(r_trg.dtype)
+    if impl in ("df", "mxu"):
+        raise NotImplementedError(
+            f"kernel impl {impl!r} is not ported yet (ROADMAP.md §1 item 9, "
+            "mixed precision); use 'exact', 'pallas' or 'pallas_df'")
+    impl = pallas_impl_for(impl, r_trg, r_src, payload)
+    if impl not in ("exact", "pallas"):
+        raise ValueError(f"unknown kernel impl {impl!r}")
+    kern = f32 if r_trg.dtype == torch.float32 else f64
+    return kern(r_src, r_trg, payload, eta)
+
+
 def stokeslet_direct(r_src, r_trg, f_src, eta, *, impl: str = "exact"):
     """Singular Stokeslet sum: [n_src,3] sources, [n_trg,3] targets ->
     [n_trg,3] in ``r_trg.dtype``; exactly coincident pairs contribute zero.
 
     ``impl``: "exact" and "pallas" evaluate in the operands' own precision —
     float32 through kernel A, float64 through kernel B on the card (the
-    plain forms on the CPU), "pallas" with any f64 operand resolving to
-    "exact" first (`pallas_impl_for`). "pallas_df" is the f64-grade tier:
-    kernel B on the card whatever the input dtype, cast back to
-    ``r_trg.dtype`` at this seam (the JAX package's DF contract: an f32
-    solve must not silently promote to f64). "df" and "mxu" are not ported
-    yet (ROADMAP §1 item 9 / item 1).
+    plain forms on the CPU). "pallas_df" is the f64-grade tier: kernel B
+    whatever the input dtype (`_direct`). "df" and "mxu" are not ported yet
+    (ROADMAP §1 item 9 / item 1).
     """
-    from . import cuda_kernels
+    return _direct("stokeslet", r_src, r_trg, f_src, eta, impl)
 
-    if impl == "pallas_df":
-        return cuda_kernels.stokeslet_f64(r_src, r_trg, f_src,
-                                          eta).to(r_trg.dtype)
-    if impl in ("df", "mxu"):
-        raise NotImplementedError(
-            f"kernel impl {impl!r} is not ported yet (ROADMAP.md §1 item 9, "
-            "mixed precision); use 'exact', 'pallas' or 'pallas_df'")
-    impl = pallas_impl_for(impl, r_trg, r_src, f_src)
-    if impl not in ("exact", "pallas"):
-        raise ValueError(f"unknown kernel impl {impl!r}")
-    if r_trg.dtype == torch.float32:
-        return cuda_kernels.stokeslet_f32(r_src, r_trg, f_src, eta)
-    return cuda_kernels.stokeslet_f64(r_src, r_trg, f_src, eta)
+
+def stresslet_direct(r_dl, r_trg, f_dl, eta, *, impl: str = "exact"):
+    """Singular stresslet (double-layer) sum: [n_src,3] sources with
+    ``f_dl`` [n_src,3,3] (``f_dl[s, i, j] = S_ij``), [n_trg,3] targets ->
+    [n_trg,3] in ``r_trg.dtype``; exactly coincident pairs contribute zero.
+    The same ``impl`` routing as `stokeslet_direct`, on kernels C (f32)
+    and D (f64-grade).
+    """
+    return _direct("stresslet", r_dl, r_trg, f_dl, eta, impl)
 
 
 def _reg_rinv(r2, reg, epsilon_distance, *, inclusive: bool, drop_self: bool):
@@ -167,3 +205,77 @@ def rotlet(r_src, r_trg, density, eta, reg=DEFAULT_REG,
         return torch.einsum("ts,tsk->tk", rinv * rinv * rinv, cross)
 
     return _pair_sum(block, r_trg, (r_src, density)) * factor
+
+
+def _operator_rows(n: int) -> int:
+    """Target rows per block of the dense operator builders: each block's
+    [rows, n, 3, 3] intermediate stays near 150 MB in f64 whatever ``n``
+    (a 24,000-row shell operator is built ~260 rows at a time)."""
+    return max(1, min(n, _PAIR_BUDGET // (2 * max(n, 1))))
+
+
+def stresslet_times_normal_blocked(r, normals, eta, reg=DEFAULT_REG,
+                                   epsilon_distance=DEFAULT_EPS, *,
+                                   block_size: int | None = None):
+    """Dense stresslet-contracted-with-normal operator [3n, 3n]
+    (interleaved-xyz layout): ``M[3i+a, 3j+b] = -3/(4 pi) (d.n_j) / r^5
+    d_a d_b`` with ``d = r_i - r_j``, zero diagonal blocks (masked by index)
+    and the regularized value kept at r = 0 (`skellysim_tpu.ops.kernels
+    .stresslet_times_normal_blocked`; no eta dependence). Built row block by
+    row block, so no [n, n, 3, 3] tensor ever exists."""
+    factor = -3.0 / (4.0 * math.pi)
+    n = r.shape[0]
+    b = block_size or _operator_rows(n)
+    M = torch.empty((3 * n, 3 * n), dtype=r.dtype, device=r.device)
+    col = torch.arange(n, device=r.device)
+    for r0 in range(0, n, b):
+        trg = r[r0:r0 + b]
+        nb = trg.shape[0]
+        d = trg[:, None, :] - r[None, :, :]
+        r2 = torch.sum(d * d, dim=-1)
+        offdiag = (torch.arange(r0, r0 + nb, device=r.device)[:, None]
+                   != col[None, :])
+        rinv = _reg_rinv(r2, reg, epsilon_distance, inclusive=False,
+                         drop_self=False)
+        dn = torch.einsum("bjk,jk->bj", d, normals)
+        coeff = torch.where(offdiag, factor * dn * rinv**5, 0.0)
+        blk = coeff[:, :, None, None] * d[:, :, :, None] * d[:, :, None, :]
+        M[3 * r0:3 * (r0 + nb)] = blk.permute(0, 2, 1, 3).reshape(3 * nb,
+                                                                   3 * n)
+    return M
+
+
+def subtract_singularity_columns(M, sing_vecs, weights):
+    """Second-kind singularity subtraction on a [3n, 3n] interleaved
+    matrix, IN PLACE: ``M[3i+a, 3i+k] -= e_k[i, a] / w_i`` for
+    ``sing_vecs = (ex, ey, ez)`` (each [n, 3]) — the diagonal-block
+    correction of `skellysim_tpu.ops.kernels.subtract_singularity_columns`.
+    Returns ``M``."""
+    n = weights.shape[0]
+    idx = torch.arange(n, device=M.device)
+    rows = 3 * idx[:, None] + torch.arange(3, device=M.device)[None, :]
+    for k, e in enumerate(sing_vecs):
+        cols = (3 * idx + k)[:, None].expand(n, 3)
+        M[rows, cols] -= e / weights[:, None]
+    return M
+
+
+def stresslet_times_normal_times_density(r, normals, density, eta,
+                                         reg=DEFAULT_REG,
+                                         epsilon_distance=DEFAULT_EPS):
+    """Contracted stresslet ``S_i = -3/(4 pi) sum_{j != i} (d.rho_j)(d.n_j)
+    / r^5 d`` on one point set (sources = targets) -> [n, 3]; the self pair
+    is dropped by value (r = 0), as in `skellysim_tpu.ops.kernels
+    .stresslet_times_normal_times_density`."""
+    factor = -3.0 / (4.0 * math.pi)
+
+    def block(trg, src, nrm, dens):
+        d = trg[:, None, :] - src[None, :, :]
+        r2 = torch.sum(d * d, dim=-1)
+        rinv = _reg_rinv(r2, reg, epsilon_distance, inclusive=False,
+                         drop_self=True)
+        dn = torch.einsum("tsk,sk->ts", d, nrm)
+        dr = torch.einsum("tsk,sk->ts", d, dens)
+        return torch.einsum("ts,tsk->tk", dn * dr * rinv**5, d)
+
+    return _pair_sum(block, r, (r, normals, density)) * factor

@@ -1,0 +1,255 @@
+"""Confining periphery (cell cortex) as a second-kind boundary integral.
+
+Counterpart of `skellysim_tpu.periphery.periphery`: the dense precomputed
+operator and its inverse live as tensors on the device; the matvec and the
+preconditioner are single dense products. Operator assembly (the reference
+SkellySim's `precompute.py:104-140`):
+
+  M = stresslet_times_normal(nodes, normals; eta=1)
+      - blockdiag([ex_i | ey_i | ez_i] / w_i)          (singularity subtraction)
+      - diag(1/w_i per component)                       (second-kind identity)
+      + n n^T                                           (null-space completion)
+  M_inv = inverse(M)   (the preconditioner)
+
+The shell double-layer flow to fiber and body nodes (`flow`) runs on the
+hand-written stresslet kernels C / D through `ops.kernels.stresslet_direct`.
+Node-masked shells (`grow_capacity`) belong to ROADMAP.md §1 item 11 and the
+fast evaluators to item 10; neither is ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import kernels
+
+
+class PeripheryState(NamedTuple):
+    """Device-resident shell state."""
+
+    nodes: torch.Tensor        # [N, 3]
+    normals: torch.Tensor      # [N, 3] (inward, as stored by precompute)
+    weights: torch.Tensor      # [N]
+    M_inv: torch.Tensor        # [3N, 3N] preconditioner
+    stresslet_plus_complementary: torch.Tensor  # [3N, 3N] operator
+    density: torch.Tensor      # [3N] current solution slice
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def solution_size(self) -> int:
+        return 3 * self.n_nodes
+
+
+@dataclass(frozen=True)
+class PeripheryShape:
+    """Static collision geometry. kind: 'sphere' | 'ellipsoid' | 'generic'."""
+
+    kind: str = "generic"
+    radius: float = 0.0
+    abc: tuple = (0.0, 0.0, 0.0)
+
+
+def _assemble(nodes, normals, weights, eta):
+    """The dense second-kind operator M [3N, 3N], in the dtype and on the
+    device of ``nodes`` (row-blocked, in place)."""
+    N = nodes.shape[0]
+
+    def sing_vec(k):
+        e = torch.zeros((N, 3), dtype=nodes.dtype, device=nodes.device)
+        e[:, k] = weights
+        return kernels.stresslet_times_normal_times_density(nodes, normals, e,
+                                                            eta)
+
+    M = kernels.stresslet_times_normal_blocked(nodes, normals, eta)
+    kernels.subtract_singularity_columns(M, (sing_vec(0), sing_vec(1),
+                                             sing_vec(2)), weights)
+    M.diagonal().sub_(torch.repeat_interleave(1.0 / weights, 3))
+    flat = normals.reshape(-1)
+    M.add_(torch.outer(flat, flat))
+    return M
+
+
+def build_shell_operator(nodes, normals, weights, eta: float = 1.0, *,
+                         timings: dict | None = None):
+    """Dense second-kind operator + inverse on the host in float64 (numpy
+    arrays), as `skellysim_tpu.periphery.periphery.build_shell_operator`:
+    the port's plain blocked builders, then scipy's LAPACK inverse.
+    ``timings``, when given, receives the seconds of the assembly and of
+    the inverse."""
+    import time
+
+    import scipy.linalg as scla
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+    t0 = time.perf_counter()
+    M = _assemble(t(nodes), t(normals), t(weights), eta).numpy()
+    t1 = time.perf_counter()
+    M_inv = scla.inv(M)
+    if timings is not None:
+        timings["assembly_s"] = t1 - t0
+        timings["inverse_s"] = time.perf_counter() - t1
+    return M, M_inv
+
+
+def build_shell_operator_device(nodes, normals, weights, eta: float = 1.0, *,
+                                device=None, timings: dict | None = None):
+    """Dense second-kind operator + inverse, assembled and inverted on
+    ``device`` (the card by default). Returns DEVICE tensors (M float64,
+    M_inv float32).
+
+    The JAX package assembles on its accelerator and inverts in f32 with a
+    recursive Schur-complement `block_inv`, which exists only because the
+    TPU's LU keeps an [n, 128] panel in a 16 MB VMEM budget and is f32-only.
+    Neither limit holds on the card: the inverse here is one
+    `torch.linalg.inv` of the float64 operator, then stored in float32 (the
+    preconditioner's precision, as the JAX device path stores it).
+    ``timings``, when given, receives the seconds of the assembly and of
+    the inverse (each ended by a device synchronise).
+    """
+    import time
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    t0 = time.perf_counter()
+    M = _assemble(t(nodes), t(normals), t(weights), eta)
+    sync()
+    t1 = time.perf_counter()
+    M_inv = torch.linalg.inv(M).to(torch.float32)
+    sync()
+    if timings is not None:
+        timings["assembly_s"] = t1 - t0
+        timings["inverse_s"] = time.perf_counter() - t1
+    return M, M_inv
+
+
+def inverse_residual(M, M_inv) -> float:
+    """max_j ||M M_inv e_j - e_j|| over 8 columns spread over the matrix,
+    in M's dtype (the check the precompute CLI prints)."""
+    n, n_cols = M.shape[0], 8
+    cols = torch.linspace(0, n - 1, n_cols, device=M.device).long()
+    prod = M @ M_inv[:, cols].to(M.dtype)
+    prod[cols, torch.arange(n_cols, device=M.device)] -= 1.0
+    return float(torch.linalg.vector_norm(prod, dim=0).max())
+
+
+def make_state(nodes, normals, weights, operator, M_inv, dtype=torch.float64,
+               precond_dtype=None, device="cpu") -> PeripheryState:
+    """``precond_dtype`` stores M_inv (the preconditioner) in a lower
+    precision, halving its device memory in mixed mode."""
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, device=device).to(dt)
+
+    N = len(nodes)
+    return PeripheryState(
+        nodes=t(nodes), normals=t(normals), weights=t(weights),
+        M_inv=t(M_inv, precond_dtype or dtype),
+        stresslet_plus_complementary=t(operator),
+        density=torch.zeros(3 * N, dtype=dtype, device=device))
+
+
+# ------------------------------------------------------------------ operators
+
+def matvec(shell: PeripheryState, x, v_on_shell):
+    """A_shell x = (S + N) x + v; ``v_on_shell`` is [N, 3]."""
+    return shell.stresslet_plus_complementary @ x + v_on_shell.reshape(-1)
+
+
+def apply_preconditioner(shell: PeripheryState, x):
+    """P^-1 x = M_inv x, applied in M_inv's (possibly lower) precision and
+    cast back."""
+    return (shell.M_inv @ x.to(shell.M_inv.dtype)).to(x.dtype)
+
+
+def update_RHS(v_on_shell):
+    """RHS = -v_on_shell."""
+    return -v_on_shell.reshape(-1)
+
+
+def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact"):
+    """Shell -> target velocities through the double-layer stresslet, with
+    f_dl = 2 eta n (x) rho (the direct evaluator). The shell's
+    self-interaction is not computed here: `System._apply_matvec` evaluates
+    this flow at fiber/body rows only, the self block living in the stored
+    operator."""
+    rho = density.reshape(-1, 3)
+    f_dl = 2.0 * eta * shell.normals[:, :, None] * rho[:, None, :]
+    return kernels.stresslet_direct(shell.nodes, r_trg, f_dl, eta, impl=impl)
+
+
+# ------------------------------------------------- shape-specific interactions
+
+def _cortex(shape: PeripheryShape, points, threshold=0.0):
+    """Radial cortex point of an ellipsoid shrunk by ``threshold``, for
+    [..., 3] points (the reference's radial-ray comparison)."""
+    a, b, c = shape.abc
+    abc = torch.tensor(shape.abc, dtype=points.dtype, device=points.device)
+    r_scaled = points / abc
+    r_scaled_mag = torch.linalg.vector_norm(r_scaled, dim=-1)
+    phi = torch.atan2(r_scaled[..., 1], r_scaled[..., 0] + 1e-12)
+    theta = torch.arccos(torch.clamp(r_scaled[..., 2] / (1e-12 + r_scaled_mag),
+                                     -1, 1))
+    sin_t = torch.sin(theta)
+    return torch.stack([(a - threshold) * sin_t * torch.cos(phi),
+                        (b - threshold) * sin_t * torch.sin(phi),
+                        (c - threshold) * torch.cos(theta)], dim=-1)
+
+
+def check_collision(shape: PeripheryShape, points, threshold):
+    """True if any of the [..., n, 3] points crosses the shell; reduces over
+    the node axis, so a [nf, n, 3] batch gives [nf] (sphere: |p| >= radius -
+    threshold; ellipsoid: radial comparison against the threshold-shrunk
+    cortex point; generic: never)."""
+    if shape.kind == "sphere":
+        r2 = torch.sum(points**2, dim=-1)
+        return torch.any(r2 >= (shape.radius - threshold) ** 2, dim=-1)
+    if shape.kind == "ellipsoid":
+        r_cortex = _cortex(shape, points, threshold)
+        return torch.any(torch.sum(points**2, dim=-1)
+                         >= torch.sum(r_cortex**2, dim=-1), dim=-1)
+    return torch.zeros(points.shape[:-2], dtype=torch.bool,
+                       device=points.device)
+
+
+def fiber_steric_force(shape: PeripheryShape, points, f_0, l_0, skip_first):
+    """Exponential repulsion wall force on [..., n, 3] fiber nodes (sphere
+    and ellipsoid; zero for a generic shell). ``skip_first`` ([...] bool)
+    masks the clamped minus-end node."""
+    n = points.shape[-2]
+    skip = torch.as_tensor(skip_first, device=points.device)
+    mask = (torch.arange(n, device=points.device)
+            >= torch.where(skip, 1, 0)[..., None])
+    r_mag = torch.linalg.vector_norm(points, dim=-1)
+    if shape.kind == "sphere":
+        safe_r = torch.where(r_mag > 0, r_mag, 1.0)
+        dr = points - points / safe_r[..., None] * shape.radius
+        wall = shape.radius
+    elif shape.kind == "ellipsoid":
+        r_cortex = _cortex(shape, points)
+        dr = points - r_cortex
+        wall = torch.linalg.vector_norm(r_cortex, dim=-1)
+    else:
+        return torch.zeros_like(points)
+    d = torch.linalg.vector_norm(dr, dim=-1)
+    safe_d = torch.where(d > 0, d, 1.0)
+    f = (f_0 * dr / safe_d[..., None]
+         * torch.exp(-(wall - r_mag) / l_0)[..., None])
+    inside = (r_mag < wall) & mask
+    return torch.where(inside[..., None], f, 0.0)

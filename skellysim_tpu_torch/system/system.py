@@ -1,17 +1,18 @@
 """System orchestrator: state, coupled matvec, solve, adaptive time loop.
 
-Counterpart of `skellysim_tpu.system.system` for free-space fiber systems
-(fibers + point/background sources) on one device. The JAX package traces
-each trial step into one jitted program; here the step runs eagerly on the
-device with the Krylov control flow on the host (`solver.gmres`). The
-structure is kept: `_prep` (caches, explicit flows, BC-applied A/RHS and
-the batched LU preconditioner), GMRES over `_apply_matvec` /
-`_apply_precond` (in "mixed" precision `gmres_ir` with the ``lo=`` f32 seam),
-then the advance; `run` wraps it in the adaptive-dt loop with metrics lines
-and frame writes.
+Counterpart of `skellysim_tpu.system.system` on one device: fibers, a
+confining periphery (shell), rigid bodies with attached fibers, and
+point/background sources, in any mix. The JAX package traces each trial
+step into one jitted program; here the step runs eagerly on the device with
+the Krylov control flow on the host (`solver.gmres`). The structure is kept:
+`_prep` (caches, explicit flows, BC-applied A/RHS and the batched LU
+preconditioners), GMRES over `_apply_matvec` / `_apply_precond` (in "mixed"
+precision `gmres_ir` with the ``lo=`` f32 seam), then the advance; `run`
+wraps it in the adaptive-dt loop with metrics lines and frame writes.
 
-The solution vector layout matches the reference: 4n entries per fiber,
-[x | y | z | tension], buckets in order.
+The solution vector layout matches the reference: [fibers (4n per fiber:
+x | y | z | tension, buckets in order) | shell (3 per node) | bodies (3 per
+node + 6 per body, buckets in order)].
 
 Features this slice does not carry raise `NotImplementedError` naming the
 ROADMAP.md §1 item that will add them; none is silently ignored.
@@ -28,11 +29,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..bodies import bodies as bd
 from ..device import resolve_device
 from ..fibers import container as fc
 from ..guard import verdict as _verdict
 from ..params import (REFINE_PAIR_IMPLS, Params, resolve_precision,
                       resolve_refine_impl)
+from ..periphery import periphery as peri
 from ..solver import gmres, gmres_ir
 from ..solver.gmres import collective_rounds
 from .sources import BackgroundFlow, PointSources
@@ -45,24 +48,40 @@ EVALUATORS = ("direct", "ring", "ewald", "tree", "spectral")
 
 class SimState(NamedTuple):
     """Complete simulation state. ``fibers`` is one `FiberGroup` or a tuple
-    of them (one bucket per resolution, solution-vector order); ``time`` and
-    ``dt`` are host floats (the time loop is host-driven)."""
+    of them (one bucket per resolution, solution-vector order), ``bodies``
+    one `BodyGroup` or a tuple of buckets; ``time`` and ``dt`` are host
+    floats (the time loop is host-driven)."""
 
     time: float
     dt: float
     fibers: Optional[fc.FiberGroup]
     points: Optional[PointSources] = None
     background: Optional[BackgroundFlow] = None
+    shell: Optional[peri.PeripheryState] = None
+    bodies: Optional[bd.BodyGroup] = None
 
 
 fiber_buckets = fc.as_buckets
+body_buckets = bd.as_buckets
+
+
+def _rewrap(field, new_buckets, group_type):
+    """Rebuild a fibers/bodies field in its original shape (group vs
+    tuple)."""
+    if isinstance(field, group_type):
+        return new_buckets[0]
+    return tuple(new_buckets)
 
 
 def _rewrap_fibers(fibers, new_buckets):
-    """Rebuild the fibers field in its original shape (group vs tuple)."""
-    if isinstance(fibers, fc.FiberGroup):
-        return new_buckets[0]
-    return tuple(new_buckets)
+    return _rewrap(fibers, new_buckets, fc.FiberGroup)
+
+
+def _cast_floats(nt, dtype):
+    """NamedTuple ``nt`` with every floating tensor field cast to
+    ``dtype`` (other fields pass)."""
+    return nt._replace(**{k: v.to(dtype) for k, v in nt._asdict().items()
+                          if torch.is_tensor(v) and v.is_floating_point()})
 
 
 #: run-loop metrics JSONL schema: the same key set as the JAX package's
@@ -114,9 +133,13 @@ def _not_ported(what: str, item: str):
 
 
 class System:
-    """Static configuration + the eager step/run functions."""
+    """Static configuration + the eager step/run functions.
+    ``shell_shape`` is the periphery's collision geometry (required with a
+    shell in the state)."""
 
-    def __init__(self, params: Params, device=None):
+    def __init__(self, params: Params,
+                 shell_shape: Optional[peri.PeripheryShape] = None,
+                 device=None):
         p = params
         if p.pair_evaluator not in EVALUATORS:
             raise ValueError(
@@ -155,6 +178,7 @@ class System:
         if p.flight_window > 0:
             raise _not_ported("the flight recorder (flight_window > 0)", "13")
         self.params = params
+        self.shell_shape = shell_shape
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------ policies
@@ -173,7 +197,15 @@ class System:
 
     @staticmethod
     def _dtype(state: SimState):
-        return fiber_buckets(state.fibers)[0].x.dtype
+        """The state's float dtype, from whichever implicit component it
+        has (fibers, then the shell, then the bodies)."""
+        if state.fibers is not None:
+            return fiber_buckets(state.fibers)[0].x.dtype
+        if state.shell is not None:
+            return state.shell.density.dtype
+        if state.bodies is not None:
+            return body_buckets(state.bodies)[0].solution.dtype
+        return torch.float64
 
     def _ring_active(self) -> bool:
         if self.params.pair_evaluator == "ring":
@@ -195,34 +227,77 @@ class System:
                              subtract_self=subtract_self, evaluator="direct",
                              impl=impl)
 
+    def _shell_flow(self, state: SimState, r_trg, density,
+                    impl: str | None = None):
+        """Shell -> target double-layer flow (the direct evaluator; the
+        shell's self-interaction lives in its dense operator)."""
+        if impl is None:
+            impl = self.params.kernel_impl
+        self._ring_active()
+        return peri.flow(state.shell, r_trg, density, self.params.eta,
+                         impl=impl)
+
     # ---------------------------------------------------------- state setup
 
     def make_state(self, fibers=None, points=None, background=None,
                    shell=None, bodies=None) -> SimState:
-        if shell is not None:
-            raise _not_ported("a periphery (shell)", "5")
-        if bodies is not None:
-            raise _not_ported("bodies", "6")
-        if fibers is None:
+        if fibers is None and shell is None and bodies is None:
             raise ValueError(
-                "state needs at least one implicit component to solve; "
-                "this slice solves fibers (point/background sources only "
-                "contribute flow)")
-        buckets = fiber_buckets(fibers)
-        for g in buckets:
-            if g.x.device != self.device:
-                raise ValueError(f"fibers live on {g.x.device}, the system "
-                                 f"on {self.device}")
-        dtype = buckets[0].x.dtype
-        return SimState(time=_in_dtype(0.0, dtype),
-                        dt=_in_dtype(self.params.dt_initial, dtype),
-                        fibers=fibers, points=points, background=background)
+                "state needs at least one implicit component (fibers, shell, "
+                "or bodies) to solve; point/background sources only "
+                "contribute flow")
+        if shell is not None and self.shell_shape is None:
+            raise ValueError(
+                "a periphery state requires System(shell_shape="
+                "PeripheryShape(...)) matching the precompute geometry; use "
+                "kind='generic' explicitly for a shell with no wall physics")
+        if (shell is not None and background is not None
+                and background.is_active()):
+            raise ValueError("background sources are incompatible with "
+                             "peripheries")
+        leaves = ([g.x for g in fiber_buckets(fibers)]
+                  + ([shell.nodes] if shell is not None else [])
+                  + [g.position for g in body_buckets(bodies)])
+        for t in leaves:
+            if t.device != self.device:
+                raise ValueError(f"a state component lives on {t.device}, "
+                                 f"the system on {self.device}")
+        state = SimState(time=0.0, dt=0.0, fibers=fibers, points=points,
+                         background=background, shell=shell, bodies=bodies)
+        dtype = self._dtype(state)
+        return state._replace(time=_in_dtype(0.0, dtype),
+                              dt=_in_dtype(self.params.dt_initial, dtype))
 
     # -------------------------------------------------------------- helpers
 
-    def _node_positions(self, state: SimState):
-        return torch.cat([fc.node_positions(g)
-                          for g in fiber_buckets(state.fibers)], dim=0)
+    def _node_positions(self, state: SimState, body_caches=None):
+        """All hydrodynamic node positions [fibers | shell | bodies].
+
+        Pass ``body_caches`` when available so body node targets are the
+        very tensor the body double layer uses as sources: a recomputed
+        `place()` (or one in another precision) can leave self pairs 1 ulp
+        apart instead of coincident, un-masking the kernel singularity.
+        """
+        parts = [fc.node_positions(g) for g in fiber_buckets(state.fibers)]
+        if state.shell is not None:
+            parts.append(state.shell.nodes)
+        for i, g in enumerate(body_buckets(state.bodies)):
+            nodes = (body_caches[i].nodes if body_caches is not None
+                     else bd.place(g)[0])
+            parts.append(nodes.reshape(-1, 3))
+        return torch.cat(parts, dim=0)
+
+    def _counts(self, state: SimState):
+        nf = sum(g.n_fibers * g.n_nodes for g in fiber_buckets(state.fibers))
+        ns = state.shell.n_nodes if state.shell is not None else 0
+        nb = sum(g.n_bodies * g.n_nodes for g in body_buckets(state.bodies))
+        return nf, ns, nb
+
+    def _sizes(self, state: SimState):
+        fib = sum(fc.solution_size(g) for g in fiber_buckets(state.fibers))
+        shell = state.shell.solution_size if state.shell is not None else 0
+        body = sum(g.solution_size for g in body_buckets(state.bodies))
+        return fib, shell, body
 
     def _external_flows(self, state: SimState, r_trg):
         """Point-source + background contributions."""
@@ -234,161 +309,373 @@ class System:
         return v
 
     def _split(self, state: SimState, x_flat):
-        """Flat solution -> per-bucket [nf, 4n] views."""
-        out, off = [], 0
+        """Flat solution -> (per-bucket [nf, 4n] fiber views, per-bucket
+        [nb, 3n+6] body views)."""
+        fibs, off = [], 0
         for g in fiber_buckets(state.fibers):
             size = fc.solution_size(g)
-            out.append(x_flat[off:off + size].reshape(g.n_fibers,
-                                                      4 * g.n_nodes))
+            fibs.append(x_flat[off:off + size].reshape(g.n_fibers,
+                                                       4 * g.n_nodes))
             off += size
-        return out
+        if state.shell is not None:
+            off += state.shell.solution_size
+        bods = []
+        for g in body_buckets(state.bodies):
+            bods.append(x_flat[off:off + g.solution_size].reshape(
+                g.n_bodies, 3 * g.n_nodes + 6))
+            off += g.solution_size
+        return fibs, bods
 
     @staticmethod
-    def _lo_view(state: SimState, caches):
-        """(state, caches) with float32 copies of exactly the leaves the
-        f32 operator reads: the fiber groups (node positions, lengths) and
-        each fiber's dense self-mobility; the LU factors are f32 already.
-        (The JAX package casts every float leaf; the leaves not read are
-        skipped here, which at 10k fibers saves several GB.)"""
+    def _lo_view(state: SimState, caches, body_caches):
+        """(state, fiber caches, body caches) with float32 copies of the
+        leaves the f32 operator reads: the fiber groups and each fiber's
+        dense self-mobility; the shell (nodes, normals, the dense operator;
+        M_inv is f32 already); the body groups and caches (the LU factors
+        are f32 already). With a shell, each fiber's BC-applied A and
+        tangents are cast too: the Gauss-Seidel correction applies the
+        fiber rows in the preconditioner's precision. (The JAX package casts
+        every float leaf; the leaves not read are skipped here, which at 10k
+        fibers saves several GB.) Body node targets and sources stay one
+        tensor (`_node_positions`)."""
         f32 = torch.float32
+        has_shell = state.shell is not None
+        fibers = state.fibers
+        if fibers is not None:
+            fibers = _rewrap_fibers(fibers, [_cast_floats(g, f32)
+                                             for g in fiber_buckets(fibers)])
+        lo_caches = None if caches is None else [
+            fc.FiberCaches(xs=c.xs.to(f32) if has_shell else None, xss=None,
+                           xsss=None, xssss=None,
+                           stokeslet=c.stokeslet.to(f32),
+                           A_bc=c.A_bc.to(f32) if has_shell else None,
+                           lu=c.lu, piv=c.piv) for c in caches]
+        shell = None if state.shell is None else _cast_floats(state.shell,
+                                                              f32)
+        bodies = state.bodies
+        if bodies is not None:
+            bodies = _rewrap(bodies, [_cast_floats(g, f32)
+                                      for g in body_buckets(bodies)],
+                             bd.BodyGroup)
+        lo_bcaches = (None if body_caches is None
+                      else [_cast_floats(c, f32) for c in body_caches])
+        return (state._replace(fibers=fibers, shell=shell, bodies=bodies),
+                lo_caches, lo_bcaches)
 
-        def cast(g):
-            return g._replace(**{k: v.to(f32) for k, v in g._asdict().items()
-                                 if torch.is_tensor(v) and v.is_floating_point()})
+    # ------------------------------------------- fiber-periphery coupling
 
-        fibers = _rewrap_fibers(state.fibers,
-                                [cast(g) for g in fiber_buckets(state.fibers)])
-        lo_caches = [fc.FiberCaches(xs=None, xss=None, xsss=None, xssss=None,
-                                    stokeslet=c.stokeslet.to(f32),
-                                    lu=c.lu, piv=c.piv) for c in caches]
-        return state._replace(fibers=fibers), lo_caches
+    def _periphery_force_fibers(self, state: SimState):
+        """Steric wall force on fiber nodes, one [nf, n, 3] tensor per
+        bucket (applied during every solve; zero without a shell)."""
+        buckets = fiber_buckets(state.fibers)
+        if state.shell is None:
+            return [torch.zeros_like(g.x) for g in buckets]
+        fp = self.params.fiber_periphery_interaction
+        return [peri.fiber_steric_force(self.shell_shape, g.x, fp.f_0,
+                                        fp.l_0, g.minus_clamped)
+                for g in buckets]
+
+    def _update_plus_pinning(self, state: SimState) -> SimState:
+        """Hinge plus ends near an attachment-active periphery."""
+        pb = self.params.periphery_binding
+        buckets = fiber_buckets(state.fibers)
+        if state.shell is None or not pb.active or not buckets:
+            return state
+
+        def pinned(g):
+            tip = g.x[:, -1]
+            tip = tip / torch.linalg.vector_norm(tip, dim=-1, keepdim=True)
+            angle = torch.arccos(torch.clamp(tip[:, 2], -1.0, 1.0))
+            in_window = ((angle >= pb.polar_angle_start)
+                         & (angle <= pb.polar_angle_end))
+            near = peri.check_collision(self.shell_shape, g.x, pb.threshold)
+            return g._replace(plus_pinned=in_window & near)
+
+        return state._replace(fibers=_rewrap_fibers(
+            state.fibers, [pinned(g) for g in buckets]))
 
     # ----------------------------------------------------------------- prep
 
     def _prep(self, state: SimState):
-        """Velocities, forces, RHS/BC assembly and the LU preconditioner
-        (`prep_state_for_solver`). Returns (state, fiber caches)."""
+        """Velocities, forces, RHS/BC assembly and the LU preconditioners
+        (`prep_state_for_solver`). Returns (state, fiber caches, body
+        caches, shell RHS, body RHS)."""
         p = self.params
+        state = self._update_plus_pinning(state)
         buckets = fiber_buckets(state.fibers)
-        r_all = self._node_positions(state)
+        b_list = body_buckets(state.bodies)
         precision = self._precision_for(state)
         precond_dtype = torch.float32 if precision == "mixed" else None
         # mixed mode evaluates the (f64) prep flows through the refinement
-        # tile — kernel B on the card — which sets the RHS accuracy floor
+        # tile — kernels B / D on the card — which sets the RHS accuracy floor
         refine_prep = (precision == "mixed"
                        and self._dtype(state) == torch.float64)
         impl_flow = self._refine_impl if refine_prep else p.kernel_impl
 
-        caches = [fc.update_cache(g, state.dt, p.eta) for g in buckets]
-        # wall (steric) forces need a periphery: zero in free space
-        external = [torch.zeros_like(g.x) for g in buckets]
-        motor_on = state.time >= p.implicit_motor_activation_delay
-        motor = [fc.generate_constant_force(g, c) if motor_on
-                 else torch.zeros_like(g.x) for g, c in zip(buckets, caches)]
-        v_all = self._fiber_flow(state, caches, r_all, external,
-                                 impl=impl_flow)
+        body_caches = [bd.update_cache(g, p.eta, precond_dtype=precond_dtype)
+                       for g in b_list] or None
+        r_all = self._node_positions(state, body_caches)
+        nf_nodes, ns_nodes, _ = self._counts(state)
+        v_all = torch.zeros_like(r_all)
+
+        caches = None
+        if buckets:
+            caches = [fc.update_cache(g, state.dt, p.eta) for g in buckets]
+            external = self._periphery_force_fibers(state)
+            motor_on = state.time >= p.implicit_motor_activation_delay
+            motor = [fc.generate_constant_force(g, c) if motor_on
+                     else torch.zeros_like(g.x)
+                     for g, c in zip(buckets, caches)]
+            v_all = v_all + self._fiber_flow(state, caches, r_all, external,
+                                             impl=impl_flow)
+        # external body forces/torques induce explicit flow everywhere
+        for g, bc in zip(b_list, body_caches or []):
+            v_all = v_all + bd.flow(g, bc, r_all, None,
+                                    bd.external_forces_torques(g, state.time),
+                                    p.eta, impl=impl_flow)
         v_all = v_all + self._external_flows(state, r_all)
 
-        off = 0
-        new_caches = []
-        for g, c, mo, ex in zip(buckets, caches, motor, external):
-            nfn = g.n_fibers * g.n_nodes
-            v_fib = v_all[off:off + nfn].reshape(g.n_fibers, g.n_nodes, 3)
-            new_caches.append(fc.update_rhs_and_bc(
-                g, c, state.dt, p.eta, v_fib, mo + ex, ex,
-                precond_dtype=precond_dtype))
-            off += nfn
-        return state, new_caches
+        body_rhs, off = [], nf_nodes + ns_nodes
+        for g in b_list:
+            nbn = g.n_bodies * g.n_nodes
+            body_rhs.append(bd.update_RHS(g, v_all[off:off + nbn].reshape(
+                g.n_bodies, g.n_nodes, 3)))
+            off += nbn
+
+        if buckets:
+            off = 0
+            new_caches = []
+            for g, c, mo, ex in zip(buckets, caches, motor, external):
+                nfn = g.n_fibers * g.n_nodes
+                v_fib = v_all[off:off + nfn].reshape(g.n_fibers, g.n_nodes, 3)
+                new_caches.append(fc.update_rhs_and_bc(
+                    g, c, state.dt, p.eta, v_fib, mo + ex, ex,
+                    precond_dtype=precond_dtype))
+                off += nfn
+            caches = new_caches
+        shell_rhs = (None if state.shell is None else
+                     peri.update_RHS(v_all[nf_nodes:nf_nodes + ns_nodes]))
+        return state, caches, body_caches, shell_rhs, body_rhs
 
     # ----------------------------------------------------- operator closures
 
-    def _apply_matvec(self, state: SimState, caches, x_flat, lo=None,
-                      flow_impl: str | None = None):
+    def _apply_matvec(self, state: SimState, caches, body_caches, x_flat,
+                      lo=None, flow_impl: str | None = None):
         """Coupled operator A x.
 
-        ``lo`` is an optional (state, caches) pair from `_lo_view`: when
-        given, the O(N^2) pairwise flow — all the flops — is evaluated in
+        ``lo`` is an optional (state, caches, body caches) triple from
+        `_lo_view`: when given, the O(N^2) pairwise flows and the
+        well-scaled shell/body dense ops — all the flops — are evaluated in
         f32 through it, while the stiff fiber-local ops (A_bc rows reach
-        ~1e7) stay in the ``x_flat`` dtype. This is the cheap operator
-        `gmres_ir` iterates with. ``flow_impl`` overrides the pairwise tile
-        (the mixed solver's f64 residual passes the refinement tile).
+        ~1e7) and the fiber-body link conditions stay in the ``x_flat``
+        dtype. This is the cheap operator `gmres_ir` iterates with.
+        ``flow_impl`` overrides the pairwise tile (the mixed solver's f64
+        residual passes the refinement tile).
         """
+        p = self.params
         if flow_impl is None:
-            flow_impl = self.params.kernel_impl
+            flow_impl = p.kernel_impl
         buckets = fiber_buckets(state.fibers)
-        f_state, f_caches = (state, caches) if lo is None else lo
+        b_list = body_buckets(state.bodies)
+        fib_size, shell_size, _ = self._sizes(state)
+        nf_nodes, ns_nodes, _ = self._counts(state)
+        x_shell = x_flat[fib_size:fib_size + shell_size]
+        f_state, f_caches, f_bcaches = ((state, caches, body_caches)
+                                        if lo is None else lo)
         hi_dtype = x_flat.dtype
         lo_dtype = hi_dtype if lo is None else torch.float32
 
-        r_all = self._node_positions(f_state)
-        x_fibs = self._split(state, x_flat)
-        fws = [fc.apply_fiber_force(g, c, xf)
-               for g, c, xf in zip(buckets, caches, x_fibs)]
-        v_all = self._fiber_flow(f_state, f_caches, r_all,
-                                 [fw.to(lo_dtype) for fw in fws],
-                                 subtract_self=True, impl=flow_impl)
+        r_all = self._node_positions(f_state, f_bcaches)
+        v_all = torch.zeros_like(r_all)
+        x_fibs, x_bods = self._split(state, x_flat)
+        if buckets:
+            fws = [fc.apply_fiber_force(g, c, xf)
+                   for g, c, xf in zip(buckets, caches or [], x_fibs)]
+            v_all = v_all + self._fiber_flow(f_state, f_caches, r_all,
+                                             [fw.to(lo_dtype) for fw in fws],
+                                             subtract_self=True,
+                                             impl=flow_impl)
+        if state.shell is not None and (buckets or b_list):
+            # the shell flow is evaluated at fiber and body nodes only; its
+            # self-interaction lives in the dense operator
+            r_fb = torch.cat([r_all[:nf_nodes], r_all[nf_nodes + ns_nodes:]])
+            v_s = self._shell_flow(f_state, r_fb, x_shell.to(lo_dtype),
+                                   impl=flow_impl)
+            v_all[:nf_nodes] += v_s[:nf_nodes]
+            v_all[nf_nodes + ns_nodes:] += v_s[nf_nodes:]
+
+        v_boundaries = [torch.zeros((g.n_fibers, 7), dtype=hi_dtype,
+                                    device=x_flat.device) for g in buckets]
+        if b_list:
+            nbt = bd.n_total(b_list)
+            body_fts = [torch.zeros((g.n_bodies, 6), dtype=hi_dtype,
+                                    device=x_flat.device) for g in b_list]
+            # link conditions per (fiber bucket x body bucket), in the hi
+            # dtype: each fiber's GLOBAL binding id remaps to a bucket-local
+            # slot, so a fiber contributes to exactly one body bucket
+            for j, (gb, bc, xb) in enumerate(zip(b_list, body_caches,
+                                                 x_bods)):
+                for i, (gf, c, xf) in enumerate(zip(buckets, caches or [],
+                                                    x_fibs)):
+                    vb, ft = bd.link_conditions(
+                        gb, bc, bd.local_binding(gf, gb, nbt), c, xf, xb)
+                    v_boundaries[i] = v_boundaries[i] + vb
+                    body_fts[j] = body_fts[j] + ft
+            for f_gb, f_bc, xb, ft in zip(body_buckets(f_state.bodies),
+                                          f_bcaches, x_bods, body_fts):
+                v_all = v_all + bd.flow(f_gb, f_bc, r_all, xb.to(lo_dtype),
+                                        ft.to(lo_dtype), p.eta,
+                                        impl=flow_impl)
+
         res, off = [], 0
-        for g, c, xf in zip(buckets, caches, x_fibs):
+        for g, c, xf, vb in zip(buckets, caches or [], x_fibs, v_boundaries):
             nfn = g.n_fibers * g.n_nodes
             v_fib = v_all[off:off + nfn].reshape(g.n_fibers, g.n_nodes,
                                                  3).to(hi_dtype)
-            vb = torch.zeros((g.n_fibers, 7), dtype=hi_dtype,
-                             device=x_flat.device)
             res.append(fc.matvec(g, c, xf, v_fib, vb).reshape(-1))
             off += nfn
+        if state.shell is not None:
+            res.append(peri.matvec(f_state.shell, x_shell.to(lo_dtype),
+                                   v_all[nf_nodes:nf_nodes + ns_nodes])
+                       .to(hi_dtype))
+        off = nf_nodes + ns_nodes
+        for f_gb, f_bc, xb in zip(body_buckets(f_state.bodies),
+                                  f_bcaches or [], x_bods):
+            nbn = f_gb.n_bodies * f_gb.n_nodes
+            v_b = v_all[off:off + nbn].reshape(f_gb.n_bodies, f_gb.n_nodes, 3)
+            res.append(bd.matvec(f_gb, f_bc, xb.to(lo_dtype), v_b)
+                       .to(hi_dtype).reshape(-1))
+            off += nbn
         return torch.cat(res)
 
-    def _apply_precond(self, state: SimState, caches, x_flat):
-        """Block preconditioner P^-1 x: the batched fiber LU solves. With
-        no shell, "gs" and "jacobi" coincide (the Gauss-Seidel sweep only
-        adds the shell-first coupling correction)."""
-        return torch.cat([
-            fc.apply_preconditioner(g, c, xf).reshape(-1)
-            for g, c, xf in zip(fiber_buckets(state.fibers), caches,
-                                self._split(state, x_flat))])
+    def _apply_precond(self, state: SimState, caches, body_caches, x_flat):
+        """Block preconditioner P^-1 x.
+
+        "jacobi" is the reference's independent block solves (fiber LU,
+        shell M_inv, body LU). "gs" (the default) is a block Gauss-Seidel
+        sweep, shell block first: the shell solve's double-layer flow is
+        evaluated at the fiber/body nodes (one extra stresslet launch) and
+        its coupling rows are subtracted from their right-hand sides before
+        the fiber/body block solves. Both coincide without a shell. In
+        mixed mode ``state``/``caches`` are the `_lo_view`, and the
+        corrections run in its f32 precision.
+        """
+        buckets = fiber_buckets(state.fibers)
+        b_list = body_buckets(state.bodies)
+        fib_size, shell_size, _ = self._sizes(state)
+        nf_nodes, ns_nodes, nb_nodes = self._counts(state)
+        x_fibs, x_bods = self._split(state, x_flat)
+
+        y_shell = v_corr = None
+        if state.shell is not None:
+            y_shell = peri.apply_preconditioner(
+                state.shell, x_flat[fib_size:fib_size + shell_size])
+            if self.params.precond == "gs" and nf_nodes + nb_nodes > 0:
+                r_all = self._node_positions(state, body_caches)
+                r_fb = torch.cat([r_all[:nf_nodes],
+                                  r_all[nf_nodes + ns_nodes:]])
+                v_corr = self._shell_flow(
+                    state, r_fb, y_shell.to(state.shell.nodes.dtype))
+
+        res, off_v = [], 0
+        for g, c, xf in zip(buckets, caches or [], x_fibs):
+            if v_corr is not None:
+                nfn = g.n_fibers * g.n_nodes
+                v_fib = v_corr[off_v:off_v + nfn].reshape(g.n_fibers,
+                                                          g.n_nodes, 3)
+                # fiber rows of A at (0, y_shell, 0): the pure coupling term
+                ld = g.x.dtype
+                xf = xf - fc.matvec(
+                    g, c, torch.zeros_like(xf, dtype=ld), v_fib.to(ld),
+                    torch.zeros((g.n_fibers, 7), dtype=ld,
+                                device=xf.device)).to(xf.dtype)
+                off_v += nfn
+            res.append(fc.apply_preconditioner(g, c, xf).reshape(-1))
+        if y_shell is not None:
+            res.append(y_shell)
+        for g, bc, xb in zip(b_list, body_caches or [], x_bods):
+            if v_corr is not None:
+                nbn = g.n_bodies * g.n_nodes
+                v_b = v_corr[off_v:off_v + nbn].reshape(g.n_bodies,
+                                                        g.n_nodes, 3)
+                # body rows of A at (0, y_shell, 0) = [v_nodes, 0]
+                ld = bc.K.dtype
+                xb = xb - bd.matvec(g, bc, torch.zeros_like(xb, dtype=ld),
+                                    v_b.to(ld)).to(xb.dtype)
+                off_v += nbn
+            res.append(bd.apply_preconditioner(g, bc, xb).reshape(-1))
+        return torch.cat(res)
 
     # ---------------------------------------------------------------- solve
 
     def _solve_once(self, state: SimState):
         """prep -> GMRES -> advance; returns (new_state, solution, info)."""
         p = self.params
-        state, caches = self._prep(state)
-        rhs = torch.cat([c.RHS.reshape(-1) for c in caches])
+        state, caches, body_caches, shell_rhs, body_rhs = self._prep(state)
+        rhs = torch.cat([c.RHS.reshape(-1) for c in caches or []]
+                        + ([shell_rhs] if shell_rhs is not None else [])
+                        + [br.reshape(-1) for br in body_rhs])
 
         precision = self._precision_for(state)
         if precision == "mixed":
             # f64 state/assembly/refinement residuals; the Krylov loop's
-            # pairwise flows evaluate through f32 copies (the lo seam) while
-            # the stiff fiber-local ops stay f64
-            lo = self._lo_view(state, caches)
+            # pairwise flows and shell/body dense ops evaluate through f32
+            # copies (the lo seam) while the stiff fiber-local ops stay f64
+            lo = self._lo_view(state, caches, body_caches)
             hi_impl = (self._refine_impl
                        if self._dtype(state) == torch.float64
                        else p.kernel_impl)
             result = gmres_ir(
-                lambda v: self._apply_matvec(state, caches, v,
+                lambda v: self._apply_matvec(state, caches, body_caches, v,
                                              flow_impl=hi_impl),
-                lambda v: self._apply_matvec(state, caches, v, lo=lo),
+                lambda v: self._apply_matvec(state, caches, body_caches, v,
+                                             lo=lo),
                 rhs,
-                precond_lo=lambda v: self._apply_precond(lo[0], lo[1], v),
+                precond_lo=lambda v: self._apply_precond(*lo, v),
                 tol=p.gmres_tol, inner_tol=p.inner_tol,
                 restart=p.gmres_restart, maxiter=p.gmres_maxiter,
                 max_refine=p.max_refine, history=p.gmres_history,
                 block_s=p.gmres_block_s)
         else:
             result = gmres(
-                lambda v: self._apply_matvec(state, caches, v),
+                lambda v: self._apply_matvec(state, caches, body_caches, v),
                 rhs,
-                precond=lambda v: self._apply_precond(state, caches, v),
+                precond=lambda v: self._apply_precond(state, caches,
+                                                      body_caches, v),
                 tol=p.gmres_tol, restart=p.gmres_restart,
                 maxiter=p.gmres_maxiter, history=p.gmres_history,
                 block_s=p.gmres_block_s)
 
-        stepped = [fc.step(g, xf) for g, xf in
-                   zip(fiber_buckets(state.fibers),
-                       self._split(state, result.x))]
-        new_state = state._replace(fibers=_rewrap_fibers(state.fibers,
-                                                         stepped))
-        fiber_error = max(float(fc.fiber_error(g)) for g in stepped)
+        x_fibs, x_bods = self._split(state, result.x)
+        new_state = state
+        if state.fibers is not None:
+            new_state = new_state._replace(fibers=_rewrap_fibers(
+                state.fibers, [fc.step(g, xf) for g, xf in
+                               zip(fiber_buckets(state.fibers), x_fibs)]))
+        if state.shell is not None:
+            fib_size, shell_size, _ = self._sizes(state)
+            new_state = new_state._replace(shell=state.shell._replace(
+                density=result.x[fib_size:fib_size + shell_size]))
+        if state.bodies is not None:
+            new_b = [bd.step(g, xb, state.dt)
+                     for g, xb in zip(body_buckets(state.bodies), x_bods)]
+            new_state = new_state._replace(
+                bodies=_rewrap(state.bodies, new_b, bd.BodyGroup))
+            if state.fibers is not None:
+                # bound fibers re-pin to their (moved) nucleation sites, one
+                # body bucket at a time (a fiber is bound to at most one)
+                nbt = bd.n_total(new_b)
+                repinned = list(fiber_buckets(new_state.fibers))
+                for gb in new_b:
+                    sites = bd.place(gb)[2]
+                    repinned = [g._replace(x=bd.repin_to_bodies(
+                        bd.local_binding(g, gb, nbt), sites, gb).x)
+                        for g in repinned]
+                new_state = new_state._replace(
+                    fibers=_rewrap_fibers(new_state.fibers, repinned))
+        fiber_error = max([float(fc.fiber_error(g))
+                           for g in fiber_buckets(new_state.fibers)],
+                          default=0.0)
         health = result.health | _verdict.nonfinite_word(fiber_error)
         info = StepInfo(converged=bool(result.converged), iters=result.iters,
                         residual=result.residual, fiber_error=fiber_error,
@@ -402,8 +689,26 @@ class System:
         return new_state, result.x, info
 
     def _check_collision(self, state: SimState) -> bool:
-        """Fiber/shell and body collision gate: with no periphery and no
-        bodies in this slice nothing can collide."""
+        """Fiber/shell and body collision gate: body-body (spheres), body
+        vs a spherical shell, and any fiber node (a clamped fiber's
+        anchored first node excepted) crossing the shell."""
+        if state.bodies is not None:
+            if bd.check_collision_pairwise_multi(state.bodies, 0.0):
+                return True
+            if (state.shell is not None and self.shell_shape.kind == "sphere"
+                    and bd.check_collision_shell_multi(
+                        state.bodies, self.shell_shape.radius, 0.0)):
+                return True
+        if state.shell is None:
+            return False
+        for g in fiber_buckets(state.fibers):
+            n = g.n_nodes
+            keep = (torch.arange(n, device=g.x.device)[None, :]
+                    >= torch.where(g.minus_clamped, 1, 0)[:, None])
+            pts = torch.where(keep[..., None], g.x, g.x[:, -1:, :])
+            if bool(torch.any(peri.check_collision(self.shell_shape, pts,
+                                                   0.0))):
+                return True
         return False
 
     # ----------------------------------------------------------- public API

@@ -114,34 +114,118 @@ def test_ragged_edges(cuda):
         assert _rel_err(got, ref) <= 1e-12
 
 
+def _shell_cloud(n_src, n_trg, dtype, device, seed=0):
+    """Shell-like stresslet cloud: sources on a sphere of radius 5 with
+    f_dl = 2 n (x) rho, targets inside it, some targets exactly on sources
+    (self pairs), and 8 zero-normal sources sharing one position that is
+    also a target (r = 0 with zero density)."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((n_src, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    src = 5.0 * u
+    f_dl = 2.0 * (-u)[:, :, None] * rng.standard_normal((n_src, 3))[:, None, :]
+    f_dl /= n_src
+    src[-8:] = [0.5, -0.25, 1.0]
+    f_dl[-8:] = 0.0
+    trg = np.concatenate([src[: n_trg // 4],
+                          rng.uniform(-3, 3, (n_trg - n_trg // 4, 3))])
+    trg[-1] = [0.5, -0.25, 1.0]
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (src, trg, f_dl))
+
+
+@pytest.mark.gpu
+def test_kernel_c_matches_plain(cuda):
+    """Kernel C (f32 stresslet) vs the plain version in f64 on the same f32
+    inputs: 1e-4 of the largest velocity (f32 sums of 2^13 terms, the
+    r^-5 weights amplify rounding near the shell)."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    src, trg, f_dl = _shell_cloud(1 << 13, 1 << 14, torch.float32, cuda)
+    n0 = ck.stresslet_f32.launches
+    got = ck.stresslet_f32(src, trg, f_dl, 1.3)
+    torch.cuda.synchronize()
+    assert ck.stresslet_f32.launches == n0 + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    ref = ck.stresslet_f64_plain(src, trg, f_dl, 1.3)
+    assert _rel_err(got, ref) < 1e-4
+    unscaled = ck.stresslet_f32(src, trg, f_dl)
+    assert _rel_err(unscaled * (1.0 / (8 * math.pi * 1.3)), ref) < 1e-4
+
+
+@pytest.mark.gpu
+def test_kernel_d_matches_plain(cuda):
+    """Kernel D (native FP64 stresslet) vs the plain f64 version: <= 1e-12,
+    including ragged counts and f32 inputs widened to an f64 output."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    for n_src, n_trg in ((1 << 13, 1 << 14), (9, 1), (129, 257)):
+        src, trg, f_dl = _shell_cloud(n_src, n_trg, torch.float64, cuda,
+                                      seed=n_src)
+        n0 = ck.stresslet_f64.launches
+        got = ck.stresslet_f64(src, trg, f_dl, 0.7)
+        torch.cuda.synchronize()
+        assert ck.stresslet_f64.launches == n0 + 1
+        assert got.dtype == torch.float64 and torch.isfinite(got).all()
+        ref = ck.stresslet_f64_plain(src, trg, f_dl, 0.7)
+        assert _rel_err(got, ref) <= 1e-12
+    got32 = ck.stresslet_f64(src.float(), trg.float(), f_dl.float(), 0.7)
+    assert got32.dtype == torch.float64
+
+
+@pytest.mark.gpu
+def test_stresslet_self_and_zero_density_pairs(cuda):
+    """A lone source seen from its own position contributes exactly 0, and
+    zero-normal sources stacked on a target stay finite (select, not
+    multiply), in both kernels."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    for fn, dt in ((ck.stresslet_f32, torch.float32),
+                   (ck.stresslet_f64, torch.float64)):
+        src = torch.tensor([[0.5, -0.25, 1.0], [0.0, 0.0, 0.0],
+                            [0.0, 0.0, 0.0]], dtype=dt, device=cuda)
+        f_dl = torch.zeros((3, 3, 3), dtype=dt, device=cuda)
+        f_dl[0] = torch.arange(9, dtype=dt, device=cuda).reshape(3, 3)
+        u = fn(src, src, f_dl, 1.0)
+        assert u[0].abs().max().item() == 0.0
+        assert torch.isfinite(u).all()
+
+
 @pytest.mark.gpu
 def test_small_run_card_vs_cpu(cuda):
-    """One mixed-precision step of a small scene on the card (kernels A and
-    B) agrees with the same step on the CPU (plain versions) to 1e-8."""
-    from skellysim_tpu_torch.fibers import container as fc
+    """One mixed-precision step of a small coupled scene (a 120-node shell
+    holding a body with 4 bound fibers, plus 2 free fibers) on the card
+    (kernels A-D) agrees with the same step on the CPU (plain versions):
+    the stepped fiber nodes and body positions to 1e-8 absolute, the
+    solution vector to 1e-8 of its largest entry; and every kernel
+    launched on the card."""
     from skellysim_tpu_torch.ops import cuda_kernels as ck
     from skellysim_tpu_torch.params import Params
     from skellysim_tpu_torch.system import System
+    from skellysim_tpu_torch.testing import make_coupled_scene
 
-    rng = np.random.default_rng(3)
-    t = np.linspace(0, 1, 16)
-    d = rng.normal(size=(6, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    x = rng.uniform(-1, 1, (6, 1, 3)) + t[None, :, None] * d[:, None, :]
     out = {}
     for dev in ("cpu", "cuda"):
-        p = Params(dt_initial=0.01, gmres_tol=1e-12, solver_precision="mixed",
+        p = Params(dt_initial=0.02, gmres_tol=1e-12, solver_precision="mixed",
                    kernel_impl="pallas", refine_pair_impl="pallas_df")
-        system = System(p, device=dev)
-        g = fc.make_group(x, lengths=1.0, bending_rigidity=0.01,
-                          radius=0.0125, force_scale=-0.05, device=dev)
+        shell, shape, bodies, fibers = make_coupled_scene(
+            shell_n=120, body_n=80, n_bound=4, n_free=2, device=dev,
+            precond_dtype=torch.float32)
+        system = System(p, shell_shape=shape, device=dev)
         n0 = [w.launches for w in ck.KERNEL_WRAPPERS]
-        new, _, info = system.step(system.make_state(fibers=g))
+        new, sol, info = system.step(system.make_state(
+            fibers=fibers, shell=shell, bodies=bodies))
         assert info.converged
-        out[dev] = new.fibers.x.cpu().numpy()
+        out[dev] = (new.fibers.x.cpu().numpy(),
+                    new.bodies.position.cpu().numpy(), sol.cpu().numpy())
         if dev == "cuda":
             assert all(w.launches > k for w, k in zip(ck.KERNEL_WRAPPERS, n0))
-    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-8)
+    (x_card, pos_card, sol_card), (x_cpu, pos_cpu, sol_cpu) = (out["cuda"],
+                                                               out["cpu"])
+    np.testing.assert_allclose(x_card, x_cpu, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(pos_card, pos_cpu, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(sol_card, sol_cpu, rtol=0,
+                               atol=1e-8 * np.abs(sol_cpu).max())
 
 
 def _imported_modules(path: Path):
