@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. kernels   — kernels A and B (Stokeslet) against their plain PyTorch
                versions on the card at the free-space path's shape (the
                640,000 fiber nodes of the 10k-fiber config as sources and as
-               targets): error, kernel time (CUDA events after warm-up),
+               targets): error, kernel time (CUDA events after a warm-up:
+               the median of 3 rounds of 3 launches, with the SM clock and
+               temperature nvidia-smi reads right after),
                plain time, and the bound.
 4. run       — the repo's 10k-fiber x 64-node free-space config
                (examples/free_fibers_10k/gen_config.py's recipe, with
@@ -21,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                the port's own Config; every launch count set to 0, then
                `python -m skellysim_tpu_torch` in this process; the counts,
                per-step metrics and peak device memory are read and the
-               trajectory is decoded with the port's own reader.
+               trajectory is decoded with the port's own reader. (The CLI
+               builds no mesh, so its pair_evaluator = "ring" runs direct.)
 5. check     — a small coupled scene (a ~200-node spherical shell holding
                one sphere body with 8 bound fibers, plus free fibers) takes
                one mixed step on the card (kernels) and on the CPU (plain
@@ -35,23 +38,45 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                against their plain versions with the shell's nodes as
                sources and the fiber nodes as targets; then the run, as in 4,
                gated on every step accepted with true residual <= gmres_tol
-               and health 0, on all four kernels launching, and on frames
+               and health 0, on kernels A-D launching, and on frames
                that carry a finite shell density of 3 x 8,000 values.
-7. bodies    — examples/stokes_tests/body_const_force (one 600-node sphere,
+7. ring kernels — kernels E and F (the fused ring, 4 shards on the card):
+               E with phase 3's 640,000 fiber nodes as sources and targets,
+               F with phase 6's 8,000 shell nodes as sources and its 128,000
+               fiber nodes as targets; each against its plain version (the
+               ring accumulation over A's / C's plain block) on target rows
+               sampled from every shard (each shard's last tile included)
+               and against kernel A's / C's full output on the same f32
+               inputs (1e-4 of max|u|), timed like phase 3; then E, F, E
+               back to back with no host sync, held to the same results.
+8. ring run  — the ellipsoid config with pair_evaluator = "ring", built with
+               `build_simulation(cfg, mesh=make_mesh(4, device=card))` on
+               phase 6's precompute and stepped three times by `System.run`:
+               gated like phase 6, on E, F, B and D launching and A and C
+               launching 0 times, and on final fiber positions within 1e-6
+               of phase 6's direct run. Then E and F are checked and timed
+               as in 7 at the shapes this run launched them with (E:
+               128,000 sources x 136,000 targets, a partial last tile in
+               every shard), and one f64-grade hop of B and D is timed.
+9. bodies    — examples/stokes_tests/body_const_force (one 600-node sphere,
                force (0, 0, 1), three steps of dt = 0.1) precomputed and run
                the same way; the body's velocity must meet the reference's
                Stokes-drag gate |1 - v / (F / 6 pi eta r_eff)| < 1e-6, and
                kernels C and D must launch.
 
-Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Without a CUDA card the script exits 2
+Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
+shape are those of its check phase (3, 6 or 7); E's and F's entries also
+carry, under "at_ring_run_shape", the same fields at the shapes of the ring
+run, where their "launches" were counted. Then the nvidia-smi line, and
+last {"ok": true, "device": {...}}. Without a CUDA card the script exits 2
 before printing any result. Every file a phase writes (configs, the ~6.9 GB
 shell precompute, trajectories) lives in one temporary directory outside
 the checkout, removed at the end whether the run passed or failed.
 
 ``--device=cpu`` with small ``--fibers``, ``--ellipsoid-fibers`` and
 ``--shell-nodes`` rehearses the same phases on the CPU with the plain
-versions (no build, no launch counts, no result line).
+versions (no build, no launch counts, no result line; the mesh's 4 shards
+then lie on the CPU).
 """
 
 from __future__ import annotations
@@ -89,10 +114,37 @@ ELLIPSOID_STEPS = 3
 #: the body scene's dt, three steps
 BODY_DT = 0.1
 BODY_STEPS = 3
+#: a kernel's time: the median of this many rounds of this many launches
+KERNEL_ROUNDS = 3
+KERNEL_LAUNCHES = 3
+#: shards of the ring phases' mesh, all on the one card
+RING_SHARDS = 4
+#: target rows a shard, sampled at random, on which kernels E and F are
+#: held against their plain version (each shard's last tile besides)
+RING_SAMPLE = 1024
+#: targets a tile of kernels E and F (csrc/ring_sums.cu, kThreads)
+RING_TILE = 128
+#: the fused ring's TPU kernel (skellysim_tpu/parallel/ring_fused.py)
+RING_REPLACES = ("skellysim_tpu/parallel/ring_fused.py:99 (_ring_kernel, "
+                 'kind="{}", driven by fused_ring_block_sum :178)')
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def card_state(device):
+    """The SM clock and temperature as nvidia-smi reads them now (beside
+    each kernel time, so a spread between calls has a cause)."""
+    if device.type != "cuda":
+        return "not measured (CPU)"
+    index = device.index if device.index is not None else 0
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=clocks.sm,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    clock, temp = (v.strip() for v in out.split(","))
+    return f"SM clock {clock}, {temp} C"
 
 
 def bound_ms(family, n_src, n_trg, itemsize, peak, same_points=False):
@@ -106,6 +158,25 @@ def bound_ms(family, n_src, n_trg, itemsize, peak, same_points=False):
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def kernel_ms(torch, fn, device):
+    """A kernel's time: the median of KERNEL_ROUNDS rounds, each the mean
+    of KERNEL_LAUNCHES back-to-back launches between CUDA events (after a
+    warm-up launch). Events count the device's idle time too, so a round
+    in which the host stalls between launches reads long; the median keeps
+    one such round out. Returns (ms, the last output, every round's ms)."""
+    timed(torch, fn, device, 1)
+    rounds, out = [], None
+    for _ in range(KERNEL_ROUNDS):
+        ms, out = timed(torch, fn, device, KERNEL_LAUNCHES)
+        rounds.append(ms)
+    return sorted(rounds)[len(rounds) // 2], out, rounds
+
+
+def rounds_note(rounds):
+    return (f"median of {KERNEL_ROUNDS} rounds of {KERNEL_LAUNCHES} "
+            f"launches; rounds {min(rounds):.3f}–{max(rounds):.3f} ms")
 
 
 def timed(torch, fn, device, reps):
@@ -225,8 +296,9 @@ def phase_kernels(torch, ck, device, specs, card):
         n_src, n_trg = src64.shape[0], trg64.shape[0]
         for name, kern, dt, plain, peak, tol, replaces in kernels:
             s, t, f = src64.to(dt), trg64.to(dt), pay64.to(dt)
-            timed(torch, lambda: kern(s, t, f, eta), device, 1)  # warm-up
-            ms, got = timed(torch, lambda: kern(s, t, f, eta), device, 3)
+            ms, got, rounds = kernel_ms(torch, lambda: kern(s, t, f, eta),
+                                        device)
+            state = card_state(device)
             plain_ms = ref_ms if plain is None else timed(
                 torch, lambda: plain(s, t, f, eta), device, 1)[0]
             err = (got.double() - ref).abs().max().item()
@@ -237,10 +309,11 @@ def phase_kernels(torch, ck, device, specs, card):
             log(f"[kernels] {name}: {n_src} sources x {n_trg} targets, max "
                 f"abs err {err:.3e}, max rel err {rel:.3e} (tolerance "
                 f"{tol:g} of max|u|; reference: plain f64), kernel {ms:.3f} "
-                f"ms, plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}, "
+                f"ms ({rounds_note(rounds)}), plain {plain_ms:.1f} ms, bound "
+                f"{b_ms:.3f} ms ({b_by}, "
                 f"{FLOPS_PER_PAIR[family]} flops a pair at "
                 f"{peak / 1e12:g} TFLOP/s, the data sheet's rate at 700 W; "
-                f"this card: {card})")
+                f"this card: {card}; after the timed launches: {state})")
             if not finite or not rel <= tol:
                 raise SystemExit(f"{name} disagrees with its plain version: "
                                  f"rel err {rel:.3e} > {tol:g} "
@@ -249,9 +322,10 @@ def phase_kernels(torch, ck, device, specs, card):
                         "source": f"skellysim_tpu_torch/csrc/{ck.SOURCE}.cu",
                         "replaces": replaces, "launches": 0,
                         "max_abs_err": err, "max_rel_err": rel,
-                        "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                        "tolerance": tol, "ms": ms, "ms_rounds": rounds,
+                        "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None,
+                        "library_ms": None, "card_state": state,
                         "shape": [int(n_src), int(n_trg)]})
             del s, t, f, got
         del src64, trg64, pay64, ref
@@ -287,7 +361,8 @@ def phase_run(torch, ck, device, cfg_path, run_dir):
     return wall, counts, peak, steps
 
 
-def report_run(tag, wall, counts, peak, steps, n_steps, tol, device, needed):
+def report_run(tag, wall, counts, peak, steps, n_steps, tol, device, needed,
+               what="whole CLI run (state build and frame writes included)"):
     """Print a run's per-step metrics and gate it: ``n_steps`` accepted
     steps, each with true residual <= ``tol``, finite fiber error and
     health 0, and every kernel in ``needed`` launched (on the card)."""
@@ -296,9 +371,8 @@ def report_run(tag, wall, counts, peak, steps, n_steps, tol, device, needed):
             f"{s['wall_s']:.3f} s, GMRES iterations {s['iters']}, refinement "
             f"sweeps {s['refines']}, true residual {s['residual_true']:.3e}, "
             f"fiber error {s['fiber_error']:.3e}, accepted {s['accepted']}")
-    log(f"[{tag}] whole CLI run {wall:.1f} s (build of the state, "
-        f"{len(steps)} steps, frame writes); launches {counts}; peak device "
-        f"memory "
+    log(f"[{tag}] {what}: {wall:.1f} s for {len(steps)} steps; launches "
+        f"{counts}; peak device memory "
         f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}")
     if len(steps) != n_steps or not all(s["accepted"] for s in steps):
         raise SystemExit(f"{tag}: the run did not take its {n_steps} "
@@ -389,14 +463,14 @@ def phase_confined(torch, ck, device, work, args, card):
              "skellysim_tpu/ops/pallas_df.py:195 (_stresslet_df_kernel)")])],
         card)
     shape_times(torch, ck, device, fiber_nodes, shell_nodes)
-    del fiber_nodes, shell_nodes, shell_normals, f_dl
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     wall, counts, peak, steps = phase_run(torch, ck, device, cfg_path,
                                           run_dir)
     report_run("confined", wall, counts, peak, steps, ELLIPSOID_STEPS, 1e-8,
-               device, [w.__name__ for w in ck.KERNEL_WRAPPERS])
+               device, ["stokeslet_f32", "stokeslet_f64", "stresslet_f32",
+                        "stresslet_f64"])
     reader = TrajectoryReader(os.path.join(run_dir, "skelly_sim.out"))
     ok = len(reader) == ELLIPSOID_STEPS + 1
     for i in range(len(reader)):
@@ -409,7 +483,12 @@ def phase_confined(torch, ck, device, work, args, card):
     if not ok:
         raise SystemExit("the confined trajectory does not hold finite shell "
                          "densities of the expected length in every frame")
-    return entries, counts
+    last = reader.load_frame(len(reader) - 1)
+    direct_x = np.stack([m["x_"] for m in last["fibers"][1]])
+    ring_inputs = {"fiber_nodes": fiber_nodes, "shell_nodes": shell_nodes,
+                   "f_dl": f_dl.reshape(-1, 9), "cfg_path": cfg_path,
+                   "direct_x": direct_x}
+    return entries, counts, ring_inputs
 
 
 def shape_times(torch, ck, device, fiber_nodes, shell_nodes):
@@ -429,8 +508,7 @@ def shape_times(torch, ck, device, fiber_nodes, shell_nodes):
                             torch.float64)):
         s, t, f = (torch.as_tensor(a, dtype=dt, device=device)
                    for a in (fiber_nodes, every, force))
-        timed(torch, lambda: kern(s, t, f, 1.0), device, 1)
-        ms = timed(torch, lambda: kern(s, t, f, 1.0), device, 3)[0]
+        ms = kernel_ms(torch, lambda: kern(s, t, f, 1.0), device)[0]
         parts.append(f"{name} {ms:.3f} ms ({s.shape[0]} x {t.shape[0]})")
     n3 = 3 * shell_nodes.shape[0]
     for dt in (torch.float32, torch.float64):
@@ -441,7 +519,229 @@ def shape_times(torch, ck, device, fiber_nodes, shell_nodes):
         parts.append(f"dense [{n3}, {n3}] {str(dt)[6:]} matvec {ms:.3f} ms")
         del M, x
     log("[confined] per-launch times at this path's shapes: "
-        + "; ".join(parts))
+        + "; ".join(parts) + f" ({card_state(device)})")
+
+
+def _shards(torch, a, n, device):
+    """f32 copy of [N, ...] on the device, cut into n equal shard blocks
+    (the trailing N mod n rows dropped: only a rehearsal's small sizes
+    have any)."""
+    m = a.shape[0] // n
+    t = torch.as_tensor(a[:n * m], dtype=torch.float32, device=device)
+    return t, [b.contiguous() for b in t.split(m)]
+
+
+def ring_check(torch, ck, device, family, src, trg, pay, same, rng, card,
+               tag):
+    """Kernel E or F (by ``family``) over RING_SHARDS shards of the device
+    at one shape: held against its plain version on target rows sampled
+    from every shard (each shard's last tile among them, partial where the
+    shard's target count is not a tile multiple) and against kernel A's /
+    C's whole output on the same f32 inputs, both at 1e-4 of max|u|, and
+    timed like phase 3. Exits on a disagreement. Returns (the JSON fields,
+    the per-shard arguments, the per-shard output)."""
+    import numpy as np
+
+    n = RING_SHARDS
+    kern = getattr(ck, f"ring_{family}_f32")
+    plain = getattr(ck, f"ring_{family}_f32_plain")
+    s_all, s_l = _shards(torch, src, n, device)
+    t_all, t_l = (s_all, s_l) if same else _shards(torch, trg, n, device)
+    p_all, p_l = _shards(torch, pay, n, device)
+    nt, ns = t_l[0].shape[0], s_l[0].shape[0]
+    ms, got, rounds = kernel_ms(torch, lambda: kern(t_l, s_l, p_l), device)
+    state = card_state(device)
+    last_tile = np.arange(max(0, nt - RING_TILE), nt)
+    rows = [torch.as_tensor(np.union1d(
+        rng.choice(nt, min(nt, RING_SAMPLE), replace=False), last_tile),
+        device=device) for _ in range(n)]
+    plain_ms, ref = timed(torch, lambda: plain(
+        [t[r] for t, r in zip(t_l, rows)], s_l, p_l), device, 1)
+    got_rows = torch.cat([g[r] for g, r in zip(got, rows)]).double()
+    ref = torch.cat(ref).double()
+    err = (got_rows - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    whole = getattr(ck, f"{family}_f32")(s_all, t_all, p_all)
+    got_all = torch.cat(got).double()
+    rel_whole = ((got_all - whole.double()).abs().max()
+                 / whole.double().abs().max()).item()
+    del whole, got_all
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    # the bound: operations over FP32 peak, or the bytes — each input read
+    # once, the output written once, and every slot record written once
+    # (n slots a shard, 16-byte aligned records)
+    ops_ms = 1e3 * FLOPS_PER_PAIR[family] * (n * ns) * (n * nt) / PEAK_FP32
+    in_out = 4 * ((SOURCE_WORDS[family] * ns + (0 if same else 3) * nt
+                   + 3 * nt) * n)
+    slot_bytes = 4 * n * n * ns * {"stokeslet": 8, "stresslet": 12}[family]
+    bytes_ms = 1e3 * (in_out + slot_bytes) / PEAK_BYTES
+    b_ms, b_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    n_rows = int(sum(len(r) for r in rows))
+    log(f"[{tag}] {kern.__name__}: {n} shards on one device, {n * ns} "
+        f"sources x {n * nt} targets ({nt} a shard, {nt % RING_TILE} in its "
+        f"last, partial tile of {RING_TILE}); against its plain version on "
+        f"{n_rows} target rows sampled from every shard, its last tile "
+        f"included: max abs err {err:.3e}, max rel err {rel:.3e}; against "
+        f"{family}_f32 on all rows: max rel err {rel_whole:.3e} (tolerance "
+        f"1e-4 of max|u|); kernel {ms:.3f} ms ({rounds_note(rounds)}), "
+        f"plain {plain_ms:.1f} ms on the sampled rows, bound {b_ms:.3f} ms "
+        f"({b_by}; operations {ops_ms:.3f} ms at {FLOPS_PER_PAIR[family]} "
+        f"flops a pair and {PEAK_FP32 / 1e12:g} TFLOP/s, bytes "
+        f"{bytes_ms:.4f} ms with {slot_bytes / 1e6:.1f} MB of slot records; "
+        f"this card: {card}; after the timed launches: {state})")
+    if not finite or not rel <= 1e-4 or not rel_whole <= 1e-4:
+        raise SystemExit(f"{kern.__name__} disagrees at {n * ns} x {n * nt}: "
+                         f"rel err {rel:.3e} against its plain version, "
+                         f"{rel_whole:.3e} against {family}_f32 "
+                         f"(finite={finite})")
+    fields = {"max_abs_err": err, "max_rel_err": rel,
+              "max_rel_err_vs_direct": rel_whole, "tolerance": 1e-4,
+              "ms": ms, "ms_rounds": rounds, "plain_ms": plain_ms,
+              "plain_rows": n_rows, "bound_ms": b_ms, "bound_by": b_by,
+              "card_state": state, "shards": n,
+              "shape": [int(n * ns), int(n * nt)]}
+    return fields, (t_l, s_l, p_l), got
+
+
+def phase_ring_kernels(torch, ck, device, e_in, f_in, card):
+    """Kernels E and F over RING_SHARDS shards on the card (`ring_check`),
+    then E, F, E back to back."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    entries, results = [], {}
+    for family, (src, trg, pay, same) in (("stokeslet", e_in),
+                                          ("stresslet", f_in)):
+        fields, args, got = ring_check(torch, ck, device, family, src, trg,
+                                       pay, same, rng, card, "ring kernels")
+        results[family] = (args, got)
+        entries.append({
+            "name": f"ring_{family}_f32", "route": "cuda",
+            "source": f"skellysim_tpu_torch/csrc/{ck.RING_SOURCE}.cu",
+            "replaces": RING_REPLACES.format(family), "launches": 0,
+            "library_ms": None, **fields})
+    log("[ring kernels] no single PyTorch call computes a ring of singular "
+        "pair sums: library_ms is null")
+
+    (e_args, e_ref), (f_args, f_ref) = results["stokeslet"], \
+        results["stresslet"]
+    e1 = ck.ring_stokeslet_f32(*e_args)
+    f1 = ck.ring_stresslet_f32(*f_args)
+    e2 = ck.ring_stokeslet_f32(*e_args)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    worst, bitwise = 0.0, True
+    for got, ref in ((e1, e_ref), (f1, f_ref), (e2, e_ref)):
+        got, ref = torch.cat(got), torch.cat(ref)
+        bitwise = bitwise and bool(torch.equal(got, ref))
+        worst = max(worst, ((got.double() - ref.double()).abs().max()
+                            / ref.double().abs().max()).item())
+    log(f"[ring kernels] back to back (E, F, E, no host sync): max rel "
+        f"difference from the lone calls {worst:.3e}, bit for bit: {bitwise}")
+    if not worst <= 1e-4:
+        raise SystemExit("the back-to-back ring launches disagree with the "
+                         "lone calls")
+    return entries
+
+
+def phase_ring_run(torch, ck, device, ring_inputs, card):
+    """The ellipsoid config through the ring evaluator on a 4-shard mesh of
+    the card: `build_simulation(cfg, mesh=...)` and `System.run`; then E
+    and F checked and timed at the shapes of the run (`ring_shape_times`).
+    Returns (launch counts, those checks' fields by kernel name)."""
+    import numpy as np
+
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import schema
+    from skellysim_tpu_torch.parallel import make_mesh
+
+    cfg_path = ring_inputs["cfg_path"]
+    run_dir = os.path.dirname(cfg_path)
+    config = schema.load_config(cfg_path)
+    config.params.pair_evaluator = "ring"
+    mesh = make_mesh(RING_SHARDS, device=device)
+    t0 = time.perf_counter()
+    system, state, _ = build_simulation(config, config_dir=run_dir,
+                                        device=device, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    metrics = os.path.join(run_dir, "ring_metrics.jsonl")
+    for w in ck.KERNEL_WRAPPERS:
+        w.launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = system.run(state, max_steps=ELLIPSOID_STEPS, metrics_path=metrics)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in ck.KERNEL_WRAPPERS}
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    steps = [json.loads(line) for line in open(metrics)]
+    log(f"[ring run] {mesh.size} shards on {mesh.devices[0]}; state built "
+        f"in {build_s:.1f} s (the 6.9 GB npz load included at full width)")
+    report_run("ring run", wall, counts, peak, steps, ELLIPSOID_STEPS, 1e-8,
+               device, ["ring_stokeslet_f32", "ring_stresslet_f32",
+                        "stokeslet_f64", "stresslet_f64"], what="System.run")
+    if device.type == "cuda" and (counts["stokeslet_f32"]
+                                  or counts["stresslet_f32"]):
+        raise SystemExit("ring run: kernels A / C launched; the ring must "
+                         f"carry every fiber and shell flow: {counts}")
+    x = final.fibers.x[final.fibers.active].cpu().numpy()
+    direct_x = ring_inputs["direct_x"]
+    dx = float(np.abs(x - direct_x).max()) if x.shape == direct_x.shape \
+        else math.inf
+    log(f"[ring run] final fiber positions against phase 6's direct run: "
+        f"max |dx| = {dx:.3e} over {x.shape} (tolerance 1e-6)")
+    if not dx <= 1e-6:
+        raise SystemExit("the ring run's final fiber positions differ from "
+                         "the direct run's")
+    return counts, ring_shape_times(torch, ck, device, ring_inputs, card)
+
+
+def ring_shape_times(torch, ck, device, ring_inputs, card):
+    """Kernels E and F at the shapes the ring step launches them with, the
+    launches its counts come from: E with the fiber nodes as sources and
+    every node as targets (128,000 x 136,000 at full width: 34,000 targets
+    a shard, whose last tile is partial), F with the shell nodes as
+    sources and the fiber nodes as targets; each checked and timed by
+    `ring_check`. Then the per-launch time of one hop of the f64-grade
+    ring for the launches x time breakdown: kernel B with one shard's
+    fiber-node block against one shard's targets, kernel D with one
+    shard's shell block against one shard's fiber nodes. Returns the
+    check's JSON fields by kernel name."""
+    import numpy as np
+
+    n = RING_SHARDS
+    fib, shell = ring_inputs["fiber_nodes"], ring_inputs["shell_nodes"]
+    every = np.concatenate([fib, shell])
+    force = np.random.default_rng(19).standard_normal(fib.shape) / 63.0
+    rng = np.random.default_rng(23)
+    at_run = {}
+    for family, src, trg, pay in (("stokeslet", fib, every, force),
+                                  ("stresslet", shell, fib,
+                                   ring_inputs["f_dl"])):
+        at_run[f"ring_{family}_f32"] = ring_check(
+            torch, ck, device, family, src, trg, pay, False, rng, card,
+            "ring run")[0]
+    f64 = torch.float64
+    _, s_l = _shards(torch, fib, n, device)
+    _, t_l = _shards(torch, every, n, device)
+    _, f_l = _shards(torch, force, n, device)
+    _, sh_l = _shards(torch, shell, n, device)
+    _, d_l = _shards(torch, ring_inputs["f_dl"], n, device)
+    parts = []
+    for name, kern, args in (
+            ("stokeslet_f64", ck.stokeslet_f64,
+             (s_l[0].to(f64), t_l[0].to(f64), f_l[0].to(f64))),
+            ("stresslet_f64", ck.stresslet_f64,
+             (sh_l[0].to(f64), s_l[0].to(f64), d_l[0].to(f64)))):
+        ms = kernel_ms(torch, lambda: kern(*args, 1.0), device)[0]
+        parts.append(f"{name} {ms:.3f} ms a hop ({args[0].shape[0]} x "
+                     f"{args[1].shape[0]})")
+    log("[ring run] per-launch times of one f64-grade ring hop: "
+        + "; ".join(parts) + f" ({card_state(device)})")
+    return at_run
 
 
 def phase_bodies(torch, ck, device, work):
@@ -527,7 +827,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-7; returns (kernel entries, launch counts by path, the
+    """Phases 1-9; returns (kernel entries, launch counts by path, the
     nvidia-smi line)."""
     import numpy as np
 
@@ -545,7 +845,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
 
     # 2. build: one nvcc per source, all started together
     if device.type == "cuda":
-        names = (ck.SOURCE,)
+        names = ck.SOURCES
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(names)) as pool:
             infos = list(pool.map(cuda_build.build, names))
@@ -583,7 +883,6 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
              PEAK_FP64, 1e-12,
              "skellysim_tpu/ops/pallas_df.py:158 (_stokeslet_df_kernel)")])],
         smi)
-    del nodes, f
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -611,20 +910,41 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     phase_check_small(torch, device)
 
     # 6. the confined full-width path
-    more, launches["ellipsoid"] = phase_confined(torch, ck, device, work,
-                                                 args, smi)
+    more, launches["ellipsoid"], ring_inputs = phase_confined(
+        torch, ck, device, work, args, smi)
     entries += more
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 7. the fused ring kernels E and F
+    entries += phase_ring_kernels(
+        torch, ck, device, (nodes, nodes, f, True),
+        (ring_inputs["shell_nodes"], ring_inputs["fiber_nodes"],
+         ring_inputs["f_dl"], False), smi)
+    del nodes, f
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 8. the ellipsoid config through the ring evaluator
+    launches["ellipsoid_ring"], at_run = phase_ring_run(
+        torch, ck, device, ring_inputs, smi)
+    for e in entries:
+        if e["name"] in at_run:
+            e["at_ring_run_shape"] = at_run[e["name"]]
+    del ring_inputs
     shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 7. the body scene at its published size
+    # 9. the body scene at its published size
     launches["body_const_force"] = phase_bodies(torch, ck, device, work)[0]
 
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
                "stokeslet_f64": "free_fibers_10k",
-               "stresslet_f32": "ellipsoid", "stresslet_f64": "ellipsoid"}
+               "stresslet_f32": "ellipsoid", "stresslet_f64": "ellipsoid",
+               "ring_stokeslet_f32": "ellipsoid_ring",
+               "ring_stresslet_f32": "ellipsoid_ring"}
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
     return entries, launches, smi

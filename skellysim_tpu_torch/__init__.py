@@ -7,8 +7,9 @@ and keeps its own copies of the small host-side modules it needs.
 
 Slices covered so far: the single-card implicit timestep of fibers, a
 confining periphery and rigid bodies with attached fibers, with point and
-background sources, and its precompute; the pairwise Stokeslet and
-stresslet sums run on hand-written Hopper kernels (`ops.cuda_kernels`).
+background sources, and its precompute, with the direct pair evaluator or
+the ring evaluator over a device mesh (`parallel`); the pairwise Stokeslet
+and stresslet sums run on hand-written Hopper kernels (`ops.cuda_kernels`).
 Entry points run on the CUDA card unless the caller asks for the CPU
 (`--device=cpu`, ``device="cpu"``); a missing card raises.
 """

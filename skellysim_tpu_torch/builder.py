@@ -22,6 +22,7 @@ from .fibers import container as fc
 from .params import resolve_precision
 from .periphery import periphery as peri
 from .system import BackgroundFlow, PointSources, System
+from .system.buckets import pad_for_mesh
 from .utils import quaternion as quat
 from .utils.rng import SimRNG
 
@@ -181,18 +182,24 @@ def build_background(cfg_bg, dtype, device):
 
 
 def build_simulation(config, config_dir: str = ".", dtype=torch.float64,
-                     device=None):
+                     device=None, mesh=None):
     """Config (object or TOML path) -> (System, SimState, SimRNG); the
     precompute npz files are read from ``config_dir`` (a TOML path's own
-    directory)."""
+    directory).
+
+    ``mesh`` (`parallel.make_mesh`) enables the ring pair evaluator when
+    the config selects pair_evaluator = "ring": each fiber bucket is then
+    padded with inert fibers to a mesh-divisible node count
+    (`system.buckets.pad_for_mesh`). Without a mesh the direct evaluator
+    runs (the CLI builds none)."""
     if isinstance(config, (str, os.PathLike)):
         config_dir = os.path.dirname(os.path.abspath(config)) or "."
         config = schema.load_config(str(config))
     device = resolve_device(device)
     params = schema.to_runtime_params(config.params)
-    if params.pair_evaluator == "ring":
-        warnings.warn("config selects pair_evaluator='ring' but a one-card "
-                      "run has no mesh; using the direct evaluator")
+    if params.pair_evaluator == "ring" and mesh is None:
+        warnings.warn("config selects pair_evaluator='ring' but no mesh was "
+                      "given to build_simulation; using the direct evaluator")
     shell, shape = None, None
     if getattr(config, "periphery", None) is not None:
         mixed = resolve_precision(params.solver_precision,
@@ -201,9 +208,12 @@ def build_simulation(config, config_dir: str = ".", dtype=torch.float64,
         shell, shape = build_periphery(
             config.periphery, config_dir, dtype, device,
             precond_dtype=torch.float32 if mixed else None)
-    system = System(params, shell_shape=shape, device=device)
+    fibers = build_fibers(config.fibers, dtype, device)
+    if params.pair_evaluator == "ring" and mesh is not None:
+        fibers = pad_for_mesh(fibers, mesh.size)
+    system = System(params, shell_shape=shape, device=device, mesh=mesh)
     state = system.make_state(
-        fibers=build_fibers(config.fibers, dtype, device),
+        fibers=fibers,
         points=build_point_sources(config.point_sources, dtype, device),
         background=build_background(config.background, dtype, device),
         shell=shell,

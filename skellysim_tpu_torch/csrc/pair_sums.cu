@@ -5,7 +5,7 @@
 //   stresslet  u_t = scale * sum_s -3 (d^T S_s d) d / r^5
 //
 // with d = x_t - x_s and pairs at r == 0 dropped (scale = 1/(8 pi eta), or 1
-// for the unscaled entry the ring evaluator will use; the stresslet's -3 is
+// for the unscaled entry the ring evaluator's per-hop blocks use; the stresslet's -3 is
 // part of the sum either way, as in `stresslet_pallas_block`). Positions are
 // row-major [n, 3]; the payload is [n_src, 3] forces (Stokeslet) or [n_src, 9]
 // row-major stresslet components S (Sxx..Szz); the output is [n_trg, 3].
@@ -55,69 +55,20 @@
 //    eps * (sqrt(TILE) + sqrt(n_src / TILE)) instead of eps * sqrt(n_src);
 //  * the ragged edges are masked by bounds checks (targets: `live`; sources:
 //    the tile count), never by padding with sentinel coordinates;
-//  * the r == 0 drop is a select (`r2 > 0 ? rsqrt(r2) : 0`), never a
-//    multiply: fiber nodes are sources and targets of the Stokeslet sum, body
-//    nodes of the body double layer, and their self term must be exactly
-//    zero; inactive slots and zero-density sources sitting on a target must
-//    not turn into rsqrt(0) * 0 = NaN.
+//  * the r == 0 drop is a select, never a multiply (the pair functors and
+//    the select live in `pair_functors.cuh`, shared with the fused ring
+//    kernels of `ring_sums.cu`).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "pair_functors.cuh"
+
 namespace {
 
-__device__ __forceinline__ float rsqrt_t(float v) { return rsqrtf(v); }
-__device__ __forceinline__ double rsqrt_t(double v) { return rsqrt(v); }
-
-// A pair family: its block size (one staged source per thread), inner-loop
-// unroll, payload width, the constant applied to the finished sum, and the
-// pair term added to the tile partial.
-template <typename Real>
-struct Stokeslet {
-  using T = Real;
-  static constexpr int kThreads = 256;
-  static constexpr int kUnroll = 4;
-  static constexpr int kPayload = 3;
-  struct __align__(16) Record {
-    T x, y, z;
-    T p[kPayload];  // force
-  };
-  __device__ static T finish(T scale) { return scale; }
-  __device__ static void add(const Record& rec, T dx, T dy, T dz, T rinv,
-                             T& px, T& py, T& pz) {
-    const T rinv3 = rinv * rinv * rinv;
-    const T c = (dx * rec.p[0] + dy * rec.p[1] + dz * rec.p[2]) * rinv3;
-    px += rinv * rec.p[0] + c * dx;
-    py += rinv * rec.p[1] + c * dy;
-    pz += rinv * rec.p[2] + c * dz;
-  }
-};
-
-template <typename Real>
-struct Stresslet {
-  using T = Real;
-  static constexpr int kThreads = 128;
-  static constexpr int kUnroll = 2;
-  static constexpr int kPayload = 9;
-  struct __align__(16) Record {
-    T x, y, z;
-    T p[kPayload];  // S, row-major
-  };
-  __device__ static T finish(T scale) { return T(-3) * scale; }
-  __device__ static void add(const Record& rec, T dx, T dy, T dz, T rinv,
-                             T& px, T& py, T& pz) {
-    const T rinv2 = rinv * rinv;
-    const T rinv5 = rinv2 * rinv2 * rinv;
-    const T sdx = rec.p[0] * dx + rec.p[1] * dy + rec.p[2] * dz;
-    const T sdy = rec.p[3] * dx + rec.p[4] * dy + rec.p[5] * dz;
-    const T sdz = rec.p[6] * dx + rec.p[7] * dy + rec.p[8] * dz;
-    const T c = (dx * sdx + dy * sdy + dz * sdz) * rinv5;
-    px += c * dx;
-    py += c * dy;
-    pz += c * dz;
-  }
-};
+using skelly::Stokeslet;
+using skelly::Stresslet;
 
 template <class Pair, int kUnroll>
 __global__ void __launch_bounds__(Pair::kThreads)
@@ -146,15 +97,7 @@ pair_sum_kernel(const typename Pair::T* __restrict__ trg,
     const int64_t s = base + threadIdx.x;
     __syncthreads();  // every thread is done reading the previous tile
     if (s < n_src) {
-      Record rec;
-      rec.x = src[3 * s + 0];
-      rec.y = src[3 * s + 1];
-      rec.z = src[3 * s + 2];
-#pragma unroll
-      for (int k = 0; k < Pair::kPayload; ++k) {
-        rec.p[k] = payload[Pair::kPayload * s + k];
-      }
-      tile[threadIdx.x] = rec;
+      tile[threadIdx.x] = skelly::load_record<Pair>(src, payload, s);
     }
     __syncthreads();
 
@@ -163,13 +106,8 @@ pair_sum_kernel(const typename Pair::T* __restrict__ trg,
     T px = T(0), py = T(0), pz = T(0);
 #pragma unroll (kUnroll)
     for (int j = 0; j < count; ++j) {
-      const Record rec = tile[j];
-      const T dx = tx - rec.x;
-      const T dy = ty - rec.y;
-      const T dz = tz - rec.z;
-      const T r2 = dx * dx + dy * dy + dz * dz;
-      const T rinv = r2 > T(0) ? rsqrt_t(r2) : T(0);  // select: self pair -> 0
-      Pair::add(rec, dx, dy, dz, rinv, px, py, pz);
+      const Record rec = tile[j];  // one vector read of the staged record
+      skelly::pair_term<Pair>(rec, tx, ty, tz, px, py, pz);
     }
     ux += px;
     uy += py;

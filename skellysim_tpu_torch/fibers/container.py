@@ -6,9 +6,9 @@ batched call (`fd_fiber`). The ``active`` mask keeps inactive slots inert
 exactly as the JAX package does (docs/audit.md "Masking discipline"): they
 contribute zero flow, force and error and solve the identity.
 
-Slice limits: static resolutions only (no runtime node padding) and the
-direct pair evaluator only (`flow_multi`'s ring/Ewald/spectral/tree
-branches belong to ROADMAP §1 items 10 and 12).
+Slice limits: static resolutions only (no runtime node padding), and the
+direct and ring pair evaluators (`flow_multi`'s Ewald/spectral/tree branches
+belong to ROADMAP §1 item 10, `flow_multi_local` to item 12).
 """
 
 from __future__ import annotations
@@ -199,20 +199,25 @@ def weighted_forces(group: FiberGroup, forces) -> torch.Tensor:
 
 def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
                subtract_self: bool = True, evaluator: str = "direct",
-               impl: str = "exact") -> torch.Tensor:
+               mesh=None, impl: str = "exact") -> torch.Tensor:
     """Velocity at targets from every fiber node of every bucket, in ONE
-    pair-kernel pass (`skellysim_tpu.fibers.container.flow_multi`, direct
-    branch).
+    pair-evaluator pass (`skellysim_tpu.fibers.container.flow_multi`,
+    direct and ring branches).
+
+    ``evaluator="ring"`` with a ``mesh`` rotates the source blocks around
+    the mesh (`parallel.ring`; the f64-grade "pallas_df" tier through
+    `ring_stokeslet_df`, cast back to the target dtype); the caller pads the
+    targets to a mesh multiple. Without a mesh the direct kernel runs.
 
     When ``subtract_self`` the leading targets are the concatenated fiber
     nodes in bucket order, and each fiber's dense self-interaction is
     subtracted (it is handled by the SBT mobility instead). That relies on
     the pair kernel's self term being exactly zero.
     """
-    if evaluator != "direct":
+    if evaluator not in ("direct", "ring"):
         raise NotImplementedError(
             f"pair evaluator {evaluator!r} is not ported yet (ROADMAP.md §1 "
-            "item 10 for ewald/tree/spectral, item 12 for ring)")
+            "item 10)")
     pos = torch.cat([node_positions(g) for g in buckets], dim=0)
     wf = torch.cat([weighted_forces(g, f).reshape(-1, 3)
                     for g, f in zip(buckets, forces_list)], dim=0)
@@ -224,7 +229,17 @@ def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
     if subtract_self:
         # keep the leading self targets consistent with the pinned sources
         r_trg = torch.cat([pos, r_trg[n_fib_nodes:]], dim=0)
-    vel = kernels.stokeslet_direct(pos, r_trg, wf, eta, impl=impl)
+    if evaluator == "ring" and mesh is not None:
+        from ..parallel import ring
+
+        if impl in ("df", "pallas_df"):
+            vel = ring.ring_stokeslet_df(pos, r_trg, wf, eta, mesh=mesh,
+                                         impl=impl).to(r_trg.dtype)
+        else:
+            vel = ring.ring_stokeslet(pos, r_trg, wf, eta, mesh=mesh,
+                                      impl=impl)
+    else:
+        vel = kernels.stokeslet_direct(pos, r_trg, wf, eta, impl=impl)
     if subtract_self:
         off = 0
         for g, caches in zip(buckets, caches_list):
@@ -285,3 +300,39 @@ def fiber_error(group: FiberGroup) -> torch.Tensor:
 
 def solution_size(group: FiberGroup) -> int:
     return group.n_fibers * 4 * group.n_nodes
+
+
+def grow_capacity(group: FiberGroup, new_cap: int,
+                  node_multiple: int = 1) -> FiberGroup:
+    """Pad every [nf]-leading tensor to ``new_cap`` slots, the padding
+    inactive (`skellysim_tpu.fibers.container.grow_capacity`).
+
+    ``node_multiple`` (the mesh size) rounds ``new_cap`` further up until
+    the total node count divides it: the ring evaluator's divisibility
+    invariant. Padded slots replicate slot 0 instead of zero-filling (a
+    zero-length, zero-x fiber makes the cache derivatives inf/NaN) and are
+    inert: inactive and unbound.
+    """
+    if node_multiple > 1:
+        while (new_cap * group.n_nodes) % node_multiple != 0:
+            new_cap += 1
+    nf = group.n_fibers
+    pad = new_cap - nf
+    if pad <= 0:
+        return group
+
+    def pad_leaf(leaf):
+        if leaf is None or leaf.ndim == 0 or leaf.shape[0] != nf:
+            return leaf
+        if nf == 0:
+            fill = leaf.new_zeros((pad,) + tuple(leaf.shape[1:]))
+        else:
+            fill = leaf[:1].expand((pad,) + tuple(leaf.shape[1:]))
+        return torch.cat([leaf, fill], dim=0)
+
+    padded = type(group)(*[pad_leaf(leaf) for leaf in group])
+    live = torch.arange(new_cap, device=group.x.device) < nf
+    return padded._replace(
+        active=padded.active & live,
+        binding_body=torch.where(live, padded.binding_body,
+                                 torch.full_like(padded.binding_body, -1)))

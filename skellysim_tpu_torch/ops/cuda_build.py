@@ -4,7 +4,8 @@ Each source under ``skellysim_tpu_torch/csrc`` has a plain C interface and is
 compiled by ``nvcc`` into a shared library under ``skellysim_tpu_torch/_build``
 (git-ignored) at first use, then loaded with `ctypes`. No PyTorch header is
 included, so a build takes seconds. Libraries are named by a hash of the
-source and the flags, so an edited source never loads a stale build, and a
+source, the shared headers and the flags, so an edited source never loads a
+stale build, and a
 finished build is reused by later processes. Nothing here runs at import.
 """
 
@@ -47,8 +48,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Build path of ``csrc/<name>.cu``'s library, keyed by source + flags."""
+    """Build path of ``csrc/<name>.cu``'s library, keyed by the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 

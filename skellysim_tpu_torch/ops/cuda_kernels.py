@@ -26,6 +26,17 @@ source note there says what bounds them on the card and what the design
 does about it), built with nvcc and loaded with ctypes at the first launch
 (`ops.cuda_build`).
 
+Kernel E, `ring_stokeslet_f32`, and kernel F, `ring_stresslet_f32`: the
+float32 Stokeslet and stresslet sums of a ring evaluator, every shard's
+resident targets against every shard's source block, with the blocks
+rotating around the ring inside one kernel. They replace
+`skellysim_tpu/parallel/ring_fused.py::_ring_kernel` (kind "stokeslet" and
+"stresslet", reached through `fused_ring_block_sum`) and carry every f32
+fiber and shell flow of a ring run. Both are ``csrc/ring_sums.cu``; they
+take per-shard lists (shard k on its mesh device) and return the unscaled
+per-shard sums. Their plain version is the ring accumulation
+(`parallel.ring._ring_accumulate`) over kernel A's / C's plain block.
+
 One routing rule in each wrapper: a CPU tensor takes the plain version (the
 blocked displacement forms of `ops.kernels.stokeslet_block` /
 `stresslet_block`); a CUDA tensor launches the kernel. There is no
@@ -48,8 +59,12 @@ from .kernels import _pair_sum, stokeslet_block, stresslet_block
 
 _FACTOR = 1.0 / (8.0 * math.pi)
 
-#: the one kernel source, ``csrc/pair_sums.cu``
+#: the tiled pair sums' source, ``csrc/pair_sums.cu`` (kernels A-D)
 SOURCE = "pair_sums"
+#: the fused ring sums' source, ``csrc/ring_sums.cu`` (kernels E and F)
+RING_SOURCE = "ring_sums"
+#: every kernel source (chip_smoke builds them in parallel)
+SOURCES = (SOURCE, RING_SOURCE)
 #: per family: the plain block form and the payload's columns per source
 #: (forces; the 9 row-major stresslet components)
 _FAMILIES = {"stokeslet": (stokeslet_block, 3),
@@ -60,22 +75,47 @@ _DTYPES = {"f32": torch.float32, "f64": torch.float64}
 _libs: dict = {}
 
 
-def _library():
-    lib = _libs.get(SOURCE)
-    if lib is None:
-        lib = cuda_build.load(SOURCE)
-        ptr = ctypes.c_void_p
+def _library(source: str = SOURCE):
+    lib = _libs.get(source)
+    if lib is not None:
+        return lib
+    lib = cuda_build.load(source)
+    ptr, cint, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if source == SOURCE:
         for family in _FAMILIES:
             for prec, scalar in (("f32", ctypes.c_float),
                                  ("f64", ctypes.c_double)):
                 fn = getattr(lib, f"{family}_{prec}_launch")
-                fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                               ctypes.c_longlong, scalar, ptr]
-                fn.restype = ctypes.c_int
-        lib.pair_sums_error_string.argtypes = [ctypes.c_int]
-        lib.pair_sums_error_string.restype = ctypes.c_char_p
-        _libs[SOURCE] = lib
+                fn.argtypes = [ptr, ptr, ptr, ptr, cll, cll, scalar, ptr]
+                fn.restype = cint
+    else:
+        for family in _FAMILIES:
+            fn = getattr(lib, f"ring_{family}_f32_launch")
+            fn.argtypes = [ptr, cint, cll, cll, cint, cint, cint,
+                           ctypes.c_ulonglong, ptr]
+            fn.restype = cint
+            fn = getattr(lib, f"ring_{family}_f32_grid_x")
+            fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
+            fn.restype = cint
+        lib.ring_record_bytes.argtypes = [cint]
+        lib.ring_record_bytes.restype = cint
+        lib.ring_enable_peer_access.argtypes = [cint, cint]
+        lib.ring_enable_peer_access.restype = cint
+        for i, family in enumerate(_FAMILIES):
+            got = lib.ring_record_bytes(i)
+            if got != 4 * _RING_RECORD_WORDS[family]:
+                raise RuntimeError(f"ring_sums.cu's {family} record is {got} "
+                                   "bytes, the wrapper sizes slots for "
+                                   f"{4 * _RING_RECORD_WORDS[family]}")
+    err = getattr(lib, f"{source}_error_string")
+    err.argtypes = [cint]
+    err.restype = ctypes.c_char_p
+    _libs[source] = lib
     return lib
+
+
+def _cuda_error(source: str, rc: int) -> str:
+    return getattr(_library(source), f"{source}_error_string")(rc).decode()
 
 
 def _scale(eta) -> float:
@@ -113,8 +153,8 @@ def _launch(name, family, dtype, r_src, r_trg, payload, scale):
             trg.data_ptr(), src.data_ptr(), pay.data_ptr(), out.data_ptr(),
             trg.shape[0], src.shape[0], scale, stream)
     if rc != 0:
-        err = lib.pair_sums_error_string(rc).decode()
-        raise RuntimeError(f"{name}_launch failed: CUDA error {rc} ({err})")
+        raise RuntimeError(f"{name}_launch failed: CUDA error {rc} "
+                           f"({_cuda_error(SOURCE, rc)})")
     return out, True
 
 
@@ -158,5 +198,196 @@ stokeslet_f64, stokeslet_f64_plain = _make_wrapper("stokeslet", "f64")  # B
 stresslet_f32, stresslet_f32_plain = _make_wrapper("stresslet", "f32")  # C
 stresslet_f64, stresslet_f64_plain = _make_wrapper("stresslet", "f64")  # D
 
+
+# ---------------------------------------------------------------- ring sums
+
+#: floats a slot record takes (position + payload, padded to 16 bytes);
+#: checked against the source when the library loads
+_RING_RECORD_WORDS = {"stokeslet": 8, "stresslet": 12}
+#: shards one ring call serves at most (the kernel's table size)
+_RING_MAX_SHARDS = 16
+
+
+class _RingComm:
+    """One ring's persistent device state: each shard's n write-once slots
+    and its n + 2 monotone counters (arrival per slot, entry, exit), on the
+    shard's device, and the number of calls served (the epoch the kernel
+    waits for). The counters are zeroed once here and never again: a reset
+    between calls would race with a slow neighbour. Each zero fill runs on
+    its card's current stream, which nothing orders before a neighbour
+    card's first signal into these counters, so every card of the ring is
+    synchronized before the ring is used (once a ring)."""
+
+    def __init__(self, family, devices, n_src):
+        n = len(devices)
+        words = _RING_RECORD_WORDS[family]
+        self.slots = [torch.empty(n * n_src * words, dtype=torch.float32,
+                                  device=d) for d in devices]
+        self.flags = [torch.zeros(n + 2, dtype=torch.int64, device=d)
+                      for d in devices]
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        self.epoch = 0
+
+
+#: ring state by (family, shard devices, sources a shard); process-wide
+#: because the counters must outlive every call of the ring (a fresh,
+#: zeroed buffer a call could reuse memory a neighbour card still writes)
+_ring_comms: dict = {}
+#: rings whose call failed part-way: a neighbour card's launch of that call
+#: may still write their slots and counters, so they are never freed
+_failed_rings: list = []
+#: cooperative grid width by (family, device, shards a launch)
+_ring_grids: dict = {}
+
+
+def _ring_grid(lib, family, device, count) -> int:
+    key = (family, device, count)
+    if key not in _ring_grids:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = getattr(lib, f"ring_{family}_f32_grid_x")(
+                count, device.index, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"ring_{family}_f32 has no cooperative grid "
+                               f"on {device}: CUDA error {rc} "
+                               f"({_cuda_error(RING_SOURCE, rc)})")
+        _ring_grids[key] = out.value
+    return _ring_grids[key]
+
+
+def _launch_groups(devices):
+    """(device, first shard, shard count) of each launch: one per run of
+    consecutive shards on one device (one per card on a card mesh, one for
+    every shard of a mesh on one card)."""
+    groups = []
+    for k, d in enumerate(devices):
+        if groups and groups[-1][0] == d:
+            groups[-1][2] += 1
+        else:
+            groups.append([d, k, 1])
+    return [tuple(g) for g in groups]
+
+
+def _ring_launch(family, r_trg, src, payload):
+    """Validate the per-shard lists, allocate the outputs and the ring
+    state, and issue every launch of one ring call (all of them before
+    anything that blocks); returns (per-shard outputs, launches)."""
+    n = len(r_trg)
+    if not 1 <= n <= _RING_MAX_SHARDS or len(src) != n or len(payload) != n:
+        raise ValueError(f"a ring call takes 1..{_RING_MAX_SHARDS} shards and "
+                         "one source block and payload per target block; got "
+                         f"{n}, {len(src)}, {len(payload)}")
+    devices = [t.device for t in r_trg]
+    if any(d.type != "cuda" for d in devices):
+        raise ValueError(f"ring kernel shards must all lie on CUDA devices, "
+                         f"got {devices}")
+    cols = _FAMILIES[family][1]
+    f32 = torch.float32
+    trg = [_check_rows("r_trg", t, 3, f32, d) for t, d in zip(r_trg, devices)]
+    srcs = [_check_rows("r_src", s, 3, f32, d) for s, d in zip(src, devices)]
+    pays = [_check_rows("payload", p.reshape(p.shape[0], cols), cols, f32, d)
+            for p, d in zip(payload, devices)]
+    nt, ns = trg[0].shape[0], srcs[0].shape[0]
+    if (any(t.shape[0] != nt for t in trg)
+            or any(a.shape[0] != ns for a in srcs + pays)):
+        raise ValueError("every shard needs the same target and source "
+                         f"counts; got {[t.shape[0] for t in trg]} targets, "
+                         f"{[a.shape[0] for a in srcs]} sources, "
+                         f"{[a.shape[0] for a in pays]} payload rows")
+    out = [torch.zeros((nt, 3), dtype=f32, device=d) for d in devices]
+    if nt == 0 or ns == 0:
+        return out, 0
+    lib = _library(RING_SOURCE)
+    key = (family, tuple(devices), ns)
+    comm = _ring_comms.get(key)
+    if comm is None:
+        comm = _ring_comms[key] = _RingComm(family, devices, ns)
+    groups = _launch_groups(devices)
+    grid = min(_ring_grid(lib, family, d, c) for d, _, c in groups)
+    table = (ctypes.c_ulonglong * (6 * n))(*[
+        p for k in range(n) for p in (
+            trg[k].data_ptr(), srcs[k].data_ptr(), pays[k].data_ptr(),
+            out[k].data_ptr(), comm.slots[k].data_ptr(),
+            comm.flags[k].data_ptr())])
+    comm.epoch += 1
+    launch = getattr(lib, f"ring_{family}_f32_launch")
+    for d, first, count in groups:
+        with torch.cuda.device(d):
+            stream = torch.cuda.current_stream(d).cuda_stream
+            rc = launch(table, n, nt, ns, first, count, grid, comm.epoch,
+                        stream)
+        if rc != 0:
+            # the ring's counters no longer match its epoch, and the
+            # launches already issued (other cards) may still write its
+            # buffers: keep them alive, and give the next call a fresh ring
+            _failed_rings.append(_ring_comms.pop(key))
+            raise RuntimeError(f"ring_{family}_f32_launch failed on {d}: "
+                               f"CUDA error {rc} "
+                               f"({_cuda_error(RING_SOURCE, rc)})")
+    return out, len(groups)
+
+
+def _make_ring_wrapper(family: str):
+    """(kernel wrapper, plain version) of one ring family. Both take lists
+    with one entry a shard: targets [nt, 3], sources [ns, 3] and payload
+    [ns, 3] forces or [ns, 3, 3] / [ns, 9] stresslet components, shard k on
+    its own device; both return the unscaled float32 sums [nt, 3] a shard,
+    each on its shard's device."""
+    name = f"ring_{family}_f32"
+    block_plain = {"stokeslet": stokeslet_f32_plain,
+                   "stresslet": stresslet_f32_plain}[family]
+
+    def plain(r_trg, src, payload):
+        from ..parallel.ring import _ring_accumulate
+
+        u0 = [torch.zeros((t.shape[0], 3), dtype=torch.float32,
+                          device=t.device) for t in r_trg]
+        return _ring_accumulate(
+            lambda k, s, p: block_plain(s, r_trg[k], p),
+            [t.device for t in r_trg], u0, list(src), list(payload))
+
+    def wrapper(r_trg, src, payload):
+        if all(t.device.type == "cpu" for t in r_trg):
+            return plain(r_trg, src, payload)
+        out, launched = _ring_launch(family, r_trg, src, payload)
+        wrapper.launches += launched
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    plain.__name__ = plain.__qualname__ = f"{name}_plain"
+    wrapper.__doc__ = (f"The f32 {family} ring sum on its fused CUDA kernel "
+                       f"(CPU tensors: `{name}_plain`); one launch a card.")
+    plain.__doc__ = (f"Plain f32 {family} ring sum: the ring accumulation "
+                     "over the plain block (the version the kernel is held "
+                     "against).")
+    wrapper.launches = 0
+    return wrapper, plain
+
+
+ring_stokeslet_f32, ring_stokeslet_f32_plain = \
+    _make_ring_wrapper("stokeslet")  # E
+ring_stresslet_f32, ring_stresslet_f32_plain = \
+    _make_ring_wrapper("stresslet")  # F
+
+
+def enable_ring_peer_access(devices) -> None:
+    """Let every card of a ring reach its two neighbours' memory (their
+    slots and counters); raises where a pair of neighbours cannot."""
+    lib = _library(RING_SOURCE)
+    n = len(devices)
+    for k, d in enumerate(devices):
+        for nb in {devices[(k + 1) % n], devices[(k - 1) % n]} - {d}:
+            rc = lib.ring_enable_peer_access(d.index, nb.index)
+            if rc == -1:
+                raise RuntimeError(f"{d} cannot reach its ring neighbour {nb} "
+                                   "(cudaDeviceCanAccessPeer is 0)")
+            if rc != 0:
+                raise RuntimeError(f"enabling peer access {d} -> {nb} failed: "
+                                   f"CUDA error {rc} "
+                                   f"({_cuda_error(RING_SOURCE, rc)})")
+
+
 #: every kernel wrapper of this module (chip_smoke resets and reads these)
-KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64)
+KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64,
+                   ring_stokeslet_f32, ring_stresslet_f32)

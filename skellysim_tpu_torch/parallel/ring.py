@@ -1,0 +1,191 @@
+"""Ring-pass pairwise Stokes sums over a device mesh.
+
+Counterpart of `skellysim_tpu.parallel.ring`: each shard keeps its target
+block resident and the source blocks rotate neighbour to neighbour, so a
+shard never holds more than one foreign source block at a time. The
+accumulation order is the JAX ring's, shard by shard: the own block first,
+then the left neighbour's, and so on.
+
+Two transports serve one call site (`_ring_or_fused`):
+
+* the fused ring kernels E / F (`ops.cuda_kernels.ring_stokeslet_f32` /
+  `ring_stresslet_f32`, the counterparts of the JAX package's
+  `ring_fused.fused_ring_block_sum`): the f32 ``impl="pallas"`` interior on
+  CUDA tensors, one launch a card, the blocks moving inside the kernel.
+  JAX's VMEM budget gate (`fused_ring_fits`) does not carry over: the
+  card's ring slots live in device memory and serve every shape, so shapes
+  a TPU sends back to the ``ppermute`` ring take the fused kernel here;
+* the hop-by-hop accumulation `_ring_accumulate` (the JAX package's
+  ``lax.ppermute`` loop): hop j moves every shard's rotating blocks to the
+  next shard's device (``perm = [(j, j + 1 mod n)]``), and each shard adds
+  one block sum a hop. It serves ``impl="exact"`` (kernels A / B or C / D a
+  hop, by the operands' precision; their plain versions on the CPU), the
+  opt-out ``SKELLY_FUSED_RING=0``, every CPU tensor, and the f64-grade
+  ``ring_*_df`` sums (kernel B or D a hop, the f64 sum kept).
+
+Inputs are whole [N, ...] tensors on the caller's device whose leading axis
+the mesh size divides (pad first, as `System` does); they are cut into
+equal shard blocks, each placed on its shard's device, and the result comes
+back to the caller's device. `ring_flow_local` (the SPMD step's in-mesh
+seam) and `ring_oseen_contract` (no caller on the ring path) belong to the
+next slice (ROADMAP.md §1 item 12).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops import cuda_kernels
+from ..ops.kernels import pallas_impl_for
+from .compat import fused_ring_mode
+from .mesh import Mesh
+
+#: payload columns a source, by kernel family
+_PAYLOAD_COLS = {"stokeslet": 3, "stresslet": 9}
+
+
+def _shard(a, mesh: Mesh) -> list:
+    """[N, ...] -> ``mesh.size`` equal leading blocks, block k on shard k's
+    device (views when the shard lives on ``a``'s device)."""
+    n = mesh.size
+    if a.shape[0] % n != 0:
+        raise ValueError(f"ring operands need a leading axis divisible by the "
+                         f"mesh size ({n}); got {tuple(a.shape)}")
+    m = a.shape[0] // n
+    return [a[k * m:(k + 1) * m].to(d) for k, d in enumerate(mesh.devices)]
+
+
+def _gather(blocks, device) -> torch.Tensor:
+    return torch.cat([b.to(device) for b in blocks], dim=0)
+
+
+def _ring_accumulate(block_fn, devices, u0, *rotating) -> list:
+    """Accumulate ``block_fn(k, *blocks)`` into shard k's ``u0[k]`` over all
+    ring positions. ``rotating`` are per-shard lists; at hop j shard k holds
+    the blocks of shard (k - j) mod n. Each hop issues the move of the NEXT
+    blocks before the block sums of the current ones (the JAX ring's
+    overlap: the two are independent), and the final position is consumed
+    without a trailing move: n - 1 hops."""
+    n = len(devices)
+    u = list(u0)
+    rot = [list(r) for r in rotating]
+    for hop in range(n):
+        nxt = None
+        if hop < n - 1:
+            nxt = [[r[(k - 1) % n].to(devices[k], non_blocking=True)
+                    for k in range(n)] for r in rot]
+        u = [u[k] + block_fn(k, *(r[k] for r in rot)) for k in range(n)]
+        if nxt is not None:
+            rot = nxt
+    return u
+
+
+def _ring_or_fused(kind, impl: str, block_fn, mesh: Mesh, r_trg, *rotating):
+    """THE ring call site: the fused ring kernel where `compat
+    .fused_ring_mode` selects it on a mesh of more than one shard, else the
+    hop-by-hop accumulation of ``block_fn(trg, *blocks)`` (unscaled) from
+    zero. ``r_trg`` and ``rotating`` are per-shard lists; returns the
+    unscaled per-shard sums. ``kind`` names the fused family
+    ("stokeslet" / "stresslet"; None for tiles it does not serve)."""
+    if (kind is not None and mesh.size > 1
+            and fused_ring_mode(impl, r_trg[0].device) == "fused"):
+        return getattr(cuda_kernels, f"ring_{kind}_f32")(r_trg, *rotating)
+    return _ring_accumulate(lambda k, *blk: block_fn(r_trg[k], *blk),
+                            mesh.devices, [torch.zeros_like(t) for t in r_trg],
+                            *rotating)
+
+
+def _ring_block(impl: str, family: str, dtype):
+    """Per-hop block of the hop-by-hop ring: the unscaled pair sum of the
+    operands' precision (kernel A / C in f32, B / D in f64; their plain
+    versions on the CPU), as `ops.kernels` routes "exact" and "pallas".
+    Names the ring does not serve raise."""
+    if impl in ("exact", "pallas"):
+        prec = "f32" if dtype == torch.float32 else "f64"
+        kern = getattr(cuda_kernels, f"{family}_{prec}")
+        return lambda trg, src, pay: kern(src, trg, pay)
+    if impl in ("df", "mxu"):
+        raise NotImplementedError(
+            f"ring tile {impl!r} is not ported yet (ROADMAP.md §1 item 9); "
+            "use 'exact' or 'pallas'")
+    raise ValueError(
+        f"ring evaluator has no {impl!r} tile; use 'exact' or 'pallas' (the "
+        "f64-grade tier rides ring_stokeslet_df / ring_stresslet_df)")
+
+
+def _ring_eval(kind: str, impl: str, mesh: Mesh, scale, r_trg, src, payload):
+    """Shard, run the ring, scale, and bring the result back to
+    ``r_trg``'s device."""
+    block = _ring_block(impl, kind, r_trg.dtype)
+    payload = payload.reshape(payload.shape[0], _PAYLOAD_COLS[kind])
+    u = _ring_or_fused(kind, impl, block, mesh, _shard(r_trg, mesh),
+                       _shard(src, mesh), _shard(payload, mesh))
+    return _gather([x * scale for x in u], r_trg.device)
+
+
+def ring_stokeslet(r_src, r_trg, f_src, eta, *, mesh: Mesh,
+                   impl: str = "exact"):
+    """Ring-parallel singular Stokeslet sum (`ops.kernels
+    .stokeslet_direct`); the leading axes of ``r_src`` / ``f_src`` /
+    ``r_trg`` must be divisible by the mesh size. ``impl="pallas"`` with
+    f32 operands on the card takes kernel E; f64 operands resolve it to
+    "exact", as the direct seam does."""
+    impl = pallas_impl_for(impl, r_trg, r_src, f_src)
+    return _ring_eval("stokeslet", impl, mesh, 1.0 / (8.0 * math.pi * eta),
+                      r_trg, r_src, f_src)
+
+
+def ring_stresslet(r_dl, r_trg, f_dl, eta, *, mesh: Mesh,
+                   impl: str = "exact"):
+    """Ring-parallel stresslet (double-layer) sum (`ops.kernels
+    .stresslet_direct`); ``f_dl`` is [n_src, 3, 3]. ``impl="pallas"`` with
+    f32 operands on the card takes kernel F."""
+    impl = pallas_impl_for(impl, r_trg, r_dl, f_dl)
+    return _ring_eval("stresslet", impl, mesh, 1.0 / (8.0 * math.pi * eta),
+                      r_trg, r_dl, f_dl)
+
+
+def _df_ring_block(impl: str, family: str):
+    """f64-grade per-hop block: "pallas_df" is one unscaled launch of kernel
+    B / D (f32 or f64 in, f64 out; the plain f64 version on the CPU). The
+    JAX package's XLA double-float tiles ("df") are not ported."""
+    if impl == "pallas_df":
+        kern = getattr(cuda_kernels, f"{family}_f64")
+        return lambda trg, src, pay: kern(src, trg, pay)
+    if impl == "df":
+        raise NotImplementedError(
+            "refine tile 'df' (XLA double-float) is not ported yet "
+            "(ROADMAP.md §1 item 9); the port's f64-grade tile is "
+            "'pallas_df'")
+    raise ValueError(f"DF ring tiles serve 'df' or 'pallas_df', got {impl!r}")
+
+
+def _ring_df(family: str, impl: str, mesh: Mesh, r_src, r_trg, payload, eta):
+    """The f64-grade ring: each shard keeps an f64 sum of its resident
+    targets over the rotating blocks; returns float64 targets."""
+    block = _df_ring_block(impl, family)
+    trg = _shard(r_trg, mesh)
+    payload = payload.reshape(payload.shape[0], _PAYLOAD_COLS[family])
+    u0 = [torch.zeros((t.shape[0], 3), dtype=torch.float64, device=t.device)
+          for t in trg]
+    u = _ring_accumulate(lambda k, s, p: block(trg[k], s, p), mesh.devices,
+                         u0, _shard(r_src, mesh), _shard(payload, mesh))
+    return _gather([x / (8.0 * math.pi) / float(eta) for x in u],
+                   r_trg.device)
+
+
+def ring_stokeslet_df(r_src, r_trg, f_src, eta, *, mesh: Mesh,
+                      impl: str = "pallas_df"):
+    """Ring-parallel f64-grade Stokeslet sum: float64 targets, one kernel B
+    launch a hop and shard. (The JAX package defaults to its XLA "df"
+    tiles, which the port does not have.)"""
+    return _ring_df("stokeslet", impl, mesh, r_src, r_trg, f_src, eta)
+
+
+def ring_stresslet_df(r_dl, r_trg, f_dl, eta, *, mesh: Mesh,
+                      impl: str = "pallas_df"):
+    """Ring-parallel f64-grade stresslet; ``f_dl`` is [n_src, 3, 3]; one
+    kernel D launch a hop and shard."""
+    return _ring_df("stresslet", impl, mesh, r_dl, r_trg, f_dl, eta)

@@ -12,9 +12,11 @@ SkellySim's `precompute.py:104-140`):
   M_inv = inverse(M)   (the preconditioner)
 
 The shell double-layer flow to fiber and body nodes (`flow`) runs on the
-hand-written stresslet kernels C / D through `ops.kernels.stresslet_direct`.
-Node-masked shells (`grow_capacity`) belong to ROADMAP.md §1 item 11 and the
-fast evaluators to item 10; neither is ported.
+hand-written stresslet kernels C / D through `ops.kernels.stresslet_direct`,
+or, under the ring evaluator, on kernel F (f32) and D (a hop, f64-grade)
+through `parallel.ring`. Node-masked shells (`grow_capacity`) belong to
+ROADMAP.md §1 item 11 and the fast evaluators to item 10; neither is
+ported.
 """
 
 from __future__ import annotations
@@ -183,14 +185,33 @@ def update_RHS(v_on_shell):
     return -v_on_shell.reshape(-1)
 
 
-def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact"):
+def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact",
+         evaluator: str = "direct", mesh=None):
     """Shell -> target velocities through the double-layer stresslet, with
-    f_dl = 2 eta n (x) rho (the direct evaluator). The shell's
-    self-interaction is not computed here: `System._apply_matvec` evaluates
-    this flow at fiber/body rows only, the self block living in the stored
-    operator."""
+    f_dl = 2 eta n (x) rho. The shell's self-interaction is not computed
+    here: `System._apply_matvec` evaluates this flow at fiber/body rows
+    only, the self block living in the stored operator.
+
+    ``evaluator="ring"`` with a ``mesh`` rotates the shell's source blocks
+    around the mesh (`parallel.ring`), the sources padded to a mesh
+    multiple with far sentinel nodes (1e7) of zero density, as in the JAX
+    package; the caller pads the targets. Without a mesh the direct kernel
+    runs."""
     rho = density.reshape(-1, 3)
     f_dl = 2.0 * eta * shell.normals[:, :, None] * rho[:, None, :]
+    if evaluator == "ring" and mesh is not None:
+        from ..parallel import ring
+
+        src = shell.nodes
+        pad = (-src.shape[0]) % mesh.size
+        if pad:
+            src = torch.cat([src, torch.full((pad, 3), 1e7, dtype=src.dtype,
+                                             device=src.device)])
+            f_dl = torch.cat([f_dl, f_dl.new_zeros((pad, 3, 3))])
+        if impl in ("df", "pallas_df"):
+            return ring.ring_stresslet_df(src, r_trg, f_dl, eta, mesh=mesh,
+                                          impl=impl).to(r_trg.dtype)
+        return ring.ring_stresslet(src, r_trg, f_dl, eta, mesh=mesh, impl=impl)
     return kernels.stresslet_direct(shell.nodes, r_trg, f_dl, eta, impl=impl)
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of `skellysim_tpu.system.system` on one device: fibers, a
 confining periphery (shell), rigid bodies with attached fibers, and
-point/background sources, in any mix. The JAX package traces each trial
+point/background sources, in any mix; with a mesh (`parallel.make_mesh`)
+the fiber and shell pair flows take the ring evaluator, sharded over the
+mesh's devices (`parallel.ring`). The JAX package traces each trial
 step into one jitted program; here the step runs eagerly on the device with
 the Krylov control flow on the host (`solver.gmres`). The structure is kept:
 `_prep` (caches, explicit flows, BC-applied A/RHS and the batched LU
@@ -135,11 +137,13 @@ def _not_ported(what: str, item: str):
 class System:
     """Static configuration + the eager step/run functions.
     ``shell_shape`` is the periphery's collision geometry (required with a
-    shell in the state)."""
+    shell in the state). ``mesh`` (`parallel.make_mesh`) enables the ring
+    pair evaluator when ``params.pair_evaluator == "ring"``; its shards
+    must lie on devices of the system's device type."""
 
     def __init__(self, params: Params,
                  shell_shape: Optional[peri.PeripheryShape] = None,
-                 device=None):
+                 device=None, mesh=None):
         p = params
         if p.pair_evaluator not in EVALUATORS:
             raise ValueError(
@@ -180,6 +184,11 @@ class System:
         self.params = params
         self.shell_shape = shell_shape
         self.device = resolve_device(device)
+        if mesh is not None and any(d.type != self.device.type
+                                    for d in mesh.devices):
+            raise ValueError(f"the mesh's shards lie on {mesh.devices}, the "
+                             f"system on {self.device}")
+        self.mesh = mesh
 
     # ------------------------------------------------------------ policies
 
@@ -208,34 +217,68 @@ class System:
         return torch.float64
 
     def _ring_active(self) -> bool:
-        if self.params.pair_evaluator == "ring":
-            # no device mesh exists in a one-card run: the same diagnostic
-            # as the JAX package, then the dense direct path
+        ring = self.params.pair_evaluator == "ring"
+        if ring and self.mesh is None:
+            # the same diagnostic as the JAX package, then the dense direct
+            # path: a silent degradation would surprise a user expecting
+            # O(N/D) memory a shard
             warnings.warn("pair_evaluator='ring' falls back to 'direct': "
                           "no mesh was configured")
-        return False
+            return False
+        return ring
+
+    def _ring_pad_targets(self, r_trg):
+        """Pad the target rows to a mesh-size multiple (the shards take
+        equal blocks). Pad points sit at 1e6 — far from any geometry, never
+        coincident with the 1e7 source pads — and their rows are sliced
+        off."""
+        T = r_trg.shape[0]
+        pad = (-T) % self.mesh.size
+        if pad:
+            far = torch.full((pad, 3), 1e6, dtype=r_trg.dtype,
+                             device=r_trg.device)
+            r_trg = torch.cat([r_trg, far], dim=0)
+        return r_trg, T
 
     def _fiber_flow(self, state: SimState, caches_list, r_trg, forces_list,
                     subtract_self: bool = True, impl: str | None = None):
         """Fiber-source flow through the pair-evaluator seam; every
-        resolution bucket contributes sources to ONE kernel pass."""
+        resolution bucket contributes sources to ONE evaluator pass. The
+        ring path pads the target rows to a mesh multiple and rotates the
+        fiber-node source blocks around the mesh; shell/body target rows
+        ride along in the padded target set."""
+        buckets = fiber_buckets(state.fibers)
         if impl is None:
             impl = self.params.kernel_impl
-        self._ring_active()
-        return fc.flow_multi(fiber_buckets(state.fibers), caches_list, r_trg,
-                             forces_list, self.params.eta,
-                             subtract_self=subtract_self, evaluator="direct",
-                             impl=impl)
+        if not self._ring_active():
+            return fc.flow_multi(buckets, caches_list, r_trg, forces_list,
+                                 self.params.eta, subtract_self=subtract_self,
+                                 evaluator="direct", impl=impl)
+        nfn = sum(g.n_fibers * g.n_nodes for g in buckets)
+        if nfn % self.mesh.size != 0:
+            raise ValueError(
+                f"pair_evaluator='ring' requires the total fiber node count "
+                f"({nfn}) to be divisible by the mesh size ({self.mesh.size}); "
+                "round the fiber batch up (inactive padding fibers are free)")
+        r_pad, T = self._ring_pad_targets(r_trg)
+        vel = fc.flow_multi(buckets, caches_list, r_pad, forces_list,
+                            self.params.eta, subtract_self=subtract_self,
+                            evaluator="ring", mesh=self.mesh, impl=impl)
+        return vel[:T]
 
     def _shell_flow(self, state: SimState, r_trg, density,
                     impl: str | None = None):
-        """Shell -> target double-layer flow (the direct evaluator; the
-        shell's self-interaction lives in its dense operator)."""
+        """Shell -> target double-layer flow (the shell's self-interaction
+        lives in its dense operator); the source padding lives in
+        `peri.flow`, the target padding here."""
         if impl is None:
             impl = self.params.kernel_impl
-        self._ring_active()
-        return peri.flow(state.shell, r_trg, density, self.params.eta,
-                         impl=impl)
+        if not self._ring_active():
+            return peri.flow(state.shell, r_trg, density, self.params.eta,
+                             impl=impl)
+        r_pad, T = self._ring_pad_targets(r_trg)
+        return peri.flow(state.shell, r_pad, density, self.params.eta,
+                         impl=impl, evaluator="ring", mesh=self.mesh)[:T]
 
     # ---------------------------------------------------------- state setup
 

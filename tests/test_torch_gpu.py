@@ -219,13 +219,249 @@ def test_small_run_card_vs_cpu(cuda):
         out[dev] = (new.fibers.x.cpu().numpy(),
                     new.bodies.position.cpu().numpy(), sol.cpu().numpy())
         if dev == "cuda":
-            assert all(w.launches > k for w, k in zip(ck.KERNEL_WRAPPERS, n0))
+            # the direct evaluator's kernels A-D (the ring kernels E / F
+            # serve ring runs only)
+            direct = (ck.stokeslet_f32, ck.stokeslet_f64, ck.stresslet_f32,
+                      ck.stresslet_f64)
+            assert all(w.launches > k for w, k in zip(ck.KERNEL_WRAPPERS, n0)
+                       if w in direct)
     (x_card, pos_card, sol_card), (x_cpu, pos_cpu, sol_cpu) = (out["cuda"],
                                                                out["cpu"])
     np.testing.assert_allclose(x_card, x_cpu, rtol=0, atol=1e-8)
     np.testing.assert_allclose(pos_card, pos_cpu, rtol=0, atol=1e-8)
     np.testing.assert_allclose(sol_card, sol_cpu, rtol=0,
                                atol=1e-8 * np.abs(sol_cpu).max())
+
+
+def _ring_inputs(family, n_dev, nt, ns, device, seed=0):
+    """Per-shard f32 lists (targets, sources, payload) of a ring: sources
+    in a 10-box, and the first targets of every shard placed exactly on the
+    right neighbour's first sources (self pairs across shards)."""
+    rng = np.random.default_rng(seed)
+    cols = 3 if family == "stokeslet" else 9
+    src = rng.uniform(-5, 5, (n_dev * ns, 3))
+    pay = rng.standard_normal((n_dev * ns, cols)) / ns
+    trg = rng.uniform(-5, 5, (n_dev * nt, 3))
+    k = min(nt, ns) // 2
+    for j in range(n_dev):
+        nb = (j + 1) % n_dev
+        trg[j * nt:j * nt + k] = src[nb * ns:nb * ns + k]
+
+    def shards(a, m):
+        t = torch.as_tensor(a, dtype=torch.float32, device=device)
+        return [b.contiguous() for b in t.split(m)]
+
+    return shards(trg, nt), shards(src, ns), shards(pay, ns)
+
+
+def _ring_err(got, ref):
+    got, ref = torch.cat(got).double(), torch.cat(ref).double()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dev", [2, 3, 4, 8])
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_ring_kernel_matches_plain(cuda, family, n_dev):
+    """Kernels E / F with n_dev shards on one card (one launch) against
+    their plain version (the ring accumulation over kernel A's / C's plain
+    block) and against kernel A / C on the whole arrays, at ragged counts
+    (targets and sources not tile multiples) with self pairs across
+    shards: 1e-4 of the largest velocity, finite everywhere."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    ring = getattr(ck, f"ring_{family}_f32")
+    plain = getattr(ck, f"ring_{family}_f32_plain")
+    direct = getattr(ck, f"{family}_f32")
+    for nt, ns in ((333, 517), (1, 1), (129, 1000)):
+        trg, src, pay = _ring_inputs(family, n_dev, nt, ns, cuda,
+                                     seed=nt + n_dev)
+        n0 = ring.launches
+        got = ring(trg, src, pay)
+        torch.cuda.synchronize()
+        assert ring.launches == n0 + 1
+        assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                   for g in got)
+        assert _ring_err(got, plain(trg, src, pay)) < 1e-4
+        whole = direct(torch.cat(src), torch.cat(trg), torch.cat(pay))
+        assert _ring_err(got, list(whole.split(nt))) < 1e-4
+
+
+@pytest.mark.gpu
+def test_ring_kernel_self_pairs_are_exactly_zero(cuda):
+    """A source seen from the target that sits on it in ANOTHER shard
+    contributes exactly 0 (the select): with two shards whose one target
+    each sits on the other shard's one source, each shard's flow is the
+    lone pair of its own source (kernel A / C on that pair, to f32
+    rounding); and
+    zero-payload sources stacked on the targets give exactly 0, finite."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    p = torch.tensor([[0.5, -0.25, 1.0]], device=cuda)
+    q = torch.tensor([[-1.0, 2.0, 0.0]], device=cuda)
+    for family, cols in (("stokeslet", 3), ("stresslet", 9)):
+        ring = getattr(ck, f"ring_{family}_f32")
+        lone = getattr(ck, f"{family}_f32")
+        w = torch.arange(1, cols + 1, dtype=torch.float32,
+                         device=cuda)[None, :]
+        out = ring([q, p], [p, q], [w, 2 * w])
+        torch.testing.assert_close(out[0], lone(p, q, w), rtol=1e-6, atol=0)
+        torch.testing.assert_close(out[1], lone(q, p, 2 * w), rtol=1e-6,
+                                   atol=0)
+        out = ring([p, p], [p, p], [0 * w, 0 * w])
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, torch.zeros_like(o)) for o in out)
+
+
+@pytest.mark.gpu
+def test_ring_kernels_back_to_back(cuda):
+    """E, F, E with no host sync between them (one ring's epoch counters
+    and barriers carried across instances, another ring's launch between):
+    each call gives the results of a lone call, bit for bit."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    e_in = _ring_inputs("stokeslet", 4, 2000, 3000, cuda, seed=1)
+    f_in = _ring_inputs("stresslet", 4, 5000, 500, cuda, seed=2)
+    e_ref = ck.ring_stokeslet_f32(*e_in)
+    f_ref = ck.ring_stresslet_f32(*f_in)
+    torch.cuda.synchronize()
+    e1 = ck.ring_stokeslet_f32(*e_in)
+    f1 = ck.ring_stresslet_f32(*f_in)
+    e2 = ck.ring_stokeslet_f32(*e_in)
+    torch.cuda.synchronize()
+    for got, ref in ((e1, e_ref), (f1, f_ref), (e2, e_ref)):
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.gpu
+def test_ring_kernels_across_cards(cuda):
+    """With one shard per card (2 to 4 cards, peer stores over NVLink) E
+    and F give the one-card results of the same shards bit for bit, and a
+    mixed-precision ring step of a small fiber scene on the card mesh
+    gives the one-card mesh's solution. Prints the times of both layouts
+    at the full-width shapes (640,000 fiber nodes for E; 8,000 shell nodes
+    x 128,000 fiber nodes for F). Skips with fewer than 2 cards."""
+    import json
+    import time
+
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+    from skellysim_tpu_torch.parallel import make_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs >= 2 cards, {n_cards} visible")
+    n = min(4, n_cards)
+    cards = make_mesh(n)
+    assert cards.devices == tuple(torch.device("cuda", i) for i in range(n))
+    times = {"cards": n, "card": torch.cuda.get_device_name(0)}
+    for family, nt, ns in (("stokeslet", 640_000 // n, 640_000 // n),
+                           ("stresslet", 128_000 // n, 8_000 // n)):
+        kern = getattr(ck, f"ring_{family}_f32")
+        one = _ring_inputs(family, n, nt, ns, cuda, seed=5)
+        spread = [[b.to(d) for b, d in zip(lst, cards.devices)] for lst in one]
+        for layout, args in (("one card", one), (f"{n} cards", spread)):
+            n0 = kern.launches
+            kern(*args)                                   # warm-up
+            for d in set(cards.devices):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                out = kern(*args)
+            for d in set(cards.devices):
+                torch.cuda.synchronize(d)
+            times[f"{family} {layout} ms"] = (time.perf_counter() - t0) / 3e-3
+            assert kern.launches - n0 == 4 * (1 if layout == "one card" else n)
+            if layout == "one card":
+                ref = out
+            else:
+                assert all(o.device == d for o, d in zip(out, cards.devices))
+                got = [o.to(cuda) for o in out]
+                assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    from skellysim_tpu_torch.fibers import container as fc
+    from skellysim_tpu_torch.params import Params
+    from skellysim_tpu_torch.system import System
+
+    rng = np.random.default_rng(5)
+    t = np.linspace(0, 1, 16)
+    d = rng.normal(size=(4 * n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    x = rng.uniform(-4, 4, (4 * n, 3))[:, None, :] + t[None, :, None] * d[:, None]
+    sols = []
+    for mesh in (make_mesh(n, device=cuda), cards):
+        system = System(Params(dt_initial=1e-3, gmres_tol=1e-10,
+                               solver_precision="mixed", kernel_impl="pallas",
+                               refine_pair_impl="pallas_df",
+                               pair_evaluator="ring"), device=cuda, mesh=mesh)
+        g = fc.make_group(x, lengths=1.0, bending_rigidity=0.01,
+                          radius=0.0125, device=cuda)
+        n0 = ck.ring_stokeslet_f32.launches
+        _, sol, info = system.step(system.make_state(fibers=g))
+        assert info.converged and ck.ring_stokeslet_f32.launches > n0
+        sols.append(sol)
+    torch.testing.assert_close(sols[1], sols[0], rtol=0,
+                               atol=1e-12 * float(sols[0].abs().max()))
+    print(json.dumps(times))
+
+
+@pytest.mark.gpu
+def test_ring_created_while_a_card_is_busy(cuda):
+    """A new ring zeroes each card's counters on that card's own stream.
+    Created while the second card's stream is still busy (a sleep kernel
+    of about a second queued there), a two-card ring still gives the
+    one-card results bit for bit: no card's zero fill lands after its
+    neighbour's first signal (which would leave the ring waiting until its
+    timeout traps). Skips with fewer than 2 cards."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+    from skellysim_tpu_torch.parallel import make_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs >= 2 cards, {n_cards} visible")
+    cards = make_mesh(2)
+    ns = 777                      # a source count no other test's ring uses
+    one = _ring_inputs("stokeslet", 2, 301, ns, cuda, seed=9)
+    ref = ck.ring_stokeslet_f32(*one)
+    spread = [[b.to(d) for b, d in zip(lst, cards.devices)] for lst in one]
+    for d in cards.devices:
+        torch.cuda.synchronize(d)
+    assert ("stokeslet", cards.devices, ns) not in ck._ring_comms
+    with torch.cuda.device(cards.devices[1]):
+        torch.cuda._sleep(2_000_000_000)
+    out = ck.ring_stokeslet_f32(*spread)
+    for d in cards.devices:
+        torch.cuda.synchronize(d)
+    assert ("stokeslet", cards.devices, ns) in ck._ring_comms
+    assert all(torch.equal(o.to(cuda), r) for o, r in zip(out, ref))
+
+
+@pytest.mark.gpu
+def test_ring_launch_failure_keeps_the_ring_and_recovers(cuda, monkeypatch):
+    """A launch the card refuses (a cooperative grid too wide to be
+    resident) raises and counts no launch; the failed ring's buffers stay
+    referenced (another card's launch of that call could still write
+    them), and the next call starts a fresh ring that gives the lone
+    call's sums bit for bit."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    ns = 313                      # a source count no other test's ring uses
+    args = _ring_inputs("stresslet", 3, 200, ns, cuda, seed=4)
+    ref = ck.ring_stresslet_f32(*args)
+    torch.cuda.synchronize()
+    key = next(k for k in ck._ring_comms if k[0] == "stresslet" and k[2] == ns)
+    comm = ck._ring_comms[key]
+    monkeypatch.setattr(ck, "_ring_grid", lambda *a: 1 << 20)
+    n0 = ck.ring_stresslet_f32.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ck.ring_stresslet_f32(*args)
+    assert ck.ring_stresslet_f32.launches == n0
+    assert key not in ck._ring_comms
+    assert any(c is comm for c in ck._failed_rings)
+    monkeypatch.undo()
+    got = ck.ring_stresslet_f32(*args)
+    torch.cuda.synchronize()
+    assert ck._ring_comms[key] is not comm
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def _imported_modules(path: Path):
@@ -244,6 +480,9 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "skellysim_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    names = {os.path.relpath(f, REPO) for f in files}
+    for mod in ("mesh", "compat", "ring"):
+        assert f"skellysim_tpu_torch/parallel/{mod}.py" in names
     bad = []
     for f in files:
         for mod in _imported_modules(f):

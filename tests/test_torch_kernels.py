@@ -158,17 +158,19 @@ def test_point_source_flows_match_jax():
 
 
 def test_kernel_source_and_build_are_not_touched_at_import():
-    """The CUDA source ships in the package; importing the wrappers built
-    nothing (the library loads at the first launch on a CUDA tensor)."""
+    """The CUDA sources ship in the package; importing the wrappers built
+    nothing (a library loads at the first launch on a CUDA tensor)."""
     from skellysim_tpu_torch.ops import cuda_build
 
-    text = (cuda_build.CSRC_DIR / f"{cuda_kernels.SOURCE}.cu").read_text()
+    text = "".join((cuda_build.CSRC_DIR / f"{src}.cu").read_text()
+                   for src in cuda_kernels.SOURCES)
     for w in cuda_kernels.KERNEL_WRAPPERS:
         assert f"{w.__name__}_launch" in text
     assert "cudaGetLastError" in text
     for tile in ("_stokeslet_kernel", "_stokeslet_df_kernel",
-                 "_stresslet_kernel", "_stresslet_df_kernel"):
-        assert tile in text  # the source note names each Pallas tile
+                 "_stresslet_kernel", "_stresslet_df_kernel",
+                 "_ring_kernel"):
+        assert tile in text  # the source notes name each Pallas tile
     assert not cuda_kernels._libs
 
 
