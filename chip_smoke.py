@@ -9,14 +9,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build     — nvcc builds the hand-written kernels from the sources in this
                checkout (skellysim_tpu_torch/csrc/*.cu, one nvcc per source,
                started together); prints seconds and the `-Xptxas -v` report
-               (registers, spills).
-3. kernels   — kernels A and B (Stokeslet) against their plain PyTorch
-               versions on the card at the free-space path's shape (the
-               640,000 fiber nodes of the 10k-fiber config as sources and as
-               targets): error, kernel time (CUDA events after a warm-up:
-               the median of 3 rounds of 3 launches, with the SM clock and
-               temperature nvidia-smi reads right after),
-               plain time, and the bound.
+               (registers, spills), and fails on a spill in kernels A / B.
+3. kernels   — kernels A and B (Stokeslet, csrc/stokeslet_sums.cu) at the
+               free-space path's shape (the 640,000 fiber nodes of the
+               10k-fiber config as sources and as targets): error against
+               the plain f64 sum, two launches bit for bit, and time (CUDA
+               events after a warm-up: the median of 3 rounds of 3
+               launches, with the SM clock and temperature nvidia-smi reads
+               right after) in turns with their first design, the tiled
+               yardstick of csrc/pair_sums.cu (old, new, new, old); the
+               hot loop's instructions a pair of
+               both designs counted from `cuobjdump -sass` and the
+               issue-slot bound they give at the SM clock read; B's
+               reciprocal square root against 1/sqrt; plain time, and the
+               flop bound.
 4. run       — the repo's 10k-fiber x 64-node free-space config
                (examples/free_fibers_10k/gen_config.py's recipe, with
                refine_pair_impl="pallas_df", a frame every step) written with
@@ -40,6 +46,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                gated on every step accepted with true residual <= gmres_tol
                and health 0, on kernels A-D launching, and on frames
                that carry a finite shell density of 3 x 8,000 values.
+               Before the run, A and B are checked and timed at the shape
+               the run launches them with (the fiber nodes as sources,
+               every node as targets: 128,000 x 136,000, a partial last
+               target block, many source chunks) and with every node as
+               sources and targets (136,000: a partial last source tile),
+               each against the plain f64 sum on every row.
 7. ring kernels — kernels E and F (the fused ring, 4 shards on the card):
                E with phase 3's 640,000 fiber nodes as sources and targets,
                F with phase 6's 8,000 shell nodes as sources and its 128,000
@@ -57,7 +69,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                of phase 6's direct run. Then E and F are checked and timed
                as in 7 at the shapes this run launched them with (E:
                128,000 sources x 136,000 targets, a partial last tile in
-               every shard), and one f64-grade hop of B and D is timed.
+               every shard), B is checked and timed at one f64-grade
+               hop's shape (32,000 x 34,000) and D's hop is timed.
 9. bodies    — examples/stokes_tests/body_const_force (one 600-node sphere,
                force (0, 0, 1), three steps of dt = 0.1) precomputed and run
                the same way; the body's velocity must meet the reference's
@@ -65,9 +78,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                kernels C and D must launch.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
-shape are those of its check phase (3, 6 or 7); E's and F's entries also
-carry, under "at_ring_run_shape", the same fields at the shapes of the ring
-run, where their "launches" were counted. Then the nvidia-smi line, and
+shape are those of its check phase (3, 6 or 7); A's and B's entries also
+carry their first design's time ("previous_ms"), the SASS counts
+("sass_per_pair", "previous_sass_per_pair") and the issue-slot bounds
+("issue_bound_ms", "previous_issue_bound_ms"), and under
+"at_ellipsoid_shape" and "at_ragged_source_shape" their phase-6 checks; B's
+and E's and F's, under "at_ring_run_shape", the same check and time at the
+shapes of the ring run (E and F: where their "launches" were counted). Every run is gated on the yardstick
+kernels launching 0 times. Then the nvidia-smi line, and
 last {"ok": true, "device": {...}}. Without a CUDA card the script exits 2
 before printing any result. Every file a phase writes (configs, the ~6.9 GB
 shell precompute, trajectories) lives in one temporary directory outside
@@ -85,6 +103,7 @@ import argparse
 import json
 import math
 import os
+import re
 import runpy
 import shutil
 import subprocess
@@ -145,6 +164,61 @@ def card_state(device):
         timeout=60).stdout.strip().splitlines()[0]
     clock, temp = (v.strip() for v in out.split(","))
     return f"SM clock {clock}, {temp} C"
+
+
+#: FP64-pipe opcodes (SASS)
+FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
+
+
+def sass_functions(cuda_build, lib_path):
+    """{mangled kernel name: [(address, opcode, branch target or None)]}
+    from `cuobjdump -sass` of a built library (it prints a branch's target
+    as a hex address)."""
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            ins = m.group(2)
+            op = next(w for w in ins.split() if not w.startswith("@"))
+            target = re.search(r"\b0x([0-9a-f]+)", ins)
+            cur.append((int(m.group(1), 16), op,
+                        int(target.group(1), 16)
+                        if op.startswith("BRA") and target else None))
+    return funcs
+
+
+def hot_loop(rows):
+    """The innermost loop (a backward branch with no other inside it)
+    whose body holds the most MUFU.RSQ, one a pair: (instructions a pair,
+    FP64-pipe instructions a pair, pairs a pass). NOPs are not counted."""
+    loops = [(t, a) for a, op, t in rows if t is not None and t < a]
+    best = None
+    for lo, hi in loops:
+        if any(lo <= t2 and a2 <= hi and (t2, a2) != (lo, hi)
+               for t2, a2 in loops):
+            continue  # holds another loop: not innermost
+        body = [op for a, op, _ in rows if lo <= a <= hi and op != "NOP"]
+        mufu = sum(op.startswith("MUFU.RSQ") for op in body)
+        if mufu and (best is None or mufu > best[2]):
+            fp64 = sum(op.split(".")[0] in FP64_OPS for op in body)
+            best = (len(body) / mufu, fp64 / mufu, mufu)
+    if best is None:
+        raise SystemExit("no loop with MUFU.RSQ in the kernel's SASS")
+    return best
+
+
+def issue_bound_ms(per_pair, pairs, sms, mhz, lanes):
+    """Least time at ``per_pair`` instructions a pair when each SM retires
+    ``lanes`` thread-instructions a clock (128: 4 schedulers x 32 lanes;
+    64: the FP64 pipe)."""
+    return 1e3 * per_pair * pairs / (sms * lanes * mhz * 1e6)
 
 
 def bound_ms(family, n_src, n_trg, itemsize, peak, same_points=False):
@@ -335,12 +409,210 @@ def phase_kernels(torch, ck, device, specs, card):
     return out
 
 
+#: kernels A and B: precision, the data sheet's peak for the flop bound,
+#: the gate against the plain f64 sum (share of max|u|), the Pallas tile
+STOKESLET_KERNELS = (
+    ("f32", PEAK_FP32, 1e-4,
+     "skellysim_tpu/ops/pallas_kernels.py:110 (_stokeslet_kernel)"),
+    ("f64", PEAK_FP64, 1e-12,
+     "skellysim_tpu/ops/pallas_df.py:158 (_stokeslet_df_kernel)"))
+
+
+def _sass_loop(sass, pattern):
+    """`hot_loop` of the one kernel whose mangled name matches."""
+    names = [k for k in sass if re.search(pattern, k)]
+    if len(names) != 1:
+        raise SystemExit(f"SASS: {len(names)} kernels match {pattern!r}: "
+                         f"{names} (of {list(sass)})")
+    return hot_loop(sass[names[0]])
+
+
+def rsqrt_probe(torch, ck, device):
+    """Kernel B's reciprocal square root against 1/sqrt in f64 on the host
+    over r^2 from DBL_MIN to 1e300: (the seed's max relative error, the
+    result's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    x = np.concatenate([10.0 ** rng.uniform(-307.6, 300, 1_000_000),
+                        rng.uniform(1e-10, 1e3, 1_000_000)])
+    seed, y = ck.rsqrt_f64_probe(torch.as_tensor(x, device=device))
+    ref = 1.0 / np.sqrt(x)
+    return (float(np.abs(seed.cpu().numpy() / ref - 1).max()),
+            float(np.abs(y.cpu().numpy() / ref - 1).max()))
+
+
+def phase_stokeslet(torch, ck, cuda_build, device, nodes, force, card):
+    """Kernels A and B with the free-space path's fiber nodes as sources
+    and targets, each against the plain f64 sum on the same f32-rounded
+    inputs and against its first design (the tiled yardstick), the two
+    timed in turns (old, new, new, old) in this call; two launches compared
+    bit for bit; the SASS instructions a pair of
+    both designs' hot loops and the issue-slot bound they give at the SM
+    clock nvidia-smi reads; and B's reciprocal square root measured.
+    Returns the JSON entries (launches filled in after the runs)."""
+    on_card = device.type == "cuda"
+    src64, frc64 = (torch.as_tensor(a, dtype=torch.float32,
+                                    device=device).double()
+                    for a in (nodes, force))
+    n = src64.shape[0]
+    eta = 1.0
+    # the reference of both kernels: the plain version in f64 (also B's
+    # plain time)
+    ref_ms, ref = timed(torch, lambda: ck.stokeslet_f64_plain(
+        src64, src64, frc64, eta), device, 1)
+    ref_max = ref.abs().max().item()
+    sass, sms = {}, None
+    if on_card:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        for source in (ck.STOKESLET_SOURCE, ck.SOURCE):
+            sass.update(sass_functions(cuda_build,
+                                       cuda_build.library_path(source)))
+    entries = []
+    for prec, peak, tol, replaces in STOKESLET_KERNELS:
+        dt = torch.float32 if prec == "f32" else torch.float64
+        s, fr = src64.to(dt), frc64.to(dt)
+        new = getattr(ck, f"stokeslet_{prec}")
+        old = getattr(ck, f"stokeslet_{prec}_tiled")
+        turns = {"old": [], "new": []}
+        for label, kern in (("old", old), ("new", new), ("new", new),
+                            ("old", old)):
+            ms, out, rounds = kernel_ms(torch, lambda: kern(s, s, fr, eta),
+                                        device)
+            turns[label].append({"ms": ms, "rounds": rounds,
+                                 "card_state": card_state(device)})
+            if label == "new":
+                got = out
+            else:
+                prev = out
+            del out
+        # the clock nvidia-smi read right after the last timed launches
+        mhz = (float(re.search(r"SM clock (\d+)", turns["new"][-1][
+            "card_state"]).group(1)) if on_card else None)
+        bitwise = bool(torch.equal(new(s, s, fr, eta), got))
+        err = (got.double() - ref).abs().max().item()
+        rel = err / ref_max
+        prev_rel = (prev.double() - ref).abs().max().item() / ref_max
+        vs_prev = ((got.double() - prev.double()).abs().max().item()
+                   / prev.double().abs().max().item())
+        finite = bool(torch.isfinite(got).all())
+        del got, prev
+        plain_ms = ref_ms if prec == "f64" else timed(
+            torch, lambda: ck.stokeslet_f32_plain(s, s, fr, eta), device,
+            1)[0]
+        b_ms, b_by = bound_ms("stokeslet", n, n, s.element_size(), peak,
+                              same_points=True)
+        ms = sum(t["ms"] for t in turns["new"]) / 2
+        prev_ms = sum(t["ms"] for t in turns["old"]) / 2
+        entry = {"name": f"stokeslet_{prec}", "route": "cuda",
+                 "source": f"skellysim_tpu_torch/csrc/"
+                           f"{ck.STOKESLET_SOURCE}.cu",
+                 "replaces": replaces, "launches": 0, "max_abs_err": err,
+                 "max_rel_err": rel, "tolerance": tol, "ms": ms,
+                 "ms_turns": turns["new"], "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "shape": [int(n), int(n)], "previous_ms": prev_ms,
+                 "previous_ms_turns": turns["old"],
+                 "previous_source": f"skellysim_tpu_torch/csrc/{ck.SOURCE}"
+                                    f".cu (stokeslet_{prec}_tiled)",
+                 "previous_max_rel_err": prev_rel,
+                 "max_rel_diff_vs_previous": vs_prev,
+                 "same_bits_twice": bitwise, "sm_clock_mhz": mhz}
+        sass_note = "SASS not read (CPU rehearsal)"
+        if on_card:
+            plan = ck.stokeslet_card_plan(device, prec, n, n)
+            entry["plan"] = {"r": plan.r, "threads": ck.STOKESLET_THREADS,
+                             "tile": ck.STOKESLET_TILE, "grid": plan.grid,
+                             "chunk_len": plan.chunk_len,
+                             "slots": plan.slots, "busy": plan.busy}
+            t = "f" if prec == "f32" else "d"
+            per, fp64, per_pass = _sass_loop(
+                sass, rf"stokeslet_chunk_kernelI{t}Li{plan.r}E")
+            o_per, o_fp64, o_pass = _sass_loop(
+                sass, rf"pair_sum_kernelIN6skelly9StokesletI{t}EE")
+            pairs = n * n
+
+            def issue(per_pair, fp64_per_pair):
+                b = issue_bound_ms(per_pair, pairs, sms, mhz, 128)
+                if prec == "f64":  # the FP64 pipe: 64 lanes a clock an SM
+                    b = max(b, issue_bound_ms(fp64_per_pair, pairs, sms, mhz,
+                                              64))
+                return b
+
+            entry.update({
+                "sass_per_pair": per, "sass_fp64_per_pair": fp64,
+                "sass_pairs_a_pass": per_pass, "issue_bound_ms": issue(
+                    per, fp64),
+                "previous_sass_per_pair": o_per,
+                "previous_sass_fp64_per_pair": o_fp64,
+                "previous_issue_bound_ms": issue(o_per, o_fp64)})
+            sass_note = (
+                f"SASS hot loop: {per:.3f} instructions a pair "
+                f"({fp64:.3f} FP64; {per_pass} pairs a pass) against the "
+                f"tiled design's {o_per:.3f} ({o_fp64:.3f} FP64); issue-slot "
+                f"bound {entry['issue_bound_ms']:.3f} ms against "
+                f"{entry['previous_issue_bound_ms']:.3f} ms ({sms} SMs x "
+                f"{'64 FP64 lanes' if prec == 'f64' else '128 issue slots'}"
+                f" a clock at {mhz:.0f} MHz); kernel at "
+                f"{100 * entry['issue_bound_ms'] / ms:.1f}% of its issue "
+                f"bound; plan R = {plan.r}, grid {plan.grid}, "
+                f"{plan.chunk_len} sources a chunk, busy {plan.busy:.3f} of "
+                f"{plan.slots} slots")
+            if prec == "f64":
+                entry["rsqrt_seed_max_rel_err"], entry["rsqrt_max_rel_err"] \
+                    = rsqrt_probe(torch, ck, device)
+                sass_note += (
+                    f"; rsqrt: seed max rel err "
+                    f"{entry['rsqrt_seed_max_rel_err']:.3e}, after the "
+                    f"third-order step {entry['rsqrt_max_rel_err']:.3e} "
+                    "(2e6 values of r^2 from 1e-307.6 to 1e300)")
+        log(f"[kernels] stokeslet_{prec}: {n} sources x {n} targets, max "
+            f"abs err {err:.3e}, max rel err {rel:.3e} (tolerance {tol:g} of "
+            f"max|u|; reference: plain f64; the tiled design's "
+            f"{prev_rel:.3e}, new vs tiled {vs_prev:.3e}), same bits twice: "
+            f"{bitwise}; kernel {ms:.3f} ms (turns "
+            + ", ".join(f"{t['ms']:.3f}" for t in turns["new"])
+            + f"; {rounds_note(turns['new'][0]['rounds'])}) against the "
+            f"tiled design's {prev_ms:.3f} ms (turns "
+            + ", ".join(f"{t['ms']:.3f}" for t in turns["old"])
+            + f"), {prev_ms / ms:.3f}x; plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}, 22 flops a pair at {peak / 1e12:g} "
+            f"TFLOP/s, the data sheet's rate at 700 W); {sass_note}; this "
+            f"card: {card}; after the timed launches: "
+            f"{turns['new'][-1]['card_state']})")
+        if not (finite and rel <= tol and prev_rel <= tol and vs_prev <= tol
+                and bitwise):
+            raise SystemExit(f"stokeslet_{prec} fails its checks: rel err "
+                             f"{rel:.3e} (tiled {prev_rel:.3e}, new vs tiled "
+                             f"{vs_prev:.3e}) > {tol:g}, finite={finite}, "
+                             f"same bits twice={bitwise}")
+        if prec == "f64" and on_card and not (
+                entry["rsqrt_max_rel_err"] <= 4 * 2.0 ** -52):
+            raise SystemExit("kernel B's rsqrt misses f64 rounding: "
+                             f"{entry['rsqrt_max_rel_err']:.3e}")
+        entries.append(entry)
+        del s, fr
+    log("[kernels] no single PyTorch call computes the singular stokeslet "
+        "sum (it is not a convolution, attention or sparse product): "
+        "library_ms is null")
+    return entries
+
+
+def reset_counts(ck):
+    for w in ck.KERNEL_WRAPPERS + ck.YARDSTICK_WRAPPERS:
+        w.launches = 0
+
+
+def read_counts(ck):
+    return {w.__name__: w.launches
+            for w in ck.KERNEL_WRAPPERS + ck.YARDSTICK_WRAPPERS}
+
+
 def phase_run(torch, ck, device, cfg_path, run_dir):
     """`python -m skellysim_tpu_torch` on the config, in this process, with
     every launch count set to 0 just before and read just after."""
     metrics = os.path.join(run_dir, "metrics.jsonl")
-    for w in ck.KERNEL_WRAPPERS:
-        w.launches = 0
+    reset_counts(ck)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     argv = sys.argv
@@ -354,7 +626,7 @@ def phase_run(torch, ck, device, cfg_path, run_dir):
     finally:
         sys.argv = argv
     wall = time.perf_counter() - t0
-    counts = {w.__name__: w.launches for w in ck.KERNEL_WRAPPERS}
+    counts = read_counts(ck)
     peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
             else None)
     steps = [json.loads(line) for line in open(metrics)]
@@ -384,6 +656,9 @@ def report_run(tag, wall, counts, peak, steps, n_steps, tol, device, needed,
                              f"converged/healthy: {s}")
     if device.type == "cuda" and not all(counts[k] > 0 for k in needed):
         raise SystemExit(f"{tag}: a kernel of the path never launched: "
+                         f"{counts}")
+    if any(counts[k] for k in counts if k.endswith("_tiled")):
+        raise SystemExit(f"{tag}: a yardstick kernel launched on the path: "
                          f"{counts}")
 
 
@@ -423,7 +698,9 @@ def phase_check_small(torch, device):
 
 def phase_confined(torch, ck, device, work, args, card):
     """Ellipsoid config: precompute on the device, kernels C and D at its
-    shape, then the run."""
+    shape, A and B checked at its shapes (`shape_times`), then the run.
+    Returns (C's and D's entries, the run's launch counts, the inputs of
+    the ring phases, A's and B's checks by kernel name)."""
     import numpy as np
 
     from skellysim_tpu_torch import precompute
@@ -462,7 +739,7 @@ def phase_confined(torch, ck, device, work, args, card):
              PEAK_FP64, 1e-12,
              "skellysim_tpu/ops/pallas_df.py:195 (_stresslet_df_kernel)")])],
         card)
-    shape_times(torch, ck, device, fiber_nodes, shell_nodes)
+    checks = shape_times(torch, ck, device, fiber_nodes, shell_nodes, card)
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -488,28 +765,94 @@ def phase_confined(torch, ck, device, work, args, card):
     ring_inputs = {"fiber_nodes": fiber_nodes, "shell_nodes": shell_nodes,
                    "f_dl": f_dl.reshape(-1, 9), "cfg_path": cfg_path,
                    "direct_x": direct_x}
-    return entries, counts, ring_inputs
+    return entries, counts, ring_inputs, checks
 
 
-def shape_times(torch, ck, device, fiber_nodes, shell_nodes):
-    """Per-launch time of what the confined step repeats, at its own
-    shapes, for the launches x time breakdown: kernels A and B with the
-    fiber nodes as sources and every node as targets (the matvec's and the
-    prep's fiber flow), and the dense [3N, 3N] shell products (operator in
-    f32 and f64, the f32 inverse) as the step runs them."""
+def stokeslet_check(torch, ck, device, src, trg, force, precs, card, tag):
+    """Kernels A and / or B (``precs``) at one shape: each held against the
+    plain f64 sum on every target row, on the same inputs rounded to f32
+    once (1e-4 of max|u| for A, 1e-12 for B), and timed like phase 3; on the
+    card, with the plan's ragged edges (targets in the last target block,
+    sources in the last tile) and chunk count. Exits on a disagreement.
+    Returns {kernel name: JSON fields}."""
+    src64, trg64, frc64 = (torch.as_tensor(a, dtype=torch.float32,
+                                           device=device).double()
+                           for a in (src, trg, force))
+    n_src, n_trg = src64.shape[0], trg64.shape[0]
+    ref_ms, ref = timed(torch, lambda: ck.stokeslet_f64_plain(
+        src64, trg64, frc64, 1.0), device, 1)
+    ref_max = ref.abs().max().item()
+    out = {}
+    for prec in precs:
+        tol = next(t for p, _, t, _ in STOKESLET_KERNELS if p == prec)
+        name = f"stokeslet_{prec}"
+        kern = getattr(ck, name)
+        dt = torch.float32 if prec == "f32" else torch.float64
+        s, t, f = (a.to(dt) for a in (src64, trg64, frc64))
+        ms, got, rounds = kernel_ms(torch, lambda: kern(s, t, f, 1.0),
+                                    device)
+        state = card_state(device)
+        err = (got.double() - ref).abs().max().item()
+        rel = err / ref_max
+        finite = bool(torch.isfinite(got).all())
+        fields = {"shape": [int(n_src), int(n_trg)], "max_abs_err": err,
+                  "max_rel_err": rel, "tolerance": tol, "rows": int(n_trg),
+                  "ms": ms, "ms_rounds": rounds, "plain_f64_ms": ref_ms,
+                  "card_state": state}
+        edges = "plan not read (CPU rehearsal)"
+        if device.type == "cuda":
+            plan = ck.stokeslet_card_plan(device, prec, n_trg, n_src)
+            fields.update({
+                "chunks": plan.chunks, "target_blocks": plan.target_blocks,
+                "last_block_targets": n_trg - (plan.target_blocks - 1)
+                * plan.r * ck.STOKESLET_THREADS,
+                "last_tile_sources": n_src - (-(-n_src // ck.STOKESLET_TILE)
+                                              - 1) * ck.STOKESLET_TILE})
+            edges = (f"{plan.target_blocks} target blocks of "
+                     f"{plan.r * ck.STOKESLET_THREADS}, the last holding "
+                     f"{fields['last_block_targets']}; {plan.chunks} chunks "
+                     f"of {plan.chunk_len} sources, the last tile holding "
+                     f"{fields['last_tile_sources']}")
+        log(f"[{tag}] {name}: {n_src} sources x {n_trg} targets ({edges}): "
+            f"against the plain f64 sum on all {n_trg} rows max abs err "
+            f"{err:.3e}, max rel err {rel:.3e} (tolerance {tol:g} of "
+            f"max|u|); kernel {ms:.3f} ms ({rounds_note(rounds)}), plain f64 "
+            f"{ref_ms:.1f} ms; this card: {card}; after the timed launches: "
+            f"{state}")
+        if not finite or not rel <= tol:
+            raise SystemExit(f"{name} disagrees at {n_src} x {n_trg}: rel err "
+                             f"{rel:.3e} > {tol:g} (finite={finite})")
+        out[name] = fields
+        del s, t, f, got
+    del src64, trg64, frc64, ref
+    return out
+
+
+def shape_times(torch, ck, device, fiber_nodes, shell_nodes, card):
+    """Kernels A and B checked and timed (`stokeslet_check`) at the shape
+    the confined step launches them with, the fiber nodes as sources and
+    every node as targets (the matvec's and the prep's fiber flow), and
+    with every node as sources and targets (a partial last source tile at
+    this scale); then the per-launch time of the dense [3N, 3N] shell
+    products (operator in f32 and f64, the f32 inverse) as the step runs
+    them, for the launches x time breakdown. Returns {kernel name: {shape
+    key: the check's JSON fields}}."""
     import numpy as np
 
     rng = np.random.default_rng(13)
     every = np.concatenate([fiber_nodes, shell_nodes])
-    force = rng.standard_normal(fiber_nodes.shape) / 63.0
-    parts = []
-    for name, kern, dt in (("stokeslet_f32", ck.stokeslet_f32, torch.float32),
-                           ("stokeslet_f64", ck.stokeslet_f64,
-                            torch.float64)):
-        s, t, f = (torch.as_tensor(a, dtype=dt, device=device)
-                   for a in (fiber_nodes, every, force))
-        ms = kernel_ms(torch, lambda: kern(s, t, f, 1.0), device)[0]
-        parts.append(f"{name} {ms:.3f} ms ({s.shape[0]} x {t.shape[0]})")
+    force = rng.standard_normal(every.shape) / 63.0
+    checks = {}
+    for key, src, frc in (
+            ("at_ellipsoid_shape", fiber_nodes, force[:len(fiber_nodes)]),
+            ("at_ragged_source_shape", every, force)):
+        for name, fields in stokeslet_check(
+                torch, ck, device, src, every, frc, ("f32", "f64"), card,
+                "confined").items():
+            checks.setdefault(name, {})[key] = fields
+    parts = [f"{name} {c['at_ellipsoid_shape']['ms']:.3f} ms "
+             f"({' x '.join(map(str, c['at_ellipsoid_shape']['shape']))})"
+             for name, c in checks.items()]
     n3 = 3 * shell_nodes.shape[0]
     for dt in (torch.float32, torch.float64):
         M = torch.randn((n3, n3), dtype=dt, device=device)
@@ -520,6 +863,7 @@ def shape_times(torch, ck, device, fiber_nodes, shell_nodes):
         del M, x
     log("[confined] per-launch times at this path's shapes: "
         + "; ".join(parts) + f" ({card_state(device)})")
+    return checks
 
 
 def _shards(torch, a, n, device):
@@ -665,8 +1009,7 @@ def phase_ring_run(torch, ck, device, ring_inputs, card):
                                         device=device, mesh=mesh)
     build_s = time.perf_counter() - t0
     metrics = os.path.join(run_dir, "ring_metrics.jsonl")
-    for w in ck.KERNEL_WRAPPERS:
-        w.launches = 0
+    reset_counts(ck)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -674,7 +1017,7 @@ def phase_ring_run(torch, ck, device, ring_inputs, card):
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {w.__name__: w.launches for w in ck.KERNEL_WRAPPERS}
+    counts = read_counts(ck)
     peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
             else None)
     steps = [json.loads(line) for line in open(metrics)]
@@ -705,11 +1048,11 @@ def ring_shape_times(torch, ck, device, ring_inputs, card):
     every node as targets (128,000 x 136,000 at full width: 34,000 targets
     a shard, whose last tile is partial), F with the shell nodes as
     sources and the fiber nodes as targets; each checked and timed by
-    `ring_check`. Then the per-launch time of one hop of the f64-grade
-    ring for the launches x time breakdown: kernel B with one shard's
-    fiber-node block against one shard's targets, kernel D with one
-    shard's shell block against one shard's fiber nodes. Returns the
-    check's JSON fields by kernel name."""
+    `ring_check`. Then one hop of the f64-grade ring: kernel B with one
+    shard's fiber-node block against one shard's targets, checked and
+    timed by `stokeslet_check`, and kernel D with one shard's shell block
+    against one shard's fiber nodes, timed for the launches x time
+    breakdown. Returns the checks' JSON fields by kernel name."""
     import numpy as np
 
     n = RING_SHARDS
@@ -730,17 +1073,15 @@ def ring_shape_times(torch, ck, device, ring_inputs, card):
     _, f_l = _shards(torch, force, n, device)
     _, sh_l = _shards(torch, shell, n, device)
     _, d_l = _shards(torch, ring_inputs["f_dl"], n, device)
-    parts = []
-    for name, kern, args in (
-            ("stokeslet_f64", ck.stokeslet_f64,
-             (s_l[0].to(f64), t_l[0].to(f64), f_l[0].to(f64))),
-            ("stresslet_f64", ck.stresslet_f64,
-             (sh_l[0].to(f64), s_l[0].to(f64), d_l[0].to(f64)))):
-        ms = kernel_ms(torch, lambda: kern(*args, 1.0), device)[0]
-        parts.append(f"{name} {ms:.3f} ms a hop ({args[0].shape[0]} x "
-                     f"{args[1].shape[0]})")
-    log("[ring run] per-launch times of one f64-grade ring hop: "
-        + "; ".join(parts) + f" ({card_state(device)})")
+    at_run.update(stokeslet_check(torch, ck, device, s_l[0], t_l[0], f_l[0],
+                                  ("f64",), card, "ring run"))
+    args = (sh_l[0].to(f64), s_l[0].to(f64), d_l[0].to(f64))
+    ms = kernel_ms(torch, lambda: ck.stresslet_f64(*args, 1.0), device)[0]
+    log(f"[ring run] per-launch times of one f64-grade ring hop: "
+        f"stokeslet_f64 {at_run['stokeslet_f64']['ms']:.3f} ms "
+        f"({s_l[0].shape[0]} x {t_l[0].shape[0]}); stresslet_f64 {ms:.3f} "
+        f"ms ({args[0].shape[0]} x {args[1].shape[0]}) "
+        f"({card_state(device)})")
     return at_run
 
 
@@ -859,6 +1200,14 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                 if ("registers" in line or "spill" in line
                         or "Compiling" in line or "warning" in line):
                     log(f"[build] ptxas: {line.strip()}")
+            spills = [int(v) for v in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", info["ptxas"])]
+            if name == ck.STOKESLET_SOURCE and not spills:
+                raise SystemExit(f"no ptxas report for {name}.cu: its spills "
+                                 "are not verified")
+            if name == ck.STOKESLET_SOURCE and any(spills):
+                raise SystemExit(f"ptxas reports spills in {name}.cu: "
+                                 f"{spills}")
 
     # 4's config first: its node positions are phase 3's inputs
     run_dir = os.path.join(work, "free_fibers_10k")
@@ -872,17 +1221,9 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                             for f in config.fibers])
     del config
 
-    # 3. kernels A and B vs plain
+    # 3. kernels A and B vs plain and vs their first design
     f = np.random.default_rng(7).standard_normal(nodes.shape) / 63.0
-    entries = phase_kernels(torch, ck, device, [(
-        "stokeslet", nodes, nodes, f, True, [
-            ("stokeslet_f32", ck.stokeslet_f32, torch.float32,
-             ck.stokeslet_f32_plain, PEAK_FP32, 1e-4,
-             "skellysim_tpu/ops/pallas_kernels.py:110 (_stokeslet_kernel)"),
-            ("stokeslet_f64", ck.stokeslet_f64, torch.float64, None,
-             PEAK_FP64, 1e-12,
-             "skellysim_tpu/ops/pallas_df.py:158 (_stokeslet_df_kernel)")])],
-        smi)
+    entries = phase_stokeslet(torch, ck, cuda_build, device, nodes, f, smi)
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -910,8 +1251,10 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     phase_check_small(torch, device)
 
     # 6. the confined full-width path
-    more, launches["ellipsoid"], ring_inputs = phase_confined(
+    more, launches["ellipsoid"], ring_inputs, checks = phase_confined(
         torch, ck, device, work, args, smi)
+    for e in entries:
+        e.update(checks.get(e["name"], {}))
     entries += more
     if device.type == "cuda":
         torch.cuda.empty_cache()

@@ -10,36 +10,34 @@
 // row-major [n, 3]; the payload is [n_src, 3] forces (Stokeslet) or [n_src, 9]
 // row-major stresslet components S (Sxx..Szz); the output is [n_trg, 3].
 //
-// The four kernels and the Pallas tiles they replace:
-//   A  Stokeslet, float32   skellysim_tpu/ops/pallas_kernels.py
-//                           `_stokeslet_kernel` (via `stokeslet_pallas`)
-//   B  Stokeslet, float64   skellysim_tpu/ops/pallas_df.py
-//                           `_stokeslet_df_kernel` (via `stokeslet_pallas_df`)
+// The kernels here and the Pallas tiles they replace:
 //   C  stresslet, float32   skellysim_tpu/ops/pallas_kernels.py
 //                           `_stresslet_kernel` (via `stresslet_pallas`)
 //   D  stresslet, float64   skellysim_tpu/ops/pallas_df.py
 //                           `_stresslet_df_kernel` (via `stresslet_pallas_df`)
-// The TPU tiles of B and D carried every value as a (hi, lo) pair of f32
-// words with error-free transforms (~300 f32 operations a Stokeslet pair,
-// ~420 a stresslet pair) because the TPU has no fast FP64. The H100 has
-// native FP64 units, so B and D are A's and C's loop in plain double with a
-// double rsqrt: they meet the same "f32 or f64 in, f64 out, ~1e-14 relative"
-// contract at about a tenth of the operations, and emulating double-float
-// would only reproduce what the hardware gives. The family's constant (-3
-// for the stresslet) and the scale are applied once, to the finished sum
-// (the DF stresslet needed that order to keep its compensation; here it
-// simply costs nothing).
+// and the Stokeslet instances `stokeslet_f32_tiled` / `stokeslet_f64_tiled`:
+// the first design of kernels A and B (`_stokeslet_kernel`,
+// `_stokeslet_df_kernel`), kept only as the yardstick their redesign in
+// stokeslet_sums.cu is timed and checked against. No path launches them.
+// The TPU tiles of the f64 kernels carried every value as a (hi, lo) pair
+// of f32 words with error-free transforms (~300 f32 operations a Stokeslet
+// pair, ~420 a stresslet pair) because the TPU has no fast FP64. The H100
+// has native FP64 units, so the f64 kernels are the f32 loop in plain double
+// with a double rsqrt: they meet the same "f32 or f64 in, f64 out, ~1e-14
+// relative" contract at about a tenth of the operations. The family's
+// constant (-3 for the stresslet) and the scale are applied once, to the
+// finished sum.
 //
-// What bounds them on this card: arithmetic, not memory. A pair is ~18
-// (Stokeslet) or ~25 (stresslet: 3 differences, 3 for r^2, 3 for r^-5, 9 for
-// S d, 3 for d.(S d), 1 scale, 3 accumulations) FP32 issues -- FP64 for B
-// and D -- plus one rsqrt. The f32 rsqrtf is one MUFU (SFU) instruction
-// (16/clk/SM against 128 FP32 lanes/clk/SM, so the SFU is not the limit); the
-// double rsqrt is an SFU seed plus a few FP64 Newton steps. Each source is
-// read once per target block, which the L2 serves; device-memory traffic is
+// What bounds them on this card: instruction issue (FP32) and the FP64
+// pipe, not memory. A stresslet pair is ~25 FP32 issues (3 differences, 3
+// for r^2, 3 for r^-5, 9 for S d, 3 for d.(S d), 1 scale, 3 accumulations)
+// -- FP64 for D -- plus one rsqrt; rsqrtf is one MUFU plus a denormal
+// fix-up, the double rsqrt a library routine. Each source is read once per
+// target block, which the L2 serves; device-memory traffic is
 // O(n_trg + n_src).
 //
-// Design, for the card and not block for block from the TPU:
+// Design (simple first; stokeslet_sums.cu shows what a redesign for the
+// card does):
 //  * one thread owns one target and keeps its three sums in registers;
 //  * each block walks ALL source tiles in a loop, each thread staging one
 //    source record (position + payload) through shared memory; that loop
@@ -49,7 +47,7 @@
 //    fills the 132 SMs;
 //  * the staged record is 16-byte aligned, so the inner loop reads it with
 //    vector shared-memory loads (every thread of a warp reads the same record:
-//    a broadcast);
+//    a broadcast), two a pair;
 //  * each tile's contribution is summed into a tile partial first and then
 //    added to the running sum, which keeps the f32 accumulation error near
 //    eps * (sqrt(TILE) + sqrt(n_src / TILE)) instead of eps * sqrt(n_src);
@@ -142,16 +140,18 @@ extern "C" {
 
 // Each launcher returns cudaGetLastError() right after the launch (0 when
 // the launch was accepted); the Python wrapper raises on anything else.
-int stokeslet_f32_launch(const float* trg, const float* src,
-                         const float* payload, float* out, long long n_trg,
-                         long long n_src, float scale, void* stream) {
+int stokeslet_f32_tiled_launch(const float* trg, const float* src,
+                               const float* payload, float* out,
+                               long long n_trg, long long n_src, float scale,
+                               void* stream) {
   return launch<Stokeslet<float>>(trg, src, payload, out, n_trg, n_src, scale,
                                   stream);
 }
 
-int stokeslet_f64_launch(const double* trg, const double* src,
-                         const double* payload, double* out, long long n_trg,
-                         long long n_src, double scale, void* stream) {
+int stokeslet_f64_tiled_launch(const double* trg, const double* src,
+                               const double* payload, double* out,
+                               long long n_trg, long long n_src, double scale,
+                               void* stream) {
   return launch<Stokeslet<double>>(trg, src, payload, out, n_trg, n_src,
                                    scale, stream);
 }

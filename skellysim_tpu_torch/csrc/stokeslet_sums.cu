@@ -1,0 +1,435 @@
+// The Stokeslet pair sums on Hopper (sm_90a), designed for what bounds them
+// on this card:
+//
+//   u_t = sum_s [ f_s / r + (d . f_s) d / r^3 ],   d = x_t - x_s,
+//
+// pairs at r == 0 dropped, unscaled here (the reduction pass applies
+// scale = 1/(8 pi eta), or 1 for the unscaled entry). Positions and forces
+// are row-major [n, 3]; the output is [n_trg, 3].
+//
+//   A  float32   replaces skellysim_tpu/ops/pallas_kernels.py
+//                `_stokeslet_kernel` (via `stokeslet_pallas`)
+//   B  float64   replaces skellysim_tpu/ops/pallas_df.py
+//                `_stokeslet_df_kernel` (via `stokeslet_pallas_df`); native
+//                FP64, where the TPU tile emulated it with f32 pairs
+//
+// What bounds them. Device memory does not: the work is O(n_trg * n_src)
+// pairs on O(n_trg + n_src) words. A is bound by instruction issue: a pair
+// needs 18 FP32 instructions (3 FADD, 4 FMUL, 10 FFMA, 1 FSETP) and one
+// MUFU.RSQ, and the card issues one warp instruction a clock on each of
+// its 4 x 132 schedulers, so every other instruction in the loop
+// (shared-memory loads, the rsqrt's denormal fix-up, loop counters) costs
+// time one for one. B is bound by the FP64 pipe, 64 lanes a clock an SM
+// (half the issue rate), so the count that matters there is its FP64
+// instructions a pair: 22 (3 DADD, 6 DMUL, 13 DFMA). chip_smoke.py counts
+// both from the built library's SASS.
+//
+// Design:
+//  * R targets a thread, in registers (kR below: 8 for A, 2 for B). A
+//    staged source is read from shared memory once for R pairs, as 16-byte broadcast loads: 3 vectors carry
+//    the positions of 4 f32 (2 f64) sources and 3 more their forces, so a
+//    pair costs 1.5 / R (f32) or 3 / R (f64) load instructions.
+//  * The pair in its fewest instructions: c = (d . f) r^-2 and
+//    u += r^-1 (f + c d), three FFMA for f + c d and three for the sum,
+//    no r^-3. f32: `rsqrt.approx.ftz.f32` inline, one MUFU with no
+//    denormal fix-up (this source only; the other kernels keep their flags).
+//    f64: `rsqrt.approx.ftz.f64` as a seed and one third-order correction
+//    y (1 + e/2 + 3e^2/8), e = 1 - x y^2, in five FP64 instructions, where
+//    the library's rsqrt(double) guards inputs this kernel never passes it.
+//    The seed's error and the result's are measured on the card by
+//    `rsqrt_f64_probe` (tests/test_torch_gpu.py, chip_smoke.py): the seed
+//    holds ~2^-20, so one third-order step leaves ~2.5 (2^-20)^3, below f64
+//    rounding, where two Newton steps would take seven instructions and
+//    one Newton step would leave ~1e-12.
+//  * The r == 0 drop is a select, never a multiply, and exact. f32: a
+//    predicate on the three FMAs that add the pair to the sum (inline
+//    PTX), so a dropped pair adds nothing and the select costs one compare;
+//    the pair is added only when r^2 >= FLT_MIN. f64: r^-1 selected to 0
+//    unless r^2 >= DBL_MIN, compared on r^2's high word on the integer
+//    pipe, so the FP64 pipe does not pay for it. A subnormal r^2, which
+//    the ftz rsqrt would flush to 0 and turn into inf, is dropped with it:
+//    the pairs dropped are those closer than sqrt(FLT_MIN) = 1.1e-19 (f32)
+//    or sqrt(DBL_MIN) = 1.5e-154 (f64), coincident pairs included. The
+//    plain version drops only r == 0; nothing closer than 1e-19 but apart
+//    occurs in a fiber, shell or body discretisation.
+//  * Full tiles (kTile sources) run a loop of compile-time length, with no
+//    bounds check and no remainder path; it is unrolled kUnroll groups at a
+//    time, 32 pairs a pass: its counter and branch cost ~0.2 instructions
+//    a pair. A full unroll of a tile would be ~20,000 instructions (~320 KB
+//    of code) at R = 8, far beyond the SM's instruction cache. The ragged
+//    last tile of the last chunk runs a separate loop with a runtime count.
+//  * Staging by `cp.async` into a double-buffered tile: tile i + 1 lands
+//    while tile i is summed, with one __syncthreads() a tile (it both
+//    publishes tile i and retires tile i - 1's buffer). Full tiles copy 16
+//    bytes at a time (the wrapper hands 16-byte aligned arrays, and chunks
+//    start at tile multiples); the ragged tile copies 4 bytes at a time.
+//  * Work split over sources as well as targets: blockIdx.y is a source
+//    chunk, and each (target block, chunk) writes its own partial sums to
+//    scratch [chunks, n_trg, 3]; a second pass (`stokeslet_reduce_kernel`)
+//    adds the chunks in order and applies the scale. No atomics: two
+//    launches on the same inputs give the same bits. The plan picks the
+//    chunk count so the last wave of blocks on the card is not mostly idle
+//    (A's 136,000 targets at 1,024 a block give 133 blocks: one an SM).
+//  * Inside a chunk each tile is summed into a tile partial first and then
+//    added to the chunk's sum, which keeps the f32 error near
+//    eps * (sqrt(kTile) + sqrt(tiles a chunk) + sqrt(chunks)).
+//
+// Tensor cores do not fit this sum. Forming r^2 or d . f as a K = 3 matrix
+// product (|t|^2 + |s|^2 - 2 t . s) cancels catastrophically: in the 10k
+// box (side 20) |t|^2 ~ 100 while r^2 ~ 1e-8 for the nearest pairs, below
+// f32 and TF32 resolution of 100, and the rsqrt and the select are per-pair
+// work no matrix unit does.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 128;  // threads a block
+constexpr int kTile = 128;     // sources a staged tile
+
+// -------------------------------------------------------------- precision
+template <typename T>
+struct Prec;
+
+// f32: r^-1 from the ftz rsqrt as it comes (inf at r^2 = 0 or subnormal),
+// and the pair added by three FMAs predicated on r^2 >= FLT_MIN: a pair
+// that fails it adds nothing, whatever inf or NaN its terms hold, for one
+// compare and no select.
+template <>
+struct Prec<float> {
+  using Vec = float4;  // one 16-byte shared-memory read
+  static __device__ __forceinline__ float rinv(float x) {
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  }
+  static __device__ __forceinline__ void add(float r2, float w, float ax,
+                                             float ay, float az, float& px,
+                                             float& py, float& pz) {
+    asm("{\n\t.reg .pred p;\n\t"
+        "setp.ge.f32 p, %3, 0f00800000;\n\t"  // FLT_MIN
+        "@p fma.rn.f32 %0, %4, %5, %0;\n\t"
+        "@p fma.rn.f32 %1, %4, %6, %1;\n\t"
+        "@p fma.rn.f32 %2, %4, %7, %2;\n\t}"
+        : "+f"(px), "+f"(py), "+f"(pz)
+        : "f"(r2), "f"(w), "f"(ax), "f"(ay), "f"(az));
+  }
+};
+
+// f64: r^-1 selected to 0 unless r^2 >= DBL_MIN, compared on r^2's high
+// word (r^2 >= 0, so r^2 >= DBL_MIN exactly when it is >= 0x00100000): an
+// integer compare, off the FP64 pipe. A dropped pair then adds 0 * f. (The
+// predicated-FMA form of f32 made ptxas spill here, and it turned the
+// predicate into six selects a pair anyway.)
+template <>
+struct Prec<double> {
+  using Vec = double2;
+  static __device__ __forceinline__ double seed(double x) {
+    double y;
+    asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+    return y;
+  }
+  static __device__ __forceinline__ double rsqrt(double x) {
+    const double y = seed(x);
+    const double e = fma(-x, y * y, 1.0);          // 1 - x y^2
+    return fma(y * fma(e, 0.375, 0.5), e, y);      // y (1 + e/2 + 3e^2/8)
+  }
+  static __device__ __forceinline__ double rinv(double x) {
+    return __double2hiint(x) >= 0x00100000 ? rsqrt(x) : 0.0;
+  }
+  static __device__ __forceinline__ void add(double, double w, double ax,
+                                             double ay, double az, double& px,
+                                             double& py, double& pz) {
+    px = fma(w, ax, px);
+    py = fma(w, ay, py);
+    pz = fma(w, az, pz);
+  }
+};
+
+__device__ __forceinline__ void unpack(const float4& v, float* a) {
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+__device__ __forceinline__ void unpack(const double2& v, double* a) {
+  a[0] = v.x;
+  a[1] = v.y;
+}
+
+// Sources a group of 3 vector reads carries (4 in f32, 2 in f64).
+template <typename T>
+constexpr int kGroup = 16 / sizeof(T);
+
+// One pair: source (s, f) seen from target (tx, ty, tz), added to p; the
+// r == 0 drop is the precision's (`Prec<T>::rinv` and `Prec<T>::add`).
+template <typename T>
+__device__ __forceinline__ void pair(T sx, T sy, T sz, T fx, T fy, T fz, T tx,
+                                     T ty, T tz, T& px, T& py, T& pz) {
+  const T dx = tx - sx;
+  const T dy = ty - sy;
+  const T dz = tz - sz;
+  const T r2 = fma(dz, dz, fma(dy, dy, dx * dx));
+  const T rinv = Prec<T>::rinv(r2);
+  const T c = fma(dz, fz, fma(dy, fy, dx * fx)) * (rinv * rinv);
+  Prec<T>::add(r2, rinv, fma(c, dx, fx), fma(c, dy, fy), fma(c, dz, fz), px,
+               py, pz);
+}
+
+// ----------------------------------------------------------------- staging
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Issue the copies of `count` sources from `first` on into one buffer.
+template <typename T>
+__device__ __forceinline__ void stage(T* pos, T* frc,
+                                      const T* __restrict__ src,
+                                      const T* __restrict__ f, int64_t first,
+                                      int count) {
+  const T* gp = src + 3 * first;
+  const T* gf = f + 3 * first;
+  if (count == kTile) {
+    constexpr int kVecs = 3 * kTile * sizeof(T) / 16;  // a buffer's vectors
+    for (int v = threadIdx.x; v < kVecs; v += kThreads) {
+      cp_async16(pos + v * (16 / sizeof(T)), gp + v * (16 / sizeof(T)));
+      cp_async16(frc + v * (16 / sizeof(T)), gf + v * (16 / sizeof(T)));
+    }
+  } else {
+    constexpr int kWords = sizeof(T) / 4;  // 4-byte copies a value
+    const int n = 3 * count * kWords;
+    for (int w = threadIdx.x; w < n; w += kThreads) {
+      cp_async4(reinterpret_cast<float*>(pos) + w,
+                reinterpret_cast<const float*>(gp) + w);
+      cp_async4(reinterpret_cast<float*>(frc) + w,
+                reinterpret_cast<const float*>(gf) + w);
+    }
+  }
+  cp_async_commit();
+}
+
+// ------------------------------------------------------------------ kernels
+// One (target block, source chunk): R targets a thread, targets
+// blockIdx.x * R * kThreads + k * kThreads + threadIdx.x (k < R), sources
+// [blockIdx.y * chunk_len, min(n_src, (blockIdx.y + 1) * chunk_len)).
+// chunk_len is a multiple of kTile. Writes the unscaled partial sums to
+// part[blockIdx.y, t, :].
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+stokeslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
+                       const T* __restrict__ f, T* __restrict__ part,
+                       int64_t n_trg, int64_t n_src, int64_t chunk_len) {
+  using Vec = typename Prec<T>::Vec;
+  constexpr int G = kGroup<T>;
+  constexpr int kGroups = kTile / G;
+  constexpr int kUnroll = 32 / (G * R) > 0 ? 32 / (G * R) : 1;
+  static_assert(kTile % G == 0 && kGroups % kUnroll == 0, "tile shape");
+  __shared__ __align__(16) T s_pos[2][3 * kTile];
+  __shared__ __align__(16) T s_frc[2][3 * kTile];
+
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * (R * kThreads) +
+                     threadIdx.x;
+  T tx[R], ty[R], tz[R], ux[R], uy[R], uz[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int64_t t = t0 + k * kThreads;
+    const bool live = t < n_trg;
+    tx[k] = live ? trg[3 * t + 0] : T(0);
+    ty[k] = live ? trg[3 * t + 1] : T(0);
+    tz[k] = live ? trg[3 * t + 2] : T(0);
+    ux[k] = uy[k] = uz[k] = T(0);
+  }
+
+  const int64_t begin = static_cast<int64_t>(blockIdx.y) * chunk_len;
+  const int64_t end = begin + chunk_len < n_src ? begin + chunk_len : n_src;
+  const int n_tiles = static_cast<int>((end - begin + kTile - 1) / kTile);
+  auto tile_count = [&](int i) {
+    const int64_t left = end - begin - static_cast<int64_t>(i) * kTile;
+    return static_cast<int>(left < kTile ? left : kTile);
+  };
+
+  stage(s_pos[0], s_frc[0], src, f, begin, tile_count(0));
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i visible; every thread is done with tile i - 1
+    if (i + 1 < n_tiles) {
+      stage(s_pos[(i + 1) & 1], s_frc[(i + 1) & 1], src, f,
+            begin + static_cast<int64_t>(i + 1) * kTile, tile_count(i + 1));
+    }
+    const T* pos = s_pos[i & 1];
+    const T* frc = s_frc[i & 1];
+    T px[R], py[R], pz[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) px[k] = py[k] = pz[k] = T(0);
+    const int count = tile_count(i);
+    if (count == kTile) {
+#pragma unroll (kUnroll)
+      for (int g = 0; g < kGroups; ++g) {
+        T p[3 * G], q[3 * G];
+        const Vec* vp = reinterpret_cast<const Vec*>(pos + 3 * G * g);
+        const Vec* vq = reinterpret_cast<const Vec*>(frc + 3 * G * g);
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          unpack(vp[v], p + v * G);
+          unpack(vq[v], q + v * G);
+        }
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            pair(p[3 * j], p[3 * j + 1], p[3 * j + 2], q[3 * j], q[3 * j + 1],
+                 q[3 * j + 2], tx[k], ty[k], tz[k], px[k], py[k], pz[k]);
+          }
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < count; ++j) {
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          pair(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2], frc[3 * j],
+               frc[3 * j + 1], frc[3 * j + 2], tx[k], ty[k], tz[k], px[k],
+               py[k], pz[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      ux[k] += px[k];
+      uy[k] += py[k];
+      uz[k] += pz[k];
+    }
+  }
+
+  T* out = part + static_cast<int64_t>(blockIdx.y) * n_trg * 3;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int64_t t = t0 + k * kThreads;
+    if (t < n_trg) {
+      out[3 * t + 0] = ux[k];
+      out[3 * t + 1] = uy[k];
+      out[3 * t + 2] = uz[k];
+    }
+  }
+}
+
+// out[i] = scale * sum_c part[c, i], the chunks in order (deterministic).
+template <typename T>
+__global__ void __launch_bounds__(256)
+stokeslet_reduce_kernel(const T* __restrict__ part, T* __restrict__ out,
+                        int64_t n, int chunks, T scale) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n) return;
+  T s = part[i];
+  for (int c = 1; c < chunks; ++c) s += part[static_cast<int64_t>(c) * n + i];
+  out[i] = s * scale;
+}
+
+// Targets a thread, tuned on the card (PERF.md): A runs R = 8 (127
+// registers, 4 blocks an SM); B runs R = 2 (80 registers, 6 blocks an SM),
+// since B's R = 8 needs more than 255 registers a thread and spills. The
+// plan in ops/cuda_kernels.py passes its R, and a launch refuses another.
+template <typename T>
+constexpr int kR = std::is_same<T, float>::value ? 8 : 2;
+
+template <typename T>
+int launch(int r, const T* trg, const T* src, const T* f, T* part, T* out,
+           int64_t n_trg, int64_t n_src, int64_t chunk_len, int chunks,
+           T scale, void* stream) {
+  constexpr int R = kR<T>;
+  if (r != R) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = (n_trg + R * kThreads - 1) / (R * kThreads);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
+  stokeslet_chunk_kernel<T, R><<<grid, kThreads, 0, s>>>(trg, src, f, part,
+                                                         n_trg, n_src,
+                                                         chunk_len);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int64_t n = 3 * n_trg;
+  stokeslet_reduce_kernel<T>
+      <<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(part, out, n,
+                                                              chunks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int blocks_per_sm(int* out) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, reinterpret_cast<const void*>(stokeslet_chunk_kernel<T, kR<T>>),
+      kThreads, 0));
+}
+
+__global__ void rsqrt_f64_probe_kernel(const double* __restrict__ x,
+                                       double* __restrict__ seed,
+                                       double* __restrict__ y, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n) return;
+  seed[i] = Prec<double>::seed(x[i]);
+  y[i] = Prec<double>::rsqrt(x[i]);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launchers: the chunk pass and the reduction pass on `stream`; each
+// returns cudaGetLastError() after its launches (0 when both were
+// accepted; cudaErrorInvalidValue, launching nothing, when r is not the
+// precision's kR). `part` is scratch of chunks * n_trg * 3 values;
+// chunk_len is a multiple of 128; src and f are 16-byte aligned.
+int stokeslet_f32_launch(int r, const float* trg, const float* src,
+                         const float* f, float* part, float* out,
+                         long long n_trg, long long n_src, long long chunk_len,
+                         int chunks, float scale, void* stream) {
+  return launch<float>(r, trg, src, f, part, out, n_trg, n_src, chunk_len,
+                       chunks, scale, stream);
+}
+
+int stokeslet_f64_launch(int r, const double* trg, const double* src,
+                         const double* f, double* part, double* out,
+                         long long n_trg, long long n_src, long long chunk_len,
+                         int chunks, double scale, void* stream) {
+  return launch<double>(r, trg, src, f, part, out, n_trg, n_src, chunk_len,
+                        chunks, scale, stream);
+}
+
+// Resident blocks an SM of the current device (`double_prec` 0: A, 1: B).
+int stokeslet_blocks_per_sm(int double_prec, int* out) {
+  return double_prec ? blocks_per_sm<double>(out) : blocks_per_sm<float>(out);
+}
+
+// B's reciprocal square root on n values: the seed and the corrected result.
+int rsqrt_f64_probe_launch(const double* x, double* seed, double* y,
+                           long long n, void* stream) {
+  if (n <= 0) return 0;
+  rsqrt_f64_probe_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(x, seed, y, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* stokeslet_sums_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -60,12 +60,16 @@ def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its library exists already.
 
     Returns {"path", "seconds", "cached", "ptxas"} — ``ptxas`` holds the
-    `-Xptxas -v` report (registers, shared memory, spills per kernel) of a
-    fresh build. A failed build raises with the compiler's output.
+    `-Xptxas -v` report (registers, shared memory, spills per kernel), kept
+    beside the library so a cached build reports it too; a library with no
+    report beside it is built again. A failed build raises with the
+    compiler's output.
     """
     out = library_path(name)
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "cached": True, "ptxas": ""}
+    report = out.with_name(f"{out.name}.ptxas.txt")
+    if out.exists() and report.exists():
+        return {"path": str(out), "seconds": 0.0, "cached": True,
+                "ptxas": report.read_text()}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -77,9 +81,13 @@ def build(name: str) -> dict:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    ptxas = (proc.stdout + proc.stderr).strip()
+    tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
+    tmp_report.write_text(ptxas)
+    os.replace(tmp_report, report)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return {"path": str(out), "seconds": seconds, "cached": False,
-            "ptxas": (proc.stdout + proc.stderr).strip()}
+            "ptxas": ptxas}
 
 
 def load(name: str) -> ctypes.CDLL:

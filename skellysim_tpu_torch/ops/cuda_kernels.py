@@ -21,10 +21,16 @@ Kernel D, `stresslet_f64`: the f64-grade stresslet sum, replacing
 `stresslet_pallas_df`). It carries the shell and body double layers of every
 refinement residual. Native FP64, like kernel B.
 
-All four are instances of one tiled kernel in ``csrc/pair_sums.cu`` (the
-source note there says what bounds them on the card and what the design
-does about it), built with nvcc and loaded with ctypes at the first launch
-(`ops.cuda_build`).
+A and B are ``csrc/stokeslet_sums.cu``, designed for the card (the source
+note there says what bounds them and what the design does about it): R
+targets a thread, sources staged by ``cp.async`` into a double-buffered
+tile, and a split over sources whose partial sums a second pass reduces in
+order. `stokeslet_plan` picks R, the chunks and the grid. C and D are
+instances of one tiled kernel in ``csrc/pair_sums.cu``, which also keeps the
+first design of A and B (one target a thread) as a yardstick:
+`stokeslet_f32_tiled` / `stokeslet_f64_tiled`, which only the GPU tests and
+chip_smoke.py's kernel phase call. Every source is built with nvcc and
+loaded with ctypes at the first launch (`ops.cuda_build`).
 
 Kernel E, `ring_stokeslet_f32`, and kernel F, `ring_stresslet_f32`: the
 float32 Stokeslet and stresslet sums of a ring evaluator, every shard's
@@ -51,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -59,12 +66,15 @@ from .kernels import _pair_sum, stokeslet_block, stresslet_block
 
 _FACTOR = 1.0 / (8.0 * math.pi)
 
-#: the tiled pair sums' source, ``csrc/pair_sums.cu`` (kernels A-D)
+#: the Stokeslet sums' source, ``csrc/stokeslet_sums.cu`` (kernels A and B)
+STOKESLET_SOURCE = "stokeslet_sums"
+#: the tiled pair sums' source, ``csrc/pair_sums.cu`` (kernels C and D, and
+#: the tiled yardstick of A and B)
 SOURCE = "pair_sums"
 #: the fused ring sums' source, ``csrc/ring_sums.cu`` (kernels E and F)
 RING_SOURCE = "ring_sums"
 #: every kernel source (chip_smoke builds them in parallel)
-SOURCES = (SOURCE, RING_SOURCE)
+SOURCES = (STOKESLET_SOURCE, SOURCE, RING_SOURCE)
 #: per family: the plain block form and the payload's columns per source
 #: (forces; the 9 row-major stresslet components)
 _FAMILIES = {"stokeslet": (stokeslet_block, 3),
@@ -81,11 +91,21 @@ def _library(source: str = SOURCE):
         return lib
     lib = cuda_build.load(source)
     ptr, cint, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if source == SOURCE:
-        for family in _FAMILIES:
-            for prec, scalar in (("f32", ctypes.c_float),
-                                 ("f64", ctypes.c_double)):
-                fn = getattr(lib, f"{family}_{prec}_launch")
+    scalars = {"f32": ctypes.c_float, "f64": ctypes.c_double}
+    if source == STOKESLET_SOURCE:
+        for prec, scalar in scalars.items():
+            fn = getattr(lib, f"stokeslet_{prec}_launch")
+            fn.argtypes = [cint, ptr, ptr, ptr, ptr, ptr, cll, cll, cll, cint,
+                           scalar, ptr]
+            fn.restype = cint
+        lib.stokeslet_blocks_per_sm.argtypes = [cint, ctypes.POINTER(cint)]
+        lib.stokeslet_blocks_per_sm.restype = cint
+        lib.rsqrt_f64_probe_launch.argtypes = [ptr, ptr, ptr, cll, ptr]
+        lib.rsqrt_f64_probe_launch.restype = cint
+    elif source == SOURCE:
+        for prec, scalar in scalars.items():
+            for name in (f"stokeslet_{prec}_tiled", f"stresslet_{prec}"):
+                fn = getattr(lib, f"{name}_launch")
                 fn.argtypes = [ptr, ptr, ptr, ptr, cll, cll, scalar, ptr]
                 fn.restype = cint
     else:
@@ -131,11 +151,9 @@ def _check_rows(name, a, cols, dtype, device):
     return a.to(dtype).contiguous()
 
 
-def _launch(name, family, dtype, r_src, r_trg, payload, scale):
-    """Validate, allocate the output and launch kernel ``name`` (e.g.
-    "stresslet_f32"); ``payload`` is [n_src, 3] forces or [n_src, 9]
-    stresslet components. Raises if the launch was refused
-    (cudaGetLastError() != 0 right after it)."""
+def _operands(family, dtype, r_src, r_trg, payload):
+    """The validated, contiguous (targets, sources, payload) of one sum;
+    ``payload`` is [n_src, 3] forces or [n_src, 9] stresslet components."""
     device = r_trg.device
     trg = _check_rows("r_trg", r_trg, 3, dtype, device)
     src = _check_rows("r_src", r_src, 3, dtype, device)
@@ -143,6 +161,22 @@ def _launch(name, family, dtype, r_src, r_trg, payload, scale):
     if src.shape[0] != pay.shape[0]:
         raise ValueError(f"r_src has {src.shape[0]} rows, the payload "
                          f"{pay.shape[0]}")
+    return trg, src, pay
+
+
+def _raise_on(source, name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}_launch failed: CUDA error {rc} "
+                           f"({_cuda_error(source, rc)})")
+
+
+def _tiled_launch(name, family, dtype, r_src, r_trg, payload, scale):
+    """Validate, allocate the output and launch ``csrc/pair_sums.cu``'s
+    tiled kernel ``name`` (e.g. "stresslet_f32"). Returns (output,
+    launched); raises if the launch was refused (cudaGetLastError() != 0
+    right after it)."""
+    trg, src, pay = _operands(family, dtype, r_src, r_trg, payload)
+    device = trg.device
     out = torch.zeros((trg.shape[0], 3), dtype=dtype, device=device)
     if trg.shape[0] == 0 or src.shape[0] == 0:
         return out, False
@@ -152,20 +186,187 @@ def _launch(name, family, dtype, r_src, r_trg, payload, scale):
         rc = getattr(lib, f"{name}_launch")(
             trg.data_ptr(), src.data_ptr(), pay.data_ptr(), out.data_ptr(),
             trg.shape[0], src.shape[0], scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}_launch failed: CUDA error {rc} "
-                           f"({_cuda_error(SOURCE, rc)})")
+    _raise_on(SOURCE, name, rc)
     return out, True
 
 
-def _make_wrapper(family: str, prec: str):
-    """(kernel wrapper, plain version) of one family and precision. The
-    payload is [n_src, 3] forces (Stokeslet) or [n_src, 3, 3] / [n_src, 9]
-    row-major S (stresslet); the output is [n_trg, 3] in ``prec``, from f32
-    or f64 inputs."""
+# --------------------------------------------- kernels A and B: the plan
+
+#: threads a block and sources a staged tile of kernels A and B
+#: (``csrc/stokeslet_sums.cu``, kThreads and kTile)
+STOKESLET_THREADS = 128
+STOKESLET_TILE = 128
+#: targets a thread of each precision's one instance, tuned on the card
+#: (PERF.md; the source's kR, which refuses a launch with another R)
+STOKESLET_R = {"f32": 8, "f64": 2}
+#: the plan takes the fewest source chunks whose blocks keep at least this
+#: share of the card's resident block slots busy over the launch
+_BUSY_TARGET = 0.95
+#: the most source chunks a plan takes (bounds the partial-sum scratch)
+_MAX_CHUNKS = 64
+
+
+@dataclass(frozen=True)
+class StokesletPlan:
+    """How one launch of kernel A or B covers the pairs: target block b
+    holds targets [b R T, (b + 1) R T) (T threads, R a thread), source chunk
+    c holds sources [c L, min(n_src, (c + 1) L)) (L = ``chunk_len``, a tile
+    multiple), and the grid is every (target block, chunk). ``busy`` is the
+    share of the card's block slots (SMs x resident blocks an SM) the
+    launch keeps busy when every block of a chunk takes the same time."""
+    n_trg: int
+    n_src: int
+    r: int
+    target_blocks: int
+    chunks: int
+    chunk_len: int
+    slots: int
+    busy: float
+
+    @property
+    def grid(self) -> tuple:
+        return (self.target_blocks, self.chunks)
+
+    @property
+    def scratch_shape(self) -> tuple:
+        """The partial sums, [chunks, n_trg, 3], that the reduction pass
+        adds in chunk order."""
+        return (self.chunks, self.n_trg, 3)
+
+    def target_ranges(self) -> list:
+        per = self.r * STOKESLET_THREADS
+        return [(b * per, min(self.n_trg, (b + 1) * per))
+                for b in range(self.target_blocks)]
+
+    def source_ranges(self) -> list:
+        return [(c * self.chunk_len, min(self.n_src, (c + 1) * self.chunk_len))
+                for c in range(self.chunks)]
+
+
+def stokeslet_plan(n_trg: int, n_src: int, sm_count: int, blocks_per_sm: int,
+                   prec: str = "f32") -> StokesletPlan:
+    """The launch plan of kernel A (``prec`` "f32") or B ("f64") for
+    ``n_trg`` targets and ``n_src`` sources (both >= 1) on a card of
+    ``sm_count`` SMs with ``blocks_per_sm`` resident blocks of the kernel
+    each. Targets fill ceil(n_trg / (R T)) blocks; the sources are
+    split into the fewest equal tile-multiple chunks (at most
+    ``_MAX_CHUNKS``, at most one a tile) that keep ``_BUSY_TARGET`` of the
+    slots busy, or the busiest split when none does: a grid of fewer blocks
+    than slots, or whose last wave is mostly empty, leaves SMs idle."""
+    if prec not in STOKESLET_R:
+        raise ValueError(f"no Stokeslet kernel is built for {prec!r}; built: "
+                         f"{tuple(STOKESLET_R)}")
+    r = STOKESLET_R[prec]
+    if n_trg < 1 or n_src < 1 or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError("a plan needs n_trg, n_src, sm_count and "
+                         "blocks_per_sm >= 1, got "
+                         f"{(n_trg, n_src, sm_count, blocks_per_sm)}")
+    target_blocks = -(-n_trg // (r * STOKESLET_THREADS))
+    tiles = -(-n_src // STOKESLET_TILE)
+    slots = sm_count * blocks_per_sm
+    best = None
+    for want in range(1, min(tiles, _MAX_CHUNKS) + 1):
+        chunk_tiles = -(-tiles // want)
+        chunks = -(-tiles // chunk_tiles)
+        waves = -(-target_blocks * chunks // slots)
+        busy = target_blocks * tiles / (waves * slots * chunk_tiles)
+        if best is None or busy > best[0]:
+            best = (busy, chunks, chunk_tiles)
+        if busy >= _BUSY_TARGET:
+            break
+    busy, chunks, chunk_tiles = best
+    return StokesletPlan(n_trg=n_trg, n_src=n_src, r=r,
+                         target_blocks=target_blocks, chunks=chunks,
+                         chunk_len=chunk_tiles * STOKESLET_TILE, slots=slots,
+                         busy=busy)
+
+
+#: SM count by device, and resident blocks an SM by (device, prec)
+_sm_counts: dict = {}
+_blocks_per_sm: dict = {}
+
+
+def stokeslet_card_plan(device, prec, n_trg, n_src) -> StokesletPlan:
+    """`stokeslet_plan` on ``device`` (a CUDA device), with its SM count and
+    the kernel's resident blocks an SM as the card reports them."""
+    lib = _library(STOKESLET_SOURCE)
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    key = (device, prec)
+    if key not in _blocks_per_sm:
+        got = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.stokeslet_blocks_per_sm(int(prec == "f64"),
+                                             ctypes.byref(got))
+        _raise_on(STOKESLET_SOURCE, "stokeslet_blocks_per_sm", rc)
+        if got.value < 1:
+            raise RuntimeError(f"stokeslet_{prec} cannot be resident on "
+                               f"{device}")
+        _blocks_per_sm[key] = got.value
+    return stokeslet_plan(n_trg, n_src, _sm_counts[device],
+                          _blocks_per_sm[key], prec)
+
+
+def _aligned(a):
+    """``a`` if its data is 16-byte aligned (the kernel stages full tiles
+    with 16-byte copies), else an aligned copy."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
+def _stokeslet_launch(prec, r_src, r_trg, payload, scale):
+    """Validate, plan, allocate the output and the partial-sum scratch, and
+    launch kernel A or B (the chunk pass and the reduction pass). Returns
+    (output, launched); raises if a launch was refused."""
+    dtype = _DTYPES[prec]
+    trg, src, f = _operands("stokeslet", dtype, r_src, r_trg, payload)
+    device = trg.device
+    n_trg, n_src = trg.shape[0], src.shape[0]
+    if n_trg == 0 or n_src == 0:
+        return torch.zeros((n_trg, 3), dtype=dtype, device=device), False
+    lib = _library(STOKESLET_SOURCE)
+    plan = stokeslet_card_plan(device, prec, n_trg, n_src)
+    src, f = _aligned(src), _aligned(f)
+    part = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
+    out = torch.empty((n_trg, 3), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"stokeslet_{prec}_launch")(
+            plan.r, trg.data_ptr(), src.data_ptr(), f.data_ptr(),
+            part.data_ptr(), out.data_ptr(), n_trg, n_src, plan.chunk_len,
+            plan.chunks, scale, stream)
+    _raise_on(STOKESLET_SOURCE, f"stokeslet_{prec}", rc)
+    return out, True
+
+
+def rsqrt_f64_probe(x):
+    """Kernel B's reciprocal square root on a CUDA float64 tensor: (the
+    ``rsqrt.approx.ftz.f64`` seed, the corrected result), to measure both
+    errors on the card."""
+    x = x.to(torch.float64).contiguous()
+    seed, y = torch.empty_like(x), torch.empty_like(x)
+    lib = _library(STOKESLET_SOURCE)
+    with torch.cuda.device(x.device):
+        rc = lib.rsqrt_f64_probe_launch(
+            x.data_ptr(), seed.data_ptr(), y.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(STOKESLET_SOURCE, "rsqrt_f64_probe", rc)
+    return seed, y
+
+
+# ------------------------------------------------------------ the wrappers
+
+def _make_wrapper(family: str, prec: str, name: str, launch):
+    """(kernel wrapper, plain version) of one family and precision;
+    ``launch(r_src, r_trg, payload, scale) -> (out, launched)`` runs the
+    kernel. The payload is [n_src, 3] forces (Stokeslet) or [n_src, 3, 3] /
+    [n_src, 9] row-major S (stresslet); the output is [n_trg, 3] in
+    ``prec``, from f32 or f64 inputs."""
     block, cols = _FAMILIES[family]
     dtype = _DTYPES[prec]
-    name = f"{family}_{prec}"
 
     def plain(r_src, r_trg, payload, eta=None):
         pay = payload.reshape(payload.shape[0], cols).to(dtype)
@@ -177,26 +378,47 @@ def _make_wrapper(family: str, prec: str):
     def wrapper(r_src, r_trg, payload, eta=None):
         if r_trg.device.type == "cpu":
             return plain(r_src, r_trg, payload, eta)
-        out, launched = _launch(name, family, dtype, r_src, r_trg,
-                                payload.reshape(payload.shape[0], cols),
-                                _scale(eta))
+        out, launched = launch(r_src, r_trg,
+                               payload.reshape(payload.shape[0], cols),
+                               _scale(eta))
         wrapper.launches += int(launched)
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
-    plain.__name__ = plain.__qualname__ = f"{name}_plain"
+    plain.__name__ = plain.__qualname__ = f"{family}_{prec}_plain"
     wrapper.__doc__ = (f"The {prec} {family} sum on its CUDA kernel (CPU "
-                       f"tensors: `{name}_plain`).")
+                       f"tensors: `{plain.__name__}`).")
     plain.__doc__ = f"Plain {prec} {family} sum (the version `{name}` is " \
                     "held against)."
     wrapper.launches = 0
     return wrapper, plain
 
 
-stokeslet_f32, stokeslet_f32_plain = _make_wrapper("stokeslet", "f32")  # A
-stokeslet_f64, stokeslet_f64_plain = _make_wrapper("stokeslet", "f64")  # B
-stresslet_f32, stresslet_f32_plain = _make_wrapper("stresslet", "f32")  # C
-stresslet_f64, stresslet_f64_plain = _make_wrapper("stresslet", "f64")  # D
+def _stokeslet_wrapper(prec):
+    return _make_wrapper(
+        "stokeslet", prec, f"stokeslet_{prec}",
+        lambda s, t, p, scale: _stokeslet_launch(prec, s, t, p, scale))
+
+
+def _tiled_wrapper(family, prec, name):
+    return _make_wrapper(
+        family, prec, name,
+        lambda s, t, p, scale: _tiled_launch(name, family, _DTYPES[prec], s,
+                                             t, p, scale))
+
+
+stokeslet_f32, stokeslet_f32_plain = _stokeslet_wrapper("f32")  # A
+stokeslet_f64, stokeslet_f64_plain = _stokeslet_wrapper("f64")  # B
+stresslet_f32, stresslet_f32_plain = _tiled_wrapper(
+    "stresslet", "f32", "stresslet_f32")  # C
+stresslet_f64, stresslet_f64_plain = _tiled_wrapper(
+    "stresslet", "f64", "stresslet_f64")  # D
+#: A's and B's first design (one target a thread), kept as their yardstick:
+#: only the GPU tests and chip_smoke.py's kernel phase call these
+stokeslet_f32_tiled = _tiled_wrapper("stokeslet", "f32",
+                                     "stokeslet_f32_tiled")[0]
+stokeslet_f64_tiled = _tiled_wrapper("stokeslet", "f64",
+                                     "stokeslet_f64_tiled")[0]
 
 
 # ---------------------------------------------------------------- ring sums
@@ -388,6 +610,9 @@ def enable_ring_peer_access(devices) -> None:
                                    f"({_cuda_error(RING_SOURCE, rc)})")
 
 
-#: every kernel wrapper of this module (chip_smoke resets and reads these)
+#: every kernel wrapper of the port's paths (chip_smoke resets and reads
+#: these)
 KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64,
                    ring_stokeslet_f32, ring_stresslet_f32)
+#: the yardstick wrappers, which no path may launch
+YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled)

@@ -114,6 +114,136 @@ def test_ragged_edges(cuda):
         assert _rel_err(got, ref) <= 1e-12
 
 
+#: the gates of kernels A and B against the plain f64 sum, as a share of
+#: the largest velocity
+_STOKESLET_TOL = {"f32": 1e-4, "f64": 1e-12}
+_DT = {"f32": torch.float32, "f64": torch.float64}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_stokeslet_ragged_shapes_and_split(cuda, prec):
+    """Kernels A / B against the plain f64 sum at counts that are not
+    multiples of R x threads (targets) or of the tile and the chunk
+    (sources), one target, one source, with the source split off (one
+    chunk) and on (several chunks, reduced by the second pass)."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    kern = getattr(ck, f"stokeslet_{prec}")
+    chunks = set()
+    for n_trg, n_src in ((1, 1), (1, 5000), (5000, 1), (1000, 513),
+                         (777, 100), (2000, 70000), (4097, 12345)):
+        src, trg, f = _cloud(n_src + 16, n_trg, _DT[prec], cuda, seed=n_trg)
+        plan = ck.stokeslet_card_plan(cuda, prec, n_trg, n_src + 16)
+        chunks.add(min(plan.chunks, 2))
+        n0 = kern.launches
+        got = kern(src, trg, f, 0.9)
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 1
+        assert got.dtype == _DT[prec] and torch.isfinite(got).all()
+        ref = ck.stokeslet_f64_plain(src, trg, f, 0.9)
+        assert _rel_err(got, ref) <= _STOKESLET_TOL[prec], (n_trg, n_src)
+    assert chunks == {1, 2}  # the split off and on
+
+
+@pytest.mark.gpu
+def test_stokeslet_coincident_pairs_are_exactly_zero(cuda):
+    """A target on top of 5,000 stacked sources (several chunks) gets
+    exactly 0 from them in A and B, and a target away from them gets their
+    finite sum."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    for prec in ("f32", "f64"):
+        p = torch.tensor([[0.5, -0.25, 1.0]], dtype=_DT[prec], device=cuda)
+        src = p.repeat(5000, 1)
+        f = torch.randn((5000, 3), dtype=_DT[prec], device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+        trg = torch.cat([p, p + 1.0])
+        assert ck.stokeslet_card_plan(cuda, prec, 2, 5000).chunks > 1
+        u = getattr(ck, f"stokeslet_{prec}")(src, trg, f, 1.0)
+        assert torch.equal(u[0], torch.zeros_like(u[0]))
+        assert torch.isfinite(u).all() and u[1].abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_stokeslet_subnormal_r2_is_dropped_without_inf(cuda):
+    """A pair whose r^2 is subnormal (r = 1e-20 in f32, 1e-160 in f64),
+    which the flush-to-zero rsqrt would turn into inf, is dropped by the
+    select: exactly 0, finite. A pair just above the cut (r^2 normal) is
+    summed and finite."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    for prec, tiny, near in (("f32", 1e-20, 3e-19), ("f64", 1e-160, 1e-150)):
+        dt = _DT[prec]
+        src = torch.zeros((1, 3), dtype=dt, device=cuda)
+        f = torch.tensor([[1.0, 2.0, 3.0]], dtype=dt, device=cuda)
+        trg = torch.tensor([[tiny, 0.0, 0.0], [near, 0.0, 0.0]], dtype=dt,
+                           device=cuda)
+        u = getattr(ck, f"stokeslet_{prec}")(src, trg, f)
+        assert torch.isfinite(u).all()
+        assert torch.equal(u[0], torch.zeros_like(u[0]))
+        # f + (d.f) d / r^2 = (2, 2, 3) along x, times 1 / r
+        want = torch.tensor([2.0, 2.0, 3.0], dtype=torch.float64) / near
+        torch.testing.assert_close(u[1].double().cpu(), want, rtol=1e-5,
+                                   atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_stokeslet_two_launches_same_bits(cuda, prec):
+    """The split's partial sums are reduced in chunk order, not by atomics:
+    two launches on the same inputs give the same bits."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    src, trg, f = _cloud(50_000, 3000, _DT[prec], cuda, seed=4)
+    assert ck.stokeslet_card_plan(cuda, prec, 3000, 50_000).chunks > 1
+    kern = getattr(ck, f"stokeslet_{prec}")
+    a = kern(src, trg, f, 1.0)
+    b = kern(src, trg, f, 1.0)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_stokeslet_matches_tiled_yardstick(cuda, prec):
+    """The redesigned kernel against the first design (the tiled instance,
+    one target a thread) on the same inputs: 1e-4 (A) and 1e-12 (B) of
+    the largest velocity. Each wrapper counts its own launch only."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    src, trg, f = _cloud(1 << 16, 10_000, _DT[prec], cuda, seed=5)
+    new, old = getattr(ck, f"stokeslet_{prec}"), \
+        getattr(ck, f"stokeslet_{prec}_tiled")
+    n_new, n_old = new.launches, old.launches
+    got, ref = new(src, trg, f, 1.0), old(src, trg, f, 1.0)
+    torch.cuda.synchronize()
+    assert (new.launches, old.launches) == (n_new + 1, n_old + 1)
+    assert _rel_err(got, ref.double()) <= _STOKESLET_TOL[prec]
+
+
+@pytest.mark.gpu
+def test_rsqrt_f64_probe(cuda):
+    """Kernel B's reciprocal square root over r^2 from DBL_MIN to 1e300:
+    the seed's relative error is below 2^-18, so one third-order step
+    (error ~2.5 seed^3) reaches f64 rounding: the result within 4 ulp of
+    1/sqrt(x) (taken in f64 on the host). Prints both errors."""
+    import json
+
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(6)
+    x = np.concatenate([10.0 ** rng.uniform(-307.6, 300, 200_000),
+                        rng.uniform(1e-10, 1e3, 100_000), [2.2250738585072014e-308]])
+    seed, y = ck.rsqrt_f64_probe(torch.as_tensor(x, device=cuda))
+    ref = 1.0 / np.sqrt(x)
+    seed_err = float(np.abs(seed.cpu().numpy() / ref - 1).max())
+    err = float(np.abs(y.cpu().numpy() / ref - 1).max())
+    print(json.dumps({"rsqrt_f64_seed_max_rel_err": seed_err,
+                      "rsqrt_f64_max_rel_err": err, "values": x.size}))
+    assert seed_err < 2.0 ** -18
+    assert err <= 4 * np.finfo(np.float64).eps
+
+
 def _shell_cloud(n_src, n_trg, dtype, device, seed=0):
     """Shell-like stresslet cloud: sources on a sphere of radius 5 with
     f_dl = 2 n (x) rho, targets inside it, some targets exactly on sources
