@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build     — nvcc builds the hand-written kernels from the sources in this
                checkout (skellysim_tpu_torch/csrc/*.cu, one nvcc per source,
                started together); prints seconds and the `-Xptxas -v` report
-               (registers, spills), and fails on a spill in kernels A / B.
+               (registers, spills), and fails on a spill, or an empty report,
+               in kernels A / B (stokeslet_sums.cu) or E / F (ring_sums.cu).
 3. kernels   — kernels A and B (Stokeslet, csrc/stokeslet_sums.cu) at the
                free-space path's shape (the 640,000 fiber nodes of the
                10k-fiber config as sources and as targets): error against
@@ -55,12 +56,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. ring kernels — kernels E and F (the fused ring, 4 shards on the card):
                E with phase 3's 640,000 fiber nodes as sources and targets,
                F with phase 6's 8,000 shell nodes as sources and its 128,000
-               fiber nodes as targets; each against its plain version (the
-               ring accumulation over A's / C's plain block) on target rows
-               sampled from every shard (each shard's last tile included)
-               and against kernel A's / C's full output on the same f32
-               inputs (1e-4 of max|u|), timed like phase 3; then E, F, E
-               back to back with no host sync, held to the same results.
+               fiber nodes as targets; each timed like phase 3 in turns with
+               its first design (the `_v1` yardstick: old, new, new, old),
+               held against its plain version (the ring accumulation over
+               A's / C's plain block) on target rows sampled from every
+               shard (each shard's last target block of R x 128 rows
+               included), against kernel A's / C's full output and against
+               the yardstick's on the same f32 inputs (1e-4 of max|u|), two
+               launches bit for bit; its plan (R, chunks, grid a shard, busy
+               share, scratch) printed, and both designs' hot-loop SASS
+               instructions a pair counted with their issue-slot bounds;
+               then E, F, E back to back with no host sync, each bit for
+               bit its lone call.
 8. ring run  — the ellipsoid config with pair_evaluator = "ring", built with
                `build_simulation(cfg, mesh=make_mesh(4, device=card))` on
                phase 6's precompute and stepped three times by `System.run`:
@@ -68,9 +75,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                launching 0 times, and on final fiber positions within 1e-6
                of phase 6's direct run. Then E and F are checked and timed
                as in 7 at the shapes this run launched them with (E:
-               128,000 sources x 136,000 targets, a partial last tile in
-               every shard), B is checked and timed at one f64-grade
-               hop's shape (32,000 x 34,000) and D's hop is timed.
+               128,000 sources x 136,000 targets, a partial last target
+               block in every shard), B is checked and timed at one
+               f64-grade hop's shape (32,000 x 34,000) and D's hop is
+               timed.
 9. bodies    — examples/stokes_tests/body_const_force (one 600-node sphere,
                force (0, 0, 1), three steps of dt = 0.1) precomputed and run
                the same way; the body's velocity must meet the reference's
@@ -82,14 +90,16 @@ shape are those of its check phase (3, 6 or 7); A's and B's entries also
 carry their first design's time ("previous_ms"), the SASS counts
 ("sass_per_pair", "previous_sass_per_pair") and the issue-slot bounds
 ("issue_bound_ms", "previous_issue_bound_ms"), and under
-"at_ellipsoid_shape" and "at_ragged_source_shape" their phase-6 checks; B's
-and E's and F's, under "at_ring_run_shape", the same check and time at the
-shapes of the ring run (E and F: where their "launches" were counted). Every run is gated on the yardstick
-kernels launching 0 times. Then the nvidia-smi line, and
-last {"ok": true, "device": {...}}. Without a CUDA card the script exits 2
-before printing any result. Every file a phase writes (configs, the ~6.9 GB
-shell precompute, trajectories) lives in one temporary directory outside
-the checkout, removed at the end whether the run passed or failed.
+"at_ellipsoid_shape" and "at_ragged_source_shape" their phase-6 checks; E's
+and F's the same fields against their `_v1` first design, and their plan;
+B's and E's and F's, under "at_ring_run_shape", the same check and time at
+the shapes of the ring run (E and F: where their "launches" were counted).
+Every run is gated on the yardstick kernels launching 0 times. Then the
+nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
+card the script exits 2 before printing any result. Every file a phase
+writes (configs, the ~6.9 GB shell precompute, trajectories) lives in one
+temporary directory outside the checkout, removed at the end whether the
+run passed or failed.
 
 ``--device=cpu`` with small ``--fibers``, ``--ellipsoid-fibers`` and
 ``--shell-nodes`` rehearses the same phases on the CPU with the plain
@@ -139,10 +149,8 @@ KERNEL_LAUNCHES = 3
 #: shards of the ring phases' mesh, all on the one card
 RING_SHARDS = 4
 #: target rows a shard, sampled at random, on which kernels E and F are
-#: held against their plain version (each shard's last tile besides)
+#: held against their plain version (each shard's last target block besides)
 RING_SAMPLE = 1024
-#: targets a tile of kernels E and F (csrc/ring_sums.cu, kThreads)
-RING_TILE = 128
 #: the fused ring's TPU kernel (skellysim_tpu/parallel/ring_fused.py)
 RING_REPLACES = ("skellysim_tpu/parallel/ring_fused.py:99 (_ring_kernel, "
                  'kind="{}", driven by fused_ring_block_sum :178)')
@@ -633,7 +641,8 @@ def phase_run(torch, ck, device, cfg_path, run_dir):
     return wall, counts, peak, steps
 
 
-def report_run(tag, wall, counts, peak, steps, n_steps, tol, device, needed,
+def report_run(ck, tag, wall, counts, peak, steps, n_steps, tol, device,
+               needed,
                what="whole CLI run (state build and frame writes included)"):
     """Print a run's per-step metrics and gate it: ``n_steps`` accepted
     steps, each with true residual <= ``tol``, finite fiber error and
@@ -657,7 +666,7 @@ def report_run(tag, wall, counts, peak, steps, n_steps, tol, device, needed,
     if device.type == "cuda" and not all(counts[k] > 0 for k in needed):
         raise SystemExit(f"{tag}: a kernel of the path never launched: "
                          f"{counts}")
-    if any(counts[k] for k in counts if k.endswith("_tiled")):
+    if any(counts[w.__name__] for w in ck.YARDSTICK_WRAPPERS):
         raise SystemExit(f"{tag}: a yardstick kernel launched on the path: "
                          f"{counts}")
 
@@ -745,9 +754,9 @@ def phase_confined(torch, ck, device, work, args, card):
 
     wall, counts, peak, steps = phase_run(torch, ck, device, cfg_path,
                                           run_dir)
-    report_run("confined", wall, counts, peak, steps, ELLIPSOID_STEPS, 1e-8,
-               device, ["stokeslet_f32", "stokeslet_f64", "stresslet_f32",
-                        "stresslet_f64"])
+    report_run(ck, "confined", wall, counts, peak, steps, ELLIPSOID_STEPS,
+               1e-8, device, ["stokeslet_f32", "stokeslet_f64",
+                              "stresslet_f32", "stresslet_f64"])
     reader = TrajectoryReader(os.path.join(run_dir, "skelly_sim.out"))
     ok = len(reader) == ELLIPSOID_STEPS + 1
     for i in range(len(reader)):
@@ -875,29 +884,62 @@ def _shards(torch, a, n, device):
     return t, [b.contiguous() for b in t.split(m)]
 
 
+def ring_sass(torch, ck, cuda_build, device):
+    """The ring library's SASS by kernel (`sass_functions`) and the card's
+    SM count, or ({}, None) in the CPU rehearsal."""
+    if device.type != "cuda":
+        return {}, None
+    return (sass_functions(cuda_build, cuda_build.library_path(
+        ck.RING_SOURCE)), torch.cuda.get_device_properties(
+            device).multi_processor_count)
+
+
 def ring_check(torch, ck, device, family, src, trg, pay, same, rng, card,
-               tag):
+               tag, sass):
     """Kernel E or F (by ``family``) over RING_SHARDS shards of the device
-    at one shape: held against its plain version on target rows sampled
-    from every shard (each shard's last tile among them, partial where the
-    shard's target count is not a tile multiple) and against kernel A's /
-    C's whole output on the same f32 inputs, both at 1e-4 of max|u|, and
-    timed like phase 3. Exits on a disagreement. Returns (the JSON fields,
-    the per-shard arguments, the per-shard output)."""
+    at one shape: timed in turns with its first design, the `_v1`
+    yardstick (old, new, new, old; each turn like phase 3); held against
+    its plain version on target rows sampled from every shard (each
+    shard's last target block of R x 128 rows among them, partial where
+    the shard's target count is not a multiple of it), against kernel A's
+    / C's whole output on the same f32 inputs and against the yardstick's,
+    all at 1e-4 of max|u|; two launches compared bit for bit; on the card,
+    the plan (R, chunks, grid a shard, busy share, scratch) and both
+    designs' SASS instructions a pair with the issue-slot bounds they give
+    at the SM clock read (``sass`` = (`sass_functions` of the ring library,
+    SMs)). Exits on a failure. Returns (the JSON fields, the per-shard
+    arguments, the per-shard output)."""
     import numpy as np
 
     n = RING_SHARDS
+    on_card = device.type == "cuda"
     kern = getattr(ck, f"ring_{family}_f32")
+    old = getattr(ck, f"ring_{family}_f32_v1")
     plain = getattr(ck, f"ring_{family}_f32_plain")
     s_all, s_l = _shards(torch, src, n, device)
     t_all, t_l = (s_all, s_l) if same else _shards(torch, trg, n, device)
     p_all, p_l = _shards(torch, pay, n, device)
     nt, ns = t_l[0].shape[0], s_l[0].shape[0]
-    ms, got, rounds = kernel_ms(torch, lambda: kern(t_l, s_l, p_l), device)
-    state = card_state(device)
-    last_tile = np.arange(max(0, nt - RING_TILE), nt)
+    turns = {"old": [], "new": []}
+    for label, k in (("old", old), ("new", kern), ("new", kern),
+                     ("old", old)):
+        ms, out, rounds = kernel_ms(torch, lambda: k(t_l, s_l, p_l), device)
+        turns[label].append({"ms": ms, "rounds": rounds,
+                             "card_state": card_state(device)})
+        if label == "new":
+            got = out
+        else:
+            prev = out
+        del out
+    ms = sum(t["ms"] for t in turns["new"]) / 2
+    prev_ms = sum(t["ms"] for t in turns["old"]) / 2
+    state = turns["new"][-1]["card_state"]
+    bitwise = all(bool(torch.equal(a, b))
+                  for a, b in zip(kern(t_l, s_l, p_l), got))
+    block = ck.RING_R * ck.RING_THREADS
+    last_block = np.arange((nt - 1) // block * block, nt)
     rows = [torch.as_tensor(np.union1d(
-        rng.choice(nt, min(nt, RING_SAMPLE), replace=False), last_tile),
+        rng.choice(nt, min(nt, RING_SAMPLE), replace=False), last_block),
         device=device) for _ in range(n)]
     plain_ms, ref = timed(torch, lambda: plain(
         [t[r] for t, r in zip(t_l, rows)], s_l, p_l), device, 1)
@@ -905,51 +947,100 @@ def ring_check(torch, ck, device, family, src, trg, pay, same, rng, card,
     ref = torch.cat(ref).double()
     err = (got_rows - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    whole = getattr(ck, f"{family}_f32")(s_all, t_all, p_all)
+    whole = getattr(ck, f"{family}_f32")(s_all, t_all, p_all).double()
     got_all = torch.cat(got).double()
-    rel_whole = ((got_all - whole.double()).abs().max()
-                 / whole.double().abs().max()).item()
-    del whole, got_all
+    rel_whole = ((got_all - whole).abs().max() / whole.abs().max()).item()
+    prev_all = torch.cat(prev).double()
+    vs_prev = ((got_all - prev_all).abs().max()
+               / prev_all.abs().max()).item()
+    prev_rel = ((prev_all - whole).abs().max() / whole.abs().max()).item()
+    del whole, got_all, prev_all, prev
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     # the bound: operations over FP32 peak, or the bytes — each input read
-    # once, the output written once, and every slot record written once
-    # (n slots a shard, 16-byte aligned records)
-    ops_ms = 1e3 * FLOPS_PER_PAIR[family] * (n * ns) * (n * nt) / PEAK_FP32
+    # once and the output written once
+    pairs = (n * ns) * (n * nt)
+    ops_ms = 1e3 * FLOPS_PER_PAIR[family] * pairs / PEAK_FP32
     in_out = 4 * ((SOURCE_WORDS[family] * ns + (0 if same else 3) * nt
                    + 3 * nt) * n)
-    slot_bytes = 4 * n * n * ns * {"stokeslet": 8, "stresslet": 12}[family]
-    bytes_ms = 1e3 * (in_out + slot_bytes) / PEAK_BYTES
+    bytes_ms = 1e3 * in_out / PEAK_BYTES
     b_ms, b_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
     n_rows = int(sum(len(r) for r in rows))
-    log(f"[{tag}] {kern.__name__}: {n} shards on one device, {n * ns} "
-        f"sources x {n * nt} targets ({nt} a shard, {nt % RING_TILE} in its "
-        f"last, partial tile of {RING_TILE}); against its plain version on "
-        f"{n_rows} target rows sampled from every shard, its last tile "
-        f"included: max abs err {err:.3e}, max rel err {rel:.3e}; against "
-        f"{family}_f32 on all rows: max rel err {rel_whole:.3e} (tolerance "
-        f"1e-4 of max|u|); kernel {ms:.3f} ms ({rounds_note(rounds)}), "
-        f"plain {plain_ms:.1f} ms on the sampled rows, bound {b_ms:.3f} ms "
-        f"({b_by}; operations {ops_ms:.3f} ms at {FLOPS_PER_PAIR[family]} "
-        f"flops a pair and {PEAK_FP32 / 1e12:g} TFLOP/s, bytes "
-        f"{bytes_ms:.4f} ms with {slot_bytes / 1e6:.1f} MB of slot records; "
-        f"this card: {card}; after the timed launches: {state})")
-    if not finite or not rel <= 1e-4 or not rel_whole <= 1e-4:
-        raise SystemExit(f"{kern.__name__} disagrees at {n * ns} x {n * nt}: "
-                         f"rel err {rel:.3e} against its plain version, "
-                         f"{rel_whole:.3e} against {family}_f32 "
-                         f"(finite={finite})")
     fields = {"max_abs_err": err, "max_rel_err": rel,
               "max_rel_err_vs_direct": rel_whole, "tolerance": 1e-4,
-              "ms": ms, "ms_rounds": rounds, "plain_ms": plain_ms,
-              "plain_rows": n_rows, "bound_ms": b_ms, "bound_by": b_by,
-              "card_state": state, "shards": n,
-              "shape": [int(n * ns), int(n * nt)]}
+              "ms": ms, "ms_turns": turns["new"], "plain_ms": plain_ms,
+              "plain_rows": n_rows, "last_block_rows": int(len(last_block)),
+              "bound_ms": b_ms, "bound_by": b_by, "card_state": state,
+              "shards": n, "shape": [int(n * ns), int(n * nt)],
+              "previous_ms": prev_ms, "previous_ms_turns": turns["old"],
+              "previous_source": f"skellysim_tpu_torch/csrc/{ck.RING_SOURCE}"
+                                 f".cu (ring_{family}_f32_v1)",
+              "previous_max_rel_err_vs_direct": prev_rel,
+              "max_rel_diff_vs_previous": vs_prev,
+              "same_bits_twice": bitwise}
+    notes = "plan and SASS not read (CPU rehearsal)"
+    functions, sms = sass
+    if on_card:
+        plan = ck.ring_card_plan(family, [t.device for t in t_l], nt, ns)
+        scratch = 4 * n * math.prod(plan.scratch_shape)
+        mhz = float(re.search(r"SM clock (\d+)", state).group(1))
+        fam = family.capitalize()
+        per, _, per_pass = _sass_loop(
+            functions, rf"ring_kernel.*TilePath.*{fam}TilesELi{plan.r}E")
+        o_per, _, o_pass = _sass_loop(
+            functions, rf"ring_kernel.*RecordPath.*9{fam}IfE")
+        issue = issue_bound_ms(per, pairs, sms, mhz, 128)
+        o_issue = issue_bound_ms(o_per, pairs, sms, mhz, 128)
+        fields.update({
+            "plan": {"r": plan.r, "threads": ck.RING_THREADS,
+                     "tile": ck.RING_TILE, "tiles": plan.tiles,
+                     "target_blocks": plan.target_blocks,
+                     "chunks": plan.chunks, "chunk_tiles": plan.chunk_tiles,
+                     "grid_a_shard": plan.grid, "busy": plan.busy,
+                     "scratch_bytes": scratch},
+            "sm_clock_mhz": mhz, "sass_per_pair": per,
+            "sass_pairs_a_pass": per_pass, "issue_bound_ms": issue,
+            "previous_sass_per_pair": o_per,
+            "previous_issue_bound_ms": o_issue})
+        notes = (f"plan R = {plan.r}, {plan.target_blocks} target blocks x "
+                 f"{plan.chunks} chunks of {plan.chunk_tiles} tiles ("
+                 f"{plan.tiles} a slot), grid {plan.grid} a shard, busy "
+                 f"{plan.busy:.3f}, scratch {scratch / 1e6:.1f} MB; SASS hot "
+                 f"loop {per:.3f} instructions a pair ({per_pass} pairs a "
+                 f"pass) against the first design's {o_per:.3f}; issue-slot "
+                 f"bound {issue:.3f} ms against {o_issue:.3f} ms ({sms} SMs x "
+                 f"128 issue slots a clock at {mhz:.0f} MHz); kernel at "
+                 f"{100 * issue / ms:.1f}% of its issue bound")
+    log(f"[{tag}] {kern.__name__}: {n} shards on one device, {n * ns} "
+        f"sources x {n * nt} targets ({nt} a shard, its last target block "
+        f"{len(last_block)} rows); against its plain version on {n_rows} "
+        f"target rows sampled from every shard, each last target block "
+        f"included: max abs err {err:.3e}, max rel err {rel:.3e}; against "
+        f"{family}_f32 on all rows: max rel err {rel_whole:.3e} (the first "
+        f"design's {prev_rel:.3e}, new vs first {vs_prev:.3e}; tolerance "
+        f"1e-4 of max|u|); same bits twice: {bitwise}; kernel {ms:.3f} ms "
+        f"(turns " + ", ".join(f"{t['ms']:.3f}" for t in turns["new"])
+        + f"; {rounds_note(turns['new'][0]['rounds'])}) against the first "
+        f"design's {prev_ms:.3f} ms (turns "
+        + ", ".join(f"{t['ms']:.3f}" for t in turns["old"])
+        + f"), {prev_ms / ms:.3f}x; plain {plain_ms:.1f} ms on the sampled "
+        f"rows, bound {b_ms:.3f} ms ({b_by}; operations {ops_ms:.3f} ms at "
+        f"{FLOPS_PER_PAIR[family]} flops a pair and {PEAK_FP32 / 1e12:g} "
+        f"TFLOP/s, bytes {bytes_ms:.4f} ms); {notes}; this card: {card}; "
+        f"after the timed launches: {state}")
+    if not (finite and rel <= 1e-4 and rel_whole <= 1e-4 and prev_rel <= 1e-4
+            and vs_prev <= 1e-4 and bitwise):
+        raise SystemExit(f"{kern.__name__} fails its checks at {n * ns} x "
+                         f"{n * nt}: rel err {rel:.3e} against its plain "
+                         f"version, {rel_whole:.3e} against {family}_f32 "
+                         f"(first design {prev_rel:.3e}, new vs first "
+                         f"{vs_prev:.3e}), finite={finite}, same bits "
+                         f"twice={bitwise}")
     return fields, (t_l, s_l, p_l), got
 
 
-def phase_ring_kernels(torch, ck, device, e_in, f_in, card):
+def phase_ring_kernels(torch, ck, device, e_in, f_in, card, sass):
     """Kernels E and F over RING_SHARDS shards on the card (`ring_check`),
-    then E, F, E back to back."""
+    then E, F, E back to back, each held to its lone call bit for bit."""
     import numpy as np
 
     rng = np.random.default_rng(17)
@@ -957,7 +1048,8 @@ def phase_ring_kernels(torch, ck, device, e_in, f_in, card):
     for family, (src, trg, pay, same) in (("stokeslet", e_in),
                                           ("stresslet", f_in)):
         fields, args, got = ring_check(torch, ck, device, family, src, trg,
-                                       pay, same, rng, card, "ring kernels")
+                                       pay, same, rng, card, "ring kernels",
+                                       sass)
         results[family] = (args, got)
         entries.append({
             "name": f"ring_{family}_f32", "route": "cuda",
@@ -982,13 +1074,13 @@ def phase_ring_kernels(torch, ck, device, e_in, f_in, card):
                             / ref.double().abs().max()).item())
     log(f"[ring kernels] back to back (E, F, E, no host sync): max rel "
         f"difference from the lone calls {worst:.3e}, bit for bit: {bitwise}")
-    if not worst <= 1e-4:
-        raise SystemExit("the back-to-back ring launches disagree with the "
+    if not bitwise:
+        raise SystemExit("the back-to-back ring launches differ from the "
                          "lone calls")
     return entries
 
 
-def phase_ring_run(torch, ck, device, ring_inputs, card):
+def phase_ring_run(torch, ck, device, ring_inputs, card, sass):
     """The ellipsoid config through the ring evaluator on a 4-shard mesh of
     the card: `build_simulation(cfg, mesh=...)` and `System.run`; then E
     and F checked and timed at the shapes of the run (`ring_shape_times`).
@@ -1023,8 +1115,8 @@ def phase_ring_run(torch, ck, device, ring_inputs, card):
     steps = [json.loads(line) for line in open(metrics)]
     log(f"[ring run] {mesh.size} shards on {mesh.devices[0]}; state built "
         f"in {build_s:.1f} s (the 6.9 GB npz load included at full width)")
-    report_run("ring run", wall, counts, peak, steps, ELLIPSOID_STEPS, 1e-8,
-               device, ["ring_stokeslet_f32", "ring_stresslet_f32",
+    report_run(ck, "ring run", wall, counts, peak, steps, ELLIPSOID_STEPS,
+               1e-8, device, ["ring_stokeslet_f32", "ring_stresslet_f32",
                         "stokeslet_f64", "stresslet_f64"], what="System.run")
     if device.type == "cuda" and (counts["stokeslet_f32"]
                                   or counts["stresslet_f32"]):
@@ -1039,10 +1131,11 @@ def phase_ring_run(torch, ck, device, ring_inputs, card):
     if not dx <= 1e-6:
         raise SystemExit("the ring run's final fiber positions differ from "
                          "the direct run's")
-    return counts, ring_shape_times(torch, ck, device, ring_inputs, card)
+    return counts, ring_shape_times(torch, ck, device, ring_inputs, card,
+                                    sass)
 
 
-def ring_shape_times(torch, ck, device, ring_inputs, card):
+def ring_shape_times(torch, ck, device, ring_inputs, card, sass):
     """Kernels E and F at the shapes the ring step launches them with, the
     launches its counts come from: E with the fiber nodes as sources and
     every node as targets (128,000 x 136,000 at full width: 34,000 targets
@@ -1066,7 +1159,7 @@ def ring_shape_times(torch, ck, device, ring_inputs, card):
                                    ring_inputs["f_dl"])):
         at_run[f"ring_{family}_f32"] = ring_check(
             torch, ck, device, family, src, trg, pay, False, rng, card,
-            "ring run")[0]
+            "ring run", sass)[0]
     f64 = torch.float64
     _, s_l = _shards(torch, fib, n, device)
     _, t_l = _shards(torch, every, n, device)
@@ -1099,7 +1192,7 @@ def phase_bodies(torch, ck, device, work):
     precompute.main([cfg_path, f"--device={device.type}"])
     wall, counts, peak, steps = phase_run(torch, ck, device, cfg_path,
                                           run_dir)
-    report_run("bodies", wall, counts, peak, steps, BODY_STEPS,
+    report_run(ck, "bodies", wall, counts, peak, steps, BODY_STEPS,
                config.params.gmres_tol, device,
                ["stresslet_f32", "stresslet_f64"])
     with np.load(os.path.join(run_dir, config.bodies[0].precompute_file)) as z:
@@ -1202,10 +1295,11 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                     log(f"[build] ptxas: {line.strip()}")
             spills = [int(v) for v in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", info["ptxas"])]
-            if name == ck.STOKESLET_SOURCE and not spills:
+            gated = name in (ck.STOKESLET_SOURCE, ck.RING_SOURCE)
+            if gated and not spills:
                 raise SystemExit(f"no ptxas report for {name}.cu: its spills "
                                  "are not verified")
-            if name == ck.STOKESLET_SOURCE and any(spills):
+            if gated and any(spills):
                 raise SystemExit(f"ptxas reports spills in {name}.cu: "
                                  f"{spills}")
 
@@ -1231,8 +1325,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     launches = {}
     wall, counts, peak, steps = phase_run(torch, ck, device, cfg_path,
                                           run_dir)
-    report_run("run", wall, counts, peak, steps, round(T_FINAL / 5e-3), 1e-8,
-               device, ["stokeslet_f32", "stokeslet_f64"])
+    report_run(ck, "run", wall, counts, peak, steps, round(T_FINAL / 5e-3),
+               1e-8, device, ["stokeslet_f32", "stokeslet_f64"])
     launches["free_fibers_10k"] = counts
     reader = TrajectoryReader(os.path.join(run_dir, "skelly_sim.out"))
     last = reader.load_frame(len(reader) - 1)
@@ -1260,17 +1354,18 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
         torch.cuda.empty_cache()
 
     # 7. the fused ring kernels E and F
+    sass = ring_sass(torch, ck, cuda_build, device)
     entries += phase_ring_kernels(
         torch, ck, device, (nodes, nodes, f, True),
         (ring_inputs["shell_nodes"], ring_inputs["fiber_nodes"],
-         ring_inputs["f_dl"], False), smi)
+         ring_inputs["f_dl"], False), smi, sass)
     del nodes, f
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     # 8. the ellipsoid config through the ring evaluator
     launches["ellipsoid_ring"], at_run = phase_ring_run(
-        torch, ck, device, ring_inputs, smi)
+        torch, ck, device, ring_inputs, smi, sass)
     for e in entries:
         if e["name"] in at_run:
             e["at_ring_run_shape"] = at_run[e["name"]]

@@ -1,6 +1,8 @@
-// Pair functors shared by the tiled pair sums (pair_sums.cu, kernels A-D)
-// and the fused ring sums (ring_sums.cu, kernels E and F), so the two
-// sources cannot drift.
+// Pair functors of the first, one-target-a-thread design, shared by the
+// tiled pair sums (pair_sums.cu: kernels C and D, and A's and B's
+// yardstick) and the fused ring sums' yardstick (ring_sums.cu, E's and F's
+// first design), so the sources cannot drift. The redesigned kernels' pair
+// code is pair_terms.cuh.
 //
 //   Stokeslet  sum_s [ f_s / r + (d . f_s) d / r^3 ]
 //   stresslet  sum_s -3 (d^T S_s d) d / r^5

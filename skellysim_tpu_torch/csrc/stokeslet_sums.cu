@@ -29,10 +29,11 @@
 //    staged source is read from shared memory once for R pairs, as 16-byte broadcast loads: 3 vectors carry
 //    the positions of 4 f32 (2 f64) sources and 3 more their forces, so a
 //    pair costs 1.5 / R (f32) or 3 / R (f64) load instructions.
-//  * The pair in its fewest instructions: c = (d . f) r^-2 and
+//  * The pair in its fewest instructions (`pair_terms.cuh`, shared with
+//    the ring kernels E and F): c = (d . f) r^-2 and
 //    u += r^-1 (f + c d), three FFMA for f + c d and three for the sum,
 //    no r^-3. f32: `rsqrt.approx.ftz.f32` inline, one MUFU with no
-//    denormal fix-up (this source only; the other kernels keep their flags).
+//    denormal fix-up (the compile flags stay the same for every kernel).
 //    f64: `rsqrt.approx.ftz.f64` as a seed and one third-order correction
 //    y (1 + e/2 + 3e^2/8), e = 1 - x y^2, in five FP64 instructions, where
 //    the library's rsqrt(double) guards inputs this kernel never passes it.
@@ -85,121 +86,21 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "pair_terms.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // threads a block
 constexpr int kTile = 128;     // sources a staged tile
 
-// -------------------------------------------------------------- precision
-template <typename T>
-struct Prec;
-
-// f32: r^-1 from the ftz rsqrt as it comes (inf at r^2 = 0 or subnormal),
-// and the pair added by three FMAs predicated on r^2 >= FLT_MIN: a pair
-// that fails it adds nothing, whatever inf or NaN its terms hold, for one
-// compare and no select.
-template <>
-struct Prec<float> {
-  using Vec = float4;  // one 16-byte shared-memory read
-  static __device__ __forceinline__ float rinv(float x) {
-    float y;
-    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-  }
-  static __device__ __forceinline__ void add(float r2, float w, float ax,
-                                             float ay, float az, float& px,
-                                             float& py, float& pz) {
-    asm("{\n\t.reg .pred p;\n\t"
-        "setp.ge.f32 p, %3, 0f00800000;\n\t"  // FLT_MIN
-        "@p fma.rn.f32 %0, %4, %5, %0;\n\t"
-        "@p fma.rn.f32 %1, %4, %6, %1;\n\t"
-        "@p fma.rn.f32 %2, %4, %7, %2;\n\t}"
-        : "+f"(px), "+f"(py), "+f"(pz)
-        : "f"(r2), "f"(w), "f"(ax), "f"(ay), "f"(az));
-  }
-};
-
-// f64: r^-1 selected to 0 unless r^2 >= DBL_MIN, compared on r^2's high
-// word (r^2 >= 0, so r^2 >= DBL_MIN exactly when it is >= 0x00100000): an
-// integer compare, off the FP64 pipe. A dropped pair then adds 0 * f. (The
-// predicated-FMA form of f32 made ptxas spill here, and it turned the
-// predicate into six selects a pair anyway.)
-template <>
-struct Prec<double> {
-  using Vec = double2;
-  static __device__ __forceinline__ double seed(double x) {
-    double y;
-    asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
-    return y;
-  }
-  static __device__ __forceinline__ double rsqrt(double x) {
-    const double y = seed(x);
-    const double e = fma(-x, y * y, 1.0);          // 1 - x y^2
-    return fma(y * fma(e, 0.375, 0.5), e, y);      // y (1 + e/2 + 3e^2/8)
-  }
-  static __device__ __forceinline__ double rinv(double x) {
-    return __double2hiint(x) >= 0x00100000 ? rsqrt(x) : 0.0;
-  }
-  static __device__ __forceinline__ void add(double, double w, double ax,
-                                             double ay, double az, double& px,
-                                             double& py, double& pz) {
-    px = fma(w, ax, px);
-    py = fma(w, ay, py);
-    pz = fma(w, az, pz);
-  }
-};
-
-__device__ __forceinline__ void unpack(const float4& v, float* a) {
-  a[0] = v.x;
-  a[1] = v.y;
-  a[2] = v.z;
-  a[3] = v.w;
-}
-
-__device__ __forceinline__ void unpack(const double2& v, double* a) {
-  a[0] = v.x;
-  a[1] = v.y;
-}
-
-// Sources a group of 3 vector reads carries (4 in f32, 2 in f64).
-template <typename T>
-constexpr int kGroup = 16 / sizeof(T);
-
-// One pair: source (s, f) seen from target (tx, ty, tz), added to p; the
-// r == 0 drop is the precision's (`Prec<T>::rinv` and `Prec<T>::add`).
-template <typename T>
-__device__ __forceinline__ void pair(T sx, T sy, T sz, T fx, T fy, T fz, T tx,
-                                     T ty, T tz, T& px, T& py, T& pz) {
-  const T dx = tx - sx;
-  const T dy = ty - sy;
-  const T dz = tz - sz;
-  const T r2 = fma(dz, dz, fma(dy, dy, dx * dx));
-  const T rinv = Prec<T>::rinv(r2);
-  const T c = fma(dz, fz, fma(dy, fy, dx * fx)) * (rinv * rinv);
-  Prec<T>::add(r2, rinv, fma(c, dx, fx), fma(c, dy, fy), fma(c, dz, fz), px,
-               py, pz);
-}
-
-// ----------------------------------------------------------------- staging
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
+using skelly::cp_async16;
+using skelly::cp_async4;
+using skelly::cp_async_commit;
+using skelly::cp_async_wait_all;
+using skelly::kGroup;
+using skelly::Prec;
+using skelly::stokeslet_pair;
+using skelly::unpack;
 
 // Issue the copies of `count` sources from `first` on into one buffer.
 template <typename T>
@@ -297,8 +198,9 @@ stokeslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
         for (int j = 0; j < G; ++j) {
 #pragma unroll
           for (int k = 0; k < R; ++k) {
-            pair(p[3 * j], p[3 * j + 1], p[3 * j + 2], q[3 * j], q[3 * j + 1],
-                 q[3 * j + 2], tx[k], ty[k], tz[k], px[k], py[k], pz[k]);
+            stokeslet_pair(p[3 * j], p[3 * j + 1], p[3 * j + 2], q[3 * j],
+                           q[3 * j + 1], q[3 * j + 2], tx[k], ty[k], tz[k],
+                           px[k], py[k], pz[k]);
           }
         }
       }
@@ -307,9 +209,9 @@ stokeslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
       for (int j = 0; j < count; ++j) {
 #pragma unroll
         for (int k = 0; k < R; ++k) {
-          pair(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2], frc[3 * j],
-               frc[3 * j + 1], frc[3 * j + 2], tx[k], ty[k], tz[k], px[k],
-               py[k], pz[k]);
+          stokeslet_pair(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2],
+                         frc[3 * j], frc[3 * j + 1], frc[3 * j + 2], tx[k],
+                         ty[k], tz[k], px[k], py[k], pz[k]);
         }
       }
     }

@@ -25,7 +25,8 @@ A and B are ``csrc/stokeslet_sums.cu``, designed for the card (the source
 note there says what bounds them and what the design does about it): R
 targets a thread, sources staged by ``cp.async`` into a double-buffered
 tile, and a split over sources whose partial sums a second pass reduces in
-order. `stokeslet_plan` picks R, the chunks and the grid. C and D are
+order. `stokeslet_plan` picks R, the chunks and the grid. Their pair code
+is ``csrc/pair_terms.cuh``, which E and F include too. C and D are
 instances of one tiled kernel in ``csrc/pair_sums.cu``, which also keeps the
 first design of A and B (one target a thread) as a yardstick:
 `stokeslet_f32_tiled` / `stokeslet_f64_tiled`, which only the GPU tests and
@@ -40,8 +41,13 @@ rotating around the ring inside one kernel. They replace
 "stresslet", reached through `fused_ring_block_sum`) and carry every f32
 fiber and shell flow of a ring run. Both are ``csrc/ring_sums.cu``; they
 take per-shard lists (shard k on its mesh device) and return the unscaled
-per-shard sums. Their plain version is the ring accumulation
-(`parallel.ring._ring_accumulate`) over kernel A's / C's plain block.
+per-shard sums. Inside every ring step they are kernel A's design (R
+targets a thread, ``cp.async`` staging of a tile-major slot, a source split
+whose partial sums a second launch reduces in order; `ring_plan` picks the
+split). Their first design (one target a thread) stays as their yardstick,
+`ring_stokeslet_f32_v1` / `ring_stresslet_f32_v1`. Their plain version is
+the ring accumulation (`parallel.ring._ring_accumulate`) over kernel A's /
+C's plain block.
 
 One routing rule in each wrapper: a CPU tensor takes the plain version (the
 blocked displacement forms of `ops.kernels.stokeslet_block` /
@@ -109,24 +115,27 @@ def _library(source: str = SOURCE):
                 fn.argtypes = [ptr, ptr, ptr, ptr, cll, cll, scalar, ptr]
                 fn.restype = cint
     else:
-        for family in _FAMILIES:
-            fn = getattr(lib, f"ring_{family}_f32_launch")
+        for name in _RING_RECORD_WORDS:
+            plan_args = [] if name.endswith("_v1") else [cint] * 5
+            fn = getattr(lib, f"{name}_launch")
             fn.argtypes = [ptr, cint, cll, cll, cint, cint, cint,
-                           ctypes.c_ulonglong, ptr]
+                           ctypes.c_ulonglong, *plan_args, ptr]
             fn.restype = cint
-            fn = getattr(lib, f"ring_{family}_f32_grid_x")
-            fn.argtypes = [cint, cint, ctypes.POINTER(cint)]
+            fn = getattr(lib, f"{name}_blocks_per_sm")
+            fn.argtypes = [cint, ctypes.POINTER(cint)]
             fn.restype = cint
-        lib.ring_record_bytes.argtypes = [cint]
-        lib.ring_record_bytes.restype = cint
         lib.ring_enable_peer_access.argtypes = [cint, cint]
         lib.ring_enable_peer_access.restype = cint
-        for i, family in enumerate(_FAMILIES):
-            got = lib.ring_record_bytes(i)
-            if got != 4 * _RING_RECORD_WORDS[family]:
-                raise RuntimeError(f"ring_sums.cu's {family} record is {got} "
-                                   "bytes, the wrapper sizes slots for "
-                                   f"{4 * _RING_RECORD_WORDS[family]}")
+        for i, (name, words) in enumerate(_RING_RECORD_WORDS.items()):
+            got = lib.ring_record_words(i)
+            if got != words:
+                raise RuntimeError(f"ring_sums.cu's {name} slot takes {got} "
+                                   f"words a source, the wrapper sizes slots "
+                                   f"for {words}")
+        got = lib.ring_targets_a_thread()
+        if got != RING_R:
+            raise RuntimeError(f"ring_sums.cu builds E and F with R = {got}, "
+                               f"the plan uses {RING_R}")
     err = getattr(lib, f"{source}_error_string")
     err.argtypes = [cint]
     err.restype = ctypes.c_char_p
@@ -423,27 +432,163 @@ stokeslet_f64_tiled = _tiled_wrapper("stokeslet", "f64",
 
 # ---------------------------------------------------------------- ring sums
 
-#: floats a slot record takes (position + payload, padded to 16 bytes);
+#: threads a block and sources a staged tile of kernels E and F
+#: (``csrc/ring_sums.cu``, kThreads and kTile)
+RING_THREADS = 128
+RING_TILE = 128
+#: targets a thread of E's and F's instances, tuned on the card (PERF.md;
+#: the source's kR, checked when the library loads, which refuses a launch
+#: with another R)
+RING_R = 4
+#: the position of a slot's pad sources (the source's kPadPosition, the JAX
+#: package's _PAD_SENTINEL); their payload is zero
+RING_PAD_POSITION = 1e18
+#: floats a source takes in a slot, by instance: the redesign's tile-major
+#: layout (position + payload) and the first design's 16-byte records;
 #: checked against the source when the library loads
-_RING_RECORD_WORDS = {"stokeslet": 8, "stresslet": 12}
+_RING_RECORD_WORDS = {"ring_stokeslet_f32": 6, "ring_stresslet_f32": 12,
+                      "ring_stokeslet_f32_v1": 8, "ring_stresslet_f32_v1": 12}
 #: shards one ring call serves at most (the kernel's table size)
 _RING_MAX_SHARDS = 16
 
 
+@dataclass(frozen=True)
+class RingPlan:
+    """How one call of kernel E or F covers the pairs of each ring step.
+    A slot holds ``tiles`` full tiles (the last padded). A work item is
+    (target block b: targets [b R T, (b + 1) R T), T threads, R a thread;
+    chunk c: tiles [c C, (c + 1) C) of the step's slot, C =
+    ``chunk_tiles``), item index i = b chunks + c; ``grid`` blocks a shard
+    stride over a step's items, block g taking those whose running index
+    step x items + i is g mod grid. ``busy`` is the share of a step's
+    block slots (grid x rounds of items x C tiles) the items fill."""
+    n_trg: int
+    n_src: int
+    n_shards: int
+    r: int
+    tiles: int
+    target_blocks: int
+    chunks: int
+    chunk_tiles: int
+    grid: int
+    busy: float
+
+    @property
+    def items(self) -> int:
+        return self.target_blocks * self.chunks
+
+    @property
+    def scratch_shape(self) -> tuple:
+        """A shard's partial sums, [n steps, chunks, n_trg, 3], that the
+        reduction adds step-major then chunk."""
+        return (self.n_shards, self.chunks, self.n_trg, 3)
+
+    def item_ranges(self, i: int) -> tuple:
+        """(target range, source range) of item ``i``; the source range
+        stops at n_src (the slot's pads past it add nothing)."""
+        b, c = divmod(i, self.chunks)
+        per, per_chunk = self.r * RING_THREADS, self.chunk_tiles * RING_TILE
+        return ((b * per, min(self.n_trg, (b + 1) * per)),
+                (c * per_chunk, min(self.n_src, (c + 1) * per_chunk)))
+
+    def block_items(self, block: int, step: int) -> range:
+        """The items block ``block`` sums at ring step ``step``."""
+        return range((block - step * self.items) % self.grid, self.items,
+                     self.grid)
+
+
+def ring_plan(n_trg: int, n_src: int, n_shards: int, shards_per_launch: int,
+              sms: int, blocks_per_sm: int, family: str) -> RingPlan:
+    """The plan of kernel E (``family`` "stokeslet") or F ("stresslet") for
+    ``n_trg`` targets and ``n_src`` sources a shard on a ring of
+    ``n_shards``, each launch serving ``shards_per_launch`` of them on a
+    card of ``sms`` SMs with ``blocks_per_sm`` resident blocks of the
+    kernel: the persistent grid is sms x blocks_per_sm / shards_per_launch
+    blocks a shard. The sources of a step are split into the fewest chunks
+    of whole tiles that keep ``_BUSY_TARGET`` of a step's block slots busy
+    on the whole card's grid (one shard a card), or the busiest split there
+    when none does (one chunk a tile at the most). The split sets the order
+    of the f32 sums, so it does not depend on ``shards_per_launch``: the
+    same shards give the same bits on one card as on one card each. A
+    launch serving s shards gives each the card's grid / s, which the same
+    items fill at least as well where s divides the card's grid; ``busy``
+    is the share on the launch's own grid."""
+    if family not in _FAMILIES:
+        raise ValueError(f"no ring kernel is built for {family!r}; built: "
+                         f"{tuple(_FAMILIES)}")
+    if min(n_trg, n_src, n_shards, shards_per_launch, sms,
+           blocks_per_sm) < 1:
+        raise ValueError("a ring plan needs counts >= 1, got "
+                         f"{(n_trg, n_src, n_shards, shards_per_launch)} "
+                         f"on {sms} SMs x {blocks_per_sm} blocks")
+    if n_shards > _RING_MAX_SHARDS or shards_per_launch > n_shards:
+        raise ValueError(f"a ring has 1..{_RING_MAX_SHARDS} shards and a "
+                         f"launch serves at most all of them, got {n_shards}, "
+                         f"{shards_per_launch}")
+    grid = sms * blocks_per_sm // shards_per_launch
+    if grid < 1:
+        raise ValueError(f"{shards_per_launch} shards a launch leave a grid "
+                         f"of 0 on {sms} SMs x {blocks_per_sm} blocks")
+    target_blocks = -(-n_trg // (RING_R * RING_THREADS))
+    tiles = -(-n_src // RING_TILE)
+
+    def busy_on(width, chunk_tiles):
+        rounds = -(-target_blocks * -(-tiles // chunk_tiles) // width)
+        return target_blocks * tiles / (rounds * width * chunk_tiles)
+
+    best, seen = None, set()
+    for want in range(1, tiles + 1):
+        chunk_tiles = -(-tiles // want)
+        if chunk_tiles in seen:
+            continue
+        seen.add(chunk_tiles)
+        busy = busy_on(sms * blocks_per_sm, chunk_tiles)
+        if best is None or busy > best[0]:
+            best = (busy, chunk_tiles)
+        if busy >= _BUSY_TARGET:
+            break
+    chunk_tiles = best[1]
+    return RingPlan(n_trg=n_trg, n_src=n_src, n_shards=n_shards, r=RING_R,
+                    tiles=tiles, target_blocks=target_blocks,
+                    chunks=-(-tiles // chunk_tiles), chunk_tiles=chunk_tiles,
+                    grid=grid, busy=busy_on(grid, chunk_tiles))
+
+
+def ring_slot_plain(family: str, src, payload):
+    """The plain form of one slot of kernel E / F, as the kernel packs it:
+    per tile of RING_TILE sources, the tile's positions (row-major x, y,
+    z), then its payload (row-major), the last tile padded with sources at
+    RING_PAD_POSITION carrying zero payload. Returns [tiles, RING_TILE
+    (3 + cols)] float32."""
+    cols = _FAMILIES[family][1]
+    n = src.shape[0]
+    tiles = -(-n // RING_TILE)
+    pos = torch.full((tiles * RING_TILE, 3), RING_PAD_POSITION,
+                     dtype=torch.float32, device=src.device)
+    pay = torch.zeros((tiles * RING_TILE, cols), dtype=torch.float32,
+                      device=src.device)
+    pos[:n] = src
+    pay[:n] = payload.reshape(n, cols)
+    return torch.cat([pos.reshape(tiles, -1), pay.reshape(tiles, -1)], dim=1)
+
+
 class _RingComm:
     """One ring's persistent device state: each shard's n write-once slots
-    and its n + 2 monotone counters (arrival per slot, entry, exit), on the
-    shard's device, and the number of calls served (the epoch the kernel
-    waits for). The counters are zeroed once here and never again: a reset
-    between calls would race with a slow neighbour. Each zero fill runs on
-    its card's current stream, which nothing orders before a neighbour
-    card's first signal into these counters, so every card of the ring is
-    synchronized before the ring is used (once a ring)."""
+    (``slot_words`` floats each) and its n + 2 monotone counters (arrival
+    per slot, entry, exit), on the shard's device, the number of calls
+    served (the epoch the kernel waits for) and the grid width every launch
+    of the ring takes (each counter counts one signal a block; the width
+    follows from the ring's devices, so it never changes). The
+    counters are zeroed once here and never again: a reset between calls
+    would race with a slow neighbour. Each zero fill runs on its card's
+    current stream, which nothing orders before a neighbour card's first
+    signal into these counters, so every card of the ring is synchronized
+    before the ring is used (once a ring)."""
 
-    def __init__(self, family, devices, n_src):
+    def __init__(self, devices, slot_words, grid):
         n = len(devices)
-        words = _RING_RECORD_WORDS[family]
-        self.slots = [torch.empty(n * n_src * words, dtype=torch.float32,
+        self.grid = grid
+        self.slots = [torch.empty(n * slot_words, dtype=torch.float32,
                                   device=d) for d in devices]
         self.flags = [torch.zeros(n + 2, dtype=torch.int64, device=d)
                       for d in devices]
@@ -452,30 +597,38 @@ class _RingComm:
         self.epoch = 0
 
 
-#: ring state by (family, shard devices, sources a shard); process-wide
-#: because the counters must outlive every call of the ring (a fresh,
-#: zeroed buffer a call could reuse memory a neighbour card still writes)
+#: ring state by (family, shard devices, sources a shard) for the redesign
+#: and (family + "_v1", ...) for the first design; process-wide because the
+#: counters must outlive every call of the ring (a fresh, zeroed buffer a
+#: call could reuse memory a neighbour card still writes)
 _ring_comms: dict = {}
-#: rings whose call failed part-way: a neighbour card's launch of that call
-#: may still write their slots and counters, so they are never freed
+#: rings no call may use again (a call failed part-way): a neighbour card's
+#: launch of an earlier call may still write their slots and counters, so
+#: they are never freed
 _failed_rings: list = []
-#: cooperative grid width by (family, device, shards a launch)
-_ring_grids: dict = {}
+#: resident blocks an SM by (instance name, device)
+_ring_blocks: dict = {}
+#: `ring_card_plan`'s plans by (instance name, devices, targets, sources)
+_ring_plans: dict = {}
 
 
-def _ring_grid(lib, family, device, count) -> int:
-    key = (family, device, count)
-    if key not in _ring_grids:
+def _ring_blocks_per_sm(lib, name, device) -> int:
+    """Resident blocks an SM of instance ``name`` on ``device`` (its
+    cooperative grid is this x the SM count, among the shards a launch
+    serves); raises where the card cannot launch it cooperatively."""
+    key = (name, device)
+    if key not in _ring_blocks:
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = getattr(lib, f"ring_{family}_f32_grid_x")(
-                count, device.index, ctypes.byref(out))
-        if rc != 0:
-            raise RuntimeError(f"ring_{family}_f32 has no cooperative grid "
-                               f"on {device}: CUDA error {rc} "
-                               f"({_cuda_error(RING_SOURCE, rc)})")
-        _ring_grids[key] = out.value
-    return _ring_grids[key]
+            rc = getattr(lib, f"{name}_blocks_per_sm")(device.index,
+                                                       ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(f"{name} has no cooperative grid on {device}: "
+                               f"CUDA error {rc} "
+                               f"({_cuda_error(RING_SOURCE, rc)}), "
+                               f"{out.value} blocks an SM")
+        _ring_blocks[key] = out.value
+    return _ring_blocks[key]
 
 
 def _launch_groups(devices):
@@ -491,10 +644,38 @@ def _launch_groups(devices):
     return [tuple(g) for g in groups]
 
 
-def _ring_launch(family, r_trg, src, payload):
-    """Validate the per-shard lists, allocate the outputs and the ring
-    state, and issue every launch of one ring call (all of them before
-    anything that blocks); returns (per-shard outputs, launches)."""
+def ring_card_plan(family, devices, n_trg, n_src, name=None):
+    """`ring_plan` for a ring whose shard k lies on ``devices[k]``, with
+    each card's SM count and the instance's resident blocks an SM as the
+    cards report them; every launch of a ring takes the narrowest card's
+    grid. ``name`` is the instance (default: the family's kernel). Plans
+    are kept for the life of the process: a ring's shapes and cards are
+    those of its run."""
+    name = name or f"ring_{family}_f32"
+    key = (name, tuple(devices), n_trg, n_src)
+    if key in _ring_plans:
+        return _ring_plans[key]
+    lib = _library(RING_SOURCE)
+    narrowest = None
+    for d, _, count in _launch_groups(devices):
+        if d not in _sm_counts:
+            _sm_counts[d] = torch.cuda.get_device_properties(
+                d).multi_processor_count
+        args = (_sm_counts[d], _ring_blocks_per_sm(lib, name, d), count)
+        if narrowest is None or (args[0] * args[1] // args[2] < narrowest[0]
+                                 * narrowest[1] // narrowest[2]):
+            narrowest = args
+    sms, per_sm, count = narrowest
+    plan = _ring_plans[key] = ring_plan(n_trg, n_src, len(devices), count,
+                                        sms, per_sm, family)
+    return plan
+
+
+def _ring_launch(name, family, r_trg, src, payload):
+    """Validate the per-shard lists, allocate the outputs, the partial sums
+    and the ring state, and issue every launch of one ring call of instance
+    ``name`` (all of them before anything that blocks); returns (per-shard
+    outputs, launches)."""
     n = len(r_trg)
     if not 1 <= n <= _RING_MAX_SHARDS or len(src) != n or len(payload) != n:
         raise ValueError(f"a ring call takes 1..{_RING_MAX_SHARDS} shards and "
@@ -517,46 +698,56 @@ def _ring_launch(family, r_trg, src, payload):
                          f"counts; got {[t.shape[0] for t in trg]} targets, "
                          f"{[a.shape[0] for a in srcs]} sources, "
                          f"{[a.shape[0] for a in pays]} payload rows")
-    out = [torch.zeros((nt, 3), dtype=f32, device=d) for d in devices]
     if nt == 0 or ns == 0:
-        return out, 0
+        return [torch.zeros((nt, 3), dtype=f32, device=d)
+                for d in devices], 0
     lib = _library(RING_SOURCE)
-    key = (family, tuple(devices), ns)
+    v1 = name.endswith("_v1")
+    plan = ring_card_plan(family, devices, nt, ns, name)
+    out = [torch.empty((nt, 3), dtype=f32, device=d) for d in devices]
+    part = out if v1 else [torch.empty(plan.scratch_shape, dtype=f32,
+                                       device=d) for d in devices]
+    slot_words = _RING_RECORD_WORDS[name] * (
+        ns if v1 else plan.tiles * RING_TILE)
+    key = (family + ("_v1" if v1 else ""), tuple(devices), ns)
     comm = _ring_comms.get(key)
     if comm is None:
-        comm = _ring_comms[key] = _RingComm(family, devices, ns)
-    groups = _launch_groups(devices)
-    grid = min(_ring_grid(lib, family, d, c) for d, _, c in groups)
-    table = (ctypes.c_ulonglong * (6 * n))(*[
+        comm = _ring_comms[key] = _RingComm(devices, slot_words, plan.grid)
+    elif comm.grid != plan.grid:
+        raise RuntimeError(f"{name}: the ring on {devices} counts signals of "
+                           f"{comm.grid} blocks a shard, the plan asks for "
+                           f"{plan.grid}; a ring's grid never changes")
+    table = (ctypes.c_ulonglong * (7 * n))(*[
         p for k in range(n) for p in (
             trg[k].data_ptr(), srcs[k].data_ptr(), pays[k].data_ptr(),
             out[k].data_ptr(), comm.slots[k].data_ptr(),
-            comm.flags[k].data_ptr())])
+            comm.flags[k].data_ptr(), part[k].data_ptr())])
     comm.epoch += 1
-    launch = getattr(lib, f"ring_{family}_f32_launch")
+    launch = getattr(lib, f"{name}_launch")
+    groups = _launch_groups(devices)
     for d, first, count in groups:
         with torch.cuda.device(d):
             stream = torch.cuda.current_stream(d).cuda_stream
-            rc = launch(table, n, nt, ns, first, count, grid, comm.epoch,
-                        stream)
+            plan_args = () if v1 else (plan.r, plan.tiles, plan.chunk_tiles,
+                                       plan.chunks, plan.target_blocks)
+            rc = launch(table, n, nt, ns, first, count, plan.grid, comm.epoch,
+                        *plan_args, stream)
         if rc != 0:
             # the ring's counters no longer match its epoch, and the
             # launches already issued (other cards) may still write its
             # buffers: keep them alive, and give the next call a fresh ring
             _failed_rings.append(_ring_comms.pop(key))
-            raise RuntimeError(f"ring_{family}_f32_launch failed on {d}: "
-                               f"CUDA error {rc} "
+            raise RuntimeError(f"{name}_launch failed on {d}: CUDA error {rc} "
                                f"({_cuda_error(RING_SOURCE, rc)})")
     return out, len(groups)
 
 
-def _make_ring_wrapper(family: str):
-    """(kernel wrapper, plain version) of one ring family. Both take lists
-    with one entry a shard: targets [nt, 3], sources [ns, 3] and payload
-    [ns, 3] forces or [ns, 3, 3] / [ns, 9] stresslet components, shard k on
-    its own device; both return the unscaled float32 sums [nt, 3] a shard,
-    each on its shard's device."""
-    name = f"ring_{family}_f32"
+def _make_ring_wrapper(family: str, name: str):
+    """(kernel wrapper, plain version) of one ring instance. Both take
+    lists with one entry a shard: targets [nt, 3], sources [ns, 3] and
+    payload [ns, 3] forces or [ns, 3, 3] / [ns, 9] stresslet components,
+    shard k on its own device; both return the unscaled float32 sums [nt,
+    3] a shard, each on its shard's device."""
     block_plain = {"stokeslet": stokeslet_f32_plain,
                    "stresslet": stresslet_f32_plain}[family]
 
@@ -572,7 +763,7 @@ def _make_ring_wrapper(family: str):
     def wrapper(r_trg, src, payload):
         if all(t.device.type == "cpu" for t in r_trg):
             return plain(r_trg, src, payload)
-        out, launched = _ring_launch(family, r_trg, src, payload)
+        out, launched = _ring_launch(name, family, r_trg, src, payload)
         wrapper.launches += launched
         return out
 
@@ -588,9 +779,16 @@ def _make_ring_wrapper(family: str):
 
 
 ring_stokeslet_f32, ring_stokeslet_f32_plain = \
-    _make_ring_wrapper("stokeslet")  # E
+    _make_ring_wrapper("stokeslet", "ring_stokeslet_f32")  # E
 ring_stresslet_f32, ring_stresslet_f32_plain = \
-    _make_ring_wrapper("stresslet")  # F
+    _make_ring_wrapper("stresslet", "ring_stresslet_f32")  # F
+#: E's and F's first design (one target a thread, 16-byte records),
+#: kept as their yardstick: only the GPU tests and chip_smoke.py's ring
+#: kernel phases call these
+ring_stokeslet_f32_v1 = _make_ring_wrapper("stokeslet",
+                                           "ring_stokeslet_f32_v1")[0]
+ring_stresslet_f32_v1 = _make_ring_wrapper("stresslet",
+                                           "ring_stresslet_f32_v1")[0]
 
 
 def enable_ring_peer_access(devices) -> None:
@@ -615,4 +813,5 @@ def enable_ring_peer_access(devices) -> None:
 KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64,
                    ring_stokeslet_f32, ring_stresslet_f32)
 #: the yardstick wrappers, which no path may launch
-YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled)
+YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled,
+                      ring_stokeslet_f32_v1, ring_stresslet_f32_v1)

@@ -466,7 +466,8 @@ def test_ring_kernels_back_to_back(cuda):
 @pytest.mark.gpu
 def test_ring_kernels_across_cards(cuda):
     """With one shard per card (2 to 4 cards, peer stores over NVLink) E
-    and F give the one-card results of the same shards bit for bit, and a
+    and F give the one-card results of the same shards bit for bit (both
+    layouts split a step's sources alike), and a
     mixed-precision ring step of a small fiber scene on the card mesh
     gives the one-card mesh's solution. Prints the times of both layouts
     at the full-width shapes (640,000 fiber nodes for E; 8,000 shell nodes
@@ -489,6 +490,9 @@ def test_ring_kernels_across_cards(cuda):
         kern = getattr(ck, f"ring_{family}_f32")
         one = _ring_inputs(family, n, nt, ns, cuda, seed=5)
         spread = [[b.to(d) for b, d in zip(lst, cards.devices)] for lst in one]
+        plans = [ck.ring_card_plan(family, [t.device for t in args[0]], nt,
+                                   ns) for args in (one, spread)]
+        assert plans[0].chunk_tiles == plans[1].chunk_tiles
         for layout, args in (("one card", one), (f"{n} cards", spread)):
             n0 = kern.launches
             kern(*args)                                   # warm-up
@@ -580,7 +584,13 @@ def test_ring_launch_failure_keeps_the_ring_and_recovers(cuda, monkeypatch):
     torch.cuda.synchronize()
     key = next(k for k in ck._ring_comms if k[0] == "stresslet" and k[2] == ns)
     comm = ck._ring_comms[key]
-    monkeypatch.setattr(ck, "_ring_grid", lambda *a: 1 << 20)
+    lib = ck._library(ck.RING_SOURCE)
+    real = lib.ring_stresslet_f32_launch
+
+    def too_wide(table, n, nt, ns_, first, count, grid, *rest):
+        return real(table, n, nt, ns_, first, count, 1 << 20, *rest)
+
+    monkeypatch.setattr(lib, "ring_stresslet_f32_launch", too_wide)
     n0 = ck.ring_stresslet_f32.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         ck.ring_stresslet_f32(*args)
@@ -592,6 +602,125 @@ def test_ring_launch_failure_keeps_the_ring_and_recovers(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert ck._ring_comms[key] is not comm
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_ring_redesign_matches_plain_and_first_design(cuda, family):
+    """Kernels E / F against their plain version and against their first
+    design (the `_v1` yardstick, one target a thread) at ragged shapes
+    (targets and sources not multiples of the tile or of R x 128, one pair,
+    the source split off and on), with self pairs across shards: 1e-4 of
+    the largest velocity; two launches give the same bits; each wrapper
+    counts its own launches only."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    ring = getattr(ck, f"ring_{family}_f32")
+    old = getattr(ck, f"ring_{family}_f32_v1")
+    plain = getattr(ck, f"ring_{family}_f32_plain")
+    chunks = set()
+    for n_dev, nt, ns in ((4, 333, 517), (3, 1025, 129), (2, 1, 1),
+                          (4, 5000, 3000)):
+        trg, src, pay = _ring_inputs(family, n_dev, nt, ns, cuda,
+                                     seed=nt + ns)
+        plan = ck.ring_card_plan(family, [t.device for t in trg], nt, ns)
+        chunks.add(min(plan.chunks, 2))
+        n_new, n_old = ring.launches, old.launches
+        got, again = ring(trg, src, pay), ring(trg, src, pay)
+        first = old(trg, src, pay)
+        torch.cuda.synchronize()
+        assert (ring.launches, old.launches) == (n_new + 2, n_old + 1)
+        assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                   for g in got)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert _ring_err(got, plain(trg, src, pay)) < 1e-4, (n_dev, nt, ns)
+        assert _ring_err(got, first) < 1e-4, (n_dev, nt, ns)
+    assert chunks == {1, 2}  # the split off and on
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_ring_slots_hold_the_plain_layout(cuda, family):
+    """After a call every slot of every shard holds, bit for bit, the plain
+    tile-major layout (`ring_slot_plain`: positions, then payload, the last
+    tile padded at RING_PAD_POSITION with zero payload) of the source block
+    the ring order puts there: shard (k - s) mod n in shard k's slot s."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    n, ns = 3, 300
+    trg, src, pay = _ring_inputs(family, n, 200, ns, cuda, seed=8)
+    getattr(ck, f"ring_{family}_f32")(trg, src, pay)
+    torch.cuda.synchronize()
+    comm = ck._ring_comms[(family, tuple(t.device for t in trg), ns)]
+    for k in range(n):
+        slots = comm.slots[k].reshape(n, -1)
+        for s in range(n):
+            want = ck.ring_slot_plain(family, src[(k - s) % n],
+                                      pay[(k - s) % n]).reshape(-1)
+            assert torch.equal(slots[s], want), (k, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_ring_subnormal_r2_and_coincident_pairs_are_dropped(cuda, family):
+    """Kernels E / F on two shards whose sources sit at the origin: a
+    target at r = 1e-20 (r^2 subnormal, which the flush-to-zero rsqrt
+    would turn into inf) and a target on the origin get exactly 0, finite;
+    a target away from them gets their finite sum (for E also one just
+    above the cut, r^2 normal, summed to f32 rounding)."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    cols = 3 if family == "stokeslet" else 9
+    w = torch.arange(1, cols + 1, dtype=torch.float32, device=cuda)[None, :]
+    origin = torch.zeros((1, 3), device=cuda)
+    trg = [torch.tensor([[1e-20, 0.0, 0.0], [0.0, 0.0, 0.0]], device=cuda),
+           torch.tensor([[5.0, 0.0, 0.0], [3e-19, 0.0, 0.0]], device=cuda)]
+    u = getattr(ck, f"ring_{family}_f32")(trg, [origin, origin], [w, 2 * w])
+    torch.cuda.synchronize()
+    assert torch.isfinite(u[0]).all() and torch.isfinite(u[1][0]).all()
+    assert torch.equal(u[0], torch.zeros_like(u[0]))
+    lone = getattr(ck, f"{family}_f32")(origin, trg[1][:1], 3 * w)
+    torch.testing.assert_close(u[1][:1], lone, rtol=1e-6, atol=0)
+    if family == "stokeslet":
+        # f + (d.f) d / r^2 = (6, 6, 9) along x for f = (3, 6, 9), times 1 / r
+        want = torch.tensor([6.0, 6.0, 9.0], dtype=torch.float64) / 3e-19
+        torch.testing.assert_close(u[1][1].double().cpu(), want, rtol=1e-5,
+                                   atol=0)
+
+
+@pytest.mark.gpu
+def test_ring_refuses_an_unbuilt_r_or_grid(cuda, monkeypatch):
+    """A plan the built instance cannot serve raises and counts no launch:
+    another R than the source's kR (the wrapper), and a grid of 0 or another
+    R handed to the launcher itself (cudaErrorInvalidValue, nothing
+    launched); and a ring whose plan asks for another grid width than the
+    ring's counters count raises before anything launches."""
+    import ctypes
+    import dataclasses
+
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    lib = ck._library(ck.RING_SOURCE)   # loaded (and checked) at the real R
+    other = 8 if ck.RING_R == 4 else 4
+    args = _ring_inputs("stokeslet", 2, 100, 211, cuda, seed=3)
+    real = ck.ring_card_plan
+    n0 = ck.ring_stokeslet_f32.launches
+    for change, match in (({"r": other}, "launch failed"),
+                          ({"grid": 1}, "grid never changes")):
+        monkeypatch.setattr(ck, "ring_card_plan", lambda *a, **k: (
+            dataclasses.replace(real(*a, **k), **change)))
+        with pytest.raises(RuntimeError, match=match):
+            ck.ring_stokeslet_f32(*args)
+        assert ck.ring_stokeslet_f32.launches == n0
+        monkeypatch.undo()
+        if "r" in change:            # a working ring for the grid's case
+            ck.ring_stokeslet_f32(*args)
+            n0 += 1
+    table = (ctypes.c_ulonglong * 14)()
+    for grid, r in ((0, ck.RING_R), (4, other)):
+        rc = lib.ring_stokeslet_f32_launch(table, 2, 100, 211, 0, 2, grid, 1,
+                                           r, 2, 1, 2, 1, None)
+        assert rc != 0, (grid, r)
 
 
 def _imported_modules(path: Path):
