@@ -10,20 +10,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                checkout (skellysim_tpu_torch/csrc/*.cu, one nvcc per source,
                started together); prints seconds and the `-Xptxas -v` report
                (registers, spills), and fails on a spill, or an empty report,
-               in kernels A / B (stokeslet_sums.cu) or E / F (ring_sums.cu).
+               in kernels A / B (stokeslet_sums.cu), C / D
+               (stresslet_sums.cu) or E / F (ring_sums.cu).
 3. kernels   — kernels A and B (Stokeslet, csrc/stokeslet_sums.cu) at the
                free-space path's shape (the 640,000 fiber nodes of the
-               10k-fiber config as sources and as targets): error against
-               the plain f64 sum, two launches bit for bit, and time (CUDA
-               events after a warm-up: the median of 3 rounds of 3
-               launches, with the SM clock and temperature nvidia-smi reads
-               right after) in turns with their first design, the tiled
-               yardstick of csrc/pair_sums.cu (old, new, new, old); the
-               hot loop's instructions a pair of
-               both designs counted from `cuobjdump -sass` and the
-               issue-slot bound they give at the SM clock read; B's
-               reciprocal square root against 1/sqrt; plain time, and the
-               flop bound.
+               10k-fiber config as sources and as targets), by
+               `design_check`: error against the plain f64 sum, two
+               launches bit for bit, and time (CUDA events after a warm-up:
+               the median of 3 rounds of 3 launches, with the SM clock and
+               temperature nvidia-smi reads right after) in turns with
+               their first design, the tiled yardstick of csrc/pair_sums.cu
+               (old, new, new, old); the plan, both designs' registers and
+               shared bytes, the hot loop's instructions a pair of both
+               designs counted from `cuobjdump -sass` and the issue-slot
+               bound they give at the SM clock read; B's reciprocal square
+               root against 1/sqrt; plain time, and the flop bound.
 4. run       — the repo's 10k-fiber x 64-node free-space config
                (examples/free_fibers_10k/gen_config.py's recipe, with
                refine_pair_impl="pallas_df", a frame every step) written with
@@ -41,18 +42,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                ellipsoidal shell, three steps of dt = 8e-3) written with the
                port's schema in a temporary directory outside the checkout;
                `python -m skellysim_tpu_torch.precompute` on the card (seconds of quadrature / assembly / inverse and
-               ||M M_inv - I|| on 8 columns); kernels C and D (stresslet)
-               against their plain versions with the shell's nodes as
-               sources and the fiber nodes as targets; then the run, as in 4,
-               gated on every step accepted with true residual <= gmres_tol
-               and health 0, on kernels A-D launching, and on frames
-               that carry a finite shell density of 3 x 8,000 values.
-               Before the run, A and B are checked and timed at the shape
-               the run launches them with (the fiber nodes as sources,
-               every node as targets: 128,000 x 136,000, a partial last
-               target block, many source chunks) and with every node as
-               sources and targets (136,000: a partial last source tile),
-               each against the plain f64 sum on every row.
+               ||M M_inv - I|| on 8 columns); kernels C and D (stresslet,
+               csrc/stresslet_sums.cu) checked and timed like A and B in 3
+               (`design_check`), with the shell's 8,000 nodes as sources
+               and the 128,000 fiber nodes as targets; then the run, as in
+               4, gated on every step accepted with true residual <=
+               gmres_tol and health 0, on kernels A-D launching, and on
+               frames that carry a finite shell density of 3 x 8,000
+               values; then one more step under `torch.profiler`, which
+               prints the device kernels with the most time and the
+               device-busy share of the step (attribution only: it gates
+               nothing). Before the run, A and B are checked and timed at
+               the shape the run launches them with (the fiber nodes as
+               sources, every node as targets: 128,000 x 136,000, a partial
+               last target block, many source chunks) and with every node
+               as sources and targets (136,000: a partial last source
+               tile), each against the plain f64 sum on every row.
 7. ring kernels — kernels E and F (the fused ring, 4 shards on the card):
                E with phase 3's 640,000 fiber nodes as sources and targets,
                F with phase 6's 8,000 shell nodes as sources and its 128,000
@@ -76,24 +81,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                of phase 6's direct run. Then E and F are checked and timed
                as in 7 at the shapes this run launched them with (E:
                128,000 sources x 136,000 targets, a partial last target
-               block in every shard), B is checked and timed at one
-               f64-grade hop's shape (32,000 x 34,000) and D's hop is
-               timed.
+               block in every shard), and B and D are checked on every row
+               and timed at one f64-grade hop's shape (B 32,000 x 34,000,
+               D 2,000 x 32,000).
 9. bodies    — examples/stokes_tests/body_const_force (one 600-node sphere,
                force (0, 0, 1), three steps of dt = 0.1) precomputed and run
                the same way; the body's velocity must meet the reference's
                Stokes-drag gate |1 - v / (F / 6 pi eta r_eff)| < 1e-6, and
-               kernels C and D must launch.
+               kernels C and D must launch; then C and D are checked on
+               every row and timed at the body's 600 x 600.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
-shape are those of its check phase (3, 6 or 7); A's and B's entries also
-carry their first design's time ("previous_ms"), the SASS counts
-("sass_per_pair", "previous_sass_per_pair") and the issue-slot bounds
-("issue_bound_ms", "previous_issue_bound_ms"), and under
-"at_ellipsoid_shape" and "at_ragged_source_shape" their phase-6 checks; E's
-and F's the same fields against their `_v1` first design, and their plan;
-B's and E's and F's, under "at_ring_run_shape", the same check and time at
-the shapes of the ring run (E and F: where their "launches" were counted).
+shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
+entries also carry their first design's time ("previous_ms"), the SASS
+counts ("sass_per_pair", "previous_sass_per_pair"), the issue-slot bounds
+("issue_bound_ms", "previous_issue_bound_ms"), registers, shared bytes and
+the plan; A's and B's, under "at_ellipsoid_shape" and
+"at_ragged_source_shape", their phase-6 checks; C's and D's, under
+"at_body_shape", their phase-9 checks; E's and F's the same fields against
+their `_v1` first design, and their plan; B's, D's, E's and F's, under
+"at_ring_run_shape", the same check and time at the shapes of the ring run
+(E and F: where their "launches" were counted; B and D: one hop).
 Every run is gated on the yardstick kernels launching 0 times. Then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
 card the script exits 2 before printing any result. Every file a phase
@@ -355,75 +363,22 @@ def make_body_config(path):
     return config
 
 
-def phase_kernels(torch, ck, device, specs, card):
-    """Each kernel against its plain version on the same (f32-rounded)
-    inputs; returns the JSON entries (launches filled in after the runs).
-
-    ``specs``: (family, src [n, 3], trg [m, 3], payload [n, 3 or 9],
-    same_points, [(name, kernel, dtype, plain or None, peak, tol,
-    replaces)]). Both kernels of a family get the same values, rounded to
-    f32 once and widened for the f64 kernel: with f64 inputs, the f32
-    kernel's rounding of the positions alone would dominate its error."""
-    out = []
-    for family, src, trg, pay, same, kernels in specs:
-        f64_plain = getattr(ck, f"{family}_f64_plain")
-        src64, trg64, pay64 = (torch.as_tensor(a, dtype=torch.float32,
-                                               device=device).double()
-                               for a in (src, trg, pay))
-        eta = 1.0
-        # the reference of both kernels: the plain version in f64 (also the
-        # f64 kernel's plain time, since it is that kernel's plain version)
-        ref_ms, ref = timed(torch, lambda: f64_plain(src64, trg64, pay64,
-                                                     eta), device, 1)
-        n_src, n_trg = src64.shape[0], trg64.shape[0]
-        for name, kern, dt, plain, peak, tol, replaces in kernels:
-            s, t, f = src64.to(dt), trg64.to(dt), pay64.to(dt)
-            ms, got, rounds = kernel_ms(torch, lambda: kern(s, t, f, eta),
-                                        device)
-            state = card_state(device)
-            plain_ms = ref_ms if plain is None else timed(
-                torch, lambda: plain(s, t, f, eta), device, 1)[0]
-            err = (got.double() - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            finite = bool(torch.isfinite(got).all())
-            b_ms, b_by = bound_ms(family, n_src, n_trg, got.element_size(),
-                                  peak, same_points=same)
-            log(f"[kernels] {name}: {n_src} sources x {n_trg} targets, max "
-                f"abs err {err:.3e}, max rel err {rel:.3e} (tolerance "
-                f"{tol:g} of max|u|; reference: plain f64), kernel {ms:.3f} "
-                f"ms ({rounds_note(rounds)}), plain {plain_ms:.1f} ms, bound "
-                f"{b_ms:.3f} ms ({b_by}, "
-                f"{FLOPS_PER_PAIR[family]} flops a pair at "
-                f"{peak / 1e12:g} TFLOP/s, the data sheet's rate at 700 W; "
-                f"this card: {card}; after the timed launches: {state})")
-            if not finite or not rel <= tol:
-                raise SystemExit(f"{name} disagrees with its plain version: "
-                                 f"rel err {rel:.3e} > {tol:g} "
-                                 f"(finite={finite})")
-            out.append({"name": name, "route": "cuda",
-                        "source": f"skellysim_tpu_torch/csrc/{ck.SOURCE}.cu",
-                        "replaces": replaces, "launches": 0,
-                        "max_abs_err": err, "max_rel_err": rel,
-                        "tolerance": tol, "ms": ms, "ms_rounds": rounds,
-                        "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None, "card_state": state,
-                        "shape": [int(n_src), int(n_trg)]})
-            del s, t, f, got
-        del src64, trg64, pay64, ref
-        log(f"[kernels] no single PyTorch call computes the singular "
-            f"{family} sum (it is not a convolution, attention or sparse "
-            "product): library_ms is null")
-    return out
-
-
-#: kernels A and B: precision, the data sheet's peak for the flop bound,
-#: the gate against the plain f64 sum (share of max|u|), the Pallas tile
-STOKESLET_KERNELS = (
-    ("f32", PEAK_FP32, 1e-4,
-     "skellysim_tpu/ops/pallas_kernels.py:110 (_stokeslet_kernel)"),
-    ("f64", PEAK_FP64, 1e-12,
-     "skellysim_tpu/ops/pallas_df.py:158 (_stokeslet_df_kernel)"))
+#: kernels A-D by (family, precision): the data sheet's peak for the flop
+#: bound, the gate against the plain f64 sum (share of max|u|), the Pallas
+#: tile it replaces
+PAIR_KERNELS = {
+    ("stokeslet", "f32"): (
+        PEAK_FP32, 1e-4,
+        "skellysim_tpu/ops/pallas_kernels.py:110 (_stokeslet_kernel)"),
+    ("stokeslet", "f64"): (
+        PEAK_FP64, 1e-12,
+        "skellysim_tpu/ops/pallas_df.py:158 (_stokeslet_df_kernel)"),
+    ("stresslet", "f32"): (
+        PEAK_FP32, 1e-4,
+        "skellysim_tpu/ops/pallas_kernels.py:204 (_stresslet_kernel)"),
+    ("stresslet", "f64"): (
+        PEAK_FP64, 1e-12,
+        "skellysim_tpu/ops/pallas_df.py:195 (_stresslet_df_kernel)")}
 
 
 def _sass_loop(sass, pattern):
@@ -433,6 +388,27 @@ def _sass_loop(sass, pattern):
         raise SystemExit(f"SASS: {len(names)} kernels match {pattern!r}: "
                          f"{names} (of {list(sass)})")
     return hot_loop(sass[names[0]])
+
+
+def ptxas_usage(report, pattern):
+    """(registers, shared bytes) of the one kernel whose mangled name
+    matches, from a `-Xptxas -v` report."""
+    usage, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[current] = (int(m.group(1)),
+                              int(smem.group(1)) if smem else 0)
+    names = [k for k in usage if re.search(pattern, k)]
+    if len(names) != 1:
+        raise SystemExit(f"ptxas: {len(names)} kernels match {pattern!r}: "
+                         f"{names}")
+    return usage[names[0]]
 
 
 def rsqrt_probe(torch, ck, device):
@@ -450,42 +426,51 @@ def rsqrt_probe(torch, ck, device):
             float(np.abs(y.cpu().numpy() / ref - 1).max()))
 
 
-def phase_stokeslet(torch, ck, cuda_build, device, nodes, force, card):
-    """Kernels A and B with the free-space path's fiber nodes as sources
-    and targets, each against the plain f64 sum on the same f32-rounded
-    inputs and against its first design (the tiled yardstick), the two
+def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
+                 tag):
+    """Kernels A and B (``family`` "stokeslet") or C and D ("stresslet") at
+    one shape, each against the plain f64 sum on every row, on the same
+    inputs rounded to f32 once (widened for the f64 kernel: with f64 inputs
+    the f32 kernel's rounding of the positions alone would dominate its
+    error), and against its first design (the tiled yardstick), the two
     timed in turns (old, new, new, old) in this call; two launches compared
-    bit for bit; the SASS instructions a pair of
-    both designs' hot loops and the issue-slot bound they give at the SM
-    clock nvidia-smi reads; and B's reciprocal square root measured.
-    Returns the JSON entries (launches filled in after the runs)."""
+    bit for bit; on the card, the plan, both designs' registers and shared
+    bytes (`-Xptxas -v`), the SASS instructions a pair of both hot loops and
+    the issue-slot bound they give at the SM clock nvidia-smi reads; and
+    B's reciprocal square root measured. ``trg is src`` where the sources
+    are the targets (the bytes bound reads them once). Returns the JSON
+    entries (launches filled in after the runs)."""
     on_card = device.type == "cuda"
-    src64, frc64 = (torch.as_tensor(a, dtype=torch.float32,
-                                    device=device).double()
-                    for a in (nodes, force))
-    n = src64.shape[0]
+    same = trg is src
+    src64, trg64, pay64 = (torch.as_tensor(a, dtype=torch.float32,
+                                           device=device).double()
+                           for a in (src, trg, pay))
+    n_src, n_trg = src64.shape[0], trg64.shape[0]
     eta = 1.0
-    # the reference of both kernels: the plain version in f64 (also B's
-    # plain time)
-    ref_ms, ref = timed(torch, lambda: ck.stokeslet_f64_plain(
-        src64, src64, frc64, eta), device, 1)
+    # the reference of both kernels: the plain version in f64 (also the f64
+    # kernel's plain time)
+    ref_ms, ref = timed(torch, lambda: getattr(ck, f"{family}_f64_plain")(
+        src64, trg64, pay64, eta), device, 1)
     ref_max = ref.abs().max().item()
+    source = ck.STOKESLET_SOURCE if family == "stokeslet" \
+        else ck.STRESSLET_SOURCE
     sass, sms = {}, None
     if on_card:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        for source in (ck.STOKESLET_SOURCE, ck.SOURCE):
+        for lib in (source, ck.SOURCE):
             sass.update(sass_functions(cuda_build,
-                                       cuda_build.library_path(source)))
+                                       cuda_build.library_path(lib)))
     entries = []
-    for prec, peak, tol, replaces in STOKESLET_KERNELS:
+    for prec in ("f32", "f64"):
+        peak, tol, replaces = PAIR_KERNELS[family, prec]
         dt = torch.float32 if prec == "f32" else torch.float64
-        s, fr = src64.to(dt), frc64.to(dt)
-        new = getattr(ck, f"stokeslet_{prec}")
-        old = getattr(ck, f"stokeslet_{prec}_tiled")
+        s, t, f = src64.to(dt), trg64.to(dt), pay64.to(dt)
+        name = f"{family}_{prec}"
+        new, old = getattr(ck, name), getattr(ck, f"{name}_tiled")
         turns = {"old": [], "new": []}
         for label, kern in (("old", old), ("new", new), ("new", new),
                             ("old", old)):
-            ms, out, rounds = kernel_ms(torch, lambda: kern(s, s, fr, eta),
+            ms, out, rounds = kernel_ms(torch, lambda: kern(s, t, f, eta),
                                         device)
             turns[label].append({"ms": ms, "rounds": rounds,
                                  "card_state": card_state(device)})
@@ -497,7 +482,7 @@ def phase_stokeslet(torch, ck, cuda_build, device, nodes, force, card):
         # the clock nvidia-smi read right after the last timed launches
         mhz = (float(re.search(r"SM clock (\d+)", turns["new"][-1][
             "card_state"]).group(1)) if on_card else None)
-        bitwise = bool(torch.equal(new(s, s, fr, eta), got))
+        bitwise = bool(torch.equal(new(s, t, f, eta), got))
         err = (got.double() - ref).abs().max().item()
         rel = err / ref_max
         prev_rel = (prev.double() - ref).abs().max().item() / ref_max
@@ -506,39 +491,39 @@ def phase_stokeslet(torch, ck, cuda_build, device, nodes, force, card):
         finite = bool(torch.isfinite(got).all())
         del got, prev
         plain_ms = ref_ms if prec == "f64" else timed(
-            torch, lambda: ck.stokeslet_f32_plain(s, s, fr, eta), device,
-            1)[0]
-        b_ms, b_by = bound_ms("stokeslet", n, n, s.element_size(), peak,
-                              same_points=True)
-        ms = sum(t["ms"] for t in turns["new"]) / 2
-        prev_ms = sum(t["ms"] for t in turns["old"]) / 2
-        entry = {"name": f"stokeslet_{prec}", "route": "cuda",
-                 "source": f"skellysim_tpu_torch/csrc/"
-                           f"{ck.STOKESLET_SOURCE}.cu",
+            torch, lambda: getattr(ck, f"{name}_plain")(s, t, f, eta),
+            device, 1)[0]
+        b_ms, b_by = bound_ms(family, n_src, n_trg, s.element_size(), peak,
+                              same_points=same)
+        ms = sum(x["ms"] for x in turns["new"]) / 2
+        prev_ms = sum(x["ms"] for x in turns["old"]) / 2
+        entry = {"name": name, "route": "cuda",
+                 "source": f"skellysim_tpu_torch/csrc/{source}.cu",
                  "replaces": replaces, "launches": 0, "max_abs_err": err,
                  "max_rel_err": rel, "tolerance": tol, "ms": ms,
                  "ms_turns": turns["new"], "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "shape": [int(n), int(n)], "previous_ms": prev_ms,
+                 "shape": [int(n_src), int(n_trg)], "previous_ms": prev_ms,
                  "previous_ms_turns": turns["old"],
                  "previous_source": f"skellysim_tpu_torch/csrc/{ck.SOURCE}"
-                                    f".cu (stokeslet_{prec}_tiled)",
+                                    f".cu ({name}_tiled)",
                  "previous_max_rel_err": prev_rel,
                  "max_rel_diff_vs_previous": vs_prev,
                  "same_bits_twice": bitwise, "sm_clock_mhz": mhz}
-        sass_note = "SASS not read (CPU rehearsal)"
+        notes = "plan, registers and SASS not read (CPU rehearsal)"
         if on_card:
-            plan = ck.stokeslet_card_plan(device, prec, n, n)
-            entry["plan"] = {"r": plan.r, "threads": ck.STOKESLET_THREADS,
-                             "tile": ck.STOKESLET_TILE, "grid": plan.grid,
-                             "chunk_len": plan.chunk_len,
-                             "slots": plan.slots, "busy": plan.busy}
-            t = "f" if prec == "f32" else "d"
-            per, fp64, per_pass = _sass_loop(
-                sass, rf"stokeslet_chunk_kernelI{t}Li{plan.r}E")
-            o_per, o_fp64, o_pass = _sass_loop(
-                sass, rf"pair_sum_kernelIN6skelly9StokesletI{t}EE")
-            pairs = n * n
+            plan = ck.pair_card_plan(family, device, prec, n_trg, n_src)
+            c = "f" if prec == "f32" else "d"
+            new_kernel = rf"{family}_chunk_kernelI{c}Li{plan.r}E"
+            old_kernel = (rf"pair_sum_kernelIN6skelly9{family.capitalize()}"
+                          rf"I{c}EE")
+            per, fp64, per_pass = _sass_loop(sass, new_kernel)
+            o_per, o_fp64, _ = _sass_loop(sass, old_kernel)
+            regs, smem = ptxas_usage(cuda_build.build(source)["ptxas"],
+                                     new_kernel)
+            o_regs, o_smem = ptxas_usage(cuda_build.build(ck.SOURCE)["ptxas"],
+                                         old_kernel)
+            pairs = n_src * n_trg
 
             def issue(per_pair, fp64_per_pair):
                 b = issue_bound_ms(per_pair, pairs, sms, mhz, 128)
@@ -548,61 +533,68 @@ def phase_stokeslet(torch, ck, cuda_build, device, nodes, force, card):
                 return b
 
             entry.update({
+                "plan": {"r": plan.r, "threads": plan.threads,
+                         "tile": plan.tile, "grid": plan.grid,
+                         "chunk_len": plan.chunk_len, "slots": plan.slots,
+                         "busy": plan.busy},
+                "registers": regs, "shared_bytes": smem,
+                "previous_registers": o_regs, "previous_shared_bytes": o_smem,
                 "sass_per_pair": per, "sass_fp64_per_pair": fp64,
-                "sass_pairs_a_pass": per_pass, "issue_bound_ms": issue(
-                    per, fp64),
+                "sass_pairs_a_pass": per_pass,
+                "issue_bound_ms": issue(per, fp64),
                 "previous_sass_per_pair": o_per,
                 "previous_sass_fp64_per_pair": o_fp64,
                 "previous_issue_bound_ms": issue(o_per, o_fp64)})
-            sass_note = (
-                f"SASS hot loop: {per:.3f} instructions a pair "
-                f"({fp64:.3f} FP64; {per_pass} pairs a pass) against the "
-                f"tiled design's {o_per:.3f} ({o_fp64:.3f} FP64); issue-slot "
-                f"bound {entry['issue_bound_ms']:.3f} ms against "
+            notes = (
+                f"SASS hot loop: {per:.3f} instructions a pair ({fp64:.3f} "
+                f"FP64; {per_pass} pairs a pass) against the tiled design's "
+                f"{o_per:.3f} ({o_fp64:.3f} FP64); issue-slot bound "
+                f"{entry['issue_bound_ms']:.3f} ms against "
                 f"{entry['previous_issue_bound_ms']:.3f} ms ({sms} SMs x "
                 f"{'64 FP64 lanes' if prec == 'f64' else '128 issue slots'}"
                 f" a clock at {mhz:.0f} MHz); kernel at "
                 f"{100 * entry['issue_bound_ms'] / ms:.1f}% of its issue "
                 f"bound; plan R = {plan.r}, grid {plan.grid}, "
                 f"{plan.chunk_len} sources a chunk, busy {plan.busy:.3f} of "
-                f"{plan.slots} slots")
-            if prec == "f64":
+                f"{plan.slots} slots; {regs} registers, {smem} bytes shared "
+                f"(the tiled design's {o_regs}, {o_smem})")
+            if name == "stokeslet_f64":
                 entry["rsqrt_seed_max_rel_err"], entry["rsqrt_max_rel_err"] \
                     = rsqrt_probe(torch, ck, device)
-                sass_note += (
+                notes += (
                     f"; rsqrt: seed max rel err "
                     f"{entry['rsqrt_seed_max_rel_err']:.3e}, after the "
                     f"third-order step {entry['rsqrt_max_rel_err']:.3e} "
                     "(2e6 values of r^2 from 1e-307.6 to 1e300)")
-        log(f"[kernels] stokeslet_{prec}: {n} sources x {n} targets, max "
-            f"abs err {err:.3e}, max rel err {rel:.3e} (tolerance {tol:g} of "
-            f"max|u|; reference: plain f64; the tiled design's "
-            f"{prev_rel:.3e}, new vs tiled {vs_prev:.3e}), same bits twice: "
-            f"{bitwise}; kernel {ms:.3f} ms (turns "
-            + ", ".join(f"{t['ms']:.3f}" for t in turns["new"])
+        log(f"[{tag}] {name}: {n_src} sources x {n_trg} targets, max abs err "
+            f"{err:.3e}, max rel err {rel:.3e} (tolerance {tol:g} of max|u|; "
+            f"reference: plain f64; the tiled design's {prev_rel:.3e}, new "
+            f"vs tiled {vs_prev:.3e}), same bits twice: {bitwise}; kernel "
+            f"{ms:.3f} ms (turns "
+            + ", ".join(f"{x['ms']:.3f}" for x in turns["new"])
             + f"; {rounds_note(turns['new'][0]['rounds'])}) against the "
             f"tiled design's {prev_ms:.3f} ms (turns "
-            + ", ".join(f"{t['ms']:.3f}" for t in turns["old"])
+            + ", ".join(f"{x['ms']:.3f}" for x in turns["old"])
             + f"), {prev_ms / ms:.3f}x; plain {plain_ms:.1f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}, 22 flops a pair at {peak / 1e12:g} "
-            f"TFLOP/s, the data sheet's rate at 700 W); {sass_note}; this "
-            f"card: {card}; after the timed launches: "
+            f"{b_ms:.3f} ms ({b_by}, {FLOPS_PER_PAIR[family]} flops a pair "
+            f"at {peak / 1e12:g} TFLOP/s, the data sheet's rate at 700 W); "
+            f"{notes}; this card: {card}; after the timed launches: "
             f"{turns['new'][-1]['card_state']})")
         if not (finite and rel <= tol and prev_rel <= tol and vs_prev <= tol
                 and bitwise):
-            raise SystemExit(f"stokeslet_{prec} fails its checks: rel err "
-                             f"{rel:.3e} (tiled {prev_rel:.3e}, new vs tiled "
+            raise SystemExit(f"{name} fails its checks: rel err {rel:.3e} "
+                             f"(tiled {prev_rel:.3e}, new vs tiled "
                              f"{vs_prev:.3e}) > {tol:g}, finite={finite}, "
                              f"same bits twice={bitwise}")
-        if prec == "f64" and on_card and not (
+        if name == "stokeslet_f64" and on_card and not (
                 entry["rsqrt_max_rel_err"] <= 4 * 2.0 ** -52):
             raise SystemExit("kernel B's rsqrt misses f64 rounding: "
                              f"{entry['rsqrt_max_rel_err']:.3e}")
         entries.append(entry)
-        del s, fr
-    log("[kernels] no single PyTorch call computes the singular stokeslet "
-        "sum (it is not a convolution, attention or sparse product): "
-        "library_ms is null")
+        del s, t, f
+    log(f"[{tag}] no single PyTorch call computes the singular {family} sum "
+        "(it is not a convolution, attention or sparse product): library_ms "
+        "is null")
     return entries
 
 
@@ -705,11 +697,13 @@ def phase_check_small(torch, device):
         raise SystemExit("card and CPU disagree on the small scene")
 
 
-def phase_confined(torch, ck, device, work, args, card):
+def phase_confined(torch, ck, cuda_build, device, work, args, card):
     """Ellipsoid config: precompute on the device, kernels C and D at its
-    shape, A and B checked at its shapes (`shape_times`), then the run.
-    Returns (C's and D's entries, the run's launch counts, the inputs of
-    the ring phases, A's and B's checks by kernel name)."""
+    shape against their first design (`design_check`), A and B checked at
+    its shapes (`shape_times`), then the run, and one more step under the
+    profiler (`profile_step`). Returns (C's and D's entries, the run's
+    launch counts, the inputs of the ring phases, A's and B's checks by
+    kernel name)."""
     import numpy as np
 
     from skellysim_tpu_torch import precompute
@@ -739,15 +733,9 @@ def phase_confined(torch, ck, device, work, args, card):
     del config
     rho = np.random.default_rng(11).standard_normal(shell_nodes.shape)
     f_dl = 2.0 * shell_normals[:, :, None] * rho[:, None, :]   # eta = 1
-    entries = phase_kernels(torch, ck, device, [(
-        "stresslet", shell_nodes, fiber_nodes, f_dl.reshape(-1, 9), False, [
-            ("stresslet_f32", ck.stresslet_f32, torch.float32,
-             ck.stresslet_f32_plain, PEAK_FP32, 1e-4,
-             "skellysim_tpu/ops/pallas_kernels.py:204 (_stresslet_kernel)"),
-            ("stresslet_f64", ck.stresslet_f64, torch.float64, None,
-             PEAK_FP64, 1e-12,
-             "skellysim_tpu/ops/pallas_df.py:195 (_stresslet_df_kernel)")])],
-        card)
+    entries = design_check(torch, ck, cuda_build, device, "stresslet",
+                           shell_nodes, fiber_nodes, f_dl.reshape(-1, 9),
+                           card, "confined")
     checks = shape_times(torch, ck, device, fiber_nodes, shell_nodes, card)
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -769,6 +757,7 @@ def phase_confined(torch, ck, device, work, args, card):
     if not ok:
         raise SystemExit("the confined trajectory does not hold finite shell "
                          "densities of the expected length in every frame")
+    profile_step(torch, device, cfg_path, run_dir)
     last = reader.load_frame(len(reader) - 1)
     direct_x = np.stack([m["x_"] for m in last["fibers"][1]])
     ring_inputs = {"fiber_nodes": fiber_nodes, "shell_nodes": shell_nodes,
@@ -777,27 +766,77 @@ def phase_confined(torch, ck, device, work, args, card):
     return entries, counts, ring_inputs, checks
 
 
-def stokeslet_check(torch, ck, device, src, trg, force, precs, card, tag):
-    """Kernels A and / or B (``precs``) at one shape: each held against the
-    plain f64 sum on every target row, on the same inputs rounded to f32
-    once (1e-4 of max|u| for A, 1e-12 for B), and timed like phase 3; on the
+def profile_step(torch, device, cfg_path, run_dir):
+    """One direct step of the ellipsoid config under `torch.profiler`, for
+    attribution only (nothing here gates the run): the system is built
+    again from phase 6's precompute (`build_simulation`), takes one step
+    unprofiled, then one profiled; prints the device kernels with the most
+    CUDA time and the device-busy share of the profiled step's wall (the
+    device events' summed time over it; one stream, so they do not
+    overlap)."""
+    if device.type != "cuda":
+        log("[profile] not measured (CPU rehearsal)")
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import schema
+
+    config = schema.load_config(cfg_path)
+    system, state, _ = build_simulation(config, config_dir=run_dir,
+                                        device=device)
+    state = system.run(state, max_steps=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.run(state, max_steps=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del system, state
+
+    def device_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=device_us, reverse=True)
+    busy = sum(device_us(e) for e in kernels) / 1e6
+    log(f"[profile] one direct ellipsoid step under torch.profiler: wall "
+        f"{wall:.3f} s (the profiler's own cost included), device busy "
+        f"{busy:.3f} s ({100 * busy / wall:.1f}% of the wall), "
+        f"{len(kernels)} device kernels by name")
+    for e in kernels[:12]:
+        log(f"[profile]   {device_us(e) / 1e3:9.3f} ms in {e.count:5d} calls "
+            f"({100 * device_us(e) / 1e6 / wall:5.1f}% of the wall): "
+            f"{e.key[:110]}")
+
+
+def family_check(torch, ck, device, family, src, trg, pay, precs, card,
+                 tag):
+    """Kernels A and / or B (``family`` "stokeslet") or C and / or D
+    ("stresslet"), by ``precs``, at one shape: each held against the plain
+    f64 sum on every target row, on the same inputs rounded to f32 once
+    (1e-4 of max|u| for f32, 1e-12 for f64), and timed like phase 3; on the
     card, with the plan's ragged edges (targets in the last target block,
     sources in the last tile) and chunk count. Exits on a disagreement.
     Returns {kernel name: JSON fields}."""
-    src64, trg64, frc64 = (torch.as_tensor(a, dtype=torch.float32,
+    src64, trg64, pay64 = (torch.as_tensor(a, dtype=torch.float32,
                                            device=device).double()
-                           for a in (src, trg, force))
+                           for a in (src, trg, pay))
     n_src, n_trg = src64.shape[0], trg64.shape[0]
-    ref_ms, ref = timed(torch, lambda: ck.stokeslet_f64_plain(
-        src64, trg64, frc64, 1.0), device, 1)
+    ref_ms, ref = timed(torch, lambda: getattr(ck, f"{family}_f64_plain")(
+        src64, trg64, pay64, 1.0), device, 1)
     ref_max = ref.abs().max().item()
     out = {}
     for prec in precs:
-        tol = next(t for p, _, t, _ in STOKESLET_KERNELS if p == prec)
-        name = f"stokeslet_{prec}"
+        tol = PAIR_KERNELS[family, prec][1]
+        name = f"{family}_{prec}"
         kern = getattr(ck, name)
         dt = torch.float32 if prec == "f32" else torch.float64
-        s, t, f = (a.to(dt) for a in (src64, trg64, frc64))
+        s, t, f = (a.to(dt) for a in (src64, trg64, pay64))
         ms, got, rounds = kernel_ms(torch, lambda: kern(s, t, f, 1.0),
                                     device)
         state = card_state(device)
@@ -810,15 +849,14 @@ def stokeslet_check(torch, ck, device, src, trg, force, precs, card, tag):
                   "card_state": state}
         edges = "plan not read (CPU rehearsal)"
         if device.type == "cuda":
-            plan = ck.stokeslet_card_plan(device, prec, n_trg, n_src)
+            plan = ck.pair_card_plan(family, device, prec, n_trg, n_src)
             fields.update({
                 "chunks": plan.chunks, "target_blocks": plan.target_blocks,
                 "last_block_targets": n_trg - (plan.target_blocks - 1)
-                * plan.r * ck.STOKESLET_THREADS,
-                "last_tile_sources": n_src - (-(-n_src // ck.STOKESLET_TILE)
-                                              - 1) * ck.STOKESLET_TILE})
+                * plan.r * plan.threads,
+                "last_tile_sources": n_src - (plan.tiles - 1) * plan.tile})
             edges = (f"{plan.target_blocks} target blocks of "
-                     f"{plan.r * ck.STOKESLET_THREADS}, the last holding "
+                     f"{plan.r * plan.threads}, the last holding "
                      f"{fields['last_block_targets']}; {plan.chunks} chunks "
                      f"of {plan.chunk_len} sources, the last tile holding "
                      f"{fields['last_tile_sources']}")
@@ -833,12 +871,12 @@ def stokeslet_check(torch, ck, device, src, trg, force, precs, card, tag):
                              f"{rel:.3e} > {tol:g} (finite={finite})")
         out[name] = fields
         del s, t, f, got
-    del src64, trg64, frc64, ref
+    del src64, trg64, pay64, ref
     return out
 
 
 def shape_times(torch, ck, device, fiber_nodes, shell_nodes, card):
-    """Kernels A and B checked and timed (`stokeslet_check`) at the shape
+    """Kernels A and B checked and timed (`family_check`) at the shape
     the confined step launches them with, the fiber nodes as sources and
     every node as targets (the matvec's and the prep's fiber flow), and
     with every node as sources and targets (a partial last source tile at
@@ -855,9 +893,9 @@ def shape_times(torch, ck, device, fiber_nodes, shell_nodes, card):
     for key, src, frc in (
             ("at_ellipsoid_shape", fiber_nodes, force[:len(fiber_nodes)]),
             ("at_ragged_source_shape", every, force)):
-        for name, fields in stokeslet_check(
-                torch, ck, device, src, every, frc, ("f32", "f64"), card,
-                "confined").items():
+        for name, fields in family_check(
+                torch, ck, device, "stokeslet", src, every, frc,
+                ("f32", "f64"), card, "confined").items():
             checks.setdefault(name, {})[key] = fields
     parts = [f"{name} {c['at_ellipsoid_shape']['ms']:.3f} ms "
              f"({' x '.join(map(str, c['at_ellipsoid_shape']['shape']))})"
@@ -1143,9 +1181,9 @@ def ring_shape_times(torch, ck, device, ring_inputs, card, sass):
     sources and the fiber nodes as targets; each checked and timed by
     `ring_check`. Then one hop of the f64-grade ring: kernel B with one
     shard's fiber-node block against one shard's targets, checked and
-    timed by `stokeslet_check`, and kernel D with one shard's shell block
-    against one shard's fiber nodes, timed for the launches x time
-    breakdown. Returns the checks' JSON fields by kernel name."""
+    timed by `family_check`, and kernel D with one shard's shell block
+    against one shard's fiber nodes, the same way. Returns the checks' JSON
+    fields by kernel name."""
     import numpy as np
 
     n = RING_SHARDS
@@ -1160,26 +1198,29 @@ def ring_shape_times(torch, ck, device, ring_inputs, card, sass):
         at_run[f"ring_{family}_f32"] = ring_check(
             torch, ck, device, family, src, trg, pay, False, rng, card,
             "ring run", sass)[0]
-    f64 = torch.float64
     _, s_l = _shards(torch, fib, n, device)
     _, t_l = _shards(torch, every, n, device)
     _, f_l = _shards(torch, force, n, device)
     _, sh_l = _shards(torch, shell, n, device)
     _, d_l = _shards(torch, ring_inputs["f_dl"], n, device)
-    at_run.update(stokeslet_check(torch, ck, device, s_l[0], t_l[0], f_l[0],
-                                  ("f64",), card, "ring run"))
-    args = (sh_l[0].to(f64), s_l[0].to(f64), d_l[0].to(f64))
-    ms = kernel_ms(torch, lambda: ck.stresslet_f64(*args, 1.0), device)[0]
+    at_run.update(family_check(torch, ck, device, "stokeslet", s_l[0],
+                               t_l[0], f_l[0], ("f64",), card, "ring run"))
+    at_run.update(family_check(torch, ck, device, "stresslet", sh_l[0],
+                               s_l[0], d_l[0], ("f64",), card, "ring run"))
     log(f"[ring run] per-launch times of one f64-grade ring hop: "
         f"stokeslet_f64 {at_run['stokeslet_f64']['ms']:.3f} ms "
-        f"({s_l[0].shape[0]} x {t_l[0].shape[0]}); stresslet_f64 {ms:.3f} "
-        f"ms ({args[0].shape[0]} x {args[1].shape[0]}) "
-        f"({card_state(device)})")
+        f"({s_l[0].shape[0]} x {t_l[0].shape[0]}); stresslet_f64 "
+        f"{at_run['stresslet_f64']['ms']:.3f} ms ({sh_l[0].shape[0]} x "
+        f"{s_l[0].shape[0]}) ({card_state(device)})")
     return at_run
 
 
-def phase_bodies(torch, ck, device, work):
-    """The 600-node sphere under a constant force, through the CLIs."""
+def phase_bodies(torch, ck, device, work, card):
+    """The 600-node sphere under a constant force, through the CLIs; then
+    kernels C and D checked and timed (`family_check`) at the shape of the
+    body's double layer, its nodes as sources and targets with the density
+    2 eta n rho^T of a random rho. Returns (the run's launch counts, the
+    drag error, C's and D's checks by kernel name)."""
     import numpy as np
 
     from skellysim_tpu_torch import precompute
@@ -1196,7 +1237,8 @@ def phase_bodies(torch, ck, device, work):
                config.params.gmres_tol, device,
                ["stresslet_f32", "stresslet_f64"])
     with np.load(os.path.join(run_dir, config.bodies[0].precompute_file)) as z:
-        r_eff = float(np.linalg.norm(z["node_positions_ref"][0]))
+        nodes, normals = z["node_positions_ref"], z["node_normals_ref"]
+    r_eff = float(np.linalg.norm(nodes[0]))
     reader = TrajectoryReader(os.path.join(run_dir, "skelly_sim.out"))
     first, last = reader.load_frame(0), reader.load_frame(len(reader) - 1)
     z0 = float(first["bodies"][0][0]["position_"][2])
@@ -1210,7 +1252,12 @@ def phase_bodies(torch, ck, device, work):
         f"{v_theory:.12g}, |1 - v / v_theory| = {err:.3e} (gate 1e-6)")
     if not err < 1e-6:
         raise SystemExit("the body misses the Stokes-drag gate")
-    return counts, err
+    rho = np.random.default_rng(31).standard_normal(nodes.shape)
+    f_dl = 2.0 * eta * normals[:, :, None] * rho[:, None, :]
+    checks = family_check(torch, ck, device, "stresslet", nodes, nodes,
+                          f_dl.reshape(-1, 9), ("f32", "f64"), card,
+                          "bodies")
+    return counts, err, checks
 
 
 def main(argv=None) -> int:
@@ -1295,7 +1342,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                     log(f"[build] ptxas: {line.strip()}")
             spills = [int(v) for v in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", info["ptxas"])]
-            gated = name in (ck.STOKESLET_SOURCE, ck.RING_SOURCE)
+            gated = name in (ck.STOKESLET_SOURCE, ck.STRESSLET_SOURCE,
+                             ck.RING_SOURCE)
             if gated and not spills:
                 raise SystemExit(f"no ptxas report for {name}.cu: its spills "
                                  "are not verified")
@@ -1317,7 +1365,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
 
     # 3. kernels A and B vs plain and vs their first design
     f = np.random.default_rng(7).standard_normal(nodes.shape) / 63.0
-    entries = phase_stokeslet(torch, ck, cuda_build, device, nodes, f, smi)
+    entries = design_check(torch, ck, cuda_build, device, "stokeslet", nodes,
+                           nodes, f, smi, "kernels")
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -1346,7 +1395,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
 
     # 6. the confined full-width path
     more, launches["ellipsoid"], ring_inputs, checks = phase_confined(
-        torch, ck, device, work, args, smi)
+        torch, ck, cuda_build, device, work, args, smi)
     for e in entries:
         e.update(checks.get(e["name"], {}))
     entries += more
@@ -1375,7 +1424,11 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
         torch.cuda.empty_cache()
 
     # 9. the body scene at its published size
-    launches["body_const_force"] = phase_bodies(torch, ck, device, work)[0]
+    launches["body_const_force"], _, at_body = phase_bodies(
+        torch, ck, device, work, smi)
+    for e in entries:
+        if e["name"] in at_body:
+            e["at_body_shape"] = at_body[e["name"]]
 
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",

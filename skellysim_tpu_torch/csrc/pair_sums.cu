@@ -1,24 +1,25 @@
 // Singular pair sums on Hopper (sm_90a): one tiled kernel, two pair
-// families, two precisions.
+// families, two precisions -- the first design of kernels A-D, kept only as
+// the yardstick their redesigns are timed and checked against. No path
+// launches them.
 //
 //   Stokeslet  u_t = scale * sum_s [ f_s / r + (d . f_s) d / r^3 ]
 //   stresslet  u_t = scale * sum_s -3 (d^T S_s d) d / r^5
 //
 // with d = x_t - x_s and pairs at r == 0 dropped (scale = 1/(8 pi eta), or 1
-// for the unscaled entry the ring evaluator's per-hop blocks use; the stresslet's -3 is
-// part of the sum either way, as in `stresslet_pallas_block`). Positions are
-// row-major [n, 3]; the payload is [n_src, 3] forces (Stokeslet) or [n_src, 9]
-// row-major stresslet components S (Sxx..Szz); the output is [n_trg, 3].
+// for the unscaled entry the ring evaluator's per-hop blocks use; the
+// stresslet's -3 is part of the sum either way, as in
+// `stresslet_pallas_block`). Positions are row-major [n, 3]; the payload is
+// [n_src, 3] forces (Stokeslet) or [n_src, 9] row-major stresslet components
+// S (Sxx..Szz); the output is [n_trg, 3].
 //
-// The kernels here and the Pallas tiles they replace:
-//   C  stresslet, float32   skellysim_tpu/ops/pallas_kernels.py
-//                           `_stresslet_kernel` (via `stresslet_pallas`)
-//   D  stresslet, float64   skellysim_tpu/ops/pallas_df.py
-//                           `_stresslet_df_kernel` (via `stresslet_pallas_df`)
-// and the Stokeslet instances `stokeslet_f32_tiled` / `stokeslet_f64_tiled`:
-// the first design of kernels A and B (`_stokeslet_kernel`,
-// `_stokeslet_df_kernel`), kept only as the yardstick their redesign in
-// stokeslet_sums.cu is timed and checked against. No path launches them.
+// The instances here, the Pallas tiles their kernels replace, and where
+// the redesign lives:
+//   stokeslet_f32_tiled  A  `_stokeslet_kernel`     stokeslet_sums.cu
+//   stokeslet_f64_tiled  B  `_stokeslet_df_kernel`  stokeslet_sums.cu
+//   stresslet_f32_tiled  C  `_stresslet_kernel`     stresslet_sums.cu
+//   stresslet_f64_tiled  D  `_stresslet_df_kernel`  stresslet_sums.cu
+// (skellysim_tpu/ops/pallas_kernels.py and pallas_df.py).
 // The TPU tiles of the f64 kernels carried every value as a (hi, lo) pair
 // of f32 words with error-free transforms (~300 f32 operations a Stokeslet
 // pair, ~420 a stresslet pair) because the TPU has no fast FP64. The H100
@@ -36,8 +37,8 @@
 // target block, which the L2 serves; device-memory traffic is
 // O(n_trg + n_src).
 //
-// Design (simple first; stokeslet_sums.cu shows what a redesign for the
-// card does):
+// Design (simple first; stokeslet_sums.cu and stresslet_sums.cu show what
+// a redesign for the card does):
 //  * one thread owns one target and keeps its three sums in registers;
 //  * each block walks ALL source tiles in a loop, each thread staging one
 //    source record (position + payload) through shared memory; that loop
@@ -156,16 +157,18 @@ int stokeslet_f64_tiled_launch(const double* trg, const double* src,
                                    scale, stream);
 }
 
-int stresslet_f32_launch(const float* trg, const float* src,
-                         const float* payload, float* out, long long n_trg,
-                         long long n_src, float scale, void* stream) {
+int stresslet_f32_tiled_launch(const float* trg, const float* src,
+                               const float* payload, float* out,
+                               long long n_trg, long long n_src, float scale,
+                               void* stream) {
   return launch<Stresslet<float>>(trg, src, payload, out, n_trg, n_src, scale,
                                   stream);
 }
 
-int stresslet_f64_launch(const double* trg, const double* src,
-                         const double* payload, double* out, long long n_trg,
-                         long long n_src, double scale, void* stream) {
+int stresslet_f64_tiled_launch(const double* trg, const double* src,
+                               const double* payload, double* out,
+                               long long n_trg, long long n_src, double scale,
+                               void* stream) {
   return launch<Stresslet<double>>(trg, src, payload, out, n_trg, n_src,
                                    scale, stream);
 }

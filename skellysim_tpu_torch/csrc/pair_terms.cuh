@@ -1,8 +1,8 @@
 // The per-pair code of the redesigned pair sums, in their fewest
 // instructions, shared by the Stokeslet sums (stokeslet_sums.cu, kernels A
-// and B) and the fused ring sums (ring_sums.cu, kernels E and F), so the
-// sources cannot drift; the stresslet pair is here for every kernel that
-// sums it this way.
+// and B), the stresslet sums (stresslet_sums.cu, kernels C and D) and the
+// fused ring sums (ring_sums.cu, kernels E and F), so the sources cannot
+// drift.
 //
 //   Stokeslet  u += f / r + (d . f) d / r^3 = r^-1 (f + c d),
 //              c = (d . f) r^-2

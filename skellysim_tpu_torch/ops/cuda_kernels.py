@@ -21,16 +21,17 @@ Kernel D, `stresslet_f64`: the f64-grade stresslet sum, replacing
 `stresslet_pallas_df`). It carries the shell and body double layers of every
 refinement residual. Native FP64, like kernel B.
 
-A and B are ``csrc/stokeslet_sums.cu``, designed for the card (the source
-note there says what bounds them and what the design does about it): R
-targets a thread, sources staged by ``cp.async`` into a double-buffered
-tile, and a split over sources whose partial sums a second pass reduces in
-order. `stokeslet_plan` picks R, the chunks and the grid. Their pair code
-is ``csrc/pair_terms.cuh``, which E and F include too. C and D are
-instances of one tiled kernel in ``csrc/pair_sums.cu``, which also keeps the
-first design of A and B (one target a thread) as a yardstick:
-`stokeslet_f32_tiled` / `stokeslet_f64_tiled`, which only the GPU tests and
-chip_smoke.py's kernel phase call. Every source is built with nvcc and
+A and B are ``csrc/stokeslet_sums.cu``, C and D ``csrc/stresslet_sums.cu``,
+each designed for the card (the source notes say what bounds them and what
+the design does about it): R targets a thread, sources staged by
+``cp.async`` into a double-buffered tile, and a split over sources whose
+partial sums a second pass reduces in order. `pair_plan` picks R, the chunks
+and the grid of all four. Their pair code is ``csrc/pair_terms.cuh``, which
+E and F include too.
+``csrc/pair_sums.cu`` keeps the first design of A-D (one target a thread) as
+their yardstick: `stokeslet_f32_tiled`, `stokeslet_f64_tiled`,
+`stresslet_f32_tiled` and `stresslet_f64_tiled`, which only the GPU tests and
+chip_smoke.py's kernel phases call. Every source is built with nvcc and
 loaded with ctypes at the first launch (`ops.cuda_build`).
 
 Kernel E, `ring_stokeslet_f32`, and kernel F, `ring_stresslet_f32`: the
@@ -74,13 +75,15 @@ _FACTOR = 1.0 / (8.0 * math.pi)
 
 #: the Stokeslet sums' source, ``csrc/stokeslet_sums.cu`` (kernels A and B)
 STOKESLET_SOURCE = "stokeslet_sums"
-#: the tiled pair sums' source, ``csrc/pair_sums.cu`` (kernels C and D, and
-#: the tiled yardstick of A and B)
+#: the stresslet sums' source, ``csrc/stresslet_sums.cu`` (kernels C and D)
+STRESSLET_SOURCE = "stresslet_sums"
+#: the tiled pair sums' source, ``csrc/pair_sums.cu`` (the first design of
+#: A-D, their yardstick)
 SOURCE = "pair_sums"
 #: the fused ring sums' source, ``csrc/ring_sums.cu`` (kernels E and F)
 RING_SOURCE = "ring_sums"
 #: every kernel source (chip_smoke builds them in parallel)
-SOURCES = (STOKESLET_SOURCE, SOURCE, RING_SOURCE)
+SOURCES = (STOKESLET_SOURCE, STRESSLET_SOURCE, SOURCE, RING_SOURCE)
 #: per family: the plain block form and the payload's columns per source
 #: (forces; the 9 row-major stresslet components)
 _FAMILIES = {"stokeslet": (stokeslet_block, 3),
@@ -98,20 +101,23 @@ def _library(source: str = SOURCE):
     lib = cuda_build.load(source)
     ptr, cint, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     scalars = {"f32": ctypes.c_float, "f64": ctypes.c_double}
-    if source == STOKESLET_SOURCE:
+    if source in (STOKESLET_SOURCE, STRESSLET_SOURCE):
+        family = source.split("_")[0]
         for prec, scalar in scalars.items():
-            fn = getattr(lib, f"stokeslet_{prec}_launch")
+            fn = getattr(lib, f"{family}_{prec}_launch")
             fn.argtypes = [cint, ptr, ptr, ptr, ptr, ptr, cll, cll, cll, cint,
                            scalar, ptr]
             fn.restype = cint
-        lib.stokeslet_blocks_per_sm.argtypes = [cint, ctypes.POINTER(cint)]
-        lib.stokeslet_blocks_per_sm.restype = cint
-        lib.rsqrt_f64_probe_launch.argtypes = [ptr, ptr, ptr, cll, ptr]
-        lib.rsqrt_f64_probe_launch.restype = cint
+        fn = getattr(lib, f"{family}_blocks_per_sm")
+        fn.argtypes = [cint, ctypes.POINTER(cint)]
+        fn.restype = cint
+        if family == "stokeslet":
+            lib.rsqrt_f64_probe_launch.argtypes = [ptr, ptr, ptr, cll, ptr]
+            lib.rsqrt_f64_probe_launch.restype = cint
     elif source == SOURCE:
         for prec, scalar in scalars.items():
-            for name in (f"stokeslet_{prec}_tiled", f"stresslet_{prec}"):
-                fn = getattr(lib, f"{name}_launch")
+            for family in _FAMILIES:
+                fn = getattr(lib, f"{family}_{prec}_tiled_launch")
                 fn.argtypes = [ptr, ptr, ptr, ptr, cll, cll, scalar, ptr]
                 fn.restype = cint
     else:
@@ -181,7 +187,7 @@ def _raise_on(source, name, rc):
 
 def _tiled_launch(name, family, dtype, r_src, r_trg, payload, scale):
     """Validate, allocate the output and launch ``csrc/pair_sums.cu``'s
-    tiled kernel ``name`` (e.g. "stresslet_f32"). Returns (output,
+    tiled kernel ``name`` (e.g. "stresslet_f32_tiled"). Returns (output,
     launched); raises if the launch was refused (cudaGetLastError() != 0
     right after it)."""
     trg, src, pay = _operands(family, dtype, r_src, r_trg, payload)
@@ -199,7 +205,7 @@ def _tiled_launch(name, family, dtype, r_src, r_trg, payload, scale):
     return out, True
 
 
-# --------------------------------------------- kernels A and B: the plan
+# --------------------------------------------- kernels A-D: the plan
 
 #: threads a block and sources a staged tile of kernels A and B
 #: (``csrc/stokeslet_sums.cu``, kThreads and kTile)
@@ -208,6 +214,16 @@ STOKESLET_TILE = 128
 #: targets a thread of each precision's one instance, tuned on the card
 #: (PERF.md; the source's kR, which refuses a launch with another R)
 STOKESLET_R = {"f32": 8, "f64": 2}
+#: the same of kernels C and D (``csrc/stresslet_sums.cu``)
+STRESSLET_THREADS = 128
+STRESSLET_TILE = 128
+STRESSLET_R = {"f32": 4, "f64": 2}
+#: per family: the source, threads a block, sources a tile, R a precision
+_PAIR_KERNELS = {
+    "stokeslet": (STOKESLET_SOURCE, STOKESLET_THREADS, STOKESLET_TILE,
+                  STOKESLET_R),
+    "stresslet": (STRESSLET_SOURCE, STRESSLET_THREADS, STRESSLET_TILE,
+                  STRESSLET_R)}
 #: the plan takes the fewest source chunks whose blocks keep at least this
 #: share of the card's resident block slots busy over the launch
 _BUSY_TARGET = 0.95
@@ -216,16 +232,20 @@ _MAX_CHUNKS = 64
 
 
 @dataclass(frozen=True)
-class StokesletPlan:
-    """How one launch of kernel A or B covers the pairs: target block b
-    holds targets [b R T, (b + 1) R T) (T threads, R a thread), source chunk
-    c holds sources [c L, min(n_src, (c + 1) L)) (L = ``chunk_len``, a tile
-    multiple), and the grid is every (target block, chunk). ``busy`` is the
-    share of the card's block slots (SMs x resident blocks an SM) the
-    launch keeps busy when every block of a chunk takes the same time."""
+class PairPlan:
+    """How one launch of kernel A, B (``family`` "stokeslet"), C or D
+    ("stresslet") covers the pairs: target block b holds targets [b R T,
+    (b + 1) R T) (T threads, R a thread), source chunk c holds sources
+    [c L, min(n_src, (c + 1) L)) (L = ``chunk_len``, a tile multiple), and
+    the grid is every (target block, chunk). ``busy`` is the share of the
+    card's block slots (SMs x resident blocks an SM) the launch keeps busy
+    when every block of a chunk takes the same time."""
+    family: str
     n_trg: int
     n_src: int
     r: int
+    threads: int
+    tile: int
     target_blocks: int
     chunks: int
     chunk_len: int
@@ -237,13 +257,17 @@ class StokesletPlan:
         return (self.target_blocks, self.chunks)
 
     @property
+    def tiles(self) -> int:
+        return -(-self.n_src // self.tile)
+
+    @property
     def scratch_shape(self) -> tuple:
         """The partial sums, [chunks, n_trg, 3], that the reduction pass
         adds in chunk order."""
         return (self.chunks, self.n_trg, 3)
 
     def target_ranges(self) -> list:
-        per = self.r * STOKESLET_THREADS
+        per = self.r * self.threads
         return [(b * per, min(self.n_trg, (b + 1) * per))
                 for b in range(self.target_blocks)]
 
@@ -252,26 +276,31 @@ class StokesletPlan:
                 for c in range(self.chunks)]
 
 
-def stokeslet_plan(n_trg: int, n_src: int, sm_count: int, blocks_per_sm: int,
-                   prec: str = "f32") -> StokesletPlan:
-    """The launch plan of kernel A (``prec`` "f32") or B ("f64") for
-    ``n_trg`` targets and ``n_src`` sources (both >= 1) on a card of
-    ``sm_count`` SMs with ``blocks_per_sm`` resident blocks of the kernel
-    each. Targets fill ceil(n_trg / (R T)) blocks; the sources are
-    split into the fewest equal tile-multiple chunks (at most
-    ``_MAX_CHUNKS``, at most one a tile) that keep ``_BUSY_TARGET`` of the
-    slots busy, or the busiest split when none does: a grid of fewer blocks
-    than slots, or whose last wave is mostly empty, leaves SMs idle."""
-    if prec not in STOKESLET_R:
-        raise ValueError(f"no Stokeslet kernel is built for {prec!r}; built: "
-                         f"{tuple(STOKESLET_R)}")
-    r = STOKESLET_R[prec]
+def pair_plan(family: str, n_trg: int, n_src: int, sm_count: int,
+              blocks_per_sm: int, prec: str = "f32") -> PairPlan:
+    """The launch plan of kernel A / B (``family`` "stokeslet", ``prec``
+    "f32" / "f64") or C / D ("stresslet") for ``n_trg`` targets and
+    ``n_src`` sources (both >= 1) on a card of ``sm_count`` SMs with
+    ``blocks_per_sm`` resident blocks of the kernel each. Targets fill
+    ceil(n_trg / (R T)) blocks; the sources are split into the fewest equal
+    tile-multiple chunks (at most ``_MAX_CHUNKS``, at most one a tile) that
+    keep ``_BUSY_TARGET`` of the slots busy, or the busiest split when none
+    does: a grid of fewer blocks than slots, or whose last wave is mostly
+    empty, leaves SMs idle."""
+    if family not in _PAIR_KERNELS:
+        raise ValueError(f"no pair kernel family {family!r}; built: "
+                         f"{tuple(_PAIR_KERNELS)}")
+    _, threads, tile, rs = _PAIR_KERNELS[family]
+    if prec not in rs:
+        raise ValueError(f"no {family.capitalize()} kernel is built for "
+                         f"{prec!r}; built: {tuple(rs)}")
+    r = rs[prec]
     if n_trg < 1 or n_src < 1 or sm_count < 1 or blocks_per_sm < 1:
         raise ValueError("a plan needs n_trg, n_src, sm_count and "
                          "blocks_per_sm >= 1, got "
                          f"{(n_trg, n_src, sm_count, blocks_per_sm)}")
-    target_blocks = -(-n_trg // (r * STOKESLET_THREADS))
-    tiles = -(-n_src // STOKESLET_TILE)
+    target_blocks = -(-n_trg // (r * threads))
+    tiles = -(-n_src // tile)
     slots = sm_count * blocks_per_sm
     best = None
     for want in range(1, min(tiles, _MAX_CHUNKS) + 1):
@@ -284,40 +313,47 @@ def stokeslet_plan(n_trg: int, n_src: int, sm_count: int, blocks_per_sm: int,
         if busy >= _BUSY_TARGET:
             break
     busy, chunks, chunk_tiles = best
-    return StokesletPlan(n_trg=n_trg, n_src=n_src, r=r,
-                         target_blocks=target_blocks, chunks=chunks,
-                         chunk_len=chunk_tiles * STOKESLET_TILE, slots=slots,
-                         busy=busy)
+    return PairPlan(family=family, n_trg=n_trg, n_src=n_src, r=r,
+                    threads=threads, tile=tile, target_blocks=target_blocks,
+                    chunks=chunks, chunk_len=chunk_tiles * tile, slots=slots,
+                    busy=busy)
 
 
-#: SM count by device, and resident blocks an SM by (device, prec)
+def stokeslet_plan(n_trg: int, n_src: int, sm_count: int, blocks_per_sm: int,
+                   prec: str = "f32") -> PairPlan:
+    """`pair_plan` of kernel A (``prec`` "f32") or B ("f64")."""
+    return pair_plan("stokeslet", n_trg, n_src, sm_count, blocks_per_sm, prec)
+
+
+#: SM count by device, and resident blocks an SM by (device, family, prec)
 _sm_counts: dict = {}
 _blocks_per_sm: dict = {}
 
 
-def stokeslet_card_plan(device, prec, n_trg, n_src) -> StokesletPlan:
-    """`stokeslet_plan` on ``device`` (a CUDA device), with its SM count and
-    the kernel's resident blocks an SM as the card reports them."""
-    lib = _library(STOKESLET_SOURCE)
+def pair_card_plan(family, device, prec, n_trg, n_src) -> PairPlan:
+    """`pair_plan` on ``device`` (a CUDA device), with its SM count and the
+    kernel's resident blocks an SM as the card reports them."""
+    source = _PAIR_KERNELS[family][0]
+    lib = _library(source)
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
     if device not in _sm_counts:
         _sm_counts[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    key = (device, prec)
+    key = (device, family, prec)
     if key not in _blocks_per_sm:
         got = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = lib.stokeslet_blocks_per_sm(int(prec == "f64"),
-                                             ctypes.byref(got))
-        _raise_on(STOKESLET_SOURCE, "stokeslet_blocks_per_sm", rc)
+            rc = getattr(lib, f"{family}_blocks_per_sm")(int(prec == "f64"),
+                                                         ctypes.byref(got))
+        _raise_on(source, f"{family}_blocks_per_sm", rc)
         if got.value < 1:
-            raise RuntimeError(f"stokeslet_{prec} cannot be resident on "
+            raise RuntimeError(f"{family}_{prec} cannot be resident on "
                                f"{device}")
         _blocks_per_sm[key] = got.value
-    return stokeslet_plan(n_trg, n_src, _sm_counts[device],
-                          _blocks_per_sm[key], prec)
+    return pair_plan(family, n_trg, n_src, _sm_counts[device],
+                     _blocks_per_sm[key], prec)
 
 
 def _aligned(a):
@@ -326,28 +362,30 @@ def _aligned(a):
     return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
-def _stokeslet_launch(prec, r_src, r_trg, payload, scale):
+def _pair_launch(family, prec, r_src, r_trg, payload, scale):
     """Validate, plan, allocate the output and the partial-sum scratch, and
-    launch kernel A or B (the chunk pass and the reduction pass). Returns
-    (output, launched); raises if a launch was refused."""
+    launch kernel A / B (``family`` "stokeslet") or C / D ("stresslet"):
+    the chunk pass and the reduction pass. Returns (output, launched);
+    raises if a launch was refused."""
     dtype = _DTYPES[prec]
-    trg, src, f = _operands("stokeslet", dtype, r_src, r_trg, payload)
+    trg, src, pay = _operands(family, dtype, r_src, r_trg, payload)
     device = trg.device
     n_trg, n_src = trg.shape[0], src.shape[0]
     if n_trg == 0 or n_src == 0:
         return torch.zeros((n_trg, 3), dtype=dtype, device=device), False
-    lib = _library(STOKESLET_SOURCE)
-    plan = stokeslet_card_plan(device, prec, n_trg, n_src)
-    src, f = _aligned(src), _aligned(f)
+    source = _PAIR_KERNELS[family][0]
+    lib = _library(source)
+    plan = pair_card_plan(family, device, prec, n_trg, n_src)
+    src, pay = _aligned(src), _aligned(pay)
     part = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
     out = torch.empty((n_trg, 3), dtype=dtype, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"stokeslet_{prec}_launch")(
-            plan.r, trg.data_ptr(), src.data_ptr(), f.data_ptr(),
+        rc = getattr(lib, f"{family}_{prec}_launch")(
+            plan.r, trg.data_ptr(), src.data_ptr(), pay.data_ptr(),
             part.data_ptr(), out.data_ptr(), n_trg, n_src, plan.chunk_len,
             plan.chunks, scale, stream)
-    _raise_on(STOKESLET_SOURCE, f"stokeslet_{prec}", rc)
+    _raise_on(source, f"{family}_{prec}", rc)
     return out, True
 
 
@@ -403,31 +441,30 @@ def _make_wrapper(family: str, prec: str, name: str, launch):
     return wrapper, plain
 
 
-def _stokeslet_wrapper(prec):
+def _pair_wrapper(family, prec):
     return _make_wrapper(
-        "stokeslet", prec, f"stokeslet_{prec}",
-        lambda s, t, p, scale: _stokeslet_launch(prec, s, t, p, scale))
+        family, prec, f"{family}_{prec}",
+        lambda s, t, p, scale: _pair_launch(family, prec, s, t, p, scale))
 
 
-def _tiled_wrapper(family, prec, name):
+def _tiled_wrapper(family, prec):
+    name = f"{family}_{prec}_tiled"
     return _make_wrapper(
         family, prec, name,
         lambda s, t, p, scale: _tiled_launch(name, family, _DTYPES[prec], s,
-                                             t, p, scale))
+                                             t, p, scale))[0]
 
 
-stokeslet_f32, stokeslet_f32_plain = _stokeslet_wrapper("f32")  # A
-stokeslet_f64, stokeslet_f64_plain = _stokeslet_wrapper("f64")  # B
-stresslet_f32, stresslet_f32_plain = _tiled_wrapper(
-    "stresslet", "f32", "stresslet_f32")  # C
-stresslet_f64, stresslet_f64_plain = _tiled_wrapper(
-    "stresslet", "f64", "stresslet_f64")  # D
-#: A's and B's first design (one target a thread), kept as their yardstick:
-#: only the GPU tests and chip_smoke.py's kernel phase call these
-stokeslet_f32_tiled = _tiled_wrapper("stokeslet", "f32",
-                                     "stokeslet_f32_tiled")[0]
-stokeslet_f64_tiled = _tiled_wrapper("stokeslet", "f64",
-                                     "stokeslet_f64_tiled")[0]
+stokeslet_f32, stokeslet_f32_plain = _pair_wrapper("stokeslet", "f32")  # A
+stokeslet_f64, stokeslet_f64_plain = _pair_wrapper("stokeslet", "f64")  # B
+stresslet_f32, stresslet_f32_plain = _pair_wrapper("stresslet", "f32")  # C
+stresslet_f64, stresslet_f64_plain = _pair_wrapper("stresslet", "f64")  # D
+#: the first design of A-D (one target a thread), kept as their yardstick:
+#: only the GPU tests and chip_smoke.py's kernel phases call these
+stokeslet_f32_tiled = _tiled_wrapper("stokeslet", "f32")
+stokeslet_f64_tiled = _tiled_wrapper("stokeslet", "f64")
+stresslet_f32_tiled = _tiled_wrapper("stresslet", "f32")
+stresslet_f64_tiled = _tiled_wrapper("stresslet", "f64")
 
 
 # ---------------------------------------------------------------- ring sums
@@ -814,4 +851,5 @@ KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64,
                    ring_stokeslet_f32, ring_stresslet_f32)
 #: the yardstick wrappers, which no path may launch
 YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled,
+                      stresslet_f32_tiled, stresslet_f64_tiled,
                       ring_stokeslet_f32_v1, ring_stresslet_f32_v1)

@@ -134,7 +134,7 @@ def test_stokeslet_ragged_shapes_and_split(cuda, prec):
     for n_trg, n_src in ((1, 1), (1, 5000), (5000, 1), (1000, 513),
                          (777, 100), (2000, 70000), (4097, 12345)):
         src, trg, f = _cloud(n_src + 16, n_trg, _DT[prec], cuda, seed=n_trg)
-        plan = ck.stokeslet_card_plan(cuda, prec, n_trg, n_src + 16)
+        plan = ck.pair_card_plan("stokeslet", cuda, prec, n_trg, n_src + 16)
         chunks.add(min(plan.chunks, 2))
         n0 = kern.launches
         got = kern(src, trg, f, 0.9)
@@ -159,7 +159,7 @@ def test_stokeslet_coincident_pairs_are_exactly_zero(cuda):
         f = torch.randn((5000, 3), dtype=_DT[prec], device=cuda,
                         generator=torch.Generator(cuda).manual_seed(0))
         trg = torch.cat([p, p + 1.0])
-        assert ck.stokeslet_card_plan(cuda, prec, 2, 5000).chunks > 1
+        assert ck.pair_card_plan("stokeslet", cuda, prec, 2, 5000).chunks > 1
         u = getattr(ck, f"stokeslet_{prec}")(src, trg, f, 1.0)
         assert torch.equal(u[0], torch.zeros_like(u[0]))
         assert torch.isfinite(u).all() and u[1].abs().max() > 0
@@ -196,7 +196,7 @@ def test_stokeslet_two_launches_same_bits(cuda, prec):
     from skellysim_tpu_torch.ops import cuda_kernels as ck
 
     src, trg, f = _cloud(50_000, 3000, _DT[prec], cuda, seed=4)
-    assert ck.stokeslet_card_plan(cuda, prec, 3000, 50_000).chunks > 1
+    assert ck.pair_card_plan("stokeslet", cuda, prec, 3000, 50_000).chunks > 1
     kern = getattr(ck, f"stokeslet_{prec}")
     a = kern(src, trg, f, 1.0)
     b = kern(src, trg, f, 1.0)
@@ -319,6 +319,143 @@ def test_stresslet_self_and_zero_density_pairs(cuda):
         u = fn(src, src, f_dl, 1.0)
         assert u[0].abs().max().item() == 0.0
         assert torch.isfinite(u).all()
+
+
+#: the gates of kernels C and D against the plain f64 sum, as a share of
+#: the largest velocity
+_STRESSLET_TOL = {"f32": 1e-4, "f64": 1e-12}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_stresslet_ragged_shapes_and_split(cuda, prec):
+    """Kernels C / D against the plain f64 sum at counts that are not
+    multiples of R x threads (targets) or of the tile (sources: the pack's
+    pads fill the last one), one target, one source, the body scene's 600,
+    with the source split off (one chunk) and on (several, reduced by the
+    second pass); scaled and unscaled, the -3 kept in both."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    kern = getattr(ck, f"stresslet_{prec}")
+    tol = _STRESSLET_TOL[prec]
+    chunks = set()
+    for n_trg, n_src in ((1, 1), (1, 5000), (5000, 1), (1000, 513),
+                         (777, 100), (600, 600), (2000, 20000),
+                         (4097, 12345)):
+        src, trg, f_dl = _shell_cloud(n_src + 8, n_trg, _DT[prec], cuda,
+                                      seed=n_trg)
+        plan = ck.pair_card_plan("stresslet", cuda, prec, n_trg, n_src + 8)
+        chunks.add(min(plan.chunks, 2))
+        n0 = kern.launches
+        got = kern(src, trg, f_dl, 0.9)
+        unscaled = kern(src, trg, f_dl)
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 2
+        assert got.dtype == _DT[prec] and torch.isfinite(got).all()
+        ref = ck.stresslet_f64_plain(src, trg, f_dl, 0.9)
+        assert _rel_err(got, ref) <= tol, (n_trg, n_src)
+        ref = ck.stresslet_f64_plain(src, trg, f_dl)
+        assert _rel_err(unscaled, ref) <= tol, (n_trg, n_src)
+    assert chunks == {1, 2}  # the split off and on
+
+
+@pytest.mark.gpu
+def test_stresslet_coincident_and_zero_density_pairs_are_exactly_zero(cuda):
+    """A target on top of 5,000 stacked sources (several chunks) gets
+    exactly 0 from them in C and D, a target away from them their finite
+    sum; zero-density sources stacked on a target add exactly 0 and no
+    NaN."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    for prec in ("f32", "f64"):
+        dt = _DT[prec]
+        p = torch.tensor([[0.5, -0.25, 1.0]], dtype=dt, device=cuda)
+        src = p.repeat(5000, 1)
+        f_dl = torch.randn((5000, 3, 3), dtype=dt, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+        trg = torch.cat([p, p + 1.0])
+        assert ck.pair_card_plan("stresslet", cuda, prec, 2, 5000).chunks > 1
+        kern = getattr(ck, f"stresslet_{prec}")
+        u = kern(src, trg, f_dl, 1.0)
+        assert torch.equal(u[0], torch.zeros_like(u[0]))
+        assert torch.isfinite(u).all() and u[1].abs().max() > 0
+        f_dl[:] = 0.0
+        u = kern(src, trg, f_dl, 1.0)
+        assert torch.equal(u, torch.zeros_like(u))
+
+
+@pytest.mark.gpu
+def test_stresslet_subnormal_r2_is_dropped_without_inf(cuda):
+    """A pair whose r^2 is subnormal (r = 1e-20 in f32, 1e-160 in f64),
+    which the flush-to-zero rsqrt would turn into inf, is dropped: exactly
+    0, finite. A close pair whose r^-5 still fits the dtype (r = 1e-6,
+    1e-60) is summed: -3 Sxx / r^2 along d = (r, 0, 0), unscaled."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    for prec, tiny, near in (("f32", 1e-20, 1e-6), ("f64", 1e-160, 1e-60)):
+        dt = _DT[prec]
+        src = torch.zeros((1, 3), dtype=dt, device=cuda)
+        f_dl = torch.arange(1.0, 10.0, dtype=dt, device=cuda).reshape(1, 3, 3)
+        trg = torch.tensor([[tiny, 0.0, 0.0], [near, 0.0, 0.0]], dtype=dt,
+                           device=cuda)
+        u = getattr(ck, f"stresslet_{prec}")(src, trg, f_dl)
+        assert torch.isfinite(u).all()
+        assert torch.equal(u[0], torch.zeros_like(u[0]))
+        want = torch.tensor([-3.0 / near ** 2, 0.0, 0.0], dtype=torch.float64)
+        torch.testing.assert_close(u[1].double().cpu(), want, rtol=1e-5,
+                                   atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_stresslet_two_launches_same_bits(cuda, prec):
+    """C's and D's partial sums are reduced in chunk order, not by atomics:
+    two launches on the same inputs give the same bits."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    src, trg, f_dl = _shell_cloud(20_000, 3000, _DT[prec], cuda, seed=4)
+    assert ck.pair_card_plan("stresslet", cuda, prec, 3000,
+                             20_000).chunks > 1
+    kern = getattr(ck, f"stresslet_{prec}")
+    assert torch.equal(kern(src, trg, f_dl, 1.0), kern(src, trg, f_dl, 1.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_stresslet_matches_tiled_yardstick(cuda, prec):
+    """The redesigned C / D against their first design (the tiled instance,
+    one target a thread) on the same inputs: 1e-4 (C) and 1e-12 (D) of the
+    largest velocity, scaled and unscaled. Each wrapper counts its own
+    launches only."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    src, trg, f_dl = _shell_cloud(1 << 13, 10_000, _DT[prec], cuda, seed=5)
+    new, old = getattr(ck, f"stresslet_{prec}"), \
+        getattr(ck, f"stresslet_{prec}_tiled")
+    n_new, n_old = new.launches, old.launches
+    for eta in (0.8, None):
+        got, ref = new(src, trg, f_dl, eta), old(src, trg, f_dl, eta)
+        assert _rel_err(got, ref.double()) <= _STRESSLET_TOL[prec]
+    torch.cuda.synchronize()
+    assert (new.launches, old.launches) == (n_new + 2, n_old + 2)
+
+
+@pytest.mark.gpu
+def test_stresslet_refuses_an_unbuilt_r(cuda, monkeypatch):
+    """A plan with another R than the source's kR raises at the launch
+    (cudaErrorInvalidValue, nothing launched) and counts no launch."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    src, trg, f_dl = _shell_cloud(300, 200, torch.float32, cuda, seed=6)
+    for prec in ("f32", "f64"):
+        kern = getattr(ck, f"stresslet_{prec}")
+        kern(src, trg, f_dl)  # loads the library at the built R
+        n0 = kern.launches
+        monkeypatch.setitem(ck.STRESSLET_R, prec, 2 * ck.STRESSLET_R[prec])
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kern(src, trg, f_dl)
+        assert kern.launches == n0
+        monkeypatch.undo()
 
 
 @pytest.mark.gpu
