@@ -84,6 +84,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                block in every shard), and B and D are checked on every row
                and timed at one f64-grade hop's shape (B 32,000 x 34,000,
                D 2,000 x 32,000).
+10. ellipsoid_di — run after 8, on phase 6's shell precompute (then 9):
+               a centrosome nucleating microtubules inside the cortex,
+               phase 6's config plus one 600-node sphere of radius 0.5 at
+               the origin with --di-sites (1,000) nucleation sites
+               (`Body.generate_nucleation_sites`) and dynamic instability
+               at the fibers' 64 nodes (v_growth 0.2, f_catastrophe 0.5,
+               nucleation_rate 25, min_length 0.5); the body precomputed
+               alone; `python -m skellysim_tpu_torch` for two steps, then
+               `--resume` with t_final raised for two more. Gated on every
+               step accepted, converged and healthy; nucleation and the
+               fiber capacity passing the rung above the initial count
+               (2,048 at full width); active = previous + nucleations -
+               catastrophes each step; every frame's fiber count, bound
+               minus ends within 1e-6 of their lab-frame sites, no site
+               shared; across the resume a later first appended frame, a
+               continued fiber, the RNG counters restored from the last
+               frame and one metrics marker; A-D launching. Prints per
+               step the wall, iterations, capacity, active fibers and the
+               DI update's host seconds, the calls of A-D by shape and peak
+               memory; then A-D checked and timed at every shape the run
+               launched them with, on the last frame's state (A / B: the
+               grown capacity's fiber slots and the body's centre of mass
+               as sources; C / D: the shell's and the body's double
+               layers), and gated on every launch's shape being checked.
 9. bodies    — examples/stokes_tests/body_const_force (one 600-node sphere,
                force (0, 0, 1), three steps of dt = 0.1) precomputed and run
                the same way; the body's velocity must meet the reference's
@@ -98,7 +122,9 @@ counts ("sass_per_pair", "previous_sass_per_pair"), the issue-slot bounds
 ("issue_bound_ms", "previous_issue_bound_ms"), registers, shared bytes and
 the plan; A's and B's, under "at_ellipsoid_shape" and
 "at_ragged_source_shape", their phase-6 checks; C's and D's, under
-"at_body_shape", their phase-9 checks; E's and F's the same fields against
+"at_body_shape", their phase-9 checks; A-D, under
+"at_ellipsoid_di_shapes", their phase-10 checks (one a shape, with the
+calls at that shape); E's and F's the same fields against
 their `_v1` first design, and their plan; B's, D's, E's and F's, under
 "at_ring_run_shape", the same check and time at the shapes of the ring run
 (E and F: where their "launches" were counted; B and D: one hop).
@@ -109,10 +135,10 @@ writes (configs, the ~6.9 GB shell precompute, trajectories) lives in one
 temporary directory outside the checkout, removed at the end whether the
 run passed or failed.
 
-``--device=cpu`` with small ``--fibers``, ``--ellipsoid-fibers`` and
-``--shell-nodes`` rehearses the same phases on the CPU with the plain
-versions (no build, no launch counts, no result line; the mesh's 4 shards
-then lie on the CPU).
+``--device=cpu`` with small ``--fibers``, ``--ellipsoid-fibers``,
+``--shell-nodes`` and ``--di-sites`` rehearses the same phases on the CPU
+with the plain versions (no build, no launch counts, no result line; the
+mesh's 4 shards then lie on the CPU).
 """
 
 from __future__ import annotations
@@ -148,6 +174,11 @@ T_FINAL = 0.01
 #: the ellipsoid config's dt, three steps
 ELLIPSOID_DT = 8e-3
 ELLIPSOID_STEPS = 3
+#: the centrosome scene: steps before and after the resume, and its DI
+#: growth speed and nucleated length
+DI_STEPS = 2
+DI_V_GROWTH = 0.2
+DI_MIN_LENGTH = 0.5
 #: the body scene's dt, three steps
 BODY_DT = 0.1
 BODY_STEPS = 3
@@ -608,9 +639,11 @@ def read_counts(ck):
             for w in ck.KERNEL_WRAPPERS + ck.YARDSTICK_WRAPPERS}
 
 
-def phase_run(torch, ck, device, cfg_path, run_dir):
-    """`python -m skellysim_tpu_torch` on the config, in this process, with
-    every launch count set to 0 just before and read just after."""
+def phase_run(torch, ck, device, cfg_path, run_dir, extra=()):
+    """`python -m skellysim_tpu_torch` on the config (``extra``: more
+    flags, such as --resume), in this process, with every launch count set
+    to 0 just before and read just after. Returns (wall seconds, launch
+    counts, peak device memory, every line of the metrics file)."""
     metrics = os.path.join(run_dir, "metrics.jsonl")
     reset_counts(ck)
     if device.type == "cuda":
@@ -618,7 +651,7 @@ def phase_run(torch, ck, device, cfg_path, run_dir):
     argv = sys.argv
     sys.argv = ["skellysim_tpu_torch", f"--config-file={cfg_path}",
                 f"--metrics-file={metrics}", f"--device={device.type}",
-                "--log-level=WARNING"]
+                "--log-level=WARNING", *extra]
     t0 = time.perf_counter()
     try:
         runpy.run_module("skellysim_tpu_torch", run_name="__main__",
@@ -1260,6 +1293,360 @@ def phase_bodies(torch, ck, device, work, card):
     return counts, err, checks
 
 
+class DIRecords:
+    """Collects the run loop's per-trial dynamic-instability log records
+    (nucleations, catastrophes, fiber capacity, the update's host seconds
+    `di_s`) while a phase runs; the package's warnings still reach
+    stderr."""
+
+    def __init__(self):
+        import logging
+
+        self.rows = []
+        self.logger = logging.getLogger("skellysim_tpu_torch")
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if str(record.msg).startswith("dynamic instability"):
+                    t, nuc, cat, cap, di_s = record.args
+                    outer.rows.append({"t": t, "nucleations": nuc,
+                                       "catastrophes": cat, "capacity": cap,
+                                       "di_s": di_s})
+                elif record.levelno >= logging.WARNING:
+                    print(self.format(record), file=sys.stderr, flush=True)
+
+        self.handler = Handler()
+
+    def __enter__(self):
+        import logging
+
+        self.saved = (self.logger.level, self.logger.propagate)
+        self.logger.setLevel(logging.INFO)
+        self.logger.propagate = False
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.saved[0])
+        self.logger.propagate = self.saved[1]
+
+
+class ShapeTally:
+    """Counts the calls of kernels A-D's wrappers by (sources, targets)
+    while a phase runs, by wrapping the module attributes the pair seam
+    (`ops.kernels._direct`) looks up; the wrappers' own launch counts are
+    untouched. This attributes a path's launches to the shapes whose times
+    the checks measure."""
+
+    NAMES = ("stokeslet_f32", "stokeslet_f64", "stresslet_f32",
+             "stresslet_f64")
+
+    def __init__(self, ck):
+        import collections
+
+        self.ck = ck
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.ck, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            def record(src, trg, *rest, _fn=fn, _name=name):
+                self.calls[_name, src.shape[0], trg.shape[0]] += 1
+                return _fn(src, trg, *rest)
+            setattr(self.ck, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ck, name, fn)
+
+    def of(self, name):
+        """[((sources, targets), calls)] of one kernel, most calls first."""
+        return sorted(((s, t), c) for (n, s, t), c in self.calls.items()
+                      if n == name)[::-1]
+
+
+def make_di_config(path, ellipsoid_cfg, n_sites, steps):
+    """Phase 6's ellipsoid config (its shell precompute reused) with a
+    centrosome: one 600-node sphere of radius 0.5 at the origin carrying
+    ``n_sites`` nucleation sites (`Body.generate_nucleation_sites`), and
+    dynamic instability at the clamped fibers' 64 nodes."""
+    import numpy as np
+
+    from skellysim_tpu_torch.config import Body, schema
+
+    config = schema.load_config(ellipsoid_cfg)
+    config.params.t_final = steps * ELLIPSOID_DT
+    di = config.params.dynamic_instability
+    di.n_nodes, di.v_growth, di.f_catastrophe = 64, DI_V_GROWTH, 0.5
+    di.nucleation_rate, di.min_length = 25.0, DI_MIN_LENGTH
+    body = Body(position=[0.0, 0.0, 0.0], shape="sphere", radius=0.5,
+                n_nodes=600, n_nucleation_sites=n_sites,
+                precompute_file="body_precompute.npz")
+    # random sequential placement, 0.04 apart: 1,000 sites cover ~40% of
+    # the sphere, below the ~55% where such a placement jams
+    body.generate_nucleation_sites(ds_min=0.04, verbose=False,
+                                   rng=np.random.default_rng(7))
+    config.bodies = [body]
+    config.save(path)
+    return config
+
+
+def check_di_frames(reader, config, steps, n_before):
+    """Gate the DI run's trajectory (`phase_ellipsoid_di`): every frame's
+    fiber count is the step's `active_fibers`; every bound fiber's minus
+    end lies within 1e-6 of its site in the lab frame (the body moves), no
+    two active fibers share a site; across the resume some fiber is
+    continued (the continuation test of
+    tests/test_resume_dynamic_instability.py) and the first appended frame
+    comes after the last one before. Returns the worst site distance."""
+    import numpy as np
+    import torch
+
+    from skellysim_tpu_torch.utils import quaternion as quat
+
+    di = config.params.dynamic_instability
+    sites_ref = (np.asarray(config.bodies[0].nucleation_sites).reshape(-1, 3)
+                 - np.asarray(config.bodies[0].position))
+    worst = 0.0
+    frames = [reader.load_frame(i) for i in range(len(reader))]
+    for i, (frame, s) in enumerate(zip(frames[1:], steps), start=1):
+        fibers = frame["fibers"][1]
+        if len(fibers) != s["active_fibers"]:
+            raise SystemExit(f"ellipsoid_di: frame {i} holds {len(fibers)} "
+                             f"fibers, step {s['step']} counted "
+                             f"{s['active_fibers']} active")
+        body = frame["bodies"][0][0]
+        rot = quat.rotation_matrix(torch.as_tensor(
+            np.asarray(body["orientation_"]))).numpy()
+        lab = np.asarray(body["position_"]) + sites_ref @ rot.T
+        bound = [(tuple(f["binding_site_"]), np.asarray(f["x_"])[0])
+                 for f in fibers if f["binding_site_"][0] >= 0]
+        if len({b for b, _ in bound}) != len(bound):
+            raise SystemExit(f"ellipsoid_di: two active fibers share a site "
+                             f"in frame {i}")
+        for (_, site), x0 in bound:
+            worst = max(worst, float(np.linalg.norm(x0 - lab[site])))
+    if not worst <= 1e-6:
+        raise SystemExit(f"ellipsoid_di: a bound fiber's minus end lies "
+                         f"{worst:.3e} from its site")
+    before, after = frames[n_before - 1], frames[n_before]
+    if not after["time"] > before["time"]:
+        raise SystemExit("ellipsoid_di: the first appended frame is not "
+                         "after the last one before the resume")
+    by_site = {tuple(f["binding_site_"]): f["length_"]
+               for f in before["fibers"][1] if f["binding_site_"][0] >= 0}
+    continued = 0
+    for f in after["fibers"][1]:
+        site = tuple(f["binding_site_"])
+        if site not in by_site:
+            continue
+        if f["length_"] >= by_site[site] - 1e-12:
+            continued += 1
+        elif f["length_"] > di.min_length + di.v_growth * ELLIPSOID_DT + 1e-12:
+            raise SystemExit("ellipsoid_di: a fiber shrank across the resume "
+                             "without a re-nucleation")
+    if not continued:
+        raise SystemExit("ellipsoid_di: no fiber was continued across the "
+                         "resume")
+    return worst, continued
+
+
+def phase_ellipsoid_di(torch, ck, device, ellipsoid_cfg, work, args, card):
+    """A centrosome nucleating microtubules inside the cell cortex: phase
+    6's ellipsoid config (its shell precompute reused) with one sphere body
+    carrying ``--di-sites`` nucleation sites and dynamic instability at 64
+    nodes (`make_di_config`); the body precomputed alone
+    (`precompute_body`); `python -m skellysim_tpu_torch` for DI_STEPS
+    steps, then `--resume` with t_final raised for DI_STEPS more. Gated on
+    every step accepted, converged and healthy; nucleation happening and
+    the fiber capacity growing past the rung above the initial fiber count
+    (2,048 at full width); each step's active count = the previous +
+    nucleations - catastrophes; the frames (`check_di_frames`); the
+    restored RNG counters; the metrics file's resume marker; kernels A-D
+    launching. Then A-D checked and timed (`family_check`) at each shape
+    the run launched them with, on the last frame's state; a launch at a
+    shape no check covers fails the phase. Returns (the summed launch
+    counts, {kernel name: [the check's JSON fields, one a shape]})."""
+    import numpy as np
+
+    from skellysim_tpu_torch.config import schema
+    from skellysim_tpu_torch.io.trajectory import TrajectoryReader
+    from skellysim_tpu_torch.periphery.precompute import precompute_body
+    from skellysim_tpu_torch.system.buckets import next_fiber_capacity
+    from skellysim_tpu_torch.utils import quaternion as quat
+
+    run_dir = os.path.join(work, "ellipsoid_di")
+    os.makedirs(run_dir)
+    src_dir = os.path.dirname(ellipsoid_cfg)
+    shell_file = make_di_config(os.path.join(run_dir, "skelly_config.toml"),
+                                ellipsoid_cfg, args.di_sites,
+                                DI_STEPS).periphery.precompute_file
+    os.link(os.path.join(src_dir, shell_file),
+            os.path.join(run_dir, shell_file))
+    cfg_path = os.path.join(run_dir, "skelly_config.toml")
+    t0 = time.perf_counter()
+    np.savez(os.path.join(run_dir, "body_precompute.npz"),
+             **precompute_body("sphere", 600, radius=0.5))
+    log(f"[ellipsoid_di] body precompute {time.perf_counter() - t0:.2f} s; "
+        f"shell precompute reused from phase 6")
+    peak, counts, walls = 0, {}, []
+    with DIRecords() as rec, ShapeTally(ck) as tally:
+        for extra, steps in (((), DI_STEPS), (("--resume",), 2 * DI_STEPS)):
+            if extra:
+                n_before = len(TrajectoryReader(os.path.join(
+                    run_dir, "skelly_sim.out")))
+                config = schema.load_config(cfg_path)
+                config.params.t_final = steps * ELLIPSOID_DT
+                config.save(cfg_path)
+            wall, c, pk, lines = phase_run(torch, ck, device, cfg_path,
+                                           run_dir, extra)
+            walls.append(wall)
+            counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+            peak = max(peak, pk or 0)
+    steps = [m for m in lines if "step" in m]
+    markers = [m for m in lines if m.get("resume")]
+    report_run(ck, "ellipsoid_di", sum(walls), counts,
+               peak if device.type == "cuda" else None, steps, 2 * DI_STEPS,
+               1e-8, device, ["stokeslet_f32", "stokeslet_f64",
+                              "stresslet_f32", "stresslet_f64"],
+               what=f"two CLI runs ({walls[0]:.1f} s, resumed "
+                    f"{walls[1]:.1f} s; state builds and frame writes "
+                    "included)")
+    config = schema.load_config(cfg_path)
+    n0 = len(config.fibers)
+    rows = rec.rows
+    prev = n0
+    for s, r in zip(steps, rows):
+        log(f"[ellipsoid_di] step {s['step']} t={s['t']:.4g}: wall "
+            f"{s['wall_s']:.3f} s, GMRES iterations {s['iters']}, fiber "
+            f"capacity {r['capacity']}, active fibers {s['active_fibers']} "
+            f"(+{s['nucleations']} nucleated, -{s['catastrophes']} "
+            f"catastrophes), DI update on the host {r['di_s']:.4f} s")
+        if (s["nucleations"], s["catastrophes"]) != (r["nucleations"],
+                                                     r["catastrophes"]) or \
+                s["active_fibers"] != prev + s["nucleations"] \
+                - s["catastrophes"]:
+            raise SystemExit(f"ellipsoid_di: step {s['step']} counts "
+                             f"{s['active_fibers']} active after {prev}, "
+                             f"+{s['nucleations']} -{s['catastrophes']}")
+        prev = s["active_fibers"]
+    rung = next_fiber_capacity(n0)
+    cap = max(r["capacity"] for r in rows)
+    if len(rows) != len(steps) or not sum(s["nucleations"] for s in steps) \
+            or not cap > rung:
+        raise SystemExit(f"ellipsoid_di: no nucleation, or the capacity "
+                         f"({cap}) never passed the rung {rung}")
+    if len(markers) != 1:
+        raise SystemExit(f"ellipsoid_di: {len(markers)} resume markers in "
+                         "the metrics file")
+    reader = TrajectoryReader(os.path.join(run_dir, "skelly_sim.out"))
+    if len(reader) != n_before + DI_STEPS:
+        raise SystemExit(f"ellipsoid_di: {len(reader)} frames, "
+                         f"{n_before} before the resume")
+    worst, continued = check_di_frames(reader, config, steps, n_before)
+    # the resumed stream continues the last frame's counters: the first
+    # resumed update spends one uniform, one Poisson and one draw a site
+    before = dict(reader.load_frame(n_before - 1)["rng_state"])
+    after = dict(reader.load_frame(n_before)["rng_state"])
+    spent = int(after["distributed"].split(":")[2]) - int(
+        before["distributed"].split(":")[2])
+    want = 2 + steps[DI_STEPS]["nucleations"]
+    if spent != want or after["shared"] != before["shared"]:
+        raise SystemExit(f"ellipsoid_di: the resumed RNG spent {spent} "
+                         f"counters in its first step, {want} expected: the "
+                         "counters were not restored from the last frame")
+    log(f"[ellipsoid_di] {len(reader)} frames ({n_before} before the resume, "
+        f"marker {markers[0]}); bound minus ends within {worst:.3e} of their "
+        f"sites; {continued} fibers continued across the resume; the "
+        f"restored stream spent {spent} counters in its first step "
+        f"(2 + {steps[DI_STEPS]['nucleations']} nucleations); capacity "
+        f"{n0} -> {cap} (rung {rung} passed); peak device memory "
+        f"{'not measured' if device.type != 'cuda' else f'{peak / 2**30:.2f} GiB'}")
+    # A-D at every shape this path launched them with, on the last frame's
+    # state: a capacity's fiber slots (the live nodes first, dead slots
+    # pinned at the origin with zero force), the shell's and the body's
+    # nodes with their densities as double layers, the body's centre of
+    # mass
+    last = reader.load_frame(len(reader) - 1)
+    live = np.concatenate([np.asarray(f["x_"]) for f in last["fibers"][1]])
+    eta = config.params.eta
+    with np.load(os.path.join(run_dir, shell_file)) as z:
+        shell_nodes, shell_normals = z["nodes"], z["normals"]
+    with np.load(os.path.join(run_dir, "body_precompute.npz")) as z:
+        body_ref, normals_ref = z["node_positions_ref"], z["node_normals_ref"]
+    body = last["bodies"][0][0]
+    rot = quat.rotation_matrix(torch.as_tensor(
+        np.asarray(body["orientation_"]))).numpy()
+    com = np.asarray(body["position_"]).reshape(1, 3)
+    body_nodes, body_normals = com + body_ref @ rot.T, normals_ref @ rot.T
+    shell_rho = np.asarray(last["shell"]["solution_vec_"]).reshape(-1, 3)
+    body_rho = np.asarray(body["solution_vec_"])[:3 * len(body_ref)].reshape(
+        -1, 3)
+    rng = np.random.default_rng(37)
+    n_shell, n_body = len(shell_nodes), len(body_nodes)
+
+    def slots(n):
+        out = np.zeros((n, 3))
+        out[:min(n, len(live))] = live[:n]
+        return out
+
+    def inputs(family, n_src, n_trg):
+        """(what, sources, targets, payload) of a launch at this shape."""
+        if family == "stresslet" and n_src == n_shell:
+            return ("shell double layer", shell_nodes, np.concatenate(
+                [slots(n_trg - n_body), body_nodes]),
+                (2.0 * eta * shell_normals[:, :, None]
+                 * shell_rho[:, None, :]).reshape(-1, 9))
+        every = np.concatenate([slots(n_trg - n_shell - n_body), shell_nodes,
+                                body_nodes])
+        if family == "stresslet" and n_src == n_body:
+            return ("body double layer", body_nodes, every,
+                    (2.0 * eta * body_normals[:, :, None]
+                     * body_rho[:, None, :]).reshape(-1, 9))
+        if family == "stokeslet" and n_src == 1:
+            return ("body centre of mass", com, every,
+                    rng.standard_normal((1, 3)))
+        if family == "stokeslet" and n_trg == n_src + n_shell + n_body:
+            force = np.zeros((n_src, 3))
+            force[:len(live)] = rng.standard_normal(
+                force[:len(live)].shape) / 63.0
+            return "fiber slots", slots(n_src), every, force
+        raise SystemExit(f"ellipsoid_di: {family} launched at {n_src} x "
+                         f"{n_trg}, a shape this phase cannot rebuild")
+
+    checks, parts = {}, []
+    for family in ("stokeslet", "stresslet"):
+        precs = {}
+        for prec in ("f32", "f64"):
+            for shape, _ in tally.of(f"{family}_{prec}"):
+                precs.setdefault(shape, []).append(prec)
+        for (n_src, n_trg), ps in sorted(precs.items())[::-1]:
+            what, src, trg, pay = inputs(family, n_src, n_trg)
+            for name, fields in family_check(
+                    torch, ck, device, family, src, trg, pay, tuple(ps),
+                    card, "ellipsoid_di").items():
+                n = tally.calls[name, n_src, n_trg]
+                fields.update({"sources": what, "calls_at_this_shape": n})
+                checks.setdefault(name, []).append(fields)
+                parts.append(f"{name} at {n_src} x {n_trg} ({what}) {n} x "
+                             f"{fields['ms']:.3f} ms = "
+                             f"{n * fields['ms'] / 1e3:.2f} s")
+    for name in ShapeTally.NAMES:
+        log(f"[ellipsoid_di] {name} calls by (sources, targets) over the "
+            f"four steps: " + ", ".join(f"{st}: {c}"
+                                         for st, c in tally.of(name)))
+    log(f"[ellipsoid_di] calls x checked time at every shape launched "
+        f"({len(live)} fiber nodes live in the last frame): "
+        + "; ".join(parts) + f", against "
+        f"{sum(s['wall_s'] for s in steps):.2f} s of step wall")
+    reader.close()
+    shutil.rmtree(run_dir)
+    return counts, checks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -1267,6 +1654,8 @@ def main(argv=None) -> int:
                     help="fibers of the free-space path")
     ap.add_argument("--ellipsoid-fibers", type=int, default=2000)
     ap.add_argument("--shell-nodes", type=int, default=8000)
+    ap.add_argument("--di-sites", type=int, default=1000,
+                    help="nucleation sites of phase 10's centrosome")
     args = ap.parse_args(argv)
 
     import torch
@@ -1308,8 +1697,8 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-9; returns (kernel entries, launch counts by path, the
-    nvidia-smi line)."""
+    """Phases 1-10 (10 runs after 8, on phase 6's precompute, then 9);
+    returns (kernel entries, launch counts by path, the nvidia-smi line)."""
     import numpy as np
 
     # 1. device
@@ -1418,6 +1807,16 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     for e in entries:
         if e["name"] in at_run:
             e["at_ring_run_shape"] = at_run[e["name"]]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 10. the centrosome in the cell: DI, run and --resume, on phase 6's
+    # precompute
+    launches["ellipsoid_di"], at_di = phase_ellipsoid_di(
+        torch, ck, device, ring_inputs["cfg_path"], work, args, smi)
+    for e in entries:
+        if e["name"] in at_di:
+            e["at_ellipsoid_di_shapes"] = at_di[e["name"]]
     del ring_inputs
     shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":

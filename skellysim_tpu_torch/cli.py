@@ -1,26 +1,30 @@
-"""Process driver: run a TOML config.
+"""Command-line entry point: run or resume a TOML config.
 
 Counterpart of `skellysim_tpu.cli`: flag parsing, trajectory-existence
-guards, the initial frame and config snapshot, then the time loop.
+guards, the initial frame and config snapshot (or, with ``--resume``, the
+last frame of the trajectory, its RNG state, an appending writer and a
+resume marker in the metrics file), then the time loop.
 
-Usage: python -m skellysim_tpu_torch [--config-file=...] [--overwrite]
-       [--metrics-file=...] [--device=cuda|cpu]
+Usage: python -m skellysim_tpu_torch [--config-file=...] [--resume]
+       [--overwrite] [--metrics-file=...] [--device=cuda|cpu]
 
 Runs on the CUDA card unless ``--device=cpu`` is given; a missing card
-raises. ``--resume`` and ``--listen`` are not ported yet (ROADMAP.md §1
-items 7 and 13).
+raises. ``--listen`` is not ported yet (ROADMAP.md §1 item 13).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import shutil
 import sys
 
 from .builder import build_simulation
-from .io.trajectory import TrajectoryWriter
+from .config import toml_io
+from .io.trajectory import TrajectoryWriter, resume_state
+from .utils.rng import SimRNG
 
 TRAJECTORY_FILE = "skelly_sim.out"
 
@@ -32,22 +36,54 @@ def _snapshot_path(traj: str, suffix: str) -> str:
     return (base if ext == ".out" else traj) + "." + suffix
 
 
-def run(config_file: str, overwrite: bool = False,
+def _refuse_runtime_ladders(config_file: str) -> None:
+    """The JAX CLI lands the scene on its `[runtime]` capacity bucket
+    before the run and again after a resume; with no ladder that is the
+    identity. The port has no bucket policy yet, so a ladder raises rather
+    than being ignored."""
+    table = toml_io.load(config_file).get("runtime", {})
+    ladders = {k: v for k, v in table.items()
+               if k.endswith("_ladder") and len(v)}
+    if ladders:
+        raise NotImplementedError(
+            f"[runtime] capacity ladders {sorted(ladders)} are not ported to "
+            "skellysim_tpu_torch yet (ROADMAP.md §1 item 11)")
+
+
+def run(config_file: str, resume: bool = False, overwrite: bool = False,
         trajectory_path: str | None = None, metrics_path: str | None = None,
         device=None) -> None:
     traj = trajectory_path or os.path.join(
         os.path.dirname(os.path.abspath(config_file)) or ".", TRAJECTORY_FILE)
-    if os.path.exists(traj) and not overwrite:
-        sys.exit(f"Trajectory '{traj}' already exists and --overwrite was "
-                 "not given; refusing to clobber it")
+    if os.path.exists(traj) and not (resume or overwrite):
+        sys.exit(f"Trajectory '{traj}' already exists and neither --resume "
+                 "nor --overwrite was given; refusing to clobber it")
+    if resume and not os.path.exists(traj):
+        sys.exit(f"--resume given but trajectory '{traj}' does not exist")
+    _refuse_runtime_ladders(config_file)
 
     system, state, rng = build_simulation(config_file, device=device)
     logging.getLogger("skellysim_tpu_torch").info(
         "device %s: %d fiber, %d shell and %d body nodes", system.device,
         *system._counts(state))
-    with TrajectoryWriter(traj) as writer:
+    if resume:
+        state, rng_state, reader = resume_state(traj, state)
+        reader.close()
+        if rng_state:
+            rng = SimRNG.from_state(rng_state)
+        writer = TrajectoryWriter(traj, append=True)
+        if metrics_path and os.path.exists(metrics_path):
+            # step indices restart at 0 per run: the marker segments an
+            # appended metrics file
+            with open(metrics_path, "a") as fh:
+                fh.write(json.dumps({"resume": True,
+                                     "t": float(state.time)}) + "\n")
+        print(f"Resuming from t={state.time:.6g}")
+    else:
+        writer = TrajectoryWriter(traj)
         shutil.copyfile(config_file, _snapshot_path(traj, "initial_config"))
         writer.write_frame(state, rng_state=rng.dump_state())
+    with writer:
         final = system.run(state, writer=writer.write_frame, rng=rng,
                            metrics_path=metrics_path)
     shutil.copyfile(config_file, _snapshot_path(traj, "final_config"))
@@ -59,10 +95,10 @@ def main(argv=None) -> None:
         prog="skellysim-tpu-torch",
         description="cytoskeletal hydrodynamics simulator (PyTorch/CUDA port)")
     ap.add_argument("--config-file", default="skelly_config.toml")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue an existing trajectory from its last frame")
     ap.add_argument("--overwrite", action="store_true",
                     help="overwrite an existing trajectory")
-    ap.add_argument("--resume", action="store_true",
-                    help="not ported yet (ROADMAP.md §1 item 7)")
     ap.add_argument("--listen", action="store_true",
                     help="not ported yet (ROADMAP.md §1 item 13)")
     ap.add_argument("--metrics-file", default=None,
@@ -73,10 +109,6 @@ def main(argv=None) -> None:
     ap.add_argument("--log-level",
                     default=os.environ.get("SKELLYSIM_LOG", "INFO"))
     args = ap.parse_args(argv)
-    if args.resume:
-        raise NotImplementedError("--resume is not ported to "
-                                  "skellysim_tpu_torch yet (ROADMAP.md §1 "
-                                  "item 7)")
     if args.listen:
         raise NotImplementedError("--listen is not ported to "
                                   "skellysim_tpu_torch yet (ROADMAP.md §1 "
@@ -84,7 +116,7 @@ def main(argv=None) -> None:
     logging.basicConfig(level=args.log_level.upper(),
                         format="[%(asctime)s] [%(levelname)s] %(message)s",
                         stream=sys.stderr)
-    run(args.config_file, overwrite=args.overwrite,
+    run(args.config_file, resume=args.resume, overwrite=args.overwrite,
         metrics_path=args.metrics_file, device=args.device)
 
 

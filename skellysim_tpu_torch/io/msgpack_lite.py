@@ -188,10 +188,8 @@ def _decode_map(data, pos, n):
     return out, pos
 
 
-def iter_unpack(data: bytes):
-    """Yield (offset, object) for every object in a concatenated stream."""
-    pos = 0
-    while pos < len(data):
-        start = pos
-        obj, pos = _decode(data, pos)
-        yield start, obj
+def unpack_at(data, pos: int):
+    """Decode the object at ``pos`` of ``data`` (bytes, or any buffer such
+    as an mmap): (object, next position)."""
+    return _decode(data, pos)
+

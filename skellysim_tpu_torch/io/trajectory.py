@@ -6,12 +6,20 @@ field-vectorized encoder: a header map, then one msgpack map per frame
 order (`config_rank`), active slots only; bodies as [spheres, deformables,
 ellipsoids], each kind in config order; the shell as its density. So the
 wire matches the JAX package's and decodes with `skellysim_tpu.io.trajectory`
-and the reference tools. Resuming from a frame (`--resume`) is not ported yet (ROADMAP.md §1
-item 7).
+and the reference tools.
+
+The trajectory doubles as the checkpoint: `resume_state` rebuilds a
+`SimState` from the last frame (`--resume`). The reader seeks through a
+``<path>.cindex`` side file {mtime, size, offsets, times}, the JAX package's
+and the reference's index format, built by `build_index` when missing or
+stale; frames are decoded from a memory map, so reading one frame of a
+large trajectory touches only that frame's bytes.
 """
 
 from __future__ import annotations
 
+import mmap
+import os
 import platform
 import time as _time
 
@@ -19,7 +27,7 @@ import numpy as np
 
 from .. import TRAJECTORY_VERSION, __version__
 from . import eigen
-from .msgpack_lite import iter_unpack, packb
+from .msgpack_lite import OutOfData, packb, unpack_at
 
 FIBER_TYPE_NONE = 0
 FIBER_TYPE_FINITE_DIFFERENCE = 1
@@ -165,25 +173,202 @@ class TrajectoryWriter:
         self.close()
 
 
-class TrajectoryReader:
-    """Reads a whole trajectory with the port's own msgpack decoder:
-    ``header``, ``times``, ``len()`` and `load_frame` (decoded with
-    `eigen.decode_tree`)."""
+def _scan(data):
+    """(offsets, times) of every frame map in a trajectory buffer, each
+    top-level object decoded in turn; a truncated last object (a write cut
+    short) ends the scan."""
+    offsets, times = [], []
+    pos = 0
+    while pos < len(data):
+        try:
+            obj, end = unpack_at(data, pos)
+        except OutOfData:
+            break
+        if isinstance(obj, dict) and "time" in obj:
+            offsets.append(pos)
+            times.append(obj["time"])
+        pos = end
+    return offsets, times
 
-    def __init__(self, path: str):
-        with open(path, "rb") as fh:
-            data = fh.read()
-        objs = list(iter_unpack(data))
-        if not objs or not (isinstance(objs[0][1], dict)
-                            and "trajversion" in objs[0][1]):
+
+def _map(path: str):
+    with open(path, "rb") as fh:
+        return mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+
+
+def build_index(path: str):
+    """Frame (offsets, times), written to ``<path>.cindex`` in the JAX
+    package's format ({mtime: int, size, offsets, times}), which its reader
+    and the reference's take without a rebuild. The file is stat'ed before
+    the scan, so a frame appended meanwhile invalidates the index."""
+    st = os.stat(path)
+    mm = _map(path)
+    try:
+        offsets, times = _scan(mm)
+    finally:
+        mm.close()
+    with open(path + ".cindex", "wb") as fh:
+        fh.write(packb({"mtime": int(st.st_mtime), "size": st.st_size,
+                        "offsets": offsets, "times": times}))
+    return offsets, times
+
+
+class TrajectoryReader:
+    """Random-access frame reader: ``header``, ``times``, ``len()`` and
+    `load_frame` (decoded with `eigen.decode_tree`). Frame offsets come
+    from ``<path>.cindex`` when its mtime and size match the file, else
+    from `build_index`."""
+
+    def __init__(self, path: str = "skelly_sim.out"):
+        self.path = path
+        self._mm = _map(path)
+        self.header = unpack_at(self._mm, 0)[0]
+        if not (isinstance(self.header, dict)
+                and "trajversion" in self.header):
+            self._mm.close()
             raise ValueError(f"{path}: missing trajectory header")
-        self.header = objs[0][1]
-        self._frames = [o for _, o in objs[1:]
-                        if isinstance(o, dict) and "time" in o]
-        self.times = [f["time"] for f in self._frames]
+        st = os.stat(path)
+        offsets = times = None
+        if os.path.exists(path + ".cindex"):
+            with open(path + ".cindex", "rb") as fh:
+                index = unpack_at(fh.read(), 0)[0]
+            if (index.get("mtime") == int(st.st_mtime)
+                    and index.get("size", st.st_size) == st.st_size):
+                offsets, times = index["offsets"], index["times"]
+        if offsets is None:
+            offsets, times = build_index(path)
+        self._offsets = offsets
+        self.times = times
 
     def __len__(self):
-        return len(self._frames)
+        return len(self._offsets)
 
     def load_frame(self, i: int) -> dict:
-        return eigen.decode_tree(self._frames[int(i)])
+        i = int(i)
+        if i < 0:
+            i += len(self)
+        return eigen.decode_tree(unpack_at(self._mm, self._offsets[i])[0])
+
+    def close(self):
+        self._mm.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# -------------------------------------------------------------------- resume
+
+def frame_to_state(frame: dict, template_state, dtype=None):
+    """Rebuild a SimState from a decoded frame
+    (`skellysim_tpu.io.trajectory.frame_to_state`).
+
+    Fibers are rebuilt from the frame (their parameters are serialized),
+    regrouped by resolution in first-appearance order, with the frame
+    position as ``config_rank`` so a re-written trajectory keeps the wire
+    order; bodies and the shell keep their geometry and operators from
+    ``template_state`` and take position / orientation / solution (bodies,
+    mapped back through kind and ``config_rank``) and the density (shell)
+    from the frame.
+    """
+    import torch
+
+    from ..bodies.bodies import BodyGroup, as_buckets
+    from ..fibers import container as fc
+    from ..system.system import state_placement
+
+    t_dtype, device = state_placement(template_state)
+    dtype = t_dtype if dtype is None else dtype
+    state = template_state
+
+    fiber_maps = frame["fibers"][1] if frame["fibers"][0] else []
+    if fiber_maps:
+        by_n: dict = {}
+        for rank, f in enumerate(fiber_maps):
+            by_n.setdefault(int(f["n_nodes_"]), []).append((rank, f))
+
+        def one_bucket(items):
+            maps = [f for _, f in items]
+            g = fc.make_group(
+                np.stack([np.asarray(f["x_"]).reshape(-1, 3) for f in maps]),
+                lengths=np.array([f["length_"] for f in maps]),
+                bending_rigidity=np.array([f["bending_rigidity_"]
+                                           for f in maps]),
+                radius=np.array([f["radius_"] for f in maps]),
+                penalty=np.array([f["penalty_param_"] for f in maps]),
+                beta_tstep=np.array([f["beta_tstep_"] for f in maps]),
+                force_scale=np.array([f["force_scale_"] for f in maps]),
+                minus_clamped=np.array([f["minus_clamped_"] for f in maps]),
+                binding_body=np.array([f["binding_site_"][0] for f in maps]),
+                binding_site=np.array([f["binding_site_"][1] for f in maps]),
+                config_rank=np.array([r for r, _ in items], dtype=np.int32),
+                dtype=dtype, device=device)
+            return g._replace(
+                tension=torch.as_tensor(
+                    np.stack([np.asarray(f["tension_"]) for f in maps]),
+                    dtype=dtype, device=device),
+                length_prev=torch.as_tensor(
+                    [f["length_prev_"] for f in maps], dtype=dtype,
+                    device=device))
+
+        groups = [one_bucket(items) for items in by_n.values()]
+        state = state._replace(
+            fibers=groups[0] if len(groups) == 1 else tuple(groups))
+    elif template_state.fibers is not None:
+        state = state._replace(fibers=None)
+
+    bodies_wire = [b for sub in frame["bodies"] for b in sub]
+    if bodies_wire:
+        b_list = list(as_buckets(state.bodies))
+        if not b_list or sum(g.n_bodies for g in b_list) != len(bodies_wire):
+            raise ValueError("trajectory bodies do not match the configured "
+                             "state")
+        # the wire holds [spheres..., ellipsoids...], each in config order:
+        # map wire slots back to (bucket, slot) by kind and config_rank
+        entries = []                   # (is_ellipsoid, rank, bucket, slot)
+        for bi, g in enumerate(b_list):
+            ks = g.kind_sphere.cpu().numpy()
+            ranks = (g.config_rank.cpu().numpy()
+                     if g.config_rank is not None else np.arange(g.n_bodies))
+            for slot in range(g.n_bodies):
+                entries.append((not bool(ks[slot]), int(ranks[slot]), bi,
+                                slot))
+        entries.sort()
+        pos = [g.position.cpu().numpy().copy() for g in b_list]
+        orient = [g.orientation.cpu().numpy().copy() for g in b_list]
+        sol = [g.solution.cpu().numpy().copy() for g in b_list]
+        for wire_slot, (_, _, bi, slot) in enumerate(entries):
+            m = bodies_wire[wire_slot]
+            pos[bi][slot] = m["position_"]
+            orient[bi][slot] = m["orientation_"]
+            sol[bi][slot] = m["solution_vec_"]
+        new_b = tuple(
+            g._replace(
+                position=torch.as_tensor(pos[bi], dtype=dtype, device=device),
+                orientation=torch.as_tensor(orient[bi], dtype=dtype,
+                                            device=device),
+                solution=torch.as_tensor(sol[bi], dtype=dtype, device=device))
+            for bi, g in enumerate(b_list))
+        state = state._replace(
+            bodies=new_b[0] if isinstance(state.bodies, BodyGroup) else new_b)
+
+    shell_sol = np.asarray(frame["shell"]["solution_vec_"])
+    if (state.shell is not None
+            and shell_sol.size == state.shell.density.shape[0]):
+        state = state._replace(shell=state.shell._replace(
+            density=torch.as_tensor(shell_sol.reshape(-1), dtype=dtype,
+                                    device=device)))
+    return state._replace(time=float(frame["time"]), dt=float(frame["dt"]))
+
+
+def resume_state(path: str, template_state):
+    """(state, rng_state, reader) from the last frame (`--resume`)."""
+    reader = TrajectoryReader(path)
+    if len(reader) == 0:
+        reader.close()
+        raise ValueError(f"{path}: no frames to resume from")
+    frame = reader.load_frame(len(reader) - 1)
+    return (frame_to_state(frame, template_state),
+            frame.get("rng_state", []), reader)

@@ -122,6 +122,21 @@ class StepInfo(NamedTuple):
     guard_retries: int = 0
 
 
+def state_placement(state: SimState):
+    """(float dtype, device) of a state, from whichever implicit component
+    it has (fibers, then the shell, then the bodies); (float64, None)
+    without one."""
+    if state.fibers is not None:
+        x = fiber_buckets(state.fibers)[0].x
+    elif state.shell is not None:
+        x = state.shell.density
+    elif state.bodies is not None:
+        x = body_buckets(state.bodies)[0].solution
+    else:
+        return torch.float64, None
+    return x.dtype, x.device
+
+
 def _in_dtype(v: float, dtype) -> float:
     """``v`` rounded to ``dtype`` (the JAX package stores time/dt as 0-d
     arrays of the state dtype)."""
@@ -175,8 +190,6 @@ class System:
                 f"unknown precond {p.precond!r}; use 'gs' or 'jacobi'")
         if p.gmres_block_s > 1:
             raise _not_ported("gmres_block_s > 1 (s-step GMRES)", "3")
-        if p.dynamic_instability.n_nodes > 0:
-            raise _not_ported("dynamic instability", "8")
         if p.guard_dt_halvings or p.guard_block_fallback or p.guard_f64_fallback:
             raise _not_ported("the guard escalation ladder (guard_*)", "13")
         if p.flight_window > 0:
@@ -206,15 +219,8 @@ class System:
 
     @staticmethod
     def _dtype(state: SimState):
-        """The state's float dtype, from whichever implicit component it
-        has (fibers, then the shell, then the bodies)."""
-        if state.fibers is not None:
-            return fiber_buckets(state.fibers)[0].x.dtype
-        if state.shell is not None:
-            return state.shell.density.dtype
-        if state.bodies is not None:
-            return body_buckets(state.bodies)[0].solution.dtype
-        return torch.float64
+        """The state's float dtype (`state_placement`)."""
+        return state_placement(state)[0]
 
     def _ring_active(self) -> bool:
         ring = self.params.pair_evaluator == "ring"
@@ -767,7 +773,12 @@ class System:
         the backup for rejected steps. ``writer(state, solution,
         rng_state=...)`` is called after each accepted step crossing a
         dt_write boundary; ``metrics_path`` appends one JSON line per trial
-        step with exactly the keys of `METRICS_FIELDS`."""
+        step with exactly the keys of `METRICS_FIELDS`. Passing a `SimRNG`
+        enables dynamic instability when
+        ``params.dynamic_instability.n_nodes > 0``: the update runs on the
+        host before each trial (its seconds are the ``di_s`` log field),
+        and a rejected trial restores the state from before it without
+        rewinding the RNG."""
         metrics_fh = open(metrics_path, "a") if metrics_path else None
         try:
             return self._run_loop(state, writer=writer, max_steps=max_steps,
@@ -778,6 +789,9 @@ class System:
 
     def _run_loop(self, state: SimState, *, writer, max_steps, rng,
                   metrics_fh):
+        from .dynamic_instability import (_count_active,
+                                          apply_dynamic_instability)
+
         p = self.params
         dtype = self._dtype(state)
         n_steps = 0
@@ -785,6 +799,19 @@ class System:
             if max_steps is not None and n_steps >= max_steps:
                 break
             backup = state
+            di_stats, di_s = None, 0.0
+            if rng is not None and p.dynamic_instability.n_nodes > 0:
+                # a ring mesh constrains nucleation's capacity growth to
+                # mesh-divisible node counts (grow_capacity invariant); a
+                # rejected trial restores `backup` (taken before this
+                # update) and does not rewind the RNG
+                nm = self.mesh.size if self._ring_active() else 1
+                di_stats = {}
+                di0 = _time.perf_counter()
+                state = apply_dynamic_instability(state, p, rng,
+                                                  node_multiple=nm,
+                                                  stats=di_stats)
+                di_s = _time.perf_counter() - di0
             t_cur, dt = state.time, state.dt
             wall0 = _time.perf_counter()
             new_state, solution, info = self.step(state)
@@ -814,6 +841,13 @@ class System:
                 "fiber_error=%.3e %s (%.3fs)", t_cur, dt, info.iters,
                 info.residual, info.residual_true, info.fiber_error,
                 "accepted" if accept else "rejected", wall_s)
+            if di_stats is not None:
+                logger.info(
+                    "dynamic instability before t=%.6g: %d nucleations, %d "
+                    "catastrophes, fiber capacity %d, di_s=%.4f",
+                    t_cur, di_stats["nucleations"], di_stats["catastrophes"],
+                    sum(g.n_fibers for g in fiber_buckets(state.fibers)),
+                    di_s)
             if not info.converged and accept:
                 logger.warning(
                     "GMRES did not converge: residual %.3e (true %.3e) vs "
@@ -842,7 +876,15 @@ class System:
                     "loss_of_accuracy": info.loss_of_accuracy,
                     "health": info.health,
                     "guard_retries": info.guard_retries,
-                    "nucleations": 0, "catastrophes": 0, "active_fibers": 0,
+                    # events applied this trial (a rejected trial discards
+                    # its update: 0 / 0) and the live count that persists
+                    "nucleations": (di_stats["nucleations"]
+                                    if accept and di_stats else 0),
+                    "catastrophes": (di_stats["catastrophes"]
+                                     if accept and di_stats else 0),
+                    "active_fibers": (_count_active(
+                        (new_state if accept else backup).fibers)
+                        if di_stats is not None else 0),
                     "wall_s": round(wall_s, 4),
                     "wall_ms": round(wall_s * 1e3, 3),
                     "gmres_history": info.history or [],
