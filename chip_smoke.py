@@ -27,7 +27,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                root against 1/sqrt; plain time, and the flop bound.
 4. run       — the repo's 10k-fiber x 64-node free-space config
                (examples/free_fibers_10k/gen_config.py's recipe, with
-               refine_pair_impl="pallas_df", a frame every step) written with
+               refine_pair_impl="pallas_df", one step with its frame) written with
                the port's own Config; every launch count set to 0, then
                `python -m skellysim_tpu_torch` in this process; the counts,
                per-step metrics and peak device memory are read and the
@@ -115,6 +115,46 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                kernels C and D must launch; then C and D are checked on
                every row and timed at the body's 600 x 600.
 
+11. fast evaluators — run after 10, on phase 3's cloud and phase 6's
+               precompute: the Ewald ("FMM") and spectral ("PVFMM") sums,
+               plain PyTorch and torch.fft (no kernel of their own):
+               a. the Ewald Stokeslet of phase 3's 640,000 nodes at tol
+               1e-6 (host plan seconds, near mode, K, M, P), f32 and f64:
+               the entry sum (`PairEvaluator.stokeslet`, what every flow
+               calls) on the first 100 target blocks against kernel B on
+               those rows (rel 2-norm gates 3e-3 f32, 1e-5 f64), and its
+               stages timed apart: near field, spread, FFTs and multiply,
+               interp (each the median of 3 after a warm-up; the near
+               field on those blocks, each block the same work, and scaled
+               to all), beside kernel A's phase-3 time, two calls
+               compared; the Ewald stresslet entry at phase 6's shape
+               (8,000 shell nodes onto 136,000 nodes) against kernel D on
+               every row, at tol 1e-6 (System's; gates 3e-2 f32, 2e-3
+               f64) and 1e-8 (3e-2, 1e-5), beside kernel C's time.
+               b. the 10k recipe cut to 500 fibers at its density through
+               pair_evaluator = "FMM", one CLI step: gated like 4, on A
+               launching 0 times and B launching; plan seconds printed.
+               c. phase 6's ellipsoid config through "FMM", one step on
+               its precompute: A and C launch 0 times (the 8,000-node
+               shell is above ewald_min_sources), B and D launch, and the
+               fibers end within 1e-5 of phase 6's first step.
+               d. the spectral Stokeslet entry of the 640k cloud in the
+               periodic box of side 20, f64, at tol 1e-6 and 1e-9, split
+               and timed as in a: against a dense periodic oracle (plain
+               real-space and wave-space sums) on 512 rows (gates 1e-5,
+               1e-6) and 1e-6 against 1e-9 on every row (1e-5); then the
+               recipe's fibers bent into arcs in its box made periodic
+               through "PVFMM", one step at full width in "full" and one
+               cut to 2,000 fibers in "mixed": gated as b, on A and B
+               launching 0 times and on each step taking 2 or more
+               iterations (a coupled solve).
+               e. one "full" f64 step on the card and on the CPU of the
+               small coupled scene through "ewald" (ewald_min_sources 150
+               below its 200-node shell) and of 8 arcs in a periodic box
+               of side 4 through "spectral": they agree to 1e-8.
+               It prints {"fast_evaluators": {...}} before the kernels
+               line.
+
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
 entries also carry their first design's time ("previous_ms"), the SASS
@@ -169,8 +209,8 @@ FLOPS_PER_PAIR = {"stokeslet": 22, "stresslet": 40}
 #: words a source carries: position + force (Stokeslet), position + the 9
 #: stresslet components
 SOURCE_WORDS = {"stokeslet": 6, "stresslet": 12}
-#: two steps of dt = 5e-3 on the free-space path
-T_FINAL = 0.01
+#: one step of dt = 5e-3 on the free-space path
+T_FINAL = 5e-3
 #: the ellipsoid config's dt, three steps
 ELLIPSOID_DT = 8e-3
 ELLIPSOID_STEPS = 3
@@ -318,24 +358,34 @@ def timed(torch, fn, device, reps):
     return 1e3 * (time.perf_counter() - t0) / reps, out
 
 
-def make_config(path, n_fibers, t_final):
+def make_config(path, n_fibers, t_final, box=20.0, pair_evaluator="ring",
+                periodic=False, precision="auto", curvature=0.0):
     """The 10k free-fiber config (examples/free_fibers_10k/gen_config.py)
-    written with the port's own schema."""
+    written with the port's own schema; ``box`` is the side of the cube
+    the fibers start in (20 in the recipe), ``periodic`` makes that cube
+    the periodic box, ``precision`` is its solver_precision. With a
+    ``curvature`` each fiber is a circular arc of that curvature (exact
+    arclength) from the recipe's origin along its direction, bent in a
+    random plane: the recipe's straight fibers under their uniform
+    tangential motor force carry no implicit force, so their pair flows
+    vanish from the solution."""
     import numpy as np
 
     from skellysim_tpu_torch.config import Config, Fiber
 
     rng = np.random.default_rng(100)
-    box = 20.0
+    bend = np.random.default_rng(101)
     config = Config()
     config.params.dt_write = 5e-3
     config.params.dt_initial = 5e-3
     config.params.dt_max = 5e-3
     config.params.t_final = t_final
     config.params.gmres_tol = 1e-8
-    config.params.pair_evaluator = "ring"
+    config.params.pair_evaluator = pair_evaluator
+    if periodic:
+        config.params.periodic_box = [box] * 3
     config.params.kernel_impl = "pallas"
-    config.params.solver_precision = "auto"
+    config.params.solver_precision = precision
     config.params.refine_pair_impl = "pallas_df"
     for _ in range(n_fibers):
         fib = Fiber(length=1.0, bending_rigidity=2.5e-3, force_scale=-0.05,
@@ -344,6 +394,13 @@ def make_config(path, n_fibers, t_final):
         direction = rng.normal(size=3)
         direction /= np.linalg.norm(direction)
         fib.fill_node_positions(origin, direction)
+        if curvature:
+            perp = np.cross(direction, bend.normal(size=3))
+            perp /= np.linalg.norm(perp)
+            R = 1.0 / curvature
+            s = np.linspace(0.0, fib.length, fib.n_nodes)[:, None]
+            fib.x = (origin + R * np.sin(s / R) * direction
+                     + R * (1.0 - np.cos(s / R)) * perp).ravel().tolist()
         config.fibers.append(fib)
     config.save(path)
     return config
@@ -793,9 +850,10 @@ def phase_confined(torch, ck, cuda_build, device, work, args, card):
     profile_step(torch, device, cfg_path, run_dir)
     last = reader.load_frame(len(reader) - 1)
     direct_x = np.stack([m["x_"] for m in last["fibers"][1]])
+    direct_x1 = np.stack([m["x_"] for m in reader.load_frame(1)["fibers"][1]])
     ring_inputs = {"fiber_nodes": fiber_nodes, "shell_nodes": shell_nodes,
                    "f_dl": f_dl.reshape(-1, 9), "cfg_path": cfg_path,
-                   "direct_x": direct_x}
+                   "direct_x": direct_x, "direct_x1": direct_x1}
     return entries, counts, ring_inputs, checks
 
 
@@ -1293,16 +1351,18 @@ def phase_bodies(torch, ck, device, work, card):
     return counts, err, checks
 
 
-class DIRecords:
-    """Collects the run loop's per-trial dynamic-instability log records
-    (nucleations, catastrophes, fiber capacity, the update's host seconds
-    `di_s`) while a phase runs; the package's warnings still reach
-    stderr."""
+class RunRecords:
+    """Collects the run loop's per-trial log records while a phase runs:
+    dynamic instability (nucleations, catastrophes, fiber capacity, the
+    update's host seconds `di_s`) in ``rows``, and the fast evaluators'
+    plans (evaluator, t, the plan's shape, host seconds `plan_s`) in
+    ``plans``; the package's warnings still reach stderr."""
 
     def __init__(self):
         import logging
 
         self.rows = []
+        self.plans = []
         self.logger = logging.getLogger("skellysim_tpu_torch")
         outer = self
 
@@ -1313,6 +1373,10 @@ class DIRecords:
                     outer.rows.append({"t": t, "nucleations": nuc,
                                        "catastrophes": cat, "capacity": cap,
                                        "di_s": di_s})
+                elif " plan before t=" in str(record.msg):
+                    ev, t, shape, plan_s = record.args
+                    outer.plans.append({"evaluator": ev, "t": t,
+                                        "plan": shape, "plan_s": plan_s})
                 elif record.levelno >= logging.WARNING:
                     print(self.format(record), file=sys.stderr, flush=True)
 
@@ -1493,7 +1557,7 @@ def phase_ellipsoid_di(torch, ck, device, ellipsoid_cfg, work, args, card):
     log(f"[ellipsoid_di] body precompute {time.perf_counter() - t0:.2f} s; "
         f"shell precompute reused from phase 6")
     peak, counts, walls = 0, {}, []
-    with DIRecords() as rec, ShapeTally(ck) as tally:
+    with RunRecords() as rec, ShapeTally(ck) as tally:
         for extra, steps in (((), DI_STEPS), (("--resume",), 2 * DI_STEPS)):
             if extra:
                 n_before = len(TrajectoryReader(os.path.join(
@@ -1647,6 +1711,567 @@ def phase_ellipsoid_di(torch, ck, device, ellipsoid_cfg, work, args, card):
     return counts, checks
 
 
+#: phase 11: the 640k Ewald sum is checked, and its near field timed, on
+#: its first EWALD_ROW_BLOCKS target blocks; each target block pairs with
+#: exactly K source blocks, so every block is the same work and the whole
+#: near field takes that time x (target blocks / EWALD_ROW_BLOCKS)
+EWALD_ROW_BLOCKS = 100
+#: phase 11b's run through "FMM": fibers, in a cube scaled to phase 4's
+#: density (the full 10k scene's plain-torch near field takes about 90 s
+#: a matvec, PERF.md §5, ~190 a step)
+FMM_FIBERS = 500
+#: phase 11d's "mixed" run through "PVFMM" is cut to this many fibers at
+#: the recipe's density (its full-width run is in "full": ~190 f32 sums
+#: in "mixed" would take ~3 minutes of the smoke's limit)
+PVFMM_MIXED_FIBERS = 2000
+#: curvature of phase 11d's fibers (circular arcs, `make_config`)
+PVFMM_CURVATURE = 0.5
+#: the tolerance the fast sums are planned at (the params default)
+FAST_TOL = 1e-6
+#: the Ewald stresslet is also checked at this tighter tolerance: the
+#: double layer's multiplier carries one more power of k, and under the
+#: planner's grid cap (M <= 448) its error at FAST_TOL is ~9e-4 at the
+#: ellipsoid's shape
+STRESSLET_CHECK_TOL = 1e-8
+#: relative 2-norm gates of the fast sums against the dense f64-grade
+#: kernels (B, D), by (family, tol, precision): 10 x tol where the sum
+#: reaches it; else a few times the sound reading (PERF.md §6: f32
+#: Stokeslet 9.0e-4, f32 stresslet 1.0e-2 / 7.4e-3, f64 stresslet at
+#: FAST_TOL 8.9e-4), far below a wrong answer's O(1)
+FAST_GATES = {("stokeslet", FAST_TOL, "f64"): 1e-5,
+              ("stokeslet", FAST_TOL, "f32"): 3e-3,
+              ("stresslet", FAST_TOL, "f64"): 2e-3,
+              ("stresslet", FAST_TOL, "f32"): 3e-2,
+              ("stresslet", STRESSLET_CHECK_TOL, "f64"): 1e-5,
+              ("stresslet", STRESSLET_CHECK_TOL, "f32"): 3e-2}
+#: phase 11d: rows of the 640k periodic sum held against the dense
+#: periodic oracle (`periodic_oracle`), and its Ewald parameter
+ORACLE_ROWS = 512
+ORACLE_XI = 0.6
+
+
+def staged_ms(torch, fn, device):
+    """A stage's time: the median of KERNEL_ROUNDS single calls after a
+    warm-up call. Returns (ms, the warm-up's output, the last output)."""
+    first = fn()
+    rounds, out = [], None
+    for _ in range(KERNEL_ROUNDS):
+        ms, out = timed(torch, fn, device, 1)
+        rounds.append(ms)
+    return sorted(rounds)[len(rounds) // 2], first, out
+
+
+def _rel(torch, a, b):
+    return float(torch.linalg.vector_norm(a.double() - b.double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def fast_stages(torch, device, family, pair, src, pay, trg, rows, n_self):
+    """One fast sum through its `ops.evaluator.PairEvaluator` ``pair``,
+    at the first ``rows`` targets. The answer is the entry's
+    (`pair.stokeslet` / `pair.stresslet`, what every flow calls); its
+    stages are also timed one by one, each by `staged_ms`: the near field
+    at those targets, the spread of every source, the Fourier stage (FFTs
+    and multiply) and the interpolation at every target. Returns (the
+    entry's sum, {stage: ms}, the entry's ms, the largest difference
+    between two staged calls and whether they agree bit for bit, the
+    largest difference between the staged and the entry's sum)."""
+    from skellysim_tpu_torch.ops import evaluator as ev
+
+    mod = ev.plan_module(pair.plan)
+    plan, dt = pair.plan, src.dtype
+    eta = plan.eta
+    if family == "stokeslet":
+        def entry():
+            return pair.stokeslet(src, trg[:rows], pay, n_self, eta)
+    else:
+        def entry():
+            return pair.stresslet(src, trg[:rows], pay, eta)
+    entry_ms, u, _ = staged_ms(torch, entry, device)
+
+    lo_box, lo_cell = pair.anchors[0].to(dt), pair.anchors[1].to(dt)
+    periodic = mod.EVALUATOR == "spectral"
+    if periodic:
+        src = mod._wrap_positions(plan, lo_cell, src)
+        trg = mod._wrap_positions(plan, lo_cell, trg)
+    near_fn = {"stokeslet": mod.stokeslet_disp_block if periodic
+               else mod.stokeslet_near_block,
+               "stresslet": mod.stresslet_disp_block_ewald if periodic
+               else mod.stresslet_near_block_ewald}[family]
+    if family == "stokeslet" and getattr(plan, "near_mode", "") == "blocks":
+        def near():
+            return mod._near_field_blocks(plan, src, pay, trg[:rows])
+    elif periodic:
+        def near():
+            return mod._near_field_per(plan, lo_cell, src, pay, trg[:rows],
+                                       near_fn)
+    else:
+        def near():
+            return mod._near_field(plan, lo_cell, src, pay, trg[:rows],
+                                   near_fn)
+    values = pay.reshape(-1, 9) if family == "stresslet" else pay
+    fourier = (mod._fourier_stresslet if family == "stresslet"
+               else mod._fourier_stokeslet)
+    times = {}
+    times["near"], u_near, u_near2 = staged_ms(torch, near, device)
+    times["spread"], H, H2 = staged_ms(
+        torch, lambda: mod._spread(plan, src - lo_box, values, dt), device)
+    same = bool(torch.equal(u_near, u_near2) and torch.equal(H, H2))
+    diff = max(float((u_near - u_near2).abs().max()),
+               float((H - H2).abs().max()))
+    del H2, u_near2
+    times["fourier"], U, _ = staged_ms(torch, lambda: fourier(plan, H),
+                                       device)
+    del H
+    times["interp"], u_far, _ = staged_ms(
+        torch, lambda: mod._interp(plan, trg - lo_box, U, dt), device)
+    del U
+    u_far = u_far[:rows]
+    if n_self:
+        coeff = 4.0 * plan.xi / (math.sqrt(math.pi) * 8.0 * math.pi * eta)
+        u_far[:n_self] += -coeff * pay[:n_self]
+    staged_vs_entry = float((u_near + u_far - u).abs().max())
+    return u, times, entry_ms, diff, same, staged_vs_entry
+
+
+def _gate(tag, family, tol, prec, err):
+    """Fail on a non-finite error or one above its FAST_GATES entry."""
+    import numpy as np
+
+    gate = FAST_GATES[family, tol, prec]
+    if not np.isfinite(err) or err > gate:
+        raise SystemExit(f"{tag} misses its gate: {err:.3e} > {gate:g}")
+    return gate
+
+
+def ewald_at_10k(torch, ck, device, nodes, f, a_ms):
+    """Phase 11a, Stokeslet: the 640k cloud of phase 3 through the Ewald
+    entry sum, f32 and f64, against kernel B on the first
+    EWALD_ROW_BLOCKS x 128 rows (gated by FAST_GATES), and timed by stage
+    beside kernel A's time at the shape (phase 3, this call)."""
+    from skellysim_tpu_torch.ops import evaluator as ev
+    from skellysim_tpu_torch.ops import ewald as ew
+
+    t0 = time.perf_counter()
+    plan = ew.plan_ewald(nodes, 1.0, tol=FAST_TOL)
+    plan_s = time.perf_counter() - t0
+    n = len(nodes)
+    blocks = plan.near_mode == "blocks"
+    rows = min(n, EWALD_ROW_BLOCKS * plan.block) if blocks else n
+    scale = (-(-n // plan.block)) / (rows / plan.block) if blocks else 1.0
+    log(f"[fast] Ewald plan of the {n} fiber nodes at tol {FAST_TOL:g}: "
+        f"{plan_s:.3f} s on the host; near {plan.near_mode}, K = {plan.K} "
+        f"of {-(-n // plan.block)} source blocks, M = {plan.M}, P = "
+        f"{plan.P}, cells {plan.cells3}, max_occ {plan.max_occ}, xi "
+        f"{plan.xi:.4f}, rc {plan.rc:.4f}")
+    pair = ev.make_pair(plan, device)
+    src64 = torch.as_tensor(nodes, dtype=torch.float32,
+                            device=device).double()
+    f64 = torch.as_tensor(f, dtype=torch.float32, device=device).double()
+    ref = ck.stokeslet_f64(src64, src64[:rows], f64, 1.0)
+    out = {"plan_s": plan_s, "near_mode": plan.near_mode, "K": plan.K,
+           "M": plan.M, "P": plan.P, "rows_checked": rows,
+           "near_scale": scale, "a_ms": a_ms}
+    sums = {}
+    for prec, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        u, times, entry_ms, diff, same, staged = fast_stages(
+            torch, device, "stokeslet", pair, src64.to(dt), f64.to(dt),
+            src64.to(dt), rows, rows)
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device.type == "cuda" else None)
+        err = _rel(torch, u, ref)
+        sums[prec] = u
+        whole = times["near"] * scale + sum(
+            v for k, v in times.items() if k != "near")
+        gate = FAST_GATES["stokeslet", FAST_TOL, prec]
+        log(f"[fast] Ewald Stokeslet {prec} at {n} x {n}: the entry sum "
+            f"on the first {rows} rows against B rel 2-norm err {err:.3e} "
+            f"(gate {gate:g}; the staged sum within {staged:.1e} of it); "
+            f"entry {entry_ms:.1f} ms on those rows; near field "
+            f"{times['near']:.1f} ms on them (x {scale:g} = "
+            f"{times['near'] * scale:.1f} ms for all), spread "
+            f"{times['spread']:.2f} ms, FFTs and multiply "
+            f"{times['fourier']:.2f} ms, interp {times['interp']:.2f} ms "
+            f"(each the median of {KERNEL_ROUNDS} after a warm-up); one "
+            f"sum {whole:.1f} ms against kernel A's {a_ms:.3f} ms; two "
+            f"calls {'bit for bit' if same else 'differ'}, largest "
+            f"difference {diff:.3e}; peak "
+            f"{'not measured' if peak is None else f'{peak:.2f} GiB'}; "
+            f"{card_state(device)}")
+        _gate(f"Ewald Stokeslet {prec}", "stokeslet", FAST_TOL, prec, err)
+        out[prec] = {"rel_err": err, "gate": gate, "stages_ms": times,
+                     "ms": whole, "entry_ms_on_rows": entry_ms,
+                     "staged_vs_entry": staged, "two_calls_equal": same,
+                     "two_calls_max_diff": diff, "peak_gib": peak}
+    out["f32_vs_f64"] = _rel(torch, sums["f32"], sums["f64"])
+    log(f"[fast] Ewald Stokeslet f32 against f64 on the same plan and rows: "
+        f"rel 2-norm {out['f32_vs_f64']:.3e}")
+    return out
+
+
+def ewald_stresslet_check(torch, ck, device, fiber_nodes, shell_nodes,
+                          f_dl):
+    """Phase 11a, stresslet: the shell's 8,000 nodes onto every node
+    (phase 6's shape) through the Ewald stresslet entry, f32 and f64,
+    against kernel D on every row, at FAST_TOL (the tolerance System
+    plans at) and at STRESSLET_CHECK_TOL, gated by FAST_GATES, timed by
+    stage beside kernel C's time."""
+    import numpy as np
+
+    from skellysim_tpu_torch.ops import evaluator as ev
+    from skellysim_tpu_torch.ops import ewald as ew
+
+    every = np.concatenate([fiber_nodes, shell_nodes])
+    src64, trg64, S64 = (torch.as_tensor(a, dtype=torch.float32,
+                                         device=device).double()
+                         for a in (shell_nodes, every, f_dl))
+    S64 = S64.reshape(-1, 3, 3)
+    ref = ck.stresslet_f64(src64, trg64, S64, 1.0)
+    c_ms = kernel_ms(torch, lambda: ck.stresslet_f32(
+        src64.float(), trg64.float(), S64.float(), 1.0), device)[0]
+    out = {"c_ms": c_ms, "shape": [len(shell_nodes), len(every)]}
+    for tol in (FAST_TOL, STRESSLET_CHECK_TOL):
+        t0 = time.perf_counter()
+        plan = ew.plan_ewald(every, 1.0, tol=tol, n_src=len(fiber_nodes))
+        plan_s = time.perf_counter() - t0
+        pair = ev.make_pair(plan, device)
+        rec = {"plan_s": plan_s, "M": plan.M, "P": plan.P}
+        for prec, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            u, times, entry_ms, diff, same, staged = fast_stages(
+                torch, device, "stresslet", pair, src64.to(dt),
+                S64.to(dt), trg64.to(dt), len(every), 0)
+            err = _rel(torch, u, ref)
+            gate = FAST_GATES["stresslet", tol, prec]
+            log(f"[fast] Ewald stresslet {prec} at tol {tol:g} (M = "
+                f"{plan.M}, P = {plan.P}, plan {plan_s:.3f} s), "
+                f"{len(shell_nodes)} x {len(every)}: the entry sum against "
+                f"D on every row rel 2-norm err {err:.3e} (gate {gate:g}; "
+                f"the staged sum within {staged:.1e} of it); entry "
+                f"{entry_ms:.2f} ms: near {times['near']:.2f} ms, spread "
+                f"{times['spread']:.2f}, FFTs and multiply "
+                f"{times['fourier']:.2f}, interp {times['interp']:.2f}, "
+                f"against kernel C's {c_ms:.3f} ms; two calls "
+                f"{'bit for bit' if same else 'differ'}, largest difference "
+                f"{diff:.3e}; {card_state(device)}")
+            _gate(f"Ewald stresslet {prec} at tol {tol:g}", "stresslet",
+                  tol, prec, err)
+            rec[prec] = {"rel_err": err, "gate": gate, "stages_ms": times,
+                         "ms": entry_ms, "staged_vs_entry": staged,
+                         "two_calls_equal": same}
+        out[f"tol_{tol:g}"] = rec
+    return out
+
+
+def periodic_oracle(torch, src, f, n_trg, box, xi=ORACLE_XI,
+                    logtol=math.log(1e12)):
+    """The triply periodic Stokeslet sum at the first ``n_trg`` sources
+    (f64, eta = 1), summed plainly, apart from the port: the screened
+    real-space kernel over every source at its minimum image (``xi`` is
+    chosen so that erfc(xi L / 2) is below 1e-16) and the wave-space sum
+    over an explicit k lattice (|k| <= 2 xi sqrt(logtol + 6)), the
+    structure factors by matrix products, minus the smooth self term; the
+    k = 0 mode dropped (zero mean flow). The dense oracle of the JAX
+    package's `tests/test_spectral.py` (``oracle_tp``), on the card."""
+    L = torch.tensor(box, dtype=torch.float64, device=src.device)
+    trg = src[:n_trg]
+    u = torch.zeros((n_trg, 3), dtype=torch.float64, device=src.device)
+    sq = math.sqrt(math.pi)
+    for t0 in range(0, n_trg, 8):
+        d = trg[t0:t0 + 8, None, :] - src[None, :, :]
+        d = d - L * torch.round(d / L)
+        r2 = torch.sum(d * d, dim=-1)
+        mask = r2 > 1e-14
+        r = torch.sqrt(torch.where(mask, r2, 1.0))
+        rinv = torch.where(mask, 1.0 / r, 0.0)
+        erfc = torch.where(mask, torch.special.erfc(xi * r), 0.0)
+        gauss = (2 * xi / sq) * torch.exp(-(xi * r) ** 2) * mask
+        df = torch.einsum("tsk,sk->ts", d, f)
+        u[t0:t0 + 8] = (((erfc * rinv - gauss) @ f)
+                        + torch.einsum("ts,tsk->tk",
+                                       df * (erfc * rinv ** 3
+                                             + gauss * rinv * rinv), d))
+    u /= 8 * math.pi
+    kmax = 2 * xi * math.sqrt(logtol + 6)
+    Kn = [int(math.ceil(kmax * Li / (2 * math.pi))) for Li in box]
+    ks = [2 * math.pi * torch.arange(-K, K + 1, dtype=torch.float64,
+                                     device=src.device) / Li
+          for K, Li in zip(Kn, box)]
+    nx, ny, nz = (len(k) for k in ks)
+    S = torch.zeros((nx * ny, nz * 3), dtype=torch.complex128,
+                    device=src.device)
+    fc = f.to(torch.complex128)
+    for j0 in range(0, len(src), 16384):
+        x = src[j0:j0 + 16384]
+        ex, ey, ez = (torch.exp(-1j * x[:, a, None] * ks[a][None, :])
+                      for a in range(3))
+        A = (ex[:, :, None] * ey[:, None, :]).reshape(len(x), -1)
+        B = (ez[:, :, None] * fc[j0:j0 + 16384, None, :]).reshape(len(x),
+                                                                 -1)
+        S += A.T @ B
+    S = S.reshape(nx, ny, nz, 3)
+    kv = torch.stack(torch.meshgrid(*ks, indexing="ij"), dim=-1)
+    k2 = torch.sum(kv * kv, dim=-1)
+    keep = (k2 > 0) & (k2 <= 1.5 * kmax * kmax)
+    kv, k2, S = kv[keep], k2[keep], S[keep]
+    phi = (1 + k2 / (4 * xi * xi)) * torch.exp(-k2 / (4 * xi * xi))
+    kS = torch.sum(kv * S, dim=-1)
+    proj = S - kv * (kS / k2)[:, None]
+    mult = proj * (phi / k2)[:, None]
+    for t0 in range(0, n_trg, 64):
+        phase = torch.exp(1j * (trg[t0:t0 + 64] @ kv.T))
+        u[t0:t0 + 64] += (phase @ mult).real / math.prod(box)
+    return u - 4 * xi / (sq * 8 * math.pi) * f[:n_trg]
+
+
+def spectral_at_10k(torch, device, nodes, f, box):
+    """Phase 11d's check: the 640k cloud in phase 4's periodic box (side
+    20) through the spectral Stokeslet entry sum in f64, at FAST_TOL and
+    at 1e-9, each timed by stage: on the first ORACLE_ROWS rows against
+    `periodic_oracle` (gated at 1e-5 and 1e-6), and the FAST_TOL sum
+    against the 1e-9 sum on every row (gated at 1e-5)."""
+    from skellysim_tpu_torch.ops import evaluator as ev
+    from skellysim_tpu_torch.ops import spectral as spc
+
+    src = torch.as_tensor(nodes, dtype=torch.float64, device=device)
+    pay = torch.as_tensor(f, dtype=torch.float64, device=device)
+    n = len(nodes)
+    rows = min(n, ORACLE_ROWS)
+    t0 = time.perf_counter()
+    oracle = periodic_oracle(torch, src, pay, rows, box)
+    oracle_s = time.perf_counter() - t0
+    out, sums = {"oracle_rows": rows, "oracle_s": oracle_s}, {}
+    for tol, gate in ((FAST_TOL, 1e-5), (1e-9, 1e-6)):
+        t0 = time.perf_counter()
+        plan = spc.plan_spectral(nodes, box, 1.0, tol=tol)
+        plan_s = time.perf_counter() - t0
+        u, times, entry_ms, diff, same, staged = fast_stages(
+            torch, device, "stokeslet", ev.make_pair(plan, device), src,
+            pay, src, n, n)
+        sums[tol] = u
+        err = _rel(torch, u[:rows], oracle)
+        log(f"[fast] spectral Stokeslet f64 at tol {tol:g}, {n} x {n} in "
+            f"the box of side {box[0]:g}: plan {plan_s:.3f} s (M3 "
+            f"{plan.M3}, P {plan.P}, cells {plan.cells3}, max_occ "
+            f"{plan.max_occ}); the entry sum {entry_ms:.1f} ms (the staged "
+            f"sum within {staged:.1e} of it): near {times['near']:.1f} ms, "
+            f"spread {times['spread']:.1f}, FFTs and multiply "
+            f"{times['fourier']:.1f}, interp {times['interp']:.1f}; against "
+            f"the dense periodic oracle on the first {rows} rows rel "
+            f"2-norm err {err:.3e} (gate {gate:g}; oracle {oracle_s:.1f} "
+            f"s); two calls {'bit for bit' if same else 'differ'}, largest "
+            f"difference {diff:.3e}; {card_state(device)}")
+        if not err <= gate:
+            raise SystemExit(f"spectral sum at {tol:g} is {err:.3e} off "
+                             "the dense periodic oracle")
+        out[f"tol_{tol:g}"] = {"plan_s": plan_s, "M3": list(plan.M3),
+                               "P": plan.P, "stages_ms": times,
+                               "ms": entry_ms, "rel_err_vs_oracle": err,
+                               "staged_vs_entry": staged}
+    err = _rel(torch, sums[FAST_TOL], sums[1e-9])
+    log(f"[fast] spectral self-consistency: tol {FAST_TOL:g} against 1e-9 "
+        f"on every row rel 2-norm {err:.3e} (gate 1e-5)")
+    if not err <= 1e-5:
+        raise SystemExit(f"spectral sum at {FAST_TOL:g} is {err:.3e} off "
+                         "the 1e-9 sum")
+    out["rel_err_vs_1e-9"] = err
+    return out
+
+
+def fast_run(torch, ck, device, tag, cfg_path, run_dir, n_steps, needed,
+             idle, direct_x=None, min_iters=1):
+    """A fast-evaluator CLI run (`phase_run`) with its plan records:
+    gated like `report_run`, on the kernels in ``idle`` launching 0
+    times, on every step taking at least ``min_iters`` GMRES iterations
+    (a coupled scene), and (``direct_x``) on its last frame's fiber
+    positions within 1e-5 of a direct run's. Returns its summary."""
+    import numpy as np
+
+    from skellysim_tpu_torch.io.trajectory import TrajectoryReader
+
+    with RunRecords() as rec:
+        wall, counts, peak, steps = phase_run(torch, ck, device, cfg_path,
+                                              run_dir)
+    report_run(ck, tag, wall, counts, peak, steps, n_steps, 1e-8, device,
+               needed)
+    for p in rec.plans:
+        log(f"[{tag}] {p['evaluator']} plan before t={p['t']:.4g}: "
+            f"{p['plan']}, {p['plan_s']:.3f} s on the host")
+    if device.type == "cuda" and any(counts[k] for k in idle):
+        raise SystemExit(f"{tag}: {idle} launched on a fast path: {counts}")
+    if any(s["iters"] < min_iters for s in steps):
+        raise SystemExit(f"{tag}: a step took fewer than {min_iters} "
+                         "iterations: its pair flows left the solve "
+                         "uncoupled")
+    out = {"wall_s": wall, "steps": [
+        {k: s[k] for k in ("wall_s", "iters", "refines", "residual_true")}
+        for s in steps], "plans": rec.plans, "launches": counts,
+        "peak_gib": None if peak is None else peak / 2**30}
+    if direct_x is not None:
+        reader = TrajectoryReader(os.path.join(run_dir, "skelly_sim.out"))
+        x = np.stack([m["x_"] for m in
+                      reader.load_frame(len(reader) - 1)["fibers"][1]])
+        reader.close()
+        dx = float(np.abs(x - direct_x).max())
+        log(f"[{tag}] final fiber positions against the direct run's: max "
+            f"|dx| = {dx:.3e} (gate 1e-5)")
+        if not dx <= 1e-5:
+            raise SystemExit(f"{tag}: {dx:.3e} off the direct run")
+        out["max_dx_vs_direct"] = dx
+    return out
+
+
+def fast_card_vs_cpu(torch, device):
+    """Phase 11e: one "full" f64 step on the card and on the CPU, from the
+    same state (so the same plan): the small coupled scene with
+    ewald_min_sources below its 200-node shell through "ewald", and 8
+    fibers in a periodic box through "spectral"; they agree to 1e-8."""
+    import numpy as np
+
+    from skellysim_tpu_torch.fibers import container as fc
+    from skellysim_tpu_torch.params import Params
+    from skellysim_tpu_torch.system import BackgroundFlow, System
+    from skellysim_tpu_torch.testing import make_coupled_scene
+
+    rng = np.random.default_rng(3)
+    dirs = rng.normal(size=(8, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    perp = np.cross(dirs, rng.normal(size=(8, 3)))
+    perp /= np.linalg.norm(perp, axis=1, keepdims=True)
+    # arcs of curvature 0.5: straight fibers in a uniform flow carry no
+    # implicit force, and their pair flows would vanish from the solution
+    t = np.linspace(0, 1.2, 16)[None, :, None]
+    x = (rng.uniform(1.2, 2.8, (8, 3))[:, None, :]
+         + 2.0 * np.sin(t / 2.0) * dirs[:, None, :]
+         + 2.0 * (1.0 - np.cos(t / 2.0)) * perp[:, None, :])
+    errs = {}
+    for name in ("ewald", "spectral"):
+        res = {}
+        for dev in sorted({device.type, "cpu"}):
+            if name == "ewald":
+                p = Params(dt_initial=0.02, gmres_tol=1e-12,
+                           solver_precision="full", pair_evaluator="ewald",
+                           ewald_min_sources=150)
+                shell, shape, bodies, fibers = make_coupled_scene(
+                    shell_n=200, body_n=100, device=dev)
+                system = System(p, shell_shape=shape, device=dev)
+                state = system.make_state(fibers=fibers, shell=shell,
+                                          bodies=bodies)
+            else:
+                p = Params(dt_initial=1e-3, gmres_tol=1e-12,
+                           solver_precision="full",
+                           pair_evaluator="spectral",
+                           periodic_box=(4.0, 4.0, 4.0))
+                system = System(p, device=dev)
+                state = system.make_state(
+                    fibers=fc.make_group(x, lengths=1.2,
+                                         bending_rigidity=0.01,
+                                         radius=0.0125, device=dev),
+                    background=BackgroundFlow.make(
+                        uniform=(1.0, 0.0, 0.0), device=dev))
+            new, sol, info = system.step(state)
+            if not info.converged:
+                raise SystemExit(f"{name} small scene did not converge on "
+                                 f"{dev}")
+            res[dev] = (sol.cpu().numpy(), new.fibers.x.cpu().numpy())
+        a, b = res[device.type], res["cpu"]
+        errs[name] = max(float(np.abs(a[0] - b[0]).max()
+                               / np.abs(b[0]).max()),
+                         float(np.abs(a[1] - b[1]).max()))
+        log(f"[fast] small {name} scene, one full f64 step: card vs CPU max "
+            f"rel |d solution| / max |dx| = {errs[name]:.3e} (gate 1e-8)")
+        if not errs[name] <= 1e-8:
+            raise SystemExit(f"card and CPU disagree on the {name} scene")
+    return errs
+
+
+def phase_fast(torch, ck, device, work, args, nodes, f, a_ms, ring_inputs):
+    """Phase 11, the fast evaluators (a-e). Returns (the phase's summary,
+    launch counts by run)."""
+    from skellysim_tpu_torch.config import schema
+
+    out, launches = {}, {}
+    # a. the Ewald sums at the 10k shape and at phase 6's
+    out["ewald_10k"] = ewald_at_10k(torch, ck, device, nodes, f, a_ms)
+    out["ewald_stresslet"] = ewald_stresslet_check(
+        torch, ck, device, ring_inputs["fiber_nodes"],
+        ring_inputs["shell_nodes"], ring_inputs["f_dl"])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # b. the 10k recipe through "FMM", cut to FMM_FIBERS at its density
+    def cut_run(tag, n_fib, **kw):
+        n_fib = min(n_fib, args.fibers)
+        box = 20.0 * (n_fib / 10_000) ** (1.0 / 3.0)
+        run_dir = os.path.join(work, tag)
+        os.makedirs(run_dir)
+        cfg = os.path.join(run_dir, "skelly_config.toml")
+        make_config(cfg, n_fib, 5e-3, box=box, **kw)
+        log(f"[{tag}] {n_fib} x 64-node fibers in a cube of side "
+            f"{box:.3f} (phase 4's density), one step"
+            + (f", arcs of curvature {kw['curvature']:g}"
+               if kw.get("curvature") else ""))
+        return cfg, run_dir
+
+    cfg, run_dir = cut_run("fmm", FMM_FIBERS, pair_evaluator="FMM")
+    out["fmm_run"] = fast_run(torch, ck, device, "fmm", cfg, run_dir, 1,
+                              ["stokeslet_f64"], ["stokeslet_f32"])
+    launches["fmm_free_fibers"] = out["fmm_run"]["launches"]
+    shutil.rmtree(run_dir)
+
+    # c. the ellipsoid config through "FMM", one step on phase 6's
+    # precompute, against phase 6's first step
+    run_dir = os.path.join(work, "fmm_ellipsoid")
+    os.makedirs(run_dir)
+    src_cfg = ring_inputs["cfg_path"]
+    config = schema.load_config(src_cfg)
+    config.params.pair_evaluator = "FMM"
+    config.params.t_final = ELLIPSOID_DT
+    cfg = os.path.join(run_dir, "skelly_config.toml")
+    config.save(cfg)
+    shell_file = config.periphery.precompute_file
+    os.link(os.path.join(os.path.dirname(src_cfg), shell_file),
+            os.path.join(run_dir, shell_file))
+    big_shell = len(ring_inputs["shell_nodes"]) >= config.params.ewald_min_sources
+    out["fmm_ellipsoid_run"] = fast_run(
+        torch, ck, device, "fmm_ellipsoid", cfg, run_dir, 1,
+        ["stokeslet_f64", "stresslet_f64"],
+        ["stokeslet_f32"] + (["stresslet_f32"] if big_shell else []),
+        direct_x=ring_inputs["direct_x1"])
+    launches["fmm_ellipsoid"] = out["fmm_ellipsoid_run"]["launches"]
+    shutil.rmtree(run_dir)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # d. a periodic suspension through "PVFMM": the sums at the 10k shape
+    # against the dense periodic oracle; then the recipe's fibers, bent
+    # into arcs (straight ones would carry no implicit force, and the step
+    # would take one iteration whatever the flows), in its box made
+    # periodic: one step at full width in "full", and one cut to
+    # PVFMM_MIXED_FIBERS at its density in "mixed" (the default on the
+    # card; its f64 prep flows and refinement residual take the periodic
+    # plan too). No dense kernel launches.
+    out["spectral_10k"] = spectral_at_10k(torch, device, nodes, f,
+                                          (20.0,) * 3)
+    for tag, n_fib, prec in (("pvfmm", args.fibers, "full"),
+                             ("pvfmm_mixed", PVFMM_MIXED_FIBERS, "auto")):
+        cfg, run_dir = cut_run(tag, n_fib, pair_evaluator="PVFMM",
+                               periodic=True, precision=prec,
+                               curvature=PVFMM_CURVATURE)
+        out[f"{tag}_run"] = fast_run(torch, ck, device, tag, cfg, run_dir,
+                                     1, [], ["stokeslet_f32",
+                                             "stokeslet_f64"], min_iters=2)
+        launches[tag] = out[f"{tag}_run"]["launches"]
+        shutil.rmtree(run_dir)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # e. small scenes, card against CPU
+    out["card_vs_cpu"] = fast_card_vs_cpu(torch, device)
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -1674,9 +2299,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
-        entries, launches, smi = run_phases(torch, ck, cuda_build,
-                                            TrajectoryReader, device, args,
-                                            work)
+        entries, launches, smi, fast = run_phases(
+            torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -1688,6 +2312,7 @@ def main(argv=None) -> int:
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]]
                                  for path, c in launches.items()}
+    print(json.dumps({"fast_evaluators": fast}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1697,8 +2322,9 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-10 (10 runs after 8, on phase 6's precompute, then 9);
-    returns (kernel entries, launch counts by path, the nvidia-smi line)."""
+    """Phases 1-11 (10 and 11 run after 8, on phase 6's precompute, then
+    9); returns (kernel entries, launch counts by path, the nvidia-smi
+    line, phase 11's summary)."""
     import numpy as np
 
     # 1. device
@@ -1797,7 +2423,6 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
         torch, ck, device, (nodes, nodes, f, True),
         (ring_inputs["shell_nodes"], ring_inputs["fiber_nodes"],
          ring_inputs["f_dl"], False), smi, sass)
-    del nodes, f
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -1817,7 +2442,15 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     for e in entries:
         if e["name"] in at_di:
             e["at_ellipsoid_di_shapes"] = at_di[e["name"]]
-    del ring_inputs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 11. the fast evaluators, on phase 3's cloud and phase 6's precompute
+    a_ms = next(e["ms"] for e in entries if e["name"] == "stokeslet_f32")
+    fast, fast_launches = phase_fast(torch, ck, device, work, args, nodes, f,
+                                     a_ms, ring_inputs)
+    launches.update(fast_launches)
+    del ring_inputs, nodes, f
     shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -1837,7 +2470,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                "ring_stresslet_f32": "ellipsoid_ring"}
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
-    return entries, launches, smi
+    return entries, launches, smi, fast
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ schedules. The dense body operators are built per body and factored with
 one batched `torch.linalg.lu_factor`.
 
 The body double layer runs on the hand-written stresslet kernels C / D
-through `ops.kernels.stresslet_direct`; the COM Stokeslet goes through
+through `ops.kernels.stresslet_direct` (or, with a fast plan, through the
+Ewald / spectral stresslet sums); the COM Stokeslet goes through
 `ops.kernels.stokeslet_direct` (kernels A / B on the card, as every
 Stokeslet sum there; nb sources). The `deformable` body is a declared but
 unimplemented stub in the reference and is not ported (ROADMAP.md §1
@@ -255,12 +256,15 @@ def update_RHS(group: BodyGroup, v_on_bodies):
 
 
 def flow(group: BodyGroup, caches: BodyCaches, r_trg, x_bodies,
-         forces_torques, eta, impl: str = "exact"):
+         forces_torques, eta, impl: str = "exact", pair=None):
     """Body -> target velocities: the double-layer stresslet from the node
     densities (``impl`` picks its tier; ``x_bodies=None`` skips it) plus
     the COM Stokeslet from the forces and the rotlet from the torques
     (``forces_torques`` [nb, 6]), which take the exact tier whatever
-    ``impl``, as in the JAX package. Coincident body-node targets drop."""
+    ``impl``, as in the JAX package. ``pair`` (an
+    `ops.evaluator.PairEvaluator` whose Ewald or spectral plan covers the
+    body nodes and the targets) sums the node double layer through its
+    plan instead. Coincident body-node targets drop in every mode."""
     nb, n = group.n_bodies, group.n_nodes
     if x_bodies is None:
         v = torch.zeros_like(r_trg)
@@ -268,8 +272,11 @@ def flow(group: BodyGroup, caches: BodyCaches, r_trg, x_bodies,
         densities = x_bodies[:, :3 * n].reshape(nb * n, 3)
         normals = caches.normals.reshape(nb * n, 3)
         f_dl = 2.0 * eta * normals[:, :, None] * densities[:, None, :]
-        v = kernels.stresslet_direct(caches.nodes.reshape(nb * n, 3), r_trg,
-                                     f_dl, eta, impl=impl)
+        nodes = caches.nodes.reshape(nb * n, 3)
+        if pair is not None:
+            v = pair.stresslet(nodes, r_trg, f_dl, eta)
+        else:
+            v = kernels.stresslet_direct(nodes, r_trg, f_dl, eta, impl=impl)
     v = v + kernels.stokeslet_direct(group.position, r_trg,
                                      forces_torques[:, :3], eta)
     return v + kernels.rotlet(group.position, r_trg, forces_torques[:, 3:],

@@ -16,7 +16,6 @@ fibers in both.
 from __future__ import annotations
 
 import dataclasses
-import types
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import List
 
@@ -24,6 +23,7 @@ import numpy as np
 
 from . import param_tools, toml_io
 from .. import params as runtime_params
+from ..ops.evaluator import EVALUATOR_ALIASES
 
 __all__ = ["Fiber", "DynamicInstability", "PeripheryBinding", "Params",
            "Periphery", "SphericalPeriphery", "EllipsoidalPeriphery",
@@ -360,6 +360,7 @@ class Config:
 
     def validate(self) -> list[str]:
         problems = _validate(self)
+        problems += _validate_periodic(self)
         for j, b in enumerate(self.bodies):
             if getattr(b, "shape", None) == "deformable":
                 problems.append(
@@ -389,6 +390,36 @@ class ConfigEllipsoidal(Config):
 @dataclass
 class ConfigRevolution(Config):
     periphery: RevolutionPeriphery = field(default_factory=RevolutionPeriphery)
+
+
+def _validate_periodic(cfg) -> list[str]:
+    """The periodic-box / evaluator pairing rules of the JAX schema: the
+    box is [Lx, Ly, Lz] (triply periodic), [Lx, Ly] (a doubly periodic
+    slab) or [] (free space); only "spectral" honors periodic images, so
+    the pairing is checked both ways."""
+    problems: list[str] = []
+    box = cfg.params.periodic_box
+    if len(box) not in (0, 2, 3):
+        problems.append(
+            "params.periodic_box: length must be 2 (doubly periodic slab "
+            f"[Lx, Ly]) or 3 (triply periodic [Lx, Ly, Lz]), got {len(box)}")
+    for j, L in enumerate(box):
+        if isinstance(L, bool) or not isinstance(L, (int, float)) or L <= 0:
+            problems.append(
+                f"params.periodic_box[{j}]: must be a positive length, "
+                f"got {L!r}")
+    ev = EVALUATOR_ALIASES.get(str(cfg.params.pair_evaluator).strip().lower())
+    if ev == "spectral" and not box:
+        problems.append(
+            "params.pair_evaluator: 'spectral' is the periodic/confined "
+            "evaluator and needs params.periodic_box ([Lx, Ly, Lz] or "
+            "[Lx, Ly]); for free space use 'ewald' or 'tree'")
+    if ev is not None and ev != "spectral" and box:
+        problems.append(
+            f"params.periodic_box: set, but pair_evaluator {ev!r} sums "
+            "free-space kernels and would ignore the periodic images; "
+            "use pair_evaluator = 'spectral'")
+    return problems
 
 
 def _validate(obj, prefix: str = "") -> list[str]:
@@ -483,17 +514,6 @@ def config_from_data(data: dict) -> Config:
                          for d in data.get("point_sources", [])]
     cfg.background = _from_dict(BackgroundSource, data.get("background", {}))
     return cfg
-
-
-#: accepted pair_evaluator spellings -> runtime names (the JAX package's
-#: `ops.evaluator.EVALUATOR_ALIASES`, copied): reference names CPU/GPU/TPU
-#: mean dense direct, FMM the free-space fast slot, PVFMM the periodic one
-EVALUATOR_ALIASES = types.MappingProxyType(
-    {"cpu": "direct", "gpu": "direct", "tpu": "direct",
-     "fmm": "ewald",
-     "pvfmm": "spectral",
-     "direct": "direct", "ring": "ring", "ewald": "ewald",
-     "tree": "tree", "spectral": "spectral"})
 
 
 def _runtime_evaluator(name: str) -> str:

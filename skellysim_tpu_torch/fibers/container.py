@@ -6,9 +6,9 @@ batched call (`fd_fiber`). The ``active`` mask keeps inactive slots inert
 exactly as the JAX package does (docs/audit.md "Masking discipline"): they
 contribute zero flow, force and error and solve the identity.
 
-Slice limits: static resolutions only (no runtime node padding), and the
-direct and ring pair evaluators (`flow_multi`'s Ewald/spectral/tree branches
-belong to ROADMAP §1 item 10, `flow_multi_local` to item 12).
+Slice limits: static resolutions only (no runtime node padding); the
+direct, ring, Ewald and spectral pair evaluators (the treecode branch of
+`flow_multi` belongs to ROADMAP §1 item 10, `flow_multi_local` to item 12).
 """
 
 from __future__ import annotations
@@ -197,12 +197,29 @@ def weighted_forces(group: FiberGroup, forces) -> torch.Tensor:
                        0.0)
 
 
+def _spread_inactive(buckets, pos, fills):
+    """Replace inactive slots' node rows with the planner's spread fill
+    sequence, indexed by compacted rank among the inactive nodes so the
+    runtime fill set is exactly the first-n_fill prefix the planner counted
+    occupancy for. Their weighted forces are zero, so only the bucket
+    occupancy changes: left at the origin they would pile into one cell,
+    past its capacity (where the JAX package's bucketing drops pairs
+    silently)."""
+    act = torch.cat([node_active_flat(g) for g in buckets])
+    rank = torch.clamp_min(torch.cumsum(~act, 0) - 1, 0)
+    return torch.where(act[:, None], pos, fills[rank])
+
+
 def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
                subtract_self: bool = True, evaluator: str = "direct",
-               mesh=None, impl: str = "exact") -> torch.Tensor:
+               mesh=None, impl: str = "exact", pair=None) -> torch.Tensor:
     """Velocity at targets from every fiber node of every bucket, in ONE
-    pair-evaluator pass (`skellysim_tpu.fibers.container.flow_multi`,
-    direct and ring branches).
+    pair-evaluator pass (`skellysim_tpu.fibers.container.flow_multi`).
+
+    ``pair`` (an `ops.evaluator.PairEvaluator`) sums through its Ewald or
+    spectral plan, and ``evaluator`` / ``impl`` are then unused. There the
+    inactive slots' nodes are re-spread onto the plan's fill positions and
+    the leading self targets rebuilt from them.
 
     ``evaluator="ring"`` with a ``mesh`` rotates the source blocks around
     the mesh (`parallel.ring`; the f64-grade "pallas_df" tier through
@@ -212,9 +229,12 @@ def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
     When ``subtract_self`` the leading targets are the concatenated fiber
     nodes in bucket order, and each fiber's dense self-interaction is
     subtracted (it is handled by the SBT mobility instead). That relies on
-    the pair kernel's self term being exactly zero.
+    the pair sum's self term being exactly zero.
     """
-    if evaluator not in ("direct", "ring"):
+    if pair is None and evaluator in ("ewald", "spectral"):
+        raise ValueError(f"pair evaluator {evaluator!r} needs a plan: pass "
+                         "a PairEvaluator built by ops.evaluator.make_pair")
+    if pair is None and evaluator not in ("direct", "ring"):
         raise NotImplementedError(
             f"pair evaluator {evaluator!r} is not ported yet (ROADMAP.md §1 "
             "item 10)")
@@ -222,14 +242,24 @@ def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
     wf = torch.cat([weighted_forces(g, f).reshape(-1, 3)
                     for g, f in zip(buckets, forces_list)], dim=0)
     # dead slots' weighted forces are exact zeros: pin their positions to
-    # the origin so no stale coordinate ever enters a pair kernel
+    # the origin so no stale coordinate ever enters a pair kernel (the fast
+    # branches then re-spread them onto fill positions)
     act = torch.cat([node_active_flat(g) for g in buckets])
     pos = torch.where(act[:, None], pos, 0.0)
     n_fib_nodes = pos.shape[0]
     if subtract_self:
         # keep the leading self targets consistent with the pinned sources
         r_trg = torch.cat([pos, r_trg[n_fib_nodes:]], dim=0)
-    if evaluator == "ring" and mesh is not None:
+    if pair is not None:
+        pos = _spread_inactive(buckets, pos,
+                               pair.fill_positions(n_fib_nodes, pos.dtype))
+        n_self = n_fib_nodes if subtract_self else 0
+        if n_self:
+            # the leading targets are the fiber nodes: keep them coincident
+            # with the spread sources so self pairs stay exact
+            r_trg = torch.cat([pos, r_trg[n_self:]], dim=0)
+        vel = pair.stokeslet(pos, r_trg, wf, n_self, eta)
+    elif evaluator == "ring" and mesh is not None:
         from ..parallel import ring
 
         if impl in ("df", "pallas_df"):

@@ -1,0 +1,94 @@
+"""PairEvaluator: a fast pair-evaluator plan, as every flow receives it.
+
+Counterpart of `skellysim_tpu.ops.evaluator`. The runtime evaluator names
+and their aliases live here, the single source for `System` and the
+config schema. A fast evaluator's plan is built once a solve
+(`System._pair_args`) and handed, as one `PairEvaluator`, to every flow
+call site that may sum through it: the fiber flow
+(`fibers.container.flow_multi`), the shell's double layer
+(`periphery.flow`) and the body's (`bodies.flow`). The dense and ring
+evaluators need no plan and are chosen by those flows' ``evaluator``
+argument.
+
+``plan`` is an `ops.ewald.EwaldPlan` (free space) or an
+`ops.spectral.SpectralPlan` (periodic boxes and slabs); `plan_module`
+dispatches to the module that owns it. The treecode's `TreePlan` is not
+ported (ROADMAP.md §1 item 10): any other plan type raises `TypeError`.
+"""
+
+from __future__ import annotations
+
+import types
+from dataclasses import dataclass
+
+import torch
+
+#: runtime evaluator names, the single source for validation (System, the
+#: config schema)
+EVALUATORS = ("direct", "ring", "ewald", "tree", "spectral")
+
+#: accepted spellings -> runtime evaluator names: the reference's names
+#: ("CPU"/"GPU"/"TPU" = dense direct, "FMM" = the free-space fast slot ->
+#: Ewald, "PVFMM" = the periodic backend -> spectral Ewald) plus the native
+#: names; looked up case-insensitively. Read-only, as every importer binds
+#: the same object.
+EVALUATOR_ALIASES = types.MappingProxyType(
+    {"cpu": "direct", "gpu": "direct", "tpu": "direct",
+     "fmm": "ewald",
+     "pvfmm": "spectral",
+     "direct": "direct", "ring": "ring", "ewald": "ewald",
+     "tree": "tree", "spectral": "spectral"})
+
+
+def plan_module(plan):
+    """The ops module owning ``plan`` (imported lazily: the planners
+    import this module)."""
+    from . import ewald, spectral
+
+    if isinstance(plan, ewald.EwaldPlan):
+        return ewald
+    if isinstance(plan, spectral.SpectralPlan):
+        return spectral
+    raise TypeError(f"unknown pair-evaluator plan type {type(plan)!r}")
+
+
+@dataclass(frozen=True, eq=False)
+class PairEvaluator:
+    """A fast plan and its two anchors (``box_lo``, ``cell_lo``) as a
+    [2, 3] float64 tensor on the device of the sums, made once by
+    `make_pair`. Its sums are those of the plan's module at viscosity
+    ``eta`` (the plan baked its own eta in; the screened kernels scale as
+    1 / eta)."""
+
+    plan: object
+    anchors: torch.Tensor
+
+    @property
+    def evaluator(self) -> str:
+        """The runtime evaluator name: "ewald" or "spectral"."""
+        return plan_module(self.plan).EVALUATOR
+
+    def fill_positions(self, n: int, dtype):
+        """[n, 3] spread positions for zero-strength (inactive) sources."""
+        return plan_module(self.plan).fill_positions(
+            self.plan, self.anchors[1], n, dtype)
+
+    def stokeslet(self, r_src, r_trg, f_src, n_self: int, eta):
+        """The singular Stokeslet sum (`kernels.stokeslet_direct`
+        semantics; the first ``n_self`` targets are the sources)."""
+        mod = plan_module(self.plan)
+        return mod.stokeslet_impl(self.plan, self.anchors, r_src, r_trg,
+                                  f_src, n_self) * (self.plan.eta / eta)
+
+    def stresslet(self, r_dl, r_trg, f_dl, eta):
+        """The singular stresslet (double-layer) sum, ``f_dl`` [n, 3, 3]."""
+        mod = plan_module(self.plan)
+        return mod.stresslet_impl(self.plan, self.anchors, r_dl, r_trg,
+                                  f_dl) * (self.plan.eta / eta)
+
+
+def make_pair(plan, device) -> PairEvaluator:
+    """The `PairEvaluator` of ``plan`` with its anchors on ``device``."""
+    plan_module(plan)
+    return PairEvaluator(plan, torch.tensor(
+        [plan.box_lo, plan.cell_lo], dtype=torch.float64, device=device))

@@ -14,9 +14,9 @@ SkellySim's `precompute.py:104-140`):
 The shell double-layer flow to fiber and body nodes (`flow`) runs on the
 hand-written stresslet kernels C / D through `ops.kernels.stresslet_direct`,
 or, under the ring evaluator, on kernel F (f32) and D (a hop, f64-grade)
-through `parallel.ring`. Node-masked shells (`grow_capacity`) belong to
-ROADMAP.md §1 item 11 and the fast evaluators to item 10; neither is
-ported.
+through `parallel.ring`, or through the fast evaluators' stresslet sums
+(`ops.ewald`, `ops.spectral`) when a plan is passed. Node-masked shells
+(`grow_capacity`) belong to ROADMAP.md §1 item 11 and are not ported.
 """
 
 from __future__ import annotations
@@ -186,19 +186,27 @@ def update_RHS(v_on_shell):
 
 
 def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact",
-         evaluator: str = "direct", mesh=None):
+         evaluator: str = "direct", mesh=None, pair=None):
     """Shell -> target velocities through the double-layer stresslet, with
     f_dl = 2 eta n (x) rho. The shell's self-interaction is not computed
     here: `System._apply_matvec` evaluates this flow at fiber/body rows
     only, the self block living in the stored operator.
 
+    ``pair`` (an `ops.evaluator.PairEvaluator` whose Ewald or spectral
+    plan covers the shell nodes and the targets) sums the double layer
+    through its plan.
     ``evaluator="ring"`` with a ``mesh`` rotates the shell's source blocks
     around the mesh (`parallel.ring`), the sources padded to a mesh
     multiple with far sentinel nodes (1e7) of zero density, as in the JAX
-    package; the caller pads the targets. Without a mesh the direct kernel
+    package; the caller pads the targets. Otherwise the direct kernel
     runs."""
     rho = density.reshape(-1, 3)
     f_dl = 2.0 * eta * shell.normals[:, :, None] * rho[:, None, :]
+    if pair is not None:
+        return pair.stresslet(shell.nodes, r_trg, f_dl, eta)
+    if evaluator not in ("direct", "ring"):
+        raise ValueError(f"pair evaluator {evaluator!r} needs a plan: pass "
+                         "a PairEvaluator built by ops.evaluator.make_pair")
     if evaluator == "ring" and mesh is not None:
         from ..parallel import ring
 

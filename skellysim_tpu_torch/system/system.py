@@ -4,13 +4,19 @@ Counterpart of `skellysim_tpu.system.system` on one device: fibers, a
 confining periphery (shell), rigid bodies with attached fibers, and
 point/background sources, in any mix; with a mesh (`parallel.make_mesh`)
 the fiber and shell pair flows take the ring evaluator, sharded over the
-mesh's devices (`parallel.ring`). The JAX package traces each trial
-step into one jitted program; here the step runs eagerly on the device with
-the Krylov control flow on the host (`solver.gmres`). The structure is kept:
-`_prep` (caches, explicit flows, BC-applied A/RHS and the batched LU
-preconditioners), GMRES over `_apply_matvec` / `_apply_precond` (in "mixed"
-precision `gmres_ir` with the ``lo=`` f32 seam), then the advance; `run`
-wraps it in the adaptive-dt loop with metrics lines and frame writes.
+mesh's devices (`parallel.ring`); with ``pair_evaluator="ewald"`` (the
+reference's "FMM") or ``"spectral"`` (its "PVFMM", with a ``periodic_box``)
+a plan is built on the host each trial (`_pair_args`) and the flows sum
+through `ops.ewald` / `ops.spectral`, with the JAX package's role gating
+(the f64 prep flows and refinement residual of "mixed" stay dense in free
+space, and shells and bodies below ``ewald_min_sources`` nodes stay on the
+dense kernels). The JAX package traces each trial step into one jitted
+program; here the step runs eagerly on the device with the Krylov control
+flow on the host (`solver.gmres`). The structure is kept: `_prep` (caches,
+explicit flows, BC-applied A/RHS and the batched LU preconditioners), GMRES
+over `_apply_matvec` / `_apply_precond` (in "mixed" precision `gmres_ir`
+with the ``lo=`` f32 seam), then the advance; `run` wraps it in the
+adaptive-dt loop with metrics lines and frame writes.
 
 The solution vector layout matches the reference: [fibers (4n per fiber:
 x | y | z | tension, buckets in order) | shell (3 per node) | bodies (3 per
@@ -35,6 +41,7 @@ from ..bodies import bodies as bd
 from ..device import resolve_device
 from ..fibers import container as fc
 from ..guard import verdict as _verdict
+from ..ops.evaluator import EVALUATORS, make_pair
 from ..params import (REFINE_PAIR_IMPLS, Params, resolve_precision,
                       resolve_refine_impl)
 from ..periphery import periphery as peri
@@ -43,9 +50,6 @@ from ..solver.gmres import collective_rounds
 from .sources import BackgroundFlow, PointSources
 
 logger = logging.getLogger("skellysim_tpu_torch")
-
-#: the JAX package's runtime evaluator names
-EVALUATORS = ("direct", "ring", "ewald", "tree", "spectral")
 
 
 class SimState(NamedTuple):
@@ -143,6 +147,16 @@ def _in_dtype(v: float, dtype) -> float:
     return float(torch.tensor(v, dtype=dtype))
 
 
+def _plan_summary(plan) -> str:
+    """One line of a fast plan's shape (near mode, K, grid, window,
+    cells, capacity)."""
+    if hasattr(plan, "near_mode"):
+        return (f"near {plan.near_mode} K={plan.K} M={plan.M} P={plan.P} "
+                f"cells={plan.cells3} max_occ={plan.max_occ}")
+    return (f"{plan.mode} M3={plan.M3} P={plan.P} cells={plan.cells3} "
+            f"max_occ={plan.max_occ}")
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to skellysim_tpu_torch yet (ROADMAP.md §1 "
@@ -164,9 +178,21 @@ class System:
             raise ValueError(
                 f"unknown pair_evaluator {p.pair_evaluator!r}; runtime "
                 f"values are {', '.join(map(repr, EVALUATORS))}")
-        if p.pair_evaluator in ("ewald", "tree", "spectral") or p.periodic_box:
-            raise _not_ported(f"pair_evaluator={p.pair_evaluator!r} "
-                              "(and periodic boxes)", "10")
+        if p.pair_evaluator == "tree":
+            raise _not_ported("pair_evaluator='tree' (the treecode)", "10")
+        if p.pair_evaluator == "spectral":
+            if len(p.periodic_box) not in (2, 3) or any(
+                    L <= 0 for L in p.periodic_box):
+                raise ValueError(
+                    "pair_evaluator='spectral' needs params.periodic_box — "
+                    "(Lx, Ly, Lz) for a triply periodic box or (Lx, Ly) for "
+                    f"a doubly periodic slab; got {p.periodic_box!r}. "
+                    "For free space use 'ewald'.")
+        elif p.periodic_box:
+            raise ValueError(
+                f"params.periodic_box is set but pair_evaluator "
+                f"{p.pair_evaluator!r} sums free-space kernels and would "
+                "ignore the periodic images; use pair_evaluator='spectral'")
         if p.solver_precision not in ("full", "mixed", "auto"):
             raise ValueError(
                 f"unknown solver_precision {p.solver_precision!r}; "
@@ -247,15 +273,23 @@ class System:
         return r_trg, T
 
     def _fiber_flow(self, state: SimState, caches_list, r_trg, forces_list,
-                    subtract_self: bool = True, impl: str | None = None):
+                    subtract_self: bool = True, impl: str | None = None,
+                    pair=None):
         """Fiber-source flow through the pair-evaluator seam; every
-        resolution bucket contributes sources to ONE evaluator pass. The
-        ring path pads the target rows to a mesh multiple and rotates the
-        fiber-node source blocks around the mesh; shell/body target rows
-        ride along in the padded target set."""
+        resolution bucket contributes sources to ONE evaluator pass. A
+        fast ``pair`` (`ops.evaluator.PairEvaluator`) sums through its
+        plan; callers whose flows must stay dense (the mixed solver's f64
+        residual and prep in free space, `_refine_pair`) pass none.
+        The ring path pads the target rows to a mesh multiple and rotates
+        the fiber-node source blocks around the mesh; shell/body target
+        rows ride along in the padded target set."""
         buckets = fiber_buckets(state.fibers)
         if impl is None:
             impl = self.params.kernel_impl
+        if pair is not None:
+            return fc.flow_multi(buckets, caches_list, r_trg, forces_list,
+                                 self.params.eta, subtract_self=subtract_self,
+                                 pair=pair)
         if not self._ring_active():
             return fc.flow_multi(buckets, caches_list, r_trg, forces_list,
                                  self.params.eta, subtract_self=subtract_self,
@@ -273,18 +307,47 @@ class System:
         return vel[:T]
 
     def _shell_flow(self, state: SimState, r_trg, density,
-                    impl: str | None = None):
+                    impl: str | None = None, pair=None):
         """Shell -> target double-layer flow (the shell's self-interaction
         lives in its dense operator); the source padding lives in
-        `peri.flow`, the target padding here."""
+        `peri.flow`, the target padding here. A fast ``pair`` takes the
+        shell's double layer when the shell has at least
+        ``params.ewald_min_sources`` nodes (below that the dense kernel is
+        cheaper); callers whose flows must stay dense pass none."""
         if impl is None:
             impl = self.params.kernel_impl
+        if (pair is not None
+                and state.shell.n_nodes >= self.params.ewald_min_sources):
+            return peri.flow(state.shell, r_trg, density, self.params.eta,
+                             pair=pair)
         if not self._ring_active():
             return peri.flow(state.shell, r_trg, density, self.params.eta,
                              impl=impl)
         r_pad, T = self._ring_pad_targets(r_trg)
         return peri.flow(state.shell, r_pad, density, self.params.eta,
                          impl=impl, evaluator="ring", mesh=self.mesh)[:T]
+
+    @staticmethod
+    def _refine_pair(pair):
+        """The plan for the mixed solver's f64 flows (its prep flows and
+        refinement residual): none in free space, where they stay dense so
+        that ewald_tol caps neither the RHS nor residual_true, as in the
+        JAX package; a periodic plan is kept, since no dense sum holds the
+        periodic images. (The JAX package keeps those flows dense under
+        "spectral" too, and its refinement then converges to the
+        free-space operator: ROADMAP.md §3.)"""
+        if pair is not None and pair.evaluator == "spectral":
+            return pair
+        return None
+
+    def _body_pair(self, group, pair):
+        """``pair`` for one body bucket's double-layer flow, or None when
+        its node count is below ``params.ewald_min_sources`` (dense is
+        cheaper there)."""
+        if (pair is None or group is None or group.n_bodies * group.n_nodes
+                < self.params.ewald_min_sources):
+            return None
+        return pair
 
     # ---------------------------------------------------------- state setup
 
@@ -445,7 +508,7 @@ class System:
 
     # ----------------------------------------------------------------- prep
 
-    def _prep(self, state: SimState):
+    def _prep(self, state: SimState, pair=None):
         """Velocities, forces, RHS/BC assembly and the LU preconditioners
         (`prep_state_for_solver`). Returns (state, fiber caches, body
         caches, shell RHS, body RHS)."""
@@ -460,6 +523,9 @@ class System:
         refine_prep = (precision == "mixed"
                        and self._dtype(state) == torch.float64)
         impl_flow = self._refine_impl if refine_prep else p.kernel_impl
+        # ... and in free space those flows stay dense (the plan withheld),
+        # so ewald_tol cannot cap the RHS accuracy
+        prep_pair = self._refine_pair(pair) if refine_prep else pair
 
         body_caches = [bd.update_cache(g, p.eta, precond_dtype=precond_dtype)
                        for g in b_list] or None
@@ -476,7 +542,7 @@ class System:
                      else torch.zeros_like(g.x)
                      for g, c in zip(buckets, caches)]
             v_all = v_all + self._fiber_flow(state, caches, r_all, external,
-                                             impl=impl_flow)
+                                             impl=impl_flow, pair=prep_pair)
         # external body forces/torques induce explicit flow everywhere
         for g, bc in zip(b_list, body_caches or []):
             v_all = v_all + bd.flow(g, bc, r_all, None,
@@ -509,7 +575,7 @@ class System:
     # ----------------------------------------------------- operator closures
 
     def _apply_matvec(self, state: SimState, caches, body_caches, x_flat,
-                      lo=None, flow_impl: str | None = None):
+                      lo=None, flow_impl: str | None = None, pair=None):
         """Coupled operator A x.
 
         ``lo`` is an optional (state, caches, body caches) triple from
@@ -519,7 +585,8 @@ class System:
         ~1e7) and the fiber-body link conditions stay in the ``x_flat``
         dtype. This is the cheap operator `gmres_ir` iterates with.
         ``flow_impl`` overrides the pairwise tile (the mixed solver's f64
-        residual passes the refinement tile).
+        residual passes the refinement tile). ``pair`` routes the pair
+        flows through a fast plan (`_pair_args`).
         """
         p = self.params
         if flow_impl is None:
@@ -543,13 +610,13 @@ class System:
             v_all = v_all + self._fiber_flow(f_state, f_caches, r_all,
                                              [fw.to(lo_dtype) for fw in fws],
                                              subtract_self=True,
-                                             impl=flow_impl)
+                                             impl=flow_impl, pair=pair)
         if state.shell is not None and (buckets or b_list):
             # the shell flow is evaluated at fiber and body nodes only; its
             # self-interaction lives in the dense operator
             r_fb = torch.cat([r_all[:nf_nodes], r_all[nf_nodes + ns_nodes:]])
             v_s = self._shell_flow(f_state, r_fb, x_shell.to(lo_dtype),
-                                   impl=flow_impl)
+                                   impl=flow_impl, pair=pair)
             v_all[:nf_nodes] += v_s[:nf_nodes]
             v_all[nf_nodes + ns_nodes:] += v_s[nf_nodes:]
 
@@ -572,9 +639,10 @@ class System:
                     body_fts[j] = body_fts[j] + ft
             for f_gb, f_bc, xb, ft in zip(body_buckets(f_state.bodies),
                                           f_bcaches, x_bods, body_fts):
+                b_pair = self._body_pair(f_gb, pair)
                 v_all = v_all + bd.flow(f_gb, f_bc, r_all, xb.to(lo_dtype),
                                         ft.to(lo_dtype), p.eta,
-                                        impl=flow_impl)
+                                        impl=flow_impl, pair=b_pair)
 
         res, off = [], 0
         for g, c, xf, vb in zip(buckets, caches or [], x_fibs, v_boundaries):
@@ -597,7 +665,8 @@ class System:
             off += nbn
         return torch.cat(res)
 
-    def _apply_precond(self, state: SimState, caches, body_caches, x_flat):
+    def _apply_precond(self, state: SimState, caches, body_caches, x_flat,
+                       pair=None):
         """Block preconditioner P^-1 x.
 
         "jacobi" is the reference's independent block solves (fiber LU,
@@ -624,7 +693,8 @@ class System:
                 r_fb = torch.cat([r_all[:nf_nodes],
                                   r_all[nf_nodes + ns_nodes:]])
                 v_corr = self._shell_flow(
-                    state, r_fb, y_shell.to(state.shell.nodes.dtype))
+                    state, r_fb, y_shell.to(state.shell.nodes.dtype),
+                    pair=pair)
 
         res, off_v = [], 0
         for g, c, xf in zip(buckets, caches or [], x_fibs):
@@ -657,10 +727,13 @@ class System:
 
     # ---------------------------------------------------------------- solve
 
-    def _solve_once(self, state: SimState):
-        """prep -> GMRES -> advance; returns (new_state, solution, info)."""
+    def _solve_once(self, state: SimState, pair=None):
+        """prep -> GMRES -> advance; returns (new_state, solution, info).
+        ``pair``: the fast evaluator of this solve (`_pair_args`), handed
+        to the flows by their role."""
         p = self.params
-        state, caches, body_caches, shell_rhs, body_rhs = self._prep(state)
+        state, caches, body_caches, shell_rhs, body_rhs = self._prep(
+            state, pair=pair)
         rhs = torch.cat([c.RHS.reshape(-1) for c in caches or []]
                         + ([shell_rhs] if shell_rhs is not None else [])
                         + [br.reshape(-1) for br in body_rhs])
@@ -675,22 +748,27 @@ class System:
                        if self._dtype(state) == torch.float64
                        else p.kernel_impl)
             result = gmres_ir(
+                # the f64 residual matvec (`_refine_pair`: dense in free
+                # space, so ewald_tol cannot cap residual_true)
                 lambda v: self._apply_matvec(state, caches, body_caches, v,
-                                             flow_impl=hi_impl),
+                                             flow_impl=hi_impl,
+                                             pair=self._refine_pair(pair)),
                 lambda v: self._apply_matvec(state, caches, body_caches, v,
-                                             lo=lo),
+                                             lo=lo, pair=pair),
                 rhs,
-                precond_lo=lambda v: self._apply_precond(*lo, v),
+                precond_lo=lambda v: self._apply_precond(
+                    *lo, v, pair=pair),
                 tol=p.gmres_tol, inner_tol=p.inner_tol,
                 restart=p.gmres_restart, maxiter=p.gmres_maxiter,
                 max_refine=p.max_refine, history=p.gmres_history,
                 block_s=p.gmres_block_s)
         else:
             result = gmres(
-                lambda v: self._apply_matvec(state, caches, body_caches, v),
+                lambda v: self._apply_matvec(state, caches, body_caches, v,
+                                             pair=pair),
                 rhs,
-                precond=lambda v: self._apply_precond(state, caches,
-                                                      body_caches, v),
+                precond=lambda v: self._apply_precond(
+                    state, caches, body_caches, v, pair=pair),
                 tol=p.gmres_tol, restart=p.gmres_restart,
                 maxiter=p.gmres_maxiter, history=p.gmres_history,
                 block_s=p.gmres_block_s)
@@ -762,9 +840,75 @@ class System:
 
     # ----------------------------------------------------------- public API
 
+    def _plan_points(self, state: SimState):
+        """(points, n_fill, n_src) on the host over every ACTIVE
+        hydrodynamic node, the input of both planners: inactive fiber slots
+        are left out of the bounding box and reserved as ``n_fill`` spread
+        capacity instead. Copying the positions to the host synchronizes
+        the device."""
+        import numpy as np
+
+        n_fill = 0
+        n_src = 0
+        parts = []
+        for g in fiber_buckets(state.fibers):
+            act = g.active.cpu().numpy()
+            x = g.x.cpu().numpy()[act].reshape(-1, 3)
+            parts.append(x)
+            n_fill += int((~act).sum()) * g.n_nodes
+            n_src += x.shape[0]
+        if state.shell is not None:
+            parts.append(state.shell.nodes.cpu().numpy())
+        for g in body_buckets(state.bodies):
+            parts.append(bd.place(g)[0].cpu().numpy().reshape(-1, 3))
+        return np.concatenate(parts, axis=0), n_fill, n_src
+
+    def make_ewald_plan(self, state: SimState):
+        """Host-side Ewald plan over the `_plan_points` cloud
+        (`ops.ewald.plan_ewald` at ``params.ewald_tol``), the analogue of
+        the reference's per-step FMM tree rebuild."""
+        from ..ops.ewald import plan_ewald
+
+        pts, n_fill, n_src = self._plan_points(state)
+        return plan_ewald(pts, eta=self.params.eta,
+                          tol=self.params.ewald_tol, n_fill=n_fill,
+                          n_src=n_src)
+
+    def make_spectral_plan(self, state: SimState):
+        """Host-side spectral Ewald plan over the `_plan_points` cloud for
+        ``params.periodic_box`` (`ops.spectral.plan_spectral` at
+        ``params.spectral_tol``, grid dims on the built-in rungs)."""
+        from ..ops.spectral import plan_spectral
+
+        pts, n_fill, _ = self._plan_points(state)
+        return plan_spectral(pts, self.params.periodic_box,
+                             eta=self.params.eta,
+                             tol=self.params.spectral_tol, n_fill=n_fill)
+
+    def _pair_args(self, state: SimState):
+        """The `PairEvaluator` of the configured fast evaluator, its plan
+        built on the host and its anchors on the system's device, or None
+        for the dense and ring paths: the one place a plan is built a
+        solve. A plan that cannot be built raises; nothing falls back to
+        the dense sum."""
+        ev = self.params.pair_evaluator
+        if ev not in ("ewald", "spectral"):
+            return None
+        maker = (self.make_ewald_plan if ev == "ewald"
+                 else self.make_spectral_plan)
+        return make_pair(maker(state), self.device)
+
     def step(self, state: SimState):
-        """One trial step at state.dt: (new_state, solution, info)."""
-        return self._solve_once(state)
+        """One trial step at state.dt: (new_state, solution, info). With a
+        fast evaluator the plan is built first, on the host; its seconds
+        and shape are the INFO log line "... plan before t=..."."""
+        t0 = _time.perf_counter()
+        pair = self._pair_args(state)
+        if pair is not None:
+            logger.info("%s plan before t=%.6g: %s, plan_s=%.4f",
+                        pair.evaluator, state.time, _plan_summary(pair.plan),
+                        _time.perf_counter() - t0)
+        return self._solve_once(state, pair=pair)
 
     def run(self, state: SimState, *, writer=None, max_steps: int | None = None,
             rng=None, metrics_path: str | None = None):
