@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                started together); prints seconds and the `-Xptxas -v` report
                (registers, spills), and fails on a spill, or an empty report,
                in kernels A / B (stokeslet_sums.cu), C / D
-               (stresslet_sums.cu) or E / F (ring_sums.cu).
+               (stresslet_sums.cu), E / F (ring_sums.cu) or G / H
+               (tree_sums.cu).
 3. kernels   — kernels A and B (Stokeslet, csrc/stokeslet_sums.cu) at the
                free-space path's shape (the 640,000 fiber nodes of the
                10k-fiber config as sources and as targets), by
@@ -134,10 +135,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                b. the 10k recipe cut to 500 fibers at its density through
                pair_evaluator = "FMM", one CLI step: gated like 4, on A
                launching 0 times and B launching; plan seconds printed.
-               c. phase 6's ellipsoid config through "FMM", one step on
-               its precompute: A and C launch 0 times (the 8,000-node
-               shell is above ewald_min_sources), B and D launch, and the
-               fibers end within 1e-5 of phase 6's first step.
+               c. phase 6's ellipsoid config cut to its first 500 fibers
+               (its full 8,000-node shell and precompute), one direct
+               step and one through "FMM": A and C launch 0 times in the
+               latter (the shell is above ewald_min_sources), B and D
+               launch, and the fibers end within 1e-5 of the direct
+               step's.
                d. the spectral Stokeslet entry of the 640k cloud in the
                periodic box of side 20, f64, at tol 1e-6 and 1e-9, split
                and timed as in a: against a dense periodic oracle (plain
@@ -154,6 +157,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                of side 4 through "spectral": they agree to 1e-8.
                It prints {"fast_evaluators": {...}} before the kernels
                line.
+12. treecode — run after 11, on phase 3's cloud and phase 6's precompute:
+               the barycentric treecode (pair_evaluator = "tree"), its
+               upward pass plain PyTorch and its near and far pair sums
+               in kernels G (Stokeslet) and H (stresslet),
+               csrc/tree_sums.cu:
+               a. the tree Stokeslet of phase 3's 640,000 nodes at tol
+               1e-4 and 1e-6, f32 and f64: the plan (host seconds, depth,
+               order, max_occ, maxI), the entry sum against kernel B on
+               every row by the JAX tests' field-normalized error (gates
+               plan.tol in f64, max(plan.tol, 1e-5) in f32), its stages
+               timed apart with CUDA events (bucket, upward, lists, G on
+               the near lists alone, the far lists alone and both), the
+               real near and far pairs and the lane pairs issued, G's rate
+               beside kernel A's / B's phase-3 times; gated on no leaf
+               holding more than max_occ sources and on two launches bit
+               for bit.
+               b. the tree stresslet (H) at phase 6's shape (8,000 shell
+               nodes onto 136,000 nodes) at tol 1e-4, the same way,
+               against kernel D (gate 10 x plan.tol: the double layer
+               runs a few times the Stokeslet-calibrated tol), beside C's
+               and D's times.
+               c. G and H against their plain twin on the card, on a cut
+               of whole target leaves of a's and b's lists (1e-5 of the
+               largest velocity in f32, 1e-12 in f64); their hot loop's
+               SASS and issue-slot bound.
+               d. phase 6's ellipsoid config through "tree", one CLI step
+               on its precompute in "mixed" (the card's "auto": G and H in
+               f32, A and C 0 launches, B and D the f64 prep flows and
+               refinement) and in "full" (G and H in f64), each gated
+               like 11c on the fibers within 1e-5 of phase 6's first step.
+               e. the 10k recipe's fibers bent into arcs (curvature 0.5),
+               free space, through "tree" at full width in "mixed", one
+               CLI step gated on its own result (accepted, true residual
+               <= 1e-8, health 0, 2 or more iterations; A 0 launches).
+               It prints {"treecode": {...}} before the kernels line.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -164,7 +202,10 @@ the plan; A's and B's, under "at_ellipsoid_shape" and
 "at_ragged_source_shape", their phase-6 checks; C's and D's, under
 "at_body_shape", their phase-9 checks; A-D, under
 "at_ellipsoid_di_shapes", their phase-10 checks (one a shape, with the
-calls at that shape); E's and F's the same fields against
+calls at that shape); G's and H's (tree_stokeslet_f32 / _f64,
+tree_stresslet_f32 / _f64) their phase-12 time, work, bound and SASS at
+12a's (tol 1e-4) and 12b's shapes, with the error against their plain
+twin and the twin's time on 12c's cut; E's and F's the same fields against
 their `_v1` first design, and their plan; B's, D's, E's and F's, under
 "at_ring_run_shape", the same check and time at the shapes of the ring run
 (E and F: where their "launches" were counted; B and D: one hop).
@@ -237,6 +278,16 @@ RING_REPLACES = ("skellysim_tpu/parallel/ring_fused.py:99 (_ring_kernel, "
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: the host clock when the script started (`stamp`)
+_T0 = time.perf_counter()
+
+
+def stamp(what):
+    """Log the seconds from the start when a phase ends (the smoke's time
+    budget)."""
+    log(f"[time] {what} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def card_state(device):
@@ -1720,6 +1771,11 @@ EWALD_ROW_BLOCKS = 100
 #: density (the full 10k scene's plain-torch near field takes about 90 s
 #: a matvec, PERF.md §5, ~190 a step)
 FMM_FIBERS = 500
+#: phase 11c's run of the ellipsoid through "FMM" (and its direct
+#: reference step) is cut to its first this many fibers: at full width its
+#: plain-torch near field made it a ~165 s step, the largest single part of
+#: the smoke
+FMM_ELLIPSOID_FIBERS = 500
 #: phase 11d's "mixed" run through "PVFMM" is cut to this many fibers at
 #: the recipe's density (its full-width run is in "full": ~190 f32 sums
 #: in "mixed" would take ~3 minutes of the smoke's limit)
@@ -2122,6 +2178,46 @@ def fast_run(torch, ck, device, tag, cfg_path, run_dir, n_steps, needed,
     return out
 
 
+def ellipsoid_run_dir(work, src_cfg, tag, n_fibers=None, **params):
+    """Phase 6's ellipsoid config for one step in its own run directory
+    under ``work``, on phase 6's shell precompute (a hard link), with
+    ``params`` set in its [params] and, with ``n_fibers``, cut to its first
+    that many fibers: (config path, run directory)."""
+    from skellysim_tpu_torch.config import schema
+
+    run_dir = os.path.join(work, tag)
+    os.makedirs(run_dir)
+    config = schema.load_config(src_cfg)
+    if n_fibers is not None:
+        config.fibers = config.fibers[:n_fibers]
+    for k, v in params.items():
+        setattr(config.params, k, v)
+    config.params.t_final = ELLIPSOID_DT
+    cfg = os.path.join(run_dir, "skelly_config.toml")
+    config.save(cfg)
+    shell_file = config.periphery.precompute_file
+    os.link(os.path.join(os.path.dirname(src_cfg), shell_file),
+            os.path.join(run_dir, shell_file))
+    return cfg, run_dir
+
+
+def cut_run(work, args, tag, n_fib, **kw):
+    """The 10k recipe's config (`make_config`, one step) cut to ``n_fib``
+    fibers (at most --fibers) in a cube scaled to phase 4's density, in
+    its own run directory under ``work``: (config path, run directory)."""
+    n_fib = min(n_fib, args.fibers)
+    box = 20.0 * (n_fib / 10_000) ** (1.0 / 3.0)
+    run_dir = os.path.join(work, tag)
+    os.makedirs(run_dir)
+    cfg = os.path.join(run_dir, "skelly_config.toml")
+    make_config(cfg, n_fib, 5e-3, box=box, **kw)
+    log(f"[{tag}] {n_fib} x 64-node fibers in a cube of side {box:.3f} "
+        f"(phase 4's density), one step"
+        + (f", arcs of curvature {kw['curvature']:g}"
+           if kw.get("curvature") else ""))
+    return cfg, run_dir
+
+
 def fast_card_vs_cpu(torch, device):
     """Phase 11e: one "full" f64 step on the card and on the CPU, from the
     same state (so the same plan): the small coupled scene with
@@ -2201,44 +2297,45 @@ def phase_fast(torch, ck, device, work, args, nodes, f, a_ms, ring_inputs):
         torch.cuda.empty_cache()
 
     # b. the 10k recipe through "FMM", cut to FMM_FIBERS at its density
-    def cut_run(tag, n_fib, **kw):
-        n_fib = min(n_fib, args.fibers)
-        box = 20.0 * (n_fib / 10_000) ** (1.0 / 3.0)
-        run_dir = os.path.join(work, tag)
-        os.makedirs(run_dir)
-        cfg = os.path.join(run_dir, "skelly_config.toml")
-        make_config(cfg, n_fib, 5e-3, box=box, **kw)
-        log(f"[{tag}] {n_fib} x 64-node fibers in a cube of side "
-            f"{box:.3f} (phase 4's density), one step"
-            + (f", arcs of curvature {kw['curvature']:g}"
-               if kw.get("curvature") else ""))
-        return cfg, run_dir
-
-    cfg, run_dir = cut_run("fmm", FMM_FIBERS, pair_evaluator="FMM")
+    cfg, run_dir = cut_run(work, args, "fmm", FMM_FIBERS,
+                           pair_evaluator="FMM")
     out["fmm_run"] = fast_run(torch, ck, device, "fmm", cfg, run_dir, 1,
                               ["stokeslet_f64"], ["stokeslet_f32"])
     launches["fmm_free_fibers"] = out["fmm_run"]["launches"]
     shutil.rmtree(run_dir)
 
-    # c. the ellipsoid config through "FMM", one step on phase 6's
-    # precompute, against phase 6's first step
-    run_dir = os.path.join(work, "fmm_ellipsoid")
-    os.makedirs(run_dir)
+    # c. the ellipsoid config cut to its first FMM_ELLIPSOID_FIBERS fibers
+    # (phase 6's shell and precompute) through "FMM", one step, against one
+    # direct step of the same cut config
+    import numpy as np
+
+    from skellysim_tpu_torch.io.trajectory import TrajectoryReader
+
     src_cfg = ring_inputs["cfg_path"]
-    config = schema.load_config(src_cfg)
-    config.params.pair_evaluator = "FMM"
-    config.params.t_final = ELLIPSOID_DT
-    cfg = os.path.join(run_dir, "skelly_config.toml")
-    config.save(cfg)
-    shell_file = config.periphery.precompute_file
-    os.link(os.path.join(os.path.dirname(src_cfg), shell_file),
-            os.path.join(run_dir, shell_file))
-    big_shell = len(ring_inputs["shell_nodes"]) >= config.params.ewald_min_sources
+    n_cut = min(FMM_ELLIPSOID_FIBERS, args.ellipsoid_fibers)
+    cfg, run_dir = ellipsoid_run_dir(work, src_cfg, "fmm_ellipsoid_direct",
+                                     n_fibers=n_cut)
+    log(f"[fmm_ellipsoid] phase 6's config cut to its first {n_cut} fibers: "
+        "one direct step")
+    wall, counts, peak, steps = phase_run(torch, ck, device, cfg, run_dir)
+    report_run(ck, "fmm_ellipsoid_direct", wall, counts, peak, steps, 1,
+               1e-8, device, ["stokeslet_f32", "stokeslet_f64",
+                              "stresslet_f32", "stresslet_f64"])
+    reader = TrajectoryReader(os.path.join(run_dir, "skelly_sim.out"))
+    direct_x = np.stack([m["x_"] for m in
+                         reader.load_frame(len(reader) - 1)["fibers"][1]])
+    reader.close()
+    shutil.rmtree(run_dir)
+    cfg, run_dir = ellipsoid_run_dir(work, src_cfg, "fmm_ellipsoid",
+                                     n_fibers=n_cut, pair_evaluator="FMM")
+    big_shell = (len(ring_inputs["shell_nodes"])
+                 >= schema.load_config(cfg).params.ewald_min_sources)
     out["fmm_ellipsoid_run"] = fast_run(
         torch, ck, device, "fmm_ellipsoid", cfg, run_dir, 1,
         ["stokeslet_f64", "stresslet_f64"],
         ["stokeslet_f32"] + (["stresslet_f32"] if big_shell else []),
-        direct_x=ring_inputs["direct_x1"])
+        direct_x=direct_x)
+    out["fmm_ellipsoid_run"]["fibers"] = n_cut
     launches["fmm_ellipsoid"] = out["fmm_ellipsoid_run"]["launches"]
     shutil.rmtree(run_dir)
     if device.type == "cuda":
@@ -2256,7 +2353,8 @@ def phase_fast(torch, ck, device, work, args, nodes, f, a_ms, ring_inputs):
                                           (20.0,) * 3)
     for tag, n_fib, prec in (("pvfmm", args.fibers, "full"),
                              ("pvfmm_mixed", PVFMM_MIXED_FIBERS, "auto")):
-        cfg, run_dir = cut_run(tag, n_fib, pair_evaluator="PVFMM",
+        cfg, run_dir = cut_run(work, args, tag, n_fib,
+                               pair_evaluator="PVFMM",
                                periodic=True, precision=prec,
                                curvature=PVFMM_CURVATURE)
         out[f"{tag}_run"] = fast_run(torch, ck, device, tag, cfg, run_dir,
@@ -2270,6 +2368,451 @@ def phase_fast(torch, ck, device, work, args, nodes, f, a_ms, ring_inputs):
     # e. small scenes, card against CPU
     out["card_vs_cpu"] = fast_card_vs_cpu(torch, device)
     return out, launches
+
+
+#: phase 12: the treecode's tolerances, System's default tree_tol and a
+#: tight one (where the tree stops paying: p = 9, 729 proxies a cell)
+TREE_TOLS = (1e-4, 1e-6)
+#: phase 12c: G and H are held against their plain twin on whole target
+#: leaves, this many of the fullest and this many of the first
+TREE_CUT_LEAVES = 8
+#: phase 12b: the double layer's gate, this many times plan.tol: it carries
+#: one more derivative than the Stokeslet the order rule is calibrated on,
+#: and on phase 6's shell with its white-noise density the tree reads ~6 x
+#: tol over every row. The JAX package's own tree, on the same depth-5
+#: plan at the shell and an eighth of the fiber nodes, reads 5.2 x tol
+#: there, the port's equal to 2e-14 (tests/torch_tree_stresslet_witness.py)
+TREE_STRESSLET_GATE = 10.0
+#: kernels G and H replace no Pallas kernel: the JAX package sums the
+#: tree's near and far fields in plain XLA
+TREE_REPLACES = ("no Pallas counterpart: skellysim_tpu/ops/treecode.py:555 "
+                 "(_tree_eval's near_rows / far_rows, plain XLA)")
+
+
+def tree_work(torch, ck, items, segs):
+    """(real pairs, lane pairs issued: a whole warp a segment source, the
+    segments' sources summed) of one pass of kernel G / H over its
+    lists."""
+    seg_len = segs[:, 1]
+    cum = torch.cat([seg_len.new_zeros(1), torch.cumsum(seg_len, 0)])
+    per = cum[items[:, 2] + items[:, 3]] - cum[items[:, 2]]
+    return (int((items[:, 1] * per).sum()),
+            int((ck.TREE_ITEM_TARGETS * per).sum()))
+
+
+def _field_rel(torch, u, ref):
+    """The JAX treecode tests' field-normalized error, max_i |du_i| /
+    max_i |u_i|."""
+    return float(torch.linalg.vector_norm(u.double() - ref, dim=1).max()
+                 / torch.linalg.vector_norm(ref, dim=1).max())
+
+
+def tree_stages(torch, ck, device, family, plan, src, pay, trg):
+    """One tree sum at viscosity 1 through the entry (`PairEvaluator
+    .stokeslet` / `.stresslet`, what every flow calls), and its stages
+    timed apart by `staged_ms`: bucket, upward pass, segment lists, kernel
+    G / H on the near lists alone, on the far lists alone, and on both (the
+    sum's one launch). Returns (the entry's sum, {stage: ms}, the pass's
+    work, the lists' operands, the sources a leaf at most, the two staged
+    launches bit for bit)."""
+    from skellysim_tpu_torch.ops import evaluator as ev
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    dt = trg.dtype
+    prec = "f32" if dt == torch.float32 else "f64"
+    pair = ev.make_pair(plan, device)
+    C = pay.shape[1]
+    if family == "stokeslet":
+        def entry():
+            return pair.stokeslet(src, trg, pay, 0, 1.0)
+    else:
+        def entry():
+            return pair.stresslet(src, trg, pay.reshape(-1, 3, 3), 1.0)
+    times = {}
+    times["sum"], u, _ = staged_ms(torch, entry, device)
+    lo = pair.anchors[0].to(dt)
+    cen = ttc._cell_centers(plan, lo, plan.depth, dt)
+    times["bucket"], (sb, pb, counts), _ = staged_ms(
+        torch, lambda: ttc._bucket(plan, lo, cen, src, pay), device)
+    times["upward"], (pp, pf, cell_n), _ = staged_ms(
+        torch, lambda: ttc._upward(plan, lo, sb, pb, counts, dt), device)
+
+    def lists(fields):
+        leaf = ttc._leaf_ids(plan, lo, trg)
+        order = torch.argsort(leaf, stable=True)
+        return (order,) + ttc._segment_lists(plan, counts, cell_n,
+                                             leaf[order], fields)
+
+    times["lists"], (order, items, segs), _ = staged_ms(
+        torch, lambda: lists(("near", "far")), device)
+    sa = torch.cat([sb.reshape(-1, 3), pp.reshape(-1, 3)])
+    pa = torch.cat([pb.reshape(-1, C), pf.reshape(-1, C)])
+    n_proxies = int((cell_n[:-1] > 0).sum()) * plan.order ** 3
+    del sb, pb, pp, pf
+    trg_s = trg[order]
+    kern = getattr(ck, f"tree_{family}_{prec}")
+    work = {}
+    for field in ("near", "far"):
+        _, it, sg = lists((field,))
+        times[field], _, _ = staged_ms(
+            torch, lambda: kern(trg_s, sa, pa, it, sg, 1.0), device)
+        work[field] = tree_work(torch, ck, it, sg)
+        del it, sg
+    times["kernel"], first, last = staged_ms(
+        torch, lambda: kern(trg_s, sa, pa, items, segs, 1.0), device)
+    same = bool(torch.equal(first, last))
+    staged = torch.empty_like(first)
+    staged[order] = first
+    if not torch.equal(staged, u):
+        raise SystemExit(f"tree {family} {prec}: the staged launch is not "
+                         "the entry's sum bit for bit")
+    del first, last, staged
+    work["pairs"], work["lane_pairs"] = tree_work(torch, ck, items, segs)
+    work.update({"items": int(items.shape[0]), "segments": int(segs.shape[0]),
+                 "n_src": int(src.shape[0]), "n_trg": int(trg.shape[0]),
+                 "proxies": n_proxies})
+    ops = (trg_s, sa, pa, items, segs)
+    return u, times, work, ops, int(counts.max()), same
+
+
+def tree_bound_ms(family, work, itemsize, peak):
+    """Least time for the pass's work: max(its real pairs' flops / peak,
+    its bytes / HBM rate); bytes = the targets, the real sources and the
+    proxies of the cells with a source below them (position + payload),
+    and the lists read once, the [n_trg, 3] output written once."""
+    cols = SOURCE_WORDS[family]
+    nbytes = (itemsize * (6 * work["n_trg"]
+                          + cols * (work["n_src"] + work["proxies"]))
+              + 8 * (4 * work["items"] + 2 * work["segments"]))
+    t_ops = FLOPS_PER_PAIR[family] * work["pairs"] / peak
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def tree_twin_check(torch, ck, device, family, prec, ops):
+    """G / H against their plain twin on the card, on a cut of whole
+    target leaves of ``ops`` (the TREE_CUT_LEAVES fullest and first): the
+    kernel against the f64 twin on the same inputs (gates 1e-5 of the
+    largest velocity in f32, 1e-12 in f64), both timed on the cut (the
+    twin in the kernel's precision). Returns its record."""
+    trg_s, sa, pa, items, segs = ops
+    # a leaf's items share its segment range: a new range is a new leaf
+    g0 = items[:, 2]
+    new = torch.ones_like(g0, dtype=torch.bool)
+    new[1:] = g0[1:] != g0[:-1]
+    leaf_of = torch.cumsum(new.to(torch.int64), 0) - 1
+    n_t = torch.zeros(int(leaf_of[-1]) + 1, dtype=torch.int64,
+                      device=device).index_add_(0, leaf_of, items[:, 1])
+    k = min(TREE_CUT_LEAVES, n_t.shape[0])
+    pick = torch.unique(torch.cat([torch.topk(n_t, k).indices,
+                                   torch.arange(k, device=device)]))
+    cut = items[torch.isin(leaf_of, pick)]
+    rows = torch.cat([torch.arange(int(a), int(a) + int(n), device=device)
+                      for a, n in cut[:, :2].tolist()])
+    kern = getattr(ck, f"tree_{family}_{prec}")
+    plain = getattr(ck, f"tree_{family}_{prec}_plain")
+    ms, got, _ = staged_ms(torch, lambda: kern(trg_s, sa, pa, cut, segs, 1.0),
+                           device)
+    plain_ms, _, _ = staged_ms(
+        torch, lambda: plain(trg_s, sa, pa, cut, segs, 1.0), device)
+    ref = getattr(ck, f"tree_{family}_f64_plain")(
+        trg_s.double(), sa.double(), pa.double(), cut, segs, 1.0)[rows]
+    got = got[rows].double()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    tol = 1e-5 if prec == "f32" else 1e-12
+    pairs, lanes = tree_work(torch, ck, cut, segs)
+    log(f"[treecode] {kern.__name__} against its plain twin on the card: "
+        f"{len(pick)} whole target leaves ({int(rows.shape[0])} targets, "
+        f"{cut.shape[0]} items, {pairs:.3e} pairs), max abs err {err:.3e}, "
+        f"rel {rel:.3e} (gate {tol:g} of the largest velocity; reference "
+        f"the f64 twin on the same inputs); kernel {ms:.3f} ms, twin "
+        f"{plain_ms:.1f} ms on the cut")
+    if not rel <= tol:
+        raise SystemExit(f"{kern.__name__} misses its twin: {rel:.3e}")
+    return {"max_abs_err": err, "max_rel_err": rel, "tolerance": tol,
+            "ms_at_cut": ms, "plain_ms": plain_ms, "cut_leaves": len(pick),
+            "cut_targets": int(rows.shape[0]), "cut_pairs": pairs}
+
+
+def tree_sums(torch, ck, device, family, plan, src, pay, trg, ref, gate,
+              tag):
+    """Phase 12a / b at one plan: the f32 and f64 sums by stage
+    (`tree_stages`), each against the dense f64-grade kernel's ``ref`` by
+    the field-normalized error, gated at ``gate(prec)``, and (at System's
+    tolerance) against its plain twin on a cut (`tree_twin_check`).
+    Returns {prec: record} and {prec: the lists' operands}."""
+    out = {}
+    for prec, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        u, times, work, ops, occ, same = tree_stages(
+            torch, ck, device, family, plan, src.to(dt), pay.to(dt),
+            trg.to(dt))
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device.type == "cuda" else None)
+        err = _field_rel(torch, u, ref)
+        g = gate(prec)
+        rate = work["pairs"] / times["kernel"] * 1e3
+        log(f"[treecode] {tag} {prec} at tol {plan.tol:g}: field-normalized "
+            f"err against the dense sum {err:.3e} (gate {g:g}); one sum "
+            f"{times['sum']:.1f} ms through the entry: bucket "
+            f"{times['bucket']:.1f}, upward {times['upward']:.1f}, lists "
+            f"{times['lists']:.1f}, kernel {times['kernel']:.1f} (near alone "
+            f"{times['near']:.1f}, far alone {times['far']:.1f}) ms (each the "
+            f"median of {KERNEL_ROUNDS} after a warm-up); pairs near "
+            f"{work['near'][0]:.3e}, far {work['far'][0]:.3e}, all "
+            f"{work['pairs']:.3e} ({work['pairs'] / work['lane_pairs']:.3f} "
+            f"of the {work['lane_pairs']:.3e} lane pairs issued), "
+            f"{work['items']} items, {work['segments']} segments; kernel "
+            f"rate {rate:.3e} pairs/s; fullest leaf {occ} of max_occ "
+            f"{plan.max_occ}; two launches "
+            f"{'bit for bit' if same else 'differ'}; peak "
+            f"{'not measured' if peak is None else f'{peak:.2f} GiB'}; "
+            f"{card_state(device)}")
+        if occ > plan.max_occ:
+            raise SystemExit(f"{tag}: a leaf holds {occ} sources, more than "
+                             f"max_occ {plan.max_occ}: sources were dropped")
+        if not err <= g:
+            raise SystemExit(f"{tag} {prec} misses its gate: {err:.3e} > "
+                             f"{g:g}")
+        if not same:
+            raise SystemExit(f"{tag} {prec}: two launches differ")
+        out[prec] = {"field_rel_err": err, "gate": g, "stages_ms": times,
+                     "work": work, "rate_pairs_s": rate,
+                     "fullest_leaf": occ, "peak_gib": peak,
+                     "card_state": card_state(device)}
+        if plan.tol == TREE_TOLS[0]:
+            out[prec]["twin"] = tree_twin_check(torch, ck, device, family,
+                                                prec, ops)
+        del u, ops
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def tree_plan_record(ttc, plan, plan_s, tag):
+    maxI = ttc._interaction_lists(plan.depth)[0].shape[1]
+    log(f"[treecode] {tag} plan at tol {plan.tol:g}: {plan_s:.3f} s on the "
+        f"host; depth {plan.depth}, order p = {plan.order} ({plan.order ** 3} "
+        f"proxies a cell), max_occ {plan.max_occ}, maxI {maxI}, box "
+        f"{plan.box_L:.4f}")
+    return {"plan_s": plan_s, "depth": plan.depth, "order": plan.order,
+            "max_occ": plan.max_occ, "maxI": int(maxI)}
+
+
+def tree_at_10k(torch, ck, device, nodes, f, a_ms, b_ms):
+    """Phase 12a: the 640k cloud of phase 3 through the tree Stokeslet at
+    each of TREE_TOLS, f32 and f64 (`tree_sums`), against kernel B on
+    every row: gates plan.tol in f64 and max(plan.tol, 1e-5) in f32; one
+    sum beside kernels A's and B's phase-3 times."""
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    src = torch.as_tensor(nodes, dtype=torch.float32, device=device).double()
+    pay = torch.as_tensor(f, dtype=torch.float32, device=device).double()
+    ref = ck.stokeslet_f64(src, src, pay, 1.0)
+    n = len(nodes)
+    out = {"a_ms": a_ms, "b_ms": b_ms, "shape": [n, n]}
+    for tol in TREE_TOLS:
+        t0 = time.perf_counter()
+        plan = ttc.plan_tree(nodes, tol=tol)
+        rec = tree_plan_record(ttc, plan, time.perf_counter() - t0,
+                               f"Stokeslet {n} x {n}")
+        rec.update(tree_sums(
+            torch, ck, device, "stokeslet", plan, src, pay, src, ref,
+            lambda prec: plan.tol if prec == "f64" else max(plan.tol, 1e-5),
+            f"Stokeslet {n} x {n}"))
+        for prec, dense in (("f32", a_ms), ("f64", b_ms)):
+            r = rec[prec]
+            dense_rate = n * n / dense * 1e3
+            log(f"[treecode] Stokeslet {prec} at tol {tol:g}: one sum "
+                f"{r['stages_ms']['sum']:.1f} ms against kernel "
+                f"{'A' if prec == 'f32' else 'B'}'s {dense:.1f} ms (x "
+                f"{r['stages_ms']['sum'] / dense:.3f}); G "
+                f"{r['rate_pairs_s']:.3e} pairs/s against the dense kernel's "
+                f"{dense_rate:.3e}")
+        out[f"tol_{tol:g}"] = rec
+    return out
+
+
+def tree_stresslet_at_shell(torch, ck, device, fiber_nodes, shell_nodes,
+                            f_dl):
+    """Phase 12b: the shell's 8,000 nodes onto every node (phase 6's shape)
+    through the tree stresslet at System's tree_tol (TREE_TOLS[0]), f32 and
+    f64 (`tree_sums`), against kernel D on every row: gate
+    TREE_STRESSLET_GATE x plan.tol; beside kernels C's and D's times at
+    the shape."""
+    import numpy as np
+
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    every = np.concatenate([fiber_nodes, shell_nodes])
+    src, trg, S = (torch.as_tensor(a, dtype=torch.float32,
+                                   device=device).double()
+                   for a in (shell_nodes, every, f_dl))
+    S = S.reshape(-1, 9)
+    ref = ck.stresslet_f64(src, trg, S, 1.0)
+    c_ms = kernel_ms(torch, lambda: ck.stresslet_f32(
+        src.float(), trg.float(), S.float(), 1.0), device)[0]
+    d_ms = kernel_ms(torch, lambda: ck.stresslet_f64(src, trg, S, 1.0),
+                     device)[0]
+    t0 = time.perf_counter()
+    plan = ttc.plan_tree(every, tol=TREE_TOLS[0])
+    tag = f"stresslet {len(shell_nodes)} x {len(every)}"
+    rec = tree_plan_record(ttc, plan, time.perf_counter() - t0, tag)
+    rec.update({"c_ms": c_ms, "d_ms": d_ms,
+                "shape": [len(shell_nodes), len(every)]})
+    rec.update(tree_sums(torch, ck, device, "stresslet", plan, src, S, trg,
+                         ref, lambda prec: TREE_STRESSLET_GATE * plan.tol,
+                         tag))
+    for prec, dense, name in (("f32", c_ms, "C"), ("f64", d_ms, "D")):
+        log(f"[treecode] {tag} {prec}: one sum "
+            f"{rec[prec]['stages_ms']['sum']:.2f} ms against kernel {name}'s "
+            f"{dense:.3f} ms")
+    return rec
+
+
+def tree_entries(torch, ck, cuda_build, device, at_10k, at_shell, card):
+    """The kernels line's entries of G and H (f32, f64): time, work and
+    bound at the phase-12a (G, System's tol) and 12b (H) shapes, the check
+    against the plain twin on a cut (12c), the hot loop's SASS and the
+    issue-slot bound it gives at the SM clock read after the timed
+    launches."""
+    on_card = device.type == "cuda"
+    sass, sms = {}, None
+    if on_card:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        sass = sass_functions(cuda_build,
+                              cuda_build.library_path(ck.TREE_SOURCE))
+        report = cuda_build.build(ck.TREE_SOURCE)["ptxas"]
+    entries = []
+    for family, rec in (("stokeslet", at_10k[f"tol_{TREE_TOLS[0]:g}"]),
+                        ("stresslet", at_shell)):
+        for prec in ("f32", "f64"):
+            r = rec[prec]
+            work, twin = r["work"], r["twin"]
+            peak = PEAK_FP32 if prec == "f32" else PEAK_FP64
+            b_ms, b_by = tree_bound_ms(family, work,
+                                       4 if prec == "f32" else 8, peak)
+            ms = r["stages_ms"]["kernel"]
+            name = f"tree_{family}_{prec}"
+            entry = {"name": name, "route": "cuda",
+                     "source": f"skellysim_tpu_torch/csrc/{ck.TREE_SOURCE}.cu",
+                     "replaces": TREE_REPLACES, "launches": 0,
+                     "max_abs_err": twin["max_abs_err"],
+                     "max_rel_err": twin["max_rel_err"],
+                     "tolerance": twin["tolerance"], "ms": ms,
+                     "plain_ms": twin["plain_ms"],
+                     "plain_ms_shape": "the cut of whole target leaves "
+                                       "(ms_at_cut is the kernel's there)",
+                     "ms_at_cut": twin["ms_at_cut"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "shape": [work["n_src"], work["n_trg"]],
+                     "plan": {k: rec[k] for k in ("depth", "order",
+                                                  "max_occ", "maxI")},
+                     "pairs": work["pairs"], "lane_pairs": work["lane_pairs"],
+                     "near_pairs": work["near"][0],
+                     "far_pairs": work["far"][0],
+                     "field_rel_err_vs_dense": r["field_rel_err"],
+                     "stages_ms": r["stages_ms"]}
+            if on_card:
+                mhz = float(re.search(r"SM clock (\d+)",
+                                      r["card_state"]).group(1))
+                c = "f" if prec == "f32" else "d"
+                pattern = rf"tree_kernelI{c}Li{SOURCE_WORDS[family] - 3}E"
+                per, fp64, per_pass = _sass_loop(sass, pattern)
+                regs, smem = ptxas_usage(report, pattern)
+
+                def issue(pairs):
+                    b = issue_bound_ms(per, pairs, sms, mhz, 128)
+                    if prec == "f64":
+                        b = max(b, issue_bound_ms(fp64, pairs, sms, mhz, 64))
+                    return b
+
+                entry.update({"registers": regs, "shared_bytes": smem,
+                              "sass_per_pair": per,
+                              "sass_fp64_per_pair": fp64,
+                              "sass_pairs_a_pass": per_pass,
+                              "issue_bound_ms": issue(work["pairs"]),
+                              "issue_bound_lane_pairs_ms":
+                                  issue(work["lane_pairs"]),
+                              "sm_clock_mhz": mhz})
+                log(f"[treecode] {name}: SASS hot loop {per:.3f} "
+                    f"instructions a pair ({fp64:.3f} FP64; {per_pass} pairs "
+                    f"a pass); issue-slot bound {entry['issue_bound_ms']:.3f}"
+                    f" ms on the real pairs, "
+                    f"{entry['issue_bound_lane_pairs_ms']:.3f} ms on the lane "
+                    f"pairs issued; kernel {ms:.3f} ms at "
+                    f"{100 * entry['issue_bound_ms'] / ms:.1f}% of the "
+                    f"first; flop bound {b_ms:.3f} ms ({b_by}, "
+                    f"{100 * b_ms / ms:.1f}%); {regs} registers, {smem} bytes "
+                    f"shared; this card: {card}")
+            entries.append(entry)
+    log("[treecode] no single PyTorch call computes the treecode's pair "
+        "pass: library_ms is null")
+    return entries
+
+
+def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
+               b_ms, ring_inputs, card):
+    """Phase 12, the treecode (a-e). Returns (the phase's summary, the
+    kernels line's G / H entries, launch counts by run)."""
+    out, launches = {}, {}
+    # a / c. the Stokeslet at the 10k shape; b / c. the stresslet at phase
+    # 6's
+    out["stokeslet_10k"] = tree_at_10k(torch, ck, device, nodes, f, a_ms,
+                                       b_ms)
+    out["stresslet_shell"] = tree_stresslet_at_shell(
+        torch, ck, device, ring_inputs["fiber_nodes"],
+        ring_inputs["shell_nodes"], ring_inputs["f_dl"])
+    entries = tree_entries(torch, ck, cuda_build, device,
+                           out["stokeslet_10k"], out["stresslet_shell"], card)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # d. the ellipsoid config through "tree", one step on phase 6's
+    # precompute, in "mixed" (the card's "auto") and in "full", against
+    # phase 6's first step
+    src_cfg = ring_inputs["cfg_path"]
+    f32 = ["tree_stokeslet_f32", "tree_stresslet_f32"]
+    f64 = ["tree_stokeslet_f64", "tree_stresslet_f64"]
+    for tag, prec, needed, idle in (
+            ("tree_ellipsoid", "auto", f32 + ["stokeslet_f64",
+                                              "stresslet_f64"],
+             f64 + ["stokeslet_f32", "stresslet_f32"]),
+            ("tree_ellipsoid_full", "full", f64,
+             f32 + ["stokeslet_f32", "stresslet_f32"])):
+        cfg, run_dir = ellipsoid_run_dir(work, src_cfg, tag,
+                                         pair_evaluator="tree",
+                                         solver_precision=prec)
+        log(f"[{tag}] phase 6's ellipsoid config through \"tree\", "
+            f"solver_precision = \"{prec}\", one step")
+        out[tag] = fast_run(torch, ck, device, tag, cfg, run_dir, 1, needed,
+                            idle, direct_x=ring_inputs["direct_x1"])
+        launches[tag] = out[tag]["launches"]
+        log(f"[{tag}] B's and D's launches (the dense f64 prep flows and "
+            f"refinement residuals): {launches[tag]['stokeslet_f64']}, "
+            f"{launches[tag]['stresslet_f64']}")
+        shutil.rmtree(run_dir)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # e. the 10k recipe's fibers bent into arcs, free space, through
+    # "tree" at full width in "mixed"; no direct run to compare with: gated
+    # on its own result
+    cfg, run_dir = cut_run(work, args, "tree_arcs", args.fibers,
+                           pair_evaluator="tree", precision="auto",
+                           curvature=PVFMM_CURVATURE)
+    out["tree_arcs"] = fast_run(torch, ck, device, "tree_arcs", cfg, run_dir,
+                                1, ["tree_stokeslet_f32", "stokeslet_f64"],
+                                ["stokeslet_f32", "tree_stokeslet_f64"],
+                                min_iters=2)
+    launches["tree_arcs"] = out["tree_arcs"]["launches"]
+    shutil.rmtree(run_dir)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, entries, launches
 
 
 def main(argv=None) -> int:
@@ -2299,7 +2842,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
-        entries, launches, smi, fast = run_phases(
+        entries, launches, smi, fast, tree = run_phases(
             torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2313,6 +2856,7 @@ def main(argv=None) -> int:
         e["launches_by_path"] = {path: c[e["name"]]
                                  for path, c in launches.items()}
     print(json.dumps({"fast_evaluators": fast}), flush=True)
+    print(json.dumps({"treecode": tree}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2322,9 +2866,9 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-11 (10 and 11 run after 8, on phase 6's precompute, then
-    9); returns (kernel entries, launch counts by path, the nvidia-smi
-    line, phase 11's summary)."""
+    """Phases 1-12 (10, 11 and 12 run after 8, on phase 6's precompute,
+    then 9); returns (kernel entries, launch counts by path, the
+    nvidia-smi line, phase 11's summary, phase 12's)."""
     import numpy as np
 
     # 1. device
@@ -2358,13 +2902,15 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
             spills = [int(v) for v in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", info["ptxas"])]
             gated = name in (ck.STOKESLET_SOURCE, ck.STRESSLET_SOURCE,
-                             ck.RING_SOURCE)
+                             ck.RING_SOURCE, ck.TREE_SOURCE)
             if gated and not spills:
                 raise SystemExit(f"no ptxas report for {name}.cu: its spills "
                                  "are not verified")
             if gated and any(spills):
                 raise SystemExit(f"ptxas reports spills in {name}.cu: "
                                  f"{spills}")
+
+    stamp("phases 1-2")
 
     # 4's config first: its node positions are phase 3's inputs
     run_dir = os.path.join(work, "free_fibers_10k")
@@ -2384,6 +2930,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                            nodes, f, smi, "kernels")
     if device.type == "cuda":
         torch.cuda.empty_cache()
+
+    stamp("phase 3")
 
     # 4. the free-space path
     launches = {}
@@ -2405,8 +2953,12 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
+    stamp("phase 4")
+
     # 5. small reference check
     phase_check_small(torch, device)
+
+    stamp("phase 5")
 
     # 6. the confined full-width path
     more, launches["ellipsoid"], ring_inputs, checks = phase_confined(
@@ -2417,6 +2969,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
+    stamp("phase 6")
+
     # 7. the fused ring kernels E and F
     sass = ring_sass(torch, ck, cuda_build, device)
     entries += phase_ring_kernels(
@@ -2426,6 +2980,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
+    stamp("phase 7")
+
     # 8. the ellipsoid config through the ring evaluator
     launches["ellipsoid_ring"], at_run = phase_ring_run(
         torch, ck, device, ring_inputs, smi, sass)
@@ -2434,6 +2990,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
             e["at_ring_run_shape"] = at_run[e["name"]]
     if device.type == "cuda":
         torch.cuda.empty_cache()
+
+    stamp("phase 8")
 
     # 10. the centrosome in the cell: DI, run and --resume, on phase 6's
     # precompute
@@ -2445,15 +3003,31 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
+    stamp("phase 10")
+
     # 11. the fast evaluators, on phase 3's cloud and phase 6's precompute
     a_ms = next(e["ms"] for e in entries if e["name"] == "stokeslet_f32")
     fast, fast_launches = phase_fast(torch, ck, device, work, args, nodes, f,
                                      a_ms, ring_inputs)
     launches.update(fast_launches)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 11")
+
+    # 12. the treecode, on phase 3's cloud and phase 6's precompute
+    b_ms = next(e["ms"] for e in entries if e["name"] == "stokeslet_f64")
+    tree, tree_entries_, tree_launches = phase_tree(
+        torch, ck, cuda_build, device, work, args, nodes, f, a_ms, b_ms,
+        ring_inputs, smi)
+    entries += tree_entries_
+    launches.update(tree_launches)
     del ring_inputs, nodes, f
     shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":
         torch.cuda.empty_cache()
+
+    stamp("phase 12")
 
     # 9. the body scene at its published size
     launches["body_const_force"], _, at_body = phase_bodies(
@@ -2462,15 +3036,21 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
         if e["name"] in at_body:
             e["at_body_shape"] = at_body[e["name"]]
 
+    stamp("phase 9")
+
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
                "stokeslet_f64": "free_fibers_10k",
                "stresslet_f32": "ellipsoid", "stresslet_f64": "ellipsoid",
                "ring_stokeslet_f32": "ellipsoid_ring",
-               "ring_stresslet_f32": "ellipsoid_ring"}
+               "ring_stresslet_f32": "ellipsoid_ring",
+               "tree_stokeslet_f32": "tree_ellipsoid",
+               "tree_stresslet_f32": "tree_ellipsoid",
+               "tree_stokeslet_f64": "tree_ellipsoid_full",
+               "tree_stresslet_f64": "tree_ellipsoid_full"}
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
-    return entries, launches, smi, fast
+    return entries, launches, smi, fast, tree
 
 
 if __name__ == "__main__":

@@ -262,9 +262,10 @@ def flow(group: BodyGroup, caches: BodyCaches, r_trg, x_bodies,
     the COM Stokeslet from the forces and the rotlet from the torques
     (``forces_torques`` [nb, 6]), which take the exact tier whatever
     ``impl``, as in the JAX package. ``pair`` (an
-    `ops.evaluator.PairEvaluator` whose Ewald or spectral plan covers the
-    body nodes and the targets) sums the node double layer through its
-    plan instead. Coincident body-node targets drop in every mode."""
+    `ops.evaluator.PairEvaluator` whose Ewald, tree or spectral plan covers
+    the body nodes and the targets) sums the node double layer through its
+    plan instead (a depth-0 tree through the dense seam at ``impl``).
+    Coincident body-node targets drop in every mode."""
     nb, n = group.n_bodies, group.n_nodes
     if x_bodies is None:
         v = torch.zeros_like(r_trg)
@@ -274,7 +275,7 @@ def flow(group: BodyGroup, caches: BodyCaches, r_trg, x_bodies,
         f_dl = 2.0 * eta * normals[:, :, None] * densities[:, None, :]
         nodes = caches.nodes.reshape(nb * n, 3)
         if pair is not None:
-            v = pair.stresslet(nodes, r_trg, f_dl, eta)
+            v = pair.stresslet(nodes, r_trg, f_dl, eta, impl)
         else:
             v = kernels.stresslet_direct(nodes, r_trg, f_dl, eta, impl=impl)
     v = v + kernels.stokeslet_direct(group.position, r_trg,

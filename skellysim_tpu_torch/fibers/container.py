@@ -7,8 +7,9 @@ exactly as the JAX package does (docs/audit.md "Masking discipline"): they
 contribute zero flow, force and error and solve the identity.
 
 Slice limits: static resolutions only (no runtime node padding); the
-direct, ring, Ewald and spectral pair evaluators (the treecode branch of
-`flow_multi` belongs to ROADMAP §1 item 10, `flow_multi_local` to item 12).
+direct, ring, Ewald, treecode and spectral pair evaluators
+(`flow_multi_local`, the sharded step's flow, belongs to ROADMAP §1 item
+12).
 """
 
 from __future__ import annotations
@@ -216,10 +217,11 @@ def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
     """Velocity at targets from every fiber node of every bucket, in ONE
     pair-evaluator pass (`skellysim_tpu.fibers.container.flow_multi`).
 
-    ``pair`` (an `ops.evaluator.PairEvaluator`) sums through its Ewald or
-    spectral plan, and ``evaluator`` / ``impl`` are then unused. There the
-    inactive slots' nodes are re-spread onto the plan's fill positions and
-    the leading self targets rebuilt from them.
+    ``pair`` (an `ops.evaluator.PairEvaluator`) sums through its Ewald,
+    tree or spectral plan (a depth-0 tree through the dense seam at
+    ``impl``), and ``evaluator`` is then unused. There the inactive slots'
+    nodes are re-spread onto the plan's fill positions and the leading
+    self targets rebuilt from them.
 
     ``evaluator="ring"`` with a ``mesh`` rotates the source blocks around
     the mesh (`parallel.ring`; the f64-grade "pallas_df" tier through
@@ -231,13 +233,9 @@ def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
     subtracted (it is handled by the SBT mobility instead). That relies on
     the pair sum's self term being exactly zero.
     """
-    if pair is None and evaluator in ("ewald", "spectral"):
+    if pair is None and evaluator not in ("direct", "ring"):
         raise ValueError(f"pair evaluator {evaluator!r} needs a plan: pass "
                          "a PairEvaluator built by ops.evaluator.make_pair")
-    if pair is None and evaluator not in ("direct", "ring"):
-        raise NotImplementedError(
-            f"pair evaluator {evaluator!r} is not ported yet (ROADMAP.md §1 "
-            "item 10)")
     pos = torch.cat([node_positions(g) for g in buckets], dim=0)
     wf = torch.cat([weighted_forces(g, f).reshape(-1, 3)
                     for g, f in zip(buckets, forces_list)], dim=0)
@@ -258,7 +256,7 @@ def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
             # the leading targets are the fiber nodes: keep them coincident
             # with the spread sources so self pairs stay exact
             r_trg = torch.cat([pos, r_trg[n_self:]], dim=0)
-        vel = pair.stokeslet(pos, r_trg, wf, n_self, eta)
+        vel = pair.stokeslet(pos, r_trg, wf, n_self, eta, impl)
     elif evaluator == "ring" and mesh is not None:
         from ..parallel import ring
 

@@ -50,6 +50,15 @@ split). Their first design (one target a thread) stays as their yardstick,
 the ring accumulation (`parallel.ring._ring_accumulate`) over kernel A's /
 C's plain block.
 
+Kernel G, `tree_stokeslet_f32` / `tree_stokeslet_f64`, and kernel H,
+`tree_stresslet_f32` / `tree_stresslet_f64`: the treecode's near and far
+pair sums (``csrc/tree_sums.cu``), with no Pallas counterpart (the JAX
+package sums them in plain XLA, `skellysim_tpu/ops/treecode.py
+_tree_eval`). They take leaf-sorted targets and lists of source segments
+(`ops.treecode._segment_lists`): one block an item of at most
+`TREE_ITEM_TARGETS` targets of one leaf, the leaf's segments split over its
+warps. Their plain twin expands the same lists into pairs.
+
 One routing rule in each wrapper: a CPU tensor takes the plain version (the
 blocked displacement forms of `ops.kernels.stokeslet_block` /
 `stresslet_block`); a CUDA tensor launches the kernel. There is no
@@ -63,6 +72,7 @@ unscaled sum (the block entry the ring evaluator will use; the stresslet's
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -82,8 +92,11 @@ STRESSLET_SOURCE = "stresslet_sums"
 SOURCE = "pair_sums"
 #: the fused ring sums' source, ``csrc/ring_sums.cu`` (kernels E and F)
 RING_SOURCE = "ring_sums"
+#: the treecode's pair sums' source, ``csrc/tree_sums.cu`` (kernels G and H)
+TREE_SOURCE = "tree_sums"
 #: every kernel source (chip_smoke builds them in parallel)
-SOURCES = (STOKESLET_SOURCE, STRESSLET_SOURCE, SOURCE, RING_SOURCE)
+SOURCES = (STOKESLET_SOURCE, STRESSLET_SOURCE, SOURCE, RING_SOURCE,
+           TREE_SOURCE)
 #: per family: the plain block form and the payload's columns per source
 #: (forces; the 9 row-major stresslet components)
 _FAMILIES = {"stokeslet": (stokeslet_block, 3),
@@ -120,6 +133,17 @@ def _library(source: str = SOURCE):
                 fn = getattr(lib, f"{family}_{prec}_tiled_launch")
                 fn.argtypes = [ptr, ptr, ptr, ptr, cll, cll, scalar, ptr]
                 fn.restype = cint
+    elif source == TREE_SOURCE:
+        for prec, scalar in scalars.items():
+            for family in _FAMILIES:
+                fn = getattr(lib, f"tree_{family}_{prec}_launch")
+                fn.argtypes = [ptr] * 6 + [cll, scalar, ptr]
+                fn.restype = cint
+        got = lib.tree_item_targets()
+        if got != TREE_ITEM_TARGETS:
+            raise RuntimeError(f"tree_sums.cu builds G and H with {got} "
+                               f"targets an item, the lists use "
+                               f"{TREE_ITEM_TARGETS}")
     else:
         for name in _RING_RECORD_WORDS:
             plan_args = [] if name.endswith("_v1") else [cint] * 5
@@ -845,10 +869,147 @@ def enable_ring_peer_access(devices) -> None:
                                    f"({_cuda_error(RING_SOURCE, rc)})")
 
 
+# ---------------------------------------------------------------- tree sums
+
+#: targets an item of kernels G and H (``csrc/tree_sums.cu``'s
+#: kItemTargets, one a lane of a warp; checked when the library loads)
+TREE_ITEM_TARGETS = 32
+#: pairs of one chunk of the plain twin (its [pairs, 3] temporaries)
+_TREE_PLAIN_BUDGET = 1 << 22
+
+
+def _tree_check(family, dtype, trg, src, pay, items, segs):
+    """The validated, contiguous operands of one tree sum."""
+    trg, src, pay = _operands(family, dtype, src, trg, pay)
+    return (trg, src, pay,
+            _check_rows("items", items, 4, torch.int64, trg.device),
+            _check_rows("segments", segs, 2, torch.int64, trg.device))
+
+
+def _tree_pair_terms(family, d, q):
+    """The unscaled pair terms [n, 3] of displacements ``d`` [n, 3] and
+    payload rows ``q`` [n, 3] / [n, 9] (the plain pair of
+    `stokeslet_block` / `stresslet_block`, the -3 included)."""
+    r2 = torch.sum(d * d, dim=-1)
+    mask = r2 > 0.0
+    rinv = torch.where(mask, torch.rsqrt(torch.where(mask, r2, 1.0)), 0.0)
+    if family == "stokeslet":
+        df = torch.sum(d * q, dim=-1)
+        return rinv[:, None] * q + (df * rinv ** 3)[:, None] * d
+    dSd = torch.einsum("ni,nij,nj->n", d, q.reshape(-1, 3, 3), d)
+    return (-3.0 * dSd * rinv ** 5)[:, None] * d
+
+
+def _tree_plain_sum(terms, trg, src, pay, items, segs):
+    """The plain twin's unscaled sum: every (target, source) pair of every
+    item expanded, its terms ``terms(d, q)`` [pairs, 3] (`_tree_pair_terms`
+    for G and H) added with `index_add_`, items in chunks of at most
+    `_TREE_PLAIN_BUDGET` pairs."""
+    dev = trg.device
+    out = torch.zeros((trg.shape[0], 3), dtype=trg.dtype, device=dev)
+    seg_len = segs[:, 1]
+    cum = torch.cat([seg_len.new_zeros(1), torch.cumsum(seg_len, 0)])
+    item_pairs = items[:, 1] * (cum[items[:, 2] + items[:, 3]]
+                                - cum[items[:, 2]])
+    bounds, acc = [0], 0
+    for i, n in enumerate(item_pairs.tolist()):
+        if acc and acc + n > _TREE_PLAIN_BUDGET:
+            bounds.append(i)
+            acc = 0
+        acc += n
+    bounds.append(len(item_pairs))
+
+    def ranges(first, count):
+        """Concatenated aranges [first_k, first_k + count_k)."""
+        rep = torch.repeat_interleave(torch.arange(len(count), device=dev),
+                                      count)
+        local = torch.arange(rep.shape[0], device=dev) - (
+            torch.cumsum(count, 0) - count)[rep]
+        return rep, first[rep] + local
+
+    for i0, i1 in zip(bounds[:-1], bounds[1:]):
+        it = items[i0:i1]
+        seg_item, seg_id = ranges(it[:, 2], it[:, 3])
+        ent_seg, ent_src = ranges(segs[seg_id, 0], segs[seg_id, 1])
+        ent_item = seg_item[ent_seg]
+        pair_ent, pair_t = ranges(it[ent_item, 0], it[ent_item, 1])
+        q = pay[ent_src[pair_ent]]
+        d = trg[pair_t] - src[ent_src[pair_ent]]
+        out.index_add_(0, pair_t, terms(d, q))
+    return out
+
+
+def _tree_launch(family, prec, trg, src, pay, items, segs, scale):
+    """Validate, allocate the output and launch kernel G (``family``
+    "stokeslet") or H ("stresslet"). Returns (output, launched); raises if
+    the launch was refused."""
+    trg, src, pay, items, segs = _tree_check(family, _DTYPES[prec], trg, src,
+                                             pay, items, segs)
+    device = trg.device
+    out = torch.empty((trg.shape[0], 3), dtype=trg.dtype, device=device)
+    if items.shape[0] == 0:
+        return out, False
+    lib = _library(TREE_SOURCE)
+    name = f"tree_{family}_{prec}"
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(
+            trg.data_ptr(), src.data_ptr(), pay.data_ptr(), items.data_ptr(),
+            segs.data_ptr(), out.data_ptr(), items.shape[0], scale, stream)
+    _raise_on(TREE_SOURCE, name, rc)
+    return out, True
+
+
+def _tree_wrapper(family: str, prec: str):
+    """(kernel wrapper, plain twin) of kernel G (Stokeslet) or H
+    (stresslet) in one precision. Both take the leaf-sorted targets [n_trg,
+    3], the source array [n_src, 3] and its payload [n_src, 3] / [n_src, 9]
+    (bucketed sources, then proxies), and `ops.treecode._segment_lists`'
+    items [n_items, 4] and segments [n_seg, 2] (int64); both return the
+    sum at viscosity ``eta`` [n_trg, 3] in ``prec``, in the targets'
+    order."""
+    name = f"tree_{family}_{prec}"
+    terms = functools.partial(_tree_pair_terms, family)
+
+    def plain(r_trg, src, payload, items, segs, eta):
+        trg, src, pay, items, segs = _tree_check(
+            family, _DTYPES[prec], r_trg, src, payload, items, segs)
+        return _tree_plain_sum(terms, trg, src, pay, items, segs) \
+            * (_FACTOR / eta)
+
+    def wrapper(r_trg, src, payload, items, segs, eta):
+        if r_trg.device.type == "cpu":
+            return plain(r_trg, src, payload, items, segs, eta)
+        out, launched = _tree_launch(family, prec, r_trg, src, payload,
+                                     items, segs, _scale(eta))
+        wrapper.launches += int(launched)
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    plain.__name__ = plain.__qualname__ = f"{name}_plain"
+    wrapper.__doc__ = (f"The {prec} treecode {family} sum over segment lists "
+                       f"on its CUDA kernel (CPU tensors: `{name}_plain`).")
+    plain.__doc__ = (f"Plain {prec} treecode {family} sum over segment lists "
+                     f"(the version `{name}` is held against).")
+    wrapper.launches = 0
+    return wrapper, plain
+
+
+tree_stokeslet_f32, tree_stokeslet_f32_plain = _tree_wrapper("stokeslet",
+                                                             "f32")  # G
+tree_stokeslet_f64, tree_stokeslet_f64_plain = _tree_wrapper("stokeslet",
+                                                             "f64")  # G
+tree_stresslet_f32, tree_stresslet_f32_plain = _tree_wrapper("stresslet",
+                                                             "f32")  # H
+tree_stresslet_f64, tree_stresslet_f64_plain = _tree_wrapper("stresslet",
+                                                             "f64")  # H
+
+
 #: every kernel wrapper of the port's paths (chip_smoke resets and reads
 #: these)
 KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64,
-                   ring_stokeslet_f32, ring_stresslet_f32)
+                   ring_stokeslet_f32, ring_stresslet_f32, tree_stokeslet_f32,
+                   tree_stokeslet_f64, tree_stresslet_f32, tree_stresslet_f64)
 #: the yardstick wrappers, which no path may launch
 YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled,
                       stresslet_f32_tiled, stresslet_f64_tiled,

@@ -10,10 +10,14 @@ call site that may sum through it: the fiber flow
 evaluators need no plan and are chosen by those flows' ``evaluator``
 argument.
 
-``plan`` is an `ops.ewald.EwaldPlan` (free space) or an
-`ops.spectral.SpectralPlan` (periodic boxes and slabs); `plan_module`
-dispatches to the module that owns it. The treecode's `TreePlan` is not
-ported (ROADMAP.md §1 item 10): any other plan type raises `TypeError`.
+``plan`` is an `ops.ewald.EwaldPlan` (free space), an
+`ops.treecode.TreePlan` (free space) or an `ops.spectral.SpectralPlan`
+(periodic boxes and slabs); `plan_module` dispatches to the module that
+owns it, and any other plan type raises `TypeError`. Each module names its
+plan's anchor fields (``ANCHORS``: the Ewald and spectral plans'
+``box_lo`` and ``cell_lo``, the tree's ``box_lo``), the row its fill
+positions are placed from (``FILL_ANCHOR``), and sums at the viscosity it
+is given.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import types
 from dataclasses import dataclass
 
 import torch
+
+from . import kernels
 
 #: runtime evaluator names, the single source for validation (System, the
 #: config schema)
@@ -43,10 +49,12 @@ EVALUATOR_ALIASES = types.MappingProxyType(
 def plan_module(plan):
     """The ops module owning ``plan`` (imported lazily: the planners
     import this module)."""
-    from . import ewald, spectral
+    from . import ewald, spectral, treecode
 
     if isinstance(plan, ewald.EwaldPlan):
         return ewald
+    if isinstance(plan, treecode.TreePlan):
+        return treecode
     if isinstance(plan, spectral.SpectralPlan):
         return spectral
     raise TypeError(f"unknown pair-evaluator plan type {type(plan)!r}")
@@ -54,41 +62,54 @@ def plan_module(plan):
 
 @dataclass(frozen=True, eq=False)
 class PairEvaluator:
-    """A fast plan and its two anchors (``box_lo``, ``cell_lo``) as a
-    [2, 3] float64 tensor on the device of the sums, made once by
-    `make_pair`. Its sums are those of the plan's module at viscosity
-    ``eta`` (the plan baked its own eta in; the screened kernels scale as
-    1 / eta)."""
+    """A fast plan and its anchors (one row a field of the module's
+    ``ANCHORS``) as a float64 tensor on the device of the sums, made once
+    by `make_pair`. Its sums are those of the plan's module at viscosity
+    ``eta``; a plan that is the dense sum itself (a depth-0 tree) takes the
+    dense seam (`ops.kernels`) at the calling flow's ``impl``, as in the
+    JAX package."""
 
     plan: object
     anchors: torch.Tensor
 
     @property
     def evaluator(self) -> str:
-        """The runtime evaluator name: "ewald" or "spectral"."""
+        """The runtime evaluator name: "ewald", "tree" or "spectral"."""
         return plan_module(self.plan).EVALUATOR
+
+    @property
+    def dense(self) -> bool:
+        """True when the plan is the dense sum (a depth-0 tree)."""
+        return self.evaluator == "tree" and self.plan.depth == 0
 
     def fill_positions(self, n: int, dtype):
         """[n, 3] spread positions for zero-strength (inactive) sources."""
-        return plan_module(self.plan).fill_positions(
-            self.plan, self.anchors[1], n, dtype)
+        mod = plan_module(self.plan)
+        return mod.fill_positions(self.plan, self.anchors[mod.FILL_ANCHOR],
+                                  n, dtype)
 
-    def stokeslet(self, r_src, r_trg, f_src, n_self: int, eta):
+    def stokeslet(self, r_src, r_trg, f_src, n_self: int, eta,
+                  impl: str = "exact"):
         """The singular Stokeslet sum (`kernels.stokeslet_direct`
         semantics; the first ``n_self`` targets are the sources)."""
-        mod = plan_module(self.plan)
-        return mod.stokeslet_impl(self.plan, self.anchors, r_src, r_trg,
-                                  f_src, n_self) * (self.plan.eta / eta)
+        if self.dense:
+            return kernels.stokeslet_direct(r_src, r_trg, f_src, eta,
+                                            impl=impl)
+        return plan_module(self.plan).stokeslet_impl(
+            self.plan, self.anchors, r_src, r_trg, f_src, n_self, eta)
 
-    def stresslet(self, r_dl, r_trg, f_dl, eta):
+    def stresslet(self, r_dl, r_trg, f_dl, eta, impl: str = "exact"):
         """The singular stresslet (double-layer) sum, ``f_dl`` [n, 3, 3]."""
-        mod = plan_module(self.plan)
-        return mod.stresslet_impl(self.plan, self.anchors, r_dl, r_trg,
-                                  f_dl) * (self.plan.eta / eta)
+        if self.dense:
+            return kernels.stresslet_direct(r_dl, r_trg, f_dl, eta,
+                                            impl=impl)
+        return plan_module(self.plan).stresslet_impl(
+            self.plan, self.anchors, r_dl, r_trg, f_dl, eta)
 
 
 def make_pair(plan, device) -> PairEvaluator:
     """The `PairEvaluator` of ``plan`` with its anchors on ``device``."""
-    plan_module(plan)
+    mod = plan_module(plan)
     return PairEvaluator(plan, torch.tensor(
-        [plan.box_lo, plan.cell_lo], dtype=torch.float64, device=device))
+        [getattr(plan, a) for a in mod.ANCHORS], dtype=torch.float64,
+        device=device))

@@ -41,6 +41,10 @@ _SQRT_PI = math.sqrt(math.pi)
 
 #: the runtime evaluator name whose plans this module owns
 EVALUATOR = "ewald"
+#: the plan's anchor fields, in the order of `ops.evaluator.make_pair`'s
+#: anchor rows, and the row `fill_positions` is placed from
+ANCHORS = ("box_lo", "cell_lo")
+FILL_ANCHOR = 1
 
 
 # --------------------------------------------------------------- closed forms
@@ -698,10 +702,11 @@ def _far_field_stresslet(plan: EwaldPlan, lo, r_dl, f_dl, r_trg):
     return _interp(plan, r_trg - lo, U.to(dtype), dtype)
 
 
-def stresslet_impl(plan: EwaldPlan, anchors, r_dl, r_trg, f_dl):
+def stresslet_impl(plan: EwaldPlan, anchors, r_dl, r_trg, f_dl, eta):
     """Stresslet sum on ``plan`` with its [2, 3] ``anchors`` (box_lo,
-    cell_lo): always the cells near field (blocks mode's K was measured
-    for the fiber-node sources)."""
+    cell_lo) at viscosity ``eta``, as `stokeslet_impl`: always the cells
+    near field (blocks mode's K was measured for the fiber-node
+    sources)."""
     lo_box = anchors[0].to(r_dl.dtype)
     lo_cell = anchors[1].to(r_dl.dtype)
     u_near = _near_field(plan, lo_cell, r_dl, f_dl, r_trg,
@@ -709,7 +714,7 @@ def stresslet_impl(plan: EwaldPlan, anchors, r_dl, r_trg, f_dl):
     u_far = _far_field_stresslet(plan, lo_box, r_dl, f_dl, r_trg)
     # no self term: every coefficient of the screened double layer
     # vanishes at r = 0
-    return u_near + u_far
+    return (u_near + u_far) * (plan.eta / eta)
 
 
 def stresslet_ewald(plan: EwaldPlan, r_dl, r_trg, f_dl):
@@ -723,9 +728,10 @@ def stresslet_ewald(plan: EwaldPlan, r_dl, r_trg, f_dl):
 
 
 def stokeslet_impl(plan: EwaldPlan, anchors, r_src, r_trg, f_src,
-                   n_self: int):
+                   n_self: int, eta):
     """Stokeslet sum on ``plan`` with its [2, 3] ``anchors`` (box_lo,
-    cell_lo)."""
+    cell_lo) at viscosity ``eta`` (the plan baked its own eta in; the
+    screened kernels scale as 1 / eta)."""
     lo_box = anchors[0].to(r_src.dtype)
     lo_cell = anchors[1].to(r_src.dtype)
     # blocks mode only when the targets are the sources, all of them or a
@@ -742,7 +748,7 @@ def stokeslet_impl(plan: EwaldPlan, anchors, r_src, r_trg, f_src,
     if n_self:
         self_coeff = 4.0 * plan.xi / (_SQRT_PI * 8.0 * math.pi * plan.eta)
         u_far[:n_self] += -self_coeff * f_src[:n_self]
-    return u_near + u_far
+    return (u_near + u_far) * (plan.eta / eta)
 
 
 def stokeslet_ewald(plan: EwaldPlan, r_src, r_trg, f_src,

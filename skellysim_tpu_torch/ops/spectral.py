@@ -37,6 +37,10 @@ _SQRT_PI = math.sqrt(math.pi)
 
 #: the runtime evaluator name whose plans this module owns
 EVALUATOR = "spectral"
+#: the plan's anchor fields, in the order of `ops.evaluator.make_pair`'s
+#: anchor rows, and the row `fill_positions` is placed from
+ANCHORS = ("box_lo", "cell_lo")
+FILL_ANCHOR = 1
 
 #: FFT-friendly grid-dimension ladder (2^a 3^b, ~x1.5 geometric)
 GRID_RUNGS = (16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
@@ -424,9 +428,10 @@ def _far_field_stresslet(plan: SpectralPlan, lo, r_dl, f_dl, r_trg):
 # ------------------------------------------------------------ entry points
 
 def stokeslet_impl(plan: SpectralPlan, anchors, r_src, r_trg, f_src,
-                   n_self: int):
+                   n_self: int, eta):
     """Periodic Stokeslet sum on ``plan`` with its [2, 3] ``anchors``
-    (box_lo, cell_lo)."""
+    (box_lo, cell_lo) at viscosity ``eta`` (the plan baked its own eta in;
+    the screened kernels scale as 1 / eta)."""
     lo_box = anchors[0].to(r_src.dtype)
     lo_cell = anchors[1].to(r_src.dtype)
     src_w = _wrap_positions(plan, lo_cell, r_src)
@@ -439,7 +444,7 @@ def stokeslet_impl(plan: SpectralPlan, anchors, r_src, r_trg, f_src,
         # image's smooth G_far(0): the free-space self coefficient
         self_coeff = 4.0 * plan.xi / (_SQRT_PI * 8.0 * math.pi * plan.eta)
         u_far[:n_self] += -self_coeff * f_src[:n_self]
-    return u_near + u_far
+    return (u_near + u_far) * (plan.eta / eta)
 
 
 def stokeslet_spectral(plan: SpectralPlan, r_src, r_trg, f_src,
@@ -456,8 +461,9 @@ def stokeslet_spectral(plan: SpectralPlan, r_src, r_trg, f_src,
                                                    int(n_self), plan.eta)
 
 
-def stresslet_impl(plan: SpectralPlan, anchors, r_dl, r_trg, f_dl):
-    """Periodic stresslet sum on ``plan`` with its [2, 3] ``anchors``."""
+def stresslet_impl(plan: SpectralPlan, anchors, r_dl, r_trg, f_dl, eta):
+    """Periodic stresslet sum on ``plan`` with its [2, 3] ``anchors`` at
+    viscosity ``eta``."""
     lo_box = anchors[0].to(r_dl.dtype)
     lo_cell = anchors[1].to(r_dl.dtype)
     src_w = _wrap_positions(plan, lo_cell, r_dl)
@@ -466,7 +472,7 @@ def stresslet_impl(plan: SpectralPlan, anchors, r_dl, r_trg, f_dl):
                              near_fn=stresslet_disp_block_ewald)
     u_far = _far_field_stresslet(plan, lo_box, src_w, f_dl, trg_w)
     # no self term: every screened double-layer coefficient vanishes at 0
-    return u_near + u_far
+    return (u_near + u_far) * (plan.eta / eta)
 
 
 def stresslet_spectral(plan: SpectralPlan, r_dl, r_trg, f_dl):

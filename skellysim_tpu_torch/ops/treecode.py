@@ -1,0 +1,621 @@
+"""Barycentric Lagrange treecode: the hierarchical O(N log N) pair sums.
+
+Counterpart of `skellysim_tpu.ops.treecode` (the runtime evaluator
+"tree"): source clusters are compressed onto tensor-product Chebyshev grids
+by barycentric Lagrange anterpolation, and well-separated clusters are
+summed through the same pair kernel as the near field. The mathematics (the
+fixed-depth octree over a cubic box, the index-based interaction lists, the
+calibrated order rule) is documented in the JAX module and pinned there by
+`tests/test_treecode.py`.
+
+* `plan_tree` is host numpy and gives the JAX package's plan field for
+  field; the static geometry (`_vlists`, `_interaction_lists`,
+  `_neighbor_table`, `_transfer_np`) is the JAX package's, copied.
+* `_bucket` and `_upward` (the leaf anterpolation and the child -> parent
+  transfers) are plain tensor code on every device, as the JAX package
+  runs them in plain XLA: a stable sort, scatters and batched products.
+* The near and far pair sums run as ONE pass over per-target-leaf lists of
+  source segments (`_segment_lists`): each target leaf's run of
+  leaf-sorted targets against (start, length) runs of one source array
+  that holds the bucketed sources and the proxies. On the card the pass is
+  kernel G (Stokeslet) or H (stresslet), ``csrc/tree_sums.cu``
+  (`ops.cuda_kernels.tree_stokeslet_f32` and its siblings); on the CPU it
+  is their plain twin. A segment holds only a bucket's real slots, and a
+  cell with no source below it gets no far segment: both add exact zeros
+  in the JAX package's padded rows, so the sums agree up to summation
+  order (ROADMAP.md §3, differences by design).
+* `oseen_tree`, which no flow calls and no kernel serves, runs the same
+  lists through the plain twin's pair expansion with its own pair terms
+  (the regularized Oseen near, the Stokeslet far).
+
+``depth == 0`` plans are the dense sum: `ops.evaluator.PairEvaluator`
+sends them to the dense seam (`ops.kernels`; kernel A / B / C / D on the
+card) at the calling flow's tier. The plan's one anchor (``box_lo``)
+enters as a [1, 3] tensor made once a plan by `ops.evaluator.make_pair`.
+
+Chunking bounds memory, not the result beyond summation order:
+`_ANTERP_BUDGET` caps the elements of one anterpolation weight tile
+([leaves, slots, p^3]), set for an 80 GB card (the JAX package's budget,
+3M, was set for TPU memory: at depth 5 and p = 6 its unchunked weights
+would be 32,768 x 312 x 216 values).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import lru_cache, partial
+
+import numpy as np
+import torch
+
+from . import kernels
+from .ewald import _R2_ALPHAS, _ladder
+
+__all__ = ["TreePlan", "plan_tree", "order_for_tol", "stokeslet_tree",
+           "stresslet_tree", "oseen_tree", "fill_positions"]
+
+#: the runtime evaluator name whose plans this module owns
+EVALUATOR = "tree"
+#: the plan's anchor fields, in the order of `ops.evaluator.make_pair`'s
+#: anchor rows, and the row `fill_positions` is placed from
+ANCHORS = ("box_lo",)
+FILL_ANCHOR = 0
+
+
+# ---------------------------------------------------------------------- plan
+
+@dataclass(frozen=True)
+class TreePlan:
+    """Static tree geometry and resolution (the JAX package's `TreePlan`,
+    field for field). Built on the host by `plan_tree`; ``depth == 0`` is
+    the degenerate one-cell tree that dispatches to the dense sums."""
+
+    depth: int       # leaf level L; 8^L leaves (0 = dense fallback)
+    order: int       # p: Chebyshev points per dimension (p^3 per cluster)
+    box_lo: tuple    # root-box lower corner
+    box_L: float     # root-box edge (ladder-quantized)
+    max_occ: int     # static per-leaf bucket capacity
+    tol: float       # target field-normalized relative accuracy
+
+    @property
+    def n_leaves(self) -> int:
+        return 8 ** self.depth
+
+    @property
+    def leaf_size(self) -> float:
+        return self.box_L / (2 ** self.depth)
+
+
+def fill_positions(plan: TreePlan, box_lo, n, dtype):
+    """[n, 3] well-spread positions inside the root box (the R2 lattice),
+    on the device of ``box_lo``, for inactive nodes whose strengths are
+    zero: piled into one leaf they would pass its capacity."""
+    dev = box_lo.device
+    t = (torch.arange(n, dtype=dtype, device=dev) + 0.5)[:, None]
+    alphas = torch.tensor(_R2_ALPHAS, dtype=dtype, device=dev)[None, :]
+    frac = torch.remainder(t * alphas, 1.0)
+    return box_lo.to(dtype) + frac * (0.999 * plan.box_L)
+
+
+def _fill_positions_np(box_lo, box_L, n):
+    """NumPy mirror of `fill_positions` for host-side occupancy counting."""
+    t = (np.arange(n, dtype=np.float64) + 0.5)[:, None]
+    frac = (t * np.asarray(_R2_ALPHAS)[None, :]) % 1.0
+    return np.asarray(box_lo) + frac * (0.999 * box_L)
+
+
+#: the JAX package's calibrated error contraction per interpolation order
+#: (err(p) ~ 0.05 * 5^-(p-2), see its `order_for_tol`)
+_ACC_BASE = 5.0
+_ACC_C0 = 0.05
+
+
+def order_for_tol(tol: float, max_order: int = 12) -> int:
+    """Interpolation order p for a target relative accuracy (calibrated)."""
+    p = 2 + math.ceil(math.log(max(_ACC_C0 / tol, 1.0)) / math.log(_ACC_BASE))
+    return int(min(max(p, 2), max_order))
+
+
+def plan_tree(points, tol=1e-4, target_occ=32.0, max_depth=5, n_fill=0,
+              max_order=12):
+    """Choose (depth, order, box, leaf capacity) for a target relative
+    accuracy: the JAX package's `plan_tree`, rule for rule (its docstring
+    gives the rules), on the host in numpy. ``n_fill`` reserves occupancy
+    for that many zero-strength padding nodes placed by `fill_positions`."""
+    pts = np.asarray(points, dtype=np.float64)
+    lo = pts.min(axis=0)
+    hi = pts.max(axis=0)
+    extent = max(float((hi - lo).max()), 1e-3)
+    N = len(pts) + int(n_fill)
+    N_q = max(1, 2 ** math.ceil(math.log2(max(N, 1))))
+
+    depth = math.ceil(math.log(max(N_q / target_occ, 1.0)) / math.log(8.0))
+    depth = min(depth, max_depth)
+    if depth < 2:
+        return TreePlan(depth=0, order=order_for_tol(tol, max_order),
+                        box_lo=(float(lo[0]), float(lo[1]), float(lo[2])),
+                        box_L=_ladder(extent, 1e-3), max_occ=1,
+                        tol=float(tol))
+
+    order = order_for_tol(tol, max_order)
+    L_box = _ladder(extent / (1.0 - 2.0 ** -depth) + 1e-9, 1e-3)
+    cell = L_box / (2 ** depth)
+    box_lo = tuple(float(cell * math.floor(a / cell)) for a in lo)
+
+    C = 2 ** depth
+    ci = np.clip(((pts - np.asarray(box_lo)) / cell).astype(int), 0, C - 1)
+    if n_fill:
+        fp = _fill_positions_np(box_lo, L_box, int(n_fill))
+        cif = np.clip(((fp - np.asarray(box_lo)) / cell).astype(int), 0,
+                      C - 1)
+        ci = np.vstack([ci, cif])
+    flat = (ci[:, 0] * C + ci[:, 1]) * C + ci[:, 2]
+    occ = int(np.bincount(flat, minlength=C ** 3).max()) if len(flat) else 1
+    need = occ * 1.15
+    rung = 8.0
+    while rung < need:
+        rung *= 1.5
+    occ = int(-8 * (-rung // 8))
+
+    return TreePlan(depth=int(depth), order=int(order), box_lo=box_lo,
+                    box_L=float(L_box), max_occ=occ, tol=float(tol))
+
+
+# -------------------------------------------- host-side static tree geometry
+
+_OCTS = np.array([(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)],
+                 dtype=np.int64)                      # [8, 3] child octants
+_NBR_OFFSETS = np.array([(i, j, k) for i in (-1, 0, 1)
+                         for j in (-1, 0, 1) for k in (-1, 0, 1)],
+                        dtype=np.int64)               # [27, 3]
+
+
+def _coords(level: int) -> np.ndarray:
+    """[8^level, 3] integer cell coords in flat order (i*C + j)*C + k."""
+    C = 2 ** level
+    g = np.arange(C, dtype=np.int64)
+    return np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+
+
+@lru_cache(maxsize=None)
+def _vlists(level: int) -> tuple:
+    """Per-cell V-lists at one level: children of the parent's 27 neighbor
+    cells (itself included) that are not neighbors of the cell. A tuple of
+    per-cell int64 arrays of flat same-level cell ids."""
+    C = 2 ** level
+    co = _coords(level)
+    parent = co >> 1
+    cand = ((parent[:, None, None, :] + _NBR_OFFSETS[None, :, None, :]) * 2
+            + _OCTS[None, None, :, :])                # [C3, 27, 8, 3]
+    valid = np.all((cand >= 0) & (cand < C), axis=-1)
+    cheb = np.abs(cand - co[:, None, None, :]).max(axis=-1)
+    keep = valid & (cheb > 1)
+    flat = (cand[..., 0] * C + cand[..., 1]) * C + cand[..., 2]
+    return tuple(flat[i][keep[i]] for i in range(C ** 3))
+
+
+@lru_cache(maxsize=None)
+def _interaction_lists(depth: int):
+    """Per-leaf far-field interaction lists over levels 2..depth: (ilist
+    [n_leaves, maxI] int32 padded with ``total_cells`` — the zero-strength
+    sentinel slot —, total_cells, level offsets, child index arrays per
+    level for the upward pass)."""
+    assert depth >= 2
+    offsets = {}
+    total = 0
+    for lev in range(2, depth + 1):
+        offsets[lev] = total
+        total += 8 ** lev
+
+    leaf_co = _coords(depth)
+    n_leaves = 8 ** depth
+    per_leaf = []
+    vl = {lev: _vlists(lev) for lev in range(2, depth + 1)}
+    for b in range(n_leaves):
+        parts = []
+        for lev in range(2, depth + 1):
+            anc = leaf_co[b] >> (depth - lev)
+            Cl = 2 ** lev
+            anc_flat = (anc[0] * Cl + anc[1]) * Cl + anc[2]
+            parts.append(vl[lev][anc_flat] + offsets[lev])
+        per_leaf.append(np.concatenate(parts) if parts
+                        else np.zeros(0, dtype=np.int64))
+    maxI = max(1, max(len(p) for p in per_leaf))
+    ilist = np.full((n_leaves, maxI), total, dtype=np.int32)
+    for b, p in enumerate(per_leaf):
+        ilist[b, :len(p)] = p
+
+    child_idx = {}
+    for lev in range(2, depth):
+        co = _coords(lev)
+        Cc = 2 ** (lev + 1)
+        ch = co[:, None, :] * 2 + _OCTS[None, :, :]   # [8^lev, 8, 3]
+        child_idx[lev] = ((ch[..., 0] * Cc + ch[..., 1]) * Cc
+                          + ch[..., 2]).astype(np.int32)
+    return ilist, total, offsets, child_idx
+
+
+def _neighbor_table(depth: int):
+    """[C3, 27] boundary-clipped neighbor cell ids + [C3, 27] first-
+    occurrence mask (clipped duplicates would double-count sources)."""
+    C = 2 ** depth
+    co = _coords(depth)
+    nb = np.clip(co[:, None, :] + _NBR_OFFSETS[None, :, :], 0, C - 1)
+    nid = ((nb[..., 0] * C + nb[..., 1]) * C + nb[..., 2])    # [C3, 27]
+    eq = nid[:, :, None] == nid[:, None, :]
+    uniq = ~np.any(eq & np.tril(np.ones((27, 27), dtype=bool), k=-1)[None],
+                   axis=2)
+    return nid.astype(np.int32), uniq
+
+
+#: the static geometry as tensors, by (depth, device): (neighbor ids, their
+#: first-occurrence mask, interaction lists, child indices by level)
+_geometry: dict = {}
+
+
+def _device_geometry(depth: int, device):
+    key = (depth, str(device))
+    if key not in _geometry:
+        nid, uniq = _neighbor_table(depth)
+        ilist, _, _, child_idx = _interaction_lists(depth)
+        _geometry[key] = (
+            torch.as_tensor(nid, dtype=torch.int64, device=device),
+            torch.as_tensor(uniq, device=device),
+            torch.as_tensor(ilist, dtype=torch.int64, device=device),
+            {lev: torch.as_tensor(c, dtype=torch.int64, device=device)
+             for lev, c in child_idx.items()})
+    return _geometry[key]
+
+
+# ------------------------------------------------- barycentric interpolation
+
+def _cheb_nodes_np(p: int) -> np.ndarray:
+    """Chebyshev points of the 2nd kind on [-1, 1] (endpoints included)."""
+    if p == 1:
+        return np.zeros(1)
+    return np.cos(np.pi * np.arange(p) / (p - 1))
+
+
+def _bary_w_np(p: int) -> np.ndarray:
+    """Barycentric weights for 2nd-kind Chebyshev points."""
+    w = np.ones(p) * np.where(np.arange(p) % 2 == 0, 1.0, -1.0)
+    w[0] *= 0.5
+    w[-1] *= 0.5
+    return w
+
+
+def _bary_1d(y, nodes, w):
+    """Barycentric Lagrange basis values L_k(y): [..., n] -> [..., n, p].
+    Near-node evaluations snap to the one-hot basis row (the raw formula
+    overflows in f32 for |y - t| ~ 1e-38, and padded lanes may sit exactly
+    on a node)."""
+    diff = y[..., None] - nodes
+    eps = torch.finfo(diff.dtype).eps
+    hit = torch.abs(diff) < 64.0 * eps
+    c = w / torch.where(hit, 1.0, diff)
+    L = c / torch.sum(c, dim=-1, keepdim=True)
+    any_hit = torch.any(hit, dim=-1, keepdim=True)
+    return torch.where(any_hit, hit.to(diff.dtype), L)
+
+
+def _bary_1d_np(y, p):
+    """NumPy mirror of `_bary_1d` for the transfer matrices."""
+    t = _cheb_nodes_np(p)
+    w = _bary_w_np(p)
+    diff = y[:, None] - t[None, :]
+    hit = np.abs(diff) < 1e-13
+    c = w[None, :] / np.where(hit, 1.0, diff)
+    L = c / c.sum(axis=1, keepdims=True)
+    return np.where(hit.any(axis=1, keepdims=True), hit.astype(float), L)
+
+
+@lru_cache(maxsize=None)
+def _transfer_np(p: int) -> np.ndarray:
+    """Child -> parent anterpolation transfer: U[oct, n, m] = parent basis
+    L_m at child proxy point n (octants ordered like `_OCTS`); the same
+    [8, p^3, p^3] matrix serves every level."""
+    t = _cheb_nodes_np(p)
+    U1 = {h: _bary_1d_np((t + (2 * h - 1)) / 2.0, p) for h in (0, 1)}
+    U = np.zeros((8, p ** 3, p ** 3))
+    for o, (hx, hy, hz) in enumerate(_OCTS):
+        U[o] = np.einsum("ax,by,cz->abcxyz", U1[hx], U1[hy], U1[hz]
+                         ).reshape(p ** 3, p ** 3)
+    return U
+
+
+@lru_cache(maxsize=None)
+def _nodes3_np(p: int) -> np.ndarray:
+    """[p^3, 3] tensor-product Chebyshev offsets (unit half-width)."""
+    t = _cheb_nodes_np(p)
+    return np.stack(np.meshgrid(t, t, t, indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+
+
+# --------------------------------------------------------------- device side
+
+#: elements of one anterpolation weight tile ([leaves, slots, p^3]); a few
+#: such temporaries are live at once (~1 GB in f64 at 32M)
+_ANTERP_BUDGET = 32_000_000
+
+
+def _cell_centers(plan: TreePlan, lo, level: int, dtype):
+    """[8^level, 3] cell centers at one level, from the anchor ``lo``."""
+    C = 2 ** level
+    cell = plan.box_L / C
+    idx = torch.arange(C ** 3, device=lo.device)
+    ix, rem = idx // (C * C), idx % (C * C)
+    iy, iz = rem // C, rem % C
+    ijk = torch.stack([ix, iy, iz], dim=-1).to(dtype)
+    return lo[None, :] + (ijk + 0.5) * cell
+
+
+def _leaf_ids(plan: TreePlan, lo, pts):
+    """Flat leaf index per point (boundary-clipped into the grid). The
+    offset is scaled by the reciprocal of the leaf size, as the JAX
+    package's compiled program does (XLA turns a division by a constant
+    into that product), so a point on a leaf boundary (the anchor sits on
+    the leaf lattice) lands in the same leaf in both."""
+    C = 2 ** plan.depth
+    cell = plan.box_L / C
+    ci = torch.clamp(((pts - lo) * (1.0 / cell)).to(torch.int64), 0, C - 1)
+    return (ci[:, 0] * C + ci[:, 1]) * C + ci[:, 2]
+
+
+def _bucket(plan: TreePlan, lo, centers, pts, payload):
+    """Sort sources into [n_leaves, max_occ] buckets, as the JAX package's
+    `_bucket`: a stable sort by leaf, the rank in a leaf clamped at
+    ``max_occ - 1``, padded lanes at their leaf's CENTER with zero payload.
+    Returns (points, payload, the sources a leaf, unclamped)."""
+    C3 = plan.n_leaves
+    mo = plan.max_occ
+    flat = _leaf_ids(plan, lo, pts)
+    order = torch.argsort(flat, stable=True)
+    flat_s = flat[order]
+    counts = torch.bincount(flat_s, minlength=C3)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(flat_s.shape[0], device=pts.device) - starts[flat_s]
+    rank = torch.clamp_max(rank, mo - 1)
+    slot = flat_s * mo + rank
+    bpts = torch.repeat_interleave(centers, mo, dim=0)
+    bpts[slot] = pts[order]
+    bpay = payload.new_zeros((C3 * mo,) + tuple(payload.shape[1:]))
+    bpay[slot] = payload[order]
+    return (bpts.reshape(C3, mo, 3),
+            bpay.reshape((C3, mo) + tuple(payload.shape[1:])), counts)
+
+
+def _upward(plan: TreePlan, lo, src_b, pay_b, counts, dtype):
+    """Leaf anterpolation + child -> parent transfers. Returns the flat
+    cross-level proxy arrays (levels 2..depth in `_interaction_lists`
+    order, plus one zero sentinel cell), positions [T + 1, p^3, 3] and
+    strengths [T + 1, p^3, C], and the sources below each of those cells
+    [T + 1].
+
+    A leaf's strengths are those of its occupied slots (its padded lanes
+    carry zero payload, as in the JAX package, whose sum over every slot
+    differs only in summation order); empty leaves get zero strengths
+    without a product. The occupied leaves go in order of occupancy,
+    chunked so a weight tile holds at most `_ANTERP_BUDGET` values."""
+    p = plan.order
+    p3 = p ** 3
+    C = pay_b.shape[-1]
+    dev = lo.device
+    mo = plan.max_occ
+    nodes1 = torch.as_tensor(_cheb_nodes_np(p), dtype=dtype, device=dev)
+    bw = torch.as_tensor(_bary_w_np(p), dtype=dtype, device=dev)
+    half_leaf = plan.leaf_size / 2.0
+    centers_leaf = _cell_centers(plan, lo, plan.depth, dtype)
+
+    occ = torch.clamp_max(counts, mo)
+    occ_np = occ.cpu().numpy()
+    leaves = np.flatnonzero(occ_np > 0)
+    leaves = leaves[np.argsort(-occ_np[leaves], kind="stable")]
+    fh = torch.zeros((plan.n_leaves, p3, C), dtype=dtype, device=dev)
+    i = 0
+    while i < len(leaves):
+        ms = int(occ_np[leaves[i]])
+        j = min(len(leaves), i + max(1, _ANTERP_BUDGET // (ms * p3)))
+        ids = torch.as_tensor(leaves[i:j], device=dev)
+        y = (src_b[ids, :ms] - centers_leaf[ids][:, None, :]) * (
+            1.0 / half_leaf)                              # as `_leaf_ids`
+        Lx = _bary_1d(y[..., 0], nodes1, bw)              # [B, ms, p]
+        Ly = _bary_1d(y[..., 1], nodes1, bw)
+        Lz = _bary_1d(y[..., 2], nodes1, bw)
+        W = (Lx[:, :, :, None, None] * Ly[:, :, None, :, None]
+             * Lz[:, :, None, None, :]).reshape(len(ids), ms, p3)
+        fh[ids] = torch.einsum("bcm,bck->bmk", W, pay_b[ids, :ms])
+        i = j
+
+    _, _, _, child_idx = _device_geometry(plan.depth, dev)
+    U = torch.as_tensor(_transfer_np(p), dtype=dtype, device=dev)
+    by_level = {plan.depth: fh}
+    n_below = {plan.depth: counts}
+    for lev in range(plan.depth - 1, 1, -1):
+        g = by_level[lev + 1][child_idx[lev]]             # [8^lev, 8, p3, C]
+        by_level[lev] = torch.einsum("onm,qonk->qmk", U, g)
+        n_below[lev] = n_below[lev + 1][child_idx[lev]].sum(dim=1)
+
+    nodes3 = torch.as_tensor(_nodes3_np(p), dtype=dtype, device=dev)
+    pts_parts, f_parts = [], []
+    for lev in range(2, plan.depth + 1):
+        half = plan.box_L / (2 ** lev) / 2.0
+        cen = _cell_centers(plan, lo, lev, dtype)
+        pts_parts.append(cen[:, None, :] + half * nodes3[None, :, :])
+        f_parts.append(by_level[lev])
+    proxy_pts = torch.cat(
+        pts_parts + [torch.zeros((1, p3, 3), dtype=dtype, device=dev)])
+    proxy_f = torch.cat(
+        f_parts + [torch.zeros((1, p3, C), dtype=dtype, device=dev)])
+    cell_n = torch.cat([n_below[lev] for lev in range(2, plan.depth + 1)]
+                       + [counts.new_zeros(1)])
+    return proxy_pts, proxy_f, cell_n
+
+
+def _segment_lists(plan: TreePlan, counts, cell_n, leaf_s, fields=("near",
+                                                                  "far")):
+    """The lists kernels G and H walk, for targets sorted by leaf
+    (``leaf_s``, their leaf ids) against one source array holding the
+    bucketed sources ([n_leaves max_occ] slots) and then the flat proxies
+    ([T + 1, p^3], `_upward`'s order).
+
+    Returns (items [n_items, 4] int64: first target, targets, first
+    segment, segments; segments [n_seg, 2] int64: first source, sources).
+    An item is one run of at most `cuda_kernels.TREE_ITEM_TARGETS`
+    targets of one leaf; the items of a leaf share its segments: near, its
+    27 neighbor leaves (a boundary-clipped duplicate once, the `uniq`
+    mask), each the bucket's occupied slots, and far, its interaction
+    list's cells, each its p^3 proxies. Segments that would add only exact
+    zeros are left out: empty buckets, cells with no source below them, and
+    the sentinel. ``fields`` picks near, far or both (the smoke times them
+    apart)."""
+    from .cuda_kernels import TREE_ITEM_TARGETS
+
+    dev = leaf_s.device
+    mo = plan.max_occ
+    p3 = plan.order ** 3
+    nid, uniq, ilist, _ = _device_geometry(plan.depth, dev)
+    leaves, n_t = torch.unique_consecutive(leaf_s, return_counts=True)
+    t_first = torch.cumsum(n_t, 0) - n_t
+
+    starts, lens = [], []
+    if "near" in fields:
+        ids = nid[leaves]                                   # [L, 27]
+        starts.append(ids * mo)
+        lens.append(torch.where(uniq[leaves],
+                                torch.clamp_max(counts[ids], mo), 0))
+    if "far" in fields:
+        cells = ilist[leaves]                               # [L, maxI]
+        starts.append(plan.n_leaves * mo + cells * p3)
+        lens.append(torch.where(cell_n[cells] > 0, p3, 0))
+    start = torch.cat(starts, dim=1)
+    length = torch.cat(lens, dim=1)
+    keep = length > 0
+    segs = torch.stack([start[keep], length[keep]], dim=1)
+    n_seg = keep.sum(dim=1)
+    g_first = torch.cumsum(n_seg, 0) - n_seg
+
+    per_leaf = -(-n_t // TREE_ITEM_TARGETS)
+    item_leaf = torch.repeat_interleave(
+        torch.arange(len(leaves), device=dev), per_leaf)
+    k = (torch.arange(item_leaf.shape[0], device=dev)
+         - (torch.cumsum(per_leaf, 0) - per_leaf)[item_leaf])
+    first = t_first[item_leaf] + k * TREE_ITEM_TARGETS
+    n_item = torch.clamp_max(n_t[item_leaf] - k * TREE_ITEM_TARGETS,
+                             TREE_ITEM_TARGETS)
+    items = torch.stack([first, n_item, g_first[item_leaf],
+                         n_seg[item_leaf]], dim=1)
+    return items.contiguous(), segs.contiguous()
+
+
+def tree_operands(plan: TreePlan, anchors, r_src, payload, r_trg,
+                  fields=("near", "far")):
+    """What one pass of kernel G / H takes, on a depth >= 2 plan, in
+    ``r_trg``'s dtype: (leaf-sorted targets, the source array [bucketed
+    slots | proxies] and its payload, items, segments (`_segment_lists`),
+    the targets' sort order, the sources a leaf). ``payload`` is [n, 3]
+    forces or [n, 9] stresslet components."""
+    dtype = r_trg.dtype
+    lo = anchors[0].to(dtype)
+    centers = _cell_centers(plan, lo, plan.depth, dtype)
+    src_b, pay_b, counts = _bucket(plan, lo, centers, r_src.to(dtype),
+                                   payload.to(dtype))
+    proxy_pts, proxy_f, cell_n = _upward(plan, lo, src_b, pay_b, counts,
+                                         dtype)
+    flat_t = _leaf_ids(plan, lo, r_trg)
+    order = torch.argsort(flat_t, stable=True)
+    items, segs = _segment_lists(plan, counts, cell_n, flat_t[order], fields)
+    C = payload.shape[-1]
+    src = torch.cat([src_b.reshape(-1, 3), proxy_pts.reshape(-1, 3)])
+    pay = torch.cat([pay_b.reshape(-1, C), proxy_f.reshape(-1, C)])
+    return r_trg[order], src, pay, items, segs, order, counts
+
+
+def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
+              eta):
+    """The scaled singular ``family`` sum ("stokeslet": payload [n, 3];
+    "stresslet": [n, 9]) on a depth >= 2 plan: bucket, upward pass, the
+    segment lists, then ONE pass of kernel G / H (their plain twin on the
+    CPU) over the leaf-sorted targets; returns [n_trg, 3] in caller order,
+    in ``r_trg``'s dtype."""
+    from . import cuda_kernels
+
+    trg, src, pay, items, segs, order, _ = tree_operands(
+        plan, anchors, r_src, payload, r_trg)
+    prec = "f32" if r_trg.dtype == torch.float32 else "f64"
+    kern = getattr(cuda_kernels, f"tree_{family}_{prec}")
+    u = kern(trg, src, pay, items, segs, eta)
+    out = torch.empty_like(u)
+    out[order] = u
+    return out
+
+
+# ------------------------------------------------------------------ the sums
+
+def stokeslet_impl(plan: TreePlan, anchors, r_src, r_trg, f_src,
+                   n_self: int, eta):
+    """Stokeslet sum on a depth >= 2 ``plan`` with its [1, 3] ``anchors``
+    (box_lo) at viscosity ``eta``. The tree needs no self correction
+    (coincident pairs drop in the near field), so ``n_self`` is unused."""
+    return _tree_sum("stokeslet", plan, anchors, r_src, f_src, r_trg, eta)
+
+
+def stresslet_impl(plan: TreePlan, anchors, r_dl, r_trg, f_dl, eta):
+    """Stresslet sum on a depth >= 2 ``plan`` (``f_dl`` [n, 3, 3])."""
+    return _tree_sum("stresslet", plan, anchors, r_dl, f_dl.reshape(-1, 9),
+                     r_trg, eta)
+
+
+def stokeslet_tree(plan: TreePlan, r_src, r_trg, f_src, eta):
+    """Singular Stokeslet sum via the treecode: the semantics of
+    `kernels.stokeslet_direct` (coincident pairs drop in the near field, so
+    no self term exists anywhere); ``depth == 0`` is the dense sum bit for
+    bit."""
+    from .evaluator import make_pair
+
+    return make_pair(plan, r_src.device).stokeslet(r_src, r_trg, f_src, 0,
+                                                   eta)
+
+
+def stresslet_tree(plan: TreePlan, r_dl, r_trg, f_dl, eta):
+    """Singular stresslet (double-layer) sum via the treecode, ``f_dl``
+    [n_src, 3, 3]. It carries one more derivative than the Stokeslet, so
+    its error runs a few x the Stokeslet-calibrated tol."""
+    from .evaluator import make_pair
+
+    return make_pair(plan, r_dl.device).stresslet(r_dl, r_trg, f_dl, eta)
+
+
+def oseen_tree(plan: TreePlan, r_src, r_trg, density, eta,
+               reg=kernels.DEFAULT_REG, epsilon_distance=kernels.DEFAULT_EPS):
+    """Regularized-Oseen contraction via the treecode (the semantics of
+    `kernels.oseen_contract`): the near lists through the regularized
+    Oseen pair, already 1/(8 pi eta)-scaled, and the far lists through the
+    plain Stokeslet (the regularization acts only within
+    ``epsilon_distance``, far below a cell), both by the plain twin's pair
+    expansion. No flow calls it, and no kernel serves it."""
+    from .cuda_kernels import _tree_pair_terms, _tree_plain_sum
+    from .evaluator import make_pair
+
+    if plan.depth == 0:
+        return kernels.oseen_contract(r_src, r_trg, density, eta, reg,
+                                      epsilon_distance)
+
+    def oseen_terms(d, q):
+        fr, gr = kernels._regularized_frgr(torch.sum(d * d, dim=-1), eta,
+                                           reg, epsilon_distance)
+        return fr[:, None] * q + (gr * torch.sum(d * q, dim=-1))[:, None] * d
+
+    anchors = make_pair(plan, r_src.device).anchors
+    u = 0.0
+    for field, terms, scale in (
+            ("near", oseen_terms, 1.0),
+            ("far", partial(_tree_pair_terms, "stokeslet"),
+             1.0 / (8.0 * math.pi) / eta)):
+        trg, src, pay, items, segs, order, _ = tree_operands(
+            plan, anchors, r_src, density, r_trg, fields=(field,))
+        u = u + _tree_plain_sum(terms, trg, src, pay, items, segs) * scale
+    out = torch.empty_like(u)
+    out[order] = u
+    return out

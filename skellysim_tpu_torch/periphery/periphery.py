@@ -192,9 +192,10 @@ def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact",
     here: `System._apply_matvec` evaluates this flow at fiber/body rows
     only, the self block living in the stored operator.
 
-    ``pair`` (an `ops.evaluator.PairEvaluator` whose Ewald or spectral
-    plan covers the shell nodes and the targets) sums the double layer
-    through its plan.
+    ``pair`` (an `ops.evaluator.PairEvaluator` whose Ewald, tree or
+    spectral plan covers the shell nodes and the targets) sums the double
+    layer through its plan (a depth-0 tree through the dense seam at
+    ``impl``).
     ``evaluator="ring"`` with a ``mesh`` rotates the shell's source blocks
     around the mesh (`parallel.ring`), the sources padded to a mesh
     multiple with far sentinel nodes (1e7) of zero density, as in the JAX
@@ -203,7 +204,7 @@ def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact",
     rho = density.reshape(-1, 3)
     f_dl = 2.0 * eta * shell.normals[:, :, None] * rho[:, None, :]
     if pair is not None:
-        return pair.stresslet(shell.nodes, r_trg, f_dl, eta)
+        return pair.stresslet(shell.nodes, r_trg, f_dl, eta, impl)
     if evaluator not in ("direct", "ring"):
         raise ValueError(f"pair evaluator {evaluator!r} needs a plan: pass "
                          "a PairEvaluator built by ops.evaluator.make_pair")

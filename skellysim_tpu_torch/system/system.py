@@ -5,10 +5,11 @@ confining periphery (shell), rigid bodies with attached fibers, and
 point/background sources, in any mix; with a mesh (`parallel.make_mesh`)
 the fiber and shell pair flows take the ring evaluator, sharded over the
 mesh's devices (`parallel.ring`); with ``pair_evaluator="ewald"`` (the
-reference's "FMM") or ``"spectral"`` (its "PVFMM", with a ``periodic_box``)
-a plan is built on the host each trial (`_pair_args`) and the flows sum
-through `ops.ewald` / `ops.spectral`, with the JAX package's role gating
-(the f64 prep flows and refinement residual of "mixed" stay dense in free
+reference's "FMM"), ``"tree"`` (the barycentric treecode) or ``"spectral"``
+(the reference's "PVFMM", with a ``periodic_box``) a plan is built on the
+host each trial (`_pair_args`) and the flows sum through `ops.ewald` /
+`ops.treecode` / `ops.spectral`, with the JAX package's role gating (the
+f64 prep flows and refinement residual of "mixed" stay dense in free
 space, and shells and bodies below ``ewald_min_sources`` nodes stay on the
 dense kernels). The JAX package traces each trial step into one jitted
 program; here the step runs eagerly on the device with the Krylov control
@@ -149,7 +150,15 @@ def _in_dtype(v: float, dtype) -> float:
 
 def _plan_summary(plan) -> str:
     """One line of a fast plan's shape (near mode, K, grid, window,
-    cells, capacity)."""
+    cells, capacity; a tree's depth, order, capacity and longest
+    interaction list)."""
+    if hasattr(plan, "depth"):
+        from ..ops.treecode import _interaction_lists
+
+        maxI = (_interaction_lists(plan.depth)[0].shape[1] if plan.depth
+                else 0)
+        return (f"depth={plan.depth} order={plan.order} "
+                f"max_occ={plan.max_occ} maxI={maxI}")
     if hasattr(plan, "near_mode"):
         return (f"near {plan.near_mode} K={plan.K} M={plan.M} P={plan.P} "
                 f"cells={plan.cells3} max_occ={plan.max_occ}")
@@ -178,8 +187,6 @@ class System:
             raise ValueError(
                 f"unknown pair_evaluator {p.pair_evaluator!r}; runtime "
                 f"values are {', '.join(map(repr, EVALUATORS))}")
-        if p.pair_evaluator == "tree":
-            raise _not_ported("pair_evaluator='tree' (the treecode)", "10")
         if p.pair_evaluator == "spectral":
             if len(p.periodic_box) not in (2, 3) or any(
                     L <= 0 for L in p.periodic_box):
@@ -187,7 +194,7 @@ class System:
                     "pair_evaluator='spectral' needs params.periodic_box — "
                     "(Lx, Ly, Lz) for a triply periodic box or (Lx, Ly) for "
                     f"a doubly periodic slab; got {p.periodic_box!r}. "
-                    "For free space use 'ewald'.")
+                    "For free space use 'ewald' or 'tree'.")
         elif p.periodic_box:
             raise ValueError(
                 f"params.periodic_box is set but pair_evaluator "
@@ -289,7 +296,7 @@ class System:
         if pair is not None:
             return fc.flow_multi(buckets, caches_list, r_trg, forces_list,
                                  self.params.eta, subtract_self=subtract_self,
-                                 pair=pair)
+                                 impl=impl, pair=pair)
         if not self._ring_active():
             return fc.flow_multi(buckets, caches_list, r_trg, forces_list,
                                  self.params.eta, subtract_self=subtract_self,
@@ -319,7 +326,7 @@ class System:
         if (pair is not None
                 and state.shell.n_nodes >= self.params.ewald_min_sources):
             return peri.flow(state.shell, r_trg, density, self.params.eta,
-                             pair=pair)
+                             impl=impl, pair=pair)
         if not self._ring_active():
             return peri.flow(state.shell, r_trg, density, self.params.eta,
                              impl=impl)
@@ -330,12 +337,12 @@ class System:
     @staticmethod
     def _refine_pair(pair):
         """The plan for the mixed solver's f64 flows (its prep flows and
-        refinement residual): none in free space, where they stay dense so
-        that ewald_tol caps neither the RHS nor residual_true, as in the
-        JAX package; a periodic plan is kept, since no dense sum holds the
-        periodic images. (The JAX package keeps those flows dense under
-        "spectral" too, and its refinement then converges to the
-        free-space operator: ROADMAP.md §3.)"""
+        refinement residual): none in free space ("ewald", "tree"), where
+        they stay dense so that ewald_tol / tree_tol caps neither the RHS
+        nor residual_true, as in the JAX package; a periodic plan is kept,
+        since no dense sum holds the periodic images. (The JAX package
+        keeps those flows dense under "spectral" too, and its refinement
+        then converges to the free-space operator: ROADMAP.md §3.)"""
         if pair is not None and pair.evaluator == "spectral":
             return pair
         return None
@@ -874,6 +881,15 @@ class System:
                           tol=self.params.ewald_tol, n_fill=n_fill,
                           n_src=n_src)
 
+    def make_tree_plan(self, state: SimState):
+        """Host-side treecode plan over the `_plan_points` cloud
+        (`ops.treecode.plan_tree` at ``params.tree_tol``, inactive fiber
+        slots reserved as fill capacity)."""
+        from ..ops.treecode import plan_tree
+
+        pts, n_fill, _ = self._plan_points(state)
+        return plan_tree(pts, tol=self.params.tree_tol, n_fill=n_fill)
+
     def make_spectral_plan(self, state: SimState):
         """Host-side spectral Ewald plan over the `_plan_points` cloud for
         ``params.periodic_box`` (`ops.spectral.plan_spectral` at
@@ -892,10 +908,10 @@ class System:
         solve. A plan that cannot be built raises; nothing falls back to
         the dense sum."""
         ev = self.params.pair_evaluator
-        if ev not in ("ewald", "spectral"):
+        if ev not in ("ewald", "tree", "spectral"):
             return None
-        maker = (self.make_ewald_plan if ev == "ewald"
-                 else self.make_spectral_plan)
+        maker = {"ewald": self.make_ewald_plan, "tree": self.make_tree_plan,
+                 "spectral": self.make_spectral_plan}[ev]
         return make_pair(maker(state), self.device)
 
     def step(self, state: SimState):

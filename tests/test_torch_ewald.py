@@ -151,7 +151,7 @@ def test_f32_operands_against_dense():
 def test_pair_evaluator_seam():
     """`make_pair` keeps the plan and puts its anchors on the device; its
     sums are the module's at another viscosity; a plan type the port does
-    not know (the treecode's) raises TypeError."""
+    not know raises TypeError."""
     pts, f = _cloud(200, 31)
     plan = tew.plan_ewald(pts, eta=1.0, tol=1e-5)
     pair = tev.make_pair(plan, "cpu")

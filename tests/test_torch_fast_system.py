@@ -9,14 +9,18 @@ plans), solutions equal to 1e-10 of their largest entry:
   (two thirds inactive, re-spread onto the plan's fill positions);
 * fibers bound to a body inside a small shell, ``ewald_min_sources = 0``
   so the shell's and the body's double layers take the Ewald stresslet;
-* free fibers in a triply periodic box under "spectral".
+* free fibers in a triply periodic box under "spectral";
+* free fibers under "tree" (a depth-2 treecode), in "full" and in
+  "mixed" (positions to 1e-10), and the coupled shell-and-body scene with
+  its double layers through the tree stresslet.
 
 Then a "mixed" step under a coarse Ewald tolerance refines to gmres_tol
 (the f64 residual stays dense) and agrees with the JAX package's to 1e-8;
 a "mixed" step under "spectral" refines on the periodic operator (the
 port's own, held to its "full" step: the JAX package's dense residual is
 the free-space one); and a config that says ``pair_evaluator = "FMM"`` runs through the port's
-CLI and the JAX package's to the same frames.
+CLI and the JAX package's to the same frames, as does one that says
+``pair_evaluator = "tree"``.
 """
 
 import dataclasses
@@ -82,7 +86,7 @@ def _port(jsys, jstate, shape=None):
 
 
 def _same_plan(jsys, jstate, tsys, tstate):
-    make = {"ewald": "make_ewald_plan",
+    make = {"ewald": "make_ewald_plan", "tree": "make_tree_plan",
             "spectral": "make_spectral_plan"}[jsys.params.pair_evaluator]
     jp = getattr(jsys, make)(jstate)
     tp = getattr(tsys, make)(tstate)
@@ -141,14 +145,25 @@ def test_inactive_padding_is_spread_and_matches_jax():
 def test_shell_and_body_double_layers_through_ewald_match_jax():
     """ewald_min_sources = 0: the shell's and the body's double layers
     (matvec and Gauss-Seidel correction) take the Ewald stresslet."""
+    _shell_and_body_step("ewald")
+
+
+def test_shell_and_body_double_layers_through_tree_match_jax():
+    """The same through the tree stresslet, with a 150-node shell and a
+    60-node body (274 nodes: a depth-2 tree)."""
+    _shell_and_body_step("tree", shell_n=150, body_n=60)
+
+
+def _shell_and_body_step(evaluator, shell_n=60, body_n=40):
     from skellysim_tpu.bodies.bodies import BodyGroup as JBodies
     from skellysim_tpu.fibers.container import FiberGroup as JFibers
     from skellysim_tpu.periphery import periphery as jperi
 
     shell, shape, bodies, fibers = ttesting.make_coupled_scene(
-        shell_n=60, body_n=40, n_bound=2, n_free=2)
+        shell_n=shell_n, body_n=body_n, n_bound=2, n_free=2)
     params = JParams(**dict(_BASE, dt_initial=0.02, gmres_tol=1e-11,
-                            ewald_tol=1e-4, ewald_min_sources=0))
+                            ewald_tol=1e-4, ewald_min_sources=0,
+                            pair_evaluator=evaluator, tree_tol=1e-3))
     jshape = jperi.PeripheryShape(kind=shape.kind, radius=shape.radius)
     jsys = JSystem(params, shell_shape=jshape)
 
@@ -159,12 +174,14 @@ def test_shell_and_body_double_layers_through_ewald_match_jax():
     jstate = jsys.make_state(fibers=jleaves(fibers, JFibers),
                              shell=jleaves(shell, jperi.PeripheryState),
                              bodies=jleaves(bodies, JBodies))
-    _, tsys, tstate, _, _ = _step_both(jsys, jstate, jshape)
+    plan, tsys, tstate, _, _ = _step_both(jsys, jstate, jshape)
+    if evaluator == "tree":
+        assert plan.depth == 2
     # the shell's flow really took the plan: it differs from the dense sum
     # by about the plan's tolerance, not by nothing
     pair = tsys._pair_args(tstate)
     r = tstate.fibers.x.reshape(-1, 3)
-    d = torch.tensor(np.random.default_rng(3).standard_normal(3 * 60))
+    d = torch.tensor(np.random.default_rng(3).standard_normal(3 * shell_n))
     fast = tsys._shell_flow(tstate, r, d, pair=pair)
     dense = tsys._shell_flow(tstate, r, d)
     rel = float((fast - dense).norm() / dense.norm())
@@ -181,6 +198,37 @@ def test_periodic_fibers_spectral_step_matches_jax():
         background=JBackground.make(uniform=(1.0, 0.0, 0.0)))
     plan = _step_both(jsys, jstate)[0]
     assert plan.mode == "tp"
+
+
+@pytest.mark.parametrize("precision", ["full", "mixed"])
+def test_fibers_tree_step_matches_jax(precision):
+    """20 arcs of 16 nodes (a depth-2 tree at tree_tol 1e-3) through
+    "tree": the "full" f64 step and the "mixed" one (its f32 Krylov
+    interior through the tree, its f64 prep flows and residual dense)
+    land on the JAX package's fibers to 1e-10; "mixed" refines to
+    gmres_tol."""
+    params = JParams(**dict(_BASE, pair_evaluator="tree", tree_tol=1e-3,
+                            solver_precision=precision, kernel_impl="pallas",
+                            refine_pair_impl="exact"))
+    jsys = JSystem(params)
+    jstate = jsys.make_state(fibers=_fibers(n_fib=20, seed=11),
+                             background=JBackground.make(uniform=(1., 0, 0)))
+    tsys, tstate = _port(jsys, jstate)
+    plan = _same_plan(jsys, jstate, tsys, tstate)
+    assert plan.depth == 2
+    assert tsys._precision_for(tstate) == precision
+    jnew, jsol, jinfo = jsys.step(jstate)
+    tnew, tsol, tinfo = tsys.step(tstate)
+    assert tinfo.converged and bool(jinfo.converged)
+    assert tinfo.residual_true <= 1e-10
+    if precision == "mixed":
+        assert tinfo.refines >= 1
+    else:
+        jsol = np.asarray(jsol)
+        np.testing.assert_allclose(tsol.numpy(), jsol, rtol=0,
+                                   atol=1e-10 * np.abs(jsol).max())
+    np.testing.assert_allclose(tnew.fibers.x.numpy(),
+                               np.asarray(jnew.fibers.x), rtol=0, atol=1e-10)
 
 
 def test_mixed_ewald_step_refines_to_gmres_tol():
@@ -266,6 +314,16 @@ def test_straight_fibers_leave_the_solve_uncoupled():
 def test_cli_runs_fmm_config_like_jax(tmp_path):
     """A TOML that names the reference's "FMM" evaluator runs through the
     port's CLI (on the CPU) and the JAX package's to the same frames."""
+    _cli_like_jax(tmp_path, "FMM", 6)
+
+
+def test_cli_runs_tree_config_like_jax(tmp_path):
+    """The same for ``pair_evaluator = "tree"`` (a depth-2 treecode at 20
+    x 16 nodes)."""
+    _cli_like_jax(tmp_path, "tree", 20)
+
+
+def _cli_like_jax(tmp_path, evaluator, n_fib):
     from skellysim_tpu import cli as jcli
     from skellysim_tpu.io.trajectory import TrajectoryReader
 
@@ -277,9 +335,10 @@ def test_cli_runs_fmm_config_like_jax(tmp_path):
     cfg.params.dt_initial = cfg.params.dt_max = cfg.params.dt_write = 0.01
     cfg.params.t_final = 0.02
     cfg.params.gmres_tol = 1e-11
-    cfg.params.pair_evaluator = "FMM"
+    cfg.params.pair_evaluator = evaluator
     cfg.params.ewald_tol = 1e-7
-    for _ in range(6):
+    cfg.params.tree_tol = 1e-3
+    for _ in range(n_fib):
         fib = Fiber(length=1.0, bending_rigidity=2.5e-3, force_scale=-0.05,
                     n_nodes=16)
         d = rng.normal(size=3)

@@ -860,6 +860,87 @@ def test_ring_refuses_an_unbuilt_r_or_grid(cuda, monkeypatch):
         assert rc != 0, (grid, r)
 
 
+def _tree_cloud(kind, seed=0):
+    """A treecode scene on the host: "boundary", fiber segments of a 4-box
+    with many nodes on leaf boundaries and in the boundary leaves (clipped
+    neighbor ids), and "gap", two clusters with empty leaves between them
+    and 40 targets piled into one leaf (more than one item there)."""
+    rng = np.random.default_rng(seed)
+    if kind == "boundary":
+        o = rng.uniform(-2, 2, (120, 3))
+        d = rng.normal(size=(120, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        src = (o[:, None] + np.linspace(0, 1, 24)[None, :, None]
+               * d[:, None]).reshape(-1, 3)
+        src[::5, 0] = 0.0
+        trg = src
+    else:
+        src = np.concatenate([rng.uniform(-3, -2, (1500, 3)),
+                              rng.uniform(2, 3, (1500, 3))])
+        trg = np.concatenate([src, np.full((40, 3), 2.9)
+                              + 1e-4 * rng.standard_normal((40, 3))])
+    return src, trg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["boundary", "gap"])
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_tree_kernel_matches_plain_twin(cuda, family, prec, kind):
+    """Kernels G / H against their plain twin on the card, on the same
+    lists (`ops.treecode.tree_operands` at depth 3): 1e-5 of the largest
+    velocity in f32, 1e-12 in f64; one launch counted; two launches give
+    the same bits; every target written."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+    from skellysim_tpu_torch.ops import evaluator as ev
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    src, trg = _tree_cloud(kind)
+    plan = ttc.plan_tree(np.vstack([src, trg]), tol=1e-4)
+    assert plan.depth == 3
+    cols = 3 if family == "stokeslet" else 9
+    dt = torch.float32 if prec == "f32" else torch.float64
+    pay = np.random.default_rng(1).standard_normal((len(src), cols))
+    ops = ttc.tree_operands(plan, ev.make_pair(plan, cuda).anchors,
+                            *(torch.as_tensor(a, dtype=dt, device=cuda)
+                              for a in (src, pay, trg)))
+    t_s, sa, pa, items, segs, _, counts = ops
+    assert int(counts.max()) <= plan.max_occ
+    if kind == "gap":
+        assert int((counts == 0).sum()) > 0
+        assert int(items[:, 1].min()) < ck.TREE_ITEM_TARGETS
+    kern = getattr(ck, f"tree_{family}_{prec}")
+    n0 = kern.launches
+    got = kern(t_s, sa, pa, items, segs, 0.9)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(kern(t_s, sa, pa, items, segs, 0.9), got)
+    ref = getattr(ck, f"tree_{family}_f64_plain")(
+        t_s.double(), sa.double(), pa.double(), items, segs, 0.9)
+    assert _rel_err(got, ref) < (1e-5 if prec == "f32" else 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_tree_sum_card_matches_cpu(cuda, family):
+    """`stokeslet_tree` / `stresslet_tree` in f64 on the card (kernel G /
+    H) and on the CPU (the plain twin) agree to 1e-12."""
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    src, trg = _tree_cloud("boundary", seed=3)
+    plan = ttc.plan_tree(src, tol=1e-4)
+    assert plan.depth >= 2
+    rng = np.random.default_rng(2)
+    pay = (rng.standard_normal((len(src), 3)) if family == "stokeslet"
+           else rng.standard_normal((len(src), 3, 3)))
+    fn = getattr(ttc, f"{family}_tree")
+    out = {dev: fn(plan, *(torch.as_tensor(a, device=dev)
+                           for a in (src, trg, pay)), 1.1).cpu()
+           for dev in (cuda, "cpu")}
+    assert _rel_err(out[cuda], out["cpu"]) < 1e-12
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -508,7 +508,6 @@ def test_move_fibers_to_surface_same_seed_same_fibers(kind):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(pair_evaluator="tree"), "10"),
     (dict(gmres_block_s=2), "3"),
     (dict(guard_dt_halvings=1), "13"),
     (dict(flight_window=4), "13"),

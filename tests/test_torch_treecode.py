@@ -1,0 +1,292 @@
+"""The port's treecode (`skellysim_tpu_torch.ops.treecode`) and its pair
+pass (kernels G / H's plain twin) against the JAX package's treecode.
+
+* `plan_tree` gives the JAX package's plan field for field (a uniform
+  cloud, a fiber cloud, a depth-0 cloud, fill capacity), and the static
+  geometry (`_interaction_lists`, `_neighbor_table`, `_transfer_np`) equal
+  arrays;
+* `_bucket` gives the same buckets bit for bit and `_upward` the same
+  proxies to 1e-13;
+* on the same plan, in f64, `stokeslet_tree`, `stresslet_tree` and
+  `oseen_tree` agree with the JAX package's to 1e-12 relative, with the
+  sources as targets, with disjoint targets and on a fiber cloud with
+  boundary leaves; a depth-0 plan is the port's dense sum bit for bit;
+* the plain twin of G / H over the segment lists equals the JAX package's
+  row form (its `_tree_eval`, compiled as its sums compile it), and the
+  lists cover every target once, skip empty buckets and cells, and count a
+  clipped neighbor once.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from skellysim_tpu.ops import treecode as jtc
+from skellysim_tpu_torch.ops import cuda_kernels as ck
+from skellysim_tpu_torch.ops import evaluator as tev
+from skellysim_tpu_torch.ops import kernels as tk
+from skellysim_tpu_torch.ops import treecode as ttc
+
+
+def _uniform_cloud(n, seed=3, box=1.5):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-box, box, (n, 3)), rng.standard_normal((n, 3))
+
+
+def _fiber_cloud(n_fib, n_nodes, seed=7, box=2.0):
+    """Line-clustered nodes (the fiber geometry the evaluator serves):
+    many leaves empty, many targets in boundary leaves."""
+    rng = np.random.default_rng(seed)
+    origins = rng.uniform(-box, box, (n_fib, 3))
+    dirs = rng.normal(size=(n_fib, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    t = np.linspace(0, 1.0, n_nodes)
+    pts = origins[:, None, :] + t[None, :, None] * dirs[:, None, :]
+    return pts.reshape(-1, 3), rng.standard_normal((n_fib * n_nodes, 3))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _plans(pts, **kw):
+    jp = jtc.plan_tree(pts, **kw)
+    tp = ttc.plan_tree(pts, **kw)
+    assert tp.__dict__ == jp.__dict__
+    return jp, tp
+
+
+@pytest.mark.parametrize("cloud,kw,depth", [
+    ("uniform", dict(tol=1e-4), 3),
+    ("uniform", dict(tol=1e-3, target_occ=4.0, max_depth=4), 4),
+    ("fibers", dict(tol=1e-5), 2),
+    ("small", dict(tol=1e-4), 0),
+    ("uniform", dict(tol=1e-6, n_fill=900), 3),
+])
+def test_plan_equals_jax(cloud, kw, depth):
+    pts = {"uniform": lambda: _uniform_cloud(3000)[0],
+           "fibers": lambda: _fiber_cloud(40, 16)[0],
+           "small": lambda: _uniform_cloud(150)[0]}[cloud]()
+    jp, tp = _plans(pts, **kw)
+    assert tp.depth == depth
+    for tol in (1e-2, 1e-4, 1e-6, 1e-12):
+        assert ttc.order_for_tol(tol) == jtc.order_for_tol(tol)
+    pair = tev.make_pair(tp, "cpu")
+    assert pair.evaluator == "tree"
+    np.testing.assert_array_equal(pair.anchors.numpy(),
+                                  np.asarray(jtc.plan_anchors(jp)))
+    if kw.get("n_fill"):
+        tf = pair.fill_positions(kw["n_fill"], torch.float64)
+        jf = jtc.fill_positions(jp, jtc.plan_anchors(jp)[0], kw["n_fill"],
+                                jnp.float64)
+        np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=0,
+                                   atol=1e-14)
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_static_geometry_equals_jax(depth):
+    ji, jtotal, joff, jchild = jtc._interaction_lists(depth)
+    ti, ttotal, toff, tchild = ttc._interaction_lists(depth)
+    np.testing.assert_array_equal(ti, ji)
+    assert (ttotal, toff) == (jtotal, joff)
+    assert tchild.keys() == jchild.keys()
+    for lev in jchild:
+        np.testing.assert_array_equal(tchild[lev], jchild[lev])
+    for a, b in zip(ttc._neighbor_table(depth), jtc._neighbor_table(depth)):
+        np.testing.assert_array_equal(a, b)
+    for p in (3, 5, 6):
+        np.testing.assert_array_equal(ttc._transfer_np(p),
+                                      jtc._transfer_np(p))
+        np.testing.assert_array_equal(ttc._nodes3_np(p), jtc._nodes3_np(p))
+
+
+def test_bucket_and_upward_match_jax():
+    """The same buckets bit for bit (stable sort, padded lanes at the
+    leaf's center with zero payload) and the same proxies to 1e-13, against
+    the JAX package's functions compiled as its sums compile them (XLA
+    turns their division by the leaf size into a product with its
+    reciprocal, which the port repeats)."""
+    pts, f = _fiber_cloud(60, 20, seed=5)
+    pts[::7, 1] = 0.0          # on a leaf boundary (the anchor's lattice)
+    plan = ttc.plan_tree(pts, tol=1e-3)
+    assert plan.depth == 2
+    assert any(abs(a / plan.leaf_size - round(a / plan.leaf_size)) < 1e-12
+               for a in plan.box_lo)
+    lo_t = tev.make_pair(plan, "cpu").anchors[0]
+    lo_j = jtc.plan_anchors(plan)[0]
+    cen_t = ttc._cell_centers(plan, lo_t, plan.depth, torch.float64)
+    cen_j = jtc._cell_centers(plan, lo_j, plan.depth, jnp.float64)
+    np.testing.assert_array_equal(cen_t.numpy(), np.asarray(cen_j))
+    tb, tpay, counts = ttc._bucket(plan, lo_t, cen_t, torch.tensor(pts),
+                                   torch.tensor(f))
+    jb, jpay = jax.jit(jtc._bucket, static_argnums=0)(
+        plan, lo_j, cen_j, jnp.asarray(pts), jnp.asarray(f))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tpay.numpy(), np.asarray(jpay))
+    assert int(counts.sum()) == len(pts)
+    tpp, tpf, cell_n = ttc._upward(plan, lo_t, tb, tpay, counts,
+                                   torch.float64)
+    jpp, jpf = jax.jit(jtc._upward, static_argnums=(0, 4))(
+        plan, lo_j, jb, jpay, jnp.float64)
+    np.testing.assert_allclose(tpp.numpy(), np.asarray(jpp), rtol=0,
+                               atol=1e-14)
+    assert _rel(tpf.numpy(), jpf) < 1e-13
+    # a cell with no source below it has exactly zero proxies
+    empty = (cell_n == 0).numpy()
+    assert empty.any() and not np.abs(tpf.numpy()[empty]).any()
+
+
+def _sum_both(family, plan, src, trg, pay, eta):
+    P, T, Q = (torch.tensor(a) for a in (src, trg, pay))
+    jP, jT, jQ = (jnp.asarray(a) for a in (src, trg, pay))
+    if family == "stokeslet":
+        return (ttc.stokeslet_tree(plan, P, T, Q, eta).numpy(),
+                jtc.stokeslet_tree(plan, jP, jT, jQ, eta))
+    if family == "stresslet":
+        return (ttc.stresslet_tree(plan, P, T, Q, eta).numpy(),
+                jtc.stresslet_tree(plan, jP, jT, jQ, eta))
+    return (ttc.oseen_tree(plan, P, T, Q, eta).numpy(),
+            jtc.oseen_tree(plan, jP, jT, jQ, eta))
+
+
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet", "oseen"])
+@pytest.mark.parametrize("scene", ["self", "disjoint", "fibers"])
+def test_sums_match_jax(family, scene):
+    """The port's sums equal the JAX package's to 1e-12 in f64 on the same
+    plan: the sources as targets (depth 2), probes off the cloud
+    (disjoint targets) and a fiber cloud at depth 3 (empty leaves,
+    boundary leaves, clipped neighbors)."""
+    if scene == "fibers":
+        src, f = _fiber_cloud(100, 24, seed=19)
+        trg = src
+        plan = ttc.plan_tree(src, tol=1e-3, target_occ=8.0)
+        assert plan.depth == 3
+    else:
+        src, f = _uniform_cloud(1200, seed=13)
+        trg = src
+        if scene == "disjoint":
+            trg = np.random.default_rng(17).uniform(-1.6, 1.6, (300, 3))
+        plan = ttc.plan_tree(src if trg is src else np.vstack([src, trg]),
+                             tol=1e-3)
+        assert plan.depth == 2
+    pay = f
+    if family == "stresslet":
+        pay = np.random.default_rng(8).standard_normal((len(src), 3, 3))
+    u, ju = _sum_both(family, plan, src, trg, pay, 1.3)
+    assert _rel(u, ju) < 1e-12
+
+
+def test_depth0_is_the_dense_sum_bit_for_bit():
+    pts, f = _uniform_cloud(150, seed=11)
+    plan = ttc.plan_tree(pts, tol=1e-4)
+    assert plan.depth == 0
+    P, F = torch.tensor(pts), torch.tensor(f)
+    S = torch.tensor(np.random.default_rng(2).standard_normal((150, 3, 3)))
+    assert torch.equal(ttc.stokeslet_tree(plan, P, P, F, 1.3),
+                       tk.stokeslet_direct(P, P, F, 1.3))
+    assert torch.equal(ttc.stresslet_tree(plan, P, P, S, 1.3),
+                       tk.stresslet_direct(P, P, S, 1.3))
+    assert torch.equal(ttc.oseen_tree(plan, P, P, F, 1.3),
+                       tk.oseen_contract(P, P, F, 1.3))
+    pair = tev.make_pair(plan, "cpu")
+    assert torch.equal(pair.stokeslet(P, P, F, 150, 1.3),
+                       tk.stokeslet_direct(P, P, F, 1.3))
+
+
+def _lists(plan, src, trg, pay, fields=("near", "far")):
+    """`ops.treecode.tree_operands` and the proxy cells' source counts."""
+    anchors = tev.make_pair(plan, "cpu").anchors
+    ops = ttc.tree_operands(plan, anchors, src, pay, trg, fields)
+    lo = anchors[0]
+    cen = ttc._cell_centers(plan, lo, plan.depth, torch.float64)
+    sb, pb, counts = ttc._bucket(plan, lo, cen, src, pay)
+    cell_n = ttc._upward(plan, lo, sb, pb, counts, torch.float64)[2]
+    return ops + (cell_n,)
+
+
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_plain_twin_on_segments_equals_row_form(family):
+    """G's / H's plain twin over the segment lists equals the JAX
+    package's row form (`_stokeslet_tree_impl` / `_stresslet_tree_impl`,
+    its `_tree_eval`) to 1e-13, in f64 and (to 1e-5) in f32; the near and
+    far lists apart add up to the whole."""
+    src, f = _fiber_cloud(40, 20, seed=23)
+    trg = np.vstack([src, np.random.default_rng(4).uniform(-2, 2, (200, 3))])
+    plan = ttc.plan_tree(np.vstack([src, trg]), tol=1e-3)
+    assert plan.depth == 2
+    C = 3 if family == "stokeslet" else 9
+    pay = np.random.default_rng(6).standard_normal((len(src), C))
+    P, T, Q = (torch.tensor(a) for a in (src, trg, pay))
+    jimpl = {"stokeslet": jtc._stokeslet_tree_impl,
+             "stresslet": jtc._stresslet_tree_impl}[family]
+    jpay = pay if family == "stokeslet" else pay.reshape(-1, 3, 3)
+    ref = np.asarray(jimpl(jtc.strip_anchors(plan), jtc.plan_anchors(plan),
+                           jnp.asarray(src), jnp.asarray(trg),
+                           jnp.asarray(jpay), 0.7))
+    trg_s, sa, pa, items, segs, order, _, _ = _lists(plan, P, T, Q)
+    plain = {prec: getattr(ck, f"tree_{family}_{prec}_plain")
+             for prec in ("f32", "f64")}
+    u = torch.empty(len(trg), 3, dtype=torch.float64)
+    u[order] = plain["f64"](trg_s, sa, pa, items, segs, 0.7)
+    assert _rel(u.numpy(), ref) < 1e-13
+    # the wrapper on CPU tensors is the plain twin
+    wrapper = getattr(ck, f"tree_{family}_f64")
+    assert torch.equal(wrapper(trg_s, sa, pa, items, segs, 0.7),
+                       plain["f64"](trg_s, sa, pa, items, segs, 0.7))
+    u32 = torch.empty(len(trg), 3, dtype=torch.float32)
+    u32[order] = plain["f32"](trg_s.float(), sa.float(), pa.float(), items,
+                              segs, 0.7)
+    assert _rel(u32.numpy(), ref) < 1e-5
+    parts = [plain["f64"](*_lists(plan, P, T, Q, (field,))[:5], 0.7)
+             for field in ("near", "far")]
+    u_parts = torch.empty(len(trg), 3, dtype=torch.float64)
+    u_parts[order] = parts[0] + parts[1]
+    assert _rel(u_parts.numpy(), ref) < 1e-13
+
+
+def test_segment_lists_cover_targets_and_skip_zeros():
+    """Every target lies in exactly one item of at most TREE_ITEM_TARGETS
+    targets of one leaf; near segments are occupied buckets counted once
+    (a clipped boundary neighbor is not repeated), far segments whole
+    proxy cells with a source below them, never the sentinel; the lists
+    hold the pairs the row form's non-zero terms need."""
+    src, f = _fiber_cloud(30, 16, seed=2, box=1.0)
+    # a target cluster in one corner leaf: more than one item there
+    trg = np.vstack([src, np.full((70, 3), -0.95)
+                     + 1e-3 * np.arange(70)[:, None]])
+    plan = ttc.plan_tree(np.vstack([src, trg]), tol=1e-2)
+    assert plan.depth == 2
+    P, T, F = (torch.tensor(a) for a in (src, trg, f))
+    trg_s, sa, pa, items, segs, order, counts, cell_n = _lists(plan, P, T, F)
+    it = items.numpy()
+    assert it[:, 1].max() <= ck.TREE_ITEM_TARGETS and it[:, 1].min() >= 1
+    covered = np.concatenate([np.arange(a, a + n) for a, n, _, _ in it])
+    np.testing.assert_array_equal(covered, np.arange(len(trg)))
+    lo = tev.make_pair(plan, "cpu").anchors[0]
+    leaf = ttc._leaf_ids(plan, lo, trg_s).numpy()
+    for a, n, _, _ in it:
+        assert len(set(leaf[a:a + n])) == 1
+    assert len({tuple(r[2:]) for r in it}) < len(it)  # a leaf's items share
+    sg = segs.numpy()
+    mo, p3 = plan.max_occ, plan.order ** 3
+    n_real = plan.n_leaves * mo
+    assert (sg[:, 1] > 0).all()
+    near = sg[:, 0] < n_real
+    assert (sg[near, 0] % mo == 0).all()
+    np.testing.assert_array_equal(
+        sg[near, 1], np.minimum(counts.numpy()[sg[near, 0] // mo], mo))
+    far_cell = (sg[~near, 0] - n_real) // p3
+    assert (sg[~near, 1] == p3).all() and (cell_n.numpy()[far_cell] > 0).all()
+    _, total, _, _ = ttc._interaction_lists(plan.depth)
+    assert (far_cell < total).all()
+    nid, uniq = ttc._neighbor_table(plan.depth)
+    for a, n, g0, ng in it:
+        ids = sg[g0:g0 + ng, 0][sg[g0:g0 + ng, 0] < n_real] // mo
+        assert len(set(ids)) == len(ids)
+        want = {i for i, u in zip(nid[leaf[a]], uniq[leaf[a]])
+                if u and counts[i] > 0}
+        assert set(ids) == want
