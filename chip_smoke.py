@@ -167,12 +167,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                order, max_occ, maxI), the entry sum against kernel B on
                every row by the JAX tests' field-normalized error (gates
                plan.tol in f64, max(plan.tol, 1e-5) in f32), its stages
-               timed apart with CUDA events (bucket, upward, lists, G on
-               the near lists alone, the far lists alone and both), the
-               real near and far pairs and the lane pairs issued, G's rate
+               timed apart with CUDA events (one sum with the step's
+               geometry kept and one with a fresh evaluator, gated equal
+               bit for bit; the geometry alone; the payload's bucket
+               scatter and upward pass; G on the near lists alone, the
+               far lists alone and both), the real near and far pairs and
+               the lane pairs issued (and the first design's), G's rate
                beside kernel A's / B's phase-3 times; gated on no leaf
                holding more than max_occ sources and on two launches bit
-               for bit.
+               for bit. At tol 1e-4, G timed in turns with its first
+               design `tree_*_v1` over its own items (old, new, new, old)
+               and held within the twin's gate of it.
                b. the tree stresslet (H) at phase 6's shape (8,000 shell
                nodes onto 136,000 nodes) at tol 1e-4, the same way,
                against kernel D (gate 10 x plan.tol: the double layer
@@ -180,17 +185,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                and D's times.
                c. G and H against their plain twin on the card, on a cut
                of whole target leaves of a's and b's lists (1e-5 of the
-               largest velocity in f32, 1e-12 in f64); their hot loop's
-               SASS and issue-slot bound.
+               largest velocity in f32, 1e-12 in f64); both designs' hot
+               loop SASS, issue-slot bounds (real pairs and lane pairs),
+               registers, shared bytes and spills.
                d. phase 6's ellipsoid config through "tree", one CLI step
                on its precompute in "mixed" (the card's "auto": G and H in
                f32, A and C 0 launches, B and D the f64 prep flows and
                refinement) and in "full" (G and H in f64), each gated
-               like 11c on the fibers within 1e-5 of phase 6's first step.
+               like 11c on the fibers within 1e-5 of phase 6's first step;
+               the "mixed" one then profiled like phase 6's step (a second
+               step of a built system, under torch.profiler; it gates
+               nothing). At tol 1e-4 G / H are also timed on each target-
+               lane class's items alone.
                e. the 10k recipe's fibers bent into arcs (curvature 0.5),
                free space, through "tree" at full width in "mixed", one
                CLI step gated on its own result (accepted, true residual
                <= 1e-8, health 0, 2 or more iterations; A 0 launches).
+               f. (run before e) the small coupled scene through "tree"
+               (its shell and body too): one matvec's f32 pair flows
+               once, to build the step's geometry, then again under
+               torch.cuda.set_sync_debug_mode("error"), gated on no host
+               sync, the same bits and G and H launching.
                It prints {"treecode": {...}} before the kernels line.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
@@ -203,9 +218,10 @@ the plan; A's and B's, under "at_ellipsoid_shape" and
 "at_body_shape", their phase-9 checks; A-D, under
 "at_ellipsoid_di_shapes", their phase-10 checks (one a shape, with the
 calls at that shape); G's and H's (tree_stokeslet_f32 / _f64,
-tree_stresslet_f32 / _f64) their phase-12 time, work, bound and SASS at
-12a's (tol 1e-4) and 12b's shapes, with the error against their plain
-twin and the twin's time on 12c's cut; E's and F's the same fields against
+tree_stresslet_f32 / _f64) their phase-12 time (in turns with their first
+design, "previous_ms"), work, lane-busy share, bound, SASS, registers,
+shared bytes and spills at 12a's (tol 1e-4) and 12b's shapes, with the
+error against their plain twin and the twin's time on 12c's cut; E's and F's the same fields against
 their `_v1` first design, and their plan; B's, D's, E's and F's, under
 "at_ring_run_shape", the same check and time at the shapes of the ring run
 (E and F: where their "launches" were counted; B and D: one hop).
@@ -908,17 +924,19 @@ def phase_confined(torch, ck, cuda_build, device, work, args, card):
     return entries, counts, ring_inputs, checks
 
 
-def profile_step(torch, device, cfg_path, run_dir):
-    """One direct step of the ellipsoid config under `torch.profiler`, for
-    attribution only (nothing here gates the run): the system is built
-    again from phase 6's precompute (`build_simulation`), takes one step
-    unprofiled, then one profiled; prints the device kernels with the most
-    CUDA time and the device-busy share of the profiled step's wall (the
-    device events' summed time over it; one stream, so they do not
-    overlap)."""
+def profile_step(torch, device, cfg_path, run_dir, evaluator="direct",
+                 tag="profile"):
+    """One step of the ellipsoid config through ``evaluator`` under
+    `torch.profiler`, for attribution only (nothing here gates the run):
+    the system is built again from phase 6's precompute
+    (`build_simulation`), takes one step unprofiled, then one profiled;
+    prints the device kernels with the most CUDA time and the device-busy
+    share of the profiled step's wall (the device events' summed time over
+    it; one stream, so they do not overlap). Returns (the profiled step's
+    wall, the busy seconds) or None on the CPU."""
     if device.type != "cuda":
-        log("[profile] not measured (CPU rehearsal)")
-        return
+        log(f"[{tag}] not measured (CPU rehearsal)")
+        return None
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -926,6 +944,8 @@ def profile_step(torch, device, cfg_path, run_dir):
     from skellysim_tpu_torch.config import schema
 
     config = schema.load_config(cfg_path)
+    config.params.pair_evaluator = evaluator
+    config.params.t_final = 2 * config.params.dt_initial  # the two steps
     system, state, _ = build_simulation(config, config_dir=run_dir,
                                         device=device)
     state = system.run(state, max_steps=1)
@@ -946,14 +966,16 @@ def profile_step(torch, device, cfg_path, run_dir):
                       if e.device_type == DeviceType.CUDA),
                      key=device_us, reverse=True)
     busy = sum(device_us(e) for e in kernels) / 1e6
-    log(f"[profile] one direct ellipsoid step under torch.profiler: wall "
-        f"{wall:.3f} s (the profiler's own cost included), device busy "
-        f"{busy:.3f} s ({100 * busy / wall:.1f}% of the wall), "
-        f"{len(kernels)} device kernels by name")
+    log(f"[{tag}] one {evaluator} ellipsoid step under torch.profiler "
+        f"(the second of the process's steps): wall {wall:.3f} s (the "
+        f"profiler's own cost included), device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}% of the wall), {len(kernels)} device "
+        f"kernels by name")
     for e in kernels[:12]:
-        log(f"[profile]   {device_us(e) / 1e3:9.3f} ms in {e.count:5d} calls "
+        log(f"[{tag}]   {device_us(e) / 1e3:9.3f} ms in {e.count:5d} calls "
             f"({100 * device_us(e) / 1e6 / wall:5.1f}% of the wall): "
             f"{e.key[:110]}")
+    return wall, busy
 
 
 def family_check(torch, ck, device, family, src, trg, pay, precs, card,
@@ -2389,15 +2411,16 @@ TREE_REPLACES = ("no Pallas counterpart: skellysim_tpu/ops/treecode.py:555 "
                  "(_tree_eval's near_rows / far_rows, plain XLA)")
 
 
-def tree_work(torch, ck, items, segs):
-    """(real pairs, lane pairs issued: a whole warp a segment source, the
-    segments' sources summed) of one pass of kernel G / H over its
+def tree_work(torch, ck, items, segs, v1=False):
+    """(real pairs, lane pairs issued: each item's target slots
+    (`cuda_kernels.tree_item_slots`: 2 T; ``v1``, the first design's, 32)
+    times its segments' sources) of one pass of kernel G / H over its
     lists."""
     seg_len = segs[:, 1]
     cum = torch.cat([seg_len.new_zeros(1), torch.cumsum(seg_len, 0)])
     per = cum[items[:, 2] + items[:, 3]] - cum[items[:, 2]]
     return (int((items[:, 1] * per).sum()),
-            int((ck.TREE_ITEM_TARGETS * per).sum()))
+            int((ck.tree_item_slots(items, v1) * per).sum()))
 
 
 def _field_rel(torch, u, ref):
@@ -2407,53 +2430,89 @@ def _field_rel(torch, u, ref):
                  / torch.linalg.vector_norm(ref, dim=1).max())
 
 
-def tree_stages(torch, ck, device, family, plan, src, pay, trg):
+def _tensor_bytes(obj, seen=None):
+    """Bytes of the distinct tensor storages reachable from ``obj``
+    (a dataclass, dict, tuple or list of them)."""
+    import dataclasses
+
+    import torch
+
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        key = obj.untyped_storage().data_ptr()
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.untyped_storage().nbytes()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    elif isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_tensor_bytes(o, seen) for o in obj)
+    return 0
+
+
+def tree_stages(torch, ck, device, family, plan, src, pay, trg, turns):
     """One tree sum at viscosity 1 through the entry (`PairEvaluator
     .stokeslet` / `.stresslet`, what every flow calls), and its stages
-    timed apart by `staged_ms`: bucket, upward pass, segment lists, kernel
-    G / H on the near lists alone, on the far lists alone, and on both (the
-    sum's one launch). Returns (the entry's sum, {stage: ms}, the pass's
+    timed apart by `staged_ms`: the sum as a step's evaluator serves a
+    matvec ("sum", its geometry kept from the first call) and as a fresh
+    one does ("sum_cold": geometry, payload part and pass, as every call
+    was before the geometry was kept; the same bits), the geometry alone
+    (`tree_geometry`), then the payload part's stages: the buckets'
+    scatter, the upward pass (anterpolation product and transfers), kernel
+    G / H on the near lists alone, on the far lists alone and on both (the
+    sum's one launch). With ``turns`` the pass is timed against the first
+    design (`tree_*_v1` over its own items) in turns, old, new, new, old,
+    each `kernel_ms`. Returns (the entry's sum, {stage: ms}, the pass's
     work, the lists' operands, the sources a leaf at most, the two staged
-    launches bit for bit)."""
+    launches bit for bit, the first design's record or None)."""
     from skellysim_tpu_torch.ops import evaluator as ev
     from skellysim_tpu_torch.ops import treecode as ttc
 
     dt = trg.dtype
     prec = "f32" if dt == torch.float32 else "f64"
-    pair = ev.make_pair(plan, device)
     C = pay.shape[1]
-    if family == "stokeslet":
-        def entry():
-            return pair.stokeslet(src, trg, pay, 0, 1.0)
-    else:
-        def entry():
-            return pair.stresslet(src, trg, pay.reshape(-1, 3, 3), 1.0)
+    pay_e = pay if family == "stokeslet" else pay.reshape(-1, 3, 3)
+
+    def entry(pair):
+        if family == "stokeslet":
+            return pair.stokeslet(src, trg, pay_e, 0, 1.0)
+        return pair.stresslet(src, trg, pay_e, 1.0)
+
     times = {}
-    times["sum"], u, _ = staged_ms(torch, entry, device)
-    lo = pair.anchors[0].to(dt)
-    cen = ttc._cell_centers(plan, lo, plan.depth, dt)
-    times["bucket"], (sb, pb, counts), _ = staged_ms(
-        torch, lambda: ttc._bucket(plan, lo, cen, src, pay), device)
-    times["upward"], (pp, pf, cell_n), _ = staged_ms(
-        torch, lambda: ttc._upward(plan, lo, sb, pb, counts, dt), device)
-
-    def lists(fields):
-        leaf = ttc._leaf_ids(plan, lo, trg)
-        order = torch.argsort(leaf, stable=True)
-        return (order,) + ttc._segment_lists(plan, counts, cell_n,
-                                             leaf[order], fields)
-
-    times["lists"], (order, items, segs), _ = staged_ms(
-        torch, lambda: lists(("near", "far")), device)
-    sa = torch.cat([sb.reshape(-1, 3), pp.reshape(-1, 3)])
-    pa = torch.cat([pb.reshape(-1, C), pf.reshape(-1, C)])
-    n_proxies = int((cell_n[:-1] > 0).sum()) * plan.order ** 3
-    del sb, pb, pp, pf
-    trg_s = trg[order]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times["sum_cold"], cold, _ = staged_ms(
+        torch, lambda: entry(ev.make_pair(plan, device)), device)
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device.type == "cuda" else None)
+    pair = ev.make_pair(plan, device)
+    times["sum"], u, _ = staged_ms(torch, lambda: entry(pair), device)
+    if not torch.equal(u, cold):
+        raise SystemExit(f"tree {family} {prec}: the sum over a kept "
+                         "geometry is not the fresh build's bit for bit")
+    geometry_gib = _tensor_bytes(pair.geometry) / 2**30
+    del cold
+    pair.geometry.clear()
+    times["geometry"], geom, _ = staged_ms(
+        torch, lambda: ttc.tree_geometry(plan, pair.anchors, src, trg),
+        device)
+    times["bucket"], pay_b, _ = staged_ms(
+        torch, lambda: ttc._bucket_payload(plan, geom.src_order, geom.slot,
+                                           pay), device)
+    times["upward"], proxy_f, _ = staged_ms(
+        torch, lambda: ttc._upward_payload(geom.up, pay_b), device)
+    pa = torch.cat([pay_b.reshape(-1, C), proxy_f.reshape(-1, C)])
+    del pay_b, proxy_f
+    trg_s, sa, items, segs = geom.trg, geom.src, geom.items, geom.segs
+    leaf = ttc._leaf_ids(plan, pair.anchors[0].to(dt), trg_s)
     kern = getattr(ck, f"tree_{family}_{prec}")
     work = {}
     for field in ("near", "far"):
-        _, it, sg = lists((field,))
+        it, sg = ttc._segment_lists(plan, geom.counts, geom.cell_n, leaf,
+                                    (field,))
         times[field], _, _ = staged_ms(
             torch, lambda: kern(trg_s, sa, pa, it, sg, 1.0), device)
         work[field] = tree_work(torch, ck, it, sg)
@@ -2462,17 +2521,86 @@ def tree_stages(torch, ck, device, family, plan, src, pay, trg):
         torch, lambda: kern(trg_s, sa, pa, items, segs, 1.0), device)
     same = bool(torch.equal(first, last))
     staged = torch.empty_like(first)
-    staged[order] = first
+    staged[geom.trg_order] = first
     if not torch.equal(staged, u):
         raise SystemExit(f"tree {family} {prec}: the staged launch is not "
                          "the entry's sum bit for bit")
-    del first, last, staged
+    del staged, last
     work["pairs"], work["lane_pairs"] = tree_work(torch, ck, items, segs)
-    work.update({"items": int(items.shape[0]), "segments": int(segs.shape[0]),
+    items_v1, _ = ttc._segment_lists(plan, geom.counts, geom.cell_n, leaf,
+                                     v1=True)
+    work["lane_pairs_v1"] = tree_work(torch, ck, items_v1, segs, True)[1]
+    work.update({"items": int(items.shape[0]),
+                 "items_v1": int(items_v1.shape[0]),
+                 "segments": int(segs.shape[0]),
                  "n_src": int(src.shape[0]), "n_trg": int(trg.shape[0]),
-                 "proxies": n_proxies})
+                 "proxies": int((geom.cell_n[:-1] > 0).sum())
+                 * plan.order ** 3,
+                 "geometry_gib": geometry_gib, "peak_gib": peak})
+    v1 = None
+    if turns:
+        old = getattr(ck, f"tree_{family}_{prec}_v1")
+        rec = {"old": [], "new": []}
+        for label, fn in (
+                ("old", lambda: old(trg_s, sa, pa, items_v1, segs, 1.0)),
+                ("new", lambda: kern(trg_s, sa, pa, items, segs, 1.0)),
+                ("new", lambda: kern(trg_s, sa, pa, items, segs, 1.0)),
+                ("old", lambda: old(trg_s, sa, pa, items_v1, segs, 1.0))):
+            ms, out, rounds = kernel_ms(torch, fn, device)
+            rec[label].append({"ms": ms, "rounds": rounds,
+                               "card_state": card_state(device)})
+            if label == "old":
+                prev = out
+            del out
+        diff = (float((prev.double() - first.double()).abs().max())
+                / float(first.double().abs().max()))
+        del prev
+        v1 = {"ms": sum(x["ms"] for x in rec["old"]) / 2,
+              "ms_turns": rec["old"], "new_ms_turns": rec["new"],
+              "new_ms": sum(x["ms"] for x in rec["new"]) / 2,
+              "max_rel_diff": diff,
+              "by_lanes": tree_lane_classes(torch, ck, device, kern,
+                                            (trg_s, sa, pa), items, segs)}
+        log(f"[treecode] {kern.__name__} in turns with its first design "
+            f"{old.__name__} (old, new, new, old; each "
+            f"{rounds_note(rec['new'][0]['rounds'])}): new "
+            + ", ".join(f"{x['ms']:.3f}" for x in rec["new"]) + " ms, old "
+            + ", ".join(f"{x['ms']:.3f}" for x in rec["old"])
+            + f" ms ({v1['ms'] / v1['new_ms']:.3f}x); max |new - old| "
+            f"{diff:.3e} of the largest velocity; lane pairs busy "
+            f"{work['pairs'] / work['lane_pairs']:.3f} ({work['items']} "
+            f"items) against {work['pairs'] / work['lane_pairs_v1']:.3f} "
+            f"({work['items_v1']} items); {card_state(device)}")
+    del first
     ops = (trg_s, sa, pa, items, segs)
-    return u, times, work, ops, int(counts.max()), same
+    return u, times, work, ops, int(geom.counts.max()), same, v1
+
+
+def tree_lane_classes(torch, ck, device, kern, ops, items, segs):
+    """Kernel G / H on the items of each target-lane class T alone
+    (`cuda_kernels.tree_item_lanes`): items, lane pairs, the real share
+    and the lane pairs a second, each `staged_ms`. Returns {T: record}."""
+    seg_len = segs[:, 1]
+    cum = torch.cat([seg_len.new_zeros(1), torch.cumsum(seg_len, 0)])
+    per = cum[items[:, 2] + items[:, 3]] - cum[items[:, 2]]
+    lanes = ck.tree_item_lanes(items[:, 1])
+    out = {}
+    for T in (4, 8, 16, 32):
+        pick = lanes == T
+        it = items[pick].contiguous()
+        if it.shape[0] == 0:
+            continue
+        lane_pairs = int((2 * T * per[pick]).sum())
+        ms = staged_ms(torch, lambda: kern(*ops, it, segs, 1.0), device)[0]
+        out[T] = {"items": int(it.shape[0]), "lane_pairs": lane_pairs,
+                  "busy": int((it[:, 1] * per[pick]).sum()) / lane_pairs,
+                  "ms": ms, "lane_pairs_s": lane_pairs / ms * 1e3}
+    log(f"[treecode] {kern.__name__} by target lanes T (items of that class "
+        "alone): " + "; ".join(
+            f"T = {T}: {r['items']} items, {r['lane_pairs']:.3e} lane pairs "
+            f"({r['busy']:.3f} busy), {r['ms']:.3f} ms, "
+            f"{r['lane_pairs_s']:.3e} lane pairs/s" for T, r in out.items()))
+    return out
 
 
 def tree_bound_ms(family, work, itemsize, peak):
@@ -2541,34 +2669,37 @@ def tree_sums(torch, ck, device, family, plan, src, pay, trg, ref, gate,
     """Phase 12a / b at one plan: the f32 and f64 sums by stage
     (`tree_stages`), each against the dense f64-grade kernel's ``ref`` by
     the field-normalized error, gated at ``gate(prec)``, and (at System's
-    tolerance) against its plain twin on a cut (`tree_twin_check`).
-    Returns {prec: record} and {prec: the lists' operands}."""
+    tolerance) G / H against their plain twin on a cut
+    (`tree_twin_check`) and timed in turns with their first design (the
+    two within the twin's gate of each other). Returns {prec: record}."""
     out = {}
+    at_tol = plan.tol == TREE_TOLS[0]
     for prec, dt in (("f32", torch.float32), ("f64", torch.float64)):
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        u, times, work, ops, occ, same = tree_stages(
+        u, times, work, ops, occ, same, v1 = tree_stages(
             torch, ck, device, family, plan, src.to(dt), pay.to(dt),
-            trg.to(dt))
-        peak = (torch.cuda.max_memory_allocated() / 2**30
-                if device.type == "cuda" else None)
+            trg.to(dt), at_tol)
         err = _field_rel(torch, u, ref)
         g = gate(prec)
         rate = work["pairs"] / times["kernel"] * 1e3
+        peak = work["peak_gib"]
         log(f"[treecode] {tag} {prec} at tol {plan.tol:g}: field-normalized "
             f"err against the dense sum {err:.3e} (gate {g:g}); one sum "
-            f"{times['sum']:.1f} ms through the entry: bucket "
-            f"{times['bucket']:.1f}, upward {times['upward']:.1f}, lists "
-            f"{times['lists']:.1f}, kernel {times['kernel']:.1f} (near alone "
-            f"{times['near']:.1f}, far alone {times['far']:.1f}) ms (each the "
-            f"median of {KERNEL_ROUNDS} after a warm-up); pairs near "
+            f"{times['sum']:.1f} ms through the entry with the step's "
+            f"geometry kept ({times['sum_cold']:.1f} ms with a fresh "
+            f"evaluator: the geometry {times['geometry']:.1f} ms, kept in "
+            f"{work['geometry_gib']:.2f} GiB); the sum's stages: bucket "
+            f"{times['bucket']:.1f}, upward {times['upward']:.1f}, kernel "
+            f"{times['kernel']:.1f} (near alone {times['near']:.1f}, far "
+            f"alone {times['far']:.1f}) ms (each the median of "
+            f"{KERNEL_ROUNDS} after a warm-up); pairs near "
             f"{work['near'][0]:.3e}, far {work['far'][0]:.3e}, all "
             f"{work['pairs']:.3e} ({work['pairs'] / work['lane_pairs']:.3f} "
-            f"of the {work['lane_pairs']:.3e} lane pairs issued), "
+            f"of the {work['lane_pairs']:.3e} lane pairs issued; the first "
+            f"design's {work['pairs'] / work['lane_pairs_v1']:.3f}), "
             f"{work['items']} items, {work['segments']} segments; kernel "
             f"rate {rate:.3e} pairs/s; fullest leaf {occ} of max_occ "
             f"{plan.max_occ}; two launches "
-            f"{'bit for bit' if same else 'differ'}; peak "
+            f"{'bit for bit' if same else 'differ'}; peak of a fresh sum "
             f"{'not measured' if peak is None else f'{peak:.2f} GiB'}; "
             f"{card_state(device)}")
         if occ > plan.max_occ:
@@ -2583,9 +2714,14 @@ def tree_sums(torch, ck, device, family, plan, src, pay, trg, ref, gate,
                      "work": work, "rate_pairs_s": rate,
                      "fullest_leaf": occ, "peak_gib": peak,
                      "card_state": card_state(device)}
-        if plan.tol == TREE_TOLS[0]:
-            out[prec]["twin"] = tree_twin_check(torch, ck, device, family,
-                                                prec, ops)
+        if at_tol:
+            twin = tree_twin_check(torch, ck, device, family, prec, ops)
+            out[prec]["twin"] = twin
+            out[prec]["v1"] = v1
+            if not v1["max_rel_diff"] <= twin["tolerance"]:
+                raise SystemExit(f"{tag} {prec}: the redesign is "
+                                 f"{v1['max_rel_diff']:.3e} off its first "
+                                 "design")
         del u, ops
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -2673,12 +2809,34 @@ def tree_stresslet_at_shell(torch, ck, device, fiber_nodes, shell_nodes,
     return rec
 
 
+def ptxas_spills(report, pattern):
+    """Spill bytes (stores + loads) of the one kernel whose mangled name
+    matches, from a `-Xptxas -v` report."""
+    spills, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current:
+            spills[current] = int(m.group(1)) + int(m.group(2))
+    names = [k for k in spills if re.search(pattern, k)]
+    if len(names) != 1:
+        raise SystemExit(f"ptxas: {len(names)} kernels match {pattern!r}: "
+                         f"{names}")
+    return spills[names[0]]
+
+
 def tree_entries(torch, ck, cuda_build, device, at_10k, at_shell, card):
-    """The kernels line's entries of G and H (f32, f64): time, work and
-    bound at the phase-12a (G, System's tol) and 12b (H) shapes, the check
-    against the plain twin on a cut (12c), the hot loop's SASS and the
-    issue-slot bound it gives at the SM clock read after the timed
-    launches."""
+    """The kernels line's entries of G and H (f32, f64): time (in turns
+    with their first design), work, lane-busy share and bound at the
+    phase-12a (G, System's tol) and 12b (H) shapes, the check against the
+    plain twin on a cut (12c), both designs' hot-loop SASS, the issue-slot
+    bounds they give at the SM clock read after the timed launches (on the
+    real pairs and on the lane pairs each issues), registers, shared bytes
+    and spills."""
     on_card = device.type == "cuda"
     sass, sms = {}, None
     if on_card:
@@ -2691,11 +2849,11 @@ def tree_entries(torch, ck, cuda_build, device, at_10k, at_shell, card):
                         ("stresslet", at_shell)):
         for prec in ("f32", "f64"):
             r = rec[prec]
-            work, twin = r["work"], r["twin"]
+            work, twin, v1 = r["work"], r["twin"], r["v1"]
             peak = PEAK_FP32 if prec == "f32" else PEAK_FP64
             b_ms, b_by = tree_bound_ms(family, work,
                                        4 if prec == "f32" else 8, peak)
-            ms = r["stages_ms"]["kernel"]
+            ms = v1["new_ms"]
             name = f"tree_{family}_{prec}"
             entry = {"name": name, "route": "cuda",
                      "source": f"skellysim_tpu_torch/csrc/{ck.TREE_SOURCE}.cu",
@@ -2703,55 +2861,175 @@ def tree_entries(torch, ck, cuda_build, device, at_10k, at_shell, card):
                      "max_abs_err": twin["max_abs_err"],
                      "max_rel_err": twin["max_rel_err"],
                      "tolerance": twin["tolerance"], "ms": ms,
+                     "ms_turns": v1["new_ms_turns"],
                      "plain_ms": twin["plain_ms"],
                      "plain_ms_shape": "the cut of whole target leaves "
                                        "(ms_at_cut is the kernel's there)",
                      "ms_at_cut": twin["ms_at_cut"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
+                     "previous_ms": v1["ms"],
+                     "previous_ms_turns": v1["ms_turns"],
+                     "previous_source": f"skellysim_tpu_torch/csrc/"
+                                        f"{ck.TREE_SOURCE}.cu ({name}_v1)",
+                     "max_rel_diff_vs_previous": v1["max_rel_diff"],
                      "shape": [work["n_src"], work["n_trg"]],
                      "plan": {k: rec[k] for k in ("depth", "order",
                                                   "max_occ", "maxI")},
                      "pairs": work["pairs"], "lane_pairs": work["lane_pairs"],
+                     "lane_busy": work["pairs"] / work["lane_pairs"],
+                     "previous_lane_pairs": work["lane_pairs_v1"],
+                     "previous_lane_busy": work["pairs"]
+                     / work["lane_pairs_v1"],
+                     "items": work["items"], "previous_items":
+                         work["items_v1"],
                      "near_pairs": work["near"][0],
                      "far_pairs": work["far"][0],
                      "field_rel_err_vs_dense": r["field_rel_err"],
                      "stages_ms": r["stages_ms"]}
             if on_card:
-                mhz = float(re.search(r"SM clock (\d+)",
-                                      r["card_state"]).group(1))
+                mhz = float(re.search(r"SM clock (\d+)", v1["new_ms_turns"][
+                    -1]["card_state"]).group(1))
                 c = "f" if prec == "f32" else "d"
-                pattern = rf"tree_kernelI{c}Li{SOURCE_WORDS[family] - 3}E"
-                per, fp64, per_pass = _sass_loop(sass, pattern)
-                regs, smem = ptxas_usage(report, pattern)
+                kind = rf"I{c}Li{SOURCE_WORDS[family] - 3}E"
+                per, fp64, per_pass = _sass_loop(sass, rf"tree_kernel{kind}")
+                o_per, o_fp64, _ = _sass_loop(sass,
+                                              rf"tree_v1_kernel{kind}")
+                regs, smem = ptxas_usage(report, rf"tree_kernel{kind}")
+                o_regs, o_smem = ptxas_usage(report, rf"tree_v1_kernel{kind}")
+                dyn = ck.tree_shared_bytes(family, prec)
 
-                def issue(pairs):
-                    b = issue_bound_ms(per, pairs, sms, mhz, 128)
+                def issue(per_pair, fp64_per_pair, pairs):
+                    b = issue_bound_ms(per_pair, pairs, sms, mhz, 128)
                     if prec == "f64":
-                        b = max(b, issue_bound_ms(fp64, pairs, sms, mhz, 64))
+                        b = max(b, issue_bound_ms(fp64_per_pair, pairs, sms,
+                                                  mhz, 64))
                     return b
 
-                entry.update({"registers": regs, "shared_bytes": smem,
-                              "sass_per_pair": per,
-                              "sass_fp64_per_pair": fp64,
-                              "sass_pairs_a_pass": per_pass,
-                              "issue_bound_ms": issue(work["pairs"]),
-                              "issue_bound_lane_pairs_ms":
-                                  issue(work["lane_pairs"]),
-                              "sm_clock_mhz": mhz})
-                log(f"[treecode] {name}: SASS hot loop {per:.3f} "
-                    f"instructions a pair ({fp64:.3f} FP64; {per_pass} pairs "
-                    f"a pass); issue-slot bound {entry['issue_bound_ms']:.3f}"
-                    f" ms on the real pairs, "
-                    f"{entry['issue_bound_lane_pairs_ms']:.3f} ms on the lane "
-                    f"pairs issued; kernel {ms:.3f} ms at "
-                    f"{100 * entry['issue_bound_ms'] / ms:.1f}% of the "
-                    f"first; flop bound {b_ms:.3f} ms ({b_by}, "
-                    f"{100 * b_ms / ms:.1f}%); {regs} registers, {smem} bytes "
-                    f"shared; this card: {card}")
+                entry.update({
+                    "registers": regs, "shared_bytes": smem + dyn,
+                    "spill_bytes": ptxas_spills(report,
+                                                rf"tree_kernel{kind}"),
+                    "previous_registers": o_regs,
+                    "previous_shared_bytes": o_smem,
+                    "previous_spill_bytes": ptxas_spills(
+                        report, rf"tree_v1_kernel{kind}"),
+                    "sass_per_pair": per, "sass_fp64_per_pair": fp64,
+                    "sass_pairs_a_pass": per_pass,
+                    "previous_sass_per_pair": o_per,
+                    "previous_sass_fp64_per_pair": o_fp64,
+                    "issue_bound_ms": issue(per, fp64, work["pairs"]),
+                    "issue_bound_lane_pairs_ms":
+                        issue(per, fp64, work["lane_pairs"]),
+                    "previous_issue_bound_ms":
+                        issue(o_per, o_fp64, work["pairs"]),
+                    "previous_issue_bound_lane_pairs_ms":
+                        issue(o_per, o_fp64, work["lane_pairs_v1"]),
+                    "sm_clock_mhz": mhz})
+                log(f"[treecode] {name}: {ms:.3f} ms against its first "
+                    f"design's {v1['ms']:.3f} ms ({v1['ms'] / ms:.3f}x); "
+                    f"SASS hot loop {per:.3f} instructions a pair "
+                    f"({fp64:.3f} FP64; {per_pass} pairs a pass), the first "
+                    f"design's {o_per:.3f} ({o_fp64:.3f} FP64); issue-slot "
+                    f"bound {entry['issue_bound_ms']:.3f} ms on the real "
+                    f"pairs ({100 * entry['issue_bound_ms'] / ms:.1f}%), "
+                    f"{entry['issue_bound_lane_pairs_ms']:.3f} ms on its "
+                    f"lane pairs "
+                    f"({100 * entry['issue_bound_lane_pairs_ms'] / ms:.1f}%;"
+                    f" busy {entry['lane_busy']:.3f}); the first design's "
+                    f"{entry['previous_issue_bound_ms']:.3f} / "
+                    f"{entry['previous_issue_bound_lane_pairs_ms']:.3f} ms "
+                    f"(busy {entry['previous_lane_busy']:.3f}); flop bound "
+                    f"{b_ms:.3f} ms ({b_by}, {100 * b_ms / ms:.1f}%); "
+                    f"{regs} registers, {smem} + {dyn} dynamic bytes shared, "
+                    f"{entry['spill_bytes']} bytes spilled (the first "
+                    f"design's {o_regs}, {o_smem}, "
+                    f"{entry['previous_spill_bytes']}); {sms} SMs at "
+                    f"{mhz:.0f} MHz; this card: {card}")
             entries.append(entry)
     log("[treecode] no single PyTorch call computes the treecode's pair "
         "pass: library_ms is null")
     return entries
+
+
+def tree_sync_check(torch, ck, device):
+    """Phase 12f: one "tree" matvec's pair flows (the fiber, shell and
+    body flows of `System._apply_matvec`'s f32 view in "mixed") on the
+    small coupled scene (`testing.make_coupled_scene`, its shell and body
+    through the tree: ewald_min_sources 50), run once to build the step's
+    geometry, then again under `torch.cuda.set_sync_debug_mode("error")`,
+    where a host sync raises; gated on the same bits both times and on G
+    and H launching. Returns its record."""
+    import numpy as np
+
+    from skellysim_tpu_torch.bodies import bodies as bd
+    from skellysim_tpu_torch.params import Params
+    from skellysim_tpu_torch.system import System
+    from skellysim_tpu_torch.system.system import body_buckets
+    from skellysim_tpu_torch.testing import make_coupled_scene
+
+    p = Params(dt_initial=0.02, solver_precision="mixed",
+               pair_evaluator="tree", ewald_min_sources=50)
+    shell, shape, bodies, fibers = make_coupled_scene(shell_n=400,
+                                                      body_n=100,
+                                                      device=device)
+    system = System(p, shell_shape=shape, device=device)
+    state = system.make_state(fibers=fibers, shell=shell, bodies=bodies)
+    pair = system._pair_args(state)
+    state, caches, body_caches, _, _ = system._prep(state, pair=pair)
+    lo_state, lo_caches, lo_bcaches = system._lo_view(state, caches,
+                                                      body_caches)
+    r_all = system._node_positions(lo_state, lo_bcaches)
+    nf, ns, _ = system._counts(state)
+    r_fb = torch.cat([r_all[:nf], r_all[nf + ns:]])
+    rng = np.random.default_rng(5)
+    forces = [torch.as_tensor(rng.standard_normal(tuple(c.xs.shape)),
+                              dtype=torch.float32, device=device)
+              for c in lo_caches]
+    density = torch.as_tensor(rng.standard_normal(3 * ns),
+                              dtype=torch.float32, device=device)
+    groups = body_buckets(lo_state.bodies)
+    x_b = [torch.as_tensor(rng.standard_normal((g.n_bodies, 3 * g.n_nodes)),
+                           dtype=torch.float32, device=device)
+           for g in groups]
+    ft = [torch.zeros((g.n_bodies, 6), dtype=torch.float32, device=device)
+          for g in groups]
+
+    def flows():
+        out = [system._fiber_flow(lo_state, lo_caches, r_all, forces,
+                                  pair=pair),
+               system._shell_flow(lo_state, r_fb, density, pair=pair)]
+        for g, bc, xb, f in zip(groups, lo_bcaches, x_b, ft):
+            out.append(bd.flow(g, bc, r_all, xb, f, p.eta,
+                               pair=system._body_pair(g, pair)))
+        return out
+
+    first = flows()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reset_counts(ck)
+    if device.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = flows()
+    finally:
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    counts = read_counts(ck)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"[tree_sync] the coupled scene's f32 pair flows through \"tree\" "
+        f"(depth {pair.plan.depth}, {len(pair.geometry)} geometries kept): "
+        f"again under torch.cuda.set_sync_debug_mode(\"error\"): no host "
+        f"sync{'' if device.type == 'cuda' else ' (not checked: CPU)'}; "
+        f"same bits {same}; launches G f32 {counts['tree_stokeslet_f32']}, "
+        f"H f32 {counts['tree_stresslet_f32']}")
+    if pair.plan.depth < 2 or not same:
+        raise SystemExit("tree sync check: the scene is no tree, or the "
+                         "flows changed bits")
+    if device.type == "cuda" and not (counts["tree_stokeslet_f32"]
+                                      and counts["tree_stresslet_f32"] >= 2):
+        raise SystemExit(f"tree sync check: G / H did not launch: {counts}")
+    return {"depth": pair.plan.depth, "geometries": len(pair.geometry),
+            "same_bits": same, "launches": counts}
 
 
 def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
@@ -2794,9 +3072,17 @@ def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
         log(f"[{tag}] B's and D's launches (the dense f64 prep flows and "
             f"refinement residuals): {launches[tag]['stokeslet_f64']}, "
             f"{launches[tag]['stresslet_f64']}")
+        if prec == "auto":
+            # a step of a running process, past the CLI's first-step costs
+            out[tag]["profiled"] = profile_step(
+                torch, device, cfg, run_dir, "tree", "tree_profile")
         shutil.rmtree(run_dir)
         if device.type == "cuda":
             torch.cuda.empty_cache()
+
+    # f. a matvec's tree flows once their geometry is built: no host sync
+    out["sync_check"] = tree_sync_check(torch, ck, device)
+    launches["tree_sync_check"] = out["sync_check"]["launches"]
 
     # e. the 10k recipe's fibers bent into arcs, free space, through
     # "tree" at full width in "mixed"; no direct run to compare with: gated

@@ -56,8 +56,12 @@ pair sums (``csrc/tree_sums.cu``), with no Pallas counterpart (the JAX
 package sums them in plain XLA, `skellysim_tpu/ops/treecode.py
 _tree_eval`). They take leaf-sorted targets and lists of source segments
 (`ops.treecode._segment_lists`): one block an item of at most
-`TREE_ITEM_TARGETS` targets of one leaf, the leaf's segments split over its
-warps. Their plain twin expands the same lists into pairs.
+`TREE_ITEM_TARGETS` targets of one leaf, a warp T targets (two a lane) x
+32 / T source slices, the leaf's segments split over the warps and staged
+by ``cp.async``. Their first design (one target a lane, items of at most
+`TREE_V1_ITEM_TARGETS`) stays as their yardstick, `tree_stokeslet_f32_v1`
+and its siblings, which no path launches. Their plain twin expands the
+same lists into pairs, whichever design's items they hold.
 
 One routing rule in each wrapper: a CPU tensor takes the plain version (the
 blocked displacement forms of `ops.kernels.stokeslet_block` /
@@ -136,14 +140,18 @@ def _library(source: str = SOURCE):
     elif source == TREE_SOURCE:
         for prec, scalar in scalars.items():
             for family in _FAMILIES:
-                fn = getattr(lib, f"tree_{family}_{prec}_launch")
-                fn.argtypes = [ptr] * 6 + [cll, scalar, ptr]
-                fn.restype = cint
-        got = lib.tree_item_targets()
-        if got != TREE_ITEM_TARGETS:
-            raise RuntimeError(f"tree_sums.cu builds G and H with {got} "
-                               f"targets an item, the lists use "
-                               f"{TREE_ITEM_TARGETS}")
+                for v in ("", "_v1"):
+                    fn = getattr(lib, f"tree_{family}_{prec}{v}_launch")
+                    fn.argtypes = [ptr] * 6 + [cll, scalar, ptr]
+                    fn.restype = cint
+        lib.tree_shared_bytes.argtypes = [cint, cint]
+        lib.tree_shared_bytes.restype = cint
+        for fn, want in ((lib.tree_item_targets, TREE_ITEM_TARGETS),
+                         (lib.tree_v1_item_targets, TREE_V1_ITEM_TARGETS)):
+            got = fn()
+            if got != want:
+                raise RuntimeError(f"tree_sums.cu's {fn.__name__}() is {got}, "
+                                   f"the lists use {want}")
     else:
         for name in _RING_RECORD_WORDS:
             plan_args = [] if name.endswith("_v1") else [cint] * 5
@@ -871,11 +879,41 @@ def enable_ring_peer_access(devices) -> None:
 
 # ---------------------------------------------------------------- tree sums
 
-#: targets an item of kernels G and H (``csrc/tree_sums.cu``'s
-#: kItemTargets, one a lane of a warp; checked when the library loads)
-TREE_ITEM_TARGETS = 32
+#: targets an item of kernels G and H at most (``csrc/tree_sums.cu``'s
+#: kItemTargets: 32 lanes, R = 2 targets a lane; checked when the library
+#: loads), and of their first design (`tree_*_v1`, one target a lane)
+TREE_ITEM_TARGETS = 64
+TREE_V1_ITEM_TARGETS = 32
+#: target lanes a warp of G / H at least (the source's kMinLanes): a warp
+#: serves T target lanes x 32 / T source slices
+TREE_MIN_LANES = 4
 #: pairs of one chunk of the plain twin (its [pairs, 3] temporaries)
 _TREE_PLAIN_BUDGET = 1 << 22
+
+
+def tree_item_lanes(n):
+    """The target lanes T a warp of kernel G / H gives an item of ``n``
+    targets (int64 tensor): the smallest power of two, at least
+    `TREE_MIN_LANES`, with 2 T >= n; the source's `item_lanes`."""
+    lanes = torch.full_like(n, TREE_MIN_LANES)
+    for _ in range(3):  # the source's loop: 4 -> 8 -> 16 -> 32
+        lanes = torch.where((lanes < 32) & (2 * lanes < n), 2 * lanes, lanes)
+    return lanes
+
+
+def tree_item_slots(items, v1: bool = False):
+    """Target slots an item's warps compute (the lane pairs of a source):
+    2 T for the redesigned G / H, 32 for their first design."""
+    if v1:
+        return torch.full_like(items[:, 1], TREE_V1_ITEM_TARGETS)
+    return 2 * tree_item_lanes(items[:, 1])
+
+
+def tree_shared_bytes(family: str, prec: str) -> int:
+    """Dynamic shared bytes of one block of kernel G / H (the card's
+    build)."""
+    return _library(TREE_SOURCE).tree_shared_bytes(_FAMILIES[family][1],
+                                                   int(prec == "f64"))
 
 
 def _tree_check(family, dtype, trg, src, pay, items, segs):
@@ -939,10 +977,11 @@ def _tree_plain_sum(terms, trg, src, pay, items, segs):
     return out
 
 
-def _tree_launch(family, prec, trg, src, pay, items, segs, scale):
-    """Validate, allocate the output and launch kernel G (``family``
-    "stokeslet") or H ("stresslet"). Returns (output, launched); raises if
-    the launch was refused."""
+def _tree_launch(name, family, prec, trg, src, pay, items, segs, scale):
+    """Validate, allocate the output and launch ``name`` (``tree_{family}
+    _{prec}`` or its ``_v1``), kernel G (``family`` "stokeslet") or H
+    ("stresslet"). Returns (output, launched); raises if the launch was
+    refused."""
     trg, src, pay, items, segs = _tree_check(family, _DTYPES[prec], trg, src,
                                              pay, items, segs)
     device = trg.device
@@ -950,7 +989,6 @@ def _tree_launch(family, prec, trg, src, pay, items, segs, scale):
     if items.shape[0] == 0:
         return out, False
     lib = _library(TREE_SOURCE)
-    name = f"tree_{family}_{prec}"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
@@ -960,15 +998,16 @@ def _tree_launch(family, prec, trg, src, pay, items, segs, scale):
     return out, True
 
 
-def _tree_wrapper(family: str, prec: str):
+def _tree_wrapper(family: str, prec: str, v1: bool = False):
     """(kernel wrapper, plain twin) of kernel G (Stokeslet) or H
-    (stresslet) in one precision. Both take the leaf-sorted targets [n_trg,
-    3], the source array [n_src, 3] and its payload [n_src, 3] / [n_src, 9]
-    (bucketed sources, then proxies), and `ops.treecode._segment_lists`'
-    items [n_items, 4] and segments [n_seg, 2] (int64); both return the
-    sum at viscosity ``eta`` [n_trg, 3] in ``prec``, in the targets'
-    order."""
-    name = f"tree_{family}_{prec}"
+    (stresslet) in one precision, or (``v1``) of their first design. Both
+    take the leaf-sorted targets [n_trg, 3], the source array [n_src, 3]
+    and its payload [n_src, 3] / [n_src, 9] (bucketed sources, then
+    proxies), and `ops.treecode._segment_lists`' items [n_items, 4] (at
+    most `TREE_ITEM_TARGETS` targets an item; `TREE_V1_ITEM_TARGETS` for
+    ``v1``) and segments [n_seg, 2] (int64); both return the sum at
+    viscosity ``eta`` [n_trg, 3] in ``prec``, in the targets' order."""
+    name = f"tree_{family}_{prec}" + ("_v1" if v1 else "")
     terms = functools.partial(_tree_pair_terms, family)
 
     def plain(r_trg, src, payload, items, segs, eta):
@@ -980,15 +1019,16 @@ def _tree_wrapper(family: str, prec: str):
     def wrapper(r_trg, src, payload, items, segs, eta):
         if r_trg.device.type == "cpu":
             return plain(r_trg, src, payload, items, segs, eta)
-        out, launched = _tree_launch(family, prec, r_trg, src, payload,
+        out, launched = _tree_launch(name, family, prec, r_trg, src, payload,
                                      items, segs, _scale(eta))
         wrapper.launches += int(launched)
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
-    plain.__name__ = plain.__qualname__ = f"{name}_plain"
+    plain.__name__ = plain.__qualname__ = f"tree_{family}_{prec}_plain"
     wrapper.__doc__ = (f"The {prec} treecode {family} sum over segment lists "
-                       f"on its CUDA kernel (CPU tensors: `{name}_plain`).")
+                       f"on its CUDA kernel (CPU tensors: `{plain.__name__}`"
+                       ").")
     plain.__doc__ = (f"Plain {prec} treecode {family} sum over segment lists "
                      f"(the version `{name}` is held against).")
     wrapper.launches = 0
@@ -1003,6 +1043,12 @@ tree_stresslet_f32, tree_stresslet_f32_plain = _tree_wrapper("stresslet",
                                                              "f32")  # H
 tree_stresslet_f64, tree_stresslet_f64_plain = _tree_wrapper("stresslet",
                                                              "f64")  # H
+#: G's and H's first design, their yardstick (over items of at most
+#: TREE_V1_ITEM_TARGETS targets); the plain twin is the same sum
+tree_stokeslet_f32_v1 = _tree_wrapper("stokeslet", "f32", v1=True)[0]
+tree_stokeslet_f64_v1 = _tree_wrapper("stokeslet", "f64", v1=True)[0]
+tree_stresslet_f32_v1 = _tree_wrapper("stresslet", "f32", v1=True)[0]
+tree_stresslet_f64_v1 = _tree_wrapper("stresslet", "f64", v1=True)[0]
 
 
 #: every kernel wrapper of the port's paths (chip_smoke resets and reads
@@ -1013,4 +1059,6 @@ KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64,
 #: the yardstick wrappers, which no path may launch
 YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled,
                       stresslet_f32_tiled, stresslet_f64_tiled,
-                      ring_stokeslet_f32_v1, ring_stresslet_f32_v1)
+                      ring_stokeslet_f32_v1, ring_stresslet_f32_v1,
+                      tree_stokeslet_f32_v1, tree_stokeslet_f64_v1,
+                      tree_stresslet_f32_v1, tree_stresslet_f64_v1)

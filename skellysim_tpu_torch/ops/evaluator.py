@@ -10,6 +10,10 @@ call site that may sum through it: the fiber flow
 evaluators need no plan and are chosen by those flows' ``evaluator``
 argument.
 
+A tree plan's evaluator also keeps the tree's geometry (the sort, the
+lists, the anterpolation weights) of each set of positions it has summed
+over, so the matvecs of one solve build it once (`ops.treecode._tree_sum`).
+
 ``plan`` is an `ops.ewald.EwaldPlan` (free space), an
 `ops.treecode.TreePlan` (free space) or an `ops.spectral.SpectralPlan`
 (periodic boxes and slabs); `plan_module` dispatches to the module that
@@ -23,7 +27,7 @@ is given.
 from __future__ import annotations
 
 import types
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -71,6 +75,10 @@ class PairEvaluator:
 
     plan: object
     anchors: torch.Tensor
+    #: a tree plan's `ops.treecode.TreeGeometry` by (family, dtype,
+    #: sources, targets), built at the first sum over them and kept for
+    #: the evaluator's life (one step: `System._pair_args`)
+    geometry: dict = field(default_factory=dict, repr=False)
 
     @property
     def evaluator(self) -> str:
@@ -96,7 +104,8 @@ class PairEvaluator:
             return kernels.stokeslet_direct(r_src, r_trg, f_src, eta,
                                             impl=impl)
         return plan_module(self.plan).stokeslet_impl(
-            self.plan, self.anchors, r_src, r_trg, f_src, n_self, eta)
+            self.plan, self.anchors, r_src, r_trg, f_src, n_self, eta,
+            **self._kept())
 
     def stresslet(self, r_dl, r_trg, f_dl, eta, impl: str = "exact"):
         """The singular stresslet (double-layer) sum, ``f_dl`` [n, 3, 3]."""
@@ -104,7 +113,11 @@ class PairEvaluator:
             return kernels.stresslet_direct(r_dl, r_trg, f_dl, eta,
                                             impl=impl)
         return plan_module(self.plan).stresslet_impl(
-            self.plan, self.anchors, r_dl, r_trg, f_dl, eta)
+            self.plan, self.anchors, r_dl, r_trg, f_dl, eta, **self._kept())
+
+    def _kept(self) -> dict:
+        """What a sum may keep on this evaluator: a tree's geometry."""
+        return {"geometry": self.geometry} if self.evaluator == "tree" else {}
 
 
 def make_pair(plan, device) -> PairEvaluator:

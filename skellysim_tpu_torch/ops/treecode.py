@@ -15,7 +15,7 @@ calibrated order rule) is documented in the JAX module and pinned there by
   transfers) are plain tensor code on every device, as the JAX package
   runs them in plain XLA: a stable sort, scatters and batched products.
 * The near and far pair sums run as ONE pass over per-target-leaf lists of
-  source segments (`_segment_lists`): each target leaf's run of
+  source segments (`_segment_lists`): items of a target leaf's
   leaf-sorted targets against (start, length) runs of one source array
   that holds the bucketed sources and the proxies. On the card the pass is
   kernel G (Stokeslet) or H (stresslet), ``csrc/tree_sums.cu``
@@ -24,6 +24,14 @@ calibrated order rule) is documented in the JAX module and pinned there by
   cell with no source below it gets no far segment: both add exact zeros
   in the JAX package's padded rows, so the sums agree up to summation
   order (ROADMAP.md §3, differences by design).
+* What depends on the positions alone (the sort and bucket slots, the
+  leaf anterpolation weights, the source array's positions, the lists) is
+  a `TreeGeometry` (`tree_geometry`), which the step's
+  `ops.evaluator.PairEvaluator` keeps for every later sum over the same
+  positions; a sum then runs only its payload's part (`tree_payload`: the
+  buckets' scatter, the anterpolation product, the transfers) and the
+  pass, with no host sync. The JAX package rebuilds all of it inside every
+  jitted matvec (ROADMAP.md §3).
 * `oseen_tree`, which no flow calls and no kernel serves, runs the same
   lists through the plain twin's pair expansion with its own pair terms
   (the regularized Oseen near, the Stokeslet far).
@@ -37,7 +45,8 @@ Chunking bounds memory, not the result beyond summation order:
 `_ANTERP_BUDGET` caps the elements of one anterpolation weight tile
 ([leaves, slots, p^3]), set for an 80 GB card (the JAX package's budget,
 3M, was set for TPU memory: at depth 5 and p = 6 its unchunked weights
-would be 32,768 x 312 x 216 values).
+would be 32,768 x 312 x 216 values); `_WEIGHTS_BUDGET` caps the weights a
+geometry keeps (the rest are recomputed each sum, the same bits).
 """
 
 from __future__ import annotations
@@ -91,10 +100,10 @@ def fill_positions(plan: TreePlan, box_lo, n, dtype):
     """[n, 3] well-spread positions inside the root box (the R2 lattice),
     on the device of ``box_lo``, for inactive nodes whose strengths are
     zero: piled into one leaf they would pass its capacity."""
-    dev = box_lo.device
-    t = (torch.arange(n, dtype=dtype, device=dev) + 0.5)[:, None]
-    alphas = torch.tensor(_R2_ALPHAS, dtype=dtype, device=dev)[None, :]
-    frac = torch.remainder(t * alphas, 1.0)
+    t = torch.arange(n, dtype=dtype, device=box_lo.device) + 0.5
+    # the constants as scalars: no host-to-device copy on a matvec's path
+    frac = torch.remainder(torch.stack([t * a for a in _R2_ALPHAS], dim=1),
+                           1.0)
     return box_lo.to(dtype) + frac * (0.999 * plan.box_L)
 
 
@@ -338,6 +347,9 @@ def _nodes3_np(p: int) -> np.ndarray:
 #: elements of one anterpolation weight tile ([leaves, slots, p^3]); a few
 #: such temporaries are live at once (~1 GB in f64 at 32M)
 _ANTERP_BUDGET = 32_000_000
+#: elements of the leaf anterpolation weights a geometry keeps (~1 GB in
+#: f32, 2 GB in f64); the chunks past it recompute theirs every call
+_WEIGHTS_BUDGET = 256_000_000
 
 
 def _cell_centers(plan: TreePlan, lo, level: int, dtype):
@@ -363,11 +375,10 @@ def _leaf_ids(plan: TreePlan, lo, pts):
     return (ci[:, 0] * C + ci[:, 1]) * C + ci[:, 2]
 
 
-def _bucket(plan: TreePlan, lo, centers, pts, payload):
-    """Sort sources into [n_leaves, max_occ] buckets, as the JAX package's
-    `_bucket`: a stable sort by leaf, the rank in a leaf clamped at
-    ``max_occ - 1``, padded lanes at their leaf's CENTER with zero payload.
-    Returns (points, payload, the sources a leaf, unclamped)."""
+def _bucket_geometry(plan: TreePlan, lo, centers, pts):
+    """The positions half of `_bucket`: (bucketed points [n_leaves,
+    max_occ, 3], the sources' stable sort by leaf, each sorted source's
+    slot, the sources a leaf, unclamped)."""
     C3 = plan.n_leaves
     mo = plan.max_occ
     flat = _leaf_ids(plan, lo, pts)
@@ -380,98 +391,209 @@ def _bucket(plan: TreePlan, lo, centers, pts, payload):
     slot = flat_s * mo + rank
     bpts = torch.repeat_interleave(centers, mo, dim=0)
     bpts[slot] = pts[order]
-    bpay = payload.new_zeros((C3 * mo,) + tuple(payload.shape[1:]))
+    return bpts.reshape(C3, mo, 3), order, slot, counts
+
+
+def _bucket_payload(plan: TreePlan, order, slot, payload):
+    """The payload half of `_bucket`: [n_leaves, max_occ, ...], padded
+    lanes zero."""
+    bpay = payload.new_zeros((plan.n_leaves * plan.max_occ,)
+                             + tuple(payload.shape[1:]))
     bpay[slot] = payload[order]
-    return (bpts.reshape(C3, mo, 3),
-            bpay.reshape((C3, mo) + tuple(payload.shape[1:])), counts)
+    return bpay.reshape((plan.n_leaves, plan.max_occ)
+                        + tuple(payload.shape[1:]))
 
 
-def _upward(plan: TreePlan, lo, src_b, pay_b, counts, dtype):
-    """Leaf anterpolation + child -> parent transfers. Returns the flat
-    cross-level proxy arrays (levels 2..depth in `_interaction_lists`
-    order, plus one zero sentinel cell), positions [T + 1, p^3, 3] and
-    strengths [T + 1, p^3, C], and the sources below each of those cells
-    [T + 1].
+def _bucket(plan: TreePlan, lo, centers, pts, payload):
+    """Sort sources into [n_leaves, max_occ] buckets, as the JAX package's
+    `_bucket`: a stable sort by leaf, the rank in a leaf clamped at
+    ``max_occ - 1``, padded lanes at their leaf's CENTER with zero payload.
+    Returns (points, payload, the sources a leaf, unclamped)."""
+    bpts, order, slot, counts = _bucket_geometry(plan, lo, centers, pts)
+    return bpts, _bucket_payload(plan, order, slot, payload), counts
 
-    A leaf's strengths are those of its occupied slots (its padded lanes
-    carry zero payload, as in the JAX package, whose sum over every slot
-    differs only in summation order); empty leaves get zero strengths
-    without a product. The occupied leaves go in order of occupancy,
-    chunked so a weight tile holds at most `_ANTERP_BUDGET` values."""
-    p = plan.order
-    p3 = p ** 3
-    C = pay_b.shape[-1]
+
+@dataclass(eq=False)
+class _Upward:
+    """What the upward pass needs besides the payload, on the device: the
+    occupied leaves in chunks ``(leaf ids, slots, weights [leaves, slots,
+    p^3] or None)`` (None: recomputed each call from ``src_b``), the
+    interpolation nodes, weights and leaf centers they are computed from,
+    the transfer matrix and the child indices."""
+
+    plan: TreePlan
+    src_b: torch.Tensor          # [n_leaves, max_occ, 3] bucketed points
+    centers: torch.Tensor        # [n_leaves, 3] leaf centers
+    nodes1: torch.Tensor         # [p] Chebyshev points
+    bw: torch.Tensor             # [p] their barycentric weights
+    U: torch.Tensor              # [8, p^3, p^3]
+    child_idx: dict
+    chunks: tuple = ()
+
+
+def _leaf_weights(up: _Upward, ids, ms):
+    """[len(ids), ms, p^3] anterpolation weights of leaves ``ids``' first
+    ``ms`` slots: the tensor-product barycentric basis at each source."""
+    plan = up.plan
+    y = (up.src_b[ids, :ms] - up.centers[ids][:, None, :]) * (
+        1.0 / (plan.leaf_size / 2.0))                     # as `_leaf_ids`
+    Lx = _bary_1d(y[..., 0], up.nodes1, up.bw)            # [B, ms, p]
+    Ly = _bary_1d(y[..., 1], up.nodes1, up.bw)
+    Lz = _bary_1d(y[..., 2], up.nodes1, up.bw)
+    return (Lx[:, :, :, None, None] * Ly[:, :, None, :, None]
+            * Lz[:, :, None, None, :]).reshape(len(ids), ms,
+                                               plan.order ** 3)
+
+
+def _upward_geometry(plan: TreePlan, lo, src_b, counts, dtype):
+    """The positions half of `_upward` (`_Upward`): the occupied leaves in
+    order of occupancy, chunked so a weight tile holds at most
+    `_ANTERP_BUDGET` values, each chunk's weights kept while their sum
+    stays within `_WEIGHTS_BUDGET` elements. Reads the occupancy on the
+    host."""
+    p3 = plan.order ** 3
     dev = lo.device
-    mo = plan.max_occ
-    nodes1 = torch.as_tensor(_cheb_nodes_np(p), dtype=dtype, device=dev)
-    bw = torch.as_tensor(_bary_w_np(p), dtype=dtype, device=dev)
-    half_leaf = plan.leaf_size / 2.0
-    centers_leaf = _cell_centers(plan, lo, plan.depth, dtype)
-
-    occ = torch.clamp_max(counts, mo)
-    occ_np = occ.cpu().numpy()
+    occ_np = torch.clamp_max(counts, plan.max_occ).cpu().numpy()
     leaves = np.flatnonzero(occ_np > 0)
     leaves = leaves[np.argsort(-occ_np[leaves], kind="stable")]
-    fh = torch.zeros((plan.n_leaves, p3, C), dtype=dtype, device=dev)
-    i = 0
+    p = plan.order
+    _, _, _, child_idx = _device_geometry(plan.depth, dev)
+    up = _Upward(plan, src_b, _cell_centers(plan, lo, plan.depth, dtype),
+                 torch.as_tensor(_cheb_nodes_np(p), dtype=dtype, device=dev),
+                 torch.as_tensor(_bary_w_np(p), dtype=dtype, device=dev),
+                 torch.as_tensor(_transfer_np(p), dtype=dtype, device=dev),
+                 child_idx)
+    chunks, kept, i = [], 0, 0
     while i < len(leaves):
         ms = int(occ_np[leaves[i]])
         j = min(len(leaves), i + max(1, _ANTERP_BUDGET // (ms * p3)))
         ids = torch.as_tensor(leaves[i:j], device=dev)
-        y = (src_b[ids, :ms] - centers_leaf[ids][:, None, :]) * (
-            1.0 / half_leaf)                              # as `_leaf_ids`
-        Lx = _bary_1d(y[..., 0], nodes1, bw)              # [B, ms, p]
-        Ly = _bary_1d(y[..., 1], nodes1, bw)
-        Lz = _bary_1d(y[..., 2], nodes1, bw)
-        W = (Lx[:, :, :, None, None] * Ly[:, :, None, :, None]
-             * Lz[:, :, None, None, :]).reshape(len(ids), ms, p3)
-        fh[ids] = torch.einsum("bcm,bck->bmk", W, pay_b[ids, :ms])
+        W = None
+        if kept + (j - i) * ms * p3 <= _WEIGHTS_BUDGET:
+            W = _leaf_weights(up, ids, ms)
+            kept += W.numel()
+        chunks.append((ids, ms, W))
         i = j
+    up.chunks = tuple(chunks)
+    return up
 
-    _, _, _, child_idx = _device_geometry(plan.depth, dev)
-    U = torch.as_tensor(_transfer_np(p), dtype=dtype, device=dev)
+
+def _upward_payload(up: _Upward, pay_b):
+    """The payload half of `_upward`: the proxies' strengths [T + 1, p^3,
+    C] (levels 2..depth in `_interaction_lists` order, then the zero
+    sentinel cell). A leaf's strengths are those of its occupied slots (its
+    padded lanes carry zero payload, as in the JAX package, whose sum over
+    every slot differs only in summation order); empty leaves get zero
+    strengths without a product. No host sync."""
+    plan = up.plan
+    p3 = plan.order ** 3
+    C = pay_b.shape[-1]
+    fh = pay_b.new_zeros((plan.n_leaves, p3, C))
+    for ids, ms, W in up.chunks:
+        if W is None:
+            W = _leaf_weights(up, ids, ms)
+        fh[ids] = torch.einsum("bcm,bck->bmk", W, pay_b[ids, :ms])
     by_level = {plan.depth: fh}
+    for lev in range(plan.depth - 1, 1, -1):
+        g = by_level[lev + 1][up.child_idx[lev]]          # [8^lev, 8, p3, C]
+        by_level[lev] = torch.einsum("onm,qonk->qmk", up.U, g)
+    return torch.cat([by_level[lev] for lev in range(2, plan.depth + 1)]
+                     + [pay_b.new_zeros((1, p3, C))])
+
+
+def _proxy_geometry(plan: TreePlan, lo, counts, dtype):
+    """The proxies' positions [T + 1, p^3, 3] (`_upward_payload`'s order,
+    the sentinel at the origin) and the sources below each of those cells
+    [T + 1]."""
+    p = plan.order
+    dev = lo.device
+    _, _, _, child_idx = _device_geometry(plan.depth, dev)
     n_below = {plan.depth: counts}
     for lev in range(plan.depth - 1, 1, -1):
-        g = by_level[lev + 1][child_idx[lev]]             # [8^lev, 8, p3, C]
-        by_level[lev] = torch.einsum("onm,qonk->qmk", U, g)
         n_below[lev] = n_below[lev + 1][child_idx[lev]].sum(dim=1)
-
     nodes3 = torch.as_tensor(_nodes3_np(p), dtype=dtype, device=dev)
-    pts_parts, f_parts = [], []
+    pts_parts = []
     for lev in range(2, plan.depth + 1):
         half = plan.box_L / (2 ** lev) / 2.0
         cen = _cell_centers(plan, lo, lev, dtype)
         pts_parts.append(cen[:, None, :] + half * nodes3[None, :, :])
-        f_parts.append(by_level[lev])
     proxy_pts = torch.cat(
-        pts_parts + [torch.zeros((1, p3, 3), dtype=dtype, device=dev)])
-    proxy_f = torch.cat(
-        f_parts + [torch.zeros((1, p3, C), dtype=dtype, device=dev)])
+        pts_parts + [torch.zeros((1, p ** 3, 3), dtype=dtype, device=dev)])
     cell_n = torch.cat([n_below[lev] for lev in range(2, plan.depth + 1)]
                        + [counts.new_zeros(1)])
-    return proxy_pts, proxy_f, cell_n
+    return proxy_pts, cell_n
 
 
-def _segment_lists(plan: TreePlan, counts, cell_n, leaf_s, fields=("near",
-                                                                  "far")):
+def _upward(plan: TreePlan, lo, src_b, pay_b, counts, dtype):
+    """Leaf anterpolation + child -> parent transfers (`_upward_geometry`
+    and `_upward_payload` in one call). Returns the flat cross-level proxy
+    arrays, positions [T + 1, p^3, 3] and strengths [T + 1, p^3, C], and
+    the sources below each of those cells [T + 1]."""
+    up = _upward_geometry(plan, lo, src_b, counts, dtype)
+    proxy_pts, cell_n = _proxy_geometry(plan, lo, counts, dtype)
+    return proxy_pts, _upward_payload(up, pay_b), cell_n
+
+
+#: an item's targets in units of 8 by the item sizes of the remainder of a
+#: leaf after its items of 64 (`_items`): the binary digits of 0..7
+_UNIT_SPLIT = ((0, 0, 0), (1, 0, 0), (2, 0, 0), (2, 1, 0), (4, 0, 0),
+               (4, 1, 0), (4, 2, 0), (4, 2, 1))
+
+
+def _items(n_t, t_first, g_first, n_seg, v1=False):
+    """The items [n_items, 4] (first target, targets, first segment,
+    segments) of leaves with ``n_t`` targets from ``t_first`` and
+    ``n_seg`` segments from ``g_first``. Kernels G / H (`v1` False): a
+    leaf's targets in 8s, split into items of 64 and then the binary digits
+    of the rest (32, 16, 8), each item filled before the next, so an item's
+    2 T target slots (`cuda_kernels.tree_item_lanes`) are the 8s it was
+    cut for: a 37-target leaf is 32 + 5 in 32 + 8 slots. Their first
+    design (``v1``): runs of `cuda_kernels.TREE_V1_ITEM_TARGETS`."""
+    from .cuda_kernels import TREE_ITEM_TARGETS, TREE_V1_ITEM_TARGETS
+
+    dev = n_t.device
+    leaf_ids = torch.arange(n_t.shape[0], device=dev)
+    if v1:
+        per_leaf = -(-n_t // TREE_V1_ITEM_TARGETS)
+        item_leaf = torch.repeat_interleave(leaf_ids, per_leaf)
+        size = torch.full_like(item_leaf, TREE_V1_ITEM_TARGETS)
+    else:
+        units = -(-n_t // 8)
+        big = units // (TREE_ITEM_TARGETS // 8)
+        table = torch.tensor(_UNIT_SPLIT, dtype=torch.int64, device=dev)
+        rest = table[units % (TREE_ITEM_TARGETS // 8)]      # [L, 3]
+        per_leaf = big + (rest > 0).sum(dim=1)
+        item_leaf = torch.repeat_interleave(leaf_ids, per_leaf)
+        k = (torch.arange(item_leaf.shape[0], device=dev)
+             - (torch.cumsum(per_leaf, 0) - per_leaf)[item_leaf])
+        j = k - big[item_leaf]
+        size = 8 * torch.where(j < 0, TREE_ITEM_TARGETS // 8,
+                               rest[item_leaf, torch.clamp(j, 0, 2)])
+    offset = torch.cumsum(size, 0) - size
+    offset = offset - offset[(torch.cumsum(per_leaf, 0)
+                              - per_leaf)[item_leaf]]
+    first = t_first[item_leaf] + offset
+    n_item = torch.minimum(n_t[item_leaf] - offset, size)
+    return torch.stack([first, n_item, g_first[item_leaf],
+                        n_seg[item_leaf]], dim=1).contiguous()
+
+
+def _segment_lists(plan: TreePlan, counts, cell_n, leaf_s,
+                   fields=("near", "far"), v1=False):
     """The lists kernels G and H walk, for targets sorted by leaf
     (``leaf_s``, their leaf ids) against one source array holding the
     bucketed sources ([n_leaves max_occ] slots) and then the flat proxies
-    ([T + 1, p^3], `_upward`'s order).
+    ([T + 1, p^3], `_upward_payload`'s order).
 
-    Returns (items [n_items, 4] int64: first target, targets, first
-    segment, segments; segments [n_seg, 2] int64: first source, sources).
-    An item is one run of at most `cuda_kernels.TREE_ITEM_TARGETS`
-    targets of one leaf; the items of a leaf share its segments: near, its
-    27 neighbor leaves (a boundary-clipped duplicate once, the `uniq`
-    mask), each the bucket's occupied slots, and far, its interaction
-    list's cells, each its p^3 proxies. Segments that would add only exact
-    zeros are left out: empty buckets, cells with no source below them, and
-    the sentinel. ``fields`` picks near, far or both (the smoke times them
-    apart)."""
-    from .cuda_kernels import TREE_ITEM_TARGETS
-
+    Returns (items [n_items, 4] int64 (`_items`; ``v1``: the first
+    design's), segments [n_seg, 2] int64: first source, sources). The
+    items of a leaf share its segments: near, its 27 neighbor leaves (a
+    boundary-clipped duplicate once, the `uniq` mask), each the bucket's
+    occupied slots, and far, its interaction list's cells, each its p^3
+    proxies. Segments that would add only exact zeros are left out: empty
+    buckets, cells with no source below them, and the sentinel. ``fields``
+    picks near, far or both (the smoke times them apart). Reads the lists'
+    sizes on the host."""
     dev = leaf_s.device
     mo = plan.max_occ
     p3 = plan.order ** 3
@@ -495,76 +617,139 @@ def _segment_lists(plan: TreePlan, counts, cell_n, leaf_s, fields=("near",
     segs = torch.stack([start[keep], length[keep]], dim=1)
     n_seg = keep.sum(dim=1)
     g_first = torch.cumsum(n_seg, 0) - n_seg
-
-    per_leaf = -(-n_t // TREE_ITEM_TARGETS)
-    item_leaf = torch.repeat_interleave(
-        torch.arange(len(leaves), device=dev), per_leaf)
-    k = (torch.arange(item_leaf.shape[0], device=dev)
-         - (torch.cumsum(per_leaf, 0) - per_leaf)[item_leaf])
-    first = t_first[item_leaf] + k * TREE_ITEM_TARGETS
-    n_item = torch.clamp_max(n_t[item_leaf] - k * TREE_ITEM_TARGETS,
-                             TREE_ITEM_TARGETS)
-    items = torch.stack([first, n_item, g_first[item_leaf],
-                         n_seg[item_leaf]], dim=1)
-    return items.contiguous(), segs.contiguous()
+    return _items(n_t, t_first, g_first, n_seg, v1), segs.contiguous()
 
 
-def tree_operands(plan: TreePlan, anchors, r_src, payload, r_trg,
-                  fields=("near", "far")):
-    """What one pass of kernel G / H takes, on a depth >= 2 plan, in
-    ``r_trg``'s dtype: (leaf-sorted targets, the source array [bucketed
-    slots | proxies] and its payload, items, segments (`_segment_lists`),
-    the targets' sort order, the sources a leaf). ``payload`` is [n, 3]
-    forces or [n, 9] stresslet components."""
+@dataclass(eq=False)
+class TreeGeometry:
+    """What a pass of kernel G / H needs that depends on the positions
+    alone, built once (`tree_geometry`) for one (source set, target set,
+    dtype) and used by every sum over them (`tree_payload`): the buckets'
+    scatter, the upward pass's weights, the source array's positions
+    ([bucketed slots | proxies]), the leaf-sorted targets and the lists.
+    ``r_src`` / ``r_trg`` are the positions it was built from."""
+
+    plan: TreePlan
+    r_src: torch.Tensor
+    r_trg: torch.Tensor
+    src_order: torch.Tensor      # the sources' stable sort by leaf
+    slot: torch.Tensor           # each sorted source's bucket slot
+    counts: torch.Tensor         # the sources a leaf, unclamped
+    cell_n: torch.Tensor         # the sources below each proxy cell
+    up: _Upward
+    src: torch.Tensor            # [n_leaves max_occ + (T + 1) p^3, 3]
+    trg: torch.Tensor            # [n_trg, 3] leaf-sorted
+    trg_order: torch.Tensor
+    items: torch.Tensor
+    segs: torch.Tensor
+
+
+def tree_geometry(plan: TreePlan, anchors, r_src, r_trg,
+                  fields=("near", "far"), v1=False) -> TreeGeometry:
+    """The `TreeGeometry` of a depth >= 2 plan over sources ``r_src`` and
+    targets ``r_trg``, in ``r_trg``'s dtype (``fields``, ``v1``: as
+    `_segment_lists`). Syncs with the host (the occupancy, the lists'
+    sizes)."""
     dtype = r_trg.dtype
     lo = anchors[0].to(dtype)
     centers = _cell_centers(plan, lo, plan.depth, dtype)
-    src_b, pay_b, counts = _bucket(plan, lo, centers, r_src.to(dtype),
-                                   payload.to(dtype))
-    proxy_pts, proxy_f, cell_n = _upward(plan, lo, src_b, pay_b, counts,
-                                         dtype)
+    r_src = r_src.to(dtype)
+    src_b, src_order, slot, counts = _bucket_geometry(plan, lo, centers,
+                                                      r_src)
+    up = _upward_geometry(plan, lo, src_b, counts, dtype)
+    proxy_pts, cell_n = _proxy_geometry(plan, lo, counts, dtype)
     flat_t = _leaf_ids(plan, lo, r_trg)
-    order = torch.argsort(flat_t, stable=True)
-    items, segs = _segment_lists(plan, counts, cell_n, flat_t[order], fields)
-    C = payload.shape[-1]
+    trg_order = torch.argsort(flat_t, stable=True)
+    items, segs = _segment_lists(plan, counts, cell_n, flat_t[trg_order],
+                                 fields, v1)
     src = torch.cat([src_b.reshape(-1, 3), proxy_pts.reshape(-1, 3)])
-    pay = torch.cat([pay_b.reshape(-1, C), proxy_f.reshape(-1, C)])
-    return r_trg[order], src, pay, items, segs, order, counts
+    up.src_b = src[:plan.n_leaves * plan.max_occ].view(src_b.shape)
+    return TreeGeometry(plan, r_src, r_trg, src_order, slot, counts, cell_n,
+                        up, src, r_trg[trg_order], trg_order, items, segs)
+
+
+def tree_payload(geom: TreeGeometry, payload):
+    """The source array's payload [bucketed slots | proxies, C] of one sum
+    over ``geom`` (``payload`` [n_src, C] in the geometry's dtype): the
+    buckets' scatter, the anterpolation product and the transfers. No host
+    sync."""
+    pay_b = _bucket_payload(geom.plan, geom.src_order, geom.slot, payload)
+    proxy_f = _upward_payload(geom.up, pay_b)
+    C = payload.shape[-1]
+    return torch.cat([pay_b.reshape(-1, C), proxy_f.reshape(-1, C)])
+
+
+def tree_operands(plan: TreePlan, anchors, r_src, payload, r_trg,
+                  fields=("near", "far"), v1=False):
+    """What one pass of kernel G / H takes, on a depth >= 2 plan, in
+    ``r_trg``'s dtype, built in one call (`tree_geometry`, then
+    `tree_payload`): (leaf-sorted targets, the source array [bucketed
+    slots | proxies] and its payload, items, segments (`_segment_lists`;
+    ``v1``: the first design's items), the targets' sort order, the sources
+    a leaf). ``payload`` is [n, 3] forces or [n, 9] stresslet
+    components."""
+    geom = tree_geometry(plan, anchors, r_src, r_trg, fields, v1)
+    pay = tree_payload(geom, payload.to(r_trg.dtype))
+    return (geom.trg, geom.src, pay, geom.items, geom.segs, geom.trg_order,
+            geom.counts)
 
 
 def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
-              eta):
+              eta, geometry=None):
     """The scaled singular ``family`` sum ("stokeslet": payload [n, 3];
-    "stresslet": [n, 9]) on a depth >= 2 plan: bucket, upward pass, the
-    segment lists, then ONE pass of kernel G / H (their plain twin on the
-    CPU) over the leaf-sorted targets; returns [n_trg, 3] in caller order,
-    in ``r_trg``'s dtype."""
+    "stresslet": [n, 9]) on a depth >= 2 plan: the positions' geometry
+    (`tree_geometry`), then the payload's part (`tree_payload`) and ONE
+    pass of kernel G / H (their plain twin on the CPU) over the leaf-sorted
+    targets; returns [n_trg, 3] in caller order, in ``r_trg``'s dtype.
+
+    ``geometry`` (a dict, `ops.evaluator.PairEvaluator.geometry`, one a
+    step) keeps each geometry by (family, dtype, sources, targets) and
+    serves the next sum with that key from it, so a sum after the first
+    makes no host sync and gives the bits a fresh build would. The flows of
+    a step that share a key share their positions (the fiber nodes onto
+    every node, the shell's onto the fiber and body nodes, a body bucket's
+    onto every node); should positions under a kept key differ all the
+    same, the sum comes back NaN, which the solve reports, not wrong."""
     from . import cuda_kernels
 
-    trg, src, pay, items, segs, order, _ = tree_operands(
-        plan, anchors, r_src, payload, r_trg)
-    prec = "f32" if r_trg.dtype == torch.float32 else "f64"
+    dtype = r_trg.dtype
+    key = (family, dtype, r_src.shape[0], r_trg.shape[0])
+    geom = None if geometry is None else geometry.get(key)
+    kept = geom is not None
+    if not kept:
+        geom = tree_geometry(plan, anchors, r_src, r_trg)
+        if geometry is not None:
+            geometry[key] = geom
+    pay = tree_payload(geom, payload.to(dtype))
+    prec = "f32" if dtype == torch.float32 else "f64"
     kern = getattr(cuda_kernels, f"tree_{family}_{prec}")
-    u = kern(trg, src, pay, items, segs, eta)
+    u = kern(geom.trg, geom.src, pay, geom.items, geom.segs, eta)
+    if kept:
+        moved = (torch.ne(r_src.to(dtype), geom.r_src).any()
+                 | torch.ne(r_trg, geom.r_trg).any())
+        u = torch.where(moved, torch.nan, u)
     out = torch.empty_like(u)
-    out[order] = u
+    out[geom.trg_order] = u
     return out
 
 
 # ------------------------------------------------------------------ the sums
 
 def stokeslet_impl(plan: TreePlan, anchors, r_src, r_trg, f_src,
-                   n_self: int, eta):
+                   n_self: int, eta, geometry=None):
     """Stokeslet sum on a depth >= 2 ``plan`` with its [1, 3] ``anchors``
-    (box_lo) at viscosity ``eta``. The tree needs no self correction
-    (coincident pairs drop in the near field), so ``n_self`` is unused."""
-    return _tree_sum("stokeslet", plan, anchors, r_src, f_src, r_trg, eta)
+    (box_lo) at viscosity ``eta`` (``geometry``: as `_tree_sum`). The tree
+    needs no self correction (coincident pairs drop in the near field), so
+    ``n_self`` is unused."""
+    return _tree_sum("stokeslet", plan, anchors, r_src, f_src, r_trg, eta,
+                     geometry)
 
 
-def stresslet_impl(plan: TreePlan, anchors, r_dl, r_trg, f_dl, eta):
+def stresslet_impl(plan: TreePlan, anchors, r_dl, r_trg, f_dl, eta,
+                   geometry=None):
     """Stresslet sum on a depth >= 2 ``plan`` (``f_dl`` [n, 3, 3])."""
     return _tree_sum("stresslet", plan, anchors, r_dl, f_dl.reshape(-1, 9),
-                     r_trg, eta)
+                     r_trg, eta, geometry)
 
 
 def stokeslet_tree(plan: TreePlan, r_src, r_trg, f_src, eta):

@@ -864,7 +864,8 @@ def _tree_cloud(kind, seed=0):
     """A treecode scene on the host: "boundary", fiber segments of a 4-box
     with many nodes on leaf boundaries and in the boundary leaves (clipped
     neighbor ids), and "gap", two clusters with empty leaves between them
-    and 40 targets piled into one leaf (more than one item there)."""
+    and 40 targets piled into one leaf (more than one item there);
+    "pile", the same with 150 (items of 64, 64 and 32 + a remainder)."""
     rng = np.random.default_rng(seed)
     if kind == "boundary":
         o = rng.uniform(-2, 2, (120, 3))
@@ -877,13 +878,14 @@ def _tree_cloud(kind, seed=0):
     else:
         src = np.concatenate([rng.uniform(-3, -2, (1500, 3)),
                               rng.uniform(2, 3, (1500, 3))])
-        trg = np.concatenate([src, np.full((40, 3), 2.9)
-                              + 1e-4 * rng.standard_normal((40, 3))])
+        pile = 40 if kind == "gap" else 150
+        trg = np.concatenate([src, np.full((pile, 3), 2.9)
+                              + 1e-4 * rng.standard_normal((pile, 3))])
     return src, trg
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["boundary", "gap"])
+@pytest.mark.parametrize("kind", ["boundary", "gap", "pile"])
 @pytest.mark.parametrize("prec", ["f32", "f64"])
 @pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
 def test_tree_kernel_matches_plain_twin(cuda, family, prec, kind):
@@ -906,9 +908,13 @@ def test_tree_kernel_matches_plain_twin(cuda, family, prec, kind):
                               for a in (src, pay, trg)))
     t_s, sa, pa, items, segs, _, counts = ops
     assert int(counts.max()) <= plan.max_occ
-    if kind == "gap":
+    if kind != "boundary":
         assert int((counts == 0).sum()) > 0
         assert int(items[:, 1].min()) < ck.TREE_ITEM_TARGETS
+    if kind == "pile":
+        assert int(items[:, 1].max()) == ck.TREE_ITEM_TARGETS
+    assert set(ck.tree_item_lanes(items[:, 1]).tolist()) >= (
+        {4, 8, 16, 32} if kind == "pile" else {4})
     kern = getattr(ck, f"tree_{family}_{prec}")
     n0 = kern.launches
     got = kern(t_s, sa, pa, items, segs, 0.9)
@@ -939,6 +945,80 @@ def test_tree_sum_card_matches_cpu(cuda, family):
                            for a in (src, trg, pay)), 1.1).cpu()
            for dev in (cuda, "cpu")}
     assert _rel_err(out[cuda], out["cpu"]) < 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_tree_redesign_matches_first_design(cuda, family, prec):
+    """Kernels G / H against their first design (`tree_*_v1`, over its own
+    items of 32 on the same segments) on the same inputs: within summation
+    order, 2e-6 of the largest velocity in f32 and 1e-13 in f64; both
+    against the f64 twin at the twin test's gates; the yardstick counts its
+    own launches."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+    from skellysim_tpu_torch.ops import evaluator as ev
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    src, trg = _tree_cloud("pile", seed=4)
+    plan = ttc.plan_tree(np.vstack([src, trg]), tol=1e-4)
+    cols = 3 if family == "stokeslet" else 9
+    dt = torch.float32 if prec == "f32" else torch.float64
+    pay = np.random.default_rng(7).standard_normal((len(src), cols))
+    args = [torch.as_tensor(a, dtype=dt, device=cuda)
+            for a in (src, pay, trg)]
+    anchors = ev.make_pair(plan, cuda).anchors
+    new = ttc.tree_operands(plan, anchors, *args)
+    old = ttc.tree_operands(plan, anchors, *args, v1=True)
+    assert torch.equal(new[4], old[4])
+    kern = getattr(ck, f"tree_{family}_{prec}")
+    v1 = getattr(ck, f"tree_{family}_{prec}_v1")
+    n0 = v1.launches
+    got = kern(*new[:5], 1.3)
+    ref_v1 = v1(*old[:5], 1.3)
+    torch.cuda.synchronize()
+    assert v1.launches == n0 + 1
+    assert _rel_err(got, ref_v1.double()) < (2e-6 if prec == "f32"
+                                             else 1e-13)
+    twin = getattr(ck, f"tree_{family}_f64_plain")(
+        *(a.double() for a in new[:3]), new[3], new[4], 1.3)
+    for u in (got, ref_v1):
+        assert _rel_err(u, twin) < (1e-5 if prec == "f32" else 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_tree_sum_after_its_geometry_makes_no_host_sync(cuda, family):
+    """A `PairEvaluator`'s second tree sum over the same positions (the
+    geometry kept from the first) runs under
+    `torch.cuda.set_sync_debug_mode("error")`, and gives the first's bits
+    on the same payload."""
+    from skellysim_tpu_torch.ops import evaluator as ev
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    src, trg = _tree_cloud("gap", seed=5)
+    plan = ttc.plan_tree(np.vstack([src, trg]), tol=1e-4)
+    pair = ev.make_pair(plan, cuda)
+    P, T = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+            for a in (src, trg))
+    rng = np.random.default_rng(8)
+    shape = (len(src), 3) if family == "stokeslet" else (len(src), 3, 3)
+    q = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=cuda)
+
+    def run():
+        if family == "stokeslet":
+            return pair.stokeslet(P, T, q, 0, 1.0)
+        return pair.stresslet(P, T, q, 1.0)
+
+    first = run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again, first)
 
 
 def _imported_modules(path: Path):

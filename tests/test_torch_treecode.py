@@ -14,7 +14,11 @@ pass (kernels G / H's plain twin) against the JAX package's treecode.
 * the plain twin of G / H over the segment lists equals the JAX package's
   row form (its `_tree_eval`, compiled as its sums compile it), and the
   lists cover every target once, skip empty buckets and cells, and count a
-  clipped neighbor once.
+  clipped neighbor once;
+* the redesigned G / H's items put each target in one lane slot of an
+  item whose T covers it, keep the first design's segments (and sum), and
+  a geometry kept a step by the `PairEvaluator` gives a fresh build's sums
+  bit for bit.
 """
 
 import numpy as np
@@ -290,3 +294,137 @@ def test_segment_lists_cover_targets_and_skip_zeros():
         want = {i for i, u in zip(nid[leaf[a]], uniq[leaf[a]])
                 if u and counts[i] > 0}
         assert set(ids) == want
+
+
+def test_items_put_each_target_in_one_lane_slot():
+    """The redesigned G / H's items (`_items`) on leaves of 1..200
+    targets: each target in exactly one (item, target lane, slot) of its
+    leaf, each item's T (`cuda_kernels.tree_item_lanes`) a power of two
+    from 4 to 32 with 2 T >= its targets, a leaf's slots 8 ceil(n / 8),
+    items of at most TREE_ITEM_TARGETS; the first design's runs of 32."""
+    n_t = torch.arange(1, 201, dtype=torch.int64)
+    t_first = torch.cumsum(n_t, 0) - n_t
+    n_seg = torch.arange(200, dtype=torch.int64) % 7 + 1
+    g_first = torch.cumsum(n_seg, 0) - n_seg
+    for v1 in (False, True):
+        it = ttc._items(n_t, t_first, g_first, n_seg, v1=v1)
+        first, n, g0, ng = it.T
+        assert int(n.min()) >= 1
+        lanes = ck.tree_item_lanes(n)
+        slots = ck.tree_item_slots(it, v1=v1)
+        if v1:
+            assert int(n.max()) <= ck.TREE_V1_ITEM_TARGETS
+            assert (slots == ck.TREE_V1_ITEM_TARGETS).all()
+        else:
+            assert int(n.max()) <= ck.TREE_ITEM_TARGETS
+            assert set(lanes.tolist()) <= {4, 8, 16, 32}
+            assert (2 * lanes >= n).all() and (lanes * (32 // lanes)
+                                               == 32).all()
+            assert ((lanes == 4) | (lanes < n)).all()  # the smallest T
+            assert (slots == 2 * lanes).all()
+        # (item, lane t, slot r) of target first + r T + t, one each
+        per_lane, n_slots = (1, 32) if v1 else (2, None)
+        seen = torch.zeros(int(n_t.sum()), dtype=torch.int64)
+        for (a, m), T in zip(it[:, :2].tolist(), lanes.tolist()):
+            T = n_slots or T
+            for k in range(m):
+                t, r = k % T, k // T
+                assert t < T and r < per_lane
+                seen[a + k] += 1
+        assert (seen == 1).all()
+        # items stay inside their leaf and carry its segments
+        leaf = torch.repeat_interleave(torch.arange(200), n_t)
+        assert (leaf[first] == leaf[first + n - 1]).all()
+        assert torch.equal(g0, g_first[leaf[first]])
+        assert torch.equal(ng, n_seg[leaf[first]])
+        if not v1:
+            per_leaf = torch.zeros(200, dtype=torch.int64).index_add_(
+                0, leaf[first], slots)
+            assert torch.equal(per_leaf, 8 * (-(-n_t // 8)))
+
+
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_lists_keep_the_first_designs_segments(family):
+    """The redesigned items walk the first design's segments: the same
+    segment array, each target seeing the same multiset of segments (its
+    leaf's), and the plain twin over both lists the same sum to 1e-13."""
+    src, f = _fiber_cloud(60, 24, seed=31)
+    # a pile of 150 targets in one leaf: items of 64 and a remainder
+    trg = np.vstack([src, np.full((150, 3), 0.3)
+                     + 1e-4 * np.random.default_rng(9).standard_normal(
+                         (150, 3))])
+    plan = ttc.plan_tree(np.vstack([src, trg]), tol=1e-3, target_occ=8.0)
+    assert plan.depth == 3
+    C = 3 if family == "stokeslet" else 9
+    pay = torch.tensor(np.random.default_rng(3).standard_normal((len(src),
+                                                                 C)))
+    P, T = torch.tensor(src), torch.tensor(trg)
+    anchors = tev.make_pair(plan, "cpu").anchors
+    new = ttc.tree_operands(plan, anchors, P, pay, T)
+    old = ttc.tree_operands(plan, anchors, P, pay, T, v1=True)
+    for a, b in zip(new[:3] + new[4:], old[:3] + old[4:]):
+        assert torch.equal(a, b)
+    items, v1_items = new[3], old[3]
+    assert int(items[:, 1].max()) > ck.TREE_V1_ITEM_TARGETS
+
+    def seen(it):
+        rows = [(a + k, g0, ng) for a, n, g0, ng in it.tolist()
+                for k in range(n)]
+        return sorted(rows)
+    assert seen(items) == seen(v1_items)
+    plain = getattr(ck, f"tree_{family}_f64_plain")
+    u_new = plain(*new[:3], items, new[4], 0.7)
+    u_old = plain(*old[:3], v1_items, old[4], 0.7)
+    assert _rel(u_new.numpy(), u_old.numpy()) < 1e-13
+    # the redesign's lane slots: busier than one target a lane
+    busy = {v1: float((it[:, 1] * 1.0).sum() / ck.tree_item_slots(it, v1)
+                      .sum()) for v1, it in ((False, items), (True,
+                                                             v1_items))}
+    assert busy[False] > busy[True]
+
+
+@pytest.mark.parametrize("weights", ["kept", "recomputed"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_geometry_kept_a_step_gives_the_per_call_bits(family, dtype, weights,
+                                                      monkeypatch):
+    """A `PairEvaluator` keeps the tree's geometry after its first sum
+    over a set of positions, and its later sums over them (two payloads,
+    as two matvecs) equal a fresh build's bit for bit, whether the
+    geometry keeps its anterpolation weights or (past `_WEIGHTS_BUDGET`)
+    recomputes them each sum; positions that moved under a kept key give
+    NaN, never a stale sum."""
+    src, _ = _fiber_cloud(50, 20, seed=41)
+    trg = np.vstack([src, np.random.default_rng(5).uniform(-2, 2, (90, 3))])
+    plan = ttc.plan_tree(np.vstack([src, trg]), tol=1e-3)
+    assert plan.depth == 3
+    P, T = (torch.tensor(a, dtype=dtype) for a in (src, trg))
+    rng = np.random.default_rng(12)
+    shape = (len(src), 3) if family == "stokeslet" else (len(src), 3, 3)
+    pays = [torch.tensor(rng.standard_normal(shape), dtype=dtype)
+            for _ in range(2)]
+
+    def run(pair, q):
+        if family == "stokeslet":
+            return pair.stokeslet(P, T, q, 0, 0.8)
+        return pair.stresslet(P, T, q, 0.8)
+
+    kept = tev.make_pair(plan, "cpu")
+    for q in pays:
+        if weights == "recomputed":
+            monkeypatch.setattr(ttc, "_WEIGHTS_BUDGET", 0)
+        got = run(kept, q)
+        (geom,) = kept.geometry.values()
+        assert all((W is None) == (weights == "recomputed")
+                   for _, _, W in geom.up.chunks)
+        monkeypatch.undo()
+        fresh = tev.make_pair(plan, "cpu")
+        assert torch.equal(got, run(fresh, q))
+        assert torch.isfinite(got).all()
+    moved = P.clone()
+    moved[0, 0] += 0.01
+    if family == "stokeslet":
+        bad = kept.stokeslet(moved, T, pays[0], 0, 0.8)
+    else:
+        bad = kept.stresslet(moved, T, pays[0], 0.8)
+    assert torch.isnan(bad).all()
