@@ -207,6 +207,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                torch.cuda.set_sync_debug_mode("error"), gated on no host
                sync, the same bits and G and H launching.
                It prints {"treecode": {...}} before the kernels line.
+13. spmd     — run after 12, on phase 6's precompute: the sharded step
+               (System.step_spmd, skellysim_tpu_torch/parallel/spmd.py)
+               on 4 shards of the card (`make_mesh(4, device=card)`,
+               `shard_state`: views, nothing copied), each step held
+               against System.step from the same state (true residuals
+               within 5e-9, __graft_entry__.py:83 PARITY_GATE; fibers
+               within 1e-6), each timed to a synchronize with its own peak
+               device memory, the sharded step's launches counted from 0:
+               a. the ellipsoid config, three "mixed" steps (E / F the
+               f32 ring, B / D a hop the f64 prep and refinement) and one
+               "full" (B / D); the state's bytes a shard; the host syncs
+               of one Krylov matvec and preconditioner application
+               (torch.cuda.set_sync_debug_mode("warn")).
+               b. the same plus a 600-node sphere at the centre with 16
+               bound 16-node fibers (a second bucket): one "mixed" step,
+               gated on the body's fields the same bits on all 4 shards
+               and on A / C (the replicated rows' partials) launching.
+               c. "tree", one "full" step from a's state before its
+               "full" step: G on every shard, no NaN on any shard, fibers
+               within 1e-5 of a's direct "full" step.
+               It prints {"spmd": {...}} before the kernels line.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -225,6 +246,9 @@ error against their plain twin and the twin's time on 12c's cut; E's and F's the
 their `_v1` first design, and their plan; B's, D's, E's and F's, under
 "at_ring_run_shape", the same check and time at the shapes of the ring run
 (E and F: where their "launches" were counted; B and D: one hop).
+Every entry's "launches_by_path" holds its launches in each run counted,
+phase 13's sharded runs included ("spmd_ellipsoid", "spmd_ellipsoid_full",
+"spmd_body", "spmd_tree").
 Every run is gated on the yardstick kernels launching 0 times. Then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
 card the script exits 2 before printing any result. Every file a phase
@@ -287,6 +311,21 @@ RING_SHARDS = 4
 #: target rows a shard, sampled at random, on which kernels E and F are
 #: held against their plain version (each shard's last target block besides)
 RING_SAMPLE = 1024
+#: phase 13: the sharded step's shards (all on the one card), its "mixed"
+#: steps, and its gates against System.step from the same state: the true
+#: residuals within the reference's backend-agreement gate
+#: (__graft_entry__.py:83 PARITY_GATE), the fiber positions within the ring
+#: run's 1e-6; "tree" against the direct "full" step within 11c's 1e-5
+SPMD_SHARDS = 4
+SPMD_MIXED_STEPS = 3
+PARITY_GATE = 5e-9
+SPMD_DX = 1e-6
+SPMD_TREE_DX = 1e-5
+#: phase 13b's body: a sphere of radius 0.5 at the cell's centre with this
+#: many nodes, and this many bound fibers of 16 nodes (length 0.6, clamped
+#: on its sites, pointing outward); the count divides the shards
+SPMD_BODY_NODES = 600
+SPMD_BOUND_FIBERS = 16
 #: the fused ring's TPU kernel (skellysim_tpu/parallel/ring_fused.py)
 RING_REPLACES = ("skellysim_tpu/parallel/ring_fused.py:99 (_ring_kernel, "
                  'kind="{}", driven by fused_ring_block_sum :178)')
@@ -2998,9 +3037,10 @@ def tree_sync_check(torch, ck, device):
         out = [system._fiber_flow(lo_state, lo_caches, r_all, forces,
                                   pair=pair),
                system._shell_flow(lo_state, r_fb, density, pair=pair)]
-        for g, bc, xb, f in zip(groups, lo_bcaches, x_b, ft):
+        for j, (g, bc, xb, f) in enumerate(zip(groups, lo_bcaches, x_b,
+                                               ft)):
             out.append(bd.flow(g, bc, r_all, xb, f, p.eta,
-                               pair=system._body_pair(g, pair)))
+                               pair=system._body_pair(g, pair, j)))
         return out
 
     first = flows()
@@ -3030,6 +3070,315 @@ def tree_sync_check(torch, ck, device):
         raise SystemExit(f"tree sync check: G / H did not launch: {counts}")
     return {"depth": pair.plan.depth, "geometries": len(pair.geometry),
             "same_bits": same, "launches": counts}
+
+
+def shard_bytes(torch, st):
+    """Bytes the tensors of one shard's state hold (a view counted at its
+    own extent, not its storage's)."""
+    total = 0
+    for part in (st.fibers, st.shell, st.bodies, st.points, st.background):
+        groups = part if isinstance(part, tuple) and not hasattr(
+            part, "_fields") else [part]
+        for g in groups:
+            for v in (g or ()):
+                if torch.is_tensor(v):
+                    total += v.numel() * v.element_size()
+    return total
+
+
+def matvec_syncs(torch, device, system, mesh, sharded):
+    """Host syncs of one matvec and one preconditioner application of the
+    sharded step's Krylov interior ("mixed": its f32 view), counted under
+    `torch.cuda.set_sync_debug_mode("warn")` after a first call of each;
+    None on the CPU."""
+    import warnings
+
+    from skellysim_tpu_torch.parallel.spmd import ShardVec, build_spmd_step
+
+    if device.type != "cuda":
+        return None
+    step = build_spmd_step(system, mesh, sharded)
+    sts, caches, bcs, _, _ = step.prep(list(sharded.shards))
+    if step.precision == "mixed":
+        views = [system._lo_view(*a) for a in zip(sts, caches, bcs)]
+        lo = tuple([v[i] for v in views] for i in range(3))
+        matvec = step.make_matvec(sts, caches, bcs, lo=lo)
+        precond = step.make_precond(*lo)
+    else:
+        matvec = step.make_matvec(sts, caches, bcs)
+        precond = step.make_precond(sts, caches, bcs)
+    x = ShardVec(torch.cat([c.RHS.reshape(-1) for c in cs]
+                           + [st.shell.density])
+                 for cs, st in zip(caches, sts))
+    matvec(precond(x))
+    torch.cuda.synchronize()
+    counts = {}
+    for name, fn in (("matvec", matvec), ("precond", precond)):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counts[name] = sum("synchroniz" in str(w.message) for w in seen)
+        if seen:
+            counts[f"{name}_messages"] = sorted({str(w.message)[:200]
+                                                 for w in seen})
+        if counts[name]:
+            # where: the same call again, raising at the first sync
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(x)
+            except RuntimeError as e:
+                import traceback
+
+                frames = traceback.extract_tb(e.__traceback__)[-3:]
+                counts[f"{name}_first_at"] = [
+                    f"{os.path.relpath(f.filename, REPO)}:{f.lineno} "
+                    f"{f.line}" for f in frames]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    return counts
+
+
+def spmd_pair(torch, ck, device, system, mesh, sharded, state0, tag, i):
+    """One `System.step` from the gathered sharded state (the shell's
+    operators the very tensors the shards view) and one
+    `System.step_spmd` from the sharded state, each timed to a
+    `torch.cuda.synchronize()` with its own peak device memory; the sharded
+    step alone with every launch count set to 0 just before and read just
+    after. Returns (the sharded step's result, a record)."""
+    from skellysim_tpu_torch.parallel import gather_state
+
+    ref_in = gather_state(sharded, shell_operators=False)
+    if ref_in.shell is not None:
+        ref_in = ref_in._replace(shell=ref_in.shell._replace(
+            M_inv=state0.shell.M_inv,
+            stresslet_plus_complementary=(
+                state0.shell.stresslet_plus_complementary)))
+
+    def run(fn):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device.type == "cuda" else None)
+        return out, time.perf_counter() - t0, peak
+
+    (r_state, r_sol, r_info), r_wall, r_peak = run(lambda: system.step(ref_in))
+    del ref_in
+    reset_counts(ck)
+    (s_state, s_sol, s_info), s_wall, s_peak = run(
+        lambda: system.step_spmd(sharded, mesh))
+    counts = read_counts(ck)
+    x_sp = gather_state(s_state, shell_operators=False)
+    dx = max(float((a.x - b.x).abs().max()) for a, b in zip(
+        fiber_groups(x_sp.fibers), fiber_groups(r_state.fibers)))
+    gap = abs(s_info.residual_true - r_info.residual_true)
+    nan = bool(torch.isnan(s_sol).any())
+    rec = {"step": i, "wall_s": s_wall, "step_wall_s": r_wall,
+           "iters": s_info.iters, "step_iters": r_info.iters,
+           "refines": s_info.refines, "step_refines": r_info.refines,
+           "residual_true": s_info.residual_true,
+           "step_residual_true": r_info.residual_true, "residual_gap": gap,
+           "max_dx": dx, "health": s_info.health, "nan": nan,
+           "peak_gib": s_peak, "step_peak_gib": r_peak,
+           "launches": {k: v for k, v in counts.items() if v}}
+    peaks = ("not measured" if s_peak is None
+             else f"{s_peak:.2f} GiB (System.step {r_peak:.2f})")
+    log(f"[{tag}] step {i}: step_spmd {s_wall:.3f} s, {s_info.iters} "
+        f"iterations / {s_info.refines} sweeps, true residual "
+        f"{s_info.residual_true:.3e}; System.step {r_wall:.3f} s, "
+        f"{r_info.iters} / {r_info.refines}, {r_info.residual_true:.3e}; "
+        f"residual gap {gap:.3e} (gate {PARITY_GATE}), max |dx| {dx:.3e} "
+        f"(gate {SPMD_DX}); peak {peaks}; launches {rec['launches']}")
+    if not (s_info.converged and r_info.converged and s_info.health == 0
+            and not nan and s_info.residual_true <= 1e-8):
+        raise SystemExit(f"{tag}: step {i} of the sharded step is not "
+                         f"converged / healthy: {s_info}")
+    if any(counts[w.__name__] for w in ck.YARDSTICK_WRAPPERS):
+        raise SystemExit(f"{tag}: a yardstick kernel launched: {counts}")
+    return (s_state, s_sol, s_info, counts), rec, (r_state, r_sol)
+
+
+def fiber_groups(fibers):
+    return (fibers,) if hasattr(fibers, "_fields") else tuple(fibers)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def spmd_body_state(torch, system, state):
+    """Phase 13b's scene: ``state`` (the ellipsoid) plus one sphere body of
+    `SPMD_BODY_NODES` nodes at the cell's centre with `SPMD_BOUND_FIBERS`
+    sites, one clamped 16-node fiber of length 0.6 bound to each and
+    pointing outward (`testing.make_coupled_scene`'s recipe at this
+    size), a second fiber bucket; sites from default_rng(0)."""
+    import numpy as np
+
+    from skellysim_tpu_torch.bodies import bodies as bd
+    from skellysim_tpu_torch.fibers import container as fc
+    from skellysim_tpu_torch.periphery.precompute import precompute_body
+
+    device = system.device
+    rng = np.random.default_rng(0)
+    u = rng.standard_normal((SPMD_BOUND_FIBERS, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    sites = 0.5 * u
+    pre = precompute_body("sphere", SPMD_BODY_NODES, radius=0.5)
+    body = bd.make_group(
+        pre["node_positions_ref"], pre["node_normals_ref"],
+        pre["node_weights"], position=np.zeros((1, 3)),
+        external_force=np.array([[0.0, 0.0, 0.5]]), nucleation_sites_ref=sites,
+        radius=np.array([0.5]), kind="sphere", device=device)
+    t = np.linspace(0.0, 1.0, 16)
+    x = sites[:, None, :] + 0.6 * t[None, :, None] * u[:, None, :]
+    n = SPMD_BOUND_FIBERS
+    bound = fc.make_group(
+        x, lengths=0.6, bending_rigidity=2.5e-3, radius=0.0125,
+        force_scale=-0.05, minus_clamped=True, binding_body=np.zeros(n),
+        binding_site=np.arange(n), device=device)
+    return system.make_state(
+        fibers=(fiber_groups(state.fibers)[0], bound), shell=state.shell,
+        bodies=body)
+
+
+def phase_spmd(torch, ck, device, ring_inputs):
+    """Phase 13, the sharded step (`System.step_spmd`) on `SPMD_SHARDS`
+    shards of the card, every step held against `System.step` from the
+    same state (a-c). Returns (the phase's summary, launch counts by
+    run)."""
+    import dataclasses
+
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import schema
+    from skellysim_tpu_torch.parallel import make_mesh, shard_state
+    from skellysim_tpu_torch.system import System
+
+    cfg_path = ring_inputs["cfg_path"]
+    config = schema.load_config(cfg_path)
+    t0 = time.perf_counter()
+    system, state, _ = build_simulation(
+        config, config_dir=os.path.dirname(cfg_path), device=device)
+    build_s = time.perf_counter() - t0
+    mesh = make_mesh(SPMD_SHARDS, device=device)
+    sharded = shard_state(state, mesh)
+    per_shard = [shard_bytes(torch, st) for st in sharded.shards]
+    log(f"[spmd] phase 6's ellipsoid config on {mesh.size} shards of "
+        f"{mesh.devices[0]}: state built in {build_s:.1f} s (the shell "
+        f"npz load included); state bytes a shard "
+        f"{[round(b / 2**30, 3) for b in per_shard]} GiB (the whole state "
+        f"{shard_bytes(torch, state) / 2**30:.3f} GiB); the shards view "
+        f"the state's tensors (no copy)")
+    out = {"shards": mesh.size, "build_s": build_s,
+           "shard_gib": [b / 2**30 for b in per_shard],
+           "state_gib": shard_bytes(torch, state) / 2**30}
+    launches = {}
+
+    # a. three "mixed" steps (the card's "auto") and one "full"
+    recs, total = [], {}
+    for i in range(SPMD_MIXED_STEPS):
+        res, rec, _ = spmd_pair(torch, ck, device, system, mesh, sharded,
+                                state, "spmd", i)
+        sharded = res[0]
+        recs.append(rec)
+        add_counts(total, res[3])
+    out["syncs"] = matvec_syncs(torch, device, system, mesh, sharded)
+    log(f"[spmd] host syncs of one Krylov matvec / preconditioner "
+        f"application: {out['syncs'] or 'not measured (CPU rehearsal)'}")
+    full = System(dataclasses.replace(system.params, solver_precision="full"),
+                  shell_shape=system.shell_shape, device=device)
+    before_full = sharded
+    res, rec, _ = spmd_pair(torch, ck, device, full, mesh, sharded, state,
+                            "spmd_full", SPMD_MIXED_STEPS)
+    full_sharded = res[0]
+    recs.append(rec)
+    launches["spmd_ellipsoid"] = total
+    launches["spmd_ellipsoid_full"] = res[3]
+    out["ellipsoid"] = recs
+    if device.type == "cuda":
+        need = {"spmd_ellipsoid": ["ring_stokeslet_f32", "ring_stresslet_f32",
+                                   "stokeslet_f64", "stresslet_f64"],
+                "spmd_ellipsoid_full": ["stokeslet_f64", "stresslet_f64"]}
+        for run, names in need.items():
+            if not all(launches[run][k] for k in names):
+                raise SystemExit(f"spmd: a kernel of {run} never launched: "
+                                 f"{launches[run]}")
+    for r in recs:
+        if not (r["residual_gap"] <= PARITY_GATE and r["max_dx"] <= SPMD_DX):
+            raise SystemExit(f"spmd: step {r['step']} differs from "
+                             f"System.step: {r}")
+
+    # b. the ellipsoid plus a body with bound fibers: replicated rows
+    bstate = spmd_body_state(torch, system, state)
+    bsharded = shard_state(bstate, mesh)
+    res, rec, _ = spmd_pair(torch, ck, device, system, mesh, bsharded,
+                            bstate, "spmd_body", 0)
+    bodies = [st.bodies for st in res[0].shards]
+    same = all(torch.equal(getattr(bodies[0], f), getattr(b, f))
+               for b in bodies[1:] for f in b._fields
+               if torch.is_tensor(getattr(b, f)))
+    rec["replicated_same_bits"] = same
+    out["body"] = rec
+    launches["spmd_body"] = res[3]
+    log(f"[spmd_body] a {SPMD_BODY_NODES}-node sphere with "
+        f"{SPMD_BOUND_FIBERS} bound 16-node fibers (a second bucket) in the "
+        f"ellipsoid: the body's fields the same bits on all {mesh.size} "
+        f"shards: {same}")
+    if not (same and rec["residual_gap"] <= PARITY_GATE
+            and rec["max_dx"] <= SPMD_DX):
+        raise SystemExit(f"spmd_body: the step differs from System.step or "
+                         f"the replicated rows differ between shards: {rec}")
+    if device.type == "cuda" and not all(
+            res[3][k] for k in ("stokeslet_f32", "stresslet_f32",
+                                "ring_stokeslet_f32", "stokeslet_f64")):
+        raise SystemExit(f"spmd_body: the replicated rows' partials did not "
+                         f"launch A / C: {res[3]}")
+    del bstate, bsharded, res
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # c. "tree", one "full" step from the state before a's "full" step
+    tree = System(dataclasses.replace(system.params, solver_precision="full",
+                                      pair_evaluator="tree"),
+                  shell_shape=system.shell_shape, device=device)
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    t_state, t_sol, t_info = tree.step_spmd(before_full, mesh)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(ck)
+    launches["spmd_tree"] = counts
+    nan = [bool(torch.isnan(fiber_groups(st.fibers)[0].x).any())
+           for st in t_state.shards]
+    dx = max(float((fiber_groups(a.fibers)[0].x
+                    - fiber_groups(b.fibers)[0].x).abs().max())
+             for a, b in zip(t_state.shards, full_sharded.shards))
+    out["tree"] = {"wall_s": wall, "iters": t_info.iters,
+                   "residual_true": t_info.residual_true, "max_dx": dx,
+                   "nan_by_shard": nan, "health": t_info.health,
+                   "launches": {k: v for k, v in counts.items() if v}}
+    log(f"[spmd_tree] one \"full\" step through \"tree\" on {mesh.size} "
+        f"shards: {wall:.3f} s (the host plan included), {t_info.iters} "
+        f"iterations, true residual {t_info.residual_true:.3e}, NaN by "
+        f"shard {nan}, max |dx| against a's direct \"full\" step {dx:.3e} "
+        f"(gate {SPMD_TREE_DX}); launches {out['tree']['launches']}")
+    if any(nan) or not (t_info.converged and t_info.health == 0
+                        and dx <= SPMD_TREE_DX):
+        raise SystemExit(f"spmd_tree: the step failed its gate: {out['tree']}")
+    if device.type == "cuda" and not counts["tree_stokeslet_f64"]:
+        raise SystemExit(f"spmd_tree: G never launched: {counts}")
+    return out, launches
 
 
 def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
@@ -3128,7 +3477,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
-        entries, launches, smi, fast, tree = run_phases(
+        entries, launches, smi, fast, tree, spmd = run_phases(
             torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3143,6 +3492,7 @@ def main(argv=None) -> int:
                                  for path, c in launches.items()}
     print(json.dumps({"fast_evaluators": fast}), flush=True)
     print(json.dumps({"treecode": tree}), flush=True)
+    print(json.dumps({"spmd": spmd}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3152,9 +3502,9 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-12 (10, 11 and 12 run after 8, on phase 6's precompute,
-    then 9); returns (kernel entries, launch counts by path, the
-    nvidia-smi line, phase 11's summary, phase 12's)."""
+    """Phases 1-13 (10-13 run after 8, on phase 6's precompute, then 9);
+    returns (kernel entries, launch counts by path, the nvidia-smi line,
+    phase 11's summary, phase 12's, phase 13's)."""
     import numpy as np
 
     # 1. device
@@ -3308,12 +3658,20 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
         ring_inputs, smi)
     entries += tree_entries_
     launches.update(tree_launches)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 12")
+
+    # 13. the sharded step, on phase 6's precompute
+    spmd, spmd_launches = phase_spmd(torch, ck, device, ring_inputs)
+    launches.update(spmd_launches)
     del ring_inputs, nodes, f
     shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    stamp("phase 12")
+    stamp("phase 13")
 
     # 9. the body scene at its published size
     launches["body_const_force"], _, at_body = phase_bodies(
@@ -3336,7 +3694,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                "tree_stresslet_f64": "tree_ellipsoid_full"}
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
-    return entries, launches, smi, fast, tree
+    return entries, launches, smi, fast, tree, spmd
 
 
 if __name__ == "__main__":

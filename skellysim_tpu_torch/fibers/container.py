@@ -7,9 +7,8 @@ exactly as the JAX package does (docs/audit.md "Masking discipline"): they
 contribute zero flow, force and error and solve the identity.
 
 Slice limits: static resolutions only (no runtime node padding); the
-direct, ring, Ewald, treecode and spectral pair evaluators
-(`flow_multi_local`, the sharded step's flow, belongs to ROADMAP §1 item
-12).
+direct, ring, Ewald, treecode and spectral pair evaluators, and the
+sharded step's flow (`flow_multi_local`).
 """
 
 from __future__ import annotations
@@ -278,6 +277,76 @@ def flow_multi(buckets, caches_list, r_trg, forces_list, eta,
             vel[off:off + nfn] -= self_vel.reshape(-1, 3)
             off += nfn
     return vel
+
+
+def flow_multi_local(buckets, caches_list, forces_list, r_loc, r_rep, eta, *,
+                     comm, subtract_self: bool = True, impl: str = "exact",
+                     pair=None):
+    """`flow_multi` for the sharded step (`parallel.spmd`; the JAX
+    package's `flow_multi_local`), every argument one entry a shard:
+    ``buckets[k]`` / ``caches_list[k]`` / ``forces_list[k]`` are shard k's
+    resident fiber blocks, ``comm`` the step's collective seam
+    (`parallel.spmd.Collectives`). Two target classes:
+
+    * ``r_loc[k]``, the targets resident on shard k (its fiber nodes, its
+      shell rows): every shard's sources reach them around the ring
+      (`parallel.ring.ring_flow_local`, ``ring=True``);
+    * ``r_rep[k]`` (or ``r_rep`` None), targets replicated on every shard
+      (body nodes, a replicated shell): shard k's own sources only, a
+      partial the caller adds across shards (``comm.psum``), so that the
+      rows keep the same bits on every shard.
+
+    Returns (v_loc, v_rep partial), a list each (None for an absent
+    class). With ``subtract_self`` the leading rows of ``r_loc[k]`` are
+    shard k's fiber nodes in bucket order, and each fiber's dense
+    self-interaction is subtracted. The f64-grade tiles accumulate in
+    float64 and cast back to the targets' dtype.
+
+    A tree ``pair`` (`ops.evaluator.PairEvaluator`, depth >= 1) replaces
+    the ring: the sources are all-gathered (``comm.all_gather``) and each
+    shard sums them at its resident targets through the shared plan
+    (kernel G), and its own sources at the replicated ones, each sum at
+    its own call site (``("fibers", "shard", k, ...)``), so no shard's
+    kept geometry serves another's. Every fiber slot must be active: no
+    shard holds the global active mask that would spread inactive padding
+    nodes (`parallel.spmd.build_spmd_step` checks this)."""
+    from ..parallel.ring import ring_flow_local
+
+    n = len(buckets)
+    pos = [torch.cat([node_positions(g) for g in b], dim=0) for b in buckets]
+    wf = [torch.cat([weighted_forces(g, f).reshape(-1, 3)
+                     for g, f in zip(b, fs)], dim=0)
+          for b, fs in zip(buckets, forces_list)]
+    if (pair is not None and pair.evaluator == "tree"
+            and pair.plan.depth > 0):
+        pos_all = comm.all_gather(pos)
+        wf_all = comm.all_gather(wf)
+        v_loc, v_rep = [], None if r_rep is None else []
+        for k in range(n):
+            pk = pair.to(r_loc[k].device).at("fibers", "shard", k)
+            v_loc.append(pk.at("resident").stokeslet(pos_all[k], r_loc[k],
+                                                     wf_all[k], 0, eta))
+            if r_rep is not None:
+                v_rep.append(pk.at("replicated").stokeslet(
+                    pos[k], r_rep[k], wf[k], 0, eta))
+    else:
+        v_loc = ring_flow_local("stokeslet", impl, r_loc, pos, wf, eta,
+                                comm=comm, ring=True)
+        v_rep = (None if r_rep is None else
+                 ring_flow_local("stokeslet", impl, r_rep, pos, wf, eta,
+                                 comm=comm, ring=False))
+    if subtract_self:
+        for k in range(n):
+            off = 0
+            for g, caches in zip(buckets[k], caches_list[k]):
+                nfn = g.n_fibers * g.n_nodes
+                self_vel = torch.bmm(
+                    caches.stokeslet,
+                    wf[k][off:off + nfn].reshape(g.n_fibers, -1, 1))
+                v_loc[k][off:off + nfn] -= self_vel.reshape(-1, 3).to(
+                    v_loc[k].dtype)
+                off += nfn
+    return v_loc, v_rep
 
 
 def apply_fiber_force(group: FiberGroup, caches: FiberCaches, x_all) -> torch.Tensor:

@@ -11,8 +11,11 @@ evaluators need no plan and are chosen by those flows' ``evaluator``
 argument.
 
 A tree plan's evaluator also keeps the tree's geometry (the sort, the
-lists, the anterpolation weights) of each set of positions it has summed
-over, so the matvecs of one solve build it once (`ops.treecode._tree_sum`).
+lists, the anterpolation weights) of each call site's positions, so the
+matvecs of one solve build it once (`ops.treecode._tree_sum`). A flow takes
+its call site's view of the step's evaluator (`PairEvaluator.at`: the
+fiber flow, the shell's, a body bucket's by index, a shard's): the same
+plan, anchors and kept geometry, the site part of the geometry's key.
 
 ``plan`` is an `ops.ewald.EwaldPlan` (free space), an
 `ops.treecode.TreePlan` (free space) or an `ops.spectral.SpectralPlan`
@@ -26,6 +29,7 @@ is given.
 
 from __future__ import annotations
 
+import dataclasses
 import types
 from dataclasses import dataclass, field
 
@@ -75,10 +79,29 @@ class PairEvaluator:
 
     plan: object
     anchors: torch.Tensor
-    #: a tree plan's `ops.treecode.TreeGeometry` by (family, dtype,
-    #: sources, targets), built at the first sum over them and kept for
-    #: the evaluator's life (one step: `System._pair_args`)
+    #: a tree plan's `ops.treecode.TreeGeometry` by (call site, family,
+    #: dtype, sources, targets), built at the first sum over them and kept
+    #: for the evaluator's life (one step: `System._pair_args`); every
+    #: view made by `at` shares it
     geometry: dict = field(default_factory=dict, repr=False)
+    #: the call site this view sums for (`at`), the first part of the kept
+    #: geometry's key: counts alone never decide it
+    site: tuple = ()
+
+    def at(self, *site) -> "PairEvaluator":
+        """This evaluator at call site ``site`` (e.g. ``("body", 1)``, or
+        ``("fibers", "shard", 2)``): the same plan, anchors and kept
+        geometry, with ``site`` appended to the view's own. Two sites with
+        the same counts but other positions (two body buckets of one node
+        total, two shards' targets) keep a geometry each."""
+        return dataclasses.replace(self, site=self.site + tuple(site))
+
+    def to(self, device) -> "PairEvaluator":
+        """This view with its anchors on ``device`` (a shard's card), the
+        kept geometry shared."""
+        if self.anchors.device == torch.device(device):
+            return self
+        return dataclasses.replace(self, anchors=self.anchors.to(device))
 
     @property
     def evaluator(self) -> str:
@@ -116,8 +139,11 @@ class PairEvaluator:
             self.plan, self.anchors, r_dl, r_trg, f_dl, eta, **self._kept())
 
     def _kept(self) -> dict:
-        """What a sum may keep on this evaluator: a tree's geometry."""
-        return {"geometry": self.geometry} if self.evaluator == "tree" else {}
+        """What a sum may keep on this evaluator: a tree's geometry, under
+        this view's call site."""
+        if self.evaluator != "tree":
+            return {}
+        return {"geometry": self.geometry, "site": self.site}
 
 
 def make_pair(plan, device) -> PairEvaluator:

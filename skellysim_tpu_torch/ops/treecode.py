@@ -695,7 +695,7 @@ def tree_operands(plan: TreePlan, anchors, r_src, payload, r_trg,
 
 
 def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
-              eta, geometry=None):
+              eta, geometry=None, site=()):
     """The scaled singular ``family`` sum ("stokeslet": payload [n, 3];
     "stresslet": [n, 9]) on a depth >= 2 plan: the positions' geometry
     (`tree_geometry`), then the payload's part (`tree_payload`) and ONE
@@ -703,17 +703,17 @@ def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
     targets; returns [n_trg, 3] in caller order, in ``r_trg``'s dtype.
 
     ``geometry`` (a dict, `ops.evaluator.PairEvaluator.geometry`, one a
-    step) keeps each geometry by (family, dtype, sources, targets) and
-    serves the next sum with that key from it, so a sum after the first
-    makes no host sync and gives the bits a fresh build would. The flows of
-    a step that share a key share their positions (the fiber nodes onto
-    every node, the shell's onto the fiber and body nodes, a body bucket's
-    onto every node); should positions under a kept key differ all the
-    same, the sum comes back NaN, which the solve reports, not wrong."""
+    step) keeps each geometry by (``site``, family, dtype, sources,
+    targets) and serves the next sum with that key from it, so a sum after
+    the first makes no host sync and gives the bits a fresh build would.
+    ``site`` is the caller's call site (`PairEvaluator.at`: the fiber flow,
+    the shell's, body bucket j's, a shard's), so the sums that share a key
+    share their positions; should positions under a kept key differ all
+    the same, the sum comes back NaN, which the solve reports, not wrong."""
     from . import cuda_kernels
 
     dtype = r_trg.dtype
-    key = (family, dtype, r_src.shape[0], r_trg.shape[0])
+    key = (site, family, dtype, r_src.shape[0], r_trg.shape[0])
     geom = None if geometry is None else geometry.get(key)
     kept = geom is not None
     if not kept:
@@ -736,20 +736,20 @@ def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
 # ------------------------------------------------------------------ the sums
 
 def stokeslet_impl(plan: TreePlan, anchors, r_src, r_trg, f_src,
-                   n_self: int, eta, geometry=None):
+                   n_self: int, eta, geometry=None, site=()):
     """Stokeslet sum on a depth >= 2 ``plan`` with its [1, 3] ``anchors``
-    (box_lo) at viscosity ``eta`` (``geometry``: as `_tree_sum`). The tree
-    needs no self correction (coincident pairs drop in the near field), so
-    ``n_self`` is unused."""
+    (box_lo) at viscosity ``eta`` (``geometry``, ``site``: as
+    `_tree_sum`). The tree needs no self correction (coincident pairs drop
+    in the near field), so ``n_self`` is unused."""
     return _tree_sum("stokeslet", plan, anchors, r_src, f_src, r_trg, eta,
-                     geometry)
+                     geometry, site)
 
 
 def stresslet_impl(plan: TreePlan, anchors, r_dl, r_trg, f_dl, eta,
-                   geometry=None):
+                   geometry=None, site=()):
     """Stresslet sum on a depth >= 2 ``plan`` (``f_dl`` [n, 3, 3])."""
     return _tree_sum("stresslet", plan, anchors, r_dl, f_dl.reshape(-1, 9),
-                     r_trg, eta, geometry)
+                     r_trg, eta, geometry, site)
 
 
 def stokeslet_tree(plan: TreePlan, r_src, r_trg, f_src, eta):

@@ -1,26 +1,40 @@
-"""Device mesh for the ring pair evaluator.
+"""Device mesh for the ring pair evaluator and the sharded step.
 
-Counterpart of `skellysim_tpu.parallel.mesh` (`FIBER_AXIS`, `make_mesh`).
-The port keeps the JAX package's single-controller model: a mesh is an
-ordered tuple of shard devices in one process. On several cards each card
-holds one shard; on one card (or on the CPU, as the tests run it) one device
-holds several shards, the analogue of the JAX tests' forced host devices.
-The ring kernels run the same device code in both layouts (`ops.cuda_kernels`
+Counterpart of `skellysim_tpu.parallel.mesh` (`FIBER_AXIS`, `make_mesh`,
+`SHELL_ROW_SHARDED_FIELDS`, `shard_state`). The port keeps the JAX
+package's single-controller model: a mesh is an ordered tuple of shard
+devices in one process. On several cards each card holds one shard; on one
+card (or on the CPU, as the tests run it) one device holds several shards,
+the analogue of the JAX tests' forced host devices. The ring kernels run
+the same device code in both layouts (`ops.cuda_kernels`
 `ring_stokeslet_f32` / `ring_stresslet_f32`).
 
-`shard_state`, `make_member_mesh` and `make_2d_mesh` belong to the SPMD and
-ensemble slices (ROADMAP.md §1 items 11 and 12) and are not ported.
+A state placed on a mesh (`shard_state`) is a `ShardedState`: one local
+`SimState` a shard, the layout of the JAX package's `shard_map` program
+(`parallel.spmd`): each fiber bucket's block of whole fibers, the shell's
+node-aligned row block (or the whole shell on every shard, where it cannot
+split), and everything else replicated. `gather_state` is the only way
+back to one device. `make_member_mesh` and `make_2d_mesh` belong to the
+ensemble slice (ROADMAP.md §1 item 11) and are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
 from ..device import resolve_device
 
 FIBER_AXIS = "fib"
+
+#: the shell fields that row-shard, by `PeripheryState` field name: the two
+#: O(n_nodes^2) dense operators (the reference's Scatterv'd shell rows). A
+#: sharded shell splits its O(n_nodes) fields node-aligned too, as the JAX
+#: package's step does inside its program: each shard holds the rows of its
+#: own nodes
+SHELL_ROW_SHARDED_FIELDS = ("stresslet_plus_complementary", "M_inv")
 
 
 @dataclass(frozen=True)
@@ -66,3 +80,128 @@ def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
 
         enable_ring_peer_access(devices)
     return Mesh(devices)
+
+
+class ShardedState(NamedTuple):
+    """A `system.SimState` placed on ``mesh`` by `shard_state`:
+    ``shards[k]`` is shard k's local state, its tensors on
+    ``mesh.devices[k]``; ``shell_mode`` is "sharded", "replicated" or
+    "none" (`parallel.spmd.spmd_shell_mode`)."""
+
+    shards: tuple
+    mesh: Mesh
+    shell_mode: str
+
+    @property
+    def time(self) -> float:
+        return self.shards[0].time
+
+
+def _to(nt, device):
+    """NamedTuple ``nt`` (or None) with its tensor fields on ``device``
+    (the same tensors where they already lie there)."""
+    if nt is None:
+        return None
+    return nt._replace(**{k: v.to(device) for k, v in nt._asdict().items()
+                          if torch.is_tensor(v)})
+
+
+def _rows(nt, k: int, n: int, device):
+    """Block ``k`` of ``n`` equal leading blocks of every tensor field of
+    ``nt``, on ``device`` (views where it already lies there)."""
+    def block(v):
+        m = v.shape[0] // n
+        return v[k * m:(k + 1) * m].to(device)
+
+    return nt._replace(**{f: block(v) for f, v in nt._asdict().items()
+                          if torch.is_tensor(v)})
+
+
+def shard_state(state, mesh: Mesh, *, allow_replicated_shell: bool = False
+                ) -> ShardedState:
+    """Place a `SimState` on ``mesh`` for `System.step_spmd`, by field
+    name, not shape: every fiber bucket splits into ``mesh.size`` blocks
+    of whole fibers; a shell whose node count the mesh divides splits
+    node-aligned (nodes, normals, weights, density and the rows of the two
+    dense operators, `SHELL_ROW_SHARDED_FIELDS`); bodies, point and
+    background sources, time and dt replicate. A fiber bucket the mesh does
+    not divide, or a shell that cannot split, raises
+    (`parallel.spmd.spmd_shell_mode`); ``allow_replicated_shell=True``
+    puts the whole shell on every shard instead. Blocks on the state's own
+    device are views: placing a state on one card copies nothing."""
+    from ..system.system import fiber_buckets
+    from .spmd import spmd_shell_mode
+
+    mode = spmd_shell_mode(state, mesh,
+                           allow_replicated_shell=allow_replicated_shell)
+    n = mesh.size
+    shards = []
+    for k, dev in enumerate(mesh.devices):
+        placed = [_rows(g, k, n, dev) for g in fiber_buckets(state.fibers)]
+        shell = state.shell
+        if shell is not None:
+            shell = (_rows(shell, k, n, dev) if mode == "sharded"
+                     else _to(shell, dev))
+        bodies = state.bodies
+        if bodies is not None:
+            bodies = (_to(bodies, dev) if hasattr(bodies, "_fields")
+                      else tuple(_to(g, dev) for g in bodies))
+        shards.append(state._replace(
+            fibers=_rewrap(state.fibers, placed), shell=shell, bodies=bodies,
+            points=_to(state.points, dev),
+            background=_to(state.background, dev)))
+    return ShardedState(tuple(shards), mesh, mode)
+
+
+def _rewrap(field, buckets):
+    """``buckets`` in the shape of ``field`` (one group or a tuple)."""
+    return buckets[0] if hasattr(field, "_fields") else tuple(buckets)
+
+
+def gather_state(sharded: ShardedState, device=None, *,
+                 shell_operators: bool = True):
+    """The `SimState` of a `ShardedState` on one ``device`` (default: shard
+    0's): the fiber blocks and a sharded shell's rows concatenated in shard
+    order, the replicated fields taken from shard 0. With
+    ``shell_operators=False`` the shell's dense operators
+    (`SHELL_ROW_SHARDED_FIELDS`) are left None, which saves their copy
+    where only positions are read (a fast plan). The step never calls it:
+    it is for the writer, the tests and the caller that asks."""
+    from ..system.system import fiber_buckets
+
+    shards = sharded.shards
+    dev = resolve_device(device) if device is not None else None
+    first = shards[0]
+
+    def cat(nts, skip=()):
+        fields = {}
+        for f in nts[0]._fields:
+            vals = [getattr(nt, f) for nt in nts]
+            if f in skip or not torch.is_tensor(vals[0]):
+                fields[f] = None if f in skip else vals[0]
+                continue
+            out = torch.cat([v.to(vals[0].device) for v in vals])
+            fields[f] = out if dev is None else out.to(dev)
+        return type(nts[0])(**fields)
+
+    def place(nt):
+        return nt if dev is None else _to(nt, dev)
+
+    buckets = [cat([fiber_buckets(st.fibers)[i] for st in shards])
+               for i in range(len(fiber_buckets(first.fibers)))]
+    shell = first.shell
+    skip = () if shell_operators else SHELL_ROW_SHARDED_FIELDS
+    if shell is not None:
+        if sharded.shell_mode == "sharded":
+            shell = cat([st.shell for st in shards], skip)
+        else:
+            shell = place(shell._replace(**{f: None for f in skip}))
+    bodies = first.bodies
+    if bodies is not None:
+        bodies = (place(bodies) if hasattr(bodies, "_fields")
+                  else tuple(place(g) for g in bodies))
+    return first._replace(
+        fibers=None if first.fibers is None else _rewrap(first.fibers,
+                                                         buckets),
+        shell=shell, bodies=bodies, points=place(first.points),
+        background=place(first.background))

@@ -26,9 +26,9 @@ Two transports serve one call site (`_ring_or_fused`):
 Inputs are whole [N, ...] tensors on the caller's device whose leading axis
 the mesh size divides (pad first, as `System` does); they are cut into
 equal shard blocks, each placed on its shard's device, and the result comes
-back to the caller's device. `ring_flow_local` (the SPMD step's in-mesh
-seam) and `ring_oseen_contract` (no caller on the ring path) belong to the
-next slice (ROADMAP.md §1 item 12).
+back to the caller's device. `ring_flow_local` is the sharded step's
+in-mesh seam instead (`parallel.spmd`): its operands are already one block
+a shard, and its result stays so.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ import math
 import torch
 
 from ..ops import cuda_kernels
-from ..ops.kernels import pallas_impl_for
+from ..ops import kernels
+from ..ops.kernels import DEFAULT_EPS, DEFAULT_REG, pallas_impl_for
 from .compat import fused_ring_mode
 from .mesh import Mesh
 
@@ -82,19 +83,22 @@ def _ring_accumulate(block_fn, devices, u0, *rotating) -> list:
     return u
 
 
-def _ring_or_fused(kind, impl: str, block_fn, mesh: Mesh, r_trg, *rotating):
+def _ring_or_fused(kind, impl: str, block_fn, mesh: Mesh, r_trg, *rotating,
+                   acc_dtype=None):
     """THE ring call site: the fused ring kernel where `compat
     .fused_ring_mode` selects it on a mesh of more than one shard, else the
     hop-by-hop accumulation of ``block_fn(trg, *blocks)`` (unscaled) from
-    zero. ``r_trg`` and ``rotating`` are per-shard lists; returns the
-    unscaled per-shard sums. ``kind`` names the fused family
-    ("stokeslet" / "stresslet"; None for tiles it does not serve)."""
+    zero, in ``acc_dtype`` (default: the targets'). ``r_trg`` and
+    ``rotating`` are per-shard lists; returns the unscaled per-shard sums.
+    ``kind`` names the fused family ("stokeslet" / "stresslet"; None for
+    tiles it does not serve)."""
     if (kind is not None and mesh.size > 1
             and fused_ring_mode(impl, r_trg[0].device) == "fused"):
         return getattr(cuda_kernels, f"ring_{kind}_f32")(r_trg, *rotating)
-    return _ring_accumulate(lambda k, *blk: block_fn(r_trg[k], *blk),
-                            mesh.devices, [torch.zeros_like(t) for t in r_trg],
-                            *rotating)
+    return _ring_accumulate(
+        lambda k, *blk: block_fn(r_trg[k], *blk), mesh.devices,
+        [torch.zeros((t.shape[0], 3), dtype=acc_dtype or t.dtype,
+                     device=t.device) for t in r_trg], *rotating)
 
 
 def _ring_block(impl: str, family: str, dtype):
@@ -189,3 +193,59 @@ def ring_stresslet_df(r_dl, r_trg, f_dl, eta, *, mesh: Mesh,
     """Ring-parallel f64-grade stresslet; ``f_dl`` is [n_src, 3, 3]; one
     kernel D launch a hop and shard."""
     return _ring_df("stresslet", impl, mesh, r_dl, r_trg, f_dl, eta)
+
+
+def ring_flow_local(kind: str, impl: str, r_trg, src, payload, eta, *, comm,
+                    ring: bool = True):
+    """Pairwise flow for the sharded step (`skellysim_tpu.parallel.ring
+    .ring_flow_local`): the one place its evaluation contract lives for
+    every tile, so the fiber and shell callers cannot drift apart.
+
+    ``r_trg``, ``src`` and ``payload`` hold one block a shard (shard k's on
+    its device); ``comm`` is the step's collective seam
+    (`parallel.spmd.Collectives`). ``kind`` picks the kernel ("stokeslet":
+    payload [n, 3] forces; "stresslet": [n, 3, 3]). ``ring=True`` sums
+    every shard's sources at each shard's resident targets around the ring
+    (`_ring_or_fused`: kernel E / F in one launch for f32 operands and
+    ``impl="pallas"`` on the card, else A / C or B / D a hop). ``ring=False``
+    sums each shard's own sources only: the partial of REPLICATED target
+    rows, which the caller adds across shards in shard order
+    (``comm.psum``), so that they come out the same bits on every shard (a
+    ring would add the same terms in another order on each). The f64-grade
+    tiles ("pallas_df": B / D) accumulate in float64 and cast back to the
+    targets' dtype. Returns one [n_trg, 3] block a shard."""
+    cols = _PAYLOAD_COLS[kind]
+    payload = [p.reshape(p.shape[0], cols) for p in payload]
+    if impl in ("df", "pallas_df"):
+        block = _df_ring_block(impl, kind)
+        scale = 1.0 / (8.0 * math.pi) / float(eta)
+        if ring:
+            u = comm.ring(None, impl, block, r_trg, src, payload,
+                          acc_dtype=torch.float64)
+        else:
+            u = [block(t, s, p) for t, s, p in zip(r_trg, src, payload)]
+        return [(x * scale).to(t.dtype) for x, t in zip(u, r_trg)]
+    impl = pallas_impl_for(impl, r_trg[0], src[0], payload[0])
+    block = _ring_block(impl, kind, r_trg[0].dtype)
+    scale = 1.0 / (8.0 * math.pi * eta)
+    if ring:
+        u = comm.ring(kind, impl, block, r_trg, src, payload)
+    else:
+        u = [block(t, s, p) for t, s, p in zip(r_trg, src, payload)]
+    return [x * scale for x in u]
+
+
+def ring_oseen_contract(r_src, r_trg, density, eta, reg=DEFAULT_REG,
+                        epsilon_distance=DEFAULT_EPS, *, mesh: Mesh):
+    """Ring-parallel regularized Oseen contraction (`ops.kernels
+    .oseen_contract`, already eta-scaled), hop by hop: the JAX package's
+    Oseen tile is plain XLA, with no Pallas kernel to port, so each hop is
+    the plain contraction on its shard's device. The leading axes must be
+    divisible by the mesh size."""
+    def block(trg, src, rho):
+        return kernels.oseen_contract(src, trg, rho, eta, reg,
+                                      epsilon_distance)
+
+    u = _ring_or_fused(None, "exact", block, mesh, _shard(r_trg, mesh),
+                       _shard(r_src, mesh), _shard(density, mesh))
+    return _gather(u, r_trg.device)

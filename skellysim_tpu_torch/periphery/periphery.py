@@ -15,7 +15,8 @@ The shell double-layer flow to fiber and body nodes (`flow`) runs on the
 hand-written stresslet kernels C / D through `ops.kernels.stresslet_direct`,
 or, under the ring evaluator, on kernel F (f32) and D (a hop, f64-grade)
 through `parallel.ring`, or through the fast evaluators' stresslet sums
-(`ops.ewald`, `ops.spectral`) when a plan is passed. Node-masked shells
+(`ops.ewald`, `ops.treecode`, `ops.spectral`) when a plan is passed;
+`flow_local` is the sharded step's (`parallel.spmd`). Node-masked shells
 (`grow_capacity`) belong to ROADMAP.md §1 item 11 and are not ported.
 """
 
@@ -222,6 +223,31 @@ def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact",
                                           impl=impl).to(r_trg.dtype)
         return ring.ring_stresslet(src, r_trg, f_dl, eta, mesh=mesh, impl=impl)
     return kernels.stresslet_direct(shell.nodes, r_trg, f_dl, eta, impl=impl)
+
+
+def flow_local(shells, r_loc, r_rep, density, eta, *, comm,
+               impl: str = "exact"):
+    """`flow` for the sharded step (`parallel.spmd`; the JAX package's
+    `flow_local`), every argument one entry a shard: ``shells[k]`` is
+    shard k's row block of the shell (nodes and normals node-aligned with
+    ``density[k]``'s rows), ``comm`` the step's collective seam. As in
+    `fibers.container.flow_multi_local`, ``r_loc[k]`` (shard k's resident
+    rows: its fiber nodes) sums every shard's shell block around the ring,
+    and ``r_rep[k]`` (replicated rows: body nodes; or ``r_rep`` None) only
+    shard k's own block, a partial for the caller's ``comm.psum``. Returns
+    (v_loc, v_rep partial). The shell's self-interaction is not computed:
+    it lives in the dense stored operator."""
+    from ..parallel.ring import ring_flow_local
+
+    f_dl = [2.0 * eta * sh.normals[:, :, None] * d.reshape(-1, 3)[:, None, :]
+            for sh, d in zip(shells, density)]
+    src = [sh.nodes for sh in shells]
+    v_loc = ring_flow_local("stresslet", impl, r_loc, src, f_dl, eta,
+                            comm=comm, ring=True)
+    v_rep = (None if r_rep is None else
+             ring_flow_local("stresslet", impl, r_rep, src, f_dl, eta,
+                             comm=comm, ring=False))
+    return v_loc, v_rep
 
 
 # ------------------------------------------------- shape-specific interactions

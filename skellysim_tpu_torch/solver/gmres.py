@@ -10,6 +10,17 @@ the Krylov basis and every vector operation stay on the device, and only
 the small Hessenberg/Givens arithmetic (m+1 numbers per iteration) runs in
 float64 on the host. The s-step cycle (``block_s > 1``) is not ported yet
 (ROADMAP.md §1 item 3).
+
+``rdot`` is the JAX package's reduction seam: ``rdot(A, w)`` contracts the
+vector axis of a basis slice ``A`` (or one vector) with ``w``; None is
+``A @ w`` on one tensor, the bits of the solver before the seam. The
+sharded step (`parallel.spmd`) passes its own, which sums each shard's
+partial in shard order and adds the replicated tail once, with Krylov
+vectors that are `parallel.spmd.ShardVec` (one tensor a shard). Those
+provide the few vector operations the solver uses besides ``rdot``:
+``+``, ``-``, division by a scalar, row indexing of a basis, and
+``zeros_like()``, ``basis(rows)`` and ``combine(c)`` (the rows' linear
+combination ``c @ V``).
 """
 
 from __future__ import annotations
@@ -47,13 +58,37 @@ def _norm(v) -> float:
     return float(torch.linalg.vector_norm(v))
 
 
-def _arnoldi_cycle(matvec, M, x0, r0, m, tol_abs, safe_b_norm):
+def _reductions(rdot):
+    """(rdot, norm) from an optional injected reduction (the JAX package's
+    `_reductions`): None keeps ``A @ w`` and `torch.linalg.vector_norm`."""
+    if rdot is None:
+        return (lambda A, w: A @ w), _norm
+    return rdot, lambda v: math.sqrt(float(rdot(v, v)))
+
+
+def _zeros_like(v):
+    return torch.zeros_like(v) if torch.is_tensor(v) else v.zeros_like()
+
+
+def _basis(v, rows: int):
+    """A zero Krylov basis of ``rows`` vectors shaped like ``v``."""
+    if torch.is_tensor(v):
+        return torch.zeros((rows, v.shape[0]), dtype=v.dtype, device=v.device)
+    return v.basis(rows)
+
+
+def _combine(c, V):
+    """``c @ V``: the combination of the basis rows ``V`` with the
+    coefficients ``c`` (a tensor)."""
+    return c @ V if torch.is_tensor(V) else V.combine(c)
+
+
+def _arnoldi_cycle(matvec, M, x0, r0, m, tol_abs, safe_b_norm, rdot, norm):
     """One restart cycle from x0 with r0 = b - A x0; returns (x,
     implicit relative residual, inner iterations)."""
-    n = r0.shape[0]
-    beta = _norm(r0)
+    beta = norm(r0)
     safe_beta = beta if beta > 0.0 else 1.0
-    V = torch.zeros((m + 1, n), dtype=r0.dtype, device=r0.device)
+    V = _basis(r0, m + 1)
     V[0] = r0 / safe_beta
     H = np.zeros((m + 1, m))
     cs = np.zeros(m)
@@ -68,10 +103,10 @@ def _arnoldi_cycle(matvec, M, x0, r0, m, tol_abs, safe_b_norm):
         # ICGS: two classical Gram-Schmidt passes against V[:k+1]
         h = np.zeros(m + 1)
         for _ in range(2):
-            proj = V[:k + 1] @ w
-            w = w - proj @ V[:k + 1]
+            proj = rdot(V[:k + 1], w)
+            w = w - _combine(proj, V[:k + 1])
             h[:k + 1] += proj.cpu().numpy()
-        h_norm = _norm(w)
+        h_norm = norm(w)
         h[k + 1] = h_norm
         V[k + 1] = w / (h_norm if h_norm > 0.0 else 1.0)
 
@@ -99,32 +134,35 @@ def _arnoldi_cycle(matvec, M, x0, r0, m, tol_abs, safe_b_norm):
         hjj = H[j, j]
         y[j] = (g[j] - H[j, :] @ y) / (hjj if hjj != 0.0 else 1.0)
     yt = torch.as_tensor(y[:k], dtype=r0.dtype, device=r0.device)
-    dx = M(yt @ V[:k])
+    dx = M(_combine(yt, V[:k]))
     resid = abs(g[min(k, m)]) / safe_b_norm
     return x0 + dx, resid, k
 
 
 def gmres(matvec: Callable, b: torch.Tensor, *, precond: Callable | None = None,
           tol: float = 1e-10, restart: int = 100, maxiter: int = 1000,
-          history: int = 0, block_s: int = 1) -> GmresResult:
+          history: int = 0, block_s: int = 1,
+          rdot: Callable | None = None) -> GmresResult:
     """Solve ``matvec(x) = b`` with right-preconditioned restarted GMRES
     from a zero initial guess; acceptance on the explicit residual (see
     `skellysim_tpu.solver.gmres.gmres` for the stall rule and health bits).
-    ``history=N`` keeps the last N per-cycle residual rows."""
+    ``history=N`` keeps the last N per-cycle residual rows; ``rdot``: the
+    reduction seam (module docstring)."""
     if block_s != 1:
         raise NotImplementedError(
             "gmres_block_s > 1 (the s-step cycle) is not ported yet "
             "(ROADMAP.md §1 item 3)")
     m = min(restart, maxiter)
     M = precond if precond is not None else (lambda v: v)
+    rdot, norm = _reductions(rdot)
 
-    b_norm = _norm(b)
+    b_norm = norm(b)
     # all-zero RHS -> solution zero, converged at once; a NaN norm fails
     # every comparison, so it lands here too and is stamped nonfinite below
     safe_b_norm = b_norm if b_norm > 0.0 else 1.0
     tol_abs = tol * safe_b_norm
 
-    x = torch.zeros_like(b)
+    x = _zeros_like(b)
     r = b
     init = math.inf if b_norm > 0.0 else 0.0
     resid_true = prev_true = resid_impl = init
@@ -134,10 +172,10 @@ def gmres(matvec: Callable, b: torch.Tensor, *, precond: Callable | None = None,
     while (resid_true > tol and total < maxiter
            and not (resid_impl <= tol and resid_true > 0.5 * prev_true)):
         x, resid_impl, k = _arnoldi_cycle(matvec, M, x, r, m, tol_abs,
-                                          safe_b_norm)
+                                          safe_b_norm, rdot, norm)
         r = b - matvec(x)
         prev_true = resid_true
-        resid_true = _norm(r) / safe_b_norm
+        resid_true = norm(r) / safe_b_norm
         health |= nonfinite_word(resid_true)
         if (resid_impl <= tol and resid_true > 0.5 * prev_true
                 and resid_true > tol):
@@ -158,17 +196,19 @@ def gmres_ir(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor, *,
              precond_lo: Callable | None = None, tol: float = 1e-10,
              inner_tol: float = 1e-5, restart: int = 100, maxiter: int = 1000,
              max_refine: int = 8, history: int = 0,
-             block_s: int = 1) -> GmresResult:
+             block_s: int = 1, rdot: Callable | None = None) -> GmresResult:
     """Mixed-precision GMRES with iterative refinement: solve A d = r with
     the cheap operator ``matvec_lo`` to ``inner_tol``, update x += d,
     recompute the residual with the exact operator ``matvec_hi``; repeat
     until the explicit residual meets ``tol`` (`skellysim_tpu.solver.gmres
-    .gmres_ir`). ``residual`` is the explicit relative residual."""
+    .gmres_ir`). ``residual`` is the explicit relative residual; ``rdot``
+    serves the sweeps' norms and the inner solves (`gmres`)."""
     M = precond_lo if precond_lo is not None else (lambda v: v)
-    b_norm = _norm(b)
+    norm = _reductions(rdot)[1]
+    b_norm = norm(b)
     safe_b_norm = b_norm if b_norm > 0.0 else 1.0
 
-    x = torch.zeros_like(b)
+    x = _zeros_like(b)
     r = b
     r_rel = math.inf if b_norm > 0.0 else 0.0
     outer = total = 0
@@ -176,10 +216,10 @@ def gmres_ir(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor, *,
     rows = []
     while r_rel > tol and outer < max_refine:
         d = gmres(matvec_lo, r, precond=M, tol=inner_tol, restart=restart,
-                  maxiter=maxiter, block_s=block_s)
+                  maxiter=maxiter, block_s=block_s, rdot=rdot)
         x = x + d.x
         r = b - matvec_hi(x)
-        r_rel = _norm(r) / safe_b_norm
+        r_rel = norm(r) / safe_b_norm
         # the inner f32 loop stalling at its noise floor is the normal
         # mixed-precision exit: its STAGNATION bit is masked off, and
         # refinement-level stagnation is judged on the sweeps below

@@ -4,8 +4,10 @@ Counterpart of `skellysim_tpu.system.system` on one device: fibers, a
 confining periphery (shell), rigid bodies with attached fibers, and
 point/background sources, in any mix; with a mesh (`parallel.make_mesh`)
 the fiber and shell pair flows take the ring evaluator, sharded over the
-mesh's devices (`parallel.ring`); with ``pair_evaluator="ewald"`` (the
-reference's "FMM"), ``"tree"`` (the barycentric treecode) or ``"spectral"``
+mesh's devices (`parallel.ring`), and `System.step_spmd` runs the whole
+step over a mesh of shards (`parallel.spmd`); with
+``pair_evaluator="ewald"`` (the reference's "FMM"), ``"tree"`` (the
+barycentric treecode) or ``"spectral"``
 (the reference's "PVFMM", with a ``periodic_box``) a plan is built on the
 host each trial (`_pair_args`) and the flows sum through `ops.ewald` /
 `ops.treecode` / `ops.spectral`, with the JAX package's role gating (the
@@ -296,7 +298,7 @@ class System:
         if pair is not None:
             return fc.flow_multi(buckets, caches_list, r_trg, forces_list,
                                  self.params.eta, subtract_self=subtract_self,
-                                 impl=impl, pair=pair)
+                                 impl=impl, pair=pair.at("fibers"))
         if not self._ring_active():
             return fc.flow_multi(buckets, caches_list, r_trg, forces_list,
                                  self.params.eta, subtract_self=subtract_self,
@@ -326,7 +328,7 @@ class System:
         if (pair is not None
                 and state.shell.n_nodes >= self.params.ewald_min_sources):
             return peri.flow(state.shell, r_trg, density, self.params.eta,
-                             impl=impl, pair=pair)
+                             impl=impl, pair=pair.at("shell"))
         if not self._ring_active():
             return peri.flow(state.shell, r_trg, density, self.params.eta,
                              impl=impl)
@@ -347,14 +349,14 @@ class System:
             return pair
         return None
 
-    def _body_pair(self, group, pair):
-        """``pair`` for one body bucket's double-layer flow, or None when
-        its node count is below ``params.ewald_min_sources`` (dense is
-        cheaper there)."""
+    def _body_pair(self, group, pair, index: int):
+        """``pair`` at body bucket ``index``'s call site for its
+        double-layer flow, or None when its node count is below
+        ``params.ewald_min_sources`` (dense is cheaper there)."""
         if (pair is None or group is None or group.n_bodies * group.n_nodes
                 < self.params.ewald_min_sources):
             return None
-        return pair
+        return pair.at("body", index)
 
     # ---------------------------------------------------------- state setup
 
@@ -644,9 +646,10 @@ class System:
                         gb, bc, bd.local_binding(gf, gb, nbt), c, xf, xb)
                     v_boundaries[i] = v_boundaries[i] + vb
                     body_fts[j] = body_fts[j] + ft
-            for f_gb, f_bc, xb, ft in zip(body_buckets(f_state.bodies),
-                                          f_bcaches, x_bods, body_fts):
-                b_pair = self._body_pair(f_gb, pair)
+            for j, (f_gb, f_bc, xb, ft) in enumerate(zip(
+                    body_buckets(f_state.bodies), f_bcaches, x_bods,
+                    body_fts)):
+                b_pair = self._body_pair(f_gb, pair, j)
                 v_all = v_all + bd.flow(f_gb, f_bc, r_all, xb.to(lo_dtype),
                                         ft.to(lo_dtype), p.eta,
                                         impl=flow_impl, pair=b_pair)
@@ -925,6 +928,43 @@ class System:
                         pair.evaluator, state.time, _plan_summary(pair.plan),
                         _time.perf_counter() - t0)
         return self._solve_once(state, pair=pair)
+
+    def step_spmd(self, state, mesh, *, allow_replicated_shell: bool = False,
+                  flat_solution: bool = True, donate="auto"):
+        """One sharded implicit step on ``mesh`` (`parallel.spmd`): prep,
+        GMRES and the advance over the mesh's shards, with the pair flows
+        at resident rows around the ring, psum'd partials onto replicated
+        rows and the GMRES dot products summed across shards. ``state`` is
+        a `parallel.mesh.ShardedState` (`parallel.shard_state`); returns
+        (new_state, solution, info) with ``new_state`` still sharded
+        (`parallel.mesh.gather_state` brings it back to one device).
+
+        ``pair_evaluator = "tree"`` composes with this path when every
+        fiber slot is active: the tree plan is built on the host once a
+        step over the whole state, as in `step`, and the Krylov interior's
+        fiber flows take it on every shard. With an inactive slot (the
+        layout cannot spread padding nodes) the ring flows run, as they do
+        for every other evaluator. Nothing is cached between calls;
+        ``donate`` is accepted and ignored (`parallel.spmd
+        .build_spmd_step`)."""
+        from ..parallel.mesh import gather_state
+        from ..parallel.spmd import build_spmd_step
+
+        pair = None
+        if self.params.pair_evaluator == "tree" and all(
+                bool(g.active.all()) for st in state.shards
+                for g in fiber_buckets(st.fibers)):
+            t0 = _time.perf_counter()
+            pair = self._pair_args(gather_state(state, self.device,
+                                                shell_operators=False))
+            logger.info("%s plan before t=%.6g (sharded step): %s, "
+                        "plan_s=%.4f", pair.evaluator, state.time,
+                        _plan_summary(pair.plan), _time.perf_counter() - t0)
+        fn = build_spmd_step(self, mesh, state,
+                             allow_replicated_shell=allow_replicated_shell,
+                             flat_solution=flat_solution, donate=donate,
+                             pair=pair)
+        return fn(state)
 
     def run(self, state: SimState, *, writer=None, max_steps: int | None = None,
             rng=None, metrics_path: str | None = None):

@@ -80,7 +80,10 @@ def _port(jsys, jstate, shape=None):
         _leaves(jstate.fibers), time=float(jstate.time), dt=float(jstate.dt),
         background=None if bg is None else _leaves(bg),
         shell=None if jstate.shell is None else _leaves(jstate.shell),
-        bodies=None if jstate.bodies is None else _leaves(jstate.bodies),
+        bodies=(None if jstate.bodies is None
+                else _leaves(jstate.bodies)
+                if hasattr(jstate.bodies, "_asdict")
+                else [_leaves(g) for g in jstate.bodies]),
         device="cpu")
     return tsys, tstate
 
@@ -154,7 +157,57 @@ def test_shell_and_body_double_layers_through_tree_match_jax():
     _shell_and_body_step("tree", shell_n=150, body_n=60)
 
 
-def _shell_and_body_step(evaluator, shell_n=60, body_n=40):
+def test_two_body_buckets_of_equal_nodes_through_tree_match_jax():
+    """Two body buckets of the same node total (a 60-node sphere with the
+    bound fibers' sites and a 60-node sphere with none) through the tree
+    stresslet (``ewald_min_sources = 0``): each bucket's sum keeps its own
+    geometry (`PairEvaluator.at`), so the second is not served the
+    first's, and the step matches the JAX package's (which builds the
+    tree at every call) to 1e-10."""
+    from skellysim_tpu_torch.bodies import bodies as tbd
+    from skellysim_tpu_torch.periphery.precompute import precompute_body
+
+    pre = precompute_body("sphere", 60, radius=0.5)
+    second = tbd.make_group(
+        pre["node_positions_ref"], pre["node_normals_ref"],
+        pre["node_weights"], position=np.array([[0.0, 1.8, -0.5]]),
+        external_force=np.array([[0.0, 0.0, -0.3]]), radius=np.array([0.5]),
+        kind="sphere", config_rank=[1])
+    plan = _shell_and_body_step("tree", shell_n=150, body_n=60,
+                                extra_bodies=(second,))[0]
+    assert plan.depth == 2
+
+
+def test_kept_geometry_is_keyed_by_call_site():
+    """Two node sets of one count summed through one tree `PairEvaluator`
+    at two call sites (two body buckets' double layers onto the same
+    targets): each sum is a fresh evaluator's bit for bit, none is NaN.
+    Positions that move under one call site's kept key still come back
+    NaN (the backstop)."""
+    from skellysim_tpu_torch.ops import evaluator as tev
+    from skellysim_tpu_torch.ops import treecode as ttc
+
+    rng = np.random.default_rng(41)
+    src = [torch.as_tensor(rng.uniform(-1, 1, (300, 3))) for _ in range(2)]
+    trg = torch.as_tensor(rng.uniform(-1, 1, (800, 3)))
+    f_dl = [torch.as_tensor(rng.standard_normal((300, 3, 3)))
+            for _ in range(2)]
+    plan = ttc.plan_tree(torch.cat(src + [trg]).numpy(), tol=1e-3)
+    assert plan.depth >= 2
+    pair = tev.make_pair(plan, "cpu")
+    for _ in range(2):  # the second round is served the kept geometry
+        for j in range(2):
+            got = pair.at("body", j).stresslet(src[j], trg, f_dl[j], 1.0)
+            fresh = tev.make_pair(plan, "cpu").stresslet(src[j], trg,
+                                                         f_dl[j], 1.0)
+            assert not torch.isnan(got).any()
+            assert torch.equal(got, fresh)
+    assert len(pair.geometry) == 2
+    moved = pair.at("body", 0).stresslet(src[1], trg, f_dl[1], 1.0)
+    assert torch.isnan(moved).all()
+
+
+def _shell_and_body_step(evaluator, shell_n=60, body_n=40, extra_bodies=()):
     from skellysim_tpu.bodies.bodies import BodyGroup as JBodies
     from skellysim_tpu.fibers.container import FiberGroup as JFibers
     from skellysim_tpu.periphery import periphery as jperi
@@ -171,10 +224,16 @@ def _shell_and_body_step(evaluator, shell_n=60, body_n=40):
         return cls(**{k: None if v is None else jnp.asarray(v.numpy())
                       for k, v in nt._asdict().items()})
 
+    jbodies = jleaves(bodies, JBodies)
+    if extra_bodies:
+        jbodies = (jbodies,) + tuple(jleaves(g, JBodies)
+                                     for g in extra_bodies)
     jstate = jsys.make_state(fibers=jleaves(fibers, JFibers),
                              shell=jleaves(shell, jperi.PeripheryState),
-                             bodies=jleaves(bodies, JBodies))
+                             bodies=jbodies)
     plan, tsys, tstate, _, _ = _step_both(jsys, jstate, jshape)
+    if extra_bodies:
+        return plan, tsys, tstate
     if evaluator == "tree":
         assert plan.depth == 2
     # the shell's flow really took the plan: it differs from the dense sum

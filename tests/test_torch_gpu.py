@@ -500,6 +500,51 @@ def test_small_run_card_vs_cpu(cuda):
                                atol=1e-8 * np.abs(sol_cpu).max())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["mixed", "full"])
+def test_spmd_step_on_two_shards_matches_step(cuda, precision):
+    """`System.step_spmd` on 2 shards of the card against `System.step`
+    from the same state, for the small coupled scene (a 120-node shell
+    split node-aligned, a body with 4 bound fibers, 2 free fibers): true
+    residuals within 5e-9, the stepped fibers and the body within 1e-6;
+    the body's fields the same bits on both shards; "mixed" launches E / F
+    (the f32 ring), A / C (the replicated rows' partials) and B / D (the
+    f64 refinement flows), "full" B / D."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+    from skellysim_tpu_torch.parallel import (gather_state, make_mesh,
+                                              shard_state)
+    from skellysim_tpu_torch.params import Params
+    from skellysim_tpu_torch.system import System
+    from skellysim_tpu_torch.testing import make_coupled_scene
+
+    p = Params(dt_initial=0.02, gmres_tol=1e-10, solver_precision=precision,
+               kernel_impl="pallas", refine_pair_impl="pallas_df")
+    shell, shape, bodies, fibers = make_coupled_scene(
+        shell_n=120, body_n=80, n_bound=4, n_free=2, device="cuda",
+        precond_dtype=torch.float32 if precision == "mixed" else None)
+    system = System(p, shell_shape=shape, device="cuda")
+    state = system.make_state(fibers=fibers, shell=shell, bodies=bodies)
+    ref, _, info_ref = system.step(state)
+    mesh = make_mesh(2, device="cuda")
+    n0 = {w.__name__: w.launches for w in ck.KERNEL_WRAPPERS}
+    new, _, info = system.step_spmd(shard_state(state, mesh), mesh)
+    ran = {w.__name__: w.launches - n0[w.__name__]
+           for w in ck.KERNEL_WRAPPERS}
+    assert info.converged and info_ref.converged and info.health == 0
+    assert abs(info.residual_true - info_ref.residual_true) <= 5e-9
+    got = gather_state(new)
+    assert float((got.fibers.x - ref.fibers.x).abs().max()) <= 1e-6
+    assert float((got.bodies.position - ref.bodies.position).abs().max()
+                 ) <= 1e-6
+    b0, b1 = (st.bodies for st in new.shards)
+    assert all(torch.equal(getattr(b0, f), getattr(b1, f))
+               for f in b0._fields if torch.is_tensor(getattr(b0, f)))
+    need = (["ring_stokeslet_f32", "ring_stresslet_f32", "stokeslet_f32",
+             "stresslet_f32", "stokeslet_f64", "stresslet_f64"]
+            if precision == "mixed" else ["stokeslet_f64", "stresslet_f64"])
+    assert all(ran[k] > 0 for k in need), ran
+
+
 def _ring_inputs(family, n_dev, nt, ns, device, seed=0):
     """Per-shard f32 lists (targets, sources, payload) of a ring: sources
     in a 10-box, and the first targets of every shard placed exactly on the
@@ -1038,7 +1083,7 @@ def test_port_imports_no_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
     names = {os.path.relpath(f, REPO) for f in files}
-    for mod in ("mesh", "compat", "ring"):
+    for mod in ("mesh", "compat", "ring", "spmd"):
         assert f"skellysim_tpu_torch/parallel/{mod}.py" in names
     bad = []
     for f in files:
