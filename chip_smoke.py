@@ -227,7 +227,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                c. "tree", one "full" step from a's state before its
                "full" step: G on every shard, no NaN on any shard, fibers
                within 1e-5 of a's direct "full" step.
+               Besides, one "full" step from the initial state on the 4
+               shards: phase 14's second reference (its first: a's first
+               "mixed" step).
                It prints {"spmd": {...}} before the kernels line.
+14. spmd processes — run after 13, on phase 6's precompute: the sharded
+               step across processes (skellysim_tpu_torch/parallel/
+               multihost.py). Two worker processes of this script
+               (`--spmd-worker`, started with subprocess) share the card,
+               joined by `parallel.multihost.initialize` over gloo (NCCL
+               refuses two processes on one card), each holding 2 of the 4
+               shards of one mesh; the fused ring's layout rule
+               (`compat.fused_ring_mode`) sends their ring hop by hop
+               (A / C or B / D a hop, the hops between the processes by
+               `batch_isend_irecv` staged through the host). Each builds
+               phase 6's config, keeps its rows, and takes one "full" and
+               one "mixed" step from that state, held against phase 13's
+               one-process steps from the same state: "full" (B / D a hop
+               on both sides) for the same bits (else its largest gap is
+               printed), "mixed" (phase 13's rings through E / F) within
+               PARITY_GATE in true residual and fibers within 1e-6; both
+               processes' fibers the same bits. It prints each process's
+               wall a step, the iterations, A-F's launches by process, the
+               bytes staged through the host a step and the peak GiB; a
+               worker that fails or outlives 300 s fails the phase. Its
+               summary is {"spmd": {"processes": ...}}.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -245,10 +269,12 @@ shared bytes and spills at 12a's (tol 1e-4) and 12b's shapes, with the
 error against their plain twin and the twin's time on 12c's cut; E's and F's the same fields against
 their `_v1` first design, and their plan; B's, D's, E's and F's, under
 "at_ring_run_shape", the same check and time at the shapes of the ring run
-(E and F: where their "launches" were counted; B and D: one hop).
+(E and F: where their "launches" were counted; B and D: one hop); A's and
+C's, the same at one hop's shapes (phase 14's "mixed" Krylov flows).
 Every entry's "launches_by_path" holds its launches in each run counted,
 phase 13's sharded runs included ("spmd_ellipsoid", "spmd_ellipsoid_full",
-"spmd_body", "spmd_tree").
+"spmd_body", "spmd_tree") and phase 14's, summed over its processes
+("spmd_processes_full", "spmd_processes_mixed").
 Every run is gated on the yardstick kernels launching 0 times. Then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
 card the script exits 2 before printing any result. Every file a phase
@@ -326,6 +352,10 @@ SPMD_TREE_DX = 1e-5
 #: on its sites, pointing outward); the count divides the shards
 SPMD_BODY_NODES = 600
 SPMD_BOUND_FIBERS = 16
+#: phase 14: processes sharing the card, each holding SPMD_SHARDS / this
+#: many shards, and the seconds they may take together
+SPMD_PROCESSES = 2
+SPMD_WORKER_TIMEOUT_S = 300
 #: the fused ring's TPU kernel (skellysim_tpu/parallel/ring_fused.py)
 RING_REPLACES = ("skellysim_tpu/parallel/ring_fused.py:99 (_ring_kernel, "
                  'kind="{}", driven by fused_ring_block_sum :178)')
@@ -1382,11 +1412,12 @@ def ring_shape_times(torch, ck, device, ring_inputs, card, sass):
     every node as targets (128,000 x 136,000 at full width: 34,000 targets
     a shard, whose last tile is partial), F with the shell nodes as
     sources and the fiber nodes as targets; each checked and timed by
-    `ring_check`. Then one hop of the f64-grade ring: kernel B with one
-    shard's fiber-node block against one shard's targets, checked and
-    timed by `family_check`, and kernel D with one shard's shell block
-    against one shard's fiber nodes, the same way. Returns the checks' JSON
-    fields by kernel name."""
+    `ring_check`. Then one hop of the hop-by-hop ring (the f64-grade
+    flows, and the "mixed" Krylov flows where processes share a card,
+    phase 14): kernels A and B with one shard's fiber-node block against
+    one shard's targets, checked and timed by `family_check`, and kernels
+    C and D with one shard's shell block against one shard's fiber nodes,
+    the same way. Returns the checks' JSON fields by kernel name."""
     import numpy as np
 
     n = RING_SHARDS
@@ -1407,14 +1438,16 @@ def ring_shape_times(torch, ck, device, ring_inputs, card, sass):
     _, sh_l = _shards(torch, shell, n, device)
     _, d_l = _shards(torch, ring_inputs["f_dl"], n, device)
     at_run.update(family_check(torch, ck, device, "stokeslet", s_l[0],
-                               t_l[0], f_l[0], ("f64",), card, "ring run"))
+                               t_l[0], f_l[0], ("f32", "f64"), card,
+                               "ring run"))
     at_run.update(family_check(torch, ck, device, "stresslet", sh_l[0],
-                               s_l[0], d_l[0], ("f64",), card, "ring run"))
-    log(f"[ring run] per-launch times of one f64-grade ring hop: "
-        f"stokeslet_f64 {at_run['stokeslet_f64']['ms']:.3f} ms "
-        f"({s_l[0].shape[0]} x {t_l[0].shape[0]}); stresslet_f64 "
-        f"{at_run['stresslet_f64']['ms']:.3f} ms ({sh_l[0].shape[0]} x "
-        f"{s_l[0].shape[0]}) ({card_state(device)})")
+                               s_l[0], d_l[0], ("f32", "f64"), card,
+                               "ring run"))
+    log("[ring run] per-launch times of one ring hop: " + "; ".join(
+        f"{k} {at_run[k]['ms']:.3f} ms "
+        f"({' x '.join(map(str, at_run[k]['shape']))})"
+        for k in ("stokeslet_f32", "stokeslet_f64", "stresslet_f32",
+                  "stresslet_f64")) + f" ({card_state(device)})")
     return at_run
 
 
@@ -3285,10 +3318,13 @@ def phase_spmd(torch, ck, device, ring_inputs):
     launches = {}
 
     # a. three "mixed" steps (the card's "auto") and one "full"
-    recs, total = [], {}
+    initial = sharded
+    recs, total, refs = [], {}, {}
     for i in range(SPMD_MIXED_STEPS):
         res, rec, _ = spmd_pair(torch, ck, device, system, mesh, sharded,
                                 state, "spmd", i)
+        if i == 0:
+            refs["mixed"] = spmd_reference(torch, res[0], res[2])
         sharded = res[0]
         recs.append(rec)
         add_counts(total, res[3])
@@ -3297,6 +3333,10 @@ def phase_spmd(torch, ck, device, ring_inputs):
         f"application: {out['syncs'] or 'not measured (CPU rehearsal)'}")
     full = System(dataclasses.replace(system.params, solver_precision="full"),
                   shell_shape=system.shell_shape, device=device)
+    # phase 14's other reference: one "full" step from the initial state
+    new, _, info = full.step_spmd(initial, mesh)
+    refs["full"] = spmd_reference(torch, new, info)
+    del initial, new
     before_full = sharded
     res, rec, _ = spmd_pair(torch, ck, device, full, mesh, sharded, state,
                             "spmd_full", SPMD_MIXED_STEPS)
@@ -3378,6 +3418,226 @@ def phase_spmd(torch, ck, device, ring_inputs):
         raise SystemExit(f"spmd_tree: the step failed its gate: {out['tree']}")
     if device.type == "cuda" and not counts["tree_stokeslet_f64"]:
         raise SystemExit(f"spmd_tree: G never launched: {counts}")
+    return out, launches, refs
+
+
+def spmd_reference(torch, sharded, info):
+    """What phase 14 holds its steps against: the fibers of a sharded
+    step's result (gathered, on the host) and its solve's numbers."""
+    from skellysim_tpu_torch.parallel import gather_state
+
+    g = gather_state(sharded, shell_operators=False)
+    return {"x": [grp.x.cpu() for grp in fiber_groups(g.fibers)],
+            "iters": info.iters, "refines": info.refines,
+            "residual_true": info.residual_true}
+
+
+def spmd_worker(argv) -> int:
+    """One process of phase 14 (``chip_smoke.py --spmd-worker CFG PORT
+    RANK WORLD DEVICE OUT``): joins the others
+    (`parallel.multihost.initialize` over tcp://localhost:PORT on DEVICE,
+    the card the processes share, so `gloo`), builds phase 6's config on
+    the card, keeps its `SPMD_SHARDS` / WORLD shards of the mesh that spans
+    the processes and drops the rest, then takes one "full" and one
+    "mixed" `System.step_spmd` from that state, each with the launch
+    counts and the staged bytes set to 0 just before and the peak device
+    memory reset, timed to a synchronize; saves the records and the
+    gathered fibers to OUT."""
+    import dataclasses
+
+    import torch
+    import torch.distributed
+
+    cfg_path, port, rank, world, card, out_path = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, REPO)
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import schema
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+    from skellysim_tpu_torch.parallel import (gather_state,
+                                              initialize_multihost,
+                                              make_mesh, multihost,
+                                              shard_state)
+    from skellysim_tpu_torch.parallel.compat import fused_ring_mode
+    from skellysim_tpu_torch.system import System
+
+    t0 = time.perf_counter()
+    initialize_multihost(f"localhost:{port}", world, rank, device=card)
+    rt = multihost.runtime()
+    device = rt.device
+    on_card = device.type == "cuda"
+    config = schema.load_config(cfg_path)
+    system, state, _ = build_simulation(
+        config, config_dir=os.path.dirname(cfg_path), device=device)
+    mesh = make_mesh(SPMD_SHARDS // world, device=device)
+    sharded = shard_state(state, mesh)
+    del state
+    build_peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        build_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+    rec = {"rank": rank, "device": str(device), "backend": rt.backend,
+           "route": fused_ring_mode("pallas", device, mesh),
+           "shards": list(mesh.local), "build_s": time.perf_counter() - t0,
+           "build_peak_gib": build_peak,
+           "shard_gib": [shard_bytes(torch, st) / 2**30
+                         for st in sharded.shards]}
+    full = System(dataclasses.replace(system.params, solver_precision="full"),
+                  shell_shape=system.shell_shape, device=device)
+    for label, sys_ in (("full", full), ("mixed", system)):
+        reset_counts(ck)
+        rt.staged_bytes = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        multihost.barrier()
+        t = time.perf_counter()
+        new, _, info = sys_.step_spmd(sharded, mesh)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts(ck)
+        staged = rt.staged_bytes
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        ref = spmd_reference(torch, new, info)
+        rec[label] = dict(ref, wall_s=wall, converged=info.converged,
+                          health=info.health, staged_bytes=staged,
+                          peak_gib=peak, launches=counts)
+        del new
+    torch.save(rec, out_path)
+    multihost.barrier()
+    torch.distributed.destroy_process_group()
+    log(f"[spmd_processes] process {rank} done: "
+        + json.dumps({k: v for k, v in rec.items()
+                      if k not in ("full", "mixed")}))
+    return 0
+
+
+def phase_spmd_processes(torch, ck, device, ring_inputs, refs, work, smi):
+    """Phase 14, the sharded step across processes: `SPMD_PROCESSES`
+    worker processes of this script (`spmd_worker`, started with
+    `subprocess`) on the card, each holding `SPMD_SHARDS` /
+    `SPMD_PROCESSES` shards of one mesh, joined over `gloo` (NCCL refuses
+    two processes on one card); each takes one "full" and one "mixed" step
+    of phase 6's config, held against phase 13's one-process step on
+    `SPMD_SHARDS` shards from the same state. A worker that fails or
+    outlives `SPMD_WORKER_TIMEOUT_S` fails the phase (the others are
+    killed). Returns (the phase's summary, launch counts by run, summed
+    over the processes)."""
+    from skellysim_tpu_torch.testing import free_port, run_all
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    port = free_port()
+    outs = [os.path.join(work, f"spmd_worker_{r}.pt")
+            for r in range(SPMD_PROCESSES)]
+    card = str(device if device.type == "cpu" else torch.device(
+        "cuda", torch.cuda.current_device()))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SKELLY_")}
+    t0 = time.perf_counter()
+    try:
+        texts = run_all(
+            [([sys.executable, os.path.abspath(__file__), "--spmd-worker",
+               ring_inputs["cfg_path"], str(port), str(r),
+               str(SPMD_PROCESSES), card, outs[r]], env, REPO)
+             for r in range(SPMD_PROCESSES)],
+            work, "spmd_worker", SPMD_WORKER_TIMEOUT_S)
+    except RuntimeError as e:
+        raise SystemExit(f"spmd_processes: {e}") from e
+    wall = time.perf_counter() - t0
+    for r, text in enumerate(texts):
+        for ln in text.splitlines():
+            if ln.startswith("[spmd_processes]"):
+                log(f"[spmd_processes] worker {r}: {ln}")
+    recs = [torch.load(o, weights_only=False) for o in outs]
+    out = {"processes": SPMD_PROCESSES, "shards": SPMD_SHARDS,
+           "wall_s": wall, "route": recs[0]["route"],
+           "backend": recs[0]["backend"],
+           "build_s": [r["build_s"] for r in recs],
+           "build_peak_gib": [r["build_peak_gib"] for r in recs],
+           "shard_gib": [r["shard_gib"] for r in recs]}
+    launches = {}
+    for label in ("full", "mixed"):
+        ref = refs[label]
+        steps = [r[label] for r in recs]
+        same = all(torch.equal(a, b) for st in steps
+                   for a, b in zip(st["x"], ref["x"]))
+        dx = max(float((a - b).abs().max()) for st in steps
+                 for a, b in zip(st["x"], ref["x"]))
+        gap = max(abs(st["residual_true"] - ref["residual_true"])
+                  for st in steps)
+        agree = all(torch.equal(a, b) for a, b in zip(steps[0]["x"],
+                                                      steps[-1]["x"]))
+        by_process = {r: {k: v for k, v in st["launches"].items() if v}
+                      for r, st in enumerate(steps)}
+        launches[f"spmd_processes_{label}"] = {
+            k: sum(st["launches"][k] for st in steps)
+            for k in steps[0]["launches"]}
+        out[label] = {
+            "wall_s": [st["wall_s"] for st in steps],
+            "iters": [st["iters"] for st in steps],
+            "refines": [st["refines"] for st in steps],
+            "one_process_iters": ref["iters"],
+            "residual_true": steps[0]["residual_true"],
+            "one_process_residual_true": ref["residual_true"],
+            "residual_gap": gap, "max_dx": dx, "same_bits": same,
+            "processes_same_bits": agree,
+            "staged_bytes": [st["staged_bytes"] for st in steps],
+            "peak_gib": [st["peak_gib"] for st in steps],
+            "launches_by_process": by_process}
+        log(f"[spmd_processes] {label}: step_spmd in {SPMD_PROCESSES} "
+            f"processes x {SPMD_SHARDS // SPMD_PROCESSES} shards on {card} "
+            f"(route {out['route']}, {out['backend']}): wall a step by "
+            f"process {[round(w, 3) for w in out[label]['wall_s']]} s, "
+            f"{steps[0]['iters']} iterations / {steps[0]['refines']} sweeps "
+            f"(one process: {ref['iters']} / {ref['refines']}), true "
+            f"residual {steps[0]['residual_true']:.3e} (one process "
+            f"{ref['residual_true']:.3e}, gap {gap:.3e}, gate "
+            f"{PARITY_GATE}), max |dx| {dx:.3e} (gate {SPMD_DX}), the "
+            f"one-process step's bits: {same}, both processes' bits alike: "
+            f"{agree}; bytes staged through the host a step by process "
+            f"{out[label]['staged_bytes']}; peak GiB by process "
+            f"{out[label]['peak_gib']}; launches by process {by_process}")
+        if not all(st["converged"] and st["health"] == 0 for st in steps):
+            raise SystemExit(f"spmd_processes: the {label} step is not "
+                             f"converged / healthy: {out[label]}")
+        if not (gap <= PARITY_GATE and dx <= SPMD_DX and agree):
+            raise SystemExit(f"spmd_processes: the {label} step differs from "
+                             f"phase 13's one-process step: {out[label]}")
+        if any(st["launches"][w.__name__] for st in steps
+               for w in ck.YARDSTICK_WRAPPERS):
+            raise SystemExit(f"spmd_processes: a yardstick kernel launched: "
+                             f"{by_process}")
+    log(f"[spmd_processes] {SPMD_PROCESSES} workers in {wall:.1f} s (start, "
+        f"state build on each, both steps, gathers); state build by process "
+        f"{[round(b, 1) for b in out['build_s']]} s, peak GiB after it "
+        f"(the whole state, then its own rows) {out['build_peak_gib']}; "
+        f"this card: {smi}")
+    if not out["full"]["same_bits"]:
+        log(f"[spmd_processes] the \"full\" step is not the one-process "
+            f"step's bits: largest fiber gap {out['full']['max_dx']:.3e}. "
+            "Both take B / D a hop and add every cross-shard sum in shard "
+            "order, so the gap comes from a product whose bits depend on "
+            "the process it runs in")
+    if out["route"] != "ppermute" or out["backend"] != "gloo":
+        raise SystemExit(f"spmd_processes: two processes on one card must "
+                         f"take gloo and the hop-by-hop ring, got "
+                         f"{out['backend']} / {out['route']}")
+    if device.type == "cuda":
+        need = {"mixed": ["stokeslet_f32", "stresslet_f32", "stokeslet_f64",
+                          "stresslet_f64"],
+                "full": ["stokeslet_f64", "stresslet_f64"]}
+        for label, names in need.items():
+            for r, by in out[label]["launches_by_process"].items():
+                if not all(by.get(k) for k in names) or any(
+                        by.get(k) for k in ("ring_stokeslet_f32",
+                                            "ring_stresslet_f32")):
+                    raise SystemExit(
+                        f"spmd_processes: process {r}'s {label} step did not "
+                        f"launch {names} hop by hop (E / F must not launch "
+                        f"on a shared card): {by}")
     return out, launches
 
 
@@ -3451,6 +3711,9 @@ def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--spmd-worker"]:
+        return spmd_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--fibers", type=int, default=10_000,
@@ -3502,9 +3765,9 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-13 (10-13 run after 8, on phase 6's precompute, then 9);
+    """Phases 1-14 (10-14 run after 8, on phase 6's precompute, then 9);
     returns (kernel entries, launch counts by path, the nvidia-smi line,
-    phase 11's summary, phase 12's, phase 13's)."""
+    phase 11's summary, phase 12's, phase 13's with phase 14's)."""
     import numpy as np
 
     # 1. device
@@ -3664,14 +3927,22 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     stamp("phase 12")
 
     # 13. the sharded step, on phase 6's precompute
-    spmd, spmd_launches = phase_spmd(torch, ck, device, ring_inputs)
+    spmd, spmd_launches, spmd_refs = phase_spmd(torch, ck, device,
+                                                ring_inputs)
     launches.update(spmd_launches)
-    del ring_inputs, nodes, f
-    shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     stamp("phase 13")
+
+    # 14. the sharded step across processes sharing the card
+    spmd["processes"], p14_launches = phase_spmd_processes(
+        torch, ck, device, ring_inputs, spmd_refs, work, smi)
+    launches.update(p14_launches)
+    del ring_inputs, nodes, f
+    shutil.rmtree(os.path.join(work, "ellipsoid"))
+
+    stamp("phase 14")
 
     # 9. the body scene at its published size
     launches["body_const_force"], _, at_body = phase_bodies(

@@ -10,6 +10,12 @@ Usage: python -m skellysim_tpu_torch [--config-file=...] [--resume]
 
 Runs on the CUDA card unless ``--device=cpu`` is given; a missing card
 raises. ``--listen`` is not ported yet (ROADMAP.md §1 item 13).
+
+With SKELLY_COORDINATOR / SKELLY_NUM_PROCS / SKELLY_PROC_ID set, every
+process joins the others first (`parallel.multihost.initialize`, before
+any use of the card: each process on its own card by default) and logs
+its rank. As in the JAX package the CLI builds no mesh: every process runs
+the whole config, and writes the trajectory beside its own config file.
 """
 
 from __future__ import annotations
@@ -116,6 +122,13 @@ def main(argv=None) -> None:
     logging.basicConfig(level=args.log_level.upper(),
                         format="[%(asctime)s] [%(levelname)s] %(message)s",
                         stream=sys.stderr)
+    # several processes (a no-op for one; the analogue of the reference's
+    # MPI_Init, `skelly_sim.cpp:14`): before anything touches the card
+    from .parallel import initialize_multihost, process_info
+
+    if initialize_multihost(device=args.device):
+        logging.getLogger("skellysim_tpu_torch").info(
+            "multi-process runtime: %s", process_info())
     run(args.config_file, resume=args.resume, overwrite=args.overwrite,
         metrics_path=args.metrics_file, device=args.device)
 

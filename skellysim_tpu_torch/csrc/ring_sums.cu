@@ -55,6 +55,15 @@
 // shards and the "push" is a copy within the card. The device code is the
 // same in both layouts; only the table's pointers differ.
 //
+// Across processes (one process a card; ops/cuda_kernels.py `_IpcRing`)
+// each process fills the table's entries of its own shards and, for a
+// neighbour that another process holds, only that neighbour's slots and
+// counters, mapped by CUDA IPC (`ring_ipc_alloc` / `ring_ipc_open`); its
+// other pointers stay null. That is enough: a launch reads and writes its
+// own shards' entries (`mine`), and of a neighbour only the right one's
+// slots and the two neighbours' counters (`ring_kernel` below); the
+// reduction reads its own shards' only.
+//
 // What bounds it on this card: instruction issue, as for kernel A. The slot
 // traffic is n x ns x 6 (E) or 12 (F) words a shard, megabytes against
 // milliseconds of pair arithmetic at the full-width shapes. A Stokeslet pair
@@ -122,6 +131,7 @@
 
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
 
 #include "pair_functors.cuh"
 #include "pair_terms.cuh"
@@ -772,6 +782,57 @@ int ring_enable_peer_access(int device, int peer) {
     cudaGetLastError();
     e = cudaSuccess;
   }
+  const cudaError_t r = cudaSetDevice(prev);
+  return static_cast<int>(e != cudaSuccess ? e : r);
+}
+
+// The bytes of a `cudaIpcMemHandle_t` (the wrapper sizes its buffers).
+int ring_ipc_handle_bytes() { return sizeof(cudaIpcMemHandle_t); }
+
+// One shard's ring state for a ring that spans processes: `bytes` of
+// device memory on `device` (its counters first, then its slots), the
+// first `zero_bytes` zeroed and the fill waited for, and the allocation's
+// IPC handle written to `handle`. A plain cudaMalloc, so the handle maps
+// the pointer itself (not an enclosing block of a caching allocator). It
+// is never freed: a neighbour process may write it as long as it runs.
+// Returns a CUDA error code; the current device is restored.
+int ring_ipc_alloc(int device, unsigned long long bytes,
+                   unsigned long long zero_bytes, unsigned long long* ptr,
+                   unsigned char* handle) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaSetDevice(device);
+  void* p = nullptr;
+  if (e == cudaSuccess) e = cudaMalloc(&p, bytes);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, zero_bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  cudaIpcMemHandle_t h;
+  if (e == cudaSuccess) e = cudaIpcGetMemHandle(&h, p);
+  if (e == cudaSuccess) {
+    std::memcpy(handle, &h, sizeof(h));
+    *ptr = reinterpret_cast<unsigned long long>(p);
+  }
+  const cudaError_t r = cudaSetDevice(prev);
+  return static_cast<int>(e != cudaSuccess ? e : r);
+}
+
+// Map another process's shard state (`handle` from its ring_ipc_alloc)
+// into this process, for `device`'s kernels, peer access enabled as the
+// mapping needs it. The mapping stays open for the life of the process.
+int ring_ipc_open(int device, const unsigned char* handle,
+                  unsigned long long* ptr) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaSetDevice(device);
+  cudaIpcMemHandle_t h;
+  std::memcpy(&h, handle, sizeof(h));
+  void* p = nullptr;
+  if (e == cudaSuccess) {
+    e = cudaIpcOpenMemHandle(&p, h, cudaIpcMemLazyEnablePeerAccess);
+  }
+  if (e == cudaSuccess) *ptr = reinterpret_cast<unsigned long long>(p);
   const cudaError_t r = cudaSetDevice(prev);
   return static_cast<int>(e != cudaSuccess ? e : r);
 }

@@ -164,6 +164,14 @@ def _library(source: str = SOURCE):
             fn.restype = cint
         lib.ring_enable_peer_access.argtypes = [cint, cint]
         lib.ring_enable_peer_access.restype = cint
+        ull_p = ctypes.POINTER(ctypes.c_ulonglong)
+        lib.ring_ipc_alloc.argtypes = [cint, ctypes.c_ulonglong,
+                                       ctypes.c_ulonglong, ull_p, ptr]
+        lib.ring_ipc_alloc.restype = cint
+        lib.ring_ipc_open.argtypes = [cint, ptr, ull_p]
+        lib.ring_ipc_open.restype = cint
+        lib.ring_ipc_handle_bytes.argtypes = []
+        lib.ring_ipc_handle_bytes.restype = cint
         for i, (name, words) in enumerate(_RING_RECORD_WORDS.items()):
             got = lib.ring_record_words(i)
             if got != words:
@@ -665,6 +673,87 @@ class _RingComm:
             torch.cuda.synchronize(d)
         self.epoch = 0
 
+    def pointers(self, k: int):
+        """(slots, counters) of shard ``k``."""
+        return self.slots[k].data_ptr(), self.flags[k].data_ptr()
+
+
+def _every_error(error: str | None) -> str | None:
+    """Every process's ``error`` joined (None where none met one): a
+    gather, so also a barrier, after which every process decides alike."""
+    from ..parallel import multihost
+
+    errors = [e for e in multihost.all_gather_object(error) if e]
+    return "; ".join(errors) or None
+
+
+class _IpcRing:
+    """One ring's state where its shards lie in several processes (one
+    process a card): `_RingComm`'s slots and counters, each of this
+    process's shards in one plain `cudaMalloc` of the library
+    (``csrc/ring_sums.cu`` `ring_ipc_alloc`: counters zeroed, then the
+    slots), exported as a CUDA IPC handle. The handles are exchanged once
+    (`multihost.all_gather_object`), and each neighbour that another
+    process holds is mapped (`ring_ipc_open`): a launch reads and writes no
+    other memory of another process's shards. Nothing here is ever freed
+    or unmapped: a neighbour process may write it as long as it runs. The
+    ring is used only after every process has zeroed its counters (the
+    gathers that follow are barriers, and an explicit barrier ends the
+    set-up). The epoch is numbered alike in every process: they make the
+    same ring calls in the same order."""
+
+    def __init__(self, lib, mesh, slot_words: int, grid: int):
+        from ..parallel import multihost
+
+        n = mesh.size
+        self.grid, self.epoch = grid, 0
+        flag_bytes = -(-(n + 2) * 8 // 256) * 256
+        total = flag_bytes + n * slot_words * 4
+        hb = lib.ring_ipc_handle_bytes()
+        base, handles, error = {}, {}, None
+        for k in mesh.local:
+            ptr, h = ctypes.c_ulonglong(0), (ctypes.c_ubyte * hb)()
+            rc = lib.ring_ipc_alloc(mesh.devices[k].index, total, flag_bytes,
+                                    ctypes.byref(ptr), h)
+            if rc != 0:
+                error = (f"process {mesh.process}: ring_ipc_alloc for shard "
+                         f"{k} on {mesh.devices[k]} failed: CUDA error {rc} "
+                         f"({_cuda_error(RING_SOURCE, rc)})")
+                break
+            base[k], handles[k] = ptr.value, bytes(h)
+        every = {}
+        for err, part in multihost.all_gather_object((error, handles)):
+            error = error or err
+            every.update(part)
+        if error:
+            raise RuntimeError(error)
+        for k in mesh.local:
+            for j in ((k - 1) % n, (k + 1) % n):
+                if j in base:
+                    continue
+                ptr = ctypes.c_ulonglong(0)
+                h = (ctypes.c_ubyte * hb).from_buffer_copy(every[j])
+                rc = lib.ring_ipc_open(mesh.devices[k].index, h,
+                                       ctypes.byref(ptr))
+                if rc != 0:
+                    error = (f"process {mesh.process}: mapping shard {j}'s "
+                             f"ring state on {mesh.devices[k]} failed: CUDA "
+                             f"error {rc} ({_cuda_error(RING_SOURCE, rc)})")
+                    break
+                base[j] = ptr.value
+            if error:
+                break
+        error = _every_error(error)
+        if error:
+            raise RuntimeError(error)
+        multihost.barrier()
+        self.base, self.flag_bytes = base, flag_bytes
+
+    def pointers(self, k: int):
+        """(slots, counters) of shard ``k``: this process's or a mapped
+        neighbour's."""
+        return self.base[k] + self.flag_bytes, self.base[k]
+
 
 #: ring state by (family, shard devices, sources a shard) for the redesign
 #: and (family + "_v1", ...) for the first design; process-wide because the
@@ -700,12 +789,13 @@ def _ring_blocks_per_sm(lib, name, device) -> int:
     return _ring_blocks[key]
 
 
-def _launch_groups(devices):
+def _launch_groups(devices, first: int = 0):
     """(device, first shard, shard count) of each launch: one per run of
     consecutive shards on one device (one per card on a card mesh, one for
-    every shard of a mesh on one card)."""
+    every shard of a mesh on one card); ``devices`` are the shards from
+    ``first`` on (a process's own, on a mesh that spans processes)."""
     groups = []
-    for k, d in enumerate(devices):
+    for k, d in enumerate(devices, first):
         if groups and groups[-1][0] == d:
             groups[-1][2] += 1
         else:
@@ -713,43 +803,60 @@ def _launch_groups(devices):
     return [tuple(g) for g in groups]
 
 
-def ring_card_plan(family, devices, n_trg, n_src, name=None):
+def ring_card_plan(family, devices, n_trg, n_src, name=None, mesh=None):
     """`ring_plan` for a ring whose shard k lies on ``devices[k]``, with
     each card's SM count and the instance's resident blocks an SM as the
     cards report them; every launch of a ring takes the narrowest card's
-    grid. ``name`` is the instance (default: the family's kernel). Plans
-    are kept for the life of the process: a ring's shapes and cards are
-    those of its run."""
+    grid. ``name`` is the instance (default: the family's kernel). On a
+    ``mesh`` that spans processes ``devices`` are this process's shards'
+    and every process reports its launches' grids (a gather), so that
+    every process gets the one plan. Plans are kept for the life of the
+    process: a ring's shapes and cards are those of its run."""
     name = name or f"ring_{family}_f32"
-    key = (name, tuple(devices), n_trg, n_src)
+    key = (name, tuple(devices) if mesh is None else mesh, n_trg, n_src)
     if key in _ring_plans:
         return _ring_plans[key]
     lib = _library(RING_SOURCE)
-    narrowest = None
+    grids = []
     for d, _, count in _launch_groups(devices):
         if d not in _sm_counts:
             _sm_counts[d] = torch.cuda.get_device_properties(
                 d).multi_processor_count
-        args = (_sm_counts[d], _ring_blocks_per_sm(lib, name, d), count)
-        if narrowest is None or (args[0] * args[1] // args[2] < narrowest[0]
-                                 * narrowest[1] // narrowest[2]):
-            narrowest = args
-    sms, per_sm, count = narrowest
-    plan = _ring_plans[key] = ring_plan(n_trg, n_src, len(devices), count,
+        grids.append((_sm_counts[d], _ring_blocks_per_sm(lib, name, d),
+                      count))
+    n_shards = len(devices)
+    if mesh is not None:
+        from ..parallel import multihost
+
+        grids = [g for part in multihost.all_gather_object(grids)
+                 for g in part]
+        n_shards = mesh.size
+    sms, per_sm, count = min(grids, key=lambda g: g[0] * g[1] // g[2])
+    plan = _ring_plans[key] = ring_plan(n_trg, n_src, n_shards, count,
                                         sms, per_sm, family)
     return plan
 
 
-def _ring_launch(name, family, r_trg, src, payload):
+def _ring_launch(name, family, r_trg, src, payload, mesh=None):
     """Validate the per-shard lists, allocate the outputs, the partial sums
     and the ring state, and issue every launch of one ring call of instance
     ``name`` (all of them before anything that blocks); returns (per-shard
-    outputs, launches)."""
-    n = len(r_trg)
-    if not 1 <= n <= _RING_MAX_SHARDS or len(src) != n or len(payload) != n:
+    outputs, launches). On a ``mesh`` that spans processes the lists hold
+    this process's shards (``mesh.local``) and the ring state is an
+    `_IpcRing`. A launch that fails raises in its own process at once; no
+    call waits on the others to learn it (that would cost a host gather a
+    call): their launches wait on the missing signals until the kernel's
+    trap, and the step's once-a-step agreement or their next collective
+    fails them."""
+    n_loc = len(r_trg)
+    n = n_loc if mesh is None else mesh.size
+    first = 0 if mesh is None else mesh.local.start
+    if (not 1 <= n <= _RING_MAX_SHARDS or len(src) != n_loc
+            or len(payload) != n_loc
+            or (mesh is not None and n_loc != len(mesh.local))):
         raise ValueError(f"a ring call takes 1..{_RING_MAX_SHARDS} shards and "
                          "one source block and payload per target block; got "
-                         f"{n}, {len(src)}, {len(payload)}")
+                         f"{n_loc}, {len(src)}, {len(payload)} of {n}")
     devices = [t.device for t in r_trg]
     if any(d.type != "cuda" for d in devices):
         raise ValueError(f"ring kernel shards must all lie on CUDA devices, "
@@ -772,42 +879,54 @@ def _ring_launch(name, family, r_trg, src, payload):
                 for d in devices], 0
     lib = _library(RING_SOURCE)
     v1 = name.endswith("_v1")
-    plan = ring_card_plan(family, devices, nt, ns, name)
+    plan = ring_card_plan(family, devices, nt, ns, name, mesh=mesh)
     out = [torch.empty((nt, 3), dtype=f32, device=d) for d in devices]
     part = out if v1 else [torch.empty(plan.scratch_shape, dtype=f32,
                                        device=d) for d in devices]
     slot_words = _RING_RECORD_WORDS[name] * (
         ns if v1 else plan.tiles * RING_TILE)
-    key = (family + ("_v1" if v1 else ""), tuple(devices), ns)
+    key = (family + ("_v1" if v1 else ""),
+           tuple(devices) if mesh is None else mesh, ns)
     comm = _ring_comms.get(key)
     if comm is None:
-        comm = _ring_comms[key] = _RingComm(devices, slot_words, plan.grid)
+        comm = _ring_comms[key] = (
+            _RingComm(devices, slot_words, plan.grid) if mesh is None
+            else _IpcRing(lib, mesh, slot_words, plan.grid))
     elif comm.grid != plan.grid:
         raise RuntimeError(f"{name}: the ring on {devices} counts signals of "
                            f"{comm.grid} blocks a shard, the plan asks for "
                            f"{plan.grid}; a ring's grid never changes")
-    table = (ctypes.c_ulonglong * (7 * n))(*[
-        p for k in range(n) for p in (
-            trg[k].data_ptr(), srcs[k].data_ptr(), pays[k].data_ptr(),
-            out[k].data_ptr(), comm.slots[k].data_ptr(),
-            comm.flags[k].data_ptr(), part[k].data_ptr())])
+    ptrs = [0] * (7 * n)
+    for i, k in enumerate(range(first, first + n_loc)):
+        ptrs[7 * k:7 * k + 7] = (
+            trg[i].data_ptr(), srcs[i].data_ptr(), pays[i].data_ptr(),
+            out[i].data_ptr(), *comm.pointers(k), part[i].data_ptr())
+    if mesh is not None:
+        for j in {(first - 1) % n, (first + n_loc) % n} - set(mesh.local):
+            ptrs[7 * j + 4:7 * j + 6] = comm.pointers(j)
+    table = (ctypes.c_ulonglong * (7 * n))(*ptrs)
     comm.epoch += 1
     launch = getattr(lib, f"{name}_launch")
-    groups = _launch_groups(devices)
-    for d, first, count in groups:
+    groups = _launch_groups(devices, first)
+    error = None
+    for d, start, count in groups:
         with torch.cuda.device(d):
             stream = torch.cuda.current_stream(d).cuda_stream
             plan_args = () if v1 else (plan.r, plan.tiles, plan.chunk_tiles,
                                        plan.chunks, plan.target_blocks)
-            rc = launch(table, n, nt, ns, first, count, plan.grid, comm.epoch,
+            rc = launch(table, n, nt, ns, start, count, plan.grid, comm.epoch,
                         *plan_args, stream)
         if rc != 0:
-            # the ring's counters no longer match its epoch, and the
-            # launches already issued (other cards) may still write its
-            # buffers: keep them alive, and give the next call a fresh ring
-            _failed_rings.append(_ring_comms.pop(key))
-            raise RuntimeError(f"{name}_launch failed on {d}: CUDA error {rc} "
-                               f"({_cuda_error(RING_SOURCE, rc)})")
+            error = (f"{name}_launch failed on {d}: CUDA error {rc} "
+                     f"({_cuda_error(RING_SOURCE, rc)})")
+            break
+    if error:
+        # the ring's counters no longer match its epoch, and the
+        # launches already issued (other cards or processes) may still
+        # write its buffers: keep them alive, and give the next call a
+        # fresh ring
+        _failed_rings.append(_ring_comms.pop(key))
+        raise RuntimeError(error)
     return out, len(groups)
 
 
@@ -820,26 +939,29 @@ def _make_ring_wrapper(family: str, name: str):
     block_plain = {"stokeslet": stokeslet_f32_plain,
                    "stresslet": stresslet_f32_plain}[family]
 
-    def plain(r_trg, src, payload):
+    def plain(r_trg, src, payload, mesh=None):
         from ..parallel.ring import _ring_accumulate
 
         u0 = [torch.zeros((t.shape[0], 3), dtype=torch.float32,
                           device=t.device) for t in r_trg]
         return _ring_accumulate(
             lambda k, s, p: block_plain(s, r_trg[k], p),
-            [t.device for t in r_trg], u0, list(src), list(payload))
+            [t.device for t in r_trg], u0, list(src), list(payload),
+            mesh=mesh)
 
-    def wrapper(r_trg, src, payload):
+    def wrapper(r_trg, src, payload, mesh=None):
         if all(t.device.type == "cpu" for t in r_trg):
-            return plain(r_trg, src, payload)
-        out, launched = _ring_launch(name, family, r_trg, src, payload)
+            return plain(r_trg, src, payload, mesh)
+        out, launched = _ring_launch(name, family, r_trg, src, payload, mesh)
         wrapper.launches += launched
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
     plain.__name__ = plain.__qualname__ = f"{name}_plain"
     wrapper.__doc__ = (f"The f32 {family} ring sum on its fused CUDA kernel "
-                       f"(CPU tensors: `{name}_plain`); one launch a card.")
+                       f"(CPU tensors: `{name}_plain`); one launch a card. "
+                       "On a ``mesh`` that spans processes the lists hold "
+                       "this process's shards.")
     plain.__doc__ = (f"Plain f32 {family} ring sum: the ring accumulation "
                      "over the plain block (the version the kernel is held "
                      "against).")

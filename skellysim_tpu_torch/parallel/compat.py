@@ -7,12 +7,18 @@ bridge jax versions and have no counterpart here.
 
 from __future__ import annotations
 
+import logging
 import os
 
 import torch
 
+logger = logging.getLogger("skellysim_tpu_torch")
 
-def fused_ring_mode(impl: str, device: torch.device) -> str:
+#: layouts whose refusal of the fused ring was logged (once each)
+_logged: set = set()
+
+
+def fused_ring_mode(impl: str, device: torch.device, mesh=None) -> str:
     """``"fused"`` (one ring kernel a card, kernels E / F) or
     ``"ppermute"`` (the hop-by-hop ring accumulation,
     `parallel.ring._ring_accumulate`).
@@ -25,10 +31,28 @@ def fused_ring_mode(impl: str, device: torch.device) -> str:
     package's "interpret" override and its VMEM budget gate do not carry
     over: the card's ring slots live in device memory and serve every
     shape.)
+
+    The layout rule, the counterpart of that gate: the fused ring needs
+    every card of the ``mesh`` driven by one process (one process for all
+    the shards of a card; on several cards one process a card, or one for
+    them all). E / F's blocks spin on counters that the neighbours'
+    launches signal, and two processes on one card have two contexts whose
+    kernels take turns on it, never running at once, so such a ring could
+    only time out. A mesh whose processes share a card takes
+    ``"ppermute"``; the first such call logs why.
     """
     override = os.environ.get("SKELLY_FUSED_RING", "").strip().lower()
     if override in ("0", "off", "ppermute"):
         return "ppermute"
     if impl != "pallas" or torch.device(device).type != "cuda":
+        return "ppermute"
+    shared = mesh.shared_cards() if mesh is not None else []
+    if shared:
+        if mesh not in _logged:
+            _logged.add(mesh)
+            logger.info(
+                "fused ring refused: processes %s share card(s) %s, whose "
+                "contexts take turns on the card; the ring runs hop by hop "
+                "(\"ppermute\")", sorted(set(mesh.processes)), shared)
         return "ppermute"
     return "fused"

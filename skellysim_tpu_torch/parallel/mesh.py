@@ -16,6 +16,12 @@ node-aligned row block (or the whole shell on every shard, where it cannot
 split), and everything else replicated. `gather_state` is the only way
 back to one device. `make_member_mesh` and `make_2d_mesh` belong to the
 ensemble slice (ROADMAP.md §1 item 11) and are not ported.
+
+After `parallel.multihost.initialize` a mesh spans processes: every
+process names every shard's device, process and card, in process order,
+and holds only its own shards (`Mesh.local`): `shard_state` keeps them
+(copies of their rows, so the whole state can be dropped), `gather_state`
+all-gathers the shards to every process.
 """
 
 from __future__ import annotations
@@ -40,13 +46,50 @@ SHELL_ROW_SHARDED_FIELDS = ("stresslet_plus_complementary", "M_inv")
 @dataclass(frozen=True)
 class Mesh:
     """A 1-D ring of shards along `FIBER_AXIS`: ``devices[k]`` holds shard
-    k."""
+    k. A mesh that spans processes (`make_mesh` after
+    `parallel.multihost.initialize`) also names shard k's process
+    (``processes[k]``, in process order) and card (``cards[k]``,
+    `multihost.card_id`), and this process's index (``process``)."""
 
     devices: tuple
+    processes: tuple | None = None
+    cards: tuple | None = None
+    process: int = 0
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the shards lie in more than one process."""
+        return self.processes is not None and len(set(self.processes)) > 1
+
+    @property
+    def local(self) -> range:
+        """This process's shards: a run of consecutive indices (every
+        shard in one process)."""
+        if self.processes is None:
+            return range(self.size)
+        mine = [k for k, p in enumerate(self.processes) if p == self.process]
+        return range(mine[0], mine[-1] + 1)
+
+    @property
+    def local_devices(self) -> tuple:
+        return tuple(self.devices[k] for k in self.local)
+
+    def owner(self, k: int) -> int:
+        """The process of shard ``k``."""
+        return 0 if self.processes is None else self.processes[k]
+
+    def shared_cards(self) -> list:
+        """The cards that shards of more than one process lie on."""
+        if self.processes is None:
+            return []
+        by_card = {}
+        for card, p in zip(self.cards, self.processes):
+            by_card.setdefault(card, set()).add(p)
+        return sorted(c for c, ps in by_card.items() if len(ps) > 1)
 
 
 def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
@@ -58,9 +101,18 @@ def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
     (default: all), and every card is given access to its two ring
     neighbours' memory; asking for more cards than exist, or for cards that
     cannot reach their neighbours, raises.
-    """
+
+    After `parallel.multihost.initialize` the mesh spans the processes, in
+    process order: each process contributes ``n_devices`` shards (default
+    1) of ``device``, or without ``device`` one shard on its own card (then
+    ``n_devices``, if given, must be the process count). Every process
+    must contribute as many shards. The layouts are exchanged once."""
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n_devices}")
+    from . import multihost
+
+    if multihost.runtime() is not None:
+        return _process_mesh(multihost, n_devices, device)
     if device is not None:
         dev = resolve_device(device)
         return Mesh((dev,) * (1 if n_devices is None else int(n_devices)))
@@ -80,6 +132,32 @@ def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
 
         enable_ring_peer_access(devices)
     return Mesh(devices)
+
+
+def _process_mesh(multihost, n_devices, device) -> Mesh:
+    """`make_mesh` over the joined processes."""
+    rt = multihost.runtime()
+    if device is not None:
+        local = (resolve_device(device),) * (1 if n_devices is None
+                                             else int(n_devices))
+    else:
+        if n_devices is not None and int(n_devices) != rt.world:
+            raise ValueError(
+                f"make_mesh({n_devices}) without a device places one shard on "
+                f"each process's card, and there are {rt.world} processes; "
+                "pass device=... for several shards a process")
+        local = (rt.device,)
+    layouts = multihost.all_gather_object(
+        [(str(d), multihost.card_id(d)) for d in local])
+    if len({len(lay) for lay in layouts}) != 1:
+        raise ValueError("every process must hold as many shards of the mesh; "
+                         f"got {[len(lay) for lay in layouts]}")
+    return Mesh(devices=tuple(torch.device(d) for lay in layouts
+                              for d, _ in lay),
+                processes=tuple(p for p, lay in enumerate(layouts)
+                                for _ in lay),
+                cards=tuple(c for lay in layouts for _, c in lay),
+                process=rt.rank)
 
 
 class ShardedState(NamedTuple):
@@ -106,12 +184,13 @@ def _to(nt, device):
                           if torch.is_tensor(v)})
 
 
-def _rows(nt, k: int, n: int, device):
+def _rows(nt, k: int, n: int, device, copy: bool = False):
     """Block ``k`` of ``n`` equal leading blocks of every tensor field of
-    ``nt``, on ``device`` (views where it already lies there)."""
+    ``nt``, on ``device`` (views where it already lies there, unless
+    ``copy``)."""
     def block(v):
         m = v.shape[0] // n
-        return v[k * m:(k + 1) * m].to(device)
+        return v[k * m:(k + 1) * m].to(device, copy=copy)
 
     return nt._replace(**{f: block(v) for f, v in nt._asdict().items()
                           if torch.is_tensor(v)})
@@ -128,19 +207,27 @@ def shard_state(state, mesh: Mesh, *, allow_replicated_shell: bool = False
     not divide, or a shell that cannot split, raises
     (`parallel.spmd.spmd_shell_mode`); ``allow_replicated_shell=True``
     puts the whole shell on every shard instead. Blocks on the state's own
-    device are views: placing a state on one card copies nothing."""
+    device are views: placing a state on one card copies nothing.
+
+    On a mesh that spans processes every process passes the same whole
+    state (built from the same config and seed) and keeps its own shards
+    only, their row blocks copied, so that the caller can drop the whole
+    state: a process's peak is the whole state plus its own rows."""
     from ..system.system import fiber_buckets
     from .spmd import spmd_shell_mode
 
     mode = spmd_shell_mode(state, mesh,
                            allow_replicated_shell=allow_replicated_shell)
     n = mesh.size
+    copy = mesh.spans_processes
     shards = []
-    for k, dev in enumerate(mesh.devices):
-        placed = [_rows(g, k, n, dev) for g in fiber_buckets(state.fibers)]
+    for k in mesh.local:
+        dev = mesh.devices[k]
+        placed = [_rows(g, k, n, dev, copy)
+                  for g in fiber_buckets(state.fibers)]
         shell = state.shell
         if shell is not None:
-            shell = (_rows(shell, k, n, dev) if mode == "sharded"
+            shell = (_rows(shell, k, n, dev, copy) if mode == "sharded"
                      else _to(shell, dev))
         bodies = state.bodies
         if bodies is not None:
@@ -165,11 +252,17 @@ def gather_state(sharded: ShardedState, device=None, *,
     order, the replicated fields taken from shard 0. With
     ``shell_operators=False`` the shell's dense operators
     (`SHELL_ROW_SHARDED_FIELDS`) are left None, which saves their copy
-    where only positions are read (a fast plan). The step never calls it:
-    it is for the writer, the tests and the caller that asks."""
+    where only positions are read (a fast plan). On a mesh that spans
+    processes every process calls it and gets the whole state: the
+    sharded fields are all-gathered, the replicated ones taken from the
+    process's first shard. The step never calls it, but for the tree's
+    plan (positions only): it is for the writer, the tests and the caller
+    that asks."""
     from ..system.system import fiber_buckets
+    from . import multihost
 
     shards = sharded.shards
+    spans = sharded.mesh.spans_processes
     dev = resolve_device(device) if device is not None else None
     first = shards[0]
 
@@ -181,6 +274,8 @@ def gather_state(sharded: ShardedState, device=None, *,
                 fields[f] = None if f in skip else vals[0]
                 continue
             out = torch.cat([v.to(vals[0].device) for v in vals])
+            if spans:
+                out = torch.cat(multihost.all_gather(out))
             fields[f] = out if dev is None else out.to(dev)
         return type(nts[0])(**fields)
 

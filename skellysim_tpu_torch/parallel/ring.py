@@ -29,6 +29,15 @@ equal shard blocks, each placed on its shard's device, and the result comes
 back to the caller's device. `ring_flow_local` is the sharded step's
 in-mesh seam instead (`parallel.spmd`): its operands are already one block
 a shard, and its result stays so.
+
+On a mesh that spans processes (`parallel.multihost`) every per-shard list
+holds this process's shards only. A whole-tensor call takes the same
+whole inputs in every process, keeps its own blocks and all-gathers the
+result. A hop whose next shard lies in another process sends its blocks
+there by `torch.distributed` (`multihost.exchange`), posted before the
+hop's block sums as the local moves are; the fused kernels ring across
+processes through CUDA IPC mappings of each shard's slots and counters
+(`ops.cuda_kernels`), where `compat.fused_ring_mode`'s layout rule allows.
 """
 
 from __future__ import annotations
@@ -48,39 +57,77 @@ _PAYLOAD_COLS = {"stokeslet": 3, "stresslet": 9}
 
 
 def _shard(a, mesh: Mesh) -> list:
-    """[N, ...] -> ``mesh.size`` equal leading blocks, block k on shard k's
-    device (views when the shard lives on ``a``'s device)."""
+    """[N, ...] -> this process's of ``mesh.size`` equal leading blocks,
+    block k on shard k's device (views when the shard lives on ``a``'s
+    device)."""
     n = mesh.size
     if a.shape[0] % n != 0:
         raise ValueError(f"ring operands need a leading axis divisible by the "
                          f"mesh size ({n}); got {tuple(a.shape)}")
     m = a.shape[0] // n
-    return [a[k * m:(k + 1) * m].to(d) for k, d in enumerate(mesh.devices)]
+    return [a[k * m:(k + 1) * m].to(mesh.devices[k]) for k in mesh.local]
 
 
-def _gather(blocks, device) -> torch.Tensor:
-    return torch.cat([b.to(device) for b in blocks], dim=0)
+def _gather(blocks, device, mesh: Mesh) -> torch.Tensor:
+    """This process's blocks, and every other process's where the mesh
+    spans processes, concatenated in shard order on ``device``."""
+    out = torch.cat([b.to(device) for b in blocks], dim=0)
+    if mesh.spans_processes:
+        from . import multihost
+
+        out = torch.cat(multihost.all_gather(out), dim=0)
+    return out
 
 
-def _ring_accumulate(block_fn, devices, u0, *rotating) -> list:
+def _ring_accumulate(block_fn, devices, u0, *rotating, mesh=None) -> list:
     """Accumulate ``block_fn(k, *blocks)`` into shard k's ``u0[k]`` over all
     ring positions. ``rotating`` are per-shard lists; at hop j shard k holds
     the blocks of shard (k - j) mod n. Each hop issues the move of the NEXT
     blocks before the block sums of the current ones (the JAX ring's
     overlap: the two are independent), and the final position is consumed
-    without a trailing move: n - 1 hops."""
-    n = len(devices)
+    without a trailing move: n - 1 hops. ``devices`` are the listed
+    shards' devices; on a ``mesh`` that spans processes they are this
+    process's shards (``mesh.local``), and the first of them receives from
+    the process on its left while the last sends to the one on its
+    right."""
+    n_loc = len(devices)
+    spans = mesh is not None and mesh.spans_processes
+    n = mesh.size if spans else n_loc
     u = list(u0)
     rot = [list(r) for r in rotating]
     for hop in range(n):
-        nxt = None
+        nxt = wait = None
         if hop < n - 1:
-            nxt = [[r[(k - 1) % n].to(devices[k], non_blocking=True)
-                    for k in range(n)] for r in rot]
-        u = [u[k] + block_fn(k, *(r[k] for r in rot)) for k in range(n)]
+            if spans:
+                nxt, wait = _post_hop(mesh, devices, rot)
+            else:
+                nxt = [[r[(k - 1) % n].to(devices[k], non_blocking=True)
+                        for k in range(n)] for r in rot]
+        u = [u[k] + block_fn(k, *(r[k] for r in rot)) for k in range(n_loc)]
+        if wait is not None:
+            for r, got in zip(nxt, wait()):
+                r[0] = got
         if nxt is not None:
             rot = nxt
     return u
+
+
+def _post_hop(mesh: Mesh, devices, rot):
+    """One hop's moves on a mesh that spans processes: within the process
+    as `_ring_accumulate` moves them; the last local shard's blocks sent
+    to the process of the next shard, the first local shard's received
+    from the process of the one before (its slot left None until the
+    returned ``wait`` fills it)."""
+    from . import multihost
+
+    local = mesh.local
+    n, n_loc = mesh.size, len(devices)
+    nxt = [[None] + [r[k - 1].to(devices[k], non_blocking=True)
+                     for k in range(1, n_loc)] for r in rot]
+    wait = multihost.exchange(
+        [r[-1] for r in rot], mesh.owner((local[-1] + 1) % n),
+        [r[0] for r in rot], mesh.owner((local[0] - 1) % n))
+    return nxt, wait
 
 
 def _ring_or_fused(kind, impl: str, block_fn, mesh: Mesh, r_trg, *rotating,
@@ -93,12 +140,13 @@ def _ring_or_fused(kind, impl: str, block_fn, mesh: Mesh, r_trg, *rotating,
     ``kind`` names the fused family ("stokeslet" / "stresslet"; None for
     tiles it does not serve)."""
     if (kind is not None and mesh.size > 1
-            and fused_ring_mode(impl, r_trg[0].device) == "fused"):
-        return getattr(cuda_kernels, f"ring_{kind}_f32")(r_trg, *rotating)
+            and fused_ring_mode(impl, r_trg[0].device, mesh) == "fused"):
+        return getattr(cuda_kernels, f"ring_{kind}_f32")(
+            r_trg, *rotating, mesh=mesh if mesh.spans_processes else None)
     return _ring_accumulate(
-        lambda k, *blk: block_fn(r_trg[k], *blk), mesh.devices,
+        lambda k, *blk: block_fn(r_trg[k], *blk), mesh.local_devices,
         [torch.zeros((t.shape[0], 3), dtype=acc_dtype or t.dtype,
-                     device=t.device) for t in r_trg], *rotating)
+                     device=t.device) for t in r_trg], *rotating, mesh=mesh)
 
 
 def _ring_block(impl: str, family: str, dtype):
@@ -126,7 +174,7 @@ def _ring_eval(kind: str, impl: str, mesh: Mesh, scale, r_trg, src, payload):
     payload = payload.reshape(payload.shape[0], _PAYLOAD_COLS[kind])
     u = _ring_or_fused(kind, impl, block, mesh, _shard(r_trg, mesh),
                        _shard(src, mesh), _shard(payload, mesh))
-    return _gather([x * scale for x in u], r_trg.device)
+    return _gather([x * scale for x in u], r_trg.device, mesh)
 
 
 def ring_stokeslet(r_src, r_trg, f_src, eta, *, mesh: Mesh,
@@ -174,10 +222,11 @@ def _ring_df(family: str, impl: str, mesh: Mesh, r_src, r_trg, payload, eta):
     payload = payload.reshape(payload.shape[0], _PAYLOAD_COLS[family])
     u0 = [torch.zeros((t.shape[0], 3), dtype=torch.float64, device=t.device)
           for t in trg]
-    u = _ring_accumulate(lambda k, s, p: block(trg[k], s, p), mesh.devices,
-                         u0, _shard(r_src, mesh), _shard(payload, mesh))
+    u = _ring_accumulate(lambda k, s, p: block(trg[k], s, p),
+                         mesh.local_devices, u0, _shard(r_src, mesh),
+                         _shard(payload, mesh), mesh=mesh)
     return _gather([x / (8.0 * math.pi) / float(eta) for x in u],
-                   r_trg.device)
+                   r_trg.device, mesh)
 
 
 def ring_stokeslet_df(r_src, r_trg, f_src, eta, *, mesh: Mesh,
@@ -248,4 +297,4 @@ def ring_oseen_contract(r_src, r_trg, density, eta, reg=DEFAULT_REG,
 
     u = _ring_or_fused(None, "exact", block, mesh, _shard(r_trg, mesh),
                        _shard(r_src, mesh), _shard(density, mesh))
-    return _gather(u, r_trg.device)
+    return _gather(u, r_trg.device, mesh)

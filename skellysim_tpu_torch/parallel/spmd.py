@@ -1,11 +1,16 @@
 """The sharded implicit step: the whole step over a mesh of shards.
 
 Counterpart of `skellysim_tpu.parallel.spmd`, where the step is one
-`shard_map` program over the fiber axis. Here the step runs eagerly in one
-process, every shard's part in turn, and the places where the JAX program
+`shard_map` program over the fiber axis. Here the step runs eagerly, each
+process's shards' parts in turn, and the places where the JAX program
 communicates are the calls of one small object, `Collectives`: ``psum``,
-``all_gather`` and the ring. A multi-process backing of that object (over
-`torch.distributed`) is where several processes plug in.
+``all_gather`` and the ring. On a mesh of one process its entries are every
+shard; on a mesh that spans processes (`parallel.multihost`) they are the
+process's own shards, and the same three calls reach the other processes
+over `torch.distributed`. The host's decisions (the iteration count, the
+accept and reject) follow from replicated values, which are the same bits
+in every process because every sum across shards is taken in shard order;
+`_Step` checks that once a step.
 
 Decomposition (each shard k of a mesh of D, `parallel.mesh.shard_state`):
 
@@ -65,36 +70,60 @@ from .ring import _ring_or_fused
 class Collectives:
     """The sharded step's collectives over ``mesh``: the one seam between
     the step and the shards' placement. Every argument and result holds
-    one entry a shard (shard k's on ``mesh.devices[k]``). This backing
-    serves the shards of one process; a backing over `torch.distributed`
-    gives each process its own entry."""
+    one entry a shard of this process (``mesh.local``; shard k's on its
+    device): every shard in one process, or the process's own shards on a
+    mesh that spans processes, whose entries then reach the others over
+    `torch.distributed` (`parallel.multihost`)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
+        self.devices = mesh.local_devices
 
     @property
     def size(self) -> int:
+        """Shards of the mesh (every process's)."""
         return self.mesh.size
+
+    def every_shard(self, parts) -> list:
+        """Every shard's entry of ``parts`` (this process's), in shard
+        order, on the first entry's device."""
+        dev = parts[0].device
+        if not self.mesh.spans_processes:
+            return [p.to(dev) for p in parts]
+        from . import multihost
+
+        stacked = multihost.all_gather(torch.stack([p.to(dev)
+                                                    for p in parts]))
+        return [p for blk in stacked for p in blk]
 
     def psum(self, parts) -> list:
         """The sum of the shards' ``parts``, each shard's copy: the entries
-        added in shard order on shard 0's device, then placed, so the
-        result is the same bits on every shard. An entry may be a tuple of
-        tensors (one bundle, summed field by field)."""
+        added in shard order (gathered first across processes), then
+        placed, so the result is the same bits on every shard of every
+        process. An entry may be a tuple of tensors (one bundle, summed
+        field by field; one gather for a bundle of one dtype)."""
         if isinstance(parts[0], tuple):
-            sums = [self.psum([p[i] for p in parts])
-                    for i in range(len(parts[0]))]
-            return [tuple(s[k] for s in sums) for k in range(self.size)]
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + p.to(acc.device)
-        return [acc.to(d) for d in self.mesh.devices]
+            fields = len(parts[0])
+            if self.mesh.spans_processes and len(
+                    {p.dtype for p in parts[0]}) == 1:
+                sizes = [p.numel() for p in parts[0]]
+                flat = self.psum([torch.cat([f.reshape(-1) for f in p])
+                                  for p in parts])
+                return [tuple(x.reshape(f.shape) for x, f in zip(
+                    v.split(sizes), parts[0])) for v in flat]
+            sums = [self.psum([p[i] for p in parts]) for i in range(fields)]
+            return [tuple(s[k] for s in sums) for k in range(len(parts))]
+        every = self.every_shard(parts)
+        acc = every[0]
+        for p in every[1:]:
+            acc = acc + p
+        return [acc.to(d) for d in self.devices]
 
     def all_gather(self, parts) -> list:
         """The shards' ``parts`` concatenated in shard order (tiled along
         the leading axis), each shard's copy."""
-        full = torch.cat([p.to(parts[0].device) for p in parts])
-        return [full.to(d) for d in self.mesh.devices]
+        full = torch.cat(self.every_shard(parts))
+        return [full.to(d) for d in self.devices]
 
     def ring(self, kind, impl: str, block_fn, r_trg, *rotating,
              acc_dtype=None) -> list:
@@ -438,7 +467,7 @@ class _Step:
                         [st.shell for st in f_sts],
                         [r[:nf_l] for r in r_loc], r_rep, rho, p.eta,
                         comm=comm, impl=impl)
-                    for k in range(comm.size):
+                    for k in range(len(comm.devices)):
                         v_loc[k][:nf_l] += sl[k]
                     if sp is not None:
                         v_part = _each(operator.add, v_part, sp)
@@ -464,7 +493,7 @@ class _Step:
             body_fts = None
             if has_bodies:
                 body_fts = []
-                for k in range(comm.size):
+                for k in range(len(comm.devices)):
                     nbt = bd.n_total(b_lists[k])
                     fts = []
                     for gb, bc, xb in zip(b_lists[k], bcs[k], x_bods[k]):
@@ -485,7 +514,7 @@ class _Step:
             v_rep = None
             if body_fts is not None:
                 summed = comm.psum([(v_part[k], *body_fts[k])
-                                    for k in range(comm.size)])
+                                    for k in range(len(comm.devices))])
                 v_part = [s[0] for s in summed]
                 body_fts = [list(s[1:]) for s in summed]
             elif r_rep is not None:
@@ -496,7 +525,7 @@ class _Step:
             if self.sharded_shell:
                 x_full = comm.all_gather(x_shell)
             out = []
-            for k in range(comm.size):
+            for k in range(len(comm.devices)):
                 n_loc = r_loc[k].shape[0]
                 if has_bodies:
                     r_all = torch.cat([r_loc[k], r_rep[k]])
@@ -556,7 +585,7 @@ class _Step:
 
         def precond(x: ShardVec) -> ShardVec:
             parts = _each(self.split, sts, x.parts)
-            y_shell = [None] * comm.size
+            y_shell = [None] * len(comm.devices)
             if self.has_shell:
                 x_shell = [q[1] for q in parts]
                 if self.sharded_shell:
@@ -591,7 +620,7 @@ class _Step:
                         if r_body is not None:
                             v_rep.append(v[nf_l:])
             out = []
-            for k in range(comm.size):
+            for k in range(len(comm.devices)):
                 x_fibs, _, x_bods = parts[k]
                 res, off_v = [], 0
                 for g, c, xf in zip(buckets[k], caches[k], x_fibs):
@@ -638,7 +667,7 @@ class _Step:
             [c.RHS.reshape(-1) for c in caches[k]]
             + ([shell_rhs[k]] if shell_rhs[k] is not None else [])
             + [br.reshape(-1) for br in body_rhs[k]])
-            for k in range(comm.size))
+            for k in range(len(comm.devices)))
         fib_size, shell_size, _ = sys_._sizes(sts[0])
         nonrep_end = fib_size + (shell_size if self.sharded_shell else 0)
         rdot = _make_rdot(comm, nonrep_end)
@@ -695,6 +724,8 @@ class _Step:
         # pmax: the largest of every shard's buckets
         fiber_error = max(float(fc.fiber_error(g)) for st in new_sts
                           for g in fiber_buckets(st.fibers))
+        if self.mesh.spans_processes:
+            fiber_error = _agree_across_processes(result, fiber_error)
         health = result.health | _verdict.nonfinite_word(fiber_error)
         info = StepInfo(converged=bool(result.converged), iters=result.iters,
                         residual=result.residual, fiber_error=fiber_error,
@@ -712,15 +743,35 @@ class _Step:
                              for i in range(len(sol_fibs[0]))),
                 shell=tuple(sol_shell) if self.has_shell else None,
                 bodies=tuple(sol_body) if sol_body else None), info
-        dev = result.x.device
-        parts = [torch.cat([s[i].to(dev) for s in sol_fibs]).reshape(-1)
+        every = self.comm.every_shard
+        parts = [torch.cat(every([s[i] for s in sol_fibs])).reshape(-1)
                  for i in range(len(sol_fibs[0]))]
         if self.has_shell:
-            parts.append(torch.cat([s.to(dev) for s in sol_shell])
-                         if self.sharded_shell else sol_shell[0])
+            parts.append(torch.cat(every(sol_shell)) if self.sharded_shell
+                         else sol_shell[0])
         if sol_body:
             parts.append(sol_body[0])
         return new_state, torch.cat(parts), info
+
+
+def _agree_across_processes(result, fiber_error: float) -> float:
+    """The largest fiber error of every process's shards, after checking
+    that every process's solve made the same host decisions: the same
+    iterations, sweeps, convergence and residuals, bit for bit. A process
+    that went its own way would hang at its next collective; this raises
+    on every process instead."""
+    from . import multihost
+
+    mine = (result.iters, result.refines, result.cycles,
+            bool(result.converged), result.health,
+            float(result.residual).hex(), float(result.residual_true).hex())
+    every = multihost.all_gather_object((mine, fiber_error))
+    if any(d != every[0][0] for d, _ in every):
+        raise RuntimeError(
+            "the processes of the sharded step disagree on their solve "
+            "(iterations, sweeps, cycles, converged, health, residual, true "
+            f"residual by process): {[d for d, _ in every]}")
+    return max(e for _, e in every)
 
 
 def build_spmd_step(system, mesh: Mesh, state: ShardedState, *,

@@ -941,19 +941,27 @@ class System:
 
         ``pair_evaluator = "tree"`` composes with this path when every
         fiber slot is active: the tree plan is built on the host once a
-        step over the whole state, as in `step`, and the Krylov interior's
-        fiber flows take it on every shard. With an inactive slot (the
+        step over the whole state, as in `step` (on a mesh that spans
+        processes, every process builds it from the all-gathered
+        positions, so that every process gets the same plan), and the
+        Krylov interior's fiber flows take it on every shard. With an inactive slot (the
         layout cannot spread padding nodes) the ring flows run, as they do
         for every other evaluator. Nothing is cached between calls;
         ``donate`` is accepted and ignored (`parallel.spmd
         .build_spmd_step`)."""
+        from ..parallel import multihost
         from ..parallel.mesh import gather_state
         from ..parallel.spmd import build_spmd_step
 
         pair = None
-        if self.params.pair_evaluator == "tree" and all(
-                bool(g.active.all()) for st in state.shards
-                for g in fiber_buckets(st.fibers)):
+        full = self.params.pair_evaluator == "tree" and all(
+            bool(g.active.all()) for st in state.shards
+            for g in fiber_buckets(st.fibers))
+        if self.params.pair_evaluator == "tree" and mesh.spans_processes:
+            # every process takes the same branch: its shards' slots and
+            # every other process's
+            full = all(multihost.all_gather_object(full))
+        if full:
             t0 = _time.perf_counter()
             pair = self._pair_args(gather_state(state, self.device,
                                                 shell_operators=False))

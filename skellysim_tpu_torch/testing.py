@@ -6,10 +6,16 @@ body; the same arrays as the JAX package's for the same arguments), and
 `make_coupled_scene`, which adds fibers bound to the body's nucleation
 sites and a few free fibers: every coupling of the confined, body-carrying
 step (shell flow, body flow, link conditions, repinning) in a scene small
-enough for the CPU.
+enough for the CPU. `free_port` and `run_all` start and watch the
+processes of a run that spans processes (the multi-process tests and
+`chip_smoke.py`).
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
+import time
 
 import numpy as np
 import torch
@@ -82,3 +88,54 @@ def make_coupled_scene(shell_n: int = 200, body_n: int = 100,
         binding_site=np.where(np.arange(nf) < n_bound, np.arange(nf), -1),
         device=device)
     return shell, shape, bodies, fibers
+
+
+def free_port() -> int:
+    """A TCP port of localhost that is free now (bound to 0)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_all(cmds, log_dir, tag, deadline_s):
+    """Start every (argv, env, cwd) of ``cmds`` at once, each writing its
+    output to ``log_dir/<tag>_<i>.log``, and wait until all exit 0; a
+    process that fails, or the deadline, kills the others at once and
+    raises RuntimeError with every output's tail. Returns the outputs."""
+    logs = [os.path.join(str(log_dir), f"{tag}_{i}.log")
+            for i in range(len(cmds))]
+    procs = []
+    try:
+        for (argv, env, cwd), log in zip(cmds, logs):
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen(
+                    argv, stdout=fh, stderr=subprocess.STDOUT, env=env,
+                    cwd=cwd))
+        end = time.monotonic() + deadline_s
+        failed = None
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((i for i, p in enumerate(procs)
+                           if p.returncode not in (None, 0)), None)
+            if time.monotonic() > end:
+                failed = "deadline"
+            time.sleep(0.05)
+        if failed is None:
+            failed = next((i for i, p in enumerate(procs)
+                           if p.returncode != 0), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as fh:
+            outs.append(fh.read())
+    if failed is not None:
+        raise RuntimeError(f"{tag}: process {failed} failed (of {len(procs)}, "
+                           f"exit codes {[p.returncode for p in procs]}; "
+                           f"deadline {deadline_s} s):\n"
+                           + "\n---\n".join(o[-3000:] for o in outs))
+    return outs

@@ -752,6 +752,77 @@ def test_ring_created_while_a_card_is_busy(cuda):
 
 
 @pytest.mark.gpu
+def test_ring_and_step_across_processes(cuda, tmp_path):
+    """Four processes, one a card, joined over `nccl`
+    (`parallel.multihost`; the worker is `tests/torch_multihost_worker.py`,
+    case "cards"), against one process driving the four cards: kernels E
+    and F ring across the processes through CUDA IPC mappings of each
+    shard's slots and counters and give the one-process card mesh's bits at
+    their full-width shapes (640,000 fiber nodes; 8,000 shell nodes x
+    128,000), one launch a process a call; a "mixed" (E / F across the
+    processes, B / D a hop by NCCL send / receive) and a "full"
+    `System.step_spmd` of 2,000 arcs x 64 nodes in a 2,000-node shell land
+    within 5e-9 (true residual; __graft_entry__.py:83 PARITY_GATE) and
+    1e-6 (fibers) of the one-process steps, with the same iterations in
+    every process. Prints one JSON line of times. Skips below 4 cards."""
+    import json
+    import sys
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        pytest.skip(f"needs >= 4 cards, {n_cards} visible")
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_multihost_worker as w
+
+    from skellysim_tpu_torch.testing import free_port, run_all
+
+    # host threads a process (the four share the host's cores)
+    env = w.worker_env(OMP_NUM_THREADS="8", MKL_NUM_THREADS="8")
+    one_dir, spread_dir = tmp_path / "one", tmp_path / "spread"
+    one_dir.mkdir()
+    spread_dir.mkdir()
+    run_all([([sys.executable, w.__file__, "cards", "0", "0", "1",
+                 str(one_dir)], env, str(REPO))], tmp_path, "one", 600)
+    port = free_port()
+    run_all([([sys.executable, w.__file__, "cards", str(port), str(rank),
+                 "4", str(spread_dir)], env, str(REPO))
+               for rank in range(4)], tmp_path, "cards", 600)
+    one = torch.load(one_dir / "cards_0.pt", weights_only=False)
+    recs = [torch.load(spread_dir / f"cards_{r}.pt", weights_only=False)
+            for r in range(4)]
+    times = {"card": torch.cuda.get_device_name(0), "processes": 4}
+    for family, _, _ in w.CARD_RINGS:
+        assert one[f"{family}_launches"] == 4 * 4
+        times[f"{family} one process ms"] = one[f"{family}_ms"]
+        times[f"{family} 4 processes ms"] = [r[f"{family}_ms"] for r in recs]
+        for rank, rec in enumerate(recs):
+            assert rec[f"{family}_launches"] == 4
+            assert list(rec[family]) == [rank]
+            assert torch.equal(rec[family][rank], one[family][rank]), family
+    for precision in ("mixed", "full"):
+        ref = one[precision]
+        assert ref["converged"]
+        gaps = []
+        for rec in recs:
+            got = rec[precision]
+            assert got["converged"] and got["iters"] == recs[0][precision][
+                "iters"]
+            assert abs(got["residual_true"] - ref["residual_true"]) <= 5e-9
+            dx = float((got["x"] - ref["x"]).abs().max())
+            assert dx <= 1e-6
+            gaps.append(dx)
+        times[f"{precision} step s"] = {
+            "one process": ref["wall_s"],
+            "4 processes": [r[precision]["wall_s"] for r in recs],
+            "iters": [ref["iters"], recs[0][precision]["iters"]],
+            "max |dx|": max(gaps),
+            "launches a process": recs[0][precision]["launches"]}
+    assert recs[0]["mixed"]["launches"].get("ring_stokeslet_f32", 0) > 0
+    assert recs[0]["mixed"]["launches"].get("ring_stresslet_f32", 0) > 0
+    print(json.dumps(times))
+
+
+@pytest.mark.gpu
 def test_ring_launch_failure_keeps_the_ring_and_recovers(cuda, monkeypatch):
     """A launch the card refuses (a cooperative grid too wide to be
     resident) raises and counts no launch; the failed ring's buffers stay
@@ -1083,7 +1154,7 @@ def test_port_imports_no_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
     names = {os.path.relpath(f, REPO) for f in files}
-    for mod in ("mesh", "compat", "ring", "spmd"):
+    for mod in ("mesh", "compat", "ring", "spmd", "multihost"):
         assert f"skellysim_tpu_torch/parallel/{mod}.py" in names
     bad = []
     for f in files:
