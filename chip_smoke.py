@@ -16,8 +16,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. kernels   — kernels A and B (Stokeslet, csrc/stokeslet_sums.cu) at the
                free-space path's shape (the 640,000 fiber nodes of the
                10k-fiber config as sources and as targets), by
-               `design_check`: error against the plain f64 sum, two
-               launches bit for bit, and time (CUDA events after a warm-up:
+               `design_check`: error against the plain f64 sum on 4,096
+               target rows drawn at random and each plan's last target
+               block (R x 128 rows; the plain times are those rows'),
+               against the first design on every row, two launches bit
+               for bit, and time (CUDA events after a warm-up:
                the median of 3 rounds of 3 launches, with the SM clock and
                temperature nvidia-smi reads right after) in turns with
                their first design, the tiled yardstick of csrc/pair_sums.cu
@@ -252,6 +255,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                bytes staged through the host a step and the peak GiB; a
                worker that fails or outlives 300 s fails the phase. Its
                summary is {"spmd": {"processes": ...}}.
+15. ensemble — run last: the batched ensemble through its front door.
+               The member scene (`make_ensemble_config`): a sphere cortex
+               of radius 3 with 2,000 quadrature nodes, a 400-node sphere
+               body of radius 0.5 at the centre with 256 nucleation sites
+               (`Body.generate_nucleation_sites`), 128 clamped 32-node
+               fibers with motors on its first sites (the 128 capacity
+               rung), dynamic instability at 32 nodes (v_growth 0.2,
+               f_catastrophe 0.5, min_length 0.5, nucleation rate 5),
+               "mixed", 4 rounds of dt = 0.01; precomputed on the card; a
+               sweep of 8 replicas through 8 lanes (each member its own
+               `SimRNG.member(i)` stream); `python -m
+               skellysim_tpu_torch.ensemble` in this process ("vmap"),
+               every launch count set to 0 just before. Gated on every
+               member finishing its rounds converged (true residual <=
+               gmres_tol) with health 0, nucleation and a growth reseat
+               happening, active = previous + nucleations - catastrophes a
+               member a round, every trajectory read back (a finite frame
+               a round with the round's active fibers), a start, step and
+               retire record a member, A-D launching only through their
+               member-batched wrappers (the lone ones 0 times). Members 0
+               and 5 then run alone through `System` from their admitted
+               states and streams (`ensemble_solo`): each "mixed" round
+               within 1e-8 of the batched member's frame and its true
+               residual <= gmres_tol (iterations printed beside); one
+               "full" round (the shell preconditioner inverted in f64)
+               with equal iterations and fibers within 1e-10; one
+               "unroll" round of the two the solo rounds' bits. It prints
+               per round the wall, lanes, capacity, iterations, active
+               fibers, DI host seconds, A-D calls by (members, sources,
+               targets) and peak memory; then A-D are checked at every
+               batched shape the run launched (`batched_check`: against
+               the plain f64 sum on sampled rows of every member, member
+               by member against the lone launch, bit for bit at the lone
+               plan's chunks, twice bit for bit, timed beside the B lone
+               launches, with their flop and issue-slot bounds). It
+               prints {"ensemble": ...} before the kernels line; A-D's
+               entries carry the checks under "at_ensemble_shapes" and the
+               batched launches under "launches_ensemble_batched".
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -291,6 +332,7 @@ mesh's 4 shards then lie on the CPU).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -332,6 +374,10 @@ BODY_STEPS = 3
 #: a kernel's time: the median of this many rounds of this many launches
 KERNEL_ROUNDS = 3
 KERNEL_LAUNCHES = 3
+#: target rows drawn at random on which phase 3 holds A and B against the
+#: plain f64 sum (each plan's last target block besides): the sum on every
+#: one of the 640,000 rows took 161 s of the smoke's limit
+KERNEL_SAMPLE = 4096
 #: shards of the ring phases' mesh, all on the one card
 RING_SHARDS = 4
 #: target rows a shard, sampled at random, on which kernels E and F are
@@ -650,20 +696,39 @@ def rsqrt_probe(torch, ck, device):
             float(np.abs(y.cpu().numpy() / ref - 1).max()))
 
 
+def last_block_rows(ck, family, n_trg):
+    """The target rows of the last target block of A's and B's (C's and
+    D's) plans: R x 128 rows each, partial where n_trg is not a multiple."""
+    import numpy as np
+
+    rows = []
+    for r in (ck.STOKESLET_R if family == "stokeslet"
+              else ck.STRESSLET_R).values():
+        block = r * (ck.STOKESLET_THREADS if family == "stokeslet"
+                     else ck.STRESSLET_THREADS)
+        rows.append(np.arange((n_trg - 1) // block * block, n_trg))
+    return np.unique(np.concatenate(rows))
+
+
 def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
-                 tag):
+                 tag, sample=None):
     """Kernels A and B (``family`` "stokeslet") or C and D ("stresslet") at
-    one shape, each against the plain f64 sum on every row, on the same
-    inputs rounded to f32 once (widened for the f64 kernel: with f64 inputs
-    the f32 kernel's rounding of the positions alone would dominate its
-    error), and against its first design (the tiled yardstick), the two
+    one shape, each against the plain f64 sum, on the same inputs rounded
+    to f32 once (widened for the f64 kernel: with f64 inputs the f32
+    kernel's rounding of the positions alone would dominate its error), and
+    against its first design (the tiled yardstick) on every row, the two
     timed in turns (old, new, new, old) in this call; two launches compared
     bit for bit; on the card, the plan, both designs' registers and shared
     bytes (`-Xptxas -v`), the SASS instructions a pair of both hot loops and
     the issue-slot bound they give at the SM clock nvidia-smi reads; and
-    B's reciprocal square root measured. ``trg is src`` where the sources
-    are the targets (the bytes bound reads them once). Returns the JSON
-    entries (launches filled in after the runs)."""
+    B's reciprocal square root measured. The plain f64 sum covers every
+    target row, or with ``sample`` (a row count) that many rows drawn at
+    random plus the last target block of each precision's plan
+    (`last_block_rows`), and the plain times are those rows'. ``trg is
+    src`` where the sources are the targets (the bytes bound reads them
+    once). Returns the JSON entries (launches filled in after the runs)."""
+    import numpy as np
+
     on_card = device.type == "cuda"
     same = trg is src
     src64, trg64, pay64 = (torch.as_tensor(a, dtype=torch.float32,
@@ -671,11 +736,18 @@ def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
                            for a in (src, trg, pay))
     n_src, n_trg = src64.shape[0], trg64.shape[0]
     eta = 1.0
+    rows = None
+    if sample is not None and sample < n_trg:
+        rows = torch.as_tensor(np.union1d(
+            np.random.default_rng(41).choice(n_trg, sample, replace=False),
+            last_block_rows(ck, family, n_trg)), device=device)
+    trg_ref = trg64 if rows is None else trg64[rows]
     # the reference of both kernels: the plain version in f64 (also the f64
     # kernel's plain time)
     ref_ms, ref = timed(torch, lambda: getattr(ck, f"{family}_f64_plain")(
-        src64, trg64, pay64, eta), device, 1)
+        src64, trg_ref, pay64, eta), device, 1)
     ref_max = ref.abs().max().item()
+    n_rows = int(trg_ref.shape[0])
     source = ck.STOKESLET_SOURCE if family == "stokeslet" \
         else ck.STRESSLET_SOURCE
     sass, sms = {}, None
@@ -707,15 +779,18 @@ def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
         mhz = (float(re.search(r"SM clock (\d+)", turns["new"][-1][
             "card_state"]).group(1)) if on_card else None)
         bitwise = bool(torch.equal(new(s, t, f, eta), got))
-        err = (got.double() - ref).abs().max().item()
+        got_r = got if rows is None else got[rows]
+        prev_r = prev if rows is None else prev[rows]
+        err = (got_r.double() - ref).abs().max().item()
         rel = err / ref_max
-        prev_rel = (prev.double() - ref).abs().max().item() / ref_max
+        prev_rel = (prev_r.double() - ref).abs().max().item() / ref_max
         vs_prev = ((got.double() - prev.double()).abs().max().item()
                    / prev.double().abs().max().item())
         finite = bool(torch.isfinite(got).all())
-        del got, prev
+        del got, prev, got_r, prev_r
+        t_ref = t if rows is None else t[rows]
         plain_ms = ref_ms if prec == "f64" else timed(
-            torch, lambda: getattr(ck, f"{name}_plain")(s, t, f, eta),
+            torch, lambda: getattr(ck, f"{name}_plain")(s, t_ref, f, eta),
             device, 1)[0]
         b_ms, b_by = bound_ms(family, n_src, n_trg, s.element_size(), peak,
                               same_points=same)
@@ -727,7 +802,8 @@ def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
                  "max_rel_err": rel, "tolerance": tol, "ms": ms,
                  "ms_turns": turns["new"], "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "shape": [int(n_src), int(n_trg)], "previous_ms": prev_ms,
+                 "shape": [int(n_src), int(n_trg)], "plain_rows": n_rows,
+                 "previous_ms": prev_ms,
                  "previous_ms_turns": turns["old"],
                  "previous_source": f"skellysim_tpu_torch/csrc/{ck.SOURCE}"
                                     f".cu ({name}_tiled)",
@@ -792,14 +868,18 @@ def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
                     "(2e6 values of r^2 from 1e-307.6 to 1e300)")
         log(f"[{tag}] {name}: {n_src} sources x {n_trg} targets, max abs err "
             f"{err:.3e}, max rel err {rel:.3e} (tolerance {tol:g} of max|u|; "
-            f"reference: plain f64; the tiled design's {prev_rel:.3e}, new "
-            f"vs tiled {vs_prev:.3e}), same bits twice: {bitwise}; kernel "
+            f"reference: plain f64 on {n_rows} target rows"
+            + ("" if rows is None else ", sampled with each plan's last "
+               "target block") + f"; the tiled design's {prev_rel:.3e}, new "
+            f"vs tiled {vs_prev:.3e} on every row), same bits twice: "
+            f"{bitwise}; kernel "
             f"{ms:.3f} ms (turns "
             + ", ".join(f"{x['ms']:.3f}" for x in turns["new"])
             + f"; {rounds_note(turns['new'][0]['rounds'])}) against the "
             f"tiled design's {prev_ms:.3f} ms (turns "
             + ", ".join(f"{x['ms']:.3f}" for x in turns["old"])
-            + f"), {prev_ms / ms:.3f}x; plain {plain_ms:.1f} ms, bound "
+            + f"), {prev_ms / ms:.3f}x; plain {plain_ms:.1f} ms on "
+            f"{n_rows} rows, bound "
             f"{b_ms:.3f} ms ({b_by}, {FLOPS_PER_PAIR[family]} flops a pair "
             f"at {peak / 1e12:g} TFLOP/s, the data sheet's rate at 700 W); "
             f"{notes}; this card: {card}; after the timed launches: "
@@ -815,7 +895,7 @@ def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
             raise SystemExit("kernel B's rsqrt misses f64 rounding: "
                              f"{entry['rsqrt_max_rel_err']:.3e}")
         entries.append(entry)
-        del s, t, f
+        del s, t, f, t_ref
     log(f"[{tag}] no single PyTorch call computes the singular {family} sum "
         "(it is not a convolution, attention or sparse product): library_ms "
         "is null")
@@ -823,13 +903,13 @@ def design_check(torch, ck, cuda_build, device, family, src, trg, pay, card,
 
 
 def reset_counts(ck):
-    for w in ck.KERNEL_WRAPPERS + ck.YARDSTICK_WRAPPERS:
+    for w in ck.KERNEL_WRAPPERS + ck.MEMBER_WRAPPERS + ck.YARDSTICK_WRAPPERS:
         w.launches = 0
 
 
 def read_counts(ck):
-    return {w.__name__: w.launches
-            for w in ck.KERNEL_WRAPPERS + ck.YARDSTICK_WRAPPERS}
+    return {w.__name__: w.launches for w in
+            ck.KERNEL_WRAPPERS + ck.MEMBER_WRAPPERS + ck.YARDSTICK_WRAPPERS}
 
 
 def phase_run(torch, ck, device, cfg_path, run_dir, extra=()):
@@ -3710,6 +3790,634 @@ def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
     return out, entries, launches
 
 
+#: phase 15: the ensemble. Each member is one confined DI scene at the JAX
+#: package's own resolutions (examples/ensemble_sweep's 32-node fibers):
+#: a sphere cortex of this radius and quadrature, a sphere body of radius
+#: 0.5 at the centre with this many nodes and nucleation sites, this many
+#: bound fibers on the first sites (the capacity rung they fill), rounds
+#: of this dt, lanes = replicas (the example's batch), and the members run
+#: alone beside the batch
+ENS_SHELL_RADIUS = 3.0
+ENS_DT = 0.01
+ENS_ROUNDS = 4
+ENS_FIBER_NODES = 32
+ENS_NUCLEATION_RATE = 5.0
+#: the bound fibers' motor force a length (force_scale): the members' solve
+#: couples their fibers through the shell and the body
+ENS_FORCE_SCALE = -0.5
+ENS_GMRES_TOL = 1e-10
+ENS_SOLO = (0, 5)
+#: gates of the batched members against their solo runs: "mixed" rounds,
+#: and one "full" round
+ENS_MIXED_DX = 1e-8
+ENS_FULL_DX = 1e-10
+#: target rows a member drawn at random for the batched kernels' plain
+#: check (each plan's last target block besides)
+ENS_SAMPLE = 512
+
+
+def make_ensemble_config(path, n_shell, n_body, n_sites, n_bound):
+    """The phase-15 member scene, written with the port's schema: a
+    spherical cortex (ENS_SHELL_RADIUS, ``n_shell`` nodes), one sphere body
+    of radius 0.5 at the origin with ``n_body`` nodes and ``n_sites``
+    nucleation sites (`Body.generate_nucleation_sites`), ``n_bound``
+    clamped ENS_FIBER_NODES-node fibers of length 1 on its first sites,
+    pointing outward, with motors (ENS_FORCE_SCALE), and dynamic
+    instability at the fibers' resolution;
+    "mixed", ENS_ROUNDS rounds of ENS_DT, a frame a round."""
+    import numpy as np
+
+    from skellysim_tpu_torch.config import Body, ConfigSpherical, Fiber
+
+    config = ConfigSpherical()
+    config.periphery.radius = ENS_SHELL_RADIUS
+    config.periphery.n_nodes = n_shell
+    p = config.params
+    p.eta = 1.0
+    p.dt_initial = p.dt_write = p.dt_max = ENS_DT
+    p.t_final = ENS_ROUNDS * ENS_DT
+    p.adaptive_timestep_flag = False
+    p.gmres_tol = ENS_GMRES_TOL
+    p.solver_precision = "mixed"
+    p.seed = 2024
+    di = p.dynamic_instability
+    di.n_nodes, di.v_growth, di.f_catastrophe = ENS_FIBER_NODES, 0.2, 0.5
+    di.nucleation_rate, di.min_length = ENS_NUCLEATION_RATE, 0.5
+    di.radius, di.bending_rigidity = 0.0125, 0.01
+    body = Body(n_nucleation_sites=n_sites, position=[0.0, 0.0, 0.0],
+                shape="sphere", radius=0.5, n_nodes=n_body)
+    body.generate_nucleation_sites(0.03, verbose=False,
+                                   rng=np.random.default_rng(5))
+    config.bodies = [body]
+    sites = np.asarray(body.nucleation_sites).reshape(-1, 3)
+    fibers = []
+    for k in range(n_bound):
+        f = Fiber(n_nodes=ENS_FIBER_NODES, parent_body=0, parent_site=k,
+                  minus_clamped=True, length=1.0, bending_rigidity=0.01,
+                  force_scale=ENS_FORCE_SCALE)
+        f.fill_node_positions(sites[k], sites[k] / np.linalg.norm(sites[k]))
+        fibers.append(f)
+    config.fibers = fibers
+    config.save(path)
+    return config
+
+
+class EnsembleRounds:
+    """Records every round of the ensemble's runner while a phase runs (by
+    wrapping `EnsembleRunner.step`, which the CLI's runner calls): the
+    round's wall (to a device synchronise), lanes and capacity, each
+    lane's outcome, the host seconds of its DI updates, the batched A-D
+    calls by (members, sources, targets) and the round's peak device
+    memory."""
+
+    NAMES = ("stokeslet_f32_batched", "stokeslet_f64_batched",
+             "stresslet_f32_batched", "stresslet_f64_batched")
+
+    def __init__(self, torch, ck, device):
+        import collections
+
+        self.torch, self.ck, self.device = torch, ck, device
+        self.rows = []
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        import collections
+
+        from skellysim_tpu_torch.ensemble import runner as runner_mod
+
+        self.cls = runner_mod.EnsembleRunner
+        self.saved_step = self.cls.step
+        self.saved = {n: getattr(self.ck, n) for n in self.NAMES}
+        outer = self
+        torch = self.torch
+
+        for name, fn in self.saved.items():
+            def record(src, trg, *rest, _fn=fn, _name=name, **kw):
+                outer.calls[_name, trg.shape[0], src.shape[1],
+                            trg.shape[1]] += 1
+                outer.round_calls[_name, trg.shape[0], src.shape[1],
+                                  trg.shape[1]] += 1
+                return _fn(src, trg, *rest, **kw)
+            setattr(self.ck, name, record)
+
+        def step(runner, ens):
+            outer.round_calls = collections.Counter()
+            on_card = outer.device.type == "cuda"
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = outer.saved_step(runner, ens)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            info = out[1]
+            outer.rows.append({
+                "wall_s": wall, "lanes": int(len(info.running)),
+                "capacity": int(ens.states.fibers.x.shape[1]),
+                "running": info.running.tolist(),
+                "needs_growth": info.needs_growth.tolist(),
+                "accepted": info.accepted.tolist(),
+                "iters": info.iters.tolist(),
+                "active": info.active_fibers.tolist(),
+                "nucleations": info.nucleations.tolist(),
+                "catastrophes": info.catastrophes.tolist(),
+                "di_s": info.di_s,
+                "calls": {f"{n} {b}x{ns}x{nt}": c for (n, b, ns, nt), c
+                          in outer.round_calls.items()},
+                "peak_bytes": (torch.cuda.max_memory_allocated()
+                               if on_card else None)})
+            return out
+
+        self.cls.step = step
+        self.round_calls = collections.Counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.saved_step
+        for name, fn in self.saved.items():
+            setattr(self.ck, name, fn)
+
+
+def ensemble_solo(system, params, state, rng, rounds, policy):
+    """A member alone: each round the device DI update from its stream
+    (reseated on the next capacity rung when it outgrows its own, as
+    `ScenarioEnsemble` does), then `System.trial_step`, the time advanced
+    by dt (adaptive dt off). Returns [(state, StepInfo)] a round."""
+    from skellysim_tpu_torch.ensemble.runner import rng_carry
+    from skellysim_tpu_torch.fibers import container as fc
+    from skellysim_tpu_torch.scenarios.di_device import (DRAWS_PER_STEP,
+                                                         di_update)
+    from skellysim_tpu_torch.system.buckets import next_fiber_capacity
+    from skellysim_tpu_torch.system.system import _in_dtype
+
+    carry = rng_carry(rng)
+    dtype = state.fibers.x.dtype
+    out = []
+    for _ in range(rounds):
+        while True:
+            pre, info = di_update(state, params, carry)
+            if not info.needs_growth:
+                break
+            state = state._replace(fibers=fc.grow_capacity(
+                state.fibers,
+                next_fiber_capacity(state.fibers.n_fibers + 1, policy)))
+        new, _, sinfo = system.trial_step(pre)
+        carry[2] += DRAWS_PER_STEP
+        state = new._replace(time=_in_dtype(state.time + state.dt, dtype),
+                             dt=state.dt)
+        out.append((state, sinfo))
+    return out
+
+
+def live_x(state):
+    """[fibers, n, 3] positions of the active fibers in config order (the
+    trajectory's wire order)."""
+    import numpy as np
+
+    g = state.fibers
+    act = g.active.cpu().numpy()
+    rank = g.config_rank.cpu().numpy()[act]
+    return g.x.cpu().numpy()[act][np.argsort(rank, kind="stable")]
+
+
+def frame_x(frame):
+    import numpy as np
+
+    fibers = frame["fibers"][1]
+    return (np.stack([np.asarray(f["x_"]).reshape(-1, 3) for f in fibers])
+            if fibers else np.zeros((0, ENS_FIBER_NODES, 3)))
+
+
+def batched_check(torch, ck, device, family, prec, src, trg, pay, card,
+                  sass_per_pair, tag):
+    """Kernel A / B / C / D over the member axis at one batched shape
+    (``src`` / ``trg`` / ``pay`` numpy [B, n, .]): held against the plain
+    f64 sum on ENS_SAMPLE target rows of every member drawn at random plus
+    each plan's last target block; member by member against the lone
+    launch, bit for bit with the batch forced to the lone plan's chunks
+    (the largest gap printed at its own plan); two launches bit for bit;
+    timed like phase 3 (median of KERNEL_ROUNDS rounds of KERNEL_LAUNCHES)
+    beside the B lone launches of the same members, with its flop / byte
+    bound and the issue-slot bound of its SASS hot loop (``sass_per_pair``
+    = (instructions, FP64 instructions) a pair, from phase 3 / 6: the same
+    kernel). Exits on a failure; returns the JSON fields."""
+    import numpy as np
+
+    peak, tol, _ = PAIR_KERNELS[family, prec]
+    dt = torch.float32 if prec == "f32" else torch.float64
+    s64, t64, p64 = (torch.as_tensor(a, dtype=torch.float32,
+                                     device=device).double()
+                     for a in (src, trg, pay))
+    B, n_src, n_trg = s64.shape[0], s64.shape[1], t64.shape[1]
+    s, t, p = s64.to(dt), t64.to(dt), p64.to(dt)
+    kern = getattr(ck, f"{family}_{prec}_batched")
+    lone = getattr(ck, f"{family}_{prec}")
+    ms, got, rounds = kernel_ms(torch, lambda: kern(s, t, p, 1.0), device)
+    state = card_state(device)
+    again = bool(torch.equal(kern(s, t, p, 1.0), got))
+    lone_ms, solo, lone_rounds = kernel_ms(
+        torch, lambda: [lone(s[m], t[m], p[m], 1.0) for m in range(B)],
+        device)
+    on_card = device.type == "cuda"
+    forced_bits, lone_chunks, chunks = None, None, None
+    if on_card:
+        lone_plan = ck.pair_card_plan(family, device, prec, n_trg, n_src)
+        plan = ck.pair_card_plan(family, device, prec, n_trg, n_src, B)
+        lone_chunks, chunks = lone_plan.chunks, plan.chunks
+        forced = kern(s, t, p, 1.0, chunks=lone_chunks)
+        forced_bits = all(bool(torch.equal(forced[m], solo[m]))
+                          for m in range(B))
+        del forced
+    vs_lone = max(float((got[m].double() - solo[m].double()).abs().max()
+                        / solo[m].double().abs().max().clamp_min(1e-300))
+                  for m in range(B))
+    rng = np.random.default_rng(43)
+    last = last_block_rows(ck, family, n_trg)
+    err, ref_max = 0.0, 0.0
+    n_rows = 0
+    plain_ms = 0.0
+    for m in range(B):
+        rows = torch.as_tensor(np.union1d(rng.choice(
+            n_trg, min(ENS_SAMPLE, n_trg), replace=False), last),
+            device=device)
+        r_ms, ref = timed(torch, lambda: getattr(ck, f"{family}_f64_plain")(
+            s64[m], t64[m][rows], p64[m], 1.0), device, 1)
+        plain_ms += r_ms
+        err = max(err, (got[m][rows].double() - ref).abs().max().item())
+        ref_max = max(ref_max, ref.abs().max().item())
+        n_rows += int(len(rows))
+    rel = err / ref_max
+    finite = bool(torch.isfinite(got).all())
+    pairs = B * n_src * n_trg
+    ops_ms = 1e3 * FLOPS_PER_PAIR[family] * pairs / peak
+    nbytes = s.element_size() * B * (SOURCE_WORDS[family] * n_src
+                                      + 3 * n_trg + 3 * n_trg)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    b_ms, b_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    issue = None
+    if on_card and sass_per_pair[0] is not None:
+        mhz = float(re.search(r"SM clock (\d+)", state).group(1))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        per, fp64 = sass_per_pair
+        issue = issue_bound_ms(per, pairs, sms, mhz, 128)
+        if prec == "f64":
+            issue = max(issue, issue_bound_ms(fp64, pairs, sms, mhz, 64))
+    fields = {"members": int(B), "shape": [int(n_src), int(n_trg)],
+              "max_abs_err": err, "max_rel_err": rel, "tolerance": tol,
+              "plain_rows": n_rows, "ms": ms, "ms_rounds": rounds,
+              "lone_launches_ms": lone_ms, "lone_rounds": lone_rounds,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "issue_bound_ms": issue, "chunks": chunks,
+              "lone_chunks": lone_chunks,
+              "same_bits_as_lone_at_lone_chunks": forced_bits,
+              "max_rel_diff_vs_lone": vs_lone, "same_bits_twice": again,
+              "card_state": state}
+    log(f"[{tag}] {kern.__name__}: {B} members x {n_src} sources x {n_trg} "
+        f"targets, one launch: against the plain f64 sum on {n_rows} rows "
+        f"of the {B} members (each plan's last target block included) max "
+        f"abs err {err:.3e}, max rel err {rel:.3e} (tolerance {tol:g}); "
+        f"member by member against the lone launch: "
+        + ("not checked at the lone plan's chunks (CPU rehearsal)"
+           if forced_bits is None else "same bits at the lone plan's chunks"
+           if forced_bits else "bits differ at the lone plan's chunks")
+        + f" ({lone_chunks} chunks; the batch's own plan takes {chunks}, "
+        f"max rel diff {vs_lone:.3e}); same bits twice: {again}; kernel "
+        f"{ms:.3f} ms ({rounds_note(rounds)}) against {B} lone launches "
+        f"{lone_ms:.3f} ms ({lone_ms / ms:.2f}x); plain f64 {plain_ms:.1f} "
+        f"ms on the sampled rows; bound {b_ms:.4f} ms ({b_by}; operations "
+        f"{ops_ms:.4f} ms at {FLOPS_PER_PAIR[family]} flops a pair, bytes "
+        f"{bytes_ms:.4f} ms)"
+        + ("" if issue is None else f", issue-slot bound {issue:.4f} ms "
+           f"({100 * issue / ms:.1f}% of it)")
+        + f"; this card: {card}; after the timed launches: {state}")
+    if not (finite and rel <= tol and again and vs_lone <= tol
+            and forced_bits is not False):
+        raise SystemExit(f"{kern.__name__} fails its checks at {B} x {n_src} "
+                         f"x {n_trg}: rel err {rel:.3e}, vs lone {vs_lone:.3e},"
+                         f" same bits twice {again}, at the lone chunks "
+                         f"{forced_bits}, finite {finite}")
+    del s, t, p, s64, t64, p64, got, solo
+    return fields
+
+
+def phase_ensemble(torch, ck, device, work, args, card, entries):
+    """The batched ensemble on the card, through its front door: the
+    member scene (`make_ensemble_config`) precomputed on the card, a sweep
+    of ``--ensemble-lanes`` replicas through as many lanes, and `python -m
+    skellysim_tpu_torch.ensemble` in this process (the "vmap" plan), every
+    launch count set to 0 just before and read just after. Gated on every
+    member finishing; every applied round's true residual <= gmres_tol and
+    health 0; at least one nucleation and one growth reseat; each member's
+    active count = the previous + nucleations - catastrophes, round by
+    round; every trajectory read back (a frame a round, finite, its fiber
+    count the round's active count); a start, step and retire record a
+    member; A-D launching only through their member-batched entry points.
+    Then members ENS_SOLO alone (`ensemble_solo`) from their admitted
+    states and streams: after each "mixed" round the true residual <=
+    gmres_tol and the fibers within ENS_MIXED_DX of the batched member's
+    frame (iterations printed beside); one "full" round of a batch on the
+    next rung against them, the shell preconditioner inverted in f64 for it
+    (equal iterations, fibers within ENS_FULL_DX);
+    one "unroll" round of the two against them, bit for bit. Then A-D
+    checked and timed at every batched shape the run launched
+    (`batched_check`). Returns (the launch counts, {kernel name: [the
+    checks' fields]}, the summary)."""
+    import numpy as np
+
+    from skellysim_tpu_torch.ensemble.cli import _members_from_sweep
+    from skellysim_tpu_torch.ensemble.runner import (EnsembleRunner,
+                                                     lane_state)
+    from skellysim_tpu_torch.fibers import container as fc
+    from skellysim_tpu_torch.io.trajectory import TrajectoryReader
+    from skellysim_tpu_torch.precompute import precompute_from_config
+    from skellysim_tpu_torch.scenarios.sweep import ensure_di_capacity
+    from skellysim_tpu_torch.system import System
+    from skellysim_tpu_torch.system.buckets import next_fiber_capacity
+    from skellysim_tpu_torch.utils import quaternion as quat
+
+    lanes = args.ensemble_lanes
+    run_dir = os.path.join(work, "ensemble")
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(run_dir, "skelly_config.toml")
+    config = make_ensemble_config(cfg_path, args.ensemble_shell_nodes,
+                                  args.ensemble_body_nodes,
+                                  args.ensemble_sites, args.ensemble_bound)
+    t0 = time.perf_counter()
+    stats = precompute_from_config(cfg_path, verbose=False,
+                                   device=device.type)
+    log(f"[ensemble] precompute {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in stats.items()))
+    sweep = os.path.join(run_dir, "ensemble.toml")
+    with open(sweep, "w") as fh:
+        fh.write(f'[ensemble]\nbase_config = "skelly_config.toml"\n'
+                 f"replicas = {lanes}\nbatch = {lanes}\n")
+    out_dir = os.path.join(run_dir, "out")
+    reset_counts(ck)
+    argv = sys.argv
+    sys.argv = ["skellysim_tpu_torch.ensemble", f"--sweep-file={sweep}",
+                f"--output-dir={out_dir}", f"--device={device.type}",
+                "--batch-impl=vmap", "--log-level=WARNING"]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with EnsembleRounds(torch, ck, device) as rec:
+            runpy.run_module("skellysim_tpu_torch.ensemble",
+                             run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = argv
+    wall = time.perf_counter() - t0
+    counts = read_counts(ck)
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    recs = [json.loads(line) for line in
+            open(os.path.join(out_dir, "ensemble_metrics.jsonl"))]
+    members = sorted({r["member"] for r in recs})
+    n0 = len(config.fibers)
+    log(f"[ensemble] `python -m skellysim_tpu_torch.ensemble`: {lanes} "
+        f"members ({config.periphery.n_nodes}-node cortex, "
+        f"{config.bodies[0].n_nodes}-node body with "
+        f"{config.bodies[0].n_nucleation_sites} sites, {n0} bound "
+        f"{ENS_FIBER_NODES}-node fibers, DI, \"mixed\", {ENS_ROUNDS} rounds "
+        f"of dt = {ENS_DT}) in {wall:.1f} s, {len(rec.rows)} batched "
+        f"rounds; launches {counts}; peak device memory "
+        + ("not measured" if peak is None else f"{peak / 2**30:.2f} GiB"))
+    for i, r in enumerate(rec.rows):
+        run = [k for k, v in enumerate(r["running"]) if v]
+        log(f"[ensemble] round {i}: wall {r['wall_s']:.3f} s, capacity "
+            f"{r['capacity']}, {len(run)} of {r['lanes']} lanes running, "
+            f"{sum(r['needs_growth'])} frozen for a reseat; GMRES "
+            f"iterations by lane {[r['iters'][k] for k in run]}, active "
+            f"fibers {[r['active'][k] for k in run]} (+"
+            f"{[r['nucleations'][k] for k in run]} nucleated, -"
+            f"{[r['catastrophes'][k] for k in run]}); DI updates on the "
+            f"host {r['di_s']:.3f} s; A-D calls by (members, sources, "
+            f"targets) {r['calls']}; peak "
+            + ("not measured" if r["peak_bytes"] is None
+               else f"{r['peak_bytes'] / 2**30:.2f} GiB"))
+    # gates: the records
+    steps = [r for r in recs if r["event"] == "step"]
+    growth = [r for r in recs if r["event"] == "growth"]
+    for m in members:
+        events = [r["event"] for r in recs if r["member"] == m]
+        mine = [r for r in steps if r["member"] == m]
+        if (events[0] != "start" or events[-1] != "retire"
+                or len(mine) != ENS_ROUNDS):
+            raise SystemExit(f"ensemble: member {m} did not finish its "
+                             f"{ENS_ROUNDS} rounds: {events}")
+        prev = n0
+        for s in mine:
+            if not (s["accepted"] and s["residual_true"] <= ENS_GMRES_TOL
+                    and s["health"] == 0 and math.isfinite(s["fiber_error"])):
+                raise SystemExit(f"ensemble: member {m} step {s['step']} is "
+                                 f"not converged and healthy: {s}")
+            if s["active_fibers"] != prev + s["nucleations"] \
+                    - s["catastrophes"]:
+                raise SystemExit(f"ensemble: member {m} step {s['step']}: "
+                                 f"{s['active_fibers']} active after {prev}, "
+                                 f"+{s['nucleations']} -{s['catastrophes']}")
+            prev = s["active_fibers"]
+    nuc = sum(s["nucleations"] for s in steps)
+    if len(members) != lanes or not nuc or not growth:
+        raise SystemExit(f"ensemble: {len(members)} members, {nuc} "
+                         f"nucleations, {len(growth)} growth reseats")
+    # the trajectories
+    frames = {}
+    for m in members:
+        reader = TrajectoryReader(os.path.join(out_dir, f"{m}.out"))
+        frames[m] = [reader.load_frame(i) for i in range(len(reader))]
+        reader.close()
+        mine = [s for s in steps if s["member"] == m]
+        if len(frames[m]) != ENS_ROUNDS + 1 or any(
+                len(f["fibers"][1]) != s["active_fibers"]
+                or not np.isfinite(frame_x(f)).all()
+                for f, s in zip(frames[m][1:], mine)):
+            raise SystemExit(f"ensemble: member {m}'s trajectory does not "
+                             "hold a finite frame a round with its active "
+                             "fibers")
+    if device.type == "cuda":
+        batched = {n: counts[n] for n in EnsembleRounds.NAMES}
+        lone = {n[:-len("_batched")]: counts[n[:-len("_batched")]]
+                for n in EnsembleRounds.NAMES}
+        if not all(batched.values()) or any(lone.values()):
+            raise SystemExit(f"ensemble: the batched A-D launched "
+                             f"{batched}, the lone A-D {lone}")
+    if any(counts[w.__name__] for w in ck.YARDSTICK_WRAPPERS):
+        raise SystemExit(f"ensemble: a yardstick kernel launched: {counts}")
+    caps = sorted({r["capacity"] for r in rec.rows})
+    log(f"[ensemble] {len(members)} members finished, {nuc} nucleations, "
+        f"{sum(s['catastrophes'] for s in steps)} catastrophes, "
+        f"{len(growth)} growth reseats onto capacity rungs {caps}; every "
+        f"trajectory read back ({ENS_ROUNDS + 1} frames a member)")
+
+    # the chosen members alone, from their admitted states and streams
+    system, specs, _, policy = _members_from_sweep(sweep, device.type)
+    params = system.params
+    admitted = {s.member_id: ensure_di_capacity(s.state, params,
+                                                policy=policy)
+                for s in specs}
+    rngs = {s.member_id: s.rng for s in specs}
+    solo_ids = [i for i in ENS_SOLO if i < lanes] or [0]
+    solo_report = {}
+    for idx in solo_ids:
+        m = f"m{idx:05d}"
+        rounds = ensemble_solo(system, params, admitted[m], rngs[m],
+                               ENS_ROUNDS, policy)
+        mine = [s for s in steps if s["member"] == m]
+        dxs = []
+        for k, ((st, info), s) in enumerate(zip(rounds, mine)):
+            a, b = live_x(st), frame_x(frames[m][k + 1])
+            if a.shape != b.shape or not info.converged \
+                    or not info.residual_true <= ENS_GMRES_TOL:
+                raise SystemExit(f"ensemble: member {m} alone, round {k}: "
+                                 f"{a.shape} fibers against the batch's "
+                                 f"{b.shape}, {info}")
+            dxs.append(float(np.abs(a - b).max()))
+            log(f"[ensemble] member {m} alone, round {k}: GMRES iterations "
+                f"{info.iters} (batched {s['iters']}), true residual "
+                f"{info.residual_true:.3e} (batched "
+                f"{s['residual_true']:.3e}), max |dx| against the batched "
+                f"member {dxs[-1]:.3e} (gate {ENS_MIXED_DX:g})")
+        if not max(dxs) <= ENS_MIXED_DX:
+            raise SystemExit(f"ensemble: member {m} alone drifts "
+                             f"{max(dxs):.3e} from the batched member")
+        solo_report[m] = {"max_dx": max(dxs),
+                          "iters": [i.iters for _, i in rounds],
+                          "iters_batched": [s["iters"] for s in mine]}
+    # one "full" round and one "unroll" round, on the next rung (no lane
+    # outgrows it in one round), with the shell preconditioner inverted in
+    # f64 (the card's precompute stores it in f32, whose rounding makes a
+    # "full" solve's iteration count follow roundoff near gmres_tol)
+    cap = next_fiber_capacity(n0 + 1, policy)
+    shell0 = admitted[members[0]].shell
+    m_inv = torch.linalg.inv(shell0.stresslet_plus_complementary
+                             ).contiguous()
+    grown = {m: st._replace(fibers=fc.grow_capacity(st.fibers, cap),
+                            shell=st.shell._replace(M_inv=m_inv))
+             for m, st in admitted.items()}
+    full_sys = System(dataclasses.replace(params, solver_precision="full"),
+                      shell_shape=system.shell_shape, device=system.device)
+    runner = EnsembleRunner(full_sys, batch_impl="vmap")
+    ens = runner.make_ensemble([grown[m] for m in members],
+                               [params.t_final] * len(members),
+                               rngs=[rngs[m] for m in members])
+    t0 = time.perf_counter()
+    ens, info = runner.step(ens)
+    full_wall = time.perf_counter() - t0
+    full_report = {}
+    for idx in solo_ids:
+        m = f"m{idx:05d}"
+        (st, sinfo), = ensemble_solo(full_sys, full_sys.params, grown[m],
+                                     rngs[m], 1, policy)
+        lane = members.index(m)
+        dx = float(np.abs(live_x(st) - live_x(lane_state(ens.states,
+                                                          lane))).max())
+        full_report[m] = {"iters": sinfo.iters,
+                          "iters_batched": int(info.iters[lane]),
+                          "max_dx": dx}
+        log(f"[ensemble] \"full\" round of the {len(members)}-lane batch "
+            f"({full_wall:.2f} s): member {m} alone {sinfo.iters} iterations "
+            f"against the batch's {int(info.iters[lane])}, max |dx| "
+            f"{dx:.3e} (gate {ENS_FULL_DX:g})")
+        if sinfo.iters != int(info.iters[lane]) or not dx <= ENS_FULL_DX:
+            raise SystemExit(f"ensemble: the \"full\" batched member {m} "
+                             "does not match its solo round")
+    unroll = EnsembleRunner(system, batch_impl="unroll")
+    pair = [f"m{i:05d}" for i in solo_ids]
+    ens = unroll.make_ensemble([grown[m] for m in pair],
+                               [params.t_final] * len(pair),
+                               rngs=[rngs[m] for m in pair])
+    ens, uinfo = unroll.step(ens)
+    for lane, m in enumerate(pair):
+        (st, _), = ensemble_solo(system, params, grown[m], rngs[m], 1,
+                                 policy)
+        got = lane_state(ens.states, lane)
+        if not (torch.equal(st.fibers.x, got.fibers.x)
+                and torch.equal(st.shell.density, got.shell.density)):
+            raise SystemExit(
+                f"ensemble: the \"unroll\" lane of {m} is not its solo "
+                f"round bit for bit: max |dx| "
+                f"{float((st.fibers.x - got.fibers.x).abs().max()):.3e}, "
+                f"max |d density| "
+                f"{float((st.shell.density - got.shell.density).abs().max()):.3e}"
+                f", iterations {int(uinfo.iters[lane])}")
+    log(f"[ensemble] one \"unroll\" round of {pair}: the solo rounds' bits")
+
+    # A-D at every batched shape the run launched
+    sass = {e["name"]: (e.get("sass_per_pair"), e.get("sass_fp64_per_pair"))
+            for e in entries}
+    checks = {}
+    with np.load(os.path.join(run_dir, config.periphery.precompute_file)) \
+            as z:
+        shell_nodes, shell_normals = z["nodes"], z["normals"]
+    with np.load(os.path.join(run_dir, config.bodies[0].precompute_file)) \
+            as z:
+        body_ref, normals_ref = z["node_positions_ref"], z["node_normals_ref"]
+    n_shell, n_body = len(shell_nodes), len(body_ref)
+    rng = np.random.default_rng(47)
+
+    def geometry(m):
+        last = frames[m][-1]
+        body = last["bodies"][0][0]
+        rot = quat.rotation_matrix(torch.as_tensor(
+            np.asarray(body["orientation_"]))).numpy()
+        com = np.asarray(body["position_"]).reshape(1, 3)
+        return (frame_x(last).reshape(-1, 3), com + body_ref @ rot.T,
+                normals_ref @ rot.T, com,
+                np.asarray(last["shell"]["solution_vec_"]).reshape(-1, 3),
+                np.asarray(body["solution_vec_"])[:3 * n_body].reshape(-1, 3))
+
+    def member_inputs(family, m, n_src, n_trg):
+        live, bnodes, bnormals, com, srho, brho = geometry(m)
+
+        def slots(n):
+            out = np.zeros((n, 3))
+            out[:min(n, len(live))] = live[:n]
+            return out
+
+        if family == "stresslet" and n_src == n_shell:
+            return (shell_nodes, np.concatenate([slots(n_trg - n_body),
+                                                 bnodes]),
+                    (2.0 * shell_normals[:, :, None]
+                     * srho[:, None, :]).reshape(-1, 9))
+        every = np.concatenate([slots(n_trg - n_shell - n_body), shell_nodes,
+                                bnodes])
+        if family == "stresslet" and n_src == n_body:
+            return (bnodes, every, (2.0 * bnormals[:, :, None]
+                                    * brho[:, None, :]).reshape(-1, 9))
+        if family == "stokeslet" and n_src == 1:
+            return com, every, rng.standard_normal((1, 3))
+        if family == "stokeslet" and n_trg == n_src + n_shell + n_body:
+            force = np.zeros((n_src, 3))
+            force[:len(live)] = rng.standard_normal(
+                force[:len(live)].shape) / 63.0
+            return slots(n_src), every, force
+        raise SystemExit(f"ensemble: {family} launched at {n_src} x "
+                         f"{n_trg}, a shape this phase cannot rebuild")
+
+    parts = []
+    for (name, B, n_src, n_trg), calls in sorted(rec.calls.items()):
+        family, prec = name.split("_")[:2]
+        ins = [member_inputs(family, members[k % len(members)], n_src, n_trg)
+               for k in range(B)]
+        fields = batched_check(
+            torch, ck, device, family, prec,
+            *(np.stack([x[j] for x in ins]) for j in range(3)), card,
+            sass.get(f"{family}_{prec}", (None, None)), "ensemble")
+        fields["calls_at_this_shape"] = calls
+        checks.setdefault(f"{family}_{prec}", []).append(fields)
+        parts.append(f"{name} at {B} x {n_src} x {n_trg}: {calls} x "
+                     f"{fields['ms']:.3f} ms")
+    log("[ensemble] batched calls x checked time: " + "; ".join(parts))
+    summary = {"wall_s": wall, "rounds": rec.rows, "members": len(members),
+               "nucleations": nuc, "reseats": len(growth),
+               "capacities": caps, "peak_bytes": peak,
+               "solo_mixed": solo_report, "solo_full": full_report}
+    shutil.rmtree(run_dir)
+    return counts, checks, summary
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--spmd-worker"]:
@@ -3722,6 +4430,13 @@ def main(argv=None) -> int:
     ap.add_argument("--shell-nodes", type=int, default=8000)
     ap.add_argument("--di-sites", type=int, default=1000,
                     help="nucleation sites of phase 10's centrosome")
+    ap.add_argument("--ensemble-lanes", type=int, default=8,
+                    help="phase 15's members (replicas) and lanes")
+    ap.add_argument("--ensemble-shell-nodes", type=int, default=2000)
+    ap.add_argument("--ensemble-body-nodes", type=int, default=400)
+    ap.add_argument("--ensemble-sites", type=int, default=256)
+    ap.add_argument("--ensemble-bound", type=int, default=128,
+                    help="phase 15's bound fibers (the first capacity rung)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3740,7 +4455,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
-        entries, launches, smi, fast, tree, spmd = run_phases(
+        entries, launches, smi, fast, tree, spmd, ens = run_phases(
             torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3756,6 +4471,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fast_evaluators": fast}), flush=True)
     print(json.dumps({"treecode": tree}), flush=True)
     print(json.dumps({"spmd": spmd}), flush=True)
+    print(json.dumps({"ensemble": ens}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3765,9 +4481,10 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-14 (10-14 run after 8, on phase 6's precompute, then 9);
-    returns (kernel entries, launch counts by path, the nvidia-smi line,
-    phase 11's summary, phase 12's, phase 13's with phase 14's)."""
+    """Phases 1-15 (10-14 run after 8, on phase 6's precompute, then 9,
+    then 15); returns (kernel entries, launch counts by path, the
+    nvidia-smi line, phase 11's summary, phase 12's, phase 13's with phase
+    14's, phase 15's)."""
     import numpy as np
 
     # 1. device
@@ -3826,7 +4543,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     # 3. kernels A and B vs plain and vs their first design
     f = np.random.default_rng(7).standard_normal(nodes.shape) / 63.0
     entries = design_check(torch, ck, cuda_build, device, "stokeslet", nodes,
-                           nodes, f, smi, "kernels")
+                           nodes, f, smi, "kernels", sample=KERNEL_SAMPLE)
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -3953,6 +4670,17 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
 
     stamp("phase 9")
 
+    # 15. the batched ensemble through its front door
+    launches["ensemble"], at_ens, ens = phase_ensemble(
+        torch, ck, device, work, args, smi, entries)
+    for e in entries:
+        if e["name"] in at_ens:
+            e["at_ensemble_shapes"] = at_ens[e["name"]]
+            e["launches_ensemble_batched"] = launches["ensemble"][
+                e["name"] + "_batched"]
+
+    stamp("phase 15")
+
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
                "stokeslet_f64": "free_fibers_10k",
@@ -3965,7 +4693,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                "tree_stresslet_f64": "tree_ellipsoid_full"}
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
-    return entries, launches, smi, fast, tree, spmd
+    return entries, launches, smi, fast, tree, spmd, ens
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ through `ops.kernels.stresslet_direct` (or, with a fast plan, through the
 Ewald / spectral stresslet sums); the COM Stokeslet goes through
 `ops.kernels.stokeslet_direct` (kernels A / B on the card, as every
 Stokeslet sum there; nb sources). The `deformable` body is a declared but
-unimplemented stub in the reference and is not ported (ROADMAP.md §1
-item 11).
+unimplemented stub in the reference and in the JAX package; the builder
+refuses it as they do.
 """
 
 from __future__ import annotations
@@ -348,8 +348,11 @@ def link_conditions(group: BodyGroup, caches: BodyCaches, fibers,
               + E * cross(xs0, xss0))
     ft = torch.where(attached[:, None], torch.cat([F_body, L_body], dim=1),
                      0.0)
-    body_ft = torch.zeros((nb, 6), dtype=dtype, device=dev).index_add_(
-        0, body_idx, ft)
+    # each body's fibers summed by a fixed-order reduction: `index_add_`
+    # accumulates with atomics on the card, in an order that changes from
+    # run to run
+    mine = body_idx[None, :] == torch.arange(nb, device=dev)[:, None]
+    body_ft = torch.where(mine[:, :, None], ft[None], 0.0).sum(dim=1)
 
     vb = body_vel[body_idx]
     wb = body_omega[body_idx]

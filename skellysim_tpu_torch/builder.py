@@ -76,8 +76,9 @@ def build_bodies(cfg_bodies: list, config_dir: str, dtype, device):
         return None
     if any(b.shape == "deformable" for b in cfg_bodies):
         raise NotImplementedError(
-            "the 'deformable' body is a declared but unimplemented stub in "
-            "the reference and is not ported (ROADMAP.md §1 item 11)")
+            "deformable bodies are declared but not implemented (matching "
+            "the reference stub: `body_deformable.cpp:13-41`, "
+            "flow_deformable throws at `body_container.cpp:449-463`)")
     pre_all = [_load_npz(os.path.join(config_dir, b.precompute_file), "body")
                for b in cfg_bodies]
 

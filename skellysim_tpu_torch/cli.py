@@ -28,8 +28,9 @@ import shutil
 import sys
 
 from .builder import build_simulation
-from .config import toml_io
+from .config.schema import load_runtime_config
 from .io.trajectory import TrajectoryWriter, resume_state
+from .system import buckets
 from .utils.rng import SimRNG
 
 TRAJECTORY_FILE = "skelly_sim.out"
@@ -42,20 +43,6 @@ def _snapshot_path(traj: str, suffix: str) -> str:
     return (base if ext == ".out" else traj) + "." + suffix
 
 
-def _refuse_runtime_ladders(config_file: str) -> None:
-    """The JAX CLI lands the scene on its `[runtime]` capacity bucket
-    before the run and again after a resume; with no ladder that is the
-    identity. The port has no bucket policy yet, so a ladder raises rather
-    than being ignored."""
-    table = toml_io.load(config_file).get("runtime", {})
-    ladders = {k: v for k, v in table.items()
-               if k.endswith("_ladder") and len(v)}
-    if ladders:
-        raise NotImplementedError(
-            f"[runtime] capacity ladders {sorted(ladders)} are not ported to "
-            "skellysim_tpu_torch yet (ROADMAP.md §1 item 11)")
-
-
 def run(config_file: str, resume: bool = False, overwrite: bool = False,
         trajectory_path: str | None = None, metrics_path: str | None = None,
         device=None) -> None:
@@ -66,15 +53,24 @@ def run(config_file: str, resume: bool = False, overwrite: bool = False,
                  "nor --overwrite was given; refusing to clobber it")
     if resume and not os.path.exists(traj):
         sys.exit(f"--resume given but trajectory '{traj}' does not exist")
-    _refuse_runtime_ladders(config_file)
-
     system, state, rng = build_simulation(config_file, device=device)
-    logging.getLogger("skellysim_tpu_torch").info(
-        "device %s: %d fiber, %d shell and %d body nodes", system.device,
-        *system._counts(state))
+    # the scene lands on its `[runtime]` capacity bucket (the identity
+    # without ladders); the spectral grid rungs ride the System
+    policy = buckets.BucketPolicy.from_runtime(
+        load_runtime_config(config_file))
+    system.grid_ladder = policy.grid_ladder
+    state, key = buckets.bucketize(
+        state, policy, pair_evaluator=system.params.pair_evaluator)
+    log = logging.getLogger("skellysim_tpu_torch")
+    log.info("device %s: %d fiber, %d shell and %d body nodes; scene "
+             "bucket: %s", system.device, *system._counts(state),
+             key.describe())
     if resume:
         state, rng_state, reader = resume_state(traj, state)
         reader.close()
+        # the frame holds live rows only: land on the same bucket again
+        state, _ = buckets.bucketize(
+            state, policy, pair_evaluator=system.params.pair_evaluator)
         if rng_state:
             rng = SimRNG.from_state(rng_state)
         writer = TrajectoryWriter(traj, append=True)

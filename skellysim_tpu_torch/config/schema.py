@@ -30,7 +30,9 @@ __all__ = ["Fiber", "DynamicInstability", "PeripheryBinding", "Params",
            "RevolutionPeriphery", "EnvelopeConfig", "Body", "Point",
            "BackgroundSource", "Config", "ConfigSpherical",
            "ConfigEllipsoidal", "ConfigRevolution", "load_config",
-           "config_from_data", "unpack", "to_runtime_params"]
+           "config_from_data", "unpack", "to_runtime_params", "SweepAxis",
+           "EnsembleSweep", "normalized_member_params", "RuntimeConfig",
+           "load_runtime_config"]
 
 
 def _vec3() -> List[float]:
@@ -513,6 +515,88 @@ def config_from_data(data: dict) -> Config:
     cfg.point_sources = [_from_dict(Point, d)
                          for d in data.get("point_sources", [])]
     cfg.background = _from_dict(BackgroundSource, data.get("background", {}))
+    return cfg
+
+
+@dataclass
+class SweepAxis:
+    """One swept value of an ensemble sweep (`skellysim_tpu.config.schema
+    .SweepAxis`): a dotted path into the base config (``"fibers.0.length"``,
+    ``"background.uniform.0"``) and its values; members take the cartesian
+    product over every axis."""
+    key: str = ""
+    values: List = field(default_factory=list)
+
+
+@dataclass
+class EnsembleSweep:
+    """The `[ensemble]` table of a sweep-spec TOML (`python -m
+    skellysim_tpu_torch.ensemble --sweep-file=...`): ``replicas`` copies of
+    every sweep point, each member with its own RNG stream
+    (`SimRNG.member(i)`)."""
+    #: base run config, resolved relative to the sweep-spec file
+    base_config: str = "skelly_config.toml"
+    replicas: int = 1
+    #: lanes of the batched step
+    batch: int = 8
+    #: base seed of the member streams; -1 = the base config's params.seed
+    seed: int = -1
+    #: member end time; -1.0 = the base config's params.t_final
+    t_final: float = -1.0
+    #: "vmap" (one batched trial over the lanes) or "unroll" (each lane
+    #: through the unbatched step: the bits of a sequential run)
+    batch_impl: str = "vmap"
+    sweep: List[SweepAxis] = field(default_factory=list)
+
+
+def normalized_member_params(params: "Params") -> "Params":
+    """Params with the per-member knobs (seed, t_final) zeroed: members
+    whose normalized params are equal can run in one ensemble."""
+    return dataclasses.replace(params, seed=0, t_final=0.0)
+
+
+@dataclass
+class RuntimeConfig:
+    """The `[runtime]` table (`skellysim_tpu.config.schema.RuntimeConfig`):
+    the capacity ladders of `system.buckets.BucketPolicy`. ``jax_cache``
+    names the JAX package's compilation cache; the port reads and ignores
+    it, so one config serves both packages."""
+    jax_cache: str = "auto"
+    #: fiber-capacity rungs; [] = no padding, [-1] = the geometric ladder
+    bucket_ladder: List[int] = field(default_factory=list)
+    #: nodes-a-fiber rungs (valid fiber resolutions); [] = no node padding
+    node_ladder: List[int] = field(default_factory=list)
+    #: shell quadrature rungs; [] = off (incompatible with the fast
+    #: evaluators)
+    shell_ladder: List[int] = field(default_factory=list)
+    #: spectral FFT grid-dimension rungs; [] = the built-in 2^a 3^b rungs
+    grid_ladder: List[int] = field(default_factory=list)
+
+
+def load_runtime_config(path_or_data) -> RuntimeConfig:
+    """`[runtime]` table of a config TOML (a path or a parsed dict) ->
+    RuntimeConfig; defaults when absent, unknown keys and malformed
+    ladders rejected."""
+    data = (toml_io.load(path_or_data) if isinstance(path_or_data, str)
+            else (path_or_data or {}))
+    table = data.get("runtime", {})
+    known = {f.name for f in fields(RuntimeConfig)}
+    unknown = set(table) - known
+    if unknown:
+        raise ValueError(f"unknown [runtime] keys {sorted(unknown)}; "
+                         f"valid keys: {sorted(known)}")
+    cfg = RuntimeConfig(**table)
+    for name in ("bucket_ladder", "node_ladder", "shell_ladder",
+                 "grid_ladder"):
+        lad = getattr(cfg, name)
+        if name == "bucket_ladder" and list(lad) == [-1]:
+            continue  # the "geometric" spelling
+        if any(int(v) < 1 for v in lad):
+            raise ValueError(f"[runtime] {name} entries must be >= 1 "
+                             "(or bucket_ladder = [-1] for the geometric "
+                             "ladder)")
+        if list(lad) != sorted(set(int(v) for v in lad)):
+            raise ValueError(f"[runtime] {name} must be strictly ascending")
     return cfg
 
 

@@ -20,12 +20,14 @@ from . import params as P
 from .bodies.bodies import BodyGroup
 from .device import resolve_device
 from .fibers.container import FiberGroup
+from .fibers.matrices import FibMatsRT
 from .periphery.periphery import PeripheryState
 from .system import BackgroundFlow, PointSources, SimState
 
 _INT_FIELDS = {"binding_body", "binding_site", "config_rank",
                "ext_force_type"}
-_BOOL_FIELDS = {"minus_clamped", "plus_pinned", "active", "kind_sphere"}
+_BOOL_FIELDS = {"minus_clamped", "plus_pinned", "active", "kind_sphere",
+                "node_mask", "row_mask", "sol_mask"}
 
 
 def params_from_dict(d: Mapping) -> P.Params:
@@ -67,20 +69,22 @@ def _tuple_from_numpy(cls, leaves: Mapping, device, dtype, keep=()):
 
 def group_from_numpy(leaves: Mapping, *, device, dtype=torch.float64) -> FiberGroup:
     """`FiberGroup` from a mapping of numpy leaves named like the JAX
-    `FiberGroup` fields. Runtime node padding (``rt_mats``) is refused."""
-    if leaves.get("rt_mats") is not None:
-        raise NotImplementedError("node-padded fiber groups are not ported "
-                                  "yet (ROADMAP.md §1 item 11)")
-    return _tuple_from_numpy(FiberGroup, leaves, device, dtype)
+    `FiberGroup` fields; ``rt_mats`` (runtime node-padded matrices) is
+    None or a mapping of the JAX `FibMatsRT` fields (``rt._asdict()``)."""
+    rt = leaves.get("rt_mats")
+    if rt is not None:
+        if not isinstance(rt, Mapping):
+            rt = rt._asdict()
+        rt = _tuple_from_numpy(FibMatsRT, rt, device, dtype)
+    leaves = {k: v for k, v in leaves.items() if k != "rt_mats"}
+    return _tuple_from_numpy(FiberGroup, leaves, device, dtype)._replace(
+        rt_mats=rt)
 
 
 def shell_from_numpy(leaves: Mapping, *, device, dtype=torch.float64) -> PeripheryState:
     """`PeripheryState` from numpy leaves named like the JAX
-    `PeripheryState` fields; M_inv keeps its own dtype (f32 in mixed mode).
-    Node-masked shells (``node_mask``) are refused."""
-    if leaves.get("node_mask") is not None:
-        raise NotImplementedError("node-masked shells are not ported yet "
-                                  "(ROADMAP.md §1 item 11)")
+    `PeripheryState` fields; M_inv keeps its own dtype (f32 in mixed mode),
+    ``node_mask`` (a node-masked shell's live rows) stays bool."""
     return _tuple_from_numpy(PeripheryState, leaves, device, dtype,
                              keep=("M_inv",))
 

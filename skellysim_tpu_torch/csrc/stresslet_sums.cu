@@ -57,6 +57,13 @@
 //    inputs give the same bits. The plan (ops/cuda_kernels.py `pair_plan`)
 //    picks the chunks so the card's block slots stay busy: the ring's
 //    2,000-source hop and the body's 600 nodes give few target blocks.
+//  * Members: one launch serves B independent sums of one shape (the
+//    ensemble's lanes), member blockIdx.z, each with its own targets,
+//    sources, payload, scratch rows and output; a chunk never reaches
+//    another member's sources, and the reduction adds each member's chunks
+//    in order. B = 1 is the lone sum, so a member with the lone plan's
+//    chunks gets the lone launch's bits. The plan splits the sources for
+//    B x n_trg targets: a batch of small members fills the SMs.
 //  * Each tile is summed into a tile partial first and then added to the
 //    chunk's sum, which keeps the f32 error near
 //    eps * (sqrt(kTile) + sqrt(tiles a chunk) + sqrt(chunks)).
@@ -115,14 +122,15 @@ __device__ __forceinline__ void stage(T* pos, T* pay,
 
 // One (target block, source chunk): R targets a thread, targets
 // blockIdx.x * R * kThreads + k * kThreads + threadIdx.x (k < R), sources
-// [blockIdx.y * chunk_len, min(n_src, (blockIdx.y + 1) * chunk_len)).
-// chunk_len is a multiple of kTile. Writes the partial sums, without the -3
-// and the scale, to part[blockIdx.y, t, :].
+// [blockIdx.y * chunk_len, min(n_src, (blockIdx.y + 1) * chunk_len)) of
+// member blockIdx.z. chunk_len is a multiple of kTile. Writes the partial sums, without the -3
+// and the scale, to part[blockIdx.z, blockIdx.y, t, :].
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 stresslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
                        const T* __restrict__ S, T* __restrict__ part,
-                       int64_t n_trg, int64_t n_src, int64_t chunk_len) {
+                       int64_t n_trg, int64_t n_src, int64_t src_stride,
+                       int64_t chunk_len) {
   using Vec = typename Prec<T>::Vec;
   constexpr int G = kGroup<T>;
   constexpr int kGroups = kTile / G;
@@ -131,6 +139,13 @@ stresslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
   __shared__ __align__(16) T s_pos[2][3 * kTile];
   __shared__ __align__(16) T s_pay[2][kPay * kTile];
 
+  // member blockIdx.z: its first target row and first source row (the
+  // pointers themselves stay kernel parameters: offsetting them here would
+  // keep four more 64-bit values live through the source loop)
+  const int64_t member = blockIdx.z;
+  const int64_t m_trg = member * n_trg;
+  const int64_t m_src = member * src_stride;
+
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * (R * kThreads) +
                      threadIdx.x;
   T tx[R], ty[R], tz[R], ux[R], uy[R], uz[R];
@@ -138,14 +153,15 @@ stresslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
   for (int k = 0; k < R; ++k) {
     const int64_t t = t0 + k * kThreads;
     const bool live = t < n_trg;
-    tx[k] = live ? trg[3 * t + 0] : T(0);
-    ty[k] = live ? trg[3 * t + 1] : T(0);
-    tz[k] = live ? trg[3 * t + 2] : T(0);
+    tx[k] = live ? trg[3 * (m_trg + t) + 0] : T(0);
+    ty[k] = live ? trg[3 * (m_trg + t) + 1] : T(0);
+    tz[k] = live ? trg[3 * (m_trg + t) + 2] : T(0);
     ux[k] = uy[k] = uz[k] = T(0);
   }
 
-  const int64_t begin = static_cast<int64_t>(blockIdx.y) * chunk_len;
-  const int64_t end = begin + chunk_len < n_src ? begin + chunk_len : n_src;
+  const int64_t begin = m_src + static_cast<int64_t>(blockIdx.y) * chunk_len;
+  const int64_t end = begin + chunk_len < m_src + n_src ? begin + chunk_len
+                                                         : m_src + n_src;
   const int n_tiles = static_cast<int>((end - begin + kTile - 1) / kTile);
   auto tile_count = [&](int i) {
     const int64_t left = end - begin - static_cast<int64_t>(i) * kTile;
@@ -204,7 +220,8 @@ stresslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
     }
   }
 
-  T* out = part + static_cast<int64_t>(blockIdx.y) * n_trg * 3;
+  T* out = part + (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
+                       n_trg * 3;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int64_t t = t0 + k * kThreads;
@@ -216,15 +233,17 @@ stresslet_chunk_kernel(const T* __restrict__ trg, const T* __restrict__ src,
   }
 }
 
-// out[i] = k * sum_c part[c, i], the chunks in order (deterministic).
+// out[m, i] = k * sum_c part[m, c, i] over each member m's chunks, in
+// order (deterministic); n values a member.
 template <typename T>
 __global__ void __launch_bounds__(256)
 stresslet_reduce_kernel(const T* __restrict__ part, T* __restrict__ out,
-                        int64_t n, int chunks, T k) {
+                        int64_t n, int64_t total, int chunks, T k) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-  if (i >= n) return;
-  T s = part[i];
-  for (int c = 1; c < chunks; ++c) s += part[static_cast<int64_t>(c) * n + i];
+  if (i >= total) return;
+  const T* p = part + (i / n) * chunks * n + i % n;
+  T s = p[0];
+  for (int c = 1; c < chunks; ++c) s += p[static_cast<int64_t>(c) * n];
   out[i] = s * k;
 }
 
@@ -235,23 +254,27 @@ constexpr int kR = std::is_same<T, float>::value ? 4 : 2;
 
 template <typename T>
 int launch(int r, const T* trg, const T* src, const T* S, T* part, T* out,
-           int64_t n_trg, int64_t n_src, int64_t chunk_len, int chunks,
-           T scale, void* stream) {
+           int64_t n_trg, int64_t n_src, int64_t src_stride, int64_t chunk_len,
+           int chunks, int members, T scale, void* stream) {
   constexpr int R = kR<T>;
-  if (r != R) return static_cast<int>(cudaErrorInvalidValue);
+  if (r != R || members < 1 || members > 65535 || src_stride < n_src) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
   const int64_t blocks = (n_trg + R * kThreads - 1) / (R * kThreads);
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(chunks));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks),
+                  static_cast<unsigned>(members));
   stresslet_chunk_kernel<T, R><<<grid, kThreads, 0, s>>>(trg, src, S, part,
                                                          n_trg, n_src,
+                                                         src_stride,
                                                          chunk_len);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int64_t n = 3 * n_trg;
+  const int64_t total = n * members;
   stresslet_reduce_kernel<T>
-      <<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-          part, out, n, chunks, T(-3) * scale);
+      <<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+          part, out, n, total, chunks, T(-3) * scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,25 +289,32 @@ int blocks_per_sm(int* out) {
 
 extern "C" {
 
-// Launchers: the chunk pass and the reduction pass on `stream`; each
-// returns cudaGetLastError() after its launches (0 when both were
-// accepted; cudaErrorInvalidValue, launching nothing, when r is not the
-// precision's kR). `part` is scratch of chunks * n_trg * 3 values;
-// chunk_len is a multiple of 128; src and S are 16-byte aligned.
+// Launchers: the chunk pass and the reduction pass on `stream`, over
+// `members` independent sums of one shape (member m's targets start at
+// trg + 3 m n_trg, its sources and payload at row m src_stride, its output
+// at out + 3 m n_trg; members = 1 is the lone sum). Each returns
+// cudaGetLastError() after its launches (0 when both were accepted;
+// cudaErrorInvalidValue, launching nothing, when r is not the precision's
+// kR, members is outside [1, 65535] or src_stride < n_src). `part` is
+// scratch of members * chunks * n_trg * 3 values; chunk_len is a multiple
+// of 128; src and S are 16-byte aligned, and so is every member's
+// first source (src_stride a multiple of 4 when members > 1).
 int stresslet_f32_launch(int r, const float* trg, const float* src,
                          const float* S, float* part, float* out,
-                         long long n_trg, long long n_src, long long chunk_len,
-                         int chunks, float scale, void* stream) {
-  return launch<float>(r, trg, src, S, part, out, n_trg, n_src, chunk_len,
-                       chunks, scale, stream);
+                         long long n_trg, long long n_src, long long src_stride,
+                         long long chunk_len, int chunks, int members,
+                         float scale, void* stream) {
+  return launch<float>(r, trg, src, S, part, out, n_trg, n_src, src_stride,
+                      chunk_len, chunks, members, scale, stream);
 }
 
 int stresslet_f64_launch(int r, const double* trg, const double* src,
                          const double* S, double* part, double* out,
-                         long long n_trg, long long n_src, long long chunk_len,
-                         int chunks, double scale, void* stream) {
-  return launch<double>(r, trg, src, S, part, out, n_trg, n_src, chunk_len,
-                        chunks, scale, stream);
+                         long long n_trg, long long n_src, long long src_stride,
+                         long long chunk_len, int chunks, int members,
+                         double scale, void* stream) {
+  return launch<double>(r, trg, src, S, part, out, n_trg, n_src, src_stride,
+                      chunk_len, chunks, members, scale, stream);
 }
 
 // Resident blocks an SM of the chunk pass on the current device

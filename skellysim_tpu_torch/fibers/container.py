@@ -6,7 +6,9 @@ batched call (`fd_fiber`). The ``active`` mask keeps inactive slots inert
 exactly as the JAX package does (docs/audit.md "Masking discipline"): they
 contribute zero flow, force and error and solve the identity.
 
-Slice limits: static resolutions only (no runtime node padding); the
+A group may carry runtime node-padded matrices (``rt_mats``,
+`matrices.FibMatsRT`; `grow_node_capacity`): its trailing node rows beyond
+the live count are then masked inert capacity, as in the JAX package. The
 direct, ring, Ewald, treecode and spectral pair evaluators, and the
 sharded step's flow (`flow_multi_local`).
 """
@@ -15,12 +17,13 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ops import kernels
 from . import fd_fiber
 from .fd_fiber import FiberScalars
-from .matrices import get_mats, torch_mats
+from .matrices import FibMatsRT, get_mats, padded_rt_mats, torch_mats
 
 #: fibers per chunk of the dense self-mobility build (bounds the
 #: [chunk, n, n, 3, 3] intermediates at large fiber counts)
@@ -47,6 +50,9 @@ class FiberGroup(NamedTuple):
     active: torch.Tensor         # bool [nf]
     #: int32 [nf] original config-order rank (trajectory wire order)
     config_rank: Optional[torch.Tensor] = None
+    #: runtime node-capacity matrices (`matrices.FibMatsRT`) or None; when
+    #: set, the node rows beyond the live count are masked inert capacity
+    rt_mats: Optional[FibMatsRT] = None
 
     @property
     def n_fibers(self) -> int:
@@ -58,6 +64,8 @@ class FiberGroup(NamedTuple):
 
     @property
     def mats(self):
+        if self.rt_mats is not None:
+            return self.rt_mats.to(self.x.dtype, self.x.device)
         return torch_mats(self.n_nodes, self.x.dtype, self.x.device)
 
     def scalars(self) -> FiberScalars:
@@ -133,9 +141,38 @@ def node_positions(group: FiberGroup) -> torch.Tensor:
     return group.x.reshape(-1, 3)
 
 
+def live_node_count(group: FiberGroup) -> int:
+    """Live nodes a fiber (== n_nodes without node padding)."""
+    if group.rt_mats is None:
+        return group.n_nodes
+    return int(group.rt_mats.node_mask.sum())
+
+
+def node_mask_np(group: FiberGroup) -> np.ndarray:
+    """Host [n] bool node mask (all True without node padding)."""
+    if group.rt_mats is None:
+        return np.ones(group.n_nodes, dtype=bool)
+    return group.rt_mats.node_mask.cpu().numpy()
+
+
+def strip_node_padding(group: FiberGroup) -> FiberGroup:
+    """The group with its masked padding node rows removed and its runtime
+    matrices dropped: the wire view (trajectory frames carry live nodes
+    only, so a padded run writes an unpadded run's frames)."""
+    if group.rt_mats is None:
+        return group
+    nl = live_node_count(group)
+    return group._replace(x=group.x[:, :nl], tension=group.tension[:, :nl],
+                          rt_mats=None)
+
+
 def node_active_flat(group: FiberGroup) -> torch.Tensor:
-    """[nf * n] bool: the node's fiber is active."""
-    return torch.repeat_interleave(group.active, group.n_nodes)
+    """[nf * n] bool: the node row is live and its fiber is active."""
+    act = torch.repeat_interleave(group.active, group.n_nodes)
+    if group.rt_mats is not None:
+        act = act & group.rt_mats.node_mask.to(act.device).repeat(
+            group.n_fibers)
+    return act
 
 
 def update_cache(group: FiberGroup, dt, eta) -> FiberCaches:
@@ -379,6 +416,13 @@ def step(group: FiberGroup, fiber_sol) -> FiberGroup:
     t_new = fiber_sol[:, 3 * n:]
     x_new = torch.where(group.active[:, None, None], x_new, group.x)
     t_new = torch.where(group.active[:, None], t_new, group.tension)
+    if group.rt_mats is not None:
+        # padded node entries solve the identity to exact zero; they keep
+        # their placeholder positions (distinct finite coordinates keep the
+        # self-mobility and the pair kernels finite)
+        nm = group.mats.node_mask
+        x_new = torch.where(nm[None, :, None], x_new, group.x)
+        t_new = torch.where(nm[None, :], t_new, group.tension)
     return group._replace(x=x_new, tension=t_new, length_prev=group.length)
 
 
@@ -419,7 +463,9 @@ def grow_capacity(group: FiberGroup, new_cap: int,
         return group
 
     def pad_leaf(leaf):
-        if leaf is None or leaf.ndim == 0 or leaf.shape[0] != nf:
+        # the group-level runtime matrices carry no fiber axis
+        if (not torch.is_tensor(leaf) or leaf.ndim == 0
+                or leaf.shape[0] != nf):
             return leaf
         if nf == 0:
             fill = leaf.new_zeros((pad,) + tuple(leaf.shape[1:]))
@@ -433,3 +479,28 @@ def grow_capacity(group: FiberGroup, new_cap: int,
         active=padded.active & live,
         binding_body=torch.where(live, padded.binding_body,
                                  torch.full_like(padded.binding_body, -1)))
+
+
+def grow_node_capacity(group: FiberGroup, new_n: int) -> FiberGroup:
+    """Pad the node axis to ``new_n`` rows a fiber, the padding masked
+    inert (`skellysim_tpu.fibers.container.grow_node_capacity`): the live
+    resolution's matrices become runtime data (`matrices.FibMatsRT`), and
+    padded rows replicate the fiber's first node (zero quadrature weight:
+    silent sources; exactly coincident pairs drop in every kernel).
+    ``new_n == n_nodes`` still attaches runtime matrices, so an exact fit
+    shares its bucket's structure."""
+    n = group.n_nodes
+    n_live = live_node_count(group)
+    if new_n < n:
+        raise ValueError(
+            f"grow_node_capacity: new_n {new_n} below current node capacity "
+            f"{n} (node capacity never shrinks)")
+    rt = padded_rt_mats(n_live, new_n, group.x.dtype, group.x.device)
+    pad = new_n - n
+    if pad == 0:
+        return group._replace(rt_mats=rt)
+    x = torch.cat([group.x, group.x[:, :1].expand(-1, pad, -1)], dim=1)
+    tension = torch.cat([group.tension,
+                         group.tension.new_zeros((group.n_fibers, pad))],
+                        dim=1)
+    return group._replace(x=x, tension=tension, rt_mats=rt)

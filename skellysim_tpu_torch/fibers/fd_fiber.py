@@ -6,7 +6,10 @@ fiber and is `jax.vmap`-ed; here every function takes the fiber batch as an
 explicit leading axis: positions ``x`` are [nf, n, 3], per-fiber scalars
 [nf], solutions [nf, 4n] in the [x-block, y-block, z-block, T-block] layout.
 The boundary-condition variants are built densely and chosen per fiber with
-`torch.where` on the boolean flags, as in the JAX package.
+`torch.where` on the boolean flags, as in the JAX package. With runtime
+node-padded matrices (`matrices.FibMatsRT`) the plus end is the last LIVE
+node (an ``e_last`` contraction), padded solution entries solve the
+identity and padded node rows contribute no velocity or error.
 """
 
 from __future__ import annotations
@@ -43,6 +46,26 @@ def sbt_constants(radius, length, eta):
 def _c(v):
     """[nf] -> [nf, 1, 1] for broadcasting against [nf, n, n] blocks."""
     return v[:, None, None]
+
+
+def _per_fiber(v, ndim: int):
+    """A step size ``dt``, a float or one value a fiber ([nf]: the
+    ensemble's members each keep their own dt), shaped to divide an
+    [nf, ...] tensor of ``ndim`` dimensions."""
+    if torch.is_tensor(v) and v.ndim == 1:
+        return v.reshape((-1,) + (1,) * (ndim - 1))
+    return v
+
+
+def _last_node(mats):
+    """Last-LIVE-node selector over the node axis (axis -2 of [nf, n, k],
+    axis 0 of a matrix [n, n]): ``a[..., -1, :]`` with static matrices, an
+    ``e_last`` contraction with runtime node-padded ones (`matrices
+    .FibMatsRT`), where the last live node is data."""
+    e_last = getattr(mats, "e_last", None)
+    if e_last is None:
+        return lambda a: a[..., -1, :]
+    return lambda a: torch.einsum("n,...nk->...k", e_last.to(a.dtype), a)
 
 
 def derivatives(x, length_prev, mats):
@@ -106,7 +129,7 @@ def build_RHS(x, xs, xss, dt, eta, sc: FiberScalars, mats, flow=None,
     D1s = _c(2.0 / sc.length) * mats.D1
     s_dot = (1.0 + mats.alpha)[None, :] * (0.5 * sc.v_growth)[:, None]
 
-    rhs_xyz = x / dt + s_dot[:, :, None] * xs  # [nf, n, 3]
+    rhs_xyz = x / _per_fiber(dt, 3) + s_dot[:, :, None] * xs  # [nf, n, 3]
     rhs_T = -sc.penalty[:, None] * torch.ones(n, dtype=x.dtype,
                                               device=x.device)
 
@@ -136,15 +159,20 @@ def _bc_rows(x, xs, xss, dt, eta, sc: FiberScalars, mats,
     c0, _c1 = sbt_constants(sc.radius, sc.length, eta)
     c0 = c0[:, None]
     s = (2.0 / sc.length)[:, None]
+    last = _last_node(mats)
     d1_0, d2_0, d3_0 = s * mats.D1[0], s**2 * mats.D2[0], s**3 * mats.D3[0]
-    d1_e, d2_e, d3_e = s * mats.D1[-1], s**2 * mats.D2[-1], s**3 * mats.D3[-1]
+    d1_e, d2_e, d3_e = (s * last(mats.D1), s**2 * last(mats.D2),
+                        s**3 * last(mats.D3))
 
     zero = torch.zeros((nf, n), dtype=dtype, device=device)
     e0 = torch.zeros(n, dtype=dtype, device=device)
     e0[0] = 1.0
-    ee = torch.zeros(n, dtype=dtype, device=device)
-    ee[-1] = 1.0
-    x_e, xs_e, xss_e = x[:, -1], xs[:, -1], xss[:, -1]
+    if getattr(mats, "e_last", None) is None:
+        ee = torch.zeros(n, dtype=dtype, device=device)
+        ee[-1] = 1.0
+    else:
+        ee = mats.e_last.to(dtype)
+    x_e, xs_e, xss_e = last(x), last(xs), last(xss)
 
     def row(bx=None, by=None, bz=None, bt=None):
         parts = [zero if b is None else b.expand(nf, n)
@@ -156,9 +184,9 @@ def _bc_rows(x, xs, xss, dt, eta, sc: FiberScalars, mats,
 
     z3 = torch.zeros((nf, 3), dtype=dtype, device=device)
     v0 = v_on_fiber[:, 0] if v_on_fiber is not None else z3
-    ve = v_on_fiber[:, -1] if v_on_fiber is not None else z3
+    ve = last(v_on_fiber) if v_on_fiber is not None else z3
     f0 = f_on_fiber[:, 0] if f_on_fiber is not None else z3
-    fe = f_on_fiber[:, -1] if f_on_fiber is not None else z3
+    fe = last(f_on_fiber) if f_on_fiber is not None else z3
 
     bod = (sc.beta_tstep / dt)[:, None]
 
@@ -176,7 +204,7 @@ def _bc_rows(x, xs, xss, dt, eta, sc: FiberScalars, mats,
             bt=2.0 * c0 * d1_0),
     ], dim=1)
     clamped_rhs = torch.cat([
-        x[:, 0] / dt,
+        x[:, 0] / _per_fiber(dt, 2),
         k(-dot(xs[:, 0], v0) - 2.0 * c0[:, 0] * dot(xs[:, 0], f0)),
     ], dim=1)
     free_rows = torch.stack([
@@ -196,7 +224,7 @@ def _bc_rows(x, xs, xss, dt, eta, sc: FiberScalars, mats,
     # ---- minus end, second condition (rows 4-6): AngularVelocity vs Torque
     angvel_rows = torch.stack([row(bx=bod * d1_0), row(by=bod * d1_0),
                                row(bz=bod * d1_0)], dim=1)
-    angvel_rhs = xs[:, 0] / dt
+    angvel_rhs = xs[:, 0] / _per_fiber(dt, 2)
     torque0_rows = torch.stack([row(bx=d2_0), row(by=d2_0), row(bz=d2_0)],
                                dim=1)
     rows_m2 = torch.where(mc[:, None, None], angvel_rows, torque0_rows)
@@ -214,7 +242,7 @@ def _bc_rows(x, xs, xss, dt, eta, sc: FiberScalars, mats,
             bt=2.0 * c0 * d1_e),
     ], dim=1)
     pinned_rhs = torch.cat([
-        x_e / dt,
+        x_e / _per_fiber(dt, 2),
         k(-dot(xs_e, ve) - 2.0 * c0[:, 0] * dot(xs_e, fe)),
     ], dim=1)
     freep_rows = torch.stack([
@@ -242,12 +270,20 @@ def _bc_rows(x, xs, xss, dt, eta, sc: FiberScalars, mats,
 def apply_bc_rectangular(A, RHS, x, xs, xss, dt, eta, sc: FiberScalars, mats,
                          minus_clamped, plus_pinned, v_on_fiber=None,
                          f_on_fiber=None):
-    """Downsample A/RHS and append the 14 BC rows: [nf, 4n, 4n], [nf, 4n]."""
+    """Downsample A/RHS and append the 14 BC rows: [nf, 4n, 4n], [nf, 4n].
+    With runtime node-padded matrices each padded solution entry's row
+    becomes its P_down one-hot (an exact unit row) with a zero RHS, so
+    padded entries solve the identity."""
     P = mats.P_down
     B, B_rhs = _bc_rows(x, xs, xss, dt, eta, sc, mats,
                         minus_clamped, plus_pinned, v_on_fiber, f_on_fiber)
     A_bc = torch.cat([P @ A, B], dim=1)
     RHS_bc = torch.cat([RHS @ P.T, B_rhs], dim=1)
+    rm = getattr(mats, "row_mask", None)
+    if rm is not None:
+        unit = torch.cat([P, P.new_zeros((14, P.shape[1]))], dim=0)
+        A_bc = torch.where(rm[None, :, None], A_bc, unit)
+        RHS_bc = torch.where(rm[None, :], RHS_bc, 0.0)
     return A_bc, RHS_bc
 
 
@@ -277,6 +313,12 @@ def matvec(A_bc, xvec, v, v_boundary, xs, sc: FiberScalars, mats, plus_pinned):
     """
     n = xs.shape[1]
     bc_start = 4 * n - 14
+    nm = getattr(mats, "node_mask", None)
+    if nm is not None:
+        # padded node rows carry whatever the flows computed at their
+        # placeholders; they contribute exactly zero
+        v = torch.where(nm[None, :, None], v, 0.0)
+    last = _last_node(mats)
     D1p = _c(2.0 / sc.length_prev) * mats.D1
     vT_tension = (D1p @ torch.sum(xs * v, dim=2)[:, :, None])[:, :, 0]
     vT = torch.cat([v[:, :, 0], v[:, :, 1], v[:, :, 2], vT_tension], dim=1)
@@ -287,14 +329,18 @@ def matvec(A_bc, xvec, v, v_boundary, xs, sc: FiberScalars, mats, plus_pinned):
     res = (A_bc @ xvec[:, :, None])[:, :, 0] - vT_in
     res[:, bc_start + 3] += torch.sum(v[:, 0] * xs[:, 0], dim=1)
     res[:, bc_start + 10] += torch.where(
-        plus_pinned, torch.sum(v[:, -1] * xs[:, -1], dim=1), 0.0)
+        plus_pinned, torch.sum(last(v) * last(xs), dim=1), 0.0)
     if v_boundary is not None:
         res[:, bc_start:bc_start + 7] += v_boundary
     return res
 
 
 def fiber_error(x, length, mats):
-    """[nf] max_i | ||xs_i|| - 1 | — the inextensibility violation."""
+    """[nf] max_i | ||xs_i|| - 1 | — the inextensibility violation; padded
+    node rows (runtime matrices), whose xs vanish, are excluded."""
     xs = _c(2.0 / length) * (mats.D1 @ x)
     err = torch.abs(torch.linalg.vector_norm(xs, dim=2) - 1.0)
+    nm = getattr(mats, "node_mask", None)
+    if nm is not None:
+        err = torch.where(nm[None, :], err, 0.0)
     return torch.amax(err, dim=1)

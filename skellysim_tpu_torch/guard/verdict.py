@@ -11,13 +11,19 @@ import math
 
 NONFINITE = 1 << 0
 STAGNATION = 1 << 1
+#: the ensemble's adaptive dt fell below dt_min (the lane froze)
+DT_UNDERFLOW = 1 << 3
 
-#: name -> bit, in bit order (the decode table); the breakdown and
-#: dt_underflow bits arrive with the guard ladder (ROADMAP.md §1 item 13)
+#: name -> bit, in bit order (the decode table); the breakdown bit
+#: arrives with the guard ladder (ROADMAP.md §1 item 13)
 HEALTH_BITS = {
     "nonfinite": NONFINITE,
     "stagnation": STAGNATION,
+    "dt_underflow": DT_UNDERFLOW,
 }
+
+#: verdicts no retry can repair (the ensemble quarantines such a lane)
+TERMINAL_MASK = NONFINITE | DT_UNDERFLOW
 
 
 def nonfinite_word(value: float) -> int:
@@ -35,3 +41,9 @@ def describe(word) -> str:
     """Log spelling: ``"stagnation|breakdown"`` or ``"ok"``."""
     names = decode(word)
     return "|".join(names) if names else "ok"
+
+
+def is_terminal(word) -> bool:
+    """True where the word carries a verdict no retry can repair
+    (nonfinite, dt_underflow)."""
+    return (int(word) & TERMINAL_MASK) != 0

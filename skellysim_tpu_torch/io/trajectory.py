@@ -111,11 +111,13 @@ def _body_maps(bodies):
 
 def frame_bytes(state, rng_state=None) -> bytes:
     """Raw msgpack bytes of a trajectory-v1 frame."""
-    from ..fibers.container import as_buckets
+    from ..fibers.container import as_buckets, strip_node_padding
 
     entries = []
     for g in as_buckets(state.fibers):
-        entries.extend(_fiber_chunk_bytes(g))
+        # masked node padding never reaches the wire: a bucketized run
+        # writes an unpadded run's frames
+        entries.extend(_fiber_chunk_bytes(strip_node_padding(g)))
     if entries:
         entries.sort(key=lambda t: t[0])
         fibers_b = (eigen.mp_array_header(2)
@@ -133,9 +135,19 @@ def frame_bytes(state, rng_state=None) -> bytes:
         packb("bodies"), packb(_body_maps(state.bodies)),
         packb("shell"),
         eigen.mp_map_header(1) + packb("solution_vec_")
-        + eigen.pack_matrix_bytes(np.zeros(0) if state.shell is None
-                                  else _np(state.shell.density, np.float64)),
+        + eigen.pack_matrix_bytes(_shell_wire_density(state)),
     ])
+
+
+def _shell_wire_density(state) -> np.ndarray:
+    """The shell density as the wire carries it: live quadrature rows
+    only (a padded shell's masked rows hold exact zeros)."""
+    if state.shell is None:
+        return np.zeros(0)
+    density = _np(state.shell.density, np.float64)
+    if state.shell.node_mask is not None:
+        density = density[:3 * int(state.shell.node_mask.sum())]
+    return density
 
 
 class TrajectoryWriter:
@@ -360,6 +372,14 @@ def frame_to_state(frame: dict, template_state, dtype=None):
         state = state._replace(shell=state.shell._replace(
             density=torch.as_tensor(shell_sol.reshape(-1), dtype=dtype,
                                     device=device)))
+    elif (state.shell is not None and state.shell.node_mask is not None
+          and shell_sol.size == 3 * int(state.shell.node_mask.sum())):
+        # live-rows wire density over a padded template: the padded rows
+        # stay exact zero
+        full = np.zeros(state.shell.density.shape[0])
+        full[:shell_sol.size] = shell_sol.reshape(-1)
+        state = state._replace(shell=state.shell._replace(
+            density=torch.as_tensor(full, dtype=dtype, device=device)))
     return state._replace(time=float(frame["time"]), dt=float(frame["dt"]))
 
 

@@ -27,7 +27,11 @@ the design does about it): R targets a thread, sources staged by
 ``cp.async`` into a double-buffered tile, and a split over sources whose
 partial sums a second pass reduces in order. `pair_plan` picks R, the chunks
 and the grid of all four. Their pair code is ``csrc/pair_terms.cuh``, which
-E and F include too.
+E and F include too. Each also takes a member axis (the ensemble's lanes):
+`stokeslet_f32_batched` and its siblings sum B members of one shape in one
+launch of the same kernel (member ``blockIdx.z``), the lone wrappers being
+its B = 1 case; their plain twins sum member by member through the lone
+plain versions.
 ``csrc/pair_sums.cu`` keeps the first design of A-D (one target a thread) as
 their yardstick: `stokeslet_f32_tiled`, `stokeslet_f64_tiled`,
 `stresslet_f32_tiled` and `stresslet_f64_tiled`, which only the GPU tests and
@@ -122,8 +126,8 @@ def _library(source: str = SOURCE):
         family = source.split("_")[0]
         for prec, scalar in scalars.items():
             fn = getattr(lib, f"{family}_{prec}_launch")
-            fn.argtypes = [cint, ptr, ptr, ptr, ptr, ptr, cll, cll, cll, cint,
-                           scalar, ptr]
+            fn.argtypes = [cint, ptr, ptr, ptr, ptr, ptr, cll, cll, cll, cll,
+                           cint, cint, scalar, ptr]
             fn.restype = cint
         fn = getattr(lib, f"{family}_blocks_per_sm")
         fn.argtypes = [cint, ctypes.POINTER(cint)]
@@ -269,6 +273,12 @@ _PAIR_KERNELS = {
 _BUSY_TARGET = 0.95
 #: the most source chunks a plan takes (bounds the partial-sum scratch)
 _MAX_CHUNKS = 64
+#: the most partial-sum values a plan's scratch holds ([members, chunks,
+#: n_trg, 3]); a batch of many members takes fewer chunks. No lone sum the
+#: port runs reaches it (640k targets x 64 chunks x 3 is 123M)
+_MAX_SCRATCH = 1 << 28
+#: the most members one launch serves (gridDim.z)
+MAX_MEMBERS = 65535
 
 
 @dataclass(frozen=True)
@@ -291,10 +301,14 @@ class PairPlan:
     chunk_len: int
     slots: int
     busy: float
+    #: independent sums of this shape one launch serves (blockIdx.z)
+    members: int = 1
 
     @property
     def grid(self) -> tuple:
-        return (self.target_blocks, self.chunks)
+        if self.members == 1:
+            return (self.target_blocks, self.chunks)
+        return (self.target_blocks, self.chunks, self.members)
 
     @property
     def tiles(self) -> int:
@@ -302,9 +316,11 @@ class PairPlan:
 
     @property
     def scratch_shape(self) -> tuple:
-        """The partial sums, [chunks, n_trg, 3], that the reduction pass
-        adds in chunk order."""
-        return (self.chunks, self.n_trg, 3)
+        """The partial sums, [chunks, n_trg, 3] ([members, chunks, n_trg,
+        3] for a batch), that the reduction pass adds in chunk order."""
+        if self.members == 1:
+            return (self.chunks, self.n_trg, 3)
+        return (self.members, self.chunks, self.n_trg, 3)
 
     def target_ranges(self) -> list:
         per = self.r * self.threads
@@ -317,16 +333,21 @@ class PairPlan:
 
 
 def pair_plan(family: str, n_trg: int, n_src: int, sm_count: int,
-              blocks_per_sm: int, prec: str = "f32") -> PairPlan:
+              blocks_per_sm: int, prec: str = "f32", members: int = 1,
+              chunks: int | None = None) -> PairPlan:
     """The launch plan of kernel A / B (``family`` "stokeslet", ``prec``
-    "f32" / "f64") or C / D ("stresslet") for ``n_trg`` targets and
-    ``n_src`` sources (both >= 1) on a card of ``sm_count`` SMs with
-    ``blocks_per_sm`` resident blocks of the kernel each. Targets fill
-    ceil(n_trg / (R T)) blocks; the sources are split into the fewest equal
-    tile-multiple chunks (at most ``_MAX_CHUNKS``, at most one a tile) that
-    keep ``_BUSY_TARGET`` of the slots busy, or the busiest split when none
+    "f32" / "f64") or C / D ("stresslet") for ``members`` sums (one launch,
+    B = 1 the lone sum) of ``n_trg`` targets and ``n_src`` sources each
+    (both >= 1) on a card of ``sm_count`` SMs with ``blocks_per_sm``
+    resident blocks of the kernel each. Targets fill ceil(n_trg / (R T))
+    blocks a member; the sources are split into the fewest equal
+    tile-multiple chunks (at most ``_MAX_CHUNKS``, at most one a tile, the
+    scratch within ``_MAX_SCRATCH`` values) that keep ``_BUSY_TARGET`` of
+    the slots busy over the members' blocks, or the busiest split when none
     does: a grid of fewer blocks than slots, or whose last wave is mostly
-    empty, leaves SMs idle."""
+    empty, leaves SMs idle. ``chunks`` forces the split a lone plan of
+    that many chunks takes (the same ``chunk_len``), so each member sums in
+    the lone launch's order."""
     if family not in _PAIR_KERNELS:
         raise ValueError(f"no pair kernel family {family!r}; built: "
                          f"{tuple(_PAIR_KERNELS)}")
@@ -339,24 +360,36 @@ def pair_plan(family: str, n_trg: int, n_src: int, sm_count: int,
         raise ValueError("a plan needs n_trg, n_src, sm_count and "
                          "blocks_per_sm >= 1, got "
                          f"{(n_trg, n_src, sm_count, blocks_per_sm)}")
+    if not 1 <= members <= MAX_MEMBERS:
+        raise ValueError(f"a launch serves 1 to {MAX_MEMBERS} members "
+                         f"(gridDim.z), got {members}")
     target_blocks = -(-n_trg // (r * threads))
     tiles = -(-n_src // tile)
     slots = sm_count * blocks_per_sm
+    blocks = target_blocks * members
+    most = max(1, min(tiles, _MAX_CHUNKS,
+                      _MAX_SCRATCH // (3 * n_trg * members)))
+    if chunks is not None:
+        if chunks < 1:
+            raise ValueError(f"chunks must be >= 1, got {chunks}")
+        want_range = [min(chunks, tiles)]
+    else:
+        want_range = range(1, most + 1)
     best = None
-    for want in range(1, min(tiles, _MAX_CHUNKS) + 1):
+    for want in want_range:
         chunk_tiles = -(-tiles // want)
-        chunks = -(-tiles // chunk_tiles)
-        waves = -(-target_blocks * chunks // slots)
-        busy = target_blocks * tiles / (waves * slots * chunk_tiles)
+        n_chunks = -(-tiles // chunk_tiles)
+        waves = -(-blocks * n_chunks // slots)
+        busy = blocks * tiles / (waves * slots * chunk_tiles)
         if best is None or busy > best[0]:
-            best = (busy, chunks, chunk_tiles)
+            best = (busy, n_chunks, chunk_tiles)
         if busy >= _BUSY_TARGET:
             break
-    busy, chunks, chunk_tiles = best
+    busy, n_chunks, chunk_tiles = best
     return PairPlan(family=family, n_trg=n_trg, n_src=n_src, r=r,
                     threads=threads, tile=tile, target_blocks=target_blocks,
-                    chunks=chunks, chunk_len=chunk_tiles * tile, slots=slots,
-                    busy=busy)
+                    chunks=n_chunks, chunk_len=chunk_tiles * tile,
+                    slots=slots, busy=busy, members=members)
 
 
 def stokeslet_plan(n_trg: int, n_src: int, sm_count: int, blocks_per_sm: int,
@@ -370,7 +403,8 @@ _sm_counts: dict = {}
 _blocks_per_sm: dict = {}
 
 
-def pair_card_plan(family, device, prec, n_trg, n_src) -> PairPlan:
+def pair_card_plan(family, device, prec, n_trg, n_src, members: int = 1,
+                   chunks: int | None = None) -> PairPlan:
     """`pair_plan` on ``device`` (a CUDA device), with its SM count and the
     kernel's resident blocks an SM as the card reports them."""
     source = _PAIR_KERNELS[family][0]
@@ -393,7 +427,8 @@ def pair_card_plan(family, device, prec, n_trg, n_src) -> PairPlan:
                                f"{device}")
         _blocks_per_sm[key] = got.value
     return pair_plan(family, n_trg, n_src, _sm_counts[device],
-                     _blocks_per_sm[key], prec)
+                     _blocks_per_sm[key], prec, members=members,
+                     chunks=chunks)
 
 
 def _aligned(a):
@@ -402,29 +437,80 @@ def _aligned(a):
     return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
-def _pair_launch(family, prec, r_src, r_trg, payload, scale):
+def _member_operands(family, dtype, r_src, r_trg, payload):
+    """`_operands` of a member batch: targets [B, n_trg, 3], sources [B,
+    n_src, 3] and payload [B, n_src, cols], one device, one B."""
+    device = r_trg.device
+    cols = _FAMILIES[family][1]
+    for name, a, c in (("r_trg", r_trg, 3), ("r_src", r_src, 3),
+                       ("payload", payload, cols)):
+        if a.ndim != 3 or a.shape[2] != c:
+            raise ValueError(f"{name} must be [B, n, {c}], got "
+                             f"{tuple(a.shape)}")
+        if a.device != device:
+            raise ValueError(f"{name} is on {a.device}, expected {device}")
+    if not r_trg.shape[0] == r_src.shape[0] == payload.shape[0]:
+        raise ValueError("targets, sources and payload hold "
+                         f"{r_trg.shape[0]}, {r_src.shape[0]} and "
+                         f"{payload.shape[0]} members")
+    if r_src.shape[1] != payload.shape[1]:
+        raise ValueError(f"r_src has {r_src.shape[1]} rows a member, the "
+                         f"payload {payload.shape[1]}")
+    return (r_trg.to(dtype).contiguous(), r_src.to(dtype),
+            payload.to(dtype))
+
+
+def _member_rows(a, stride):
+    """[B, n, c] as a contiguous 16-byte aligned [B, stride, c] (the extra
+    rows zero): every member's first row then stays 16-byte aligned."""
+    if a.shape[1] == stride and a.is_contiguous() and a.data_ptr() % 16 == 0:
+        return a
+    out = a.new_zeros((a.shape[0], stride, a.shape[2]))
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def _pair_launch(family, prec, r_src, r_trg, payload, scale,
+                 chunks: int | None = None):
     """Validate, plan, allocate the output and the partial-sum scratch, and
     launch kernel A / B (``family`` "stokeslet") or C / D ("stresslet"):
-    the chunk pass and the reduction pass. Returns (output, launched);
-    raises if a launch was refused."""
+    the chunk pass and the reduction pass. Lone operands are [n, c]; a
+    member batch ([B, n, c] each, `_member_operands`) takes one launch over
+    the B members, its source rows padded to a multiple of 4 a member so
+    each member's first source stays 16-byte aligned. ``chunks`` forces the
+    source split (`pair_plan`). Returns (output, launched); raises if a
+    launch was refused."""
     dtype = _DTYPES[prec]
-    trg, src, pay = _operands(family, dtype, r_src, r_trg, payload)
+    batched = r_trg.ndim == 3
+    if batched:
+        trg, src, pay = _member_operands(family, dtype, r_src, r_trg,
+                                         payload)
+        members = trg.shape[0]
+    else:
+        trg, src, pay = _operands(family, dtype, r_src, r_trg, payload)
+        members = 1
     device = trg.device
-    n_trg, n_src = trg.shape[0], src.shape[0]
-    if n_trg == 0 or n_src == 0:
-        return torch.zeros((n_trg, 3), dtype=dtype, device=device), False
+    n_trg, n_src = trg.shape[-2], src.shape[-2]
+    out = torch.empty(trg.shape, dtype=dtype, device=device)
+    if n_trg == 0 or n_src == 0 or members == 0:
+        return out.zero_(), False
     source = _PAIR_KERNELS[family][0]
     lib = _library(source)
-    plan = pair_card_plan(family, device, prec, n_trg, n_src)
-    src, pay = _aligned(src), _aligned(pay)
+    plan = pair_card_plan(family, device, prec, n_trg, n_src, members,
+                          chunks)
+    if batched:
+        stride = -(-n_src // 4) * 4
+        src, pay = _member_rows(src, stride), _member_rows(pay, stride)
+    else:
+        stride = n_src
+        src, pay = _aligned(src), _aligned(pay)
     part = torch.empty(plan.scratch_shape, dtype=dtype, device=device)
-    out = torch.empty((n_trg, 3), dtype=dtype, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{family}_{prec}_launch")(
             plan.r, trg.data_ptr(), src.data_ptr(), pay.data_ptr(),
-            part.data_ptr(), out.data_ptr(), n_trg, n_src, plan.chunk_len,
-            plan.chunks, scale, stream)
+            part.data_ptr(), out.data_ptr(), n_trg, n_src, stride,
+            plan.chunk_len, plan.chunks, members, scale, stream)
     _raise_on(source, f"{family}_{prec}", rc)
     return out, True
 
@@ -487,6 +573,42 @@ def _pair_wrapper(family, prec):
         lambda s, t, p, scale: _pair_launch(family, prec, s, t, p, scale))
 
 
+def _batched_wrapper(family: str, prec: str, lone_plain):
+    """(kernel wrapper, plain version) of one family and precision over a
+    member axis: sources [B, n_src, 3], targets [B, n_trg, 3] and payload
+    [B, n_src, 3] / [B, n_src, 3, 3] / [B, n_src, 9] -> [B, n_trg, 3] in
+    ``prec``. On the card one launch serves every member (`_pair_launch`);
+    ``chunks`` forces the source split (the lone plan's, to compare bits
+    with a lone launch). The plain version sums member by member through
+    the lone plain version, so it gives its bits."""
+    cols = _FAMILIES[family][1]
+    name = f"{family}_{prec}_batched"
+
+    def plain(r_src, r_trg, payload, eta=None):
+        return torch.stack([lone_plain(s, t, p, eta)
+                            for s, t, p in zip(r_src, r_trg, payload)])
+
+    def wrapper(r_src, r_trg, payload, eta=None, *, chunks=None):
+        if r_trg.device.type == "cpu":
+            return plain(r_src, r_trg, payload, eta)
+        out, launched = _pair_launch(
+            family, prec, r_src, r_trg,
+            payload.reshape(payload.shape[0], payload.shape[1], cols),
+            _scale(eta), chunks=chunks)
+        wrapper.launches += int(launched)
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    plain.__name__ = plain.__qualname__ = f"{name}_plain"
+    wrapper.__doc__ = (f"The {prec} {family} sums of a member batch in one "
+                       f"launch of its CUDA kernel (CPU tensors: "
+                       f"`{plain.__name__}`).")
+    plain.__doc__ = (f"Plain {prec} {family} sums of a member batch, member "
+                     f"by member (the version `{name}` is held against).")
+    wrapper.launches = 0
+    return wrapper, plain
+
+
 def _tiled_wrapper(family, prec):
     name = f"{family}_{prec}_tiled"
     return _make_wrapper(
@@ -499,6 +621,15 @@ stokeslet_f32, stokeslet_f32_plain = _pair_wrapper("stokeslet", "f32")  # A
 stokeslet_f64, stokeslet_f64_plain = _pair_wrapper("stokeslet", "f64")  # B
 stresslet_f32, stresslet_f32_plain = _pair_wrapper("stresslet", "f32")  # C
 stresslet_f64, stresslet_f64_plain = _pair_wrapper("stresslet", "f64")  # D
+#: A-D over a member axis (the ensemble's lanes): one launch a family
+stokeslet_f32_batched, stokeslet_f32_batched_plain = _batched_wrapper(
+    "stokeslet", "f32", stokeslet_f32_plain)
+stokeslet_f64_batched, stokeslet_f64_batched_plain = _batched_wrapper(
+    "stokeslet", "f64", stokeslet_f64_plain)
+stresslet_f32_batched, stresslet_f32_batched_plain = _batched_wrapper(
+    "stresslet", "f32", stresslet_f32_plain)
+stresslet_f64_batched, stresslet_f64_batched_plain = _batched_wrapper(
+    "stresslet", "f64", stresslet_f64_plain)
 #: the first design of A-D (one target a thread), kept as their yardstick:
 #: only the GPU tests and chip_smoke.py's kernel phases call these
 stokeslet_f32_tiled = _tiled_wrapper("stokeslet", "f32")
@@ -1178,6 +1309,10 @@ tree_stresslet_f64_v1 = _tree_wrapper("stresslet", "f64", v1=True)[0]
 KERNEL_WRAPPERS = (stokeslet_f32, stokeslet_f64, stresslet_f32, stresslet_f64,
                    ring_stokeslet_f32, ring_stresslet_f32, tree_stokeslet_f32,
                    tree_stokeslet_f64, tree_stresslet_f32, tree_stresslet_f64)
+#: A-D over the member axis: the same launchers as their lone wrappers,
+#: counted apart (chip_smoke resets and reads these too)
+MEMBER_WRAPPERS = (stokeslet_f32_batched, stokeslet_f64_batched,
+                   stresslet_f32_batched, stresslet_f64_batched)
 #: the yardstick wrappers, which no path may launch
 YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled,
                       stresslet_f32_tiled, stresslet_f64_tiled,

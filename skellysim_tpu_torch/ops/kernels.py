@@ -103,8 +103,10 @@ def _direct(family: str, r_src, r_trg, payload, eta, impl: str):
     "pallas" with any f64 operand resolving to "exact" first."""
     from . import cuda_kernels
 
-    f32 = getattr(cuda_kernels, f"{family}_f32")
-    f64 = getattr(cuda_kernels, f"{family}_f64")
+    # a leading member axis ([B, n, .] operands) takes the batched kernels
+    suffix = "_batched" if r_trg.ndim == 3 else ""
+    f32 = getattr(cuda_kernels, f"{family}_f32{suffix}")
+    f64 = getattr(cuda_kernels, f"{family}_f64{suffix}")
     if impl == "pallas_df":
         return f64(r_src, r_trg, payload, eta).to(r_trg.dtype)
     if impl in ("df", "mxu"):
@@ -121,6 +123,9 @@ def _direct(family: str, r_src, r_trg, payload, eta, impl: str):
 def stokeslet_direct(r_src, r_trg, f_src, eta, *, impl: str = "exact"):
     """Singular Stokeslet sum: [n_src,3] sources, [n_trg,3] targets ->
     [n_trg,3] in ``r_trg.dtype``; exactly coincident pairs contribute zero.
+    With a leading member axis (sources, targets and forces [B, n, 3]) the
+    B independent sums take one launch of the member-batched kernel and
+    return [B, n_trg, 3].
 
     ``impl``: "exact" and "pallas" evaluate in the operands' own precision —
     float32 through kernel A, float64 through kernel B on the card (the
@@ -135,6 +140,8 @@ def stresslet_direct(r_dl, r_trg, f_dl, eta, *, impl: str = "exact"):
     """Singular stresslet (double-layer) sum: [n_src,3] sources with
     ``f_dl`` [n_src,3,3] (``f_dl[s, i, j] = S_ij``), [n_trg,3] targets ->
     [n_trg,3] in ``r_trg.dtype``; exactly coincident pairs contribute zero.
+    A leading member axis ([B, n, ...] operands) sums B members in one
+    launch, as in `stokeslet_direct`.
     The same ``impl`` routing as `stokeslet_direct`, on kernels C (f32)
     and D (f64-grade).
     """

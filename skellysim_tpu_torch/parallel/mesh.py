@@ -14,8 +14,10 @@ A state placed on a mesh (`shard_state`) is a `ShardedState`: one local
 (`parallel.spmd`): each fiber bucket's block of whole fibers, the shell's
 node-aligned row block (or the whole shell on every shard, where it cannot
 split), and everything else replicated. `gather_state` is the only way
-back to one device. `make_member_mesh` and `make_2d_mesh` belong to the
-ensemble slice (ROADMAP.md §1 item 11) and are not ported.
+back to one device. The ensemble's member meshes (`make_member_mesh`,
+`make_2d_mesh`, `shard_ensemble`) are not ported yet (ROADMAP.md §1,
+queue 1's first entry): the port's ensemble runs its members on one
+card.
 
 After `parallel.multihost.initialize` a mesh spans processes: every
 process names every shard's device, process and card, in process order,

@@ -16,14 +16,16 @@ hand-written stresslet kernels C / D through `ops.kernels.stresslet_direct`,
 or, under the ring evaluator, on kernel F (f32) and D (a hop, f64-grade)
 through `parallel.ring`, or through the fast evaluators' stresslet sums
 (`ops.ewald`, `ops.treecode`, `ops.spectral`) when a plan is passed;
-`flow_local` is the sharded step's (`parallel.spmd`). Node-masked shells
-(`grow_capacity`) belong to ROADMAP.md §1 item 11 and are not ported.
+`flow_local` is the sharded step's (`parallel.spmd`). A shell may be
+padded onto a capacity rung (`grow_capacity`, the `[runtime] shell_ladder`
+of `system.buckets`): its ``node_mask`` marks the live quadrature rows, and
+the padded rows solve the identity.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,6 +42,10 @@ class PeripheryState(NamedTuple):
     M_inv: torch.Tensor        # [3N, 3N] preconditioner
     stresslet_plus_complementary: torch.Tensor  # [3N, 3N] operator
     density: torch.Tensor      # [3N] current solution slice
+    #: [N] bool live quadrature rows, or None (every row live). Padded rows
+    #: (`grow_capacity`) carry zero normals and weights and solve the
+    #: identity
+    node_mask: Optional[torch.Tensor] = None
 
     @property
     def n_nodes(self) -> int:
@@ -156,9 +162,12 @@ def inverse_residual(M, M_inv) -> float:
 def make_state(nodes, normals, weights, operator, M_inv, dtype=torch.float64,
                precond_dtype=None, device="cpu") -> PeripheryState:
     """``precond_dtype`` stores M_inv (the preconditioner) in a lower
-    precision, halving its device memory in mixed mode."""
+    precision, halving its device memory in mixed mode. Every tensor is
+    made row-major: an inverse saved from the card is column-major, and a
+    product's bits follow the layout (a copy, such as an ensemble's stacked
+    lanes, would otherwise sum in another order than the original)."""
     def t(a, dt=dtype):
-        return torch.as_tensor(a, device=device).to(dt)
+        return torch.as_tensor(a, device=device).to(dt).contiguous()
 
     N = len(nodes)
     return PeripheryState(
@@ -168,11 +177,59 @@ def make_state(nodes, normals, weights, operator, M_inv, dtype=torch.float64,
         density=torch.zeros(3 * N, dtype=dtype, device=device))
 
 
+def grow_capacity(shell: PeripheryState, new_n: int) -> PeripheryState:
+    """The shell padded to ``new_n`` quadrature rows, the padding masked
+    inert (`skellysim_tpu.periphery.periphery.grow_capacity`): padded rows
+    replicate node 0's position with zero normals and weights (silent
+    sources), and both dense operators grow block-diagonally with the
+    identity, so padded density entries solve to exact zero.
+    ``new_n == n_nodes`` still attaches the mask, so an exact fit shares
+    its bucket's structure."""
+    n = shell.n_nodes
+    if new_n < n:
+        raise ValueError(
+            f"periphery.grow_capacity: new_n {new_n} below current shell "
+            f"size {n} (capacity never shrinks)")
+    dev = shell.nodes.device
+    mask = torch.zeros(new_n, dtype=torch.bool, device=dev)
+    mask[:n] = (shell.node_mask if shell.node_mask is not None else True)
+    pad = new_n - n
+    if pad == 0:
+        return shell._replace(node_mask=mask)
+
+    def pad_op(m):
+        out = torch.eye(3 * new_n, dtype=m.dtype, device=m.device)
+        out[:3 * n, :3 * n] = m
+        return out
+
+    return PeripheryState(
+        nodes=torch.cat([shell.nodes, shell.nodes[:1].expand(pad, 3)]),
+        normals=torch.cat([shell.normals, shell.normals.new_zeros((pad, 3))]),
+        weights=torch.cat([shell.weights, shell.weights.new_zeros(pad)]),
+        M_inv=pad_op(shell.M_inv),
+        stresslet_plus_complementary=pad_op(
+            shell.stresslet_plus_complementary),
+        density=torch.cat([shell.density,
+                           shell.density.new_zeros(3 * pad)]),
+        node_mask=mask)
+
+
 # ------------------------------------------------------------------ operators
 
+def _masked_v(v_on_shell, node_mask):
+    """[N, 3] shell velocities with padded rows selected to zero (the flow
+    evaluators produce values at the padded placeholders)."""
+    v = v_on_shell.reshape(-1, 3)
+    if node_mask is None:
+        return v
+    return torch.where(node_mask[:, None], v, 0.0)
+
+
 def matvec(shell: PeripheryState, x, v_on_shell):
-    """A_shell x = (S + N) x + v; ``v_on_shell`` is [N, 3]."""
-    return shell.stresslet_plus_complementary @ x + v_on_shell.reshape(-1)
+    """A_shell x = (S + N) x + v; ``v_on_shell`` is [N, 3] (padded rows
+    drop their v, so they stay on the identity)."""
+    return (shell.stresslet_plus_complementary @ x
+            + _masked_v(v_on_shell, shell.node_mask).reshape(-1))
 
 
 def apply_preconditioner(shell: PeripheryState, x):
@@ -181,9 +238,10 @@ def apply_preconditioner(shell: PeripheryState, x):
     return (shell.M_inv @ x.to(shell.M_inv.dtype)).to(x.dtype)
 
 
-def update_RHS(v_on_shell):
-    """RHS = -v_on_shell."""
-    return -v_on_shell.reshape(-1)
+def update_RHS(v_on_shell, node_mask=None):
+    """RHS = -v_on_shell; padded rows (``node_mask``) get an exact-zero
+    RHS, so their density solves to zero."""
+    return -_masked_v(v_on_shell, node_mask).reshape(-1)
 
 
 def flow(shell: PeripheryState, r_trg, density, eta, *, impl: str = "exact",

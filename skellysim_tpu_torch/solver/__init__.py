@@ -1,3 +1,5 @@
-from .gmres import GmresResult, gmres, gmres_ir
+from .gmres import (BatchedGmresResult, GmresResult, gmres, gmres_batched,
+                    gmres_ir, gmres_ir_batched)
 
-__all__ = ["GmresResult", "gmres", "gmres_ir"]
+__all__ = ["BatchedGmresResult", "GmresResult", "gmres", "gmres_batched",
+           "gmres_ir", "gmres_ir_batched"]

@@ -33,7 +33,8 @@ import torch
 
 from ..guard.verdict import STAGNATION, nonfinite_word
 
-__all__ = ["GmresResult", "gmres", "gmres_ir", "collective_rounds"]
+__all__ = ["GmresResult", "gmres", "gmres_ir", "collective_rounds",
+           "BatchedGmresResult", "gmres_batched", "gmres_ir_batched"]
 
 
 class GmresResult(NamedTuple):
@@ -235,6 +236,276 @@ def gmres_ir(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor, *,
                        refines=outer, cycles=outer,
                        history=rows[-history:] if history > 0 else None,
                        health=health)
+
+
+# ------------------------------------------------------- member batches
+
+class BatchedGmresResult(NamedTuple):
+    """`GmresResult` of B members: ``x`` [B, n], every other field a list
+    of B per-member values."""
+    x: torch.Tensor
+    iters: list
+    residual: list
+    converged: list
+    residual_true: list
+    refines: list
+    cycles: list
+    history: list | None
+    health: list
+
+    def member(self, i: int) -> GmresResult:
+        """Member ``i``'s `GmresResult`."""
+        return GmresResult(
+            x=self.x[i], iters=self.iters[i], residual=self.residual[i],
+            converged=self.converged[i],
+            residual_true=self.residual_true[i], refines=self.refines[i],
+            cycles=self.cycles[i],
+            history=None if self.history is None else self.history[i],
+            health=self.health[i])
+
+
+def _row_norms(v) -> list:
+    """The [B] vector norms of the rows of ``v`` as floats (one transfer)."""
+    return torch.linalg.vector_norm(v, dim=1).tolist()
+
+
+class _Member:
+    """One member's restarted-GMRES state between batched rounds: the host
+    scalars of `gmres` and of the open `_arnoldi_cycle`."""
+
+    def __init__(self, b_norm, m, tol, maxiter, active):
+        self.b_norm = b_norm
+        self.safe_b_norm = b_norm if b_norm > 0.0 else 1.0
+        self.tol_abs = tol * self.safe_b_norm
+        init = math.inf if b_norm > 0.0 else 0.0
+        self.resid_true = self.prev_true = self.resid_impl = init
+        self.total = self.cycles = 0
+        self.health = nonfinite_word(b_norm)
+        self.rows = []
+        self.m = m
+        self.tol = tol
+        self.maxiter = maxiter
+        self.state = "check" if active else "frozen"
+        self.beta = b_norm
+
+    def wants_cycle(self) -> bool:
+        return (self.resid_true > self.tol and self.total < self.maxiter
+                and not (self.resid_impl <= self.tol
+                         and self.resid_true > 0.5 * self.prev_true))
+
+    def open_cycle(self):
+        m = self.m
+        self.H = np.zeros((m + 1, m))
+        self.cs = np.zeros(m)
+        self.sn = np.zeros(m)
+        self.g = np.zeros(m + 1)
+        self.g[0] = self.beta
+        self.k = 0
+        done = self.beta <= self.tol_abs
+        self.state = "finish" if done or m == 0 else "arnoldi"
+
+    def arnoldi(self, h, h_norm):
+        """The Givens update of one Arnoldi column (``h`` the two ICGS
+        passes' projections, summed as `_arnoldi_cycle` sums them)."""
+        m, k = self.m, self.k
+        col = np.zeros(m + 1)
+        for proj in h:
+            col[:k + 1] += proj
+        col[k + 1] = h_norm
+        cs, sn, g = self.cs, self.sn, self.g
+        for i in range(k):
+            hi, hip = col[i], col[i + 1]
+            col[i] = cs[i] * hi + sn[i] * hip
+            col[i + 1] = -sn[i] * hi + cs[i] * hip
+        denom = math.sqrt(col[k] ** 2 + col[k + 1] ** 2)
+        c_new = col[k] / denom if denom > 0.0 else 1.0
+        s_new = col[k + 1] / denom if denom > 0.0 else 0.0
+        col[k] = denom
+        col[k + 1] = 0.0
+        cs[k], sn[k] = c_new, s_new
+        g[k + 1] = -s_new * g[k]
+        g[k] = c_new * g[k]
+        self.H[:, k] = col
+        done = abs(g[k + 1]) <= self.tol_abs
+        self.k = k + 1
+        if done or self.k >= m:
+            self.state = "finish"
+
+    def solution_coefficients(self):
+        """y of the k x k back-substitution, and the cycle's implicit
+        residual."""
+        m, k, H, g = self.m, self.k, self.H, self.g
+        y = np.zeros(m)
+        for j in range(k - 1, -1, -1):
+            hjj = H[j, j]
+            y[j] = (g[j] - H[j, :] @ y) / (hjj if hjj != 0.0 else 1.0)
+        self.resid_impl = abs(g[min(k, m)]) / self.safe_b_norm
+        return y[:k]
+
+    def close_cycle(self, r_norm):
+        self.prev_true = self.resid_true
+        self.resid_true = r_norm / self.safe_b_norm
+        self.health |= nonfinite_word(self.resid_true)
+        if (self.resid_impl <= self.tol
+                and self.resid_true > 0.5 * self.prev_true
+                and self.resid_true > self.tol):
+            self.health |= STAGNATION
+        self.total += self.k
+        self.cycles += 1
+        self.rows.append([self.total, self.resid_impl, self.resid_true])
+        self.beta = r_norm
+        self.state = "check"
+
+    def result_health(self) -> int:
+        if (self.resid_true > self.tol and self.resid_impl > self.tol
+                and self.total >= self.maxiter):
+            return self.health | STAGNATION
+        return self.health
+
+
+def gmres_batched(matvec: Callable, b: torch.Tensor, *,
+                  precond: Callable | None = None, tol: float = 1e-10,
+                  restart: int = 100, maxiter: int = 1000, history: int = 0,
+                  active=None) -> BatchedGmresResult:
+    """`gmres` for B members at once: ``b`` is [B, n], and ``matvec`` /
+    ``precond`` map [B, n] to [B, n] (every member in one call). Each
+    member keeps its own Krylov basis, Givens rotations, restarts,
+    acceptance and health word, and steps through exactly the operations
+    its solo `gmres` would: a member that is done is frozen (its rows of
+    the batched calls are discarded), so its ``x``, ``iters``, residuals
+    and health are its solo solve's (to the batched operator's roundoff).
+    The host reads the members' projections and norms once an Arnoldi step
+    for all members, and once at every restart boundary. ``active`` ([B]
+    bools, default all) freezes the others from the start (x = 0, 0
+    iterations). `torch.func.vmap` cannot serve: the cycle decides on host
+    floats, and the CUDA kernels have no batching rule."""
+    B, n = b.shape
+    m = min(restart, maxiter)
+    M = precond if precond is not None else (lambda v: v)
+    act = [True] * B if active is None else [bool(a) for a in active]
+    members = [_Member(bn, m, tol, maxiter, a)
+               for bn, a in zip(_row_norms(b), act)]
+    x = torch.zeros_like(b)
+    r = b.clone()
+    V = b.new_zeros((B, m + 1, n))
+    while True:
+        for i, mb in enumerate(members):
+            if mb.state == "check":
+                if mb.wants_cycle():
+                    safe_beta = mb.beta if mb.beta > 0.0 else 1.0
+                    V[i, 0] = r[i] / safe_beta
+                    mb.open_cycle()
+                else:
+                    mb.state = "done"
+        live = [i for i, mb in enumerate(members) if mb.state == "arnoldi"]
+        if live:
+            z = b.new_zeros((B, n))
+            for i in live:
+                z[i] = V[i, members[i].k]
+            W = matvec(M(z))
+            projs, norms = [], []
+            for i in live:
+                k = members[i].k
+                w, Vk = W[i], V[i, :k + 1]
+                passes = []
+                for _ in range(2):
+                    proj = Vk @ w
+                    w = w - proj @ Vk
+                    passes.append(proj)
+                h_norm = torch.linalg.vector_norm(w)
+                V[i, k + 1] = w / torch.where(h_norm > 0.0, h_norm, 1.0)
+                projs.append(torch.stack(passes))
+                norms.append(h_norm)
+            # one transfer for every member of this Arnoldi step
+            host = torch.cat([torch.cat([hn.reshape(1), p.reshape(-1)])
+                              for hn, p in zip(norms, projs)]).cpu().numpy()
+            off = 0
+            for i in live:
+                k = members[i].k
+                size = 1 + 2 * (k + 1)
+                row = host[off:off + size]
+                off += size
+                members[i].arnoldi(row[1:].reshape(2, k + 1), float(row[0]))
+        closing = [i for i, mb in enumerate(members) if mb.state == "finish"]
+        if closing:
+            z = b.new_zeros((B, n))
+            for i in closing:
+                mb = members[i]
+                y = mb.solution_coefficients()
+                yt = torch.as_tensor(y, dtype=b.dtype, device=b.device)
+                z[i] = yt @ V[i, :mb.k]
+            dx = M(z)
+            for i in closing:
+                x[i] = x[i] + dx[i]
+            r_new = b - matvec(x)
+            for i in closing:
+                r[i] = r_new[i]
+            norms = _row_norms(r_new)
+            for i in closing:
+                members[i].close_cycle(norms[i])
+        if not live and not closing:
+            break
+    return BatchedGmresResult(
+        x=x, iters=[mb.total for mb in members],
+        residual=[mb.resid_impl for mb in members],
+        converged=[(mb.resid_true <= tol) or (mb.resid_impl <= tol)
+                   for mb in members],
+        residual_true=[mb.resid_true for mb in members],
+        refines=[0] * B, cycles=[mb.cycles for mb in members],
+        history=([mb.rows[-history:] for mb in members] if history > 0
+                 else None),
+        health=[mb.result_health() for mb in members])
+
+
+def gmres_ir_batched(matvec_hi: Callable, matvec_lo: Callable,
+                     b: torch.Tensor, *, precond_lo: Callable | None = None,
+                     tol: float = 1e-10, inner_tol: float = 1e-5,
+                     restart: int = 100, maxiter: int = 1000,
+                     max_refine: int = 8,
+                     history: int = 0) -> BatchedGmresResult:
+    """`gmres_ir` for B members at once (``b`` [B, n]; the operators map
+    [B, n] to [B, n]): each member refines on its own ladder, and the
+    members still refining share one batched inner solve a sweep
+    (`gmres_batched` with the others frozen) and one batched residual."""
+    B = b.shape[0]
+    b_norm = _row_norms(b)
+    safe = [bn if bn > 0.0 else 1.0 for bn in b_norm]
+    x = torch.zeros_like(b)
+    r = b.clone()
+    r_rel = [math.inf if bn > 0.0 else 0.0 for bn in b_norm]
+    outer, total = [0] * B, [0] * B
+    health = [nonfinite_word(bn) for bn in b_norm]
+    rows = [[] for _ in range(B)]
+    while True:
+        act = [r_rel[i] > tol and outer[i] < max_refine for i in range(B)]
+        if not any(act):
+            break
+        d = gmres_batched(matvec_lo, r, precond=precond_lo, tol=inner_tol,
+                          restart=restart, maxiter=maxiter, active=act)
+        for i in range(B):
+            if act[i]:
+                x[i] = x[i] + d.x[i]
+        r_new = b - matvec_hi(x)
+        norms = _row_norms(r_new)
+        for i in range(B):
+            if not act[i]:
+                continue
+            r[i] = r_new[i]
+            r_rel[i] = norms[i] / safe[i]
+            health[i] |= d.health[i] & ~STAGNATION
+            health[i] |= nonfinite_word(r_rel[i])
+            outer[i] += 1
+            total[i] += d.iters[i]
+            rows[i].append([total[i], d.residual[i], r_rel[i]])
+    for i in range(B):
+        if r_rel[i] > tol and outer[i] >= max_refine:
+            health[i] |= STAGNATION
+    return BatchedGmresResult(
+        x=x, iters=total, residual=r_rel,
+        converged=[rr <= tol for rr in r_rel], residual_true=r_rel,
+        refines=outer, cycles=list(outer),
+        history=[rw[-history:] for rw in rows] if history > 0 else None,
+        health=health)
 
 
 def collective_rounds(iters, cycles, block_s: int = 1,

@@ -1,11 +1,12 @@
 """Dynamic-instability rate math (`skellysim_tpu.system.di_rates`).
 
 The catastrophe / growth / nucleation arithmetic of the reference
-(`dynamic_instability.cpp:76-91,115-116`), written once: the host update
-(`system.dynamic_instability.apply_dynamic_instability`) calls it with
-numpy. Every helper keeps the array namespace argument ``xp`` so that a
-device-side update (the JAX package's `scenarios.di_device`, ROADMAP.md §1
-item 11) can pass ``torch`` when it is ported.
+(`dynamic_instability.cpp:76-91,115-116`), written once for two callers:
+the host update (`system.dynamic_instability.apply_dynamic_instability`)
+passes ``xp=numpy``, the ensemble's device update
+(`scenarios.di_device.di_update`) passes ``xp=torch`` with float64 tensors
+on the card. Constants enter the torch path as float64 tensors, so both
+paths compute in float64.
 """
 
 from __future__ import annotations
@@ -13,16 +14,27 @@ from __future__ import annotations
 import numpy as np
 
 
+def _const(xp, v, like):
+    """``v`` as the namespace's float64 constant beside ``like`` (numpy:
+    the plain float)."""
+    if xp is np:
+        return v
+    return xp.as_tensor(v, dtype=xp.float64, device=like.device)
+
+
 def effective_rates(di, plus_pinned, xp=np):
     """(v_growth, f_catastrophe) per fiber with the plus-pinned rescaling
     (`dynamic_instability.cpp:76-79`): a fiber whose plus end is pinned to
     the periphery grows slower and dies faster by the collision scales."""
+    def c(v):
+        return _const(xp, v, plus_pinned)
+
     v_growth = xp.where(plus_pinned,
-                        di.v_growth * di.v_grow_collision_scale,
-                        di.v_growth)
+                        c(di.v_growth * di.v_grow_collision_scale),
+                        c(di.v_growth))
     f_cat = xp.where(plus_pinned,
-                     di.f_catastrophe * di.f_catastrophe_collision_scale,
-                     di.f_catastrophe)
+                     c(di.f_catastrophe * di.f_catastrophe_collision_scale),
+                     c(di.f_catastrophe))
     return v_growth, f_cat
 
 
@@ -60,7 +72,9 @@ def nucleated_nodes(origin, com, min_length, n_nodes, xp=np):
     carry leading batch axes; nodes fill a new second-to-last axis."""
     u_dir = origin - com
     u_dir = u_dir / xp.sqrt((u_dir * u_dir).sum(axis=-1, keepdims=True))
-    s = xp.linspace(0.0, min_length, n_nodes)
+    s = (np.linspace(0.0, min_length, n_nodes) if xp is np else
+         xp.linspace(0.0, min_length, n_nodes, dtype=origin.dtype,
+                     device=origin.device))
     shape = origin.shape[:-1] + (n_nodes, 3)
     return (origin[..., None, :]
             + s.reshape((1,) * (len(shape) - 2) + (n_nodes, 1))

@@ -28,6 +28,7 @@ import torch
 from ..bodies import bodies as bd
 from ..fibers import container as fc
 from ..fibers import fd_fiber
+from ..fibers.matrices import FibMatsRT
 from ..utils.rng import SimRNG
 from . import buckets, di_rates
 from .system import state_placement
@@ -39,6 +40,13 @@ _INT_FIELDS = ("binding_body", "binding_site", "config_rank")
 def _np(t) -> np.ndarray:
     """Host copy of a tensor (numpy arrays pass)."""
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _host_leaves(fibers):
+    """The group with every per-fiber tensor as a numpy copy; the
+    group-level runtime matrices (`rt_mats`) stay as they are."""
+    return type(fibers)(*[v if v is None or isinstance(v, FibMatsRT)
+                          else _np(v).copy() for v in fibers])
 
 
 def _bucket_bindings(groups):
@@ -85,7 +93,7 @@ def apply_dynamic_instability(state, params, rng: SimRNG,
             and not isinstance(state.fibers, fc.FiberGroup)):
         groups = list(fc.as_buckets(state.fibers))
         idx = next((i for i, g in enumerate(groups)
-                    if g.n_nodes == di.n_nodes), None)
+                    if fc.live_node_count(g) == di.n_nodes), None)
         if idx is None:
             raise NotImplementedError(
                 f"dynamic_instability.n_nodes={di.n_nodes} matches no fiber "
@@ -106,14 +114,14 @@ def apply_dynamic_instability(state, params, rng: SimRNG,
     bodies = state.bodies
     dt = float(state.dt)
 
-    if fibers is not None and fibers.n_nodes != di.n_nodes:
+    if fibers is not None and fc.live_node_count(fibers) != di.n_nodes:
+        # the LIVE resolution: a node-padded bucket nucleates at it
         raise NotImplementedError(
-            "dynamic_instability.n_nodes must match the fiber group's "
-            f"resolution ({di.n_nodes} != {fibers.n_nodes}); use a tuple of "
-            "buckets for mixed resolutions")
+            "dynamic_instability.n_nodes must match the fiber group's live "
+            f"resolution ({di.n_nodes} != {fc.live_node_count(fibers)}); "
+            "use a tuple of buckets for mixed resolutions")
     if fibers is not None:
-        fibers = type(fibers)(*[None if v is None else _np(v).copy()
-                                for v in fibers])
+        fibers = _host_leaves(fibers)
 
     # ---------------------------------------------- catastrophe + growth
     if fibers is not None and fibers.n_fibers > 0:
@@ -202,11 +210,11 @@ def apply_dynamic_instability(state, params, rng: SimRNG,
         grown = fc.grow_capacity(_as_device(fibers, dtype, device),
                                  buckets.next_fiber_capacity(need),
                                  node_multiple)
-        fibers = type(grown)(*[_np(v).copy() for v in grown])
+        fibers = _host_leaves(grown)
         slots = np.flatnonzero(~fibers.active)
     slots = slots[:len(chosen)]
 
-    arr = fibers._asdict()
+    arr = {k: v for k, v in fibers._asdict().items() if k != "rt_mats"}
     handled = {"x", "tension", "length", "length_prev", "bending_rigidity",
                "radius", "penalty", "beta_tstep", "v_growth", "force_scale",
                "minus_clamped", "plus_pinned", "binding_body", "binding_site",
@@ -219,6 +227,13 @@ def apply_dynamic_instability(state, params, rng: SimRNG,
     # fresh config ranks: nucleated fibers append after every existing
     # fiber in the trajectory's config order, across all buckets
     next_rank = max(int(arr["config_rank"].max(initial=-1)), _rank_floor) + 1
+    # node-padded groups: the nucleated geometry fills the live prefix and
+    # the padding rows replicate its first node (`fc.grow_node_capacity`)
+    n_cap = fibers.x.shape[1]
+    if n_cap > di.n_nodes:
+        new_x = [np.concatenate(
+            [xr, np.repeat(xr[:1], n_cap - di.n_nodes, axis=0)], axis=0)
+            for xr in new_x]
     for k, slot in enumerate(slots):
         arr["config_rank"][slot] = next_rank + k
         arr["x"][slot] = new_x[k]
@@ -275,6 +290,8 @@ def _as_device(fibers, dtype, device):
     def conv(name, leaf):
         if leaf is None:
             return None
+        if isinstance(leaf, FibMatsRT):
+            return leaf.to(dtype, device)
         leaf = np.asarray(leaf)
         kind = (torch.int32 if name in _INT_FIELDS
                 else torch.bool if leaf.dtype == bool else dtype)

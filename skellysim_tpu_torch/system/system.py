@@ -231,6 +231,9 @@ class System:
             raise _not_ported("the flight recorder (flight_window > 0)", "13")
         self.params = params
         self.shell_shape = shell_shape
+        #: spectral FFT grid rungs (`system.buckets.BucketPolicy.grid_ladder`,
+        #: set by the CLIs from `[runtime]`); () = the built-in rungs
+        self.grid_ladder = ()
         self.device = resolve_device(device)
         if mesh is not None and any(d.type != self.device.type
                                     for d in mesh.devices):
@@ -504,12 +507,21 @@ class System:
             return state
 
         def pinned(g):
-            tip = g.x[:, -1]
+            x = g.x
+            if g.rt_mats is None:
+                tip = x[:, -1]
+            else:
+                # the plus end is the last LIVE node; padding rows replicate
+                # node 0 and must not read as contact
+                m = g.mats
+                tip = torch.einsum("n,fnk->fk", m.e_last, x)
+                x = torch.where(m.node_mask[None, :, None], x,
+                                tip[:, None, :])
             tip = tip / torch.linalg.vector_norm(tip, dim=-1, keepdim=True)
             angle = torch.arccos(torch.clamp(tip[:, 2], -1.0, 1.0))
             in_window = ((angle >= pb.polar_angle_start)
                          & (angle <= pb.polar_angle_end))
-            near = peri.check_collision(self.shell_shape, g.x, pb.threshold)
+            near = peri.check_collision(self.shell_shape, x, pb.threshold)
             return g._replace(plus_pinned=in_window & near)
 
         return state._replace(fibers=_rewrap_fibers(
@@ -578,7 +590,8 @@ class System:
                 off += nfn
             caches = new_caches
         shell_rhs = (None if state.shell is None else
-                     peri.update_RHS(v_all[nf_nodes:nf_nodes + ns_nodes]))
+                     peri.update_RHS(v_all[nf_nodes:nf_nodes + ns_nodes],
+                                     state.shell.node_mask))
         return state, caches, body_caches, shell_rhs, body_rhs
 
     # ----------------------------------------------------- operator closures
@@ -840,9 +853,17 @@ class System:
             return False
         for g in fiber_buckets(state.fibers):
             n = g.n_nodes
+            # excluded rows (a clamped fiber's anchored first node, masked
+            # padding rows) take the last LIVE node, interior by construction
             keep = (torch.arange(n, device=g.x.device)[None, :]
                     >= torch.where(g.minus_clamped, 1, 0)[:, None])
-            pts = torch.where(keep[..., None], g.x, g.x[:, -1:, :])
+            if g.rt_mats is None:
+                safe = g.x[:, -1:, :]
+            else:
+                m = g.mats
+                safe = torch.einsum("n,fnk->fk", m.e_last, g.x)[:, None, :]
+                keep = keep & m.node_mask[None, :]
+            pts = torch.where(keep[..., None], g.x, safe)
             if bool(torch.any(peri.check_collision(self.shell_shape, pts,
                                                    0.0))):
                 return True
@@ -862,13 +883,18 @@ class System:
         n_src = 0
         parts = []
         for g in fiber_buckets(state.fibers):
-            act = g.active.cpu().numpy()
+            # per NODE: inactive slots and masked padding rows are both
+            # reserved as spread fill capacity
+            act = g.active.cpu().numpy()[:, None] & fc.node_mask_np(g)[None]
             x = g.x.cpu().numpy()[act].reshape(-1, 3)
             parts.append(x)
-            n_fill += int((~act).sum()) * g.n_nodes
+            n_fill += int((~act).sum())
             n_src += x.shape[0]
         if state.shell is not None:
-            parts.append(state.shell.nodes.cpu().numpy())
+            nodes = state.shell.nodes.cpu().numpy()
+            if state.shell.node_mask is not None:
+                nodes = nodes[state.shell.node_mask.cpu().numpy()]
+            parts.append(nodes)
         for g in body_buckets(state.bodies):
             parts.append(bd.place(g)[0].cpu().numpy().reshape(-1, 3))
         return np.concatenate(parts, axis=0), n_fill, n_src
@@ -896,13 +922,15 @@ class System:
     def make_spectral_plan(self, state: SimState):
         """Host-side spectral Ewald plan over the `_plan_points` cloud for
         ``params.periodic_box`` (`ops.spectral.plan_spectral` at
-        ``params.spectral_tol``, grid dims on the built-in rungs)."""
+        ``params.spectral_tol``, grid dims on ``self.grid_ladder``'s rungs,
+        or the built-in ones)."""
         from ..ops.spectral import plan_spectral
 
         pts, n_fill, _ = self._plan_points(state)
         return plan_spectral(pts, self.params.periodic_box,
                              eta=self.params.eta,
-                             tol=self.params.spectral_tol, n_fill=n_fill)
+                             tol=self.params.spectral_tol, n_fill=n_fill,
+                             grid_ladder=self.grid_ladder)
 
     def _pair_args(self, state: SimState):
         """The `PairEvaluator` of the configured fast evaluator, its plan
@@ -928,6 +956,20 @@ class System:
                         pair.evaluator, state.time, _plan_summary(pair.plan),
                         _time.perf_counter() - t0)
         return self._solve_once(state, pair=pair)
+
+    def trial_step(self, state: SimState, pair=None):
+        """The bare trial: (new_state, solution, info) of prep, GMRES and
+        the advance at ``state.dt``, with ``pair`` (a `PairEvaluator`, or
+        None for the dense paths) given by the caller. The ensemble's
+        ``"unroll"`` plan runs each lane through it (the JAX package's
+        `trial_step`, which the ensemble maps over members); `step` is it
+        with the plan built first."""
+        return self._solve_once(state, pair=pair)
+
+    def collision(self, state: SimState) -> bool:
+        """The collision gate the adaptive loop rejects on (fiber nodes
+        crossing the shell, body-body and body-shell)."""
+        return self._check_collision(state)
 
     def step_spmd(self, state, mesh, *, allow_replicated_shell: bool = False,
                   flat_solution: bool = True, donate="auto"):

@@ -458,6 +458,67 @@ def test_stresslet_refuses_an_unbuilt_r(cuda, monkeypatch):
         monkeypatch.undo()
 
 
+def _member_batch(family, prec, members, n_src, n_trg, device):
+    """B members of one shape, each its own cloud (`_cloud` /
+    `_shell_cloud`, a seed a member)."""
+    make = _cloud if family == "stokeslet" else _shell_cloud
+    clouds = [make(n_src, n_trg, _DT[prec], device, seed=10 + m)
+              for m in range(members)]
+    return tuple(torch.stack(a) for a in zip(*clouds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+@pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
+def test_member_batched_kernels_match_lone_and_plain(cuda, family, prec):
+    """A-D over a member axis: one launch for B members; each member equals
+    the lone launch bit for bit at the lone plan's chunks, the plain f64
+    sum at the tolerance of the lone tests (1e-4 f32, 1e-12 f64) whatever
+    the batched plan, and two launches give the same bits. Sources whose
+    count is not a multiple of 4 (the padded member stride) included; the
+    lone wrapper counts no launch, the batched one one a call."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    lone = getattr(ck, f"{family}_{prec}")
+    batched = getattr(ck, f"{family}_{prec}_batched")
+    plain64 = getattr(ck, f"{family}_f64_plain")
+    tol = (_STOKESLET_TOL if family == "stokeslet" else _STRESSLET_TOL)[prec]
+    for members, n_src, n_trg in ((8, 3001, 2000), (3, 600, 17),
+                                  (2, 20000, 700)):
+        src, trg, pay = _member_batch(family, prec, members, n_src, n_trg,
+                                      cuda)
+        plan = ck.pair_card_plan(family, cuda, prec, n_trg, n_src, members)
+        lone_plan = ck.pair_card_plan(family, cuda, prec, n_trg, n_src)
+        n_lone, n_b = lone.launches, batched.launches
+        got = batched(src, trg, pay, 0.7)
+        again = batched(src, trg, pay, 0.7)
+        forced = batched(src, trg, pay, 0.7, chunks=lone_plan.chunks)
+        torch.cuda.synchronize()
+        assert (lone.launches, batched.launches) == (n_lone, n_b + 3)
+        assert got.shape == (members, n_trg, 3) and got.dtype == _DT[prec]
+        assert torch.equal(got, again)
+        assert plan.members == members
+        for m in range(members):
+            solo = lone(src[m], trg[m], pay[m], 0.7)
+            assert torch.equal(forced[m], solo), (members, n_src, m)
+            ref = plain64(src[m], trg[m], pay[m], 0.7)
+            assert _rel_err(got[m], ref) <= tol, (members, n_src, m)
+
+
+@pytest.mark.gpu
+def test_member_batched_plan_fills_the_card(cuda):
+    """The batched plan splits the sources for B x n_trg targets: eight
+    members of 2,000 targets take fewer chunks than one, at least as busy,
+    and the scratch grows as [B, chunks, n_trg, 3]."""
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+
+    one = ck.pair_card_plan("stokeslet", cuda, "f32", 2000, 20000)
+    eight = ck.pair_card_plan("stokeslet", cuda, "f32", 2000, 20000, 8)
+    assert eight.chunks <= one.chunks and eight.busy >= one.busy - 1e-12
+    assert eight.scratch_shape == (8, eight.chunks, 2000, 3)
+    assert eight.grid == (one.target_blocks, eight.chunks, 8)
+
+
 @pytest.mark.gpu
 def test_small_run_card_vs_cpu(cuda):
     """One mixed-precision step of a small coupled scene (a 120-node shell

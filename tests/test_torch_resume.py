@@ -265,15 +265,35 @@ def test_cli_resume_across_packages(tmp_path, writer):
             == [[m[k] for k in keys] for m in jm if "step" in m])
 
 
-def test_cli_guards(tmp_path):
+def test_cli_guards(tmp_path, caplog):
     """--resume without a trajectory exits, as in the JAX CLI; a
-    `[runtime]` capacity ladder raises naming its ROADMAP item instead of
-    being ignored."""
+    `[runtime]` capacity ladder is read as the JAX CLI reads it: with
+    ``bucket_ladder = [-1]`` and no precompute both CLIs raise the same
+    missing-precompute error, a malformed ladder the same ValueError, and
+    after the precompute the geometric ladder lands the run on its rung."""
     cfg = tmp_path / "skelly_config.toml"
     _di_config(cfg, t_final=0.1)
     with pytest.raises(SystemExit, match="does not exist"):
         tcli.run(str(cfg), resume=True, device="cpu")
     with open(cfg, "a") as fh:
         fh.write("\n[runtime]\nbucket_ladder = [-1]\n")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(FileNotFoundError) as je:
+        jcli.run(str(cfg))
+    with pytest.raises(FileNotFoundError) as te:
         tcli.run(str(cfg), device="cpu")
+    assert str(te.value).split("(")[0] == str(je.value).split("(")[0]
+    jprecompute.precompute_from_config(str(cfg), verbose=False)
+    bad = tmp_path / "bad.toml"
+    bad.write_text(cfg.read_text().replace("bucket_ladder = [-1]",
+                                           "bucket_ladder = [4, 2]"))
+    with pytest.raises(ValueError, match="strictly ascending") as je:
+        jcli.run(str(bad))
+    with pytest.raises(ValueError, match="strictly ascending") as te:
+        tcli.run(str(bad), device="cpu")
+    assert str(te.value) == str(je.value)
+    with caplog.at_level("INFO", logger="skellysim_tpu_torch"):
+        tcli.run(str(cfg), device="cpu")
+    # no fiber before the first nucleation: an empty bucket, and the
+    # nucleated fibers land on a geometric rung
+    assert "scene bucket: fibers[none]" in caplog.text
+    assert "fiber capacity 16" in caplog.text

@@ -361,6 +361,9 @@ def test_padded_groups_convert_from_jax():
     assert tg.n_fibers == own.n_fibers == 5
     for name, a in tg._asdict().items():
         b = getattr(own, name)
+        if a is None:  # runtime node matrices: neither group carries them
+            assert b is None, name
+            continue
         assert a.dtype == b.dtype, name
         assert torch.equal(a, b), name
 

@@ -442,7 +442,8 @@ def test_flow_local_matches_jax(coupled_parts):
     r_loc = rng.uniform(-3, 3, (4 * 10, 3))
     r_rep = rng.uniform(-3, 3, (6, 3))
     jshell = jperi.PeripheryState(**{k: jnp.asarray(v.numpy())
-                                     for k, v in shell._asdict().items()})
+                                     for k, v in shell._asdict().items()
+                                     if v is not None})
 
     def local(sh, d, rl, rr):
         return jperi.flow_local(sh, rl, rr, d, eta, axis_name="fib",

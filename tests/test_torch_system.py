@@ -521,8 +521,8 @@ def test_unsupported_features_raise(override, item):
 
 def test_unsupported_components_and_ring_fallback(tmp_path):
     """A shell needs the System's shell shape; a deformable body (a stub in
-    the reference) raises naming its ROADMAP item; "ring" on one card warns
-    and runs direct."""
+    the reference) raises naming the reference's stub, as the JAX package
+    does; "ring" on one card warns and runs direct."""
     from skellysim_tpu_torch import builder as tbuilder
     from skellysim_tpu_torch.config import Body, Config
 
@@ -532,7 +532,8 @@ def test_unsupported_components_and_ring_fallback(tmp_path):
     with pytest.raises(ValueError, match="shell_shape"):
         system.make_state(fibers=g, shell=object())
     cfg = Config(bodies=[Body(shape="deformable")])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="declared but not implemented"):
         tbuilder.build_bodies(cfg.bodies, str(tmp_path), torch.float64, "cpu")
     state = system.make_state(fibers=g)
     with pytest.warns(UserWarning, match="falls back to 'direct'"):
