@@ -294,6 +294,45 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                entries carry the checks under "at_ensemble_shapes" and the
                batched launches under "launches_ensemble_batched".
 
+16. options  — the step's solver and precision options, a-c run after 14
+               on phase 6's precompute and phase 3's cloud, d after 15:
+               a. phase 6's ellipsoid (its first state) one "full" and
+               one "mixed" step at gmres_block_s = 4 against the
+               block_s = 1 step (iterations, sweeps, true residual <=
+               1e-8, no stagnation or nonfinite bit, fibers within 1e-6),
+               then the same through `System.step_spmd` on 4 shards of
+               the card with the reductions counted at the sharded
+               solve's rdot seam (two batched Gram reductions a round; in
+               "full" the entry norm and two norms a cycle besides),
+               printed beside `collective_rounds`.
+               b. the guard ladder, every stage armed (two dt halvings,
+               the block fallback, the f64 fallback) in "mixed" at
+               gmres_block_s = 4 and gmres_maxiter 16: under
+               `chaos.zero_preconditioner` a stagnation verdict, 4
+               retries and dt / 4; under `chaos.poison_state` a nonfinite
+               verdict and no retry; unpatched, no retry and a's "mixed"
+               s-step bit for bit.
+               c. the "df" and "mxu" tiles (plain torch, as the JAX
+               package computes them outside Pallas): two_sum / two_prod
+               exact on 4M float32 pairs of the card; the float32 mxu
+               Stokeslet on the JAX package's own envelope cloud within
+               1e-2 of B (and A within 5e-5); the Stokeslet at phase 3's
+               cloud cut to 65,536 nodes and the stresslet at phase 6's
+               8,000 x 128,000: df (float64 in) within 1e-12 of B / D and
+               mxu in float64 within 1e-9 (norms), mxu in float32 printed,
+               each timed beside A / B or C / D, no kernel launched by
+               either tile.
+               d. phase 15's 8 members (on the next rung, the shell
+               preconditioner inverted in f64) on a member mesh of 2
+               shards of the card, 2 "full" rounds in "vmap" and in
+               "unroll" against the one-card rounds: equal iterations,
+               the one-card bits where the shards' launches took the
+               one-card round's plans (always in "unroll"), else within
+               1e-11 (a "vmap" shard's member-batched plans may split
+               the sources otherwise); each round's case and walls
+               printed beside the one-card round's.
+               It prints {"options": ...} before the kernels line.
+
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
 entries also carry their first design's time ("previous_ms"), the SASS
@@ -314,8 +353,11 @@ their `_v1` first design, and their plan; B's, D's, E's and F's, under
 C's, the same at one hop's shapes (phase 14's "mixed" Krylov flows).
 Every entry's "launches_by_path" holds its launches in each run counted,
 phase 13's sharded runs included ("spmd_ellipsoid", "spmd_ellipsoid_full",
-"spmd_body", "spmd_tree") and phase 14's, summed over its processes
-("spmd_processes_full", "spmd_processes_mixed").
+"spmd_body", "spmd_tree"), phase 14's, summed over its processes
+("spmd_processes_full", "spmd_processes_mixed"), and phase 16's
+("sstep_full", "sstep_mixed", "sstep_spmd_full", "sstep_spmd_mixed",
+"ladder_stagnation", "ladder_healthy", "member_mesh_vmap",
+"member_mesh_unroll").
 Every run is gated on the yardstick kernels launching 0 times. Then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
 card the script exits 2 before printing any result. Every file a phase
@@ -4122,7 +4164,7 @@ def phase_ensemble(torch, ck, device, work, args, card, entries):
     one "unroll" round of the two against them, bit for bit. Then A-D
     checked and timed at every batched shape the run launched
     (`batched_check`). Returns (the launch counts, {kernel name: [the
-    checks' fields]}, the summary)."""
+    checks' fields]}, the summary, phase 16d's inputs)."""
     import numpy as np
 
     from skellysim_tpu_torch.ensemble.cli import _members_from_sweep
@@ -4415,7 +4457,534 @@ def phase_ensemble(torch, ck, device, work, args, card, entries):
                "capacities": caps, "peak_bytes": peak,
                "solo_mixed": solo_report, "solo_full": full_report}
     shutil.rmtree(run_dir)
-    return counts, checks, summary
+    # phase 16d's members: the admitted states on the next rung, the "full"
+    # system of this phase's "full" round
+    mesh_inputs = {"system": full_sys, "states": grown, "rngs": rngs,
+                   "members": members}
+    return counts, checks, summary, mesh_inputs
+
+
+#: phase 16: the s-step block size and its gate against the block_s = 1
+#: step (the ring run's fiber gate); the guard ladder's iteration cap (each
+#: retry bounded: a stagnant s-step solve runs to its cap, 16 inner
+#: iterations a sweep, 8 sweeps, each attempt); the tiles' cut of phase 3's cloud and
+#: their gates against B / D (df: the double-float tile's ~1e-14 pairs;
+#: mxu: the JAX package's test gates, tests/test_kernels.py, 1e-2 of the
+#: norm in float32 (`test_mxu_f32_accuracy_envelope`) and 1e-9 in
+#: float64 (`test_stokeslet_mxu_impl_matches_exact`)); the member mesh's
+#: shards of the card and rounds, and its gate where the shards' plans
+#: differ from the one-card round's
+SSTEP_S = 4
+SSTEP_DX = 1e-6
+LADDER_MAXITER = 16
+TILE_CUT = 65536
+DF_GATE = 1e-12
+MXU_GATE = 1e-2
+MXU64_GATE = 1e-9
+MESH_SHARDS = 2
+MESH_ROUNDS = 2
+MESH_DX = 1e-11
+
+
+def counted_step(torch, ck, device, fn):
+    """(``fn()``'s result, host seconds to a synchronize, launch counts)
+    with every launch count set to 0 just before."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts(ck)
+
+
+def need_launched(ck, device, tag, counts, names):
+    """Fail unless every kernel in ``names`` launched and no yardstick
+    did (on the card; the CPU rehearsal counts nothing)."""
+    if any(counts[w.__name__] for w in ck.YARDSTICK_WRAPPERS):
+        raise SystemExit(f"{tag}: a yardstick kernel launched: {counts}")
+    if device.type == "cuda" and not all(counts[n] for n in names):
+        raise SystemExit(f"{tag}: a kernel of the path never launched: "
+                         f"{ {n: counts[n] for n in names} }")
+
+
+def fiber_dx(a, b):
+    return max(float((x.x - y.x).abs().max())
+               for x, y in zip(fiber_groups(a.fibers), fiber_groups(b.fibers)))
+
+
+def phase_sstep(torch, ck, device, system, state):
+    """Phase 16a: one "full" and one "mixed" step at ``gmres_block_s =
+    SSTEP_S`` from phase 6's first state against the ``block_s = 1`` step,
+    then both through `System.step_spmd` on `SPMD_SHARDS` shards of the
+    card, the reductions counted at the sharded solve's ``rdot`` seam.
+    Gated on each step converged with true residual <= 1e-8, no
+    stagnation or nonfinite bit (a breakdown bit riding a converged
+    restart is printed: the JAX package sets it the same way), fibers
+    within SSTEP_DX of the block_s = 1 step; on the reductions counted
+    at the seam being two batched Gram reductions a round and, in "full",
+    the entry norm and two norms a cycle besides (printed beside
+    `collective_rounds`). Returns (records, launch counts by run, the
+    "mixed" s-step result)."""
+    from skellysim_tpu_torch.guard import verdict
+    from skellysim_tpu_torch.parallel import (gather_state, make_mesh,
+                                              shard_state)
+    from skellysim_tpu_torch.parallel import spmd as spmd_mod
+    from skellysim_tpu_torch.solver.gmres import collective_rounds
+    from skellysim_tpu_torch.system import System
+
+    p = system.params
+    need = {"full": ["stokeslet_f64", "stresslet_f64"],
+            "mixed": ["stokeslet_f32", "stresslet_f32", "stokeslet_f64",
+                      "stresslet_f64"]}
+    recs, launches, keep = {}, {}, {}
+    mesh = make_mesh(SPMD_SHARDS, device=device)
+    sharded = shard_state(state, mesh)
+    for prec in ("full", "mixed"):
+        one = System(dataclasses.replace(p, solver_precision=prec),
+                     shell_shape=system.shell_shape, device=device)
+        four = System(dataclasses.replace(p, solver_precision=prec,
+                                          gmres_block_s=SSTEP_S),
+                      shell_shape=system.shell_shape, device=device)
+        (n1, _, i1), w1, _ = counted_step(torch, ck, device,
+                                          lambda: one.step(state))
+        (n4, _, i4), w4, c4 = counted_step(torch, ck, device,
+                                           lambda: four.step(state))
+        dx = fiber_dx(n4, n1)
+        rec = {"block_s": SSTEP_S, "wall_s": w4, "iters": i4.iters,
+               "refines": i4.refines, "cycles": i4.cycles,
+               "residual_true": i4.residual_true, "health": i4.health,
+               "max_dx": dx, "s1_wall_s": w1, "s1_iters": i1.iters,
+               "s1_refines": i1.refines,
+               "launches": {k: v for k, v in c4.items() if v}}
+        log(f"[sstep] \"{prec}\" step at gmres_block_s = {SSTEP_S}: {w4:.3f} "
+            f"s, {i4.iters} iterations / {i4.refines} sweeps / {i4.cycles} "
+            f"cycles, true residual {i4.residual_true:.3e}, health "
+            f"{i4.health:#x} ({verdict.describe(i4.health)}); block_s = 1: "
+            f"{w1:.3f} s, {i1.iters} / {i1.refines}, "
+            f"{i1.residual_true:.3e}; max |dx| {dx:.3e} (gate {SSTEP_DX}); "
+            f"launches {rec['launches']}")
+        if not (i4.converged and i4.residual_true <= 1e-8
+                and i4.health & ~verdict.BREAKDOWN == 0 and dx <= SSTEP_DX):
+            raise SystemExit(f"sstep: the {prec} s-step failed its gate: "
+                             f"{rec}")
+        need_launched(ck, device, f"sstep_{prec}", c4, need[prec])
+        launches[f"sstep_{prec}"] = c4
+        if prec == "mixed":
+            keep["mixed"] = (four, n4)
+
+        # the same on the shards of the card, the reductions counted
+        calls = []
+        make = spmd_mod._make_rdot
+
+        def counting(comm, nonrep_end, make=make):
+            rdot = make(comm, nonrep_end)
+
+            def counted(A, w):
+                calls.append(getattr(w, "parts", [w])[0].ndim)
+                return rdot(A, w)
+            return counted
+
+        spmd_mod._make_rdot = counting
+        try:
+            (ns, _, si), ws, cs = counted_step(
+                torch, ck, device, lambda: four.step_spmd(sharded, mesh))
+        finally:
+            spmd_mod._make_rdot = make
+        dxs = fiber_dx(gather_state(ns, shell_operators=False), n1)
+        formula = collective_rounds(si.iters, si.cycles, SSTEP_S,
+                                    restart=p.gmres_restart)
+        srec = {"wall_s": ws, "iters": si.iters, "refines": si.refines,
+                "residual_true": si.residual_true, "health": si.health,
+                "max_dx": dxs, "reductions": len(calls),
+                "gram_reductions": calls.count(2),
+                "collective_rounds": formula,
+                "launches": {k: v for k, v in cs.items() if v}}
+        rec["spmd"] = srec
+        log(f"[sstep] \"{prec}\" step_spmd on {mesh.size} shards at "
+            f"gmres_block_s = {SSTEP_S}: {ws:.3f} s, {si.iters} iterations / "
+            f"{si.refines} sweeps, true residual {si.residual_true:.3e}, "
+            f"health {si.health:#x}; reductions counted at the rdot seam "
+            f"{len(calls)} ({calls.count(2)} batched Gram reductions), "
+            f"collective_rounds {formula}"
+            + (" (+ the entry norm)" if prec == "full" else
+               " (the sweeps' norms besides)")
+            + f"; max |dx| against the block_s = 1 step {dxs:.3e}; "
+            f"launches {srec['launches']}")
+        if not (si.converged and si.residual_true <= 1e-8
+                and si.health & ~verdict.BREAKDOWN == 0 and dxs <= SPMD_DX):
+            raise SystemExit(f"sstep: the sharded {prec} s-step failed its "
+                             f"gate: {srec}")
+        # two batched Gram reductions a round; in "full" the entry norm and
+        # two norms a restart cycle besides (collective_rounds counts the
+        # rounds as ceil(iters / s), one short where a breakdown ends a
+        # cycle inside a round)
+        grams = calls.count(2)
+        if grams % 2 or (prec == "full"
+                         and len(calls) - grams != 1 + 2 * si.cycles):
+            raise SystemExit(f"sstep: {len(calls)} reductions counted, "
+                             f"{grams} of them Gram reductions, over "
+                             f"{si.cycles} cycles")
+        need_launched(ck, device, f"sstep_spmd_{prec}", cs,
+                      ["stokeslet_f64", "stresslet_f64"]
+                      + (["ring_stokeslet_f32", "ring_stresslet_f32"]
+                         if prec == "mixed" else []))
+        launches[f"sstep_spmd_{prec}"] = cs
+        recs[prec] = rec
+        del n1, n4, ns
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs, launches, keep
+
+
+def phase_ladder(torch, ck, device, system, state, healthy):
+    """Phase 16b: the guard ladder on phase 6's scene, every stage armed
+    (``guard_dt_halvings`` 2, the block fallback, the f64 fallback) in
+    "mixed" at ``gmres_block_s = SSTEP_S`` with ``gmres_maxiter`` capped
+    at LADDER_MAXITER: under `chaos.zero_preconditioner` a stagnation
+    verdict, 4 retries and dt / 4; under `chaos.poison_state` a nonfinite
+    verdict and no retry; unpatched, 0 retries and the unarmed s-step's
+    bits (16a's "mixed" step, ``healthy``)."""
+    from skellysim_tpu_torch.guard import chaos, verdict
+    from skellysim_tpu_torch.system import System
+
+    unarmed, ref = healthy
+    lp = dataclasses.replace(unarmed.params, guard_dt_halvings=2,
+                             guard_block_fallback=True,
+                             guard_f64_fallback=True)
+    capped = dataclasses.replace(lp, gmres_maxiter=LADDER_MAXITER)
+    out, launches = {}, {}
+    stuck = chaos.zero_preconditioner(System(
+        capped, shell_shape=system.shell_shape, device=device))
+    (_, _, info), wall, counts = counted_step(torch, ck, device,
+                                              lambda: stuck.step(state))
+    out["stagnation"] = {"wall_s": wall, "health": info.health,
+                         "retries": info.guard_retries,
+                         "dt_used": info.dt_used, "dt": state.dt,
+                         "iters": info.iters,
+                         "residual_true": info.residual_true}
+    log(f"[ladder] zero preconditioner, every stage armed, gmres_maxiter "
+        f"{LADDER_MAXITER}: {wall:.3f} s, verdict {verdict.describe(info.health)}"
+        f", {info.guard_retries} retries, dt_used {info.dt_used:.6g} of "
+        f"dt {state.dt:.6g}, last attempt {info.iters} iterations, true "
+        f"residual {info.residual_true:.3e}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if not (info.health & verdict.STAGNATION and info.guard_retries == 4
+            and info.dt_used == state.dt / 4):
+        raise SystemExit(f"ladder: the stagnant step did not climb the "
+                         f"ladder: {out['stagnation']}")
+    need_launched(ck, device, "ladder", counts,
+                  ["stokeslet_f32", "stresslet_f32", "stokeslet_f64",
+                   "stresslet_f64"])
+    launches["ladder_stagnation"] = counts
+    poisoned = System(capped, shell_shape=system.shell_shape, device=device)
+    (_, _, pinfo), pwall, _ = counted_step(
+        torch, ck, device, lambda: poisoned.step(chaos.poison_state(state)))
+    out["nonfinite"] = {"wall_s": pwall, "health": pinfo.health,
+                        "retries": pinfo.guard_retries}
+    log(f"[ladder] poisoned state: {pwall:.3f} s, verdict "
+        f"{verdict.describe(pinfo.health)}, {pinfo.guard_retries} retries")
+    if not (pinfo.health & verdict.NONFINITE and pinfo.guard_retries == 0):
+        raise SystemExit(f"ladder: the poisoned step: {out['nonfinite']}")
+    armed = System(lp, shell_shape=system.shell_shape, device=device)
+    (new, _, ainfo), awall, acounts = counted_step(
+        torch, ck, device, lambda: armed.step(state))
+    same = all(torch.equal(a.x, b.x) for a, b in zip(
+        fiber_groups(new.fibers), fiber_groups(ref.fibers)))
+    out["healthy"] = {"wall_s": awall, "health": ainfo.health,
+                      "retries": ainfo.guard_retries, "same_bits": same}
+    log(f"[ladder] armed healthy step: {awall:.3f} s, health "
+        f"{ainfo.health:#x}, {ainfo.guard_retries} retries, the unarmed "
+        f"s-step's bits: {same}")
+    if not (same and ainfo.guard_retries == 0):
+        raise SystemExit(f"ladder: the armed healthy step: {out['healthy']}")
+    launches["ladder_healthy"] = acounts
+    return out, launches
+
+
+def two_sum_check(torch, device):
+    """The error-free transforms on tensors of the card: hi + lo of
+    `two_sum` / `two_prod` of float32 pairs is the float64 sum / product
+    exactly (a fused multiply-add inside the chain would break it)."""
+    from skellysim_tpu_torch.ops import df_kernels as tdf
+
+    g = torch.Generator(device=device).manual_seed(9)
+    n = 1 << 22
+    a = torch.randn(n, generator=g, device=device)
+    b = torch.randn(n, generator=g, device=device) * torch.exp2(
+        torch.randint(-30, 30, (n,), generator=g, device=device).float())
+    s, e = tdf.two_sum(a, b)
+    p, q = tdf.two_prod(a, b)
+    ok_sum = bool(torch.equal(s.double() + e.double(),
+                              a.double() + b.double()))
+    ok_prod = bool(torch.equal(p.double() + q.double(),
+                               a.double() * b.double()))
+    log(f"[tiles] error-free transforms on {n} float32 pairs of the card: "
+        f"two_sum exact {ok_sum}, two_prod exact {ok_prod}")
+    if not (ok_sum and ok_prod):
+        raise SystemExit("tiles: an error-free transform is not exact on "
+                         "the card")
+    return {"pairs": n, "two_sum_exact": ok_sum, "two_prod_exact": ok_prod}
+
+
+def tile_check(torch, ck, device, family, src, trg, pay, card):
+    """The "df" and "mxu" tiles of ``family`` (plain torch) against the
+    f64-grade kernel (B / D) on the same inputs, timed beside it and
+    beside the f32 kernel (A / C). df on the float64 inputs, one call
+    timed with CUDA events (plain torch compiles nothing: the call checked
+    is the call timed); mxu on the float64 inputs, one call timed, and on
+    their float32 copies, timed like a kernel. Gated on df within DF_GATE
+    of the f64 kernel and mxu in float64 within MXU64_GATE (norms; the
+    df's largest error over max |u| printed: its (hi, lo) split holds a
+    coordinate to 2^-48, ~1e-12 of a neighbour 1/63 away), and on neither
+    tile launching a kernel. The float32
+    mxu error is printed and not gated here: these clouds hold pairs far
+    closer than their chunk's extent (1/63 apart in chunks ~10 across),
+    which the tile's mask drops (`mxu_envelope_check` gates it in its
+    regime)."""
+    from skellysim_tpu_torch.ops import df_kernels as tdf
+    from skellysim_tpu_torch.ops import kernels as tk
+
+    direct = getattr(tk, f"{family}_direct")
+    t64 = [torch.as_tensor(a, dtype=torch.float64, device=device)
+           for a in (src, trg, pay)]
+    if family == "stresslet":
+        t64[2] = t64[2].reshape(-1, 3, 3)
+    t32 = [a.float() for a in t64]
+    b_ms, ref, b_rounds = kernel_ms(torch, lambda: direct(*t64, 1.0), device)
+    a_ms, _, a_rounds = kernel_ms(torch, lambda: direct(*t32, 1.0), device)
+    dfn = getattr(tdf, f"{family}_direct_df")
+    reset_counts(ck)
+    df_ms, df = timed(torch, lambda: dfn(*t64, 1.0), device, 1)
+    mxu64_ms, mxu64 = timed(
+        torch, lambda: direct(*t64, 1.0, impl="mxu"), device, 1)
+    mxu_ms, mxu, mxu_rounds = kernel_ms(
+        torch, lambda: direct(*t32, 1.0, impl="mxu"), device)
+    tile_launches = sum(read_counts(ck).values())
+
+    def rel(u):
+        return float(torch.linalg.vector_norm(u.double() - ref)
+                     / torch.linalg.vector_norm(ref))
+
+    df_err = rel(df)
+    df_max = float((df - ref).abs().max() / ref.abs().max())
+    prec64, prec32 = (("B", "A") if family == "stokeslet" else ("D", "C"))
+    rec = {"family": family, "n_src": len(src), "n_trg": len(trg),
+           "df_ms": df_ms, "df_err": df_err, "df_max_err": df_max,
+           "mxu64_ms": mxu64_ms,
+           "mxu64_err": rel(mxu64), "mxu_ms": mxu_ms, "mxu_err": rel(mxu),
+           f"{prec64}_ms": b_ms, f"{prec32}_ms": a_ms,
+           "tile_launches": tile_launches}
+    log(f"[tiles] {family} {len(src)} x {len(trg)}: df {df_ms:.1f} ms "
+        f"(float64 in, one call), error against {prec64} {df_err:.3e} of "
+        f"the norm (gate {DF_GATE}; max error over max |u| {df_max:.3e}); "
+        f"mxu float64 {mxu64_ms:.1f} ms (one "
+        f"call), error {rec['mxu64_err']:.3e} of the norm (gate "
+        f"{MXU64_GATE}); mxu float32 {mxu_ms:.3f} ms "
+        f"({rounds_note(mxu_rounds)}), error {rec['mxu_err']:.3e} of the "
+        f"norm (not gated: pairs closer than the mask's floor drop); "
+        f"{prec64} {b_ms:.3f} ms ({rounds_note(b_rounds)}), {prec32} "
+        f"{a_ms:.3f} ms ({rounds_note(a_rounds)}); kernels the tiles "
+        f"launched {tile_launches}; this card: {card}; {card_state(device)}")
+    if not (df_err <= DF_GATE and rec["mxu64_err"] <= MXU64_GATE
+            and tile_launches == 0):
+        raise SystemExit(f"tiles: the {family} tiles failed their gates: "
+                         f"{rec}")
+    return rec
+
+
+def morton_order(x):
+    """The fibers' order by the Morton code of their centroids
+    (``x`` [nf, n, 3]): the JAX package's `sort_fibers_morton`, which
+    keeps a chunk of consecutive fibers compact in space."""
+    import numpy as np
+
+    cent = x.mean(axis=1)
+    lo = cent.min(axis=0)
+    span = np.maximum(cent.max(axis=0) - lo, np.finfo(np.float64).tiny)
+    q = np.clip((cent - lo) / span * 1023.0, 0, 1023).astype(np.uint64)
+
+    def spread(v):
+        v = (v | (v << np.uint64(16))) & np.uint64(0x030000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x0300F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x030C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x09249249)
+        return v
+
+    code = (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
+            | (spread(q[:, 2]) << np.uint64(2)))
+    return np.argsort(code, kind="stable")
+
+
+def mxu_envelope_check(torch, device):
+    """The float32 mxu Stokeslet in its regime, on the JAX package's own
+    gate (tests/test_kernels.py `test_mxu_f32_accuracy_envelope`): 256
+    straight 16-node fibers of unit length in a box of side 20, in Morton
+    order, source chunks of 512 each recentered on its first point;
+    within MXU_GATE of the float64 sum (kernel B) in norm, and kernel A
+    within 5e-5."""
+    import numpy as np
+
+    from skellysim_tpu_torch.ops import kernels as tk
+
+    rng = np.random.default_rng(9)
+    nf, n = 256, 16
+    origins = rng.uniform(-10, 10, (nf, 3))
+    dirs = rng.normal(size=(nf, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    t = np.linspace(0, 1, n)
+    x = origins[:, None, :] + t[None, :, None] * dirs[:, None, :]
+    x = x[morton_order(x)]
+    r64 = torch.as_tensor(x.reshape(-1, 3), device=device)
+    f64_ = torch.as_tensor(rng.standard_normal((nf * n, 3)), device=device)
+    ref = tk.stokeslet_direct(r64, r64, f64_, 1.0)
+    r32, f32_ = r64.float(), f64_.float()
+    exact = tk.stokeslet_direct(r32, r32, f32_, 1.0)
+    mxu = tk.mxu_sum("stokeslet", r32, r32, f32_, centered_chunk=512) / (
+        8.0 * math.pi)
+    nrm = torch.linalg.vector_norm(ref)
+    err_a = float(torch.linalg.vector_norm(exact.double() - ref) / nrm)
+    err = float(torch.linalg.vector_norm(mxu.double() - ref) / nrm)
+    log(f"[tiles] mxu float32 in its regime (the JAX package's envelope "
+        f"cloud: 256 Morton-ordered 16-node fibers, chunks of 512): error "
+        f"against B {err:.3e} of the norm (gate {MXU_GATE}), A's "
+        f"{err_a:.3e} (gate 5e-5)")
+    if not (err <= MXU_GATE and err_a <= 5e-5):
+        raise SystemExit(f"tiles: the float32 mxu envelope: {err}, A {err_a}")
+    return {"mxu_err": err, "a_err": err_a}
+
+
+def phase_options(torch, ck, device, ring_inputs, nodes, f, card):
+    """Phase 16 a-c, on phase 6's precompute and phase 3's cloud: the
+    s-step solve (`phase_sstep`), the guard ladder (`phase_ladder`), and
+    the "df" / "mxu" tiles (`tile_check`, with `two_sum_check`). Returns
+    (its summary, launch counts by run)."""
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import schema
+
+    cfg_path = ring_inputs["cfg_path"]
+    config = schema.load_config(cfg_path)
+    t0 = time.perf_counter()
+    system, state, _ = build_simulation(
+        config, config_dir=os.path.dirname(cfg_path), device=device)
+    log(f"[sstep] phase 6's ellipsoid config built in "
+        f"{time.perf_counter() - t0:.1f} s (the shell npz load included)")
+    out = {}
+    out["sstep"], launches, keep = phase_sstep(torch, ck, device, system,
+                                               state)
+    out["ladder"], more = phase_ladder(torch, ck, device, system, state,
+                                       keep["mixed"])
+    launches.update(more)
+    del keep, state, system
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    stamp("phase 16a-b")
+    out["transforms"] = two_sum_check(torch, device)
+    out["mxu_envelope"] = mxu_envelope_check(torch, device)
+    n = min(TILE_CUT, len(nodes))
+    out["tiles"] = [
+        tile_check(torch, ck, device, "stokeslet", nodes[:n], nodes[:n],
+                   f[:n], card),
+        tile_check(torch, ck, device, "stresslet",
+                   ring_inputs["shell_nodes"], ring_inputs["fiber_nodes"],
+                   ring_inputs["f_dl"], card)]
+    return out, launches
+
+
+def recorded_plans(ck, fn):
+    """(``fn()``'s result, the set of A-D launch plans it took: (family,
+    prec, n_trg, n_src, chunks, chunk_len) a plan, which fix each member's
+    summation order), read by wrapping `ck.pair_card_plan` for the call."""
+    seen, orig = set(), ck.pair_card_plan
+
+    def plan(family, device, prec, n_trg, n_src, members=1, chunks=None):
+        got = orig(family, device, prec, n_trg, n_src, members, chunks)
+        seen.add((family, prec, n_trg, n_src, got.chunks, got.chunk_len))
+        return got
+
+    ck.pair_card_plan = plan
+    try:
+        return fn(), seen
+    finally:
+        ck.pair_card_plan = orig
+
+
+def phase_member_mesh(torch, ck, device, mesh_inputs):
+    """Phase 16d, after 15: its 8 members (admitted, on the next capacity
+    rung, the shell preconditioner inverted in f64) on
+    `make_member_mesh(MESH_SHARDS, device=...)` (the shards on the one
+    card, stepped one after the other), MESH_ROUNDS rounds in the "full"
+    "vmap" plan and in "unroll", each round against the one-card round
+    from the same states. Gated on equal iterations a member, and the
+    one-card bits where the shards' launches took the one-card round's
+    plans (`recorded_plans`: every "unroll" lane launches alone; a "vmap"
+    shard's member-batched plans may split the sources otherwise), else
+    fibers within MESH_DX; on the kernels of the plan launching. Prints
+    which case each round is in, and the round walls beside the one-card
+    round's. Returns (summary, launch counts by run)."""
+    from skellysim_tpu_torch.ensemble.runner import EnsembleRunner
+    from skellysim_tpu_torch.parallel import (gather_ensemble,
+                                              make_member_mesh,
+                                              shard_ensemble)
+
+    full_sys, grown, rngs, members = (mesh_inputs[k] for k in
+                                      ("system", "states", "rngs",
+                                       "members"))
+    mesh = make_member_mesh(MESH_SHARDS, device=device)
+    out, launches = {}, {}
+    need = {"vmap": ["stokeslet_f64_batched", "stresslet_f64_batched"],
+            "unroll": ["stokeslet_f64", "stresslet_f64"]}
+    for impl in ("vmap", "unroll"):
+        runner = EnsembleRunner(full_sys, batch_impl=impl)
+        ens = runner.make_ensemble([grown[m] for m in members],
+                                   [full_sys.params.t_final] * len(members),
+                                   rngs=[rngs[m] for m in members])
+        one, sh = ens, shard_ensemble(ens, mesh)
+        rows, total = [], {}
+        for r in range(MESH_ROUNDS):
+            ((one, oinfo), oplans), owall, _ = counted_step(
+                torch, ck, device,
+                lambda: recorded_plans(ck, lambda: runner.step(one)))
+            ((sh, sinfo), splans), swall, counts = counted_step(
+                torch, ck, device,
+                lambda: recorded_plans(ck, lambda: runner.step(sh)))
+            add_counts(total, counts)
+            got = gather_ensemble(sh)
+            # the plain versions on the CPU rehearsal take no plan
+            same_plans = device.type == "cuda" and splans == oplans
+            same = torch.equal(got.states.fibers.x, one.states.fibers.x)
+            dx = float((got.states.fibers.x - one.states.fibers.x
+                        ).abs().max())
+            iters_same = bool((sinfo.iters == oinfo.iters).all())
+            rows.append({"round": r, "wall_s": swall, "one_card_wall_s": owall,
+                         "iters": sinfo.iters.tolist(),
+                         "one_card_iters": oinfo.iters.tolist(),
+                         "same_plans": same_plans,
+                         "plans": sorted(splans),
+                         "one_card_plans": sorted(oplans),
+                         "same_bits": same, "max_dx": dx})
+            case = ("the one-card plans: gate the one-card bits" if same_plans
+                    else f"plans differ (shards {sorted(splans - oplans)}, "
+                         f"one card {sorted(oplans - splans)}): gate "
+                         f"{MESH_DX}")
+            log(f"[member_mesh] \"{impl}\" round {r} on {mesh.size} member "
+                f"shards of {mesh.devices[0]}: {swall:.3f} s (one card "
+                f"{owall:.3f} s); iterations {sinfo.iters.tolist()} (one "
+                f"card {oinfo.iters.tolist()}); {case}; the one-card bits: "
+                f"{same}, max |dx| {dx:.3e}")
+            if not (iters_same and (same if same_plans else dx <= MESH_DX)
+                    and bool(sinfo.accepted.all())):
+                raise SystemExit(f"member_mesh: {impl} round {r} differs "
+                                 f"from the one-card round: {rows[-1]}")
+            if impl == "unroll" and not (same and (
+                    same_plans or device.type != "cuda")):
+                raise SystemExit("member_mesh: an \"unroll\" lane is not the "
+                                 "one-card lane, plan and bits")
+        need_launched(ck, device, f"member_mesh_{impl}", total, need[impl])
+        launches[f"member_mesh_{impl}"] = total
+        out[impl] = rows
+    return out, launches
 
 
 def main(argv=None) -> int:
@@ -4455,7 +5024,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
-        entries, launches, smi, fast, tree, spmd, ens = run_phases(
+        entries, launches, smi, fast, tree, spmd, ens, options = run_phases(
             torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4472,6 +5041,7 @@ def main(argv=None) -> int:
     print(json.dumps({"treecode": tree}), flush=True)
     print(json.dumps({"spmd": spmd}), flush=True)
     print(json.dumps({"ensemble": ens}), flush=True)
+    print(json.dumps({"options": options}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4481,10 +5051,10 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-15 (10-14 run after 8, on phase 6's precompute, then 9,
-    then 15); returns (kernel entries, launch counts by path, the
-    nvidia-smi line, phase 11's summary, phase 12's, phase 13's with phase
-    14's, phase 15's)."""
+    """Phases 1-16 (10-14 and 16a-c run after 8, on phase 6's precompute,
+    then 9, then 15 and 16d); returns (kernel entries, launch counts by
+    path, the nvidia-smi line, phase 11's summary, phase 12's, phase 13's
+    with phase 14's, phase 15's, phase 16's)."""
     import numpy as np
 
     # 1. device
@@ -4656,10 +5226,20 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     spmd["processes"], p14_launches = phase_spmd_processes(
         torch, ck, device, ring_inputs, spmd_refs, work, smi)
     launches.update(p14_launches)
-    del ring_inputs, nodes, f
-    shutil.rmtree(os.path.join(work, "ellipsoid"))
 
     stamp("phase 14")
+
+    # 16 a-c. the step's options: s-step GMRES, the guard ladder, the
+    # "df" / "mxu" tiles, on phase 6's precompute and phase 3's cloud
+    options, opt_launches = phase_options(torch, ck, device, ring_inputs,
+                                          nodes, f, smi)
+    launches.update(opt_launches)
+    del ring_inputs, nodes, f
+    shutil.rmtree(os.path.join(work, "ellipsoid"))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 16a-c")
 
     # 9. the body scene at its published size
     launches["body_const_force"], _, at_body = phase_bodies(
@@ -4671,7 +5251,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     stamp("phase 9")
 
     # 15. the batched ensemble through its front door
-    launches["ensemble"], at_ens, ens = phase_ensemble(
+    launches["ensemble"], at_ens, ens, mesh_inputs = phase_ensemble(
         torch, ck, device, work, args, smi, entries)
     for e in entries:
         if e["name"] in at_ens:
@@ -4680,6 +5260,14 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                 e["name"] + "_batched"]
 
     stamp("phase 15")
+
+    # 16d. phase 15's members on a member mesh of the card
+    options["member_mesh"], mesh_launches = phase_member_mesh(
+        torch, ck, device, mesh_inputs)
+    launches.update(mesh_launches)
+    del mesh_inputs
+
+    stamp("phase 16d")
 
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
@@ -4693,7 +5281,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                "tree_stresslet_f64": "tree_ellipsoid_full"}
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
-    return entries, launches, smi, fast, tree, spmd, ens
+    return entries, launches, smi, fast, tree, spmd, ens, options
 
 
 if __name__ == "__main__":

@@ -18,7 +18,8 @@ B members at once.
   kernels A-D over the member axis on the card), its targets and sources
   the member's own. A spectral plan sums member by member through it.
 * The solve is `solver.gmres_batched` / `gmres_ir_batched`: each member its
-  own Krylov state, one host read an Arnoldi step for all members.
+  own Krylov state, one host read an Arnoldi step (or, with
+  ``gmres_block_s > 1``, a Gram pass of an s-step round) for all members.
 
 The stacked state (`ensemble.runner.stack_states`) keeps the member axis
 leading on every tensor; ``time`` and ``dt`` are float64 numpy arrays [B].
@@ -459,9 +460,11 @@ class BatchedTrial:
 
     # --------------------------------------------------------------- trial
 
-    def __call__(self, st, pair=None):
+    def __call__(self, st, pair=None, block_s=None, force_full=False):
         """(new stacked state, solutions [B, n], [StepInfo] a member) of
-        one trial of every member at its own dt."""
+        one trial of every member at its own dt. ``block_s`` /
+        ``force_full``: the guard ladder's overrides, as in
+        `System._solve_once`."""
         from .runner import lane_state
 
         p = self.params
@@ -484,7 +487,9 @@ class BatchedTrial:
         time_b = [per_row(st.time, g.n_bodies // B) for g in bod]
         fib, caches, bcaches, rhs = self._prep(st, fib, bod, dt_f, time_f,
                                                time_b, pair)
-        precision = sys_._precision_for(self._lane0)
+        bs = p.gmres_block_s if block_s is None else block_s
+        precision = ("full" if force_full
+                     else sys_._precision_for(self._lane0))
         if precision == "mixed":
             lo = self._lo_view(st, fib, caches, bod, bcaches)
             hi_impl = (sys_._refine_impl if dtype == torch.float64
@@ -500,7 +505,8 @@ class BatchedTrial:
                     st, lo[0], lo[1], lo[2], lo[3], lo[4], v, pair=pair),
                 tol=p.gmres_tol, inner_tol=p.inner_tol,
                 restart=p.gmres_restart, maxiter=p.gmres_maxiter,
-                max_refine=p.max_refine, history=p.gmres_history)
+                max_refine=p.max_refine, history=p.gmres_history,
+                block_s=bs)
         else:
             result = gmres_batched(
                 lambda v: self._matvec(st, fib, caches, bod, bcaches, v,
@@ -509,7 +515,8 @@ class BatchedTrial:
                 precond=lambda v: self._precond(st, fib, caches, st.shell,
                                                 bod, bcaches, v, pair=pair),
                 tol=p.gmres_tol, restart=p.gmres_restart,
-                maxiter=p.gmres_maxiter, history=p.gmres_history)
+                maxiter=p.gmres_maxiter, history=p.gmres_history,
+                block_s=bs)
         new = self._advance(st, fib, bod, result.x, dt_b)
         return new, result.x, self._infos(st, new, result)
 

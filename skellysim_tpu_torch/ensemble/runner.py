@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..guard import escalate
 from ..guard import verdict as _verdict
 from ..system.system import SimState, System, _in_dtype
 
@@ -177,6 +178,56 @@ def set_lane(bstates: SimState, lane: int, state: SimState) -> SimState:
     return comps._replace(time=time, dt=dt)
 
 
+def slice_lanes(ens: "EnsembleState", lo: int, hi: int, device=None):
+    """Lanes ``lo:hi`` of an `EnsembleState` (its tensors on ``device``,
+    default: where they lie)."""
+    st = ens.states
+    comps = _map(lambda leaf: leaf[lo:hi].to(device or leaf.device),
+                 _components(st))
+    return EnsembleState(
+        states=comps._replace(time=st.time[lo:hi].copy(),
+                              dt=st.dt[lo:hi].copy()),
+        t_final=ens.t_final[lo:hi].copy(),
+        di_rng=None if ens.di_rng is None else ens.di_rng[lo:hi].copy())
+
+
+def _device_of(bstates: SimState):
+    """The device of a stacked state's tensors."""
+    return _leaves(_components(bstates))[1][0].device
+
+
+def concat_lanes(parts, device=None) -> "EnsembleState":
+    """The `EnsembleState` of ``parts``' lanes in order, on ``device``
+    (default: the first part's)."""
+    dev = device or _device_of(parts[0].states)
+    comps = _map(lambda *ls: torch.cat([leaf.to(dev) for leaf in ls]),
+                 *[_components(p.states) for p in parts])
+    return EnsembleState(
+        states=comps._replace(
+            time=np.concatenate([p.states.time for p in parts]),
+            dt=np.concatenate([p.states.dt for p in parts])),
+        t_final=np.concatenate([p.t_final for p in parts]),
+        di_rng=(None if parts[0].di_rng is None
+                else np.concatenate([p.di_rng for p in parts])))
+
+
+def _concat_infos(infos, device) -> "EnsembleStepInfo":
+    """One `EnsembleStepInfo` of the shards' infos, lanes in order."""
+    fields = {}
+    for f in EnsembleStepInfo._fields:
+        vals = [getattr(i, f) for i in infos]
+        if f == "di_s":
+            fields[f] = sum(vals)
+        elif f == "solutions":
+            fields[f] = torch.cat([v.to(device) for v in vals])
+        elif f == "history":
+            fields[f] = (None if vals[0] is None
+                         else [row for v in vals for row in v])
+        else:
+            fields[f] = np.concatenate(vals)
+    return EnsembleStepInfo(**fields)
+
+
 def rng_carry(rng) -> np.ndarray:
     """A member `SimRNG` -> its ``distributed`` stream carry (seed, stream
     id, counter); None -> an inert zero stream (idle lanes)."""
@@ -209,13 +260,16 @@ class EnsembleRunner:
         if p.pair_evaluator == "ring" and system.mesh is not None:
             raise ValueError(
                 "ensemble batching does not support the ring pair evaluator "
-                "(members are the batch axis; a mesh of members is not "
-                "ported yet)")
+                "(a ring inside the member batch axis); shard the MEMBER "
+                "axis instead (parallel.shard_ensemble): batch parallelism "
+                "is the outer axis for small-N members")
         self.system = system
         self.batch_impl = batch_impl
         self.di_enabled = p.dynamic_instability.n_nodes > 0
         self._di_sample_fn = di_sample_fn
         self._pair = None
+        #: the runner of each other device a member mesh's shards lie on
+        self._on_device = {}
         if batch_impl == "vmap":
             from .batched import BatchedTrial
 
@@ -257,14 +311,28 @@ class EnsembleRunner:
 
     # ------------------------------------------------------------ the round
 
+    def _lane_alone(self, trial, **overrides):
+        """One lane's batched trial on its own (the guard ladder's
+        re-solve in the "vmap" plan)."""
+        new_b, sols, infos = self._batched(stack_states([trial]),
+                                           pair=self._pair, **overrides)
+        return lane_state(new_b, 0), sols[0], infos[0]
+
     def _trial(self, lanes: list, pre: list):
         """(new state, solution, StepInfo, collided) of each lane in
-        ``lanes`` from its state ``pre[lane]``."""
+        ``lanes`` from its state ``pre[lane]``. With the guard ladder armed
+        a lane that needs a retry re-solves alone (`guard.escalate`); its
+        siblings are not re-solved and keep their bits."""
         sys_ = self.system
         if self.batch_impl == "vmap":
             new_b, sols, infos = self._batched(
                 stack_states([pre[i] for i in lanes]), pair=self._pair)
             news = [lane_state(new_b, j) for j in range(len(lanes))]
+            if escalate.armed(sys_.params):
+                for j, i in enumerate(lanes):
+                    news[j], sols[j], infos[j] = escalate.escalate(
+                        sys_, pre[i], (news[j], sols[j], infos[j]),
+                        resolve=self._lane_alone)
         else:
             outs = [sys_.trial_step(pre[i], pair=self._pair) for i in lanes]
             news = [o[0] for o in outs]
@@ -275,8 +343,46 @@ class EnsembleRunner:
                     for new, info in zip(news, infos)]
         return news, sols, infos, collided
 
+    def _runner_on(self, device):
+        """This runner on ``device``: itself, or a copy whose system is
+        the same configuration on that device (a member mesh's shard)."""
+        if device == self.system.device:
+            return self
+        run = self._on_device.get(device)
+        if run is None:
+            sys_ = self.system
+            twin = System(sys_.params, sys_.shell_shape, device=device)
+            twin.grid_ladder = sys_.grid_ladder
+            run = EnsembleRunner(twin, self.batch_impl, self._di_sample_fn)
+            self._on_device[device] = run
+        return run
+
+    def _step_sharded(self, ens):
+        """A round of a `parallel.ShardedEnsemble`: each local shard's
+        lanes as one batched trial on its device, one shard after the
+        other (no collectives); the info covers the local lanes in
+        order."""
+        from ..parallel.mesh import ShardedEnsemble
+
+        parts, infos = [], []
+        for part in ens.parts:
+            run = self._runner_on(_device_of(part.states))
+            if (self.system.params.pair_evaluator == "spectral"
+                    and run._pair is None):
+                run._pair = run.system._pair_args(lane_state(part.states,
+                                                             0))
+            new, info = run.step(part)
+            parts.append(new)
+            infos.append(info)
+        return (ShardedEnsemble(tuple(parts), ens.mesh),
+                _concat_infos(infos, _device_of(parts[0].states)))
+
     def step(self, ens: EnsembleState):
-        """(EnsembleState, EnsembleStepInfo) after one round."""
+        """(EnsembleState, EnsembleStepInfo) after one round. A
+        `parallel.ShardedEnsemble` (`parallel.shard_ensemble`) steps shard
+        by shard and stays sharded."""
+        if not isinstance(ens, EnsembleState):
+            return self._step_sharded(ens)
         p = self.system.params
         states = ens.states
         B = n_lanes(states)
@@ -310,7 +416,8 @@ class EnsembleRunner:
                    collided=np.zeros(B, bool), dt_underflow=np.zeros(B, bool),
                    dt_used=states.dt.copy(), cycles=np.zeros(B, np.int64),
                    health=np.zeros(B, np.int64), failed=np.zeros(B, bool),
-                   accepted=np.zeros(B, bool))
+                   accepted=np.zeros(B, bool),
+                   guard_retries=np.zeros(B, np.int64))
         history = [[] for _ in range(B)] if p.gmres_history > 0 else None
         new_lanes = list(base)
         time_out, dt_out = states.time.copy(), states.dt.copy()
@@ -358,7 +465,8 @@ class EnsembleRunner:
                              ("collided", coll), ("dt_underflow", underflow),
                              ("dt_used", dt64), ("cycles", info.cycles),
                              ("health", health), ("failed", failed),
-                             ("accepted", advance)):
+                             ("accepted", advance),
+                             ("guard_retries", info.guard_retries)):
                     out[k][i] = v
                 if history is not None:
                     history[i] = info.history or []
@@ -396,7 +504,7 @@ class EnsembleRunner:
             dt_used=out["dt_used"], t=merged.time.copy(),
             dt_next=merged.dt.copy(), solutions=solutions,
             cycles=out["cycles"], history=history, health=out["health"],
-            failed=out["failed"], guard_retries=zeros_i,
+            failed=out["failed"], guard_retries=out["guard_retries"],
             nucleations=nucleations, catastrophes=catastrophes,
             active_fibers=active, needs_growth=running & growth, di_s=di_s)
         return EnsembleState(states=merged, t_final=ens.t_final,

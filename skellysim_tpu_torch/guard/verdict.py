@@ -11,14 +11,16 @@ import math
 
 NONFINITE = 1 << 0
 STAGNATION = 1 << 1
+#: the s-step cycle's Cholesky-ridge column recovery ended a cycle early
+BREAKDOWN = 1 << 2
 #: the ensemble's adaptive dt fell below dt_min (the lane froze)
 DT_UNDERFLOW = 1 << 3
 
-#: name -> bit, in bit order (the decode table); the breakdown bit
-#: arrives with the guard ladder (ROADMAP.md §1 item 13)
+#: name -> bit, in bit order (the decode table)
 HEALTH_BITS = {
     "nonfinite": NONFINITE,
     "stagnation": STAGNATION,
+    "breakdown": BREAKDOWN,
     "dt_underflow": DT_UNDERFLOW,
 }
 
@@ -47,3 +49,11 @@ def is_terminal(word) -> bool:
     """True where the word carries a verdict no retry can repair
     (nonfinite, dt_underflow)."""
     return (int(word) & TERMINAL_MASK) != 0
+
+
+def retryable(word) -> bool:
+    """True where the word is bad but not terminal (stagnation,
+    breakdown): the escalation ladder's retry predicate
+    (`guard.escalate`)."""
+    w = int(word)
+    return w != 0 and (w & TERMINAL_MASK) == 0

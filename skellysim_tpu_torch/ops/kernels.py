@@ -10,9 +10,13 @@ the dense shell/body operator builders (`stresslet_times_normal_blocked`,
 Arrays are row-major ``[n, 3]`` like the JAX package; conventions are
 documented there.
 
-On the card every Stokeslet and stresslet sum runs on a hand-written kernel
-(`ops.cuda_kernels`): float32 operands on kernels A / C, float64 operands
-(and the f64-grade "pallas_df" tier) on kernels B / D. The plain blocked
+On the card every Stokeslet and stresslet sum of the "exact", "pallas" and
+"pallas_df" tiers runs on a hand-written kernel (`ops.cuda_kernels`):
+float32 operands on kernels A / C, float64 operands (and the f64-grade
+"pallas_df" tier) on kernels B / D. The JAX package's plain-XLA tiles,
+"df" (double-float, `ops.df_kernels`) and "mxu" (matmul form,
+`stokeslet_block_mxu` / `stresslet_block_mxu`), are plain torch here
+too. The plain blocked
 forms here are what those kernels are held against, and what runs for CPU
 tensors. The operator builders stay plain tensor code on every device, as
 in the JAX package (which builds them outside any Pallas kernel).
@@ -85,6 +89,89 @@ def stresslet_block(trg, src, S):
     return torch.einsum("ts,tsk->tk", -3.0 * dSd * rinv5, d)
 
 
+def _mxu_frame(trg, src, center):
+    """The matmul-form tiles' shared start: targets and sources recentered
+    on ``center`` (default: the source block's first point, not its mean:
+    the ring pads sources at 1e7), and 1/r from r2 = |t'|^2 + |s'|^2 -
+    2 t'.s', pairs with r2 <= 16 eps (|t'|^2 + |s'|^2) dropped as
+    coincident."""
+    center = src[0] if center is None else center
+    trg = trg - center
+    src = src - center
+    eps = torch.finfo(trg.dtype).eps
+    t2 = torch.sum(trg * trg, dim=1)
+    s2 = torch.sum(src * src, dim=1)
+    scale = t2[:, None] + s2[None, :]
+    r2 = torch.clamp_min(scale - 2.0 * (trg @ src.T), 0.0)
+    mask = r2 > 16.0 * eps * scale
+    return trg, src, torch.where(
+        mask, torch.rsqrt(torch.where(mask, r2, 1.0)), 0.0)
+
+
+def stokeslet_block_mxu(trg, src, f_src, center=None):
+    """`stokeslet_block` in matmul form (`skellysim_tpu.ops.kernels
+    .stokeslet_block_mxu`): d.f = t.f - s.f and u = rinv @ f + t rowsum(c)
+    - c @ s with c = (d.f) / r^3, so the O(t s) contractions are matrix
+    products (`torch.matmul`, as the JAX package computes them; TF32
+    stays off, `skellysim_tpu_torch`), recentered as `_mxu_frame` says."""
+    trg, src, rinv = _mxu_frame(trg, src, center)
+    rinv3 = rinv * rinv * rinv
+    df = trg @ f_src.T - torch.sum(src * f_src, dim=1)[None, :]
+    c = df * rinv3
+    return rinv @ f_src + trg * torch.sum(c, dim=1, keepdim=True) - c @ src
+
+
+def stresslet_block_mxu(trg, src, S, center=None):
+    """`stresslet_block` in matmul form (`skellysim_tpu.ops.kernels
+    .stresslet_block_mxu`): d.S.d = T9 @ S9^T - t @ (S s + S^T s)^T +
+    s.S.s and u = t rowsum(c) - c @ s with c = -3 (d.S.d) / r^5;
+    recentered as `_mxu_frame` says."""
+    trg, src, rinv = _mxu_frame(trg, src, center)
+    rinv5 = (rinv * rinv) ** 2 * rinv
+    T9 = (trg[:, :, None] * trg[:, None, :]).reshape(trg.shape[0], 9)
+    S9 = S.reshape(S.shape[0], 9)
+    Ss = torch.einsum("sij,sj->si", S, src)
+    STs = torch.einsum("sij,si->sj", S, src)
+    sSs = torch.einsum("si,si->s", src, Ss)
+    dSd = T9 @ S9.T - trg @ (Ss + STs).T + sSs[None, :]
+    c = -3.0 * dSd * rinv5
+    return trg * torch.sum(c, dim=1, keepdim=True) - c @ src
+
+
+#: the JAX package's source chunking of its dense sums: sources beyond
+#: 32,768 are summed in chunks of 8,192 (`_SRC_CHUNK_THRESHOLD`,
+#: `_DEFAULT_SRC_BLOCK`). The matmul-form tiles recenter on each chunk's
+#: first point, so the port chunks its sources the same way.
+_MXU_CHUNK_THRESHOLD = 32768
+_MXU_SOURCE_BLOCK = 8192
+
+_MXU_BLOCKS = {"stokeslet": stokeslet_block_mxu,
+               "stresslet": stresslet_block_mxu}
+
+
+def mxu_sum(family: str, r_src, r_trg, payload, *, centered_chunk=None):
+    """The unscaled matmul-form sum of ``family`` over source chunks that
+    each recenter on their first point: the JAX package's chunks
+    (`_MXU_CHUNK_THRESHOLD`) by default, or ``centered_chunk`` sources a
+    chunk (the ring's one centre a shard block: ``n_src``). Each chunk is
+    summed in sub-tiles of at most ``_PAIR_BUDGET`` pairs that keep its
+    centre."""
+    block = _MXU_BLOCKS[family]
+    n_trg, n_src = r_trg.shape[0], r_src.shape[0]
+    out = torch.zeros((n_trg, 3), dtype=r_trg.dtype, device=r_trg.device)
+    if n_trg == 0 or n_src == 0:
+        return out
+    chunk = centered_chunk or (_MXU_SOURCE_BLOCK
+                               if n_src > _MXU_CHUNK_THRESHOLD else n_src)
+    for c0 in range(0, n_src, chunk):
+        src, pay = r_src[c0:c0 + chunk], payload[c0:c0 + chunk]
+        center = src[0]
+        out += _pair_sum(lambda t, s, p: block(t, s, p, center), r_trg,
+                         (src, pay), source_block=min(src.shape[0],
+                                                      _MXU_SOURCE_BLOCK))
+    return out
+
+
 def pallas_impl_for(impl: str, *arrays) -> str:
     """Resolve ``impl="pallas"`` against the f32 tier's dtype contract: any
     float64 operand downgrades it to "exact", as in the JAX package (where
@@ -109,10 +196,19 @@ def _direct(family: str, r_src, r_trg, payload, eta, impl: str):
     f64 = getattr(cuda_kernels, f"{family}_f64{suffix}")
     if impl == "pallas_df":
         return f64(r_src, r_trg, payload, eta).to(r_trg.dtype)
-    if impl in ("df", "mxu"):
-        raise NotImplementedError(
-            f"kernel impl {impl!r} is not ported yet (ROADMAP.md §1 item 9, "
-            "mixed precision); use 'exact', 'pallas' or 'pallas_df'")
+    if impl == "df":
+        # double-float f32 arithmetic in plain torch (`ops.df_kernels`),
+        # not kernel B; cast back like every tier
+        from . import df_kernels
+
+        fn = getattr(df_kernels, f"{family}_direct_df")
+        return fn(r_src, r_trg, payload, eta).to(r_trg.dtype)
+    if impl == "mxu":
+        if r_trg.ndim == 3:
+            return torch.stack([_direct(family, s, t, p, eta, impl)
+                                for s, t, p in zip(r_src, r_trg, payload)])
+        return mxu_sum(family, r_src, r_trg, payload) / (8.0 * math.pi
+                                                         * eta)
     impl = pallas_impl_for(impl, r_trg, r_src, payload)
     if impl not in ("exact", "pallas"):
         raise ValueError(f"unknown kernel impl {impl!r}")
@@ -130,8 +226,11 @@ def stokeslet_direct(r_src, r_trg, f_src, eta, *, impl: str = "exact"):
     ``impl``: "exact" and "pallas" evaluate in the operands' own precision —
     float32 through kernel A, float64 through kernel B on the card (the
     plain forms on the CPU). "pallas_df" is the f64-grade tier: kernel B
-    whatever the input dtype (`_direct`). "df" and "mxu" are not ported yet
-    (ROADMAP §1 item 9 / item 1).
+    whatever the input dtype (`_direct`). "df" is the JAX package's XLA
+    double-float tile (`ops.df_kernels`, plain torch on every device) and
+    "mxu" its matmul-form tile (`stokeslet_block_mxu`, recentered on each
+    source chunk's first point); neither is a hand-written kernel, as
+    neither is a Pallas kernel there.
     """
     return _direct("stokeslet", r_src, r_trg, f_src, eta, impl)
 

@@ -1,6 +1,7 @@
 """Device mesh for the ring pair evaluator and the sharded step.
 
-Counterpart of `skellysim_tpu.parallel.mesh` (`FIBER_AXIS`, `make_mesh`,
+Counterpart of `skellysim_tpu.parallel.mesh` (`FIBER_AXIS`, `MEMBER_AXIS`,
+`make_mesh`, `make_member_mesh`, `make_2d_mesh`, `shard_ensemble`,
 `SHELL_ROW_SHARDED_FIELDS`, `shard_state`). The port keeps the JAX
 package's single-controller model: a mesh is an ordered tuple of shard
 devices in one process. On several cards each card holds one shard; on one
@@ -14,10 +15,15 @@ A state placed on a mesh (`shard_state`) is a `ShardedState`: one local
 (`parallel.spmd`): each fiber bucket's block of whole fibers, the shell's
 node-aligned row block (or the whole shell on every shard, where it cannot
 split), and everything else replicated. `gather_state` is the only way
-back to one device. The ensemble's member meshes (`make_member_mesh`,
-`make_2d_mesh`, `shard_ensemble`) are not ported yet (ROADMAP.md §1,
-queue 1's first entry): the port's ensemble runs its members on one
-card.
+back to one device.
+
+The ensemble's member meshes: `make_member_mesh` lays its shards along
+`MEMBER_AXIS`, and `shard_ensemble` places B / D whole lanes of an
+`ensemble.EnsembleState` on each shard (a `ShardedEnsemble`); the runner
+steps each shard's lanes as one batched trial on its device, with no
+collectives (`ensemble.runner.EnsembleRunner.step`). `make_2d_mesh` is the
+(member, fiber) shape: each member group's fiber ring (`Mesh.fiber_group`)
+is a mesh that `System.step_spmd` takes.
 
 After `parallel.multihost.initialize` a mesh spans processes: every
 process names every shard's device, process and card, in process order,
@@ -28,6 +34,7 @@ all-gathers the shards to every process.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -36,6 +43,9 @@ import torch
 from ..device import resolve_device
 
 FIBER_AXIS = "fib"
+
+#: the ensemble member (batch) axis: batch parallelism is the outer axis
+MEMBER_AXIS = "member"
 
 #: the shell fields that row-shard, by `PeripheryState` field name: the two
 #: O(n_nodes^2) dense operators (the reference's Scatterv'd shell rows). A
@@ -47,8 +57,11 @@ SHELL_ROW_SHARDED_FIELDS = ("stresslet_plus_complementary", "M_inv")
 
 @dataclass(frozen=True)
 class Mesh:
-    """A 1-D ring of shards along `FIBER_AXIS`: ``devices[k]`` holds shard
-    k. A mesh that spans processes (`make_mesh` after
+    """Shards in a row, ``devices[k]`` holding shard k: by default a 1-D
+    ring along `FIBER_AXIS`; a member mesh (`make_member_mesh`) lays them
+    along `MEMBER_AXIS`; a 2-D mesh (`make_2d_mesh`) has ``axis_names``
+    (MEMBER_AXIS, FIBER_AXIS) and ``grid`` (n_member, n_fiber), member
+    major. A mesh that spans processes (`make_mesh` after
     `parallel.multihost.initialize`) also names shard k's process
     (``processes[k]``, in process order) and card (``cards[k]``,
     `multihost.card_id`), and this process's index (``process``)."""
@@ -57,10 +70,27 @@ class Mesh:
     processes: tuple | None = None
     cards: tuple | None = None
     process: int = 0
+    axis_names: tuple = (FIBER_AXIS,)
+    grid: tuple | None = None
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, in axis order (the JAX mesh's ``shape``)."""
+        return dict(zip(self.axis_names, self.grid or (self.size,)))
+
+    def fiber_group(self, i: int) -> "Mesh":
+        """Member group ``i``'s fiber ring of a 2-D mesh: a 1-D
+        `FIBER_AXIS` mesh of its ``n_fiber`` shards, which
+        `System.step_spmd` takes."""
+        if self.axis_names != (MEMBER_AXIS, FIBER_AXIS):
+            raise ValueError("fiber_group needs a (member, fiber) mesh "
+                             f"(make_2d_mesh); this one is {self.axis_names}")
+        nf = self.grid[1]
+        return Mesh(self.devices[i * nf:(i + 1) * nf])
 
     @property
     def spans_processes(self) -> bool:
@@ -134,6 +164,96 @@ def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
 
         enable_ring_peer_access(devices)
     return Mesh(devices)
+
+
+def make_member_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
+    """A 1-D mesh of ``n_devices`` shards along `MEMBER_AXIS`
+    (`shard_ensemble`), placed as `make_mesh` places its shards: all on
+    ``device`` when it is given, else one a card (one a process after
+    `parallel.multihost.initialize`)."""
+    return dataclasses.replace(make_mesh(n_devices, device=device),
+                               axis_names=(MEMBER_AXIS,))
+
+
+def make_2d_mesh(n_member: int, n_fiber: int, *, device=None) -> Mesh:
+    """The (member, fiber) mesh: ``n_member`` groups of ``n_fiber`` shards,
+    member major, each group's fibers sharded over its own ring
+    (`Mesh.fiber_group`). All shards on ``device`` when it is given, else
+    one a card, the first ``n_member * n_fiber`` cards of this process,
+    each group's cards given access to their ring neighbours."""
+    need = n_member * n_fiber
+    if device is not None:
+        devices = (resolve_device(device),) * need
+    else:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < need:
+            raise ValueError(
+                f"2-D mesh {n_member}x{n_fiber} needs {need} devices, "
+                f"have {have}")
+        devices = tuple(torch.device("cuda", i) for i in range(need))
+        if n_fiber > 1:
+            from ..ops.cuda_kernels import enable_ring_peer_access
+
+            for i in range(n_member):
+                enable_ring_peer_access(
+                    devices[i * n_fiber:(i + 1) * n_fiber])
+    return Mesh(devices, axis_names=(MEMBER_AXIS, FIBER_AXIS),
+                grid=(n_member, n_fiber))
+
+
+class ShardedEnsemble(NamedTuple):
+    """An `ensemble.EnsembleState` placed on a member mesh by
+    `shard_ensemble`: ``parts[j]`` holds the lanes of the mesh's j-th
+    local shard (``mesh.local``), its tensors on that shard's device."""
+
+    parts: tuple
+    mesh: Mesh
+
+    @property
+    def t_final(self):
+        import numpy as np
+
+        return np.concatenate([p.t_final for p in self.parts])
+
+
+def _member_count(mesh: Mesh) -> int:
+    if MEMBER_AXIS not in mesh.axis_names:
+        raise ValueError("shard_ensemble needs a mesh with the member axis "
+                         f"(make_member_mesh); this one is {mesh.axis_names}")
+    return mesh.shape[MEMBER_AXIS]
+
+
+def shard_ensemble(ens, mesh: Mesh) -> ShardedEnsemble:
+    """Place an `ensemble.EnsembleState`'s lanes on a member mesh: each
+    member shard gets B / D whole lanes (consecutive, in lane order) on
+    its device, the first device of its group on a 2-D mesh. The runner
+    steps each shard's lanes as one batched trial with no collectives;
+    across processes each process holds and steps its own shards. B must
+    be divisible by the member count."""
+    from ..ensemble.runner import slice_lanes
+
+    n = _member_count(mesh)
+    B = len(ens.t_final)
+    if B % n != 0:
+        raise ValueError(
+            f"ensemble batch B={B} is not divisible by the mesh size ({n}); "
+            "pick B as a multiple of the device count (idle padding lanes "
+            "are cheap: the scheduler masks them)")
+    m = B // n
+    per = mesh.size // n
+    shards = [k for k in range(n) if k * per in mesh.local]
+    return ShardedEnsemble(
+        tuple(slice_lanes(ens, k * m, (k + 1) * m, mesh.devices[k * per])
+              for k in shards), mesh)
+
+
+def gather_ensemble(sharded: ShardedEnsemble, device=None):
+    """The `ensemble.EnsembleState` of a `ShardedEnsemble`'s local shards
+    on one ``device`` (default: the first shard's), lanes in order."""
+    from ..ensemble.runner import concat_lanes
+
+    return concat_lanes(list(sharded.parts),
+                        None if device is None else resolve_device(device))
 
 
 def _process_mesh(multihost, n_devices, device) -> Mesh:

@@ -19,9 +19,11 @@ Two transports serve one call site (`_ring_or_fused`):
   ``lax.ppermute`` loop): hop j moves every shard's rotating blocks to the
   next shard's device (``perm = [(j, j + 1 mod n)]``), and each shard adds
   one block sum a hop. It serves ``impl="exact"`` (kernels A / B or C / D a
-  hop, by the operands' precision; their plain versions on the CPU), the
-  opt-out ``SKELLY_FUSED_RING=0``, every CPU tensor, and the f64-grade
-  ``ring_*_df`` sums (kernel B or D a hop, the f64 sum kept).
+  hop, by the operands' precision; their plain versions on the CPU),
+  ``impl="mxu"`` (the matmul-form tile a hop, plain torch as in the JAX
+  package), the opt-out ``SKELLY_FUSED_RING=0``, every CPU tensor, and the
+  f64-grade ``ring_*_df`` sums (kernel B or D a hop under "pallas_df", the
+  double-float tile under "df"; the f64 sum kept).
 
 Inputs are whole [N, ...] tensors on the caller's device whose leading axis
 the mesh size divides (pad first, as `System` does); they are cut into
@@ -158,13 +160,22 @@ def _ring_block(impl: str, family: str, dtype):
         prec = "f32" if dtype == torch.float32 else "f64"
         kern = getattr(cuda_kernels, f"{family}_{prec}")
         return lambda trg, src, pay: kern(src, trg, pay)
-    if impl in ("df", "mxu"):
-        raise NotImplementedError(
-            f"ring tile {impl!r} is not ported yet (ROADMAP.md §1 item 9); "
-            "use 'exact' or 'pallas'")
+    if impl == "mxu":
+        # the matmul-form tile over the whole rotating block, recentered on
+        # its first point as the JAX package's ring tile is
+        return lambda trg, src, pay: kernels.mxu_sum(
+            family, src, trg, _unflat(family, pay),
+            centered_chunk=src.shape[0])
     raise ValueError(
-        f"ring evaluator has no {impl!r} tile; use 'exact' or 'pallas' (the "
-        "f64-grade tier rides ring_stokeslet_df / ring_stresslet_df)")
+        f"ring evaluator has no {impl!r} tile; use 'exact', 'mxu' or "
+        "'pallas' (double-float rides ring_stokeslet_df / "
+        "ring_stresslet_df)")
+
+
+def _unflat(family: str, pay):
+    """A ring payload block in its family's shape (the stresslet's
+    [n, 3, 3] from the ring's flat [n, 9])."""
+    return pay.reshape(-1, 3, 3) if family == "stresslet" else pay
 
 
 def _ring_eval(kind: str, impl: str, mesh: Mesh, scale, r_trg, src, payload):
@@ -200,17 +211,19 @@ def ring_stresslet(r_dl, r_trg, f_dl, eta, *, mesh: Mesh,
 
 
 def _df_ring_block(impl: str, family: str):
-    """f64-grade per-hop block: "pallas_df" is one unscaled launch of kernel
-    B / D (f32 or f64 in, f64 out; the plain f64 version on the CPU). The
-    JAX package's XLA double-float tiles ("df") are not ported."""
+    """f64-grade per-hop block, unscaled, f32 or f64 in, f64 out:
+    "pallas_df" is one launch of kernel B / D (the plain f64 version on the
+    CPU); "df" the JAX package's double-float tile (`ops.df_kernels`, plain
+    torch on every device)."""
     if impl == "pallas_df":
         kern = getattr(cuda_kernels, f"{family}_f64")
         return lambda trg, src, pay: kern(src, trg, pay)
     if impl == "df":
-        raise NotImplementedError(
-            "refine tile 'df' (XLA double-float) is not ported yet "
-            "(ROADMAP.md §1 item 9); the port's f64-grade tile is "
-            "'pallas_df'")
+        from ..ops import df_kernels
+
+        block = getattr(df_kernels, f"{family}_block_df")
+        return lambda trg, src, pay: df_kernels.df_block_sum(
+            block, src, trg, _unflat(family, pay))
     raise ValueError(f"DF ring tiles serve 'df' or 'pallas_df', got {impl!r}")
 
 
@@ -232,15 +245,16 @@ def _ring_df(family: str, impl: str, mesh: Mesh, r_src, r_trg, payload, eta):
 def ring_stokeslet_df(r_src, r_trg, f_src, eta, *, mesh: Mesh,
                       impl: str = "pallas_df"):
     """Ring-parallel f64-grade Stokeslet sum: float64 targets, one kernel B
-    launch a hop and shard. (The JAX package defaults to its XLA "df"
-    tiles, which the port does not have.)"""
+    launch a hop and shard (``impl="pallas_df"``), or the double-float
+    tile a hop (``impl="df"``, the JAX package's default)."""
     return _ring_df("stokeslet", impl, mesh, r_src, r_trg, f_src, eta)
 
 
 def ring_stresslet_df(r_dl, r_trg, f_dl, eta, *, mesh: Mesh,
                       impl: str = "pallas_df"):
     """Ring-parallel f64-grade stresslet; ``f_dl`` is [n_src, 3, 3]; one
-    kernel D launch a hop and shard."""
+    kernel D launch a hop and shard, or the double-float tile
+    (``impl="df"``)."""
     return _ring_df("stresslet", impl, mesh, r_dl, r_trg, f_dl, eta)
 
 

@@ -52,6 +52,7 @@ served: the step always rings over its mesh.
 from __future__ import annotations
 
 import operator
+import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -140,7 +141,7 @@ class ShardVec:
     k's rows [its resident rows | the replicated rows] on its device. It
     carries the vector operations `solver.gmres` uses besides its ``rdot``
     (`_make_rdot`): ``+``, ``-``, division by a scalar, row indexing of a
-    basis, `zeros_like`, `basis` and `combine`."""
+    basis, `zeros_like`, `basis`, `combine` and `apply`."""
 
     __slots__ = ("parts",)
 
@@ -188,6 +189,13 @@ class ShardVec:
         """``c @ V`` of this basis slice: the same coefficients (a tensor)
         on every shard."""
         return ShardVec(c.to(a.device) @ a for a in self.parts)
+
+    def apply(self, fn, *others):
+        """``fn`` on each shard's part, with the same shard's parts of
+        ``others``: the s-step cycle's row concatenation, transpose,
+        triangular solve and masking, which act row block by row block."""
+        return ShardVec(fn(a, *(o.parts[k] for o in others))
+                        for k, a in enumerate(self.parts))
 
 
 class SpmdSolution(NamedTuple):
@@ -791,6 +799,15 @@ def build_spmd_step(system, mesh: Mesh, state: ShardedState, *,
     program whose input buffers it could alias (the JAX package's
     ``jit_wrapper`` seam has no counterpart either)."""
     del donate
+    from ..guard.escalate import armed
+
+    if armed(system.params):
+        # the JAX package's diagnostic: the sharded step reports health
+        # verdicts but runs no ladder
+        warnings.warn("Params.guard_* escalation is not applied on the "
+                      "step_spmd path: the sharded step reports health "
+                      "verdicts but does not retry; escalation runs on "
+                      "the one-device and ensemble paths only")
     return _Step(system, mesh, state, allow_replicated_shell, flat_solution,
                  pair)
 

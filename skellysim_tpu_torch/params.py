@@ -74,7 +74,10 @@ class Params:
     #: Stokeslet sum runs on a hand-written kernel whatever the name, see
     #: `ops.kernels.stokeslet_direct`), "pallas" (the f32 throughput tier:
     #: kernel A for f32 operands) or "pallas_df" (the f64-grade tier:
-    #: kernel B). The names are the JAX package's, so configs carry over.
+    #: kernel B), or the JAX package's plain-XLA tiles, plain torch here:
+    #: "mxu" (the matmul form) and "df" (double-float f32 arithmetic,
+    #: `ops.df_kernels`). The names are the JAX package's, so configs
+    #: carry over.
     kernel_impl: str = "exact"
     solver_precision: str = "auto"
     inner_tol: float = 1e-5

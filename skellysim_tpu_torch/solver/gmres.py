@@ -1,15 +1,18 @@
 """Matrix-free right-preconditioned restarted GMRES, host-driven.
 
-Counterpart of `skellysim_tpu.solver.gmres` (sequential cycle, ``block_s=1``):
-right preconditioning, ICGS orthogonalization (two classical Gram-Schmidt
-passes), Givens rotations, restarts on the EXPLICIT residual ||b - A x||
-recomputed at every restart boundary, the stall exit and the packed health
-word. Where the JAX package keeps the control flow in `lax.while_loop`
-carries so the solve stays one XLA program, here the loops run on the host:
-the Krylov basis and every vector operation stay on the device, and only
-the small Hessenberg/Givens arithmetic (m+1 numbers per iteration) runs in
-float64 on the host. The s-step cycle (``block_s > 1``) is not ported yet
-(ROADMAP.md §1 item 3).
+Counterpart of `skellysim_tpu.solver.gmres`: right preconditioning, ICGS
+orthogonalization (two classical Gram-Schmidt passes), Givens rotations,
+restarts on the EXPLICIT residual ||b - A x|| recomputed at every restart
+boundary, the stall exit and the packed health word; and the s-step cycle
+(``block_s > 1``): s monomial Krylov candidates a round, orthogonalized in
+two batched Gram reductions (BCGS + Cholesky-QR, then one CGS2 pass), with
+the raw Hessenberg columns recovered from the change of basis. Where the
+JAX package keeps the control flow in `lax.while_loop` carries so the solve
+stays one XLA program, here the loops run on the host: the Krylov basis and
+every vector operation (the triangular solves of the s-step blocks
+included) stay on the device, and only the small arithmetic (Hessenberg,
+Givens, the s-step Grams' Cholesky factors and the column recovery) runs in
+float64 on the host.
 
 ``rdot`` is the JAX package's reduction seam: ``rdot(A, w)`` contracts the
 vector axis of a basis slice ``A`` (or one vector) with ``w``; None is
@@ -19,8 +22,9 @@ partial in shard order and adds the replicated tail once, with Krylov
 vectors that are `parallel.spmd.ShardVec` (one tensor a shard). Those
 provide the few vector operations the solver uses besides ``rdot``:
 ``+``, ``-``, division by a scalar, row indexing of a basis, and
-``zeros_like()``, ``basis(rows)`` and ``combine(c)`` (the rows' linear
-combination ``c @ V``).
+``zeros_like()``, ``basis(rows)``, ``combine(c)`` (the rows' linear
+combination ``c @ V``) and ``apply(fn, *others)`` (``fn`` on each shard's
+rows: the s-step blocks' concatenation, transpose and triangular solve).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..guard.verdict import STAGNATION, nonfinite_word
+from ..guard.verdict import BREAKDOWN, STAGNATION, nonfinite_word
 
 __all__ = ["GmresResult", "gmres", "gmres_ir", "collective_rounds",
            "BatchedGmresResult", "gmres_batched", "gmres_ir_batched"]
@@ -84,9 +88,255 @@ def _combine(c, V):
     return c @ V if torch.is_tensor(V) else V.combine(c)
 
 
+def _apply(fn, V, *others):
+    """``fn`` on a basis's rows (each shard's, for sharded vectors)."""
+    return fn(V, *others) if torch.is_tensor(V) else V.apply(fn, *others)
+
+
+def _coeffs(c, like):
+    """Host float64 coefficients as a tensor of the vectors' dtype."""
+    return torch.as_tensor(c, dtype=like.dtype, device=like.device)
+
+
+def _host(t) -> np.ndarray:
+    """A device tensor's values as a float64 numpy array (one transfer)."""
+    return t.detach().to("cpu", torch.float64).numpy()
+
+
+def _chol_ridge(S, scale, eps):
+    """Cholesky of the projected candidate Gram with a noise-floor ridge
+    (`skellysim_tpu.solver.gmres._chol_ridge`): the ridge sits at ``eps *
+    max(scale, 1)``, added on the diagonal by a select, not ``ridge *
+    eye`` (0 * inf = NaN). A factorization that fails gives NaN, as the
+    JAX package's does: the cycle then rejects the block's columns and
+    reports BREAKDOWN; nothing here switches to the sequential cycle (the
+    guard ladder's second stage does, when armed)."""
+    s = S.shape[0]
+    ridge = eps * np.maximum(scale, 1.0)
+    A = S + np.where(np.eye(s, dtype=bool), ridge, 0.0)
+    try:
+        return np.linalg.cholesky(A)
+    except np.linalg.LinAlgError:
+        return np.full_like(A, np.nan)
+
+
+def _givens_col(j, hcol, cs, sn, g):
+    """Apply the accumulated rotations to column ``hcol`` and add the one
+    that zeroes its entry ``j + 1``; returns new (hcol, cs, sn, g)."""
+    hcol, cs, sn, g = hcol.copy(), cs.copy(), sn.copy(), g.copy()
+    for i in range(j):
+        hi, hip = hcol[i], hcol[i + 1]
+        hcol[i] = cs[i] * hi + sn[i] * hip
+        hcol[i + 1] = -sn[i] * hi + cs[i] * hip
+    denom = math.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+    c_new = hcol[j] / denom if denom > 0.0 else 1.0
+    s_new = hcol[j + 1] / denom if denom > 0.0 else 0.0
+    hcol[j] = denom
+    hcol[j + 1] = 0.0
+    cs[j], sn[j] = c_new, s_new
+    g[j + 1] = -s_new * g[j]
+    g[j] = c_new * g[j]
+    return hcol, cs, sn, g
+
+
+class _BlockCycle:
+    """The host side of one s-step restart cycle (the JAX package's
+    `arnoldi_cycle_block` carries): the raw and rotated Hessenberg columns,
+    the rotations, the residual vector g, the breakdown flag. A round
+    runs `gram1` on the BCGS Gram, `gram2` on the CGS2 Gram, then
+    `recover` the s columns."""
+
+    def __init__(self, m, s, beta, tol_abs, dtype):
+        self.m, self.s, self.tol_abs = m, s, tol_abs
+        fi = torch.finfo(dtype)
+        self.eps, self.tiny = fi.eps, fi.tiny
+        self.rows = float(m + 1 + s)
+        self.Hr = np.zeros((m + 1, m))
+        self.H = np.zeros((m + 1, m))
+        self.cs = np.zeros(m)
+        self.sn = np.zeros(m)
+        self.g = np.zeros(m + 1)
+        self.g[0] = beta
+        self.k = 0
+        self.brk = False
+        self.done = beta <= tol_abs
+
+    @property
+    def live(self) -> bool:
+        return self.k < self.m and not self.done
+
+    def gram1(self, G):
+        """BCGS + Cholesky-QR on the first Gram ``G`` [(k+1)+s, s] of
+        [V[:k+1]; P] against P: returns (C1^T, L1), the projection
+        coefficients and the factor to apply to the candidates
+        (Q1 = L1^-1 (P - C1^T V))."""
+        k = self.k
+        C1, S1 = G[:k + 1], G[k + 1:]
+        self.scale1 = self.rows * np.max(np.diagonal(S1))
+        self.C1 = C1
+        self.L1 = _chol_ridge(S1 - C1.T @ C1, self.scale1, self.eps)
+        return C1.T, self.L1
+
+    def gram2(self, G2):
+        """The CGS2 pass on the second Gram: returns (C2^T, L2)."""
+        k = self.k
+        C2, S2 = G2[:k + 1], G2[k + 1:]
+        L2 = _chol_ridge(S2 - C2.T @ C2, self.rows * np.max(np.diagonal(S2)),
+                         self.eps)
+        # the change of basis over both passes:
+        #   p_j = C[:, j] . V  +  sum_u Rm[u, j] q_u
+        self.C = self.C1 + C2 @ self.L1.T
+        self.Rm = (self.L1 @ L2).T
+        return C2.T, L2
+
+    def recover(self):
+        """Recover the round's s raw Hessenberg columns, rotate each as
+        the sequential cycle does, and accept them up to the first
+        breakdown or convergence (JAX `arnoldi_cycle_block`, the
+        Hoemmen-style recovery)."""
+        m, k, s = self.m, self.k, self.s
+        # below the projected Gram's noise floor the recovered direction is
+        # cancellation noise: end the cycle there
+        tiny = math.sqrt(self.eps * self.scale1) + self.tiny
+        C = np.zeros((m + 1, s))
+        C[:k + 1] = self.C
+        accepted = 0
+        prev_e = np.zeros(m + 1)
+        for t in range(s):
+            j = k + t
+            e_t = C[:, t].copy()
+            e_t[k + 1:k + 1 + s] += self.Rm[:, t]
+            if t == 0:
+                hraw, rdiag = e_t, 1.0
+            else:
+                rdiag = prev_e[j]
+                coef = prev_e.copy()
+                coef[j] = 0.0
+                hraw = ((e_t - self.Hr @ coef[:m])
+                        / (rdiag if rdiag > tiny else 1.0))
+            col_ok = bool(np.all(np.isfinite(hraw))) and rdiag > tiny
+            acc = not self.done and col_ok
+            # a rejected column while the cycle was live is the
+            # Cholesky-ridge breakdown the health word reports
+            self.brk = self.brk or (not self.done and not col_ok)
+            if acc:
+                hrot, self.cs, self.sn, self.g = _givens_col(
+                    j, hraw, self.cs, self.sn, self.g)
+                self.Hr[:, j] = hraw
+                self.H[:, j] = hrot
+                accepted += 1
+            self.done = (self.done or not col_ok
+                         or (acc and abs(self.g[j + 1]) <= self.tol_abs))
+            prev_e = e_t
+        self.k = k + accepted
+
+    def solution_coefficients(self):
+        """y of the k x k back-substitution."""
+        return _back_substitute(self.H, self.g, self.k, self.m)
+
+
+def _back_substitute(H, g, k, m):
+    """y[:k] of the k x k triangular system H y = g."""
+    y = np.zeros(m)
+    for j in range(k - 1, -1, -1):
+        hjj = H[j, j]
+        y[j] = (g[j] - H[j, :] @ y) / (hjj if hjj != 0.0 else 1.0)
+    return y[:k]
+
+
+def _cat_rows(A, B):
+    return torch.cat([A, B])
+
+
+def _transpose(A):
+    return A.T
+
+
+def _finite_or_zero(Q):
+    # a fully dependent candidate block can leave NaN rows (0/0 through the
+    # triangular solves); they are never accepted, but must not poison V
+    return torch.where(torch.isfinite(Q), Q, 0.0)
+
+
+def _solve_lower(L):
+    """``W -> L^-1 W`` for a host lower-triangular ``L`` (s x s) by forward
+    substitution over W's s rows, each a vector operation on W's device
+    (`torch.linalg.solve_triangular` took seconds a call on the card at
+    [4, 560k]). A NaN or zero pivot gives nonfinite rows, as the JAX
+    package's triangular solve does."""
+    def solve(W):
+        Q = torch.empty_like(W)
+        for j in range(L.shape[0]):
+            acc = W[j]
+            for i in range(j):
+                acc = acc - float(L[j, i]) * Q[i]
+            Q[j] = acc / float(L[j, j])
+        return Q
+    return solve
+
+
+def _block_rounds(rounds, grams):
+    """The two Gram passes of one s-step round and the basis update, for
+    each ``(cyc, V, P)`` of ``rounds``: ``P`` holds the round's s
+    candidates; V[k+1:k+1+s] receives the orthonormal block; the host
+    recovers the columns (``cyc``). ``grams`` maps a list of (V[:k+1], Q)
+    to the host Grams [V[:k+1]; Q] Q^T, all in one reduction: the BCGS
+    Gram, then the CGS2 pass."""
+    Q1 = []
+    for (cyc, V, P), G in zip(rounds, grams([(V[:cyc.k + 1], P)
+                                             for cyc, V, P in rounds])):
+        C1t, L1 = cyc.gram1(G)
+        W = P - _combine(_coeffs(C1t, P), V[:cyc.k + 1])
+        Q1.append(_apply(_solve_lower(L1), W))
+    G2s = grams([(V[:cyc.k + 1], Q) for (cyc, V, _), Q in zip(rounds, Q1)])
+    for (cyc, V, _), Q, G2 in zip(rounds, Q1, G2s):
+        k = cyc.k
+        C2t, L2 = cyc.gram2(G2)
+        W2 = Q - _combine(_coeffs(C2t, Q), V[:k + 1])
+        V[k + 1:k + 1 + cyc.s] = _apply(_finite_or_zero,
+                                        _apply(_solve_lower(L2), W2))
+        cyc.recover()
+
+
+def _rdot_grams(rdot):
+    """`_block_rounds`'s ``grams`` through the ``rdot`` seam (one lone
+    cycle: one batched reduction a pass)."""
+    return lambda pairs: [
+        _host(rdot(_apply(_cat_rows, Vk, Q), _apply(_transpose, Q)))
+        for Vk, Q in pairs]
+
+
+def _arnoldi_cycle_block(matvec, M, x0, r0, m, s, tol_abs, safe_b_norm,
+                         rdot, norm):
+    """One communication-avoiding restart cycle (``block_s = s > 1``):
+    returns (x, implicit relative residual, inner iterations, breakdown).
+    Each round generates the monomial candidates p_j = (A M)^j v_k (s
+    matvecs), orthogonalizes them in two batched Gram reductions through
+    ``rdot`` and recovers the raw Hessenberg columns on the host."""
+    beta = norm(r0)
+    safe_beta = beta if beta > 0.0 else 1.0
+    V = _basis(r0, m + 1)
+    V[0] = r0 / safe_beta
+    cyc = _BlockCycle(m, s, beta, tol_abs, r0.dtype)
+    while cyc.live:
+        P = _basis(r0, s)
+        prev = V[cyc.k]
+        for j in range(s):
+            P[j] = matvec(M(prev))
+            prev = P[j]
+        _block_rounds([(cyc, V, P)], _rdot_grams(rdot))
+    k = cyc.k
+    yt = torch.as_tensor(cyc.solution_coefficients(), dtype=r0.dtype,
+                         device=r0.device)
+    dx = M(_combine(yt, V[:k]))
+    resid = abs(cyc.g[min(k, m)]) / safe_b_norm
+    return x0 + dx, resid, k, cyc.brk
+
+
 def _arnoldi_cycle(matvec, M, x0, r0, m, tol_abs, safe_b_norm, rdot, norm):
     """One restart cycle from x0 with r0 = b - A x0; returns (x,
-    implicit relative residual, inner iterations)."""
+    implicit relative residual, inner iterations, breakdown=False: only
+    the s-step cycle has a breakdown path)."""
     beta = norm(r0)
     safe_beta = beta if beta > 0.0 else 1.0
     V = _basis(r0, m + 1)
@@ -111,33 +361,15 @@ def _arnoldi_cycle(matvec, M, x0, r0, m, tol_abs, safe_b_norm, rdot, norm):
         h[k + 1] = h_norm
         V[k + 1] = w / (h_norm if h_norm > 0.0 else 1.0)
 
-        # apply the accumulated Givens rotations to the new column
-        for i in range(k):
-            hi, hip = h[i], h[i + 1]
-            h[i] = cs[i] * hi + sn[i] * hip
-            h[i + 1] = -sn[i] * hi + cs[i] * hip
-        # new rotation to zero h[k+1]
-        denom = math.sqrt(h[k] ** 2 + h[k + 1] ** 2)
-        c_new = h[k] / denom if denom > 0.0 else 1.0
-        s_new = h[k + 1] / denom if denom > 0.0 else 0.0
-        h[k] = denom
-        h[k + 1] = 0.0
-        cs[k], sn[k] = c_new, s_new
-        g[k + 1] = -s_new * g[k]
-        g[k] = c_new * g[k]
-        H[:, k] = h
+        H[:, k], cs, sn, g = _givens_col(k, h, cs, sn, g)
         done = abs(g[k + 1]) <= tol_abs
         k += 1
 
-    # back-substitution on the k x k triangle
-    y = np.zeros(m)
-    for j in range(k - 1, -1, -1):
-        hjj = H[j, j]
-        y[j] = (g[j] - H[j, :] @ y) / (hjj if hjj != 0.0 else 1.0)
-    yt = torch.as_tensor(y[:k], dtype=r0.dtype, device=r0.device)
+    yt = torch.as_tensor(_back_substitute(H, g, k, m), dtype=r0.dtype,
+                         device=r0.device)
     dx = M(_combine(yt, V[:k]))
     resid = abs(g[min(k, m)]) / safe_b_norm
-    return x0 + dx, resid, k
+    return x0 + dx, resid, k, False
 
 
 def gmres(matvec: Callable, b: torch.Tensor, *, precond: Callable | None = None,
@@ -148,12 +380,16 @@ def gmres(matvec: Callable, b: torch.Tensor, *, precond: Callable | None = None,
     from a zero initial guess; acceptance on the explicit residual (see
     `skellysim_tpu.solver.gmres.gmres` for the stall rule and health bits).
     ``history=N`` keeps the last N per-cycle residual rows; ``rdot``: the
-    reduction seam (module docstring)."""
-    if block_s != 1:
-        raise NotImplementedError(
-            "gmres_block_s > 1 (the s-step cycle) is not ported yet "
-            "(ROADMAP.md §1 item 3)")
+    reduction seam (module docstring). ``block_s=s > 1`` runs the s-step
+    cycle (`_arnoldi_cycle_block`: two batched reductions through ``rdot``
+    a round of s iterations), with the restart length rounded up to a
+    multiple of s; ``block_s=1`` is the sequential cycle."""
+    if block_s < 1:
+        raise ValueError(f"block_s must be >= 1, got {block_s}")
     m = min(restart, maxiter)
+    if block_s > 1:
+        # full rounds only (the overshoot past maxiter is at most s - 1)
+        m = -(-m // block_s) * block_s
     M = precond if precond is not None else (lambda v: v)
     rdot, norm = _reductions(rdot)
 
@@ -172,12 +408,19 @@ def gmres(matvec: Callable, b: torch.Tensor, *, precond: Callable | None = None,
     rows = []
     while (resid_true > tol and total < maxiter
            and not (resid_impl <= tol and resid_true > 0.5 * prev_true)):
-        x, resid_impl, k = _arnoldi_cycle(matvec, M, x, r, m, tol_abs,
-                                          safe_b_norm, rdot, norm)
+        if block_s > 1:
+            x, resid_impl, k, brk = _arnoldi_cycle_block(
+                matvec, M, x, r, m, block_s, tol_abs, safe_b_norm, rdot,
+                norm)
+        else:
+            x, resid_impl, k, brk = _arnoldi_cycle(
+                matvec, M, x, r, m, tol_abs, safe_b_norm, rdot, norm)
         r = b - matvec(x)
         prev_true = resid_true
         resid_true = norm(r) / safe_b_norm
         health |= nonfinite_word(resid_true)
+        if brk:
+            health |= BREAKDOWN
         if (resid_impl <= tol and resid_true > 0.5 * prev_true
                 and resid_true > tol):
             health |= STAGNATION
@@ -273,7 +516,10 @@ class _Member:
     """One member's restarted-GMRES state between batched rounds: the host
     scalars of `gmres` and of the open `_arnoldi_cycle`."""
 
-    def __init__(self, b_norm, m, tol, maxiter, active):
+    def __init__(self, b_norm, m, tol, maxiter, active, block_s=1,
+                 dtype=torch.float64):
+        self.block_s = block_s
+        self.dtype = dtype
         self.b_norm = b_norm
         self.safe_b_norm = b_norm if b_norm > 0.0 else 1.0
         self.tol_abs = tol * self.safe_b_norm
@@ -295,6 +541,12 @@ class _Member:
 
     def open_cycle(self):
         m = self.m
+        if self.block_s > 1:
+            self.cyc = _BlockCycle(m, self.block_s, self.beta, self.tol_abs,
+                                   self.dtype)
+            self.k = 0
+            self.state = "arnoldi" if self.cyc.live else "finish"
+            return
         self.H = np.zeros((m + 1, m))
         self.cs = np.zeros(m)
         self.sn = np.zeros(m)
@@ -312,35 +564,30 @@ class _Member:
         for proj in h:
             col[:k + 1] += proj
         col[k + 1] = h_norm
-        cs, sn, g = self.cs, self.sn, self.g
-        for i in range(k):
-            hi, hip = col[i], col[i + 1]
-            col[i] = cs[i] * hi + sn[i] * hip
-            col[i + 1] = -sn[i] * hi + cs[i] * hip
-        denom = math.sqrt(col[k] ** 2 + col[k + 1] ** 2)
-        c_new = col[k] / denom if denom > 0.0 else 1.0
-        s_new = col[k + 1] / denom if denom > 0.0 else 0.0
-        col[k] = denom
-        col[k + 1] = 0.0
-        cs[k], sn[k] = c_new, s_new
-        g[k + 1] = -s_new * g[k]
-        g[k] = c_new * g[k]
-        self.H[:, k] = col
-        done = abs(g[k + 1]) <= self.tol_abs
+        self.H[:, k], self.cs, self.sn, self.g = _givens_col(
+            k, col, self.cs, self.sn, self.g)
+        done = abs(self.g[k + 1]) <= self.tol_abs
         self.k = k + 1
         if done or self.k >= m:
+            self.state = "finish"
+
+    def block_done(self):
+        """After an s-step round: the cycle ends where its host state
+        stopped (`_BlockCycle.live`)."""
+        self.k = self.cyc.k
+        if not self.cyc.live:
             self.state = "finish"
 
     def solution_coefficients(self):
         """y of the k x k back-substitution, and the cycle's implicit
         residual."""
-        m, k, H, g = self.m, self.k, self.H, self.g
-        y = np.zeros(m)
-        for j in range(k - 1, -1, -1):
-            hjj = H[j, j]
-            y[j] = (g[j] - H[j, :] @ y) / (hjj if hjj != 0.0 else 1.0)
-        self.resid_impl = abs(g[min(k, m)]) / self.safe_b_norm
-        return y[:k]
+        m = self.m
+        if self.block_s > 1:
+            self.k, self.H, self.g = self.cyc.k, self.cyc.H, self.cyc.g
+            if self.cyc.brk:
+                self.health |= BREAKDOWN
+        self.resid_impl = abs(self.g[min(self.k, m)]) / self.safe_b_norm
+        return _back_substitute(self.H, self.g, self.k, m)
 
     def close_cycle(self, r_norm):
         self.prev_true = self.resid_true
@@ -363,10 +610,47 @@ class _Member:
         return self.health
 
 
+def _host_rows(parts) -> list:
+    """Host float64 copies of a list of device tensors, one transfer."""
+    if not parts:
+        return []
+    flat = _host(torch.cat([p.reshape(-1) for p in parts]))
+    out, off = [], 0
+    for p in parts:
+        out.append(flat[off:off + p.numel()].reshape(p.shape))
+        off += p.numel()
+    return out
+
+
+def _batched_block_round(matvec, M, b, V, members, live, s):
+    """One s-step round for the ``live`` members of `gmres_batched`: s
+    batched matvecs for the candidates, then each member's two Grams
+    (one host transfer for all members a pass) and its column recovery
+    (`_block_rounds`)."""
+    B, n = b.shape
+    z = b.new_zeros((B, n))
+    for i in live:
+        z[i] = V[i, members[i].cyc.k]
+    P = b.new_zeros((B, s, n))
+    for j in range(s):
+        W = matvec(M(z))
+        z = b.new_zeros((B, n))
+        for i in live:
+            P[i, j] = W[i]
+            z[i] = W[i]
+
+    def grams(pairs):
+        return _host_rows([torch.cat([Vk, Q]) @ Q.T for Vk, Q in pairs])
+
+    _block_rounds([(members[i].cyc, V[i], P[i]) for i in live], grams)
+    for i in live:
+        members[i].block_done()
+
+
 def gmres_batched(matvec: Callable, b: torch.Tensor, *,
                   precond: Callable | None = None, tol: float = 1e-10,
                   restart: int = 100, maxiter: int = 1000, history: int = 0,
-                  active=None) -> BatchedGmresResult:
+                  active=None, block_s: int = 1) -> BatchedGmresResult:
     """`gmres` for B members at once: ``b`` is [B, n], and ``matvec`` /
     ``precond`` map [B, n] to [B, n] (every member in one call). Each
     member keeps its own Krylov basis, Givens rotations, restarts,
@@ -378,12 +662,18 @@ def gmres_batched(matvec: Callable, b: torch.Tensor, *,
     for all members, and once at every restart boundary. ``active`` ([B]
     bools, default all) freezes the others from the start (x = 0, 0
     iterations). `torch.func.vmap` cannot serve: the cycle decides on host
-    floats, and the CUDA kernels have no batching rule."""
+    floats, and the CUDA kernels have no batching rule. ``block_s > 1``:
+    each member runs the s-step cycle (`gmres`), the live members sharing
+    the s batched matvecs of a round."""
+    if block_s < 1:
+        raise ValueError(f"block_s must be >= 1, got {block_s}")
     B, n = b.shape
     m = min(restart, maxiter)
+    if block_s > 1:
+        m = -(-m // block_s) * block_s
     M = precond if precond is not None else (lambda v: v)
     act = [True] * B if active is None else [bool(a) for a in active]
-    members = [_Member(bn, m, tol, maxiter, a)
+    members = [_Member(bn, m, tol, maxiter, a, block_s, b.dtype)
                for bn, a in zip(_row_norms(b), act)]
     x = torch.zeros_like(b)
     r = b.clone()
@@ -398,7 +688,9 @@ def gmres_batched(matvec: Callable, b: torch.Tensor, *,
                 else:
                     mb.state = "done"
         live = [i for i, mb in enumerate(members) if mb.state == "arnoldi"]
-        if live:
+        if live and block_s > 1:
+            _batched_block_round(matvec, M, b, V, members, live, block_s)
+        elif live:
             z = b.new_zeros((B, n))
             for i in live:
                 z[i] = V[i, members[i].k]
@@ -461,12 +753,13 @@ def gmres_ir_batched(matvec_hi: Callable, matvec_lo: Callable,
                      b: torch.Tensor, *, precond_lo: Callable | None = None,
                      tol: float = 1e-10, inner_tol: float = 1e-5,
                      restart: int = 100, maxiter: int = 1000,
-                     max_refine: int = 8,
-                     history: int = 0) -> BatchedGmresResult:
+                     max_refine: int = 8, history: int = 0,
+                     block_s: int = 1) -> BatchedGmresResult:
     """`gmres_ir` for B members at once (``b`` [B, n]; the operators map
     [B, n] to [B, n]): each member refines on its own ladder, and the
     members still refining share one batched inner solve a sweep
-    (`gmres_batched` with the others frozen) and one batched residual."""
+    (`gmres_batched` with the others frozen, ``block_s`` passed on) and
+    one batched residual."""
     B = b.shape[0]
     b_norm = _row_norms(b)
     safe = [bn if bn > 0.0 else 1.0 for bn in b_norm]
@@ -481,7 +774,8 @@ def gmres_ir_batched(matvec_hi: Callable, matvec_lo: Callable,
         if not any(act):
             break
         d = gmres_batched(matvec_lo, r, precond=precond_lo, tol=inner_tol,
-                          restart=restart, maxiter=maxiter, active=act)
+                          restart=restart, maxiter=maxiter, active=act,
+                          block_s=block_s)
         for i in range(B):
             if act[i]:
                 x[i] = x[i] + d.x[i]

@@ -25,8 +25,11 @@ The solution vector layout matches the reference: [fibers (4n per fiber:
 x | y | z | tension, buckets in order) | shell (3 per node) | bodies (3 per
 node + 6 per body, buckets in order)].
 
-Features this slice does not carry raise `NotImplementedError` naming the
-ROADMAP.md §1 item that will add them; none is silently ignored.
+Features the port does not carry yet (the flight recorder) raise
+`NotImplementedError` naming the ROADMAP.md §1 item that will add them;
+none is silently ignored. The guard escalation ladder (`guard.escalate`)
+wraps every trial of `step` and `trial_step` when ``Params.guard_*`` arms
+it.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ from ..solver.gmres import collective_rounds
 from .sources import BackgroundFlow, PointSources
 
 logger = logging.getLogger("skellysim_tpu_torch")
+
+#: the pair tiles ``Params.kernel_impl`` names (`ops.kernels`)
+KERNEL_IMPLS = ("exact", "pallas", "pallas_df", "mxu", "df")
 
 
 class SimState(NamedTuple):
@@ -206,27 +212,20 @@ class System:
             raise ValueError(
                 f"unknown solver_precision {p.solver_precision!r}; "
                 "use 'full', 'mixed', or 'auto'")
-        if p.kernel_impl in ("mxu", "df"):
-            raise _not_ported(f"kernel_impl={p.kernel_impl!r}", "9")
-        if p.kernel_impl not in ("exact", "pallas", "pallas_df"):
+        if p.kernel_impl not in KERNEL_IMPLS:
             raise ValueError(
                 f"unknown kernel_impl {p.kernel_impl!r}; "
-                "use 'exact', 'pallas', or 'pallas_df'")
+                f"use one of {KERNEL_IMPLS}")
         if p.refine_pair_impl not in REFINE_PAIR_IMPLS:
             raise ValueError(
                 f"unknown refine_pair_impl {p.refine_pair_impl!r}; "
                 f"use one of {REFINE_PAIR_IMPLS}")
-        if p.refine_pair_impl == "df":
-            raise _not_ported("refine_pair_impl='df' (XLA double-float "
-                              "tiles; the port's f64-grade tile is "
-                              "'pallas_df')", "9")
         if p.precond not in ("gs", "jacobi"):
             raise ValueError(
                 f"unknown precond {p.precond!r}; use 'gs' or 'jacobi'")
-        if p.gmres_block_s > 1:
-            raise _not_ported("gmres_block_s > 1 (s-step GMRES)", "3")
-        if p.guard_dt_halvings or p.guard_block_fallback or p.guard_f64_fallback:
-            raise _not_ported("the guard escalation ladder (guard_*)", "13")
+        if p.gmres_block_s < 1:
+            raise ValueError(
+                f"gmres_block_s must be >= 1, got {p.gmres_block_s}")
         if p.flight_window > 0:
             raise _not_ported("the flight recorder (flight_window > 0)", "13")
         self.params = params
@@ -750,18 +749,35 @@ class System:
 
     # ---------------------------------------------------------------- solve
 
-    def _solve_once(self, state: SimState, pair=None):
+    def _solve_impl(self, state: SimState, pair=None):
+        """One trial solve, with the guard escalation ladder around it
+        when any ``Params.guard_*`` stage is armed (`guard.escalate`)."""
+        from ..guard import escalate
+
+        out = self._solve_once(state, pair=pair)
+        if escalate.armed(self.params):
+            out = escalate.escalate(self, state, out, pair=pair)
+        return out
+
+    def _solve_once(self, state: SimState, pair=None,
+                    block_s: int | None = None, force_full: bool = False):
         """prep -> GMRES -> advance; returns (new_state, solution, info).
         ``pair``: the fast evaluator of this solve (`_pair_args`), handed
-        to the flows by their role."""
+        to the flows by their role. ``block_s`` / ``force_full`` are the
+        guard ladder's overrides (`guard.escalate`): re-solve with another
+        Arnoldi cycle / with the full-precision operator instead of the
+        configured ones (the prep stays the configured precision's, as in
+        the JAX package). Nothing here writes into ``state``'s tensors, so
+        a retry from the same state is a fresh solve."""
         p = self.params
+        bs = p.gmres_block_s if block_s is None else block_s
         state, caches, body_caches, shell_rhs, body_rhs = self._prep(
             state, pair=pair)
         rhs = torch.cat([c.RHS.reshape(-1) for c in caches or []]
                         + ([shell_rhs] if shell_rhs is not None else [])
                         + [br.reshape(-1) for br in body_rhs])
 
-        precision = self._precision_for(state)
+        precision = "full" if force_full else self._precision_for(state)
         if precision == "mixed":
             # f64 state/assembly/refinement residuals; the Krylov loop's
             # pairwise flows and shell/body dense ops evaluate through f32
@@ -784,7 +800,7 @@ class System:
                 tol=p.gmres_tol, inner_tol=p.inner_tol,
                 restart=p.gmres_restart, maxiter=p.gmres_maxiter,
                 max_refine=p.max_refine, history=p.gmres_history,
-                block_s=p.gmres_block_s)
+                block_s=bs)
         else:
             result = gmres(
                 lambda v: self._apply_matvec(state, caches, body_caches, v,
@@ -794,7 +810,7 @@ class System:
                     state, caches, body_caches, v, pair=pair),
                 tol=p.gmres_tol, restart=p.gmres_restart,
                 maxiter=p.gmres_maxiter, history=p.gmres_history,
-                block_s=p.gmres_block_s)
+                block_s=bs)
 
         x_fibs, x_bods = self._split(state, result.x)
         new_state = state
@@ -955,16 +971,16 @@ class System:
             logger.info("%s plan before t=%.6g: %s, plan_s=%.4f",
                         pair.evaluator, state.time, _plan_summary(pair.plan),
                         _time.perf_counter() - t0)
-        return self._solve_once(state, pair=pair)
+        return self._solve_impl(state, pair=pair)
 
     def trial_step(self, state: SimState, pair=None):
-        """The bare trial: (new_state, solution, info) of prep, GMRES and
-        the advance at ``state.dt``, with ``pair`` (a `PairEvaluator`, or
-        None for the dense paths) given by the caller. The ensemble's
-        ``"unroll"`` plan runs each lane through it (the JAX package's
-        `trial_step`, which the ensemble maps over members); `step` is it
-        with the plan built first."""
-        return self._solve_once(state, pair=pair)
+        """The trial: (new_state, solution, info) of prep, GMRES and the
+        advance at ``state.dt`` (with the guard ladder when armed), with
+        ``pair`` (a `PairEvaluator`, or None for the dense paths) given by
+        the caller. The ensemble's ``"unroll"`` plan runs each lane through
+        it (the JAX package's `trial_step`, which the ensemble maps over
+        members); `step` is it with the plan built first."""
+        return self._solve_impl(state, pair=pair)
 
     def collision(self, state: SimState) -> bool:
         """The collision gate the adaptive loop rejects on (fiber nodes

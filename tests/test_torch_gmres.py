@@ -80,5 +80,8 @@ def test_gmres_edge_cases():
                 torch.tensor([1.0, float("nan"), 0.0, 0.0],
                              dtype=torch.float64))
     assert bad.health & 1  # nonfinite stamped at entry
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gmres(lambda v: v, torch.ones(4, dtype=torch.float64), block_s=2)
+    # the s-step cycle (tests/test_torch_sstep.py): the identity in one
+    # round of two
+    one = gmres(lambda v: v, torch.ones(4, dtype=torch.float64), block_s=2)
+    assert one.converged and one.iters == 1 and one.health == 0
+    assert torch.equal(one.x, torch.ones(4, dtype=torch.float64))

@@ -782,6 +782,84 @@ def test_ring_kernels_across_cards(cuda):
 
 
 @pytest.mark.gpu
+def test_member_mesh_across_cards(cuda):
+    """Eight members of a small free-fiber ensemble (16 curved 16-node
+    fibers each, in a background flow, "full" f64) on a member mesh of one
+    shard a card (2 to 4 cards: `make_member_mesh(n)`) step two rounds to
+    the one-card round's iterations, accept flags and times, and to its
+    fibers bit for bit where each shard's lanes take the one-card
+    member-batched plans, else within 1e-11; in "unroll" bit for bit.
+    Prints the rounds' walls. Skips with fewer than 2 cards."""
+    import json
+    import time
+
+    from skellysim_tpu_torch.ensemble import EnsembleRunner
+    from skellysim_tpu_torch.fibers import container as fc
+    from skellysim_tpu_torch.params import Params
+    from skellysim_tpu_torch.parallel import (gather_ensemble,
+                                              make_member_mesh,
+                                              shard_ensemble)
+    from skellysim_tpu_torch.system import BackgroundFlow, System
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs >= 2 cards, {n_cards} visible")
+    n = min(4, n_cards)
+    mesh = make_member_mesh(n)
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(n))
+    system = System(Params(dt_initial=1e-3, gmres_tol=1e-10,
+                           solver_precision="full",
+                           adaptive_timestep_flag=False), device=cuda)
+    rng = np.random.default_rng(3)
+    t = np.linspace(0, 1, 16)
+    states = []
+    for m in range(8):
+        d = rng.normal(size=(16, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        x = (rng.uniform(-3, 3, (16, 3))[:, None, :]
+             + t[None, :, None] * d[:, None] + 0.05 * m)
+        x[:, :, 2] += 0.2 * np.sin(3 * t)[None, :]
+        g = fc.make_group(x, lengths=1.0, bending_rigidity=0.01,
+                          radius=0.0125, force_scale=-0.05, device=cuda)
+        states.append(system.make_state(fibers=g, background=(
+            BackgroundFlow.make(uniform=(1.0, 0.0, 0.0), device=cuda))))
+    import subprocess
+
+    times = {"cards": n, "card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()}
+    for impl in ("vmap", "unroll"):
+        runner = EnsembleRunner(system, batch_impl=impl)
+        one = runner.make_ensemble(states, [1.0] * 8)
+        sh = shard_ensemble(one, mesh)
+        assert [p.states.fibers.x.device for p in sh.parts] == list(
+            mesh.devices)
+        for r in range(2):
+            t0 = time.perf_counter()
+            one, oinfo = runner.step(one)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sh, sinfo = runner.step(sh)
+            for d in mesh.devices:
+                torch.cuda.synchronize(d)
+            t2 = time.perf_counter()
+            times[f"{impl} round {r} one card s"] = t1 - t0
+            times[f"{impl} round {r} {n} cards s"] = t2 - t1
+            np.testing.assert_array_equal(sinfo.iters, oinfo.iters)
+            np.testing.assert_array_equal(sinfo.accepted, oinfo.accepted)
+            got = gather_ensemble(sh, cuda)
+            np.testing.assert_array_equal(got.states.time, one.states.time)
+            dx = float((got.states.fibers.x - one.states.fibers.x
+                        ).abs().max())
+            times[f"{impl} round {r} max dx"] = dx
+            if impl == "unroll":
+                assert dx == 0.0
+            assert dx <= 1e-11
+    print(json.dumps(times))
+
+
+@pytest.mark.gpu
 def test_ring_created_while_a_card_is_busy(cuda):
     """A new ring zeroes each card's counters on that card's own stream.
     Created while the second card's stream is still busy (a sleep kernel

@@ -124,9 +124,17 @@ def test_pallas_impl_for_and_unported_impls():
     assert tk.pallas_impl_for("pallas", a32, a32) == "pallas"
     assert tk.pallas_impl_for("pallas", a32, a64) == "exact"
     assert tk.pallas_impl_for("exact", a64) == "exact"
+    # "df" and "mxu" are the JAX package's plain-XLA tiles, plain torch
+    # here (tests/test_torch_precision.py holds them against the JAX
+    # package's): the seam serves them, in the targets' dtype
+    src = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]],
+                       dtype=torch.float64)
+    f = torch.tensor([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], dtype=torch.float64)
+    ref = tk.stokeslet_direct(src, src, f, 1.0)
     for impl in ("df", "mxu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tk.stokeslet_direct(a64, a64, a64, 1.0, impl=impl)
+        got = tk.stokeslet_direct(src, src, f, 1.0, impl=impl)
+        assert got.dtype == torch.float64
+        torch.testing.assert_close(got, ref, rtol=1e-13, atol=0)
 
 
 def test_oseen_tensor_matches_jax_batched():

@@ -80,7 +80,7 @@ def test_ring_sums_match_jax(family, n_dev):
 def test_df_rings_match_jax(family):
     """The f64-grade rings (one kernel B / D block a hop; the plain f64
     version here) against the JAX double-float rings (impl "df"), float64
-    out, to 1e-12; the port's own "df" spelling raises."""
+    out, to 1e-12, and the port's own "df" tile (double-float a hop)."""
     src, _, f, S = _cloud(8 * 4, 0, seed=47)
     pay = _payload(family, f, S)
     ref = getattr(jring, f"ring_{family}_df")(
@@ -95,8 +95,9 @@ def test_df_rings_match_jax(family):
     assert _rel(got, ref_f32_src) < GATE  # f32 inputs widen exactly
     got = port(_t(src), _t(src), _t(pay), 1.3, mesh=mesh)
     assert _rel(got, ref) < GATE
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port(_t(src), _t(src), _t(pay), 1.3, mesh=mesh, impl="df")
+    # the double-float tile a hop, the JAX package's own default
+    got = port(_t(src), _t(src), _t(pay), 1.3, mesh=mesh, impl="df")
+    assert got.dtype == torch.float64 and _rel(got, ref) < GATE
 
 
 @pytest.mark.parametrize("family", ["stokeslet", "stresslet"])
