@@ -95,8 +95,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                (`Body.generate_nucleation_sites`) and dynamic instability
                at the fibers' 64 nodes (v_growth 0.2, f_catastrophe 0.5,
                nucleation_rate 25, min_length 0.5); the body precomputed
-               alone; `python -m skellysim_tpu_torch` for two steps, then
-               `--resume` with t_final raised for two more. Gated on every
+               alone; `python -m skellysim_tpu_torch` for one step, then
+               `--resume` with t_final raised for one more (cut from two
+               and two). Gated on every
                step accepted, converged and healthy; nucleation and the
                fiber capacity passing the rung above the initial count
                (2,048 at full width); active = previous + nucleations -
@@ -125,7 +126,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                a. the Ewald Stokeslet of phase 3's 640,000 nodes at tol
                1e-6 (host plan seconds, near mode, K, M, P), f32 and f64:
                the entry sum (`PairEvaluator.stokeslet`, what every flow
-               calls) on the first 100 target blocks against kernel B on
+               calls) on the first 40 target blocks (cut from 100)
+               against kernel B on
                those rows (rel 2-norm gates 3e-3 f32, 1e-5 f64), and its
                stages timed apart: near field, spread, FFTs and multiply,
                interp (each the median of 3 after a warm-up; the near
@@ -138,7 +140,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                b. the 10k recipe cut to 500 fibers at its density through
                pair_evaluator = "FMM", one CLI step: gated like 4, on A
                launching 0 times and B launching; plan seconds printed.
-               c. phase 6's ellipsoid config cut to its first 500 fibers
+               c. phase 6's ellipsoid config cut to its first 250 fibers
+               (from 500)
                (its full 8,000-node shell and precompute), one direct
                step and one through "FMM": A and C launch 0 times in the
                latter (the shell is above ewald_min_sources), B and D
@@ -150,8 +153,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                real-space and wave-space sums) on 512 rows (gates 1e-5,
                1e-6) and 1e-6 against 1e-9 on every row (1e-5); then the
                recipe's fibers bent into arcs in its box made periodic
-               through "PVFMM", one step at full width in "full" and one
-               cut to 2,000 fibers in "mixed": gated as b, on A and B
+               through "PVFMM", one step cut to 4,000 fibers (from the
+               full width's 10,000) in "full" and one cut to 2,000 fibers
+               in "mixed", each at the recipe's density: gated as b, on A
+               and B
                launching 0 times and on each step taking 2 or more
                iterations (a coupled solve).
                e. one "full" f64 step on the card and on the CPU of the
@@ -201,8 +206,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                nothing). At tol 1e-4 G / H are also timed on each target-
                lane class's items alone.
                e. the 10k recipe's fibers bent into arcs (curvature 0.5),
-               free space, through "tree" at full width in "mixed", one
-               CLI step gated on its own result (accepted, true residual
+               free space, through "tree" cut to 4,000 fibers at the
+               recipe's density (from the full width's 10,000) in
+               "mixed", one CLI step gated on its own result (accepted, true residual
                <= 1e-8, health 0, 2 or more iterations; A 0 launches).
                f. (run before e) the small coupled scene through "tree"
                (its shell and body too): one matvec's f32 pair flows
@@ -317,8 +323,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                exact on 4M float32 pairs of the card; the float32 mxu
                Stokeslet on the JAX package's own envelope cloud within
                1e-2 of B (and A within 5e-5); the Stokeslet at phase 3's
-               cloud cut to 65,536 nodes and the stresslet at phase 6's
-               8,000 x 128,000: df (float64 in) within 1e-12 of B / D and
+               cloud cut to 32,768 nodes (from 65,536) and the stresslet at
+               phase 6's 8,000 x 128,000: df (float64 in) within 1e-12 of B / D and
                mxu in float64 within 1e-9 (norms), mxu in float32 printed,
                each timed beside A / B or C / D, no kernel launched by
                either tile.
@@ -332,6 +338,49 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                the sources otherwise); each round's case and walls
                printed beside the one-card round's.
                It prints {"options": ...} before the kernels line.
+17. flight + listener — run last, on phase 6's precompute and trajectory
+               and phase 15's members; the listener process starts after
+               a's timed steps and loads beside the rest of a and b:
+               a. phase 6's ellipsoid in "mixed" with flight_window 32: 3
+               steps armed against 3 unarmed from the same state, alone on
+               the card, in alternating order (states and solutions the
+               same bits; the armed - unarmed walls printed with their
+               spread), each ring row against
+               `obs.flight.record_step` recomputed on the CPU from copies
+               of the same (entry, new) states (ids exactly, floats within
+               1e-6), `record_step` again under
+               `torch.cuda.set_sync_debug_mode("error")` (no host sync), a
+               NaN at fiber 17 node 5 (the nonfinite bit, provenance (1,
+               17, 5)); phase 13b's scene on 4 shards of the card, armed
+               (every shard's ring the same bits, ids equal to the one-card
+               row, floats within 1e-6, body_norm > 0); phase 15's 8
+               members armed, two "vmap" rounds, one lane poisoned after
+               the first (its failed record names fiber_x; the other
+               lanes' rows carry no provenance), and the blast-radius
+               report of their records.
+               b. `System.velocity_field` of phase 6's last frame at
+               262,144 grid targets over the shell's box (the frame's
+               sources once and the pair sums at the targets, each timed
+               with its launches, B and D launching); the frame cut to 200
+               fibers at 4,096 of the targets, card against CPU: the pair
+               sums from the same sources within 1e-10, the whole path
+               (each side's own force densities) within 1e-8; through
+               "tree" against direct within 10 x tree_tol
+               (G and H launching); on the body-drag scene after one step,
+               64 probes inside the body against v + omega x dx within
+               1e-12.
+               c. `python -m skellysim_tpu_torch --listen` driven by
+               `io.Listener` over phase 6's trajectory: 64 streamline and
+               16 vortex-line seeds and a 128 x 128 slice on its last
+               frame (every line finite, each forward leg at its seed; the
+               slice within 1e-12 of `velocity_at_targets` in this
+               process); the same through "tree" (the slice within 10 x
+               tree_tol); an invalid frame and an unknown evaluator
+               answered empty, the request after them answered; the
+               terminate frame (exit code 0). Each request's server wall,
+               integrator steps, velocity evaluations and launches are
+               printed from the server's log.
+               It prints {"flight_listener": ...} before the kernels line.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -357,7 +406,8 @@ phase 13's sharded runs included ("spmd_ellipsoid", "spmd_ellipsoid_full",
 ("spmd_processes_full", "spmd_processes_mixed"), and phase 16's
 ("sstep_full", "sstep_mixed", "sstep_spmd_full", "sstep_spmd_mixed",
 "ladder_stagnation", "ladder_healthy", "member_mesh_vmap",
-"member_mesh_unroll").
+"member_mesh_unroll") and phase 17's ("flight_ellipsoid": the armed steps;
+"velocity_grid": the grid's pair sums).
 Every run is gated on the yardstick kernels launching 0 times. Then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
 card the script exits 2 before printing any result. Every file a phase
@@ -407,7 +457,7 @@ ELLIPSOID_DT = 8e-3
 ELLIPSOID_STEPS = 3
 #: the centrosome scene: steps before and after the resume, and its DI
 #: growth speed and nucleated length
-DI_STEPS = 2
+DI_STEPS = 1
 DI_V_GROWTH = 0.2
 DI_MIN_LENGTH = 0.5
 #: the body scene's dt, three steps
@@ -1967,8 +2017,8 @@ def phase_ellipsoid_di(torch, ck, device, ellipsoid_cfg, work, args, card):
                              f"{n * fields['ms'] / 1e3:.2f} s")
     for name in ShapeTally.NAMES:
         log(f"[ellipsoid_di] {name} calls by (sources, targets) over the "
-            f"four steps: " + ", ".join(f"{st}: {c}"
-                                         for st, c in tally.of(name)))
+            f"{2 * DI_STEPS} steps: " + ", ".join(f"{st}: {c}"
+                                               for st, c in tally.of(name)))
     log(f"[ellipsoid_di] calls x checked time at every shape launched "
         f"({len(live)} fiber nodes live in the last frame): "
         + "; ".join(parts) + f", against "
@@ -1981,8 +2031,10 @@ def phase_ellipsoid_di(torch, ck, device, ellipsoid_cfg, work, args, card):
 #: phase 11: the 640k Ewald sum is checked, and its near field timed, on
 #: its first EWALD_ROW_BLOCKS target blocks; each target block pairs with
 #: exactly K source blocks, so every block is the same work and the whole
-#: near field takes that time x (target blocks / EWALD_ROW_BLOCKS)
-EWALD_ROW_BLOCKS = 100
+#: near field takes that time x (target blocks / EWALD_ROW_BLOCKS); cut
+#: from 100 blocks (the f32 and f64 entries and near fields, each timed 4
+#: times, took ~40 s of the smoke's limit)
+EWALD_ROW_BLOCKS = 40
 #: phase 11b's run through "FMM": fibers, in a cube scaled to phase 4's
 #: density (the full 10k scene's plain-torch near field takes about 90 s
 #: a matvec, PERF.md §5, ~190 a step)
@@ -1990,12 +2042,16 @@ FMM_FIBERS = 500
 #: phase 11c's run of the ellipsoid through "FMM" (and its direct
 #: reference step) is cut to its first this many fibers: at full width its
 #: plain-torch near field made it a ~165 s step, the largest single part of
-#: the smoke
-FMM_ELLIPSOID_FIBERS = 500
+#: the smoke (at 500 fibers its two runs took 31.7 + 13.3 s)
+FMM_ELLIPSOID_FIBERS = 250
 #: phase 11d's "mixed" run through "PVFMM" is cut to this many fibers at
 #: the recipe's density (its full-width run is in "full": ~190 f32 sums
 #: in "mixed" would take ~3 minutes of the smoke's limit)
 PVFMM_MIXED_FIBERS = 2000
+#: phase 11d's "full" run through "PVFMM" is cut to this many fibers at
+#: the recipe's density (its full width, 10,000, took 46.8 s of the
+#: smoke's limit: PERF.md §5)
+PVFMM_FULL_FIBERS = 4000
 #: curvature of phase 11d's fibers (circular arcs, `make_config`)
 PVFMM_CURVATURE = 0.5
 #: the tolerance the fast sums are planned at (the params default)
@@ -2567,7 +2623,8 @@ def phase_fast(torch, ck, device, work, args, nodes, f, a_ms, ring_inputs):
     # plan too). No dense kernel launches.
     out["spectral_10k"] = spectral_at_10k(torch, device, nodes, f,
                                           (20.0,) * 3)
-    for tag, n_fib, prec in (("pvfmm", args.fibers, "full"),
+    for tag, n_fib, prec in (("pvfmm", min(PVFMM_FULL_FIBERS, args.fibers),
+                              "full"),
                              ("pvfmm_mixed", PVFMM_MIXED_FIBERS, "auto")):
         cfg, run_dir = cut_run(work, args, tag, n_fib,
                                pair_evaluator="PVFMM",
@@ -2599,6 +2656,9 @@ TREE_CUT_LEAVES = 8
 #: plan at the shell and an eighth of the fiber nodes, reads 5.2 x tol
 #: there, the port's equal to 2e-14 (tests/torch_tree_stresslet_witness.py)
 TREE_STRESSLET_GATE = 10.0
+#: phase 12e's "tree" run of the 10k recipe's arcs is cut to this many
+#: fibers at its density (the full width took 26.1 s of the smoke's limit)
+TREE_ARCS_FIBERS = 4000
 #: kernels G and H replace no Pallas kernel: the JAX package sums the
 #: tree's near and far fields in plain XLA
 TREE_REPLACES = ("no Pallas counterpart: skellysim_tpu/ops/treecode.py:555 "
@@ -3816,9 +3876,10 @@ def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
     launches["tree_sync_check"] = out["sync_check"]["launches"]
 
     # e. the 10k recipe's fibers bent into arcs, free space, through
-    # "tree" at full width in "mixed"; no direct run to compare with: gated
-    # on its own result
-    cfg, run_dir = cut_run(work, args, "tree_arcs", args.fibers,
+    # "tree" in "mixed", cut to TREE_ARCS_FIBERS at the recipe's density;
+    # no direct run to compare with: gated on its own result
+    cfg, run_dir = cut_run(work, args, "tree_arcs",
+                           min(TREE_ARCS_FIBERS, args.fibers),
                            pair_evaluator="tree", precision="auto",
                            curvature=PVFMM_CURVATURE)
     out["tree_arcs"] = fast_run(torch, ck, device, "tree_arcs", cfg, run_dir,
@@ -4477,7 +4538,7 @@ def phase_ensemble(torch, ck, device, work, args, card, entries):
 SSTEP_S = 4
 SSTEP_DX = 1e-6
 LADDER_MAXITER = 16
-TILE_CUT = 65536
+TILE_CUT = 32768
 DF_GATE = 1e-12
 MXU_GATE = 1e-2
 MXU64_GATE = 1e-9
@@ -4876,6 +4937,9 @@ def phase_options(torch, ck, device, ring_inputs, nodes, f, card):
     out["ladder"], more = phase_ladder(torch, ck, device, system, state,
                                        keep["mixed"])
     launches.update(more)
+    # phase 17 starts from this state (the shell npz loads once)
+    ring_inputs["state"] = state
+    ring_inputs["system_args"] = (system.params, system.shell_shape)
     del keep, state, system
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -4987,6 +5051,662 @@ def phase_member_mesh(torch, ck, device, mesh_inputs):
     return out, launches
 
 
+#: phase 17: the flight recorder's window, its steps, and the gate of a
+#: ring row against the row recomputed on the CPU (float32 columns); the
+#: NaN planted at (fiber, node); the velocity grid's side (64^3 = 262,144
+#: targets), the CPU cut of the frame and its gates (the pair sums from
+#: the same sources; the whole path, whose fiber force densities differ
+#: by the two BLAS's summation orders), the body probes' gate;
+#: the listener's requests (seeds, the slice's side) and the slice's gate
+#: against the field in this process; a tree answer's gate, in units of
+#: tree_tol (phase 12b's stresslet gate: the field holds the shell's
+#: double layer)
+FLIGHT_WINDOW = 32
+FLIGHT_STEPS = 3
+FLIGHT_REL = 1e-6
+FLIGHT_NAN = (17, 5)
+VEL_GRID = 64
+VEL_CPU_FIBERS = 200
+VEL_CPU_TARGETS = 4096
+VEL_CPU_GATE = 1e-10
+VEL_PATH_GATE = 1e-8
+VEL_BODY_GATE = 1e-12
+LISTEN_STREAMLINES = 64
+LISTEN_VORTEX = 16
+LISTEN_SLICE = 128
+LISTEN_GATE = 1e-12
+LISTEN_TIMEOUT_S = 300
+
+
+def light_cpu(torch, st):
+    """A CPU copy of what the recorder and the velocity field read: the
+    fiber groups, the shell without its dense operators, the bodies and
+    the sources (the flight ring dropped)."""
+    def to(obj):
+        if obj is None:
+            return None
+        if torch.is_tensor(obj):
+            return obj.cpu()
+        if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+            return type(obj)(*[to(v) for v in obj])
+        if isinstance(obj, tuple):
+            return tuple(to(v) for v in obj)
+        return obj
+
+    shell = st.shell
+    if shell is not None:
+        shell = shell._replace(M_inv=None, stresslet_plus_complementary=None)
+    return to(st._replace(shell=shell, flight=None))
+
+
+def cut_fibers(torch, st, n):
+    """``st`` with its one fiber bucket cut to its first ``n`` fibers."""
+    g = fiber_groups(st.fibers)[0]
+    nf = g.n_fibers
+    cut = type(g)(*[v[:n] if torch.is_tensor(v) and v.shape[:1] == (nf,)
+                    else v for v in g])
+    return st._replace(fibers=cut)
+
+
+def flight_rows_match(np, got, ref, skip=()):
+    """(ids equal, largest relative gap of the float columns) of two ring
+    rows; ``skip``: columns each side records of its own solve."""
+    from skellysim_tpu_torch.obs.flight import FLIGHT_FIELDS
+
+    ids = [FLIGHT_FIELDS.index(k) for k in ("strain_fiber", "health",
+                                            "prov_field", "prov_fiber",
+                                            "prov_node")]
+    floats = [i for i in range(len(FLIGHT_FIELDS))
+              if i not in ids and FLIGHT_FIELDS[i] not in skip]
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    same_ids = bool(np.array_equal(got[ids], ref[ids]))
+    a, b = got[floats], ref[floats]
+    both_nan = np.isnan(a) & np.isnan(b)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        rel = np.where(both_nan | (a == b), 0.0,
+                       np.abs(a - b) / np.maximum(np.abs(b), 1e-300))
+    return same_ids, float(np.nanmax(np.where(np.isnan(rel), np.inf, rel)))
+
+
+def phase_flight(torch, ck, device, system, state, mesh_inputs, work, out,
+                 after_timed=None):
+    """17a: phase 6's ellipsoid "mixed" with flight_window = FLIGHT_WINDOW:
+    FLIGHT_STEPS steps armed against as many unarmed from the same state
+    (the states and solutions the same bits), each ring row against
+    `record_step` recomputed on the CPU from copies of the same (entry,
+    new) states, `record_step` again under the sync debug mode, a NaN's
+    provenance; phase 13b's scene on SPMD_SHARDS shards of the card (every
+    shard's ring the same bits, against the one-card row); phase 15's
+    members, armed, one lane poisoned. ``after_timed`` (if given) is called
+    once the timed steps are done, so that what it starts does not share
+    the card with them. Fills ``out``; returns the launch counts of the
+    armed steps."""
+    import numpy as np
+
+    from skellysim_tpu_torch.ensemble import (EnsembleRunner,
+                                              EnsembleScheduler, MemberSpec)
+    from skellysim_tpu_torch.guard import chaos
+    from skellysim_tpu_torch.obs import flight
+    from skellysim_tpu_torch.parallel import make_mesh, shard_state
+    from skellysim_tpu_torch.system import System
+
+    def armed_twin(sys_):
+        return System(dataclasses.replace(sys_.params,
+                                          flight_window=FLIGHT_WINDOW),
+                      shell_shape=sys_.shell_shape, device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    armed = armed_twin(system)
+    s_off, s_on = state, armed.ensure_flight(state)
+    walls, rows, launches = [], [], {}
+    for i in range(FLIGHT_STEPS):
+        # the pair's order alternates, so that what the second step of a
+        # pair gains from running second falls on both sides
+        armed_first = i % 2 == 1
+        wall = {}
+        for armed_now in (True, False) if armed_first else (False, True):
+            reset_counts(ck)
+            sync()
+            t0 = time.perf_counter()
+            if armed_now:
+                n_on, x_on, i_on = armed.step(s_on)
+            else:
+                n_off, x_off, i_off = system.step(s_off)
+            sync()
+            wall[armed_now] = time.perf_counter() - t0
+            if armed_now:
+                add_counts(launches, read_counts(ck))
+        same = (torch.equal(x_off, x_on)
+                and torch.equal(fiber_groups(n_off.fibers)[0].x,
+                                fiber_groups(n_on.fibers)[0].x)
+                and torch.equal(n_off.shell.density, n_on.shell.density)
+                and i_off == i_on)
+        cpu_ring = flight.record_step(
+            light_cpu(torch, s_on), light_cpu(torch, n_on)._replace(
+                flight=flight.new_ring(FLIGHT_WINDOW)),
+            x_on.cpu(), residual_true=i_on.residual_true,
+            health=i_on.health, dt_used=i_on.dt_used,
+            shell_shape=armed.shell_shape)
+        row = n_on.flight.rows[i].cpu().numpy()
+        same_ids, rel = flight_rows_match(np, row,
+                                          cpu_ring.rows[0].numpy())
+        walls.append((wall[False], wall[True], armed_first))
+        rows.append({"step": i, "unarmed_wall_s": wall[False],
+                     "armed_wall_s": wall[True], "armed_first": armed_first,
+                     "same_bits": same,
+                     "row_ids_equal_cpu": same_ids, "row_rel_cpu": rel,
+                     "row": flight.decode_row(row)})
+        log(f"[flight] step {i}: unarmed {wall[False]:.3f} s, armed "
+            f"{wall[True]:.3f} s ({'armed' if armed_first else 'unarmed'} "
+            f"first; iterations {i_on.iters}); states and "
+            f"solutions the same bits: {same}; the row against record_step "
+            f"on the CPU: ids equal {same_ids}, float columns within "
+            f"{rel:.2e} (gate {FLIGHT_REL}); row "
+            f"{json.dumps(flight.decode_row(row))}")
+        if not (same and same_ids and rel <= FLIGHT_REL
+                and i_on.health == 0):
+            raise SystemExit(f"flight: step {i} failed its gates: "
+                             f"{rows[-1]}")
+        entry = s_on
+        s_off = n_off._replace(time=n_off.time + n_off.dt)
+        s_on = n_on._replace(time=n_on.time + n_on.dt)
+    out["steps"] = rows
+    diff_ms = [1e3 * (on - off) for off, on, _ in walls]
+    off_ms = [1e3 * off for off, _, _ in walls]
+    out["armed_minus_unarmed_ms"] = diff_ms
+    marked = ", ".join(f"{d:+.1f}" + ("*" if w[2] else "")
+                       for d, w in zip(diff_ms, walls))
+    log(f"[flight] armed - unarmed wall a step (nothing else on the card; "
+        f"the armed step first in the pairs marked *): {marked} ms, mean "
+        f"{sum(diff_ms) / len(diff_ms):+.1f} ms; the unarmed steps' own "
+        f"spread {max(off_ms) - min(off_ms):.1f} ms")
+    if after_timed is not None:
+        after_timed()
+
+    # record_step alone under the sync debug mode (its matrices cached by
+    # the steps above)
+    sync()
+    if device.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        ring = flight.record_step(entry, n_on, x_on,
+                                  residual_true=i_on.residual_true,
+                                  health=i_on.health, dt_used=i_on.dt_used,
+                                  shell_shape=armed.shell_shape)
+    finally:
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    same_again = torch.equal(ring.rows[FLIGHT_STEPS],
+                             n_on.flight.rows[FLIGHT_STEPS - 1])
+    out["record_step_no_sync"] = device.type == "cuda"
+    log(f"[flight] record_step alone under torch.cuda.set_sync_debug_mode("
+        f"\"error\"): no host sync"
+        f"{'' if device.type == 'cuda' else ' (not checked: CPU)'}; its "
+        f"row the step's bits: {same_again}")
+    if not same_again:
+        raise SystemExit("flight: record_step alone wrote another row")
+
+    # a NaN at (fiber, node): the nonfinite bit and its provenance
+    f_nan, n_nan = FLIGHT_NAN
+    g = fiber_groups(s_on.fibers)[0]
+    x = g.x.clone()
+    x[f_nan, n_nan, 1] = float("nan")
+    bad = s_on._replace(fibers=g._replace(x=x))
+    sync()
+    t0 = time.perf_counter()
+    n_bad, _, i_bad = armed.step(bad)
+    sync()
+    prov = flight.read_last(n_bad.flight)
+    out["nan"] = {"health": i_bad.health, "row": prov,
+                  "wall_s": time.perf_counter() - t0}
+    log(f"[flight] a NaN at fiber {f_nan} node {n_nan}: health "
+        f"{i_bad.health:#x}, provenance {prov['provenance']} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if not (i_bad.health & 1 and (prov["prov_field"], prov["prov_fiber"],
+                                  prov["prov_node"]) == (1, f_nan, n_nan)):
+        raise SystemExit(f"flight: the NaN was not localized: {prov}")
+    del bad, n_bad, n_off, x_off
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # phase 13b's scene on SPMD_SHARDS shards of the card
+    bstate = spmd_body_state(torch, armed, state)
+    mesh = make_mesh(SPMD_SHARDS, device=device)
+    sync()
+    t0 = time.perf_counter()
+    new, _, sinfo = armed.step_spmd(shard_state(bstate, mesh), mesh)
+    sync()
+    swall = time.perf_counter() - t0
+    rings = [st.flight for st in new.shards]
+    same_shards = all(torch.equal(r.rows.view(torch.int32),
+                                  rings[0].rows.view(torch.int32))
+                      and torch.equal(r.count, rings[0].count)
+                      for r in rings[1:])
+    one, _, oinfo = armed.step(bstate)
+    srow = rings[0].rows[0].cpu().numpy()
+    orow = one.flight.rows[0].cpu().numpy()
+    same_ids, rel = flight_rows_match(np, srow, orow,
+                                      skip=("residual_true",))
+    srec = flight.decode_row(srow)
+    out["spmd"] = {"shards": mesh.size, "wall_s": swall,
+                   "same_bits_every_shard": same_shards,
+                   "ids_equal_one_card": same_ids, "rel_one_card": rel,
+                   "row": srec, "one_card_row": flight.decode_row(orow)}
+    log(f"[flight_spmd] phase 13b's scene on {mesh.size} shards of "
+        f"{mesh.devices[0]}, armed: {swall:.3f} s, iterations {sinfo.iters} "
+        f"(one card {oinfo.iters}); every shard's ring the same bits: "
+        f"{same_shards}; against the one-card row: ids equal {same_ids}, "
+        f"float columns within {rel:.2e} (gate {FLIGHT_REL}; the true "
+        f"residual is each solve's own); body_norm {srec['body_norm']:.6g}")
+    if not (same_shards and same_ids and rel <= FLIGHT_REL
+            and srec["body_norm"] > 0):
+        raise SystemExit(f"flight_spmd: failed its gates: {out['spmd']}")
+    del bstate, new, one, rings
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # phase 15's members, armed; one lane poisoned after a healthy round
+    full_sys, grown, rngs, members = (mesh_inputs[k] for k in
+                                      ("system", "states", "rngs",
+                                       "members"))
+    ens_sys = armed_twin(full_sys)
+    records = []
+    sched = EnsembleScheduler(
+        EnsembleRunner(ens_sys, batch_impl="vmap"),
+        [MemberSpec(m, grown[m], ens_sys.params.t_final, rng=rngs[m])
+         for m in members], len(members), metrics=records.append,
+        on_failure="retire", on_growth="retire")
+    sync()
+    t0 = time.perf_counter()
+    sched.poll()
+    poisoned = len(members) // 2
+    sched.ens = chaos.poison_lane(sched.ens, poisoned)
+    sched.poll()
+    sync()
+    ewall = time.perf_counter() - t0
+    fails = [r for r in records if r.get("event") == "failed"]
+    steps = [r for r in records if r.get("event") == "step"]
+    bad_m = members[poisoned]
+    payload = fails[0]["flight"] if fails else None
+    clean = all(r["flight"] is not None and r["flight"]["provenance"] is None
+                for r in steps if r["member"] != bad_m)
+    out["ensemble"] = {"members": len(members), "wall_s": ewall,
+                       "failed": [r["member"] for r in fails],
+                       "provenance": (payload or {}).get("provenance"),
+                       "tail": len((payload or {}).get("tail") or []),
+                       "others_clean": clean,
+                       "step_records": len(steps)}
+    log(f"[flight_ensemble] phase 15's {len(members)} members, armed "
+        f"(window {FLIGHT_WINDOW}), two \"vmap\" rounds, lane {poisoned} "
+        f"({bad_m}) poisoned after the first: {ewall:.3f} s; failed "
+        f"{out['ensemble']['failed']} with provenance "
+        f"{out['ensemble']['provenance']} and a tail of "
+        f"{out['ensemble']['tail']} rows; the other lanes' rows carry no "
+        f"provenance: {clean}")
+    if not (len(fails) == 1 and fails[0]["member"] == bad_m and payload
+            and payload["provenance"]
+            and payload["provenance"]["field"] == "fiber_x" and clean):
+        raise SystemExit(f"flight_ensemble: failed its gates: "
+                         f"{out['ensemble']}")
+    report = os.path.join(work, "flight_ensemble.jsonl")
+    with open(report, "w") as fh:
+        for r in records:
+            fh.write(json.dumps(r) + "\n")
+    text = flight.render_flight_report([report])
+    os.remove(report)
+    for line in text.rstrip().splitlines():
+        log(f"[flight_report] {line}")
+    return launches
+
+
+def velocity_grid(np, nodes, side):
+    """side^3 points over the bounding box of ``nodes``."""
+    lo, hi = nodes.min(axis=0), nodes.max(axis=0)
+    axes = [np.linspace(lo[k], hi[k], side) for k in range(3)]
+    g = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+    return g.reshape(-1, 3)
+
+
+def phase_velocity(torch, ck, device, system, frame_state, work, out):
+    """17b: phase 6's last frame: the field built once and evaluated at
+    VEL_GRID^3 points over the shell's box, each part timed with its
+    launches; the card against the CPU on the frame cut to VEL_CPU_FIBERS
+    fibers; "tree" against direct; on the body-drag scene, probes inside
+    the body against v + omega x dx from the same solution. Fills ``out``;
+    returns the launch counts of the grid evaluation."""
+    import numpy as np
+
+    from skellysim_tpu_torch import precompute
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.system import System
+    from skellysim_tpu_torch.system.system import solution_from_state
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    side = VEL_GRID if device.type == "cuda" else 16
+    sol = solution_from_state(frame_state)
+    grid = torch.as_tensor(velocity_grid(
+        np, frame_state.shell.nodes.cpu().numpy(), side), device=device)
+    sync()
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    field = system.velocity_field(frame_state, sol)
+    sync()
+    t1 = time.perf_counter()
+    build_counts = {k: v for k, v in read_counts(ck).items() if v}
+    reset_counts(ck)
+    v = field(grid)
+    sync()
+    t2 = time.perf_counter()
+    grid_counts = read_counts(ck)
+    v_again = field(grid)
+    sync()
+    t3 = time.perf_counter()
+    finite = bool(torch.isfinite(v).all())
+    out["grid"] = {"targets": grid.shape[0], "build_s": t1 - t0,
+                   "build_launches": build_counts, "first_s": t2 - t1,
+                   "again_s": t3 - t2,
+                   "launches": {k: c for k, c in grid_counts.items() if c},
+                   "same_bits_again": torch.equal(v, v_again),
+                   "finite": finite}
+    log(f"[velocity] phase 6's last frame (t={frame_state.time:.4g}) at "
+        f"{grid.shape[0]} grid targets over the shell's box: the frame's "
+        f"sources once {t1 - t0:.3f} s (launches {build_counts}), the pair "
+        f"sums at the targets {t2 - t1:.3f} s, again {t3 - t2:.3f} s (the "
+        f"same bits: {out['grid']['same_bits_again']}); launches "
+        f"{out['grid']['launches']}; max |v| "
+        f"{float(v.abs().max()):.4g}")
+    if not (finite and out["grid"]["same_bits_again"]):
+        raise SystemExit(f"velocity: the grid field failed: {out['grid']}")
+    if device.type == "cuda" and not (grid_counts["stokeslet_f64"]
+                                      and grid_counts["stresslet_f64"]):
+        raise SystemExit(f"velocity: B / D did not launch: {grid_counts}")
+
+    # the card against the CPU on the cut frame: the pair sums from the
+    # same sources (the card's, copied), and the whole path with each
+    # side's own sources
+    cut = cut_fibers(torch, frame_state, VEL_CPU_FIBERS)
+    rng = np.random.default_rng(17)
+    pts = grid[torch.as_tensor(rng.choice(grid.shape[0], VEL_CPU_TARGETS,
+                                          replace=False), device=device)]
+    card_field = system.velocity_field(cut, solution_from_state(cut))
+    card = card_field(pts).cpu()
+    cpu_sys = System(system.params, shell_shape=system.shell_shape,
+                     device="cpu")
+    cut_cpu = light_cpu(torch, cut)
+    host_field = cpu_sys.velocity_field(cut_cpu,
+                                        solution_from_state(cut_cpu))
+    host = host_field(pts.cpu())
+    f_host = torch.cat([f.reshape(-1) for f in host_field.forces])
+    f_card = torch.cat([f.reshape(-1) for f in card_field.forces]).cpu()
+    f_rel = float((f_card - f_host).abs().max() / f_host.abs().max())
+    host_field.forces = [f.cpu() for f in card_field.forces]
+    host_field.density = card_field.density.cpu()
+    shared = host_field(pts.cpu())
+    rel = float((card - shared).abs().max() / shared.abs().max())
+    rel_path = float((card - host).abs().max() / host.abs().max())
+    out["card_vs_cpu"] = {"fibers": VEL_CPU_FIBERS,
+                          "targets": VEL_CPU_TARGETS, "sums_rel": rel,
+                          "path_rel": rel_path, "forces_rel": f_rel}
+    log(f"[velocity] the frame cut to {VEL_CPU_FIBERS} fibers at "
+        f"{VEL_CPU_TARGETS} of the grid's targets, card against CPU: the "
+        f"pair sums from the same sources max |dv| / max |v| = {rel:.3e} "
+        f"(gate {VEL_CPU_GATE}); the whole path, each side's own sources, "
+        f"{rel_path:.3e} (gate {VEL_PATH_GATE}), the fiber force densities "
+        f"{f_rel:.3e} apart (the stiff fiber operator applied to smooth "
+        f"positions cancels: cuBLAS and the host BLAS sum in other orders)")
+    if not (rel <= VEL_CPU_GATE and rel_path <= VEL_PATH_GATE):
+        raise SystemExit(f"velocity: card against CPU {rel:.3e}, "
+                         f"{rel_path:.3e}")
+
+    # "tree" against direct
+    tree = System(dataclasses.replace(system.params, pair_evaluator="tree"),
+                  shell_shape=system.shell_shape, device=device)
+    sync()
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    v_tree = tree.velocity_at_targets(frame_state, sol, grid)
+    sync()
+    twall = time.perf_counter() - t0
+    tcounts = {k: c for k, c in read_counts(ck).items() if c}
+    trel = float((v_tree - v).abs().max() / v.abs().max())
+    gate = TREE_STRESSLET_GATE * tree.params.tree_tol
+    out["tree"] = {"wall_s": twall, "rel": trel, "gate": gate,
+                   "launches": tcounts}
+    log(f"[velocity] through \"tree\" (tree_tol {tree.params.tree_tol:g}, "
+        f"the plan over the nodes and the grid): {twall:.3f} s (the host "
+        f"plan included); field-normalized max |dv| against direct "
+        f"{trel:.3e} (gate {gate:g}, phase 12b's stresslet gate); launches "
+        f"{tcounts}")
+    if not trel <= gate:
+        raise SystemExit(f"velocity: tree against direct {trel:.3e}")
+    if device.type == "cuda" and not (tcounts.get("tree_stokeslet_f64")
+                                      and tcounts.get("tree_stresslet_f64")):
+        raise SystemExit(f"velocity: G / H did not launch: {tcounts}")
+    del field, v, v_again, v_tree, grid
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the body-drag scene: probes inside the body move with it
+    run_dir = os.path.join(work, "flight_body")
+    os.makedirs(run_dir)
+    cfg = os.path.join(run_dir, "skelly_config.toml")
+    make_body_config(cfg)
+    precompute.main([cfg, f"--device={device.type}"])
+    bsys, bst, _ = build_simulation(cfg, device=device)
+    bnew, bsol, _ = bsys.step(bst)
+    g = bnew.bodies
+    center = g.position[0]
+    offs = torch.as_tensor(np.random.default_rng(9).uniform(
+        -0.25, 0.25, (64, 3)), device=device)
+    v_in = bsys.velocity_at_targets(bnew, bsol, center + offs)
+    fs, ss, _ = bsys._sizes(bnew)
+    vel6 = bsol[fs + ss:].reshape(g.n_bodies, -1)[0, -6:]
+    dx = (center + offs) - center
+    rigid = vel6[:3] + torch.cross(vel6[3:].expand_as(dx), dx, dim=-1)
+    brel = float((v_in - rigid).abs().max() / rigid.abs().max())
+    out["body"] = {"probes": offs.shape[0], "rel": brel}
+    log(f"[velocity] the body-drag scene after one step: {offs.shape[0]} "
+        f"probes inside the body against v + omega x dx from the same "
+        f"solution: max |dv| / max |v| = {brel:.3e} (gate {VEL_BODY_GATE})")
+    shutil.rmtree(run_dir)
+    if not brel <= VEL_BODY_GATE:
+        raise SystemExit(f"velocity: inside the body {brel:.3e}")
+    return grid_counts
+
+
+def listener_seeds(np, frame_state, n, seed):
+    """``n`` points inside the ellipsoid's middle half (default_rng)."""
+    nodes = frame_state.shell.nodes.cpu().numpy()
+    half = 0.5 * (nodes.max(axis=0) - nodes.min(axis=0)) / 2.0
+    u = np.random.default_rng(seed).uniform(-1.0, 1.0, (4 * n, 3))
+    u = u[np.sum(u * u, axis=1) < 1.0][:n]
+    return u * half
+
+
+def listener_slice(np, frame_state, side):
+    """side^2 points on the z = 0 plane over the shell's box."""
+    nodes = frame_state.shell.nodes.cpu().numpy()
+    lo, hi = nodes.min(axis=0), nodes.max(axis=0)
+    xs = np.linspace(lo[0], hi[0], side)
+    ys = np.linspace(lo[1], hi[1], side)
+    g = np.stack(np.meshgrid(xs, ys, indexing="ij"), axis=-1).reshape(-1, 2)
+    return np.concatenate([g, np.zeros((g.shape[0], 1))], axis=1)
+
+
+def start_listener(torch, device, cfg_path, work):
+    """`python -m skellysim_tpu_torch --listen` on ``cfg_path`` as a
+    subprocess driven by the port's `Listener` (its standard error to a
+    file): (listener, stderr path, start time)."""
+    from skellysim_tpu_torch.io import Listener
+
+    err_path = os.path.join(work, "listener.err")
+    err = open(err_path, "w")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    lis = Listener(toml_file=cfg_path, device=device.type, stderr=err,
+                   env=env)
+    err.close()
+    return lis, err_path, time.perf_counter()
+
+
+def phase_listener(torch, device, system, frame_state, n_frames, lis,
+                   err_path, started, out):
+    """17c: requests to the listener started by `start_listener` over
+    phase 6's trajectory: LISTEN_STREAMLINES streamline seeds,
+    LISTEN_VORTEX vortex-line seeds and a LISTEN_SLICE^2 velocity slice
+    (against `velocity_at_targets` in this process), the same through
+    "tree", an invalid frame, an unknown evaluator and the request after
+    it, then the terminate frame (exit code 0). Fills ``out``."""
+    import numpy as np
+
+    from skellysim_tpu_torch.io import (Request, StreamlinesRequest,
+                                        VelocityFieldRequest)
+    from skellysim_tpu_torch.system.system import solution_from_state
+
+    last = n_frames - 1
+    side = LISTEN_SLICE if device.type == "cuda" else 16
+    n_sl = LISTEN_STREAMLINES if device.type == "cuda" else 4
+    n_vl = LISTEN_VORTEX if device.type == "cuda" else 2
+    seeds_sl = listener_seeds(np, frame_state, n_sl, 1)
+    seeds_vl = listener_seeds(np, frame_state, n_vl, 2)
+    pts = listener_slice(np, frame_state, side)
+
+    def full_request(evaluator):
+        # the lines at the client's (the reference's) defaults: dt_init
+        # 0.1, t_final 1, abs_err 1e-10, rel_err 1e-6, both legs
+        return Request(frame_no=last, evaluator=evaluator,
+                       streamlines=StreamlinesRequest(x0=seeds_sl),
+                       vortexlines=StreamlinesRequest(x0=seeds_vl),
+                       velocity_field=VelocityFieldRequest(x=pts))
+
+    walls = {}
+
+    def ask(tag, req):
+        t0 = time.perf_counter()
+        res = lis.request(req)
+        walls[tag] = time.perf_counter() - t0
+        return res
+
+    dense = ask("dense", full_request("CPU"))
+    tree = ask("tree", full_request("tree"))
+    invalid = ask("invalid_frame", Request(frame_no=n_frames + 7))
+    unknown = ask("unknown_evaluator", Request(frame_no=last,
+                                               evaluator="no-such"))
+    after = ask("after_unknown", Request(
+        frame_no=0, evaluator="CPU",
+        velocity_field=VelocityFieldRequest(x=pts[:8])))
+    rc = lis.close(timeout=LISTEN_TIMEOUT_S)
+    total = time.perf_counter() - started
+    logs = [json.loads(ln.split("listener request ", 1)[1])
+            for ln in open(err_path) if "listener request " in ln]
+
+    # the slice against the field in this process
+    here = system.velocity_at_targets(frame_state,
+                                      solution_from_state(frame_state),
+                                      pts).cpu().numpy()
+    got = np.asarray(dense["velocity_field"]).reshape(-1, 3)
+    rel = float(np.abs(got - here).max() / np.abs(here).max())
+    tgot = np.asarray(tree["velocity_field"]).reshape(-1, 3)
+    trel = float(np.abs(tgot - got).max() / np.abs(got).max())
+    tgate = TREE_STRESSLET_GATE * system.params.tree_tol
+
+    def lines_ok(lines, seeds):
+        if len(lines) != len(seeds):
+            return False
+        for ln, s in zip(lines, seeds):
+            x = np.asarray(ln["x"]).reshape(-1, 3)
+            t = np.asarray(ln["time"]).reshape(-1)
+            if not (np.isfinite(x).all() and np.isfinite(t).all()
+                    and len(t) == len(x)):
+                return False
+            zero = np.flatnonzero(t == 0.0)
+            if len(zero) != 1 or not np.array_equal(x[zero[0]], s):
+                return False
+        return True
+
+    ok_sl = lines_ok(dense["streamlines"], seeds_sl)
+    ok_vl = lines_ok(dense["vortexlines"], seeds_vl)
+    samples = [len(np.asarray(ln["time"]).reshape(-1))
+               for ln in dense["streamlines"]]
+    out.update({
+        "process_s": total, "rc": rc, "walls_s": walls,
+        "slice_points": len(pts), "slice_rel_in_process": rel,
+        "tree_rel": trel, "tree_gate": tgate,
+        "streamlines_ok": ok_sl, "vortexlines_ok": ok_vl,
+        "streamline_samples": [min(samples), max(samples)],
+        "invalid_empty": invalid is None, "unknown_empty": unknown is None,
+        "after_unknown_answered": after is not None, "requests": logs})
+    for rec in logs:
+        log(f"[listener] request frame {rec['frame_no']} through "
+            f"{rec['evaluator']}: {rec['wall_s']:.3f} s in the server, "
+            f"{rec['integrator_steps']} integrator steps, "
+            f"{rec['velocity_calls']} velocity evaluations at "
+            f"{rec['velocity_points']} points; launches {rec['launches']}")
+    log(f"[listener] `python -m skellysim_tpu_torch --listen` over phase "
+        f"6's {n_frames} frames (started after 17a's timed steps, so its "
+        f"start-up ran beside the rest of 17a and 17b): request walls at "
+        f"the client (the first request's includes what start-up was "
+        f"left) "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}; "
+        f"{len(seeds_sl)} streamlines of {min(samples)}-{max(samples)} "
+        f"samples, finite, each forward leg at its seed: {ok_sl}; "
+        f"{len(seeds_vl)} vortex lines: {ok_vl}; the {len(pts)}-point "
+        f"slice against velocity_at_targets here: {rel:.3e} (gate "
+        f"{LISTEN_GATE}); through \"tree\" against it: {trel:.3e} (gate "
+        f"{tgate:g}); invalid frame answered empty: {invalid is None}; "
+        f"unknown evaluator answered empty: {unknown is None}, the next "
+        f"request answered: {after is not None}; exit code {rc}; "
+        f"{total:.1f} s in all")
+    if not (rc == 0 and ok_sl and ok_vl and rel <= LISTEN_GATE
+            and trel <= tgate and invalid is None and unknown is None
+            and after is not None and len(logs) == 4):
+        raise SystemExit(f"listener: failed its gates: "
+                         f"{ {k: v for k, v in out.items() if k != 'requests'} }")
+
+
+def phase_flight_listener(torch, ck, device, ring_inputs, mesh_inputs,
+                          work):
+    """Phase 17 (after 16d, on phase 6's precompute and trajectory and
+    phase 15's members): 17a (`phase_flight`) times its steps alone, then
+    starts the listener in its own process, which loads while the rest of
+    17a and 17b (`phase_velocity`) run here; then 17c (`phase_listener`).
+    Returns (summary, launch counts by run)."""
+    from skellysim_tpu_torch.io.trajectory import (TrajectoryReader,
+                                                   frame_to_state)
+    from skellysim_tpu_torch.system import System
+
+    cfg_path = ring_inputs["cfg_path"]
+    traj = os.path.join(os.path.dirname(cfg_path), "skelly_sim.out")
+    listener = []
+    try:
+        # phase 16a's first state of phase 6's config
+        state = ring_inputs["state"]
+        params, shape = ring_inputs["system_args"]
+        system = System(params, shell_shape=shape, device=device)
+        out, launches = {"flight": {}, "velocity": {}, "listener": {}}, {}
+        launches["flight_ellipsoid"] = phase_flight(
+            torch, ck, device, system, state, mesh_inputs, work,
+            out["flight"], after_timed=lambda: listener.append(
+                start_listener(torch, device, cfg_path, work)))
+        reader = TrajectoryReader(traj)
+        n_frames = len(reader)
+        frame_state = frame_to_state(reader.load_frame(n_frames - 1), state)
+        reader.close()
+        launches["velocity_grid"] = phase_velocity(
+            torch, ck, device, system, frame_state, work, out["velocity"])
+        phase_listener(torch, device, system, frame_state, n_frames,
+                       *listener[0], out["listener"])
+    finally:
+        if listener:
+            listener[0][0].close(timeout=LISTEN_TIMEOUT_S)
+    return out, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--spmd-worker"]:
@@ -5024,8 +5744,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
-        entries, launches, smi, fast, tree, spmd, ens, options = run_phases(
-            torch, ck, cuda_build, TrajectoryReader, device, args, work)
+        (entries, launches, smi, fast, tree, spmd, ens, options,
+         flight) = run_phases(torch, ck, cuda_build, TrajectoryReader,
+                              device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -5042,6 +5763,7 @@ def main(argv=None) -> int:
     print(json.dumps({"spmd": spmd}), flush=True)
     print(json.dumps({"ensemble": ens}), flush=True)
     print(json.dumps({"options": options}), flush=True)
+    print(json.dumps({"flight_listener": flight}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5234,8 +5956,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     options, opt_launches = phase_options(torch, ck, device, ring_inputs,
                                           nodes, f, smi)
     launches.update(opt_launches)
-    del ring_inputs, nodes, f
-    shutil.rmtree(os.path.join(work, "ellipsoid"))
+    del nodes, f
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -5265,9 +5986,25 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     options["member_mesh"], mesh_launches = phase_member_mesh(
         torch, ck, device, mesh_inputs)
     launches.update(mesh_launches)
-    del mesh_inputs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
     stamp("phase 16d")
+
+    # 17. the flight recorder on every step path, velocity_at_targets and
+    # the listener, on phase 6's precompute and trajectory and phase 15's
+    # members
+    t17 = time.perf_counter()
+    flight_out, flight_launches = phase_flight_listener(
+        torch, ck, device, ring_inputs, mesh_inputs, work)
+    flight_out["phase_s"] = time.perf_counter() - t17
+    launches.update(flight_launches)
+    del mesh_inputs, ring_inputs
+    shutil.rmtree(os.path.join(work, "ellipsoid"))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 17")
 
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
@@ -5281,7 +6018,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
                "tree_stresslet_f64": "tree_ellipsoid_full"}
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
-    return entries, launches, smi, fast, tree, spmd, ens, options
+    return (entries, launches, smi, fast, tree, spmd, ens, options,
+            flight_out)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,12 @@ last frame of the trajectory, its RNG state, an appending writer and a
 resume marker in the metrics file), then the time loop.
 
 Usage: python -m skellysim_tpu_torch [--config-file=...] [--resume]
-       [--overwrite] [--metrics-file=...] [--device=cuda|cpu]
+       [--overwrite] [--metrics-file=...] [--listen] [--device=cuda|cpu]
 
 Runs on the CUDA card unless ``--device=cpu`` is given; a missing card
-raises. ``--listen`` is not ported yet (ROADMAP.md §1 item 13).
+raises. ``--listen`` serves the post-processing protocol over stdin and
+stdout on the config's trajectory instead of running (`listener`; drive it
+with `io.Listener`).
 
 With SKELLY_COORDINATOR / SKELLY_NUM_PROCS / SKELLY_PROC_ID set, every
 process joins the others first (`parallel.multihost.initialize`, before
@@ -102,7 +104,9 @@ def main(argv=None) -> None:
     ap.add_argument("--overwrite", action="store_true",
                     help="overwrite an existing trajectory")
     ap.add_argument("--listen", action="store_true",
-                    help="not ported yet (ROADMAP.md §1 item 13)")
+                    help="serve post-processing requests (streamlines, "
+                         "vortex lines, velocity fields) on the config's "
+                         "trajectory over stdin/stdout")
     ap.add_argument("--metrics-file", default=None,
                     help="append one JSON line of step metrics per trial step")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -111,10 +115,6 @@ def main(argv=None) -> None:
     ap.add_argument("--log-level",
                     default=os.environ.get("SKELLYSIM_LOG", "INFO"))
     args = ap.parse_args(argv)
-    if args.listen:
-        raise NotImplementedError("--listen is not ported to "
-                                  "skellysim_tpu_torch yet (ROADMAP.md §1 "
-                                  "item 13)")
     logging.basicConfig(level=args.log_level.upper(),
                         format="[%(asctime)s] [%(levelname)s] %(message)s",
                         stream=sys.stderr)
@@ -125,6 +125,11 @@ def main(argv=None) -> None:
     if initialize_multihost(device=args.device):
         logging.getLogger("skellysim_tpu_torch").info(
             "multi-process runtime: %s", process_info())
+    if args.listen:
+        from .listener import serve
+
+        serve(args.config_file, device=args.device)
+        return
     run(args.config_file, resume=args.resume, overwrite=args.overwrite,
         metrics_path=args.metrics_file, device=args.device)
 

@@ -21,6 +21,7 @@ from .bodies.bodies import BodyGroup
 from .device import resolve_device
 from .fibers.container import FiberGroup
 from .fibers.matrices import FibMatsRT
+from .obs.flight import FlightRecorder
 from .periphery.periphery import PeripheryState
 from .system import BackgroundFlow, PointSources, SimState
 
@@ -99,13 +100,14 @@ def bodies_from_numpy(leaves, *, device, dtype=torch.float64):
 
 
 def state_from_numpy(fibers, *, time: float, dt: float, points=None,
-                     background=None, shell=None, bodies=None, device=None,
-                     dtype=torch.float64) -> SimState:
+                     background=None, shell=None, bodies=None, flight=None,
+                     device=None, dtype=torch.float64) -> SimState:
     """`SimState` from numpy-leaf mappings: ``fibers`` is one mapping of
     `FiberGroup` fields, a sequence of them (resolution buckets) or None;
     ``points`` maps the `PointSources` fields, ``background`` the
-    `BackgroundFlow` fields, ``shell`` the `PeripheryState` fields and
-    ``bodies`` the `BodyGroup` fields (or a sequence of buckets)."""
+    `BackgroundFlow` fields, ``shell`` the `PeripheryState` fields,
+    ``bodies`` the `BodyGroup` fields (or a sequence of buckets) and
+    ``flight`` the flight ring's (``rows``, ``count``; `obs.flight`)."""
     device = resolve_device(device)
     if fibers is None:
         fib = None
@@ -131,4 +133,9 @@ def state_from_numpy(fibers, *, time: float, dt: float, points=None,
         shell=(None if shell is None
                else shell_from_numpy(shell, device=device, dtype=dtype)),
         bodies=(None if bodies is None
-                else bodies_from_numpy(bodies, device=device, dtype=dtype)))
+                else bodies_from_numpy(bodies, device=device, dtype=dtype)),
+        flight=(None if flight is None else FlightRecorder(
+            rows=torch.as_tensor(np.asarray(flight["rows"]),
+                                 dtype=torch.float32, device=device),
+            count=torch.as_tensor(np.asarray(flight["count"]),
+                                  dtype=torch.int32, device=device))))

@@ -282,7 +282,9 @@ class EnsembleRunner:
         dynamic instability ``rngs`` (one `SimRNG` or None a member) seeds
         the stream carries (only idle lanes, t_final = -inf, may go
         without)."""
-        states = list(states)
+        # every lane armed (or stripped) alike: the stacked ring needs one
+        # structure
+        states = [self.system.ensure_flight(s) for s in states]
         if self.system.params.pair_evaluator == "spectral":
             self._pair = self.system._pair_args(states[0])
         stacked = stack_states(states)
@@ -333,6 +335,13 @@ class EnsembleRunner:
                     news[j], sols[j], infos[j] = escalate.escalate(
                         sys_, pre[i], (news[j], sols[j], infos[j]),
                         resolve=self._lane_alone)
+            if sys_.params.flight_window > 0:
+                # one row a member, after its ladder, each reduced over
+                # the member's own fibers (`System.trial_step` records
+                # the "unroll" lanes' itself)
+                for j, i in enumerate(lanes):
+                    news[j], sols[j], infos[j] = sys_._record_flight(
+                        pre[i], news[j], sols[j], infos[j])
         else:
             outs = [sys_.trial_step(pre[i], pair=self._pair) for i in lanes]
             news = [o[0] for o in outs]
@@ -454,6 +463,11 @@ class EnsembleRunner:
                     new_lanes[i] = news[j]
                     time_out[i] = _in_dtype(float(states.time[i] + dt64),
                                             dtype)
+                elif news[j].flight is not None:
+                    # the ring advances for every lane that ran a trial:
+                    # a rejected or frozen lane keeps its row
+                    new_lanes[i] = new_lanes[i]._replace(
+                        flight=news[j].flight)
                 if advance or reject:
                     dt_out[i] = _in_dtype(float(dt_new), dtype)
                 for k, v in (("converged", conv), ("iters", info.iters),

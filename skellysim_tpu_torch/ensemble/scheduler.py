@@ -6,10 +6,11 @@ B, a work queue of pending members, and a drain loop that steps the batch
 dt_write boundaries, retires members that reach their ``t_final`` and
 backfills freed lanes from the queue (`runner.set_lane`). Record kinds and
 keys are the JAX package's ("start", "step", "retire", "dt_underflow",
-"failed", "growth"; `io.ensemble_io`). The flight recorder and the
-telemetry tracer are not ported yet (ROADMAP.md §1 items 13 and 14): the
-``flight`` key of a record is None, and a `Params.flight_window > 0`
-raises at `System` construction as for a single run.
+"failed", "growth"; `io.ensemble_io`). With ``Params.flight_window > 0``
+each step record's ``flight`` is the member's decoded flight row and a
+``failed`` / ``dt_underflow`` record's the ring's tail and provenance
+(`obs.flight.failure_payload`); the rings are read once a round. The
+telemetry tracer is not ported yet (ROADMAP.md §1 item 14).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from collections import deque
 from typing import Callable, Optional
 
 from ..guard import verdict as _verdict
+from ..obs import flight as flight_mod
 from ..system.system import SimState, crossed_write_boundary
 from ..utils.rng import SimRNG
 from .runner import EnsembleRunner, lane_state, rng_carry, set_lane
@@ -128,6 +130,8 @@ class EnsembleScheduler:
         return spec.rng.dump_state() if spec.rng is not None else None
 
     def _start_member(self, lane: int, spec: MemberSpec):
+        # a state decoded from a frame carries no ring: arm it like the lanes
+        spec.state = self.runner.system.ensure_flight(spec.state)
         if self.runner.di_enabled and spec.rng is None:
             raise ValueError(
                 f"member {spec.member_id}: dynamic-instability members need "
@@ -255,6 +259,18 @@ class EnsembleScheduler:
             torch.cuda.synchronize(dev)
         wall_s = _time.perf_counter() - wall0
         self.rounds += 1
+        # the members' rings ([B, K, 13] and [B]), one read a round: the
+        # step records' rows and the failure payloads
+        fl = self.ens.states.flight
+        flight_rows = flight_counts = None
+        if fl is not None:
+            flight_rows, flight_counts = flight_mod.read_rows(fl)
+
+        def payload(lane):
+            return (None if flight_rows is None else
+                    flight_mod.failure_payload(flight_rows[lane],
+                                               flight_counts[lane]))
+
         if self.runner.di_enabled:
             # keep each seated member's SimRNG current with its stream
             # carry: frames and snapshots resume where the draws left off
@@ -285,15 +301,20 @@ class EnsembleScheduler:
                 continue
             if bool(info.failed[lane]):
                 verdict_s = _verdict.describe(health)
+                fail = payload(lane)
+                prov = (fail or {}).get("provenance")
                 if self.on_failure == "raise":
                     raise RuntimeError(
                         f"ensemble member {ln.spec.member_id}: terminal "
                         f"solver health verdict '{verdict_s}' "
-                        f"(health={health:#x}) at t={ln.t:.6g}")
+                        f"(health={health:#x}) at t={ln.t:.6g}"
+                        + ("" if not prov else
+                           f"; first offender: field={prov['field']} "
+                           f"fiber={prov['fiber']} node={prov['node']}"))
                 self._retire_member(lane, reason="failed",
                                     extra={"health": health,
                                            "verdict": verdict_s,
-                                           "flight": None})
+                                           "flight": fail})
                 continue
             if bool(info.dt_underflow[lane]):
                 if self.on_dt_underflow == "raise":
@@ -304,7 +325,7 @@ class EnsembleScheduler:
                                     extra={"health": health,
                                            "verdict":
                                                _verdict.describe(health),
-                                           "flight": None})
+                                           "flight": payload(lane)})
                 continue
             accepted = bool(info.accepted[lane])
             dt_used = float(info.dt_used[lane])
@@ -331,7 +352,9 @@ class EnsembleScheduler:
                 "wall_ms": round(wall_s * 1e3, 3),
                 "gmres_history": (info.history[lane]
                                   if info.history is not None else []),
-                "flight": None})
+                "flight": (None if flight_rows is None else
+                           flight_mod.last_row(flight_rows[lane],
+                                               flight_counts[lane]))})
             ln.t = t_new
             ln.dt = float(info.dt_next[lane])
             if (accepted and self.writer is not None

@@ -431,6 +431,13 @@ def generate_constant_force(group: FiberGroup, caches: FiberCaches) -> torch.Ten
     return group.force_scale[:, None, None] * caches.xs
 
 
+def fiber_errors(group: FiberGroup) -> torch.Tensor:
+    """[nf] per-fiber inextensibility violation, inactive slots 0 (the
+    flight recorder's strain, `obs.flight`); `fiber_error` is its max."""
+    errs = fd_fiber.fiber_error(group.x, group.length, group.mats)
+    return torch.where(group.active, errs, 0.0)
+
+
 def fiber_error(group: FiberGroup) -> torch.Tensor:
     """Max inextensibility violation over active fibers (0-d tensor); the
     -inf sentinel keeps inactive slots out of the max."""

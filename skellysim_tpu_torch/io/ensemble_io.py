@@ -40,7 +40,8 @@ ENSEMBLE_RETIRE_FIELDS = ("event", "member", "lane", "t", "steps", "frames")
 #: keys of an ``event == "failed"`` / ``"dt_underflow"`` record (a lane
 #: quarantined or frozen): the retire keys plus the packed health word, its
 #: decoded bit names (`guard.verdict`) and the flight recorder's payload
-#: (None: the recorder is not ported yet)
+#: (``{"tail": [decoded rows], "provenance": {field, fiber, node} | None}``,
+#: `obs.flight.failure_payload`; None at ``Params.flight_window == 0``)
 ENSEMBLE_FAILURE_FIELDS = ENSEMBLE_RETIRE_FIELDS + ("health", "verdict",
                                                     "flight")
 

@@ -1,10 +1,13 @@
 """A small pure-Python msgpack encoder/decoder for the trajectory format.
 
 The port does not depend on the `msgpack` package (the card's machine need
-not have it). This covers the types the trajectory-v1 format uses: nil,
-bool, int, float (32/64), str, bin, array and map. Long runs of float64
-elements (the ``__eigen__`` payloads) are decoded vectorized with numpy,
-so a 10k-fiber frame (~2.5M doubles) decodes in well under a second.
+not have it). This covers the types the trajectory-v1 format and the
+listener's messages use: nil, bool, int, float (32/64), str, bin, array
+and map (numpy scalars pack as their Python values; anything else goes to
+``packb``'s ``default=`` hook, as with the `msgpack` package). Long runs of
+float64 elements (the ``__eigen__`` payloads) are decoded vectorized with
+numpy, so a 10k-fiber frame (~2.5M doubles) decodes in well under a
+second.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import struct
 import numpy as np
 
 
-def _pack_into(out: list, obj) -> None:
+def _pack_into(out: list, obj, default=None) -> None:
+    if isinstance(obj, np.generic):
+        obj = obj.item()
     if obj is None:
         out.append(b"\xc0")
     elif obj is True:
@@ -68,20 +73,26 @@ def _pack_into(out: list, obj) -> None:
     elif isinstance(obj, (list, tuple)):
         out.append(array_header(len(obj)))
         for v in obj:
-            _pack_into(out, v)
+            _pack_into(out, v, default)
     elif isinstance(obj, dict):
         out.append(map_header(len(obj)))
         for k, v in obj.items():
-            _pack_into(out, k)
-            _pack_into(out, v)
+            _pack_into(out, k, default)
+            _pack_into(out, v, default)
+    elif default is not None:
+        new = default(obj)
+        if new is obj:
+            raise TypeError(f"cannot msgpack-encode {type(obj)!r}")
+        _pack_into(out, new, default)
     else:
         raise TypeError(f"cannot msgpack-encode {type(obj)!r}")
 
 
-def packb(obj) -> bytes:
-    """msgpack bytes of ``obj``."""
+def packb(obj, default=None) -> bytes:
+    """msgpack bytes of ``obj``; ``default(o)`` turns an object of another
+    type into one that packs (the `msgpack` package's hook)."""
     out: list = []
-    _pack_into(out, obj)
+    _pack_into(out, obj, default)
     return b"".join(out)
 
 
@@ -193,3 +204,12 @@ def unpack_at(data, pos: int):
     as an mmap): (object, next position)."""
     return _decode(data, pos)
 
+
+
+def unpackb(data):
+    """The one object that ``data`` (bytes) encodes; raises when bytes are
+    left over or missing."""
+    obj, pos = _decode(data, 0)
+    if pos != len(data):
+        raise ValueError(f"{len(data) - pos} bytes after the msgpack object")
+    return obj

@@ -380,7 +380,10 @@ def frame_to_state(frame: dict, template_state, dtype=None):
         full[:shell_sol.size] = shell_sol.reshape(-1)
         state = state._replace(shell=state.shell._replace(
             density=torch.as_tensor(full, dtype=dtype, device=device)))
-    return state._replace(time=float(frame["time"]), dt=float(frame["dt"]))
+    # the wire carries no flight ring: `System.ensure_flight` arms a fresh
+    # one where the window is on
+    return state._replace(time=float(frame["time"]), dt=float(frame["dt"]),
+                          flight=None)
 
 
 def resume_state(path: str, template_state):

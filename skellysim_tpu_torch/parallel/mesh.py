@@ -325,8 +325,8 @@ def shard_state(state, mesh: Mesh, *, allow_replicated_shell: bool = False
     of whole fibers; a shell whose node count the mesh divides splits
     node-aligned (nodes, normals, weights, density and the rows of the two
     dense operators, `SHELL_ROW_SHARDED_FIELDS`); bodies, point and
-    background sources, time and dt replicate. A fiber bucket the mesh does
-    not divide, or a shell that cannot split, raises
+    background sources, the flight ring, time and dt replicate. A fiber
+    bucket the mesh does not divide, or a shell that cannot split, raises
     (`parallel.spmd.spmd_shell_mode`); ``allow_replicated_shell=True``
     puts the whole shell on every shard instead. Blocks on the state's own
     device are views: placing a state on one card copies nothing.
@@ -358,7 +358,8 @@ def shard_state(state, mesh: Mesh, *, allow_replicated_shell: bool = False
         shards.append(state._replace(
             fibers=_rewrap(state.fibers, placed), shell=shell, bodies=bodies,
             points=_to(state.points, dev),
-            background=_to(state.background, dev)))
+            background=_to(state.background, dev),
+            flight=_to(state.flight, dev)))
     return ShardedState(tuple(shards), mesh, mode)
 
 
@@ -421,4 +422,4 @@ def gather_state(sharded: ShardedState, device=None, *,
         fibers=None if first.fibers is None else _rewrap(first.fibers,
                                                          buckets),
         shell=shell, bodies=bodies, points=place(first.points),
-        background=place(first.background))
+        background=place(first.background), flight=place(first.flight))

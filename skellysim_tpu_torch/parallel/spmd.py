@@ -32,7 +32,10 @@ Collectives (`Collectives`):
   F in one launch for the f32 Krylov interior on the card, A / C or B / D a
   hop otherwise (the f64-grade refinement flows included, so "mixed"
   refines inside the mesh);
-* one density-sized ``all_gather`` a shell operator application.
+* one density-sized ``all_gather`` a shell operator application;
+* with the flight recorder armed, ``pmax`` / ``pmin`` over the shards'
+  partial extrema and provenance keys (`obs.flight.record_step_sharded`),
+  so that every shard writes the same row.
 
 Replicated rows stay the same bits on every shard: they are computed from
 replicated inputs only, or as a psum of per-shard partials, never by a ring
@@ -69,7 +72,8 @@ from .ring import _ring_or_fused
 
 
 class Collectives:
-    """The sharded step's collectives over ``mesh``: the one seam between
+    """The sharded step's collectives over ``mesh`` (``psum``, ``pmax`` /
+    ``pmin``, ``all_gather``, ``ring``): the one seam between
     the step and the shards' placement. Every argument and result holds
     one entry a shard of this process (``mesh.local``; shard k's on its
     device): every shard in one process, or the process's own shards on a
@@ -114,11 +118,26 @@ class Collectives:
                     v.split(sizes), parts[0])) for v in flat]
             sums = [self.psum([p[i] for p in parts]) for i in range(fields)]
             return [tuple(s[k] for s in sums) for k in range(len(parts))]
+        return self._fold(operator.add, parts)
+
+    def _fold(self, op, parts) -> list:
         every = self.every_shard(parts)
         acc = every[0]
         for p in every[1:]:
-            acc = acc + p
+            acc = op(acc, p)
         return [acc.to(d) for d in self.devices]
+
+    def pmax(self, parts) -> list:
+        """The elementwise largest of the shards' ``parts`` (NaN wins, as
+        in ``lax.pmax``), each shard's copy: gathered in shard order
+        first, so that every shard of every process holds the same
+        bits."""
+        return self._fold(torch.maximum, parts)
+
+    def pmin(self, parts) -> list:
+        """The elementwise least of the shards' ``parts`` (`pmax`'s
+        twin)."""
+        return self._fold(torch.minimum, parts)
 
     def all_gather(self, parts) -> list:
         """The shards' ``parts`` concatenated in shard order (tiled along
@@ -735,6 +754,19 @@ class _Step:
         if self.mesh.spans_processes:
             fiber_error = _agree_across_processes(result, fiber_error)
         health = result.health | _verdict.nonfinite_word(fiber_error)
+        if state.shards[0].flight is not None:
+            # the flight row, the same bits on every shard: the reductions
+            # are the collectives' pmax / pmin, the solution norm the
+            # replicated rdot
+            from ..obs import flight as flight_mod
+
+            rings = flight_mod.record_step_sharded(
+                state.shards, new_sts, result.x.parts, comm=comm,
+                residual_true=result.residual_true, health=health,
+                dt_used=sts[0].dt, shell_shape=sys_.shell_shape,
+                solution_norm=torch.sqrt(rdot(result.x, result.x)),
+                sol_scan_rows=nonrep_end, shell_sharded=self.sharded_shell)
+            new_sts = [st._replace(flight=r) for st, r in zip(new_sts, rings)]
         info = StepInfo(converged=bool(result.converged), iters=result.iters,
                         residual=result.residual, fiber_error=fiber_error,
                         residual_true=result.residual_true,

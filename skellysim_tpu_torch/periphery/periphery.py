@@ -312,10 +312,12 @@ def flow_local(shells, r_loc, r_rep, density, eta, *, comm,
 
 def _cortex(shape: PeripheryShape, points, threshold=0.0):
     """Radial cortex point of an ellipsoid shrunk by ``threshold``, for
-    [..., 3] points (the reference's radial-ray comparison)."""
+    [..., 3] points (the reference's radial-ray comparison). The semi-axes
+    stay host scalars, so nothing is copied to the card (the flight
+    recorder's row makes no host sync)."""
     a, b, c = shape.abc
-    abc = torch.tensor(shape.abc, dtype=points.dtype, device=points.device)
-    r_scaled = points / abc
+    r_scaled = torch.stack([points[..., 0] / a, points[..., 1] / b,
+                            points[..., 2] / c], dim=-1)
     r_scaled_mag = torch.linalg.vector_norm(r_scaled, dim=-1)
     phi = torch.atan2(r_scaled[..., 1], r_scaled[..., 0] + 1e-12)
     theta = torch.arccos(torch.clamp(r_scaled[..., 2] / (1e-12 + r_scaled_mag),
@@ -324,6 +326,22 @@ def _cortex(shape: PeripheryShape, points, threshold=0.0):
     return torch.stack([(a - threshold) * sin_t * torch.cos(phi),
                         (b - threshold) * sin_t * torch.sin(phi),
                         (c - threshold) * torch.cos(theta)], dim=-1)
+
+
+def signed_clearance(shape: PeripheryShape, points):
+    """[...] signed clearance of [..., 3] points from the wall: positive
+    inside, negative once a point has crossed it, so that a penetration
+    shows as a magnitude (the flight recorder's ``min_clearance``,
+    `obs.flight`). Sphere: ``radius - |p|``; ellipsoid: ``|r_cortex| -
+    |p|`` along the radial ray of `check_collision` (exact on the axes,
+    a diagnostic elsewhere); generic: +inf (no wall)."""
+    if shape.kind == "sphere":
+        return shape.radius - torch.linalg.vector_norm(points, dim=-1)
+    if shape.kind == "ellipsoid":
+        return (torch.linalg.vector_norm(_cortex(shape, points), dim=-1)
+                - torch.linalg.vector_norm(points, dim=-1))
+    return torch.full(points.shape[:-1], torch.inf, dtype=points.dtype,
+                      device=points.device)
 
 
 def check_collision(shape: PeripheryShape, points, threshold):

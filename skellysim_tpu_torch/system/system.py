@@ -25,11 +25,12 @@ The solution vector layout matches the reference: [fibers (4n per fiber:
 x | y | z | tension, buckets in order) | shell (3 per node) | bodies (3 per
 node + 6 per body, buckets in order)].
 
-Features the port does not carry yet (the flight recorder) raise
-`NotImplementedError` naming the ROADMAP.md §1 item that will add them;
-none is silently ignored. The guard escalation ladder (`guard.escalate`)
-wraps every trial of `step` and `trial_step` when ``Params.guard_*`` arms
-it.
+The guard escalation ladder (`guard.escalate`) wraps every trial of
+`step` and `trial_step` when ``Params.guard_*`` arms it, and with
+``Params.flight_window > 0`` the flight recorder (`obs.flight`) writes one
+row a trial, after the ladder, into the ring on ``SimState.flight``.
+`velocity_field` / `velocity_at_targets` evaluate the flow of a solved
+state at any points (the listener's post-processing, `listener`).
 """
 
 from __future__ import annotations
@@ -74,6 +75,11 @@ class SimState(NamedTuple):
     background: Optional[BackgroundFlow] = None
     shell: Optional[peri.PeripheryState] = None
     bodies: Optional[bd.BodyGroup] = None
+    #: the flight recorder's ring (`obs.flight.FlightRecorder`: [K, 13]
+    #: float32 rows and a write count on the state's device), written by
+    #: every trial; None when ``Params.flight_window == 0``. Arm or strip
+    #: it with `System.ensure_flight`.
+    flight: Optional[tuple] = None
 
 
 fiber_buckets = fc.as_buckets
@@ -150,6 +156,28 @@ def state_placement(state: SimState):
     return x.dtype, x.device
 
 
+def solution_from_state(state: SimState):
+    """The flat solution vector of a state's components: a fiber's [x | y |
+    z | tension] (masked padding rows exact zeros), the shell density, the
+    bodies' stored solutions; the inverse of the advance (the reference's
+    reconstruction on resume, `trajectory_reader.cpp:227-249`)."""
+    parts = []
+    for g in fiber_buckets(state.fibers):
+        vec = torch.cat([g.x[:, :, 0], g.x[:, :, 1], g.x[:, :, 2],
+                         g.tension], dim=1)
+        if g.rt_mats is not None:
+            vec = torch.where(g.rt_mats.sol_mask.to(vec.device)[None, :],
+                              vec, 0.0)
+        parts.append(vec.reshape(-1))
+    if state.shell is not None:
+        parts.append(state.shell.density)
+    for g in body_buckets(state.bodies):
+        parts.append(g.solution.reshape(-1))
+    if not parts:
+        raise ValueError("state has no implicit components")
+    return torch.cat(parts)
+
+
 def _in_dtype(v: float, dtype) -> float:
     """``v`` rounded to ``dtype`` (the JAX package stores time/dt as 0-d
     arrays of the state dtype)."""
@@ -172,12 +200,6 @@ def _plan_summary(plan) -> str:
                 f"cells={plan.cells3} max_occ={plan.max_occ}")
     return (f"{plan.mode} M3={plan.M3} P={plan.P} cells={plan.cells3} "
             f"max_occ={plan.max_occ}")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to skellysim_tpu_torch yet (ROADMAP.md §1 "
-        f"item {item})")
 
 
 class System:
@@ -226,8 +248,6 @@ class System:
         if p.gmres_block_s < 1:
             raise ValueError(
                 f"gmres_block_s must be >= 1, got {p.gmres_block_s}")
-        if p.flight_window > 0:
-            raise _not_ported("the flight recorder (flight_window > 0)", "13")
         self.params = params
         self.shell_shape = shell_shape
         #: spectral FFT grid rungs (`system.buckets.BucketPolicy.grid_ladder`,
@@ -388,8 +408,27 @@ class System:
         state = SimState(time=0.0, dt=0.0, fibers=fibers, points=points,
                          background=background, shell=shell, bodies=bodies)
         dtype = self._dtype(state)
-        return state._replace(time=_in_dtype(0.0, dtype),
-                              dt=_in_dtype(self.params.dt_initial, dtype))
+        return self.ensure_flight(state._replace(
+            time=_in_dtype(0.0, dtype),
+            dt=_in_dtype(self.params.dt_initial, dtype)))
+
+    def ensure_flight(self, state: SimState) -> SimState:
+        """``state`` with its flight-recorder ring matching
+        ``Params.flight_window``: a fresh ring when the window is on and
+        the state has none (a state decoded from a frame: the wire never
+        carries rings) or one of another size, none when the window is
+        off. The run loop, `step`, `step_spmd` and the ensemble's seating
+        call it."""
+        from ..obs import flight as flight_mod
+
+        window = self.params.flight_window
+        if window <= 0:
+            return (state if state.flight is None
+                    else state._replace(flight=None))
+        if state.flight is None or state.flight.rows.shape[-2] != window:
+            return state._replace(flight=flight_mod.new_ring(
+                window, state_placement(state)[1]))
+        return state
 
     # -------------------------------------------------------------- helpers
 
@@ -757,7 +796,24 @@ class System:
         out = self._solve_once(state, pair=pair)
         if escalate.armed(self.params):
             out = escalate.escalate(self, state, out, pair=pair)
+        if self.params.flight_window > 0:
+            out = self._record_flight(state, *out)
         return out
+
+    def _record_flight(self, state: SimState, new_state: SimState, x, info):
+        """(new_state with the trial's flight row appended, x, info): one
+        row a trial, after the guard ladder, so it records the attempt
+        that advanced (its dt and health); device operations only."""
+        from ..obs import flight as flight_mod
+
+        if new_state.flight is None:
+            raise ValueError(
+                "Params.flight_window > 0 but the state carries no recorder "
+                "ring; arm it with System.ensure_flight (make_state arms it)")
+        return new_state._replace(flight=flight_mod.record_step(
+            state, new_state, x, residual_true=info.residual_true,
+            health=info.health, dt_used=info.dt_used,
+            shell_shape=self.shell_shape)), x, info
 
     def _solve_once(self, state: SimState, pair=None,
                     block_s: int | None = None, force_full: bool = False):
@@ -887,12 +943,13 @@ class System:
 
     # ----------------------------------------------------------- public API
 
-    def _plan_points(self, state: SimState):
+    def _plan_points(self, state: SimState, extra_targets=None):
         """(points, n_fill, n_src) on the host over every ACTIVE
         hydrodynamic node, the input of both planners: inactive fiber slots
         are left out of the bounding box and reserved as ``n_fill`` spread
-        capacity instead. Copying the positions to the host synchronizes
-        the device."""
+        capacity instead; ``extra_targets`` ([n, 3]) extends the box to
+        off-node evaluation points (a velocity field's). Copying the
+        positions to the host synchronizes the device."""
         import numpy as np
 
         n_fill = 0
@@ -913,58 +970,64 @@ class System:
             parts.append(nodes)
         for g in body_buckets(state.bodies):
             parts.append(bd.place(g)[0].cpu().numpy().reshape(-1, 3))
+        if extra_targets is not None:
+            parts.append((extra_targets.cpu().numpy()
+                          if torch.is_tensor(extra_targets)
+                          else np.asarray(extra_targets)).reshape(-1, 3))
         return np.concatenate(parts, axis=0), n_fill, n_src
 
-    def make_ewald_plan(self, state: SimState):
+    def make_ewald_plan(self, state: SimState, extra_targets=None):
         """Host-side Ewald plan over the `_plan_points` cloud
         (`ops.ewald.plan_ewald` at ``params.ewald_tol``), the analogue of
         the reference's per-step FMM tree rebuild."""
         from ..ops.ewald import plan_ewald
 
-        pts, n_fill, n_src = self._plan_points(state)
+        pts, n_fill, n_src = self._plan_points(state, extra_targets)
         return plan_ewald(pts, eta=self.params.eta,
                           tol=self.params.ewald_tol, n_fill=n_fill,
                           n_src=n_src)
 
-    def make_tree_plan(self, state: SimState):
+    def make_tree_plan(self, state: SimState, extra_targets=None):
         """Host-side treecode plan over the `_plan_points` cloud
         (`ops.treecode.plan_tree` at ``params.tree_tol``, inactive fiber
         slots reserved as fill capacity)."""
         from ..ops.treecode import plan_tree
 
-        pts, n_fill, _ = self._plan_points(state)
+        pts, n_fill, _ = self._plan_points(state, extra_targets)
         return plan_tree(pts, tol=self.params.tree_tol, n_fill=n_fill)
 
-    def make_spectral_plan(self, state: SimState):
+    def make_spectral_plan(self, state: SimState, extra_targets=None):
         """Host-side spectral Ewald plan over the `_plan_points` cloud for
         ``params.periodic_box`` (`ops.spectral.plan_spectral` at
         ``params.spectral_tol``, grid dims on ``self.grid_ladder``'s rungs,
         or the built-in ones)."""
         from ..ops.spectral import plan_spectral
 
-        pts, n_fill, _ = self._plan_points(state)
+        pts, n_fill, _ = self._plan_points(state, extra_targets)
         return plan_spectral(pts, self.params.periodic_box,
                              eta=self.params.eta,
                              tol=self.params.spectral_tol, n_fill=n_fill,
                              grid_ladder=self.grid_ladder)
 
-    def _pair_args(self, state: SimState):
+    def _pair_args(self, state: SimState, extra_targets=None):
         """The `PairEvaluator` of the configured fast evaluator, its plan
-        built on the host and its anchors on the system's device, or None
-        for the dense and ring paths: the one place a plan is built a
-        solve. A plan that cannot be built raises; nothing falls back to
-        the dense sum."""
+        built on the host (over the nodes and ``extra_targets``) and its
+        anchors on the system's device, or None for the dense and ring
+        paths: the one place a plan is built a solve. A plan that cannot
+        be built raises; nothing falls back to the dense sum."""
         ev = self.params.pair_evaluator
         if ev not in ("ewald", "tree", "spectral"):
             return None
         maker = {"ewald": self.make_ewald_plan, "tree": self.make_tree_plan,
                  "spectral": self.make_spectral_plan}[ev]
-        return make_pair(maker(state), self.device)
+        return make_pair(maker(state, extra_targets=extra_targets),
+                         self.device)
 
     def step(self, state: SimState):
         """One trial step at state.dt: (new_state, solution, info). With a
         fast evaluator the plan is built first, on the host; its seconds
         and shape are the INFO log line "... plan before t=..."."""
+        state = self.ensure_flight(state)
         t0 = _time.perf_counter()
         pair = self._pair_args(state)
         if pair is not None:
@@ -986,6 +1049,28 @@ class System:
         """The collision gate the adaptive loop rejects on (fiber nodes
         crossing the shell, body-body and body-shell)."""
         return self._check_collision(state)
+
+    # -------------------------------------------------------- velocity field
+
+    def velocity_field(self, state: SimState, solution, pair=None):
+        """The flow of a solved state as a function of the points
+        (`VelocityField`): its sources (the fiber force densities, with the
+        steric wall force when ``periphery_interaction_flag`` is set, the
+        bodies' densities and link forces, the shell density) built here,
+        once; each call is the pair sums at its points. ``pair``: a fast
+        evaluator whose plan covers the points (`_pair_args` with
+        ``extra_targets``), or None for the dense and ring sums."""
+        return VelocityField(self, state, solution, pair)
+
+    def velocity_at_targets(self, state: SimState, solution, r_trg):
+        """The velocity at [n, 3] points ``r_trg`` of a solved state
+        (`system.cpp:330-384`): fiber, body, shell and external flows, and
+        inside a rigid body its rigid motion. A configured fast evaluator
+        plans over the nodes and these points."""
+        r_trg = torch.as_tensor(r_trg, dtype=solution.dtype,
+                                device=solution.device).reshape(-1, 3)
+        pair = self._pair_args(state, extra_targets=r_trg)
+        return self.velocity_field(state, solution, pair)(r_trg)
 
     def step_spmd(self, state, mesh, *, allow_replicated_shell: bool = False,
                   flat_solution: bool = True, donate="auto"):
@@ -1011,6 +1096,8 @@ class System:
         from ..parallel.mesh import gather_state
         from ..parallel.spmd import build_spmd_step
 
+        state = state._replace(shards=tuple(self.ensure_flight(st)
+                                            for st in state.shards))
         pair = None
         full = self.params.pair_evaluator == "tree" and all(
             bool(g.active.all()) for st in state.shards
@@ -1055,10 +1142,12 @@ class System:
 
     def _run_loop(self, state: SimState, *, writer, max_steps, rng,
                   metrics_fh):
+        from ..obs import flight as flight_mod
         from .dynamic_instability import (_count_active,
                                           apply_dynamic_instability)
 
         p = self.params
+        state = self.ensure_flight(state)
         dtype = self._dtype(state)
         n_steps = 0
         while state.time < p.t_final:
@@ -1086,6 +1175,12 @@ class System:
             wall_s = _time.perf_counter() - wall0
             n_steps += 1
             dt = info.dt_used
+            # the trial's decoded flight row (one small read), for the
+            # metrics column and the fault log's provenance
+            flight_row = None
+            if new_state.flight is not None and (metrics_fh is not None
+                                                 or info.health):
+                flight_row = flight_mod.read_last(new_state.flight)
 
             dt_new = dt
             accept = True
@@ -1125,9 +1220,14 @@ class System:
                     "but explicit ||b-Ax||/||b|| = %.3e (> 10x tol %.1e)",
                     info.residual, info.residual_true, p.gmres_tol)
             if info.health:
+                prov = (flight_row or {}).get("provenance")
                 logger.warning("solver health verdict at t=%.6g: %s "
-                               "(health=%#x)", t_cur,
-                               _verdict.describe(info.health), info.health)
+                               "(health=%#x, guard retries=%d)%s", t_cur,
+                               _verdict.describe(info.health), info.health,
+                               info.guard_retries,
+                               "" if not prov else
+                               f"; first offender: field={prov['field']} "
+                               f"fiber={prov['fiber']} node={prov['node']}")
             if metrics_fh is not None:
                 metrics_fh.write(json.dumps({
                     "step": n_steps - 1, "t": t_cur, "dt": dt,
@@ -1154,7 +1254,7 @@ class System:
                     "wall_s": round(wall_s, 4),
                     "wall_ms": round(wall_s * 1e3, 3),
                     "gmres_history": info.history or [],
-                    "flight": None}) + "\n")
+                    "flight": flight_row}) + "\n")
                 metrics_fh.flush()
 
             if accept:
@@ -1168,5 +1268,122 @@ class System:
                     else:
                         writer(state, solution)
             else:
-                state = backup._replace(dt=_in_dtype(dt_new, dtype))
+                # a rejected trial rolls back the physics but keeps the
+                # flight ring: its row is the evidence of the trouble
+                state = backup._replace(dt=_in_dtype(dt_new, dtype),
+                                        flight=new_state.flight)
         return state
+
+
+class VelocityField:
+    """The flow of a solved state at any points (`System.velocity_field`;
+    the JAX package's `_velocity_at_targets_impl` split in two). Built once
+    a frame: the fiber caches and force densities from the solution (plus
+    the steric wall force when ``periphery_interaction_flag`` is set), the
+    bodies' caches, densities and the forces and torques the fibers' link
+    conditions put on them (only those drive the body flow here, as in the
+    reference), the shell density, and the bodies' rigid motions. A call
+    ``field(r_trg)`` ([n, 3] points in the solution's dtype and device) is
+    then the pair sums at those points, the external flows, and the
+    rigid-motion override inside sphere and ellipsoid bodies; ``calls`` and
+    ``points`` count the calls and the points evaluated."""
+
+    def __init__(self, system: System, state: SimState, solution, pair=None):
+        p = system.params
+        self.system, self.state, self.pair = system, state, pair
+        self.dtype, self.device = solution.dtype, solution.device
+        self.calls = self.points = 0
+        buckets = fiber_buckets(state.fibers)
+        b_list = body_buckets(state.bodies)
+        fib_size, shell_size, _ = system._sizes(state)
+        self.caches = [fc.update_cache(g, state.dt, p.eta) for g in buckets]
+        self.body_caches = [bd.update_cache(g, p.eta) for g in b_list]
+        x_fibs, x_bods = system._split(state, solution)
+        self.forces = None
+        if buckets:
+            forces = [fc.apply_fiber_force(g, c, xf)
+                      for g, c, xf in zip(buckets, self.caches, x_fibs)]
+            if p.periphery_interaction_flag and state.shell is not None:
+                forces = [f + w for f, w in zip(
+                    forces, system._periphery_force_fibers(state))]
+            self.forces = forces
+        self.x_bods = x_bods
+        self.body_fts = []
+        nbt = bd.n_total(b_list)
+        for gb, bc, xb in zip(b_list, self.body_caches, x_bods):
+            ft = torch.zeros((gb.n_bodies, 6), dtype=self.dtype,
+                             device=self.device)
+            for g, c, xf in zip(buckets, self.caches, x_fibs):
+                ft = ft + bd.link_conditions(
+                    gb, bc, bd.local_binding(g, gb, nbt), c, xf, xb)[1]
+            self.body_fts.append(ft)
+        self.density = (None if state.shell is None
+                        else solution[fib_size:fib_size + shell_size])
+        self.rigid = None
+        if b_list:
+            from ..utils import quaternion as quat
+
+            cat = torch.cat
+            semi = cat([g.semiaxes if g.semiaxes is not None
+                        else torch.zeros_like(g.position) for g in b_list])
+            self.rigid = dict(
+                vel6=cat([xb[:, -6:] for xb in x_bods]),
+                position=cat([g.position for g in b_list]),
+                radius=cat([g.radius for g in b_list]),
+                sphere=cat([g.kind_sphere for g in b_list]),
+                rot=quat.rotation_matrix(cat([g.orientation
+                                              for g in b_list])),
+                has_ax=torch.all(semi > 0.0, dim=-1),
+                ax_safe=torch.where(semi > 0.0, semi, 1.0))
+
+    def _pair(self):
+        """The fast evaluator for one call: a tree keeps no geometry
+        between calls (each call's points are new)."""
+        pair = self.pair
+        if pair is not None and pair.evaluator == "tree":
+            from ..ops.evaluator import PairEvaluator
+
+            pair = PairEvaluator(pair.plan, pair.anchors)
+        return pair
+
+    def __call__(self, r_trg):
+        sys_, st, p = self.system, self.state, self.system.params
+        r_trg = torch.as_tensor(r_trg, dtype=self.dtype,
+                                device=self.device).reshape(-1, 3)
+        self.calls += 1
+        self.points += r_trg.shape[0]
+        pair = self._pair()
+        v = torch.zeros_like(r_trg)
+        if self.forces is not None:
+            v = v + sys_._fiber_flow(st, self.caches, r_trg, self.forces,
+                                     subtract_self=False, pair=pair)
+        for j, (gb, bc, xb, ft) in enumerate(zip(
+                body_buckets(st.bodies), self.body_caches, self.x_bods,
+                self.body_fts)):
+            v = v + bd.flow(gb, bc, r_trg, xb, ft, p.eta,
+                            impl=p.kernel_impl,
+                            pair=sys_._body_pair(gb, pair, j))
+        if self.density is not None:
+            v = v + sys_._shell_flow(st, r_trg, self.density, pair=pair)
+        v = v + sys_._external_flows(st, r_trg)
+        rb = self.rigid
+        if rb is not None:
+            # inside a body: its rigid motion v + omega x dx (spheres by
+            # radius, ellipsoids by the body-frame ellipsoid equation,
+            # `system.cpp:364-381`), the first body that holds the point
+            dx = r_trg[:, None, :] - rb["position"][None, :, :]
+            in_sphere = ((torch.linalg.vector_norm(dx, dim=-1)
+                          < rb["radius"][None, :]) & rb["sphere"][None, :])
+            dx_body = torch.einsum("bji,tbj->tbi", rb["rot"], dx)
+            in_ellipsoid = ((torch.sum((dx_body / rb["ax_safe"][None]) ** 2,
+                                       dim=-1) < 1.0)
+                            & rb["has_ax"][None, :] & ~rb["sphere"][None, :])
+            inside = in_sphere | in_ellipsoid
+            vel6 = rb["vel6"]
+            u_rigid = vel6[None, :, :3] + torch.cross(
+                vel6[None, :, 3:].expand_as(dx), dx, dim=-1)
+            idx = inside.to(torch.uint8).argmax(dim=1)
+            pick = u_rigid[torch.arange(r_trg.shape[0],
+                                        device=r_trg.device), idx]
+            v = torch.where(inside.any(dim=1)[:, None], pick, v)
+        return v

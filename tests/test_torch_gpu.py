@@ -1295,6 +1295,9 @@ def test_port_imports_no_jax():
     names = {os.path.relpath(f, REPO) for f in files}
     for mod in ("mesh", "compat", "ring", "spmd", "multihost"):
         assert f"skellysim_tpu_torch/parallel/{mod}.py" in names
+    for mod in ("obs/flight", "serve/protocol", "postprocess/streamline",
+                "listener", "io/listener_client"):
+        assert f"skellysim_tpu_torch/{mod}.py" in names
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -237,6 +237,20 @@ def test_coupled_step_across_processes(tmp_path, world):
                                atol=1e-10)
 
 
+def test_flight_ring_across_two_processes(tmp_path):
+    """An armed "full" step of the coupled scene over 2 processes x 2
+    shards: every shard of both processes writes the one-process 4-shard
+    step's ring, bit for bit (the recorder's pmax / pmin gather across the
+    processes)."""
+    recs, one = _case("flight", 2, tmp_path)
+    rows0, count0 = one["flight"][0]
+    assert int(count0) == 1 and one["converged"]
+    for rec in recs + [one]:
+        for rows, count in rec["flight"]:
+            assert _same(rows.view(torch.int32), rows0.view(torch.int32))
+            assert _same(count, count0)
+
+
 def test_tree_step_across_two_processes(tmp_path):
     """``pair_evaluator = "tree"`` over 2 processes x 2 shards: every
     process builds the plan from the all-gathered positions, and the step

@@ -75,10 +75,12 @@ def fibers(**kw):
                          radius=0.0125, force_scale=-0.05)
 
 
-def coupled_scene():
-    """(system, state) of `test_torch_spmd._coupled_state`."""
+def coupled_scene(**over):
+    """(system, state) of `test_torch_spmd._coupled_state` (``over``: more
+    parameters)."""
     shell, _, bodies = make_coupled_parts(56, 50)
-    system = System(Params(**PARAMS), shell_shape=SHAPE, device="cpu")
+    system = System(Params(**PARAMS, **over), shell_shape=SHAPE,
+                    device="cpu")
     return system, system.make_state(fibers=fibers(seed=7, box=2.0),
                                      shell=shell, bodies=bodies)
 
@@ -209,6 +211,9 @@ def step_record(system, state, mesh):
            "residual_true": info.residual_true,
            "fiber_error": info.fiber_error,
            "shards": [st.fibers.n_fibers for st in new.shards]}
+    if new.shards[0].flight is not None:
+        rec["flight"] = [(st.flight.rows, st.flight.count)
+                         for st in new.shards]
     if g.shell is not None:
         rec["density"] = g.shell.density
     if g.bodies is not None:
@@ -260,6 +265,8 @@ def main(case, port, rank, world, out_dir):
         rec = step_record(*coupled_scene(), mesh)
     elif case == "tree":
         rec = step_record(*tree_scene(), mesh)
+    elif case == "flight":
+        rec = step_record(*coupled_scene(flight_window=4), mesh)
     elif case == "cards":
         rec = {}
         _cards(rec, mesh, world)
