@@ -153,7 +153,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                real-space and wave-space sums) on 512 rows (gates 1e-5,
                1e-6) and 1e-6 against 1e-9 on every row (1e-5); then the
                recipe's fibers bent into arcs in its box made periodic
-               through "PVFMM", one step cut to 4,000 fibers (from the
+               through "PVFMM", one step cut to 2,000 fibers (from the
                full width's 10,000) in "full" and one cut to 2,000 fibers
                in "mixed", each at the recipe's density: gated as b, on A
                and B
@@ -261,7 +261,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                bytes staged through the host a step and the peak GiB; a
                worker that fails or outlives 300 s fails the phase. Its
                summary is {"spmd": {"processes": ...}}.
-15. ensemble — run last: the batched ensemble through its front door.
+15. ensemble — run after 9: the batched ensemble through its front door.
                The member scene (`make_ensemble_config`): a sphere cortex
                of radius 3 with 2,000 quadrature nodes, a 400-node sphere
                body of radius 0.5 at the centre with 256 nucleation sites
@@ -338,7 +338,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                the sources otherwise); each round's case and walls
                printed beside the one-card round's.
                It prints {"options": ...} before the kernels line.
-17. flight + listener — run last, on phase 6's precompute and trajectory
+17. flight + listener — run after 16d, on phase 6's precompute and trajectory
                and phase 15's members; the listener process starts after
                a's timed steps and loads beside the rest of a and b:
                a. phase 6's ellipsoid in "mixed" with flight_window 32: 3
@@ -381,6 +381,49 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                integrator steps, velocity evaluations and launches are
                printed from the server's log.
                It prints {"flight_listener": ...} before the kernels line.
+18. serve    — run last, on phase 15's scene and phase 6's first state:
+               a. 10 DI tenants (phase 15's member scene without its
+               cortex: serve tenants bring no periphery; seed and site
+               draw differ) submitted to an in-process
+               `serve.server.SimulationServer` ("vmap", --ensemble-lanes
+               lanes, bucket_count 2 on the geometric ladder: capacities
+               128 and 256, queue_depth 4, a journal), driven by
+               `handle_request` / `tick`, the kernel libraries dropped
+               first so that the warm-up loads them (compile events before
+               warm). Gated on every tenant finishing healthy after a
+               growth reseat happened; every step accepted with true
+               residual <= gmres_tol, active = previous + nucleations -
+               catastrophes, a finite streamed frame a round holding the
+               step's active fibers; tenants 0 and 5 alone
+               (`ensemble_solo`) within 1e-8 of their frames; /stats: 10
+               tenants, a lane seat per admission and per reseat,
+               compiles_after_warm 0 with compiles > 0, the three
+               histograms with ordered p50 / p95 / p99, a Prometheus page
+               whose every line parses; A-D launched through their
+               member-batched wrappers only. It prints the warm-up seconds
+               by bucket, the round walls by live lanes, the admission
+               wait percentiles and a `stream` request's latency.
+               b. an "unroll" server of 2 lanes: two free-space tenants of
+               128 bent 32-node fibers stream their sequential
+               `System.run` frames bit for bit; a third snapshotted after
+               two rounds, cancelled and resubmitted from its snapshot
+               streams the uninterrupted run's bits; A and B launch.
+               c. `guard.smoke.main` over TCP against servers it spawns on
+               the card (a NaN-poisoned tenant quarantined with its
+               provenance while its sibling finishes; SIGKILL mid-flight,
+               a restart on the journal, the tenant finished): exit code
+               0; each request type's round trips printed.
+               d. a step of phase 6's config by `System.run` with no
+               tracer active against the same step with the tracer's
+               instrumentation stubbed out, in turns: the same host syncs
+               (`torch.cuda.set_sync_debug_mode("warn")`); then the step
+               traced to a file (the libraries dropped again): its `step`
+               and `run` spans and compile events, and `obs.summarize` of
+               it with a's server events naming the lanes table and the
+               admission wait.
+               It prints {"serve": ...} before the kernels line; A-D's
+               entries carry "launches_serve_batched" (a) and
+               "launches_serve_unroll" (b).
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -407,7 +450,8 @@ phase 13's sharded runs included ("spmd_ellipsoid", "spmd_ellipsoid_full",
 ("sstep_full", "sstep_mixed", "sstep_spmd_full", "sstep_spmd_mixed",
 "ladder_stagnation", "ladder_healthy", "member_mesh_vmap",
 "member_mesh_unroll") and phase 17's ("flight_ellipsoid": the armed steps;
-"velocity_grid": the grid's pair sums).
+"velocity_grid": the grid's pair sums) and phase 18's ("serve_vmap",
+"serve_unroll").
 Every run is gated on the yardstick kernels launching 0 times. Then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
 card the script exits 2 before printing any result. Every file a phase
@@ -2050,8 +2094,8 @@ FMM_ELLIPSOID_FIBERS = 250
 PVFMM_MIXED_FIBERS = 2000
 #: phase 11d's "full" run through "PVFMM" is cut to this many fibers at
 #: the recipe's density (its full width, 10,000, took 46.8 s of the
-#: smoke's limit: PERF.md §5)
-PVFMM_FULL_FIBERS = 4000
+#: smoke's limit: PERF.md §5; 4,000 took 18.3 s before phase 18 came)
+PVFMM_FULL_FIBERS = 2000
 #: curvature of phase 11d's fibers (circular arcs, `make_config`)
 PVFMM_CURVATURE = 0.5
 #: the tolerance the fast sums are planned at (the params default)
@@ -5707,6 +5751,551 @@ def phase_flight_listener(torch, ck, device, ring_inputs, mesh_inputs,
     return out, launches
 
 
+#: phase 18: the service. Its tenants are phase 15's member scene without
+#: its cortex (serve tenants bring no periphery): the sphere body with
+#: --ensemble-body-nodes nodes and --ensemble-sites sites embedded in the
+#: TOML, --ensemble-bound clamped fibers, DI at phase 15's rates; 18a
+#: submits SERVE_TENANTS of them (seed and site draw differ) to a "vmap"
+#: server of --ensemble-lanes lanes on two buckets of the geometric ladder;
+#: 18b's "unroll" server takes two free-space tenants of as many bent
+#: fibers; 18c is the chaos smoke over TCP; 18d counts host syncs
+SERVE_TENANTS = 10
+SERVE_QUEUE_DEPTH = 4
+SERVE_UNROLL_LANES = 2
+#: the bend of 18b's fibers (circular arcs of this curvature)
+SERVE_CURVATURE = 0.5
+
+
+def make_tenant_config(n_body, n_sites, n_bound, seed, site_seed):
+    """One 18a tenant: phase 15's member scene without its cortex (a
+    `Config`, nothing written)."""
+    import numpy as np
+
+    from skellysim_tpu_torch.config import Body, Config, Fiber
+
+    config = Config()
+    p = config.params
+    p.eta = 1.0
+    p.dt_initial = p.dt_write = p.dt_max = ENS_DT
+    p.t_final = ENS_ROUNDS * ENS_DT
+    p.adaptive_timestep_flag = False
+    p.gmres_tol = ENS_GMRES_TOL
+    p.solver_precision = "mixed"
+    p.seed = seed
+    di = p.dynamic_instability
+    di.n_nodes, di.v_growth, di.f_catastrophe = ENS_FIBER_NODES, 0.2, 0.5
+    di.nucleation_rate, di.min_length = ENS_NUCLEATION_RATE, 0.5
+    di.radius, di.bending_rigidity = 0.0125, 0.01
+    body = Body(n_nucleation_sites=n_sites, position=[0.0, 0.0, 0.0],
+                shape="sphere", radius=0.5, n_nodes=n_body)
+    body.generate_nucleation_sites(0.03, verbose=False,
+                                   rng=np.random.default_rng(site_seed))
+    config.bodies = [body]
+    sites = np.asarray(body.nucleation_sites).reshape(-1, 3)
+    fibers = []
+    for k in range(n_bound):
+        f = Fiber(n_nodes=ENS_FIBER_NODES, parent_body=0, parent_site=k,
+                  minus_clamped=True, length=1.0, bending_rigidity=0.01,
+                  force_scale=ENS_FORCE_SCALE)
+        f.fill_node_positions(sites[k], sites[k] / np.linalg.norm(sites[k]))
+        fibers.append(f)
+    config.fibers = fibers
+    return config
+
+
+def make_free_tenant_config(n_fibers, seed):
+    """One 18b tenant: ``n_fibers`` bent free fibers of ENS_FIBER_NODES
+    nodes placed by ``seed`` in a uniform flow, "mixed", ENS_ROUNDS rounds
+    of ENS_DT."""
+    import numpy as np
+
+    from skellysim_tpu_torch.config import BackgroundSource, Config, Fiber
+
+    rng = np.random.default_rng(seed)
+    config = Config()
+    p = config.params
+    p.eta = 1.0
+    p.dt_initial = p.dt_write = p.dt_max = ENS_DT
+    p.t_final = ENS_ROUNDS * ENS_DT
+    p.adaptive_timestep_flag = False
+    p.gmres_tol = ENS_GMRES_TOL
+    p.solver_precision = "mixed"
+    p.seed = seed
+    t = np.linspace(0.0, 1.0, ENS_FIBER_NODES)[:, None]
+    radius = 1.0 / SERVE_CURVATURE
+    fibers = []
+    for _ in range(n_fibers):
+        origin = rng.uniform(-4.0, 4.0, 3)
+        d = rng.standard_normal(3)
+        d /= np.linalg.norm(d)
+        perp = np.cross(d, rng.standard_normal(3))
+        perp /= np.linalg.norm(perp)
+        x = (origin + radius * np.sin(t / radius) * d
+             + radius * (1.0 - np.cos(t / radius)) * perp)
+        f = Fiber(n_nodes=ENS_FIBER_NODES, length=1.0, bending_rigidity=0.01,
+                  force_scale=ENS_FORCE_SCALE)
+        f.x = x.ravel().tolist()
+        fibers.append(f)
+    config.fibers = fibers
+    config.background = BackgroundSource(uniform=[1.0, 0.0, 0.0])
+    return config
+
+
+def tenant_toml(config) -> str:
+    from skellysim_tpu_torch.config import schema
+    from skellysim_tpu_torch.config.toml_io import dumps
+
+    return dumps(schema.unpack(config))
+
+
+def percentiles(vals):
+    import numpy as np
+
+    if not vals:
+        return None
+    return {q: float(np.percentile(vals, int(q[1:])))
+            for q in ("p50", "p95", "p99")}
+
+
+def drain_server(srv, max_ticks=200):
+    """Tick ``srv`` until no lane is live; returns the ticks' walls."""
+    walls = []
+    while srv.any_live():
+        if len(walls) >= max_ticks:
+            raise SystemExit(f"serve: the service did not drain in "
+                             f"{max_ticks} ticks")
+        t0 = time.perf_counter()
+        srv.tick()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+class ServeSteps:
+    """Records the step records every `SimulationServer` built while the
+    phase runs hands its scheduler callback (the records `/status` folds:
+    iterations, residuals, DI counts)."""
+
+    def __enter__(self):
+        from skellysim_tpu_torch.serve.server import SimulationServer
+
+        self.cls = SimulationServer
+        self.saved = SimulationServer._on_sched_event
+        self.records = []
+        outer = self
+
+        def record(srv, rec):
+            outer.records.append(dict(rec))
+            return outer.saved(srv, rec)
+
+        SimulationServer._on_sched_event = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._on_sched_event = self.saved
+
+
+def serve_vmap(torch, ck, device, work, args, card):
+    """18a: SERVE_TENANTS DI tenants through an in-process "vmap" server
+    of --ensemble-lanes lanes, two buckets of the geometric ladder, queue
+    depth SERVE_QUEUE_DEPTH and a journal, driven by `handle_request` /
+    `tick`. The kernel libraries are dropped first, so the warm-up loads
+    them again (compile events before warm). Gated on every tenant
+    finishing after at least one growth reseat; every step accepted,
+    converged and healthy, active = previous + nucleations - catastrophes;
+    a finite frame a round holding the step's active fibers; members
+    ENS_SOLO within ENS_MIXED_DX of their solo rounds; /stats (tenants,
+    lane seats, compiles_after_warm 0, three histograms with p50 / p95 /
+    p99, a Prometheus page parsing line by line); A-D launched through
+    their member-batched entry points only. Returns (launch counts,
+    summary, the server's events)."""
+    import numpy as np
+
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import schema
+    from skellysim_tpu_torch.scenarios.sweep import ensure_di_capacity
+    from skellysim_tpu_torch.serve import protocol
+    from skellysim_tpu_torch.serve.server import SimulationServer
+    from skellysim_tpu_torch.system import buckets as bucket_mod
+
+    lanes = args.ensemble_lanes
+    run_dir = os.path.join(work, "serve_vmap")
+    os.makedirs(run_dir)
+    configs = [make_tenant_config(args.ensemble_body_nodes,
+                                  args.ensemble_sites, args.ensemble_bound,
+                                  seed=3000 + i, site_seed=500 + i)
+               for i in range(SERVE_TENANTS)]
+    cfg_path = os.path.join(run_dir, "serve_config.toml")
+    configs[0].save(cfg_path)
+    with open(cfg_path, "a") as fh:
+        fh.write(f'\n[serve]\nmax_lanes = {lanes}\nbucket_count = 2\n'
+                 f'queue_depth = {SERVE_QUEUE_DEPTH}\nbatch_impl = "vmap"\n'
+                 f'journal_path = "{os.path.join(run_dir, "journal.bin")}"\n'
+                 'journal_every = 2\n\n[runtime]\nbucket_ladder = [-1]\n')
+    for src in (ck.STOKESLET_SOURCE, ck.STRESSLET_SOURCE):
+        ck._libs.pop(src, None)
+    with ServeSteps() as rec:
+        t0 = time.perf_counter()
+        srv = SimulationServer(cfg_path, device=device.type)
+        build_s = time.perf_counter() - t0
+        caps = [b.capacity for b in srv.buckets]
+        warm = dict(srv.warmup_s)
+        log(f"[serve] vmap server: buckets {caps} of {lanes} lanes, built "
+            f"and warm in {build_s:.2f} s; warm-up seconds by bucket "
+            + ", ".join(f"{c}: {s:.3f}" for c, s in warm.items())
+            + f"; compile events at warm {srv.metrics.compiles}")
+        reset_counts(ck)
+        t0 = time.perf_counter()
+        resp = []
+        for cfg in configs:
+            t1 = time.perf_counter()
+            r = srv.handle_request({"type": "submit",
+                                    "config": tenant_toml(cfg)})
+            r["submit_s"] = time.perf_counter() - t1
+            if not r["ok"]:
+                raise SystemExit(f"serve: submit refused: {r['error']}")
+            resp.append(r)
+        ticks = drain_server(srv)
+        wall = time.perf_counter() - t0
+        counts = read_counts(ck)
+    queued = sum(1 for r in resp if r["queued"])
+    log(f"[serve] {SERVE_TENANTS} tenants submitted ({queued} queued; "
+        f"submit {np.median([r['submit_s'] for r in resp]):.3f} s median "
+        f"each, the scene built on the lanes' device) and served in "
+        f"{wall:.1f} s, {len(ticks)} ticks; launches {counts}")
+    tids = [r["tenant"] for r in resp]
+    stream_s, frames = [], {}
+    for tid in tids:
+        t1 = time.perf_counter()
+        s = srv.handle_request({"type": "stream", "tenant": tid})
+        stream_s.append(time.perf_counter() - t1)
+        frames[tid] = [protocol.unpack_message(bytes(f))
+                       for f in s["frames"]]
+        st = srv.handle_request({"type": "status", "tenant": tid})
+        if st["status"] != "finished" or st["health"]:
+            raise SystemExit(f"serve: tenant {tid} ended {st}")
+    stats = srv.handle_request({"type": "stats"})["stats"]
+    reseats = stats["growth_reseats"]
+    steps = [r for r in rec.records if r["event"] == "step"]
+    for tid in tids:
+        mine = [s for s in steps if s["member"] == tid]
+        prev = args.ensemble_bound
+        if len(mine) != ENS_ROUNDS or len(frames[tid]) != ENS_ROUNDS + 1:
+            raise SystemExit(f"serve: tenant {tid} took {len(mine)} steps "
+                             f"and streamed {len(frames[tid])} frames")
+        for s, fr in zip(mine, frames[tid][1:]):
+            if not (s["accepted"] and s["residual_true"] <= ENS_GMRES_TOL
+                    and s["health"] == 0):
+                raise SystemExit(f"serve: tenant {tid} step {s['step']} is "
+                                 f"not converged and healthy: {s}")
+            if s["active_fibers"] != prev + s["nucleations"] \
+                    - s["catastrophes"]:
+                raise SystemExit(f"serve: tenant {tid} step {s['step']}: "
+                                 f"{s['active_fibers']} active after {prev}, "
+                                 f"+{s['nucleations']} -{s['catastrophes']}")
+            x = frame_x(fr)
+            if len(fr["fibers"][1]) != s["active_fibers"] \
+                    or not np.isfinite(x).all():
+                raise SystemExit(f"serve: tenant {tid}'s frame after step "
+                                 f"{s['step']} holds {len(fr['fibers'][1])} "
+                                 f"fibers ({s['active_fibers']} active) or a "
+                                 "non-finite position")
+            prev = s["active_fibers"]
+    if not reseats:
+        raise SystemExit("serve: no growth reseat happened")
+    # the members alone, from their admitted states and streams
+    policy = srv.policy
+    params = srv.system.params
+    solo = {}
+    for idx in [i for i in ENS_SOLO if i < SERVE_TENANTS] or [0]:
+        tid = tids[idx]
+        _, state, rng = build_simulation(configs[idx], device=device.type,
+                                         synthesize_body_precompute=True)
+        state = ensure_di_capacity(state, params, capacity=1)
+        state = bucket_mod.bucketize_to(state, srv.buckets[0].key)
+        rounds = ensemble_solo(srv.system, params, state, rng, ENS_ROUNDS,
+                               policy)
+        dxs = []
+        for k, (st, info) in enumerate(rounds):
+            a, b = live_x(st), frame_x(frames[tid][k + 1])
+            if a.shape != b.shape or not info.converged:
+                raise SystemExit(f"serve: tenant {tid} alone, round {k}: "
+                                 f"{a.shape} fibers against the served "
+                                 f"{b.shape}, {info}")
+            dxs.append(float(np.abs(a - b).max()))
+        if not max(dxs) <= ENS_MIXED_DX:
+            raise SystemExit(f"serve: tenant {tid} alone drifts "
+                             f"{max(dxs):.3e} from its served frames")
+        solo[tid] = dxs
+        log(f"[serve] tenant {tid} alone: max |dx| against its served "
+            f"frames by round {[f'{d:.2e}' for d in dxs]} (gate "
+            f"{ENS_MIXED_DX:g})")
+    # /stats
+    prom = protocol.render_prometheus(stats)
+    for line in prom.strip().splitlines():
+        if not (line.startswith("# ") or (len(line.split()) == 2 and
+                                          float(line.split()[1]) >= 0)):
+            raise SystemExit(f"serve: Prometheus line {line!r}")
+    hists = {k: stats[k] for k in ("admission_wait_s", "round_wall_s_hist",
+                                   "frame_stream_s")}
+    if (stats["tenants"] != SERVE_TENANTS
+            or stats["admitted"] != SERVE_TENANTS + reseats
+            or stats["compiles_after_warm"] != 0
+            or (device.type == "cuda" and not srv.metrics.compiles)
+            or any(not (h["n"] and h["p50"] <= h["p95"] <= h["p99"])
+                   for h in hists.values())):
+        raise SystemExit(f"serve: /stats {json.dumps(stats)[:2000]}")
+    if device.type == "cuda":
+        batched = {n: counts[n] for n in EnsembleRounds.NAMES}
+        lone = {n[:-len("_batched")]: counts[n[:-len("_batched")]]
+                for n in EnsembleRounds.NAMES}
+        if not all(batched.values()) or any(lone.values()):
+            raise SystemExit(f"serve: the batched A-D launched {batched}, "
+                             f"the lone A-D {lone}")
+    if any(counts[w.__name__] for w in ck.YARDSTICK_WRAPPERS):
+        raise SystemExit(f"serve: a yardstick kernel launched: {counts}")
+    rounds = [(e["live"], e["lanes"], e["dur_s"]) for e in srv.tracer.events
+              if e["ev"] == "span" and e["name"] == "ensemble_step"]
+    by_live = {}
+    for live, _, dur in rounds:
+        by_live.setdefault(live, []).append(dur)
+    log(f"[serve] /stats: {stats['tenants']} tenants, {stats['admitted']} "
+        f"lane seats ({reseats} growth reseats), {stats['rounds']} rounds, "
+        f"{stats['steps']} member steps, compiles {stats['compiles']} "
+        f"(after warm {stats['compiles_after_warm']}); admission wait "
+        + ", ".join(f"{q} {hists['admission_wait_s'][q]:.4f} s"
+                    for q in ("p50", "p95", "p99"))
+        + "; round wall by live lanes "
+        + ", ".join(f"{live}: {np.median(d):.3f} s (n={len(d)})"
+                    for live, d in sorted(by_live.items()))
+        + f"; a stream request {np.median(stream_s) * 1e3:.2f} ms median "
+        f"in-process; frame_stream_s p50 "
+        f"{hists['frame_stream_s']['p50'] * 1e3:.3f} ms")
+    events = list(srv.tracer.events)
+    srv.journal.close()
+    summary = {"buckets": caps, "lanes": lanes, "warmup_s": warm,
+               "build_s": build_s, "wall_s": wall, "ticks": len(ticks),
+               "tick_walls": ticks, "rounds": rounds,
+               "round_wall_by_live": {str(k): v for k, v in by_live.items()},
+               "admission_wait_s": hists["admission_wait_s"],
+               "round_wall_s": hists["round_wall_s_hist"],
+               "frame_stream_s": hists["frame_stream_s"],
+               "stream_request_s": stream_s,
+               "submit_s": [r["submit_s"] for r in resp],
+               "reseats": reseats, "admitted": stats["admitted"],
+               "compiles": stats["compiles"],
+               "compiles_after_warm": stats["compiles_after_warm"],
+               "solo_dx": solo}
+    shutil.rmtree(run_dir)
+    return counts, summary, events
+
+
+def serve_unroll(torch, ck, device, work, args):
+    """18b: an "unroll" server of SERVE_UNROLL_LANES lanes takes two
+    free-space tenants of --ensemble-bound bent fibers; each streams the
+    bits of its sequential `System.run` on the card; a third tenant
+    snapshotted after two rounds, cancelled and resubmitted from its
+    snapshot streams the uninterrupted run's bits. Returns (launch counts,
+    summary)."""
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import schema
+    from skellysim_tpu_torch.io.trajectory import frame_bytes
+    from skellysim_tpu_torch.serve.server import SimulationServer
+
+    def seq_frames(cfg):
+        system, state, rng = build_simulation(cfg, device=device.type)
+        rs = rng.dump_state()
+        frames = [frame_bytes(state, rng_state=rs)]
+        system.run(state, writer=lambda st, sol, **kw: frames.append(
+            frame_bytes(st, rng_state=rs)))
+        return frames
+
+    def stream(srv, tid):
+        return [bytes(f) for f in srv.handle_request(
+            {"type": "stream", "tenant": tid})["frames"]]
+
+    n = args.ensemble_bound
+    cfgs = [make_free_tenant_config(n, seed=7000 + i) for i in range(3)]
+    t0 = time.perf_counter()
+    srv = SimulationServer(cfgs[0], device=device.type,
+                           serve_cfg=schema.ServeConfig(
+                               max_lanes=SERVE_UNROLL_LANES,
+                               batch_impl="unroll"))
+    build_s = time.perf_counter() - t0
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    tids = [srv.handle_request({"type": "submit",
+                                "config": tenant_toml(c)})["tenant"]
+            for c in cfgs[:2]]
+    drain_server(srv)
+    wall = time.perf_counter() - t0
+    counts = read_counts(ck)
+    same = []
+    for tid, cfg in zip(tids, cfgs):
+        got, ref = stream(srv, tid), seq_frames(cfg)
+        same.append(got == ref)
+        if got != ref:
+            raise SystemExit(f"serve: the \"unroll\" tenant {tid} streams "
+                             f"{len(got)} frames, not the {len(ref)} of its "
+                             "sequential System.run bit for bit")
+    r = srv.handle_request({"type": "submit", "config": tenant_toml(cfgs[2])})
+    srv.tick()
+    srv.tick()
+    snap = srv.handle_request({"type": "snapshot", "tenant": r["tenant"]})
+    srv.handle_request({"type": "cancel", "tenant": r["tenant"]})
+    pre = stream(srv, r["tenant"])
+    r2 = srv.handle_request({"type": "submit", "config": tenant_toml(cfgs[2]),
+                             "resume_frame": bytes(snap["frame"])})
+    if not (snap["ok"] and r2["ok"]):
+        raise SystemExit(f"serve: snapshot / resume refused: {snap} {r2}")
+    drain_server(srv)
+    if pre + stream(srv, r2["tenant"]) != seq_frames(cfgs[2]):
+        raise SystemExit("serve: snapshot, evict and resume is not the "
+                         "uninterrupted run bit for bit")
+    stats = srv.handle_request({"type": "stats"})["stats"]
+    if stats["compiles_after_warm"]:
+        raise SystemExit(f"serve: {stats['compiles_after_warm']} compiles "
+                         "after warm in the \"unroll\" server")
+    if device.type == "cuda" and not (counts["stokeslet_f32"]
+                                      and counts["stokeslet_f64"]):
+        raise SystemExit(f"serve: the \"unroll\" lanes launched {counts}")
+    log(f"[serve] unroll server ({SERVE_UNROLL_LANES} lanes, built in "
+        f"{build_s:.2f} s): 2 tenants of {n} bent {ENS_FIBER_NODES}-node "
+        f"fibers in {wall:.2f} s, each its sequential System.run bit for "
+        f"bit; snapshot at round 2, cancel and resume: the uninterrupted "
+        f"run's bits; launches {counts}")
+    return counts, {"build_s": build_s, "wall_s": wall, "same_bits": same,
+                    "resume_same_bits": True}
+
+
+def serve_chaos(work, device):
+    """18c: the chaos smoke (`guard.smoke.main`) over TCP against servers
+    it spawns on ``device``: a NaN-poisoned tenant quarantined while its
+    sibling finishes, then SIGKILL mid-flight and recovery from the
+    journal. Gated on its exit code 0; it prints each request type's
+    round trips."""
+    from skellysim_tpu_torch.guard import smoke
+
+    t0 = time.perf_counter()
+    rc = smoke.main(os.path.join(work, "chaos"), device=device.type)
+    if rc != 0:
+        raise SystemExit(f"serve: the chaos smoke exited {rc}")
+    wall = time.perf_counter() - t0
+    log(f"[serve] chaos smoke passed in {wall:.1f} s")
+    return {"wall_s": wall}
+
+
+def count_syncs(torch, fn):
+    """Host syncs `fn()` makes under `torch.cuda.set_sync_debug_mode`
+    ("warn"), as `matvec_syncs` counts them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def serve_tracer(torch, ck, device, ring_inputs, work, serve_events):
+    """18d: one step of phase 6's config (its first state) by `System.run`
+    with no tracer active against the same step with the instrumentation
+    stubbed out (the loop as it was before the tracer), in turns (A B B
+    A) after a first counted step: the same host syncs, counted as
+    `matvec_syncs` counts them. Then the step with a
+    tracer writing a file, the kernel libraries dropped first so it loads
+    them: the trace holds the step span and the compile events, and
+    `obs.summarize` of it with 18a's server events renders the lanes table
+    and the admission wait."""
+    import contextlib
+
+    from skellysim_tpu_torch.obs import summarize
+    from skellysim_tpu_torch.obs import tracer as obs_tracer
+    from skellysim_tpu_torch.system import System
+
+    params, shape = ring_inputs["system_args"]
+    system = System(params, shell_shape=shape, device=device)
+    state = ring_inputs["state"]
+
+    def step():
+        system.run(state, max_steps=1)
+        torch.cuda.synchronize(device)
+
+    def stubbed():
+        saved = (obs_tracer.span, obs_tracer.emit, obs_tracer.active)
+        obs_tracer.span = lambda *a, **k: contextlib.nullcontext(
+            obs_tracer._Span())
+        obs_tracer.emit = lambda *a, **k: None
+        obs_tracer.active = lambda: None
+        try:
+            step()
+        finally:
+            obs_tracer.span, obs_tracer.emit, obs_tracer.active = saved
+
+    # a first counted step, not gated: torch's first call under the debug
+    # mode adds one sync of its own (torch/cuda/__init__.py)
+    first = count_syncs(torch, step)
+    counts = {"inactive": [], "uninstrumented": []}
+    for name, fn in (("inactive", step), ("uninstrumented", stubbed),
+                     ("uninstrumented", stubbed), ("inactive", step)):
+        counts[name].append(count_syncs(torch, fn))
+    inactive, stubbed_n = counts["inactive"], counts["uninstrumented"]
+    if len(set(inactive + stubbed_n)) != 1:
+        raise SystemExit(f"serve: host syncs of a step with the tracer "
+                         f"inactive {inactive}, uninstrumented {stubbed_n}")
+    trace = os.path.join(work, "trace.jsonl")
+    for src in (ck.STOKESLET_SOURCE, ck.STRESSLET_SOURCE):
+        ck._libs.pop(src, None)
+    t0 = time.perf_counter()
+    system.run(state, max_steps=1, trace_path=trace)
+    traced_s = time.perf_counter() - t0
+    events = [json.loads(line) for line in open(trace)]
+    spans = [e["name"] for e in events if e["ev"] == "span"]
+    compiles = [e["name"] for e in events if e["ev"] == "compile"]
+    s = summarize.Summary()
+    s.add_file(trace)
+    for e in serve_events:
+        s.add_line(json.dumps(e))
+    report = s.render()
+    if (spans != ["step", "run"] or not compiles
+            or "== ensemble lanes ==" not in report
+            or "admission wait:" not in report):
+        raise SystemExit(f"serve: the trace holds spans {spans}, compiles "
+                         f"{compiles}; report:\n{report}")
+    log(f"[serve] tracer: a phase-6 step makes {inactive} host syncs "
+        f"with no tracer active and {stubbed_n} with the instrumentation "
+        f"stubbed out, in turns (the first counted step {first}); traced "
+        f"({traced_s:.2f} s): spans {spans}, compile events {compiles}; "
+        "summarize renders the lanes table and the admission wait")
+    os.remove(trace)
+    return {"syncs_inactive": inactive, "syncs_uninstrumented": stubbed_n,
+            "syncs_first_counted": first, "traced_step_s": traced_s,
+            "compile_events": compiles}
+
+
+def phase_serve(torch, ck, device, ring_inputs, work, args, card):
+    """Phase 18: the service, 18a (`serve_vmap`), 18b (`serve_unroll`),
+    18c (`serve_chaos`) and 18d (`serve_tracer`, the card only: it counts
+    CUDA syncs). Returns (summary, launch counts by run)."""
+    out, launches = {}, {}
+    launches["serve_vmap"], out["vmap"], events = serve_vmap(
+        torch, ck, device, work, args, card)
+    stamp("phase 18a")
+    launches["serve_unroll"], out["unroll"] = serve_unroll(
+        torch, ck, device, work, args)
+    stamp("phase 18b")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["chaos"] = serve_chaos(work, device)
+    stamp("phase 18c")
+    if device.type == "cuda":
+        out["tracer"] = serve_tracer(torch, ck, device, ring_inputs, work,
+                                     events)
+    return out, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--spmd-worker"]:
@@ -5745,8 +6334,8 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
         (entries, launches, smi, fast, tree, spmd, ens, options,
-         flight) = run_phases(torch, ck, cuda_build, TrajectoryReader,
-                              device, args, work)
+         flight, serve) = run_phases(torch, ck, cuda_build, TrajectoryReader,
+                                     device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -5764,6 +6353,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ensemble": ens}), flush=True)
     print(json.dumps({"options": options}), flush=True)
     print(json.dumps({"flight_listener": flight}, default=str), flush=True)
+    print(json.dumps({"serve": serve}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5999,12 +6589,31 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
         torch, ck, device, ring_inputs, mesh_inputs, work)
     flight_out["phase_s"] = time.perf_counter() - t17
     launches.update(flight_launches)
-    del mesh_inputs, ring_inputs
-    shutil.rmtree(os.path.join(work, "ellipsoid"))
+    del mesh_inputs
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     stamp("phase 17")
+
+    # 18. the service: phase 15's scene as tenants, then phase 6's first
+    # state for the tracer's host syncs
+    t18 = time.perf_counter()
+    serve, serve_launches = phase_serve(torch, ck, device, ring_inputs, work,
+                                        args, smi)
+    serve["phase_s"] = time.perf_counter() - t18
+    launches.update(serve_launches)
+    for e in entries:
+        if e["name"] in ("stokeslet_f32", "stokeslet_f64", "stresslet_f32",
+                         "stresslet_f64"):
+            e["launches_serve_batched"] = launches["serve_vmap"][
+                e["name"] + "_batched"]
+            e["launches_serve_unroll"] = launches["serve_unroll"][e["name"]]
+    del ring_inputs
+    shutil.rmtree(os.path.join(work, "ellipsoid"))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 18")
 
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
@@ -6019,7 +6628,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
     return (entries, launches, smi, fast, tree, spmd, ens, options,
-            flight_out)
+            flight_out, serve)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ bodies share one formulation (the kind matters only for collisions).
 Solution layout per body: [3n node densities (node-major xyz) | 6 rigid
 velocities (U, omega)]. External forces support the Linear and Oscillatory
 schedules. The dense body operators are built per body and factored with
-one batched `torch.linalg.lu_factor`.
+one batched `torch.linalg.lu_factor_ex`.
 
 The body double layer runs on the hand-written stresslet kernels C / D
 through `ops.kernels.stresslet_direct` (or, with a fast plan, through the
@@ -217,7 +217,9 @@ def update_cache(group: BodyGroup, eta, precond_dtype=None) -> BodyCaches:
     A[:, 3 * n:, 3 * n:] = torch.eye(6, dtype=A.dtype, device=A.device)
     if precond_dtype is not None:
         A = A.to(precond_dtype)
-    lu, piv = torch.linalg.lu_factor(A)
+    # no pivot check: a nonfinite body reaches the health verdict
+    # (`fibers.container.update_rhs_and_bc`)
+    lu, piv, _ = torch.linalg.lu_factor_ex(A)
     return BodyCaches(nodes=nodes, normals=normals, nucleation_sites=sites,
                       K=K, ex=ex, ey=ey, ez=ez, lu=lu, piv=piv)
 

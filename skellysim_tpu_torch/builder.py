@@ -3,12 +3,16 @@
 Counterpart of `skellysim_tpu.builder`: reads the TOML config and the
 precompute npz files (written by either package's precompute) and assembles
 `System`, the initial `SimState` and the `SimRNG` on the requested device
-(the card unless ``device="cpu"``). Deformable bodies and the serve path's
-in-process body precompute are not ported (ROADMAP.md §1 items 11 and 13).
+(the card unless ``device="cpu"``). With ``synthesize_body_precompute``
+(the service's tenants, whose TOML arrives over the wire without npz
+files) a sphere or ellipsoid body whose npz is missing gets its quadrature
+rebuilt in-process and placed on the scene's device. Deformable bodies
+are refused, as in the reference.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 
@@ -68,10 +72,27 @@ def build_fibers(cfg_fibers: list, dtype, device):
     return groups[0] if len(groups) == 1 else tuple(groups)
 
 
-def build_bodies(cfg_bodies: list, config_dir: str, dtype, device):
+@functools.lru_cache(maxsize=16)
+def _analytic_body(shape: str, n_nodes: int, radius: float, a: float,
+                   b: float, c: float) -> dict:
+    """A sphere's or ellipsoid's surface precompute, kept for the process:
+    a deterministic function of its arguments that a server would
+    otherwise rebuild for every tenant (~0.8 s at 400 nodes)."""
+    from .periphery.precompute import precompute_body
+
+    return precompute_body(shape, n_nodes, radius=radius, a=a, b=b, c=c)
+
+
+def build_bodies(cfg_bodies: list, config_dir: str, dtype, device,
+                 synthesize_precompute: bool = False):
     """BodyGroup (one shape/resolution) or tuple of per-(shape, n_nodes,
     n_sites) buckets in first-appearance order; each body's config position
-    is its `config_rank` (the GLOBAL id fibers' `parent_body` refers to)."""
+    is its `config_rank` (the GLOBAL id fibers' `parent_body` refers to).
+
+    ``synthesize_precompute`` computes an analytic (sphere / ellipsoid)
+    body's surface in-process when its npz is missing (the service's
+    path: a tenant's quadrature is a deterministic function of shape,
+    n_nodes and radius); off, a missing file raises as in the CLIs."""
     if not cfg_bodies:
         return None
     if any(b.shape == "deformable" for b in cfg_bodies):
@@ -79,8 +100,16 @@ def build_bodies(cfg_bodies: list, config_dir: str, dtype, device):
             "deformable bodies are declared but not implemented (matching "
             "the reference stub: `body_deformable.cpp:13-41`, "
             "flow_deformable throws at `body_container.cpp:449-463`)")
-    pre_all = [_load_npz(os.path.join(config_dir, b.precompute_file), "body")
-               for b in cfg_bodies]
+    def load(b):
+        path = os.path.join(config_dir, b.precompute_file)
+        if (synthesize_precompute and not os.path.exists(path)
+                and b.shape in ("sphere", "ellipsoid")):
+            pre = _analytic_body(b.shape, b.n_nodes, float(b.radius),
+                                 *map(float, b.axis_length))
+            return {k: v.copy() for k, v in pre.items()}
+        return _load_npz(path, "body")
+
+    pre_all = [load(b) for b in cfg_bodies]
 
     def runtime_quat(b):
         # TOML orientation is [x, y, z, w]; the runtime and the trajectory
@@ -183,7 +212,8 @@ def build_background(cfg_bg, dtype, device):
 
 
 def build_simulation(config, config_dir: str = ".", dtype=torch.float64,
-                     device=None, mesh=None):
+                     device=None, mesh=None,
+                     synthesize_body_precompute: bool = False):
     """Config (object or TOML path) -> (System, SimState, SimRNG); the
     precompute npz files are read from ``config_dir`` (a TOML path's own
     directory).
@@ -192,7 +222,8 @@ def build_simulation(config, config_dir: str = ".", dtype=torch.float64,
     the config selects pair_evaluator = "ring": each fiber bucket is then
     padded with inert fibers to a mesh-divisible node count
     (`system.buckets.pad_for_mesh`). Without a mesh the direct evaluator
-    runs (the CLI builds none)."""
+    runs (the CLI builds none). ``synthesize_body_precompute``: see
+    `build_bodies`."""
     if isinstance(config, (str, os.PathLike)):
         config_dir = os.path.dirname(os.path.abspath(config)) or "."
         config = schema.load_config(str(config))
@@ -218,5 +249,6 @@ def build_simulation(config, config_dir: str = ".", dtype=torch.float64,
         points=build_point_sources(config.point_sources, dtype, device),
         background=build_background(config.background, dtype, device),
         shell=shell,
-        bodies=build_bodies(config.bodies, config_dir, dtype, device))
+        bodies=build_bodies(config.bodies, config_dir, dtype, device,
+                            synthesize_precompute=synthesize_body_precompute))
     return system, state, SimRNG(seed=config.params.seed)

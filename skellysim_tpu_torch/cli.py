@@ -6,7 +6,13 @@ last frame of the trajectory, its RNG state, an appending writer and a
 resume marker in the metrics file), then the time loop.
 
 Usage: python -m skellysim_tpu_torch [--config-file=...] [--resume]
-       [--overwrite] [--metrics-file=...] [--listen] [--device=cuda|cpu]
+       [--overwrite] [--metrics-file=...] [--trace-file=...] [--listen]
+       [--device=cuda|cpu]
+
+``--trace-file`` appends the run's telemetry (`obs.tracer`: spans, flight
+rows, faults, compile events) as JSON lines; `obs.summarize` renders it.
+``--profile`` is accepted and refused: the profiler session is ROADMAP.md
+§1 item 14.
 
 Runs on the CUDA card unless ``--device=cpu`` is given; a missing card
 raises. ``--listen`` serves the post-processing protocol over stdin and
@@ -47,7 +53,7 @@ def _snapshot_path(traj: str, suffix: str) -> str:
 
 def run(config_file: str, resume: bool = False, overwrite: bool = False,
         trajectory_path: str | None = None, metrics_path: str | None = None,
-        device=None) -> None:
+        device=None, trace_path: str | None = None) -> None:
     traj = trajectory_path or os.path.join(
         os.path.dirname(os.path.abspath(config_file)) or ".", TRAJECTORY_FILE)
     if os.path.exists(traj) and not (resume or overwrite):
@@ -89,7 +95,7 @@ def run(config_file: str, resume: bool = False, overwrite: bool = False,
         writer.write_frame(state, rng_state=rng.dump_state())
     with writer:
         final = system.run(state, writer=writer.write_frame, rng=rng,
-                           metrics_path=metrics_path)
+                           metrics_path=metrics_path, trace_path=trace_path)
     shutil.copyfile(config_file, _snapshot_path(traj, "final_config"))
     print(f"Finished at t={final.time:.6g}")
 
@@ -109,12 +115,22 @@ def main(argv=None) -> None:
                          "trajectory over stdin/stdout")
     ap.add_argument("--metrics-file", default=None,
                     help="append one JSON line of step metrics per trial step")
+    ap.add_argument("--trace-file", default=None,
+                    help="telemetry JSONL (span, flight, fault and compile "
+                         "events; render with skellysim_tpu_torch.obs"
+                         ".summarize)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="not ported yet (ROADMAP.md §1 item 14)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to run (default: the CUDA card; raises when "
                          "there is none)")
     ap.add_argument("--log-level",
                     default=os.environ.get("SKELLYSIM_LOG", "INFO"))
     args = ap.parse_args(argv)
+    if args.profile is not None:
+        raise NotImplementedError(
+            "--profile needs the profiler session, which is not ported to "
+            "skellysim_tpu_torch yet (ROADMAP.md §1 item 14)")
     logging.basicConfig(level=args.log_level.upper(),
                         format="[%(asctime)s] [%(levelname)s] %(message)s",
                         stream=sys.stderr)
@@ -131,7 +147,8 @@ def main(argv=None) -> None:
         serve(args.config_file, device=args.device)
         return
     run(args.config_file, resume=args.resume, overwrite=args.overwrite,
-        metrics_path=args.metrics_file, device=args.device)
+        metrics_path=args.metrics_file, device=args.device,
+        trace_path=args.trace_file)
 
 
 if __name__ == "__main__":

@@ -32,7 +32,7 @@ __all__ = ["Fiber", "DynamicInstability", "PeripheryBinding", "Params",
            "ConfigEllipsoidal", "ConfigRevolution", "load_config",
            "config_from_data", "unpack", "to_runtime_params", "SweepAxis",
            "EnsembleSweep", "normalized_member_params", "RuntimeConfig",
-           "load_runtime_config"]
+           "load_runtime_config", "ServeConfig", "load_serve_config"]
 
 
 def _vec3() -> List[float]:
@@ -597,6 +597,106 @@ def load_runtime_config(path_or_data) -> RuntimeConfig:
                              "ladder)")
         if list(lad) != sorted(set(int(v) for v in lad)):
             raise ValueError(f"[runtime] {name} must be strictly ascending")
+    return cfg
+
+
+@dataclass
+class ServeConfig:
+    """`[serve]` table of a server config TOML (`python -m
+    skellysim_tpu_torch.serve`; the JAX package's `ServeConfig`, field for
+    field).
+
+    Lives in the SERVER's run config file alongside the usual tables: the
+    config's fibers/params define the warm compiled program every tenant
+    must match, and `[serve]` sizes the service around it. Each capacity
+    bucket is one compiled ensemble program whose lanes hold tenants with
+    fiber counts up to that capacity (smaller scenes are padded with inert
+    masked fibers, the ensemble's masked lanes applied to admission).
+    """
+    #: bind address for the TCP service
+    host: str = "127.0.0.1"
+    #: listen port; 0 = ephemeral (pair with the CLI's --port-file)
+    port: int = 0
+    #: padded fiber capacities, one warm compiled program (bucket) each;
+    #: empty = derived from the bucket policy (`[runtime] bucket_ladder`
+    #: rungs starting at the base config's fiber count, `bucket_count`
+    #: rungs) — this list remains the manual override
+    bucket_capacities: List[int] = field(default_factory=list)
+    #: number of policy-ladder rungs to derive buckets from when
+    #: `bucket_capacities` is empty (starting at the base scene's rung);
+    #: 1 = a single bucket at the base scene's own rung (the default)
+    bucket_count: int = 1
+    #: concurrent tenant slots (compiled ensemble lanes) per bucket
+    max_lanes: int = 4
+    #: admission-queue bound per bucket; a submit beyond it is REJECTED
+    #: (admission control: shed load instead of growing an unbounded queue)
+    queue_depth: int = 16
+    #: batched execution plan for the lanes: "vmap" (throughput) or
+    #: "unroll" (bit-reproducible lanes)
+    batch_impl: str = "vmap"
+    #: per-send socket timeout: a client that stops reading its responses
+    #: is dropped (and its tenants evicted) instead of freezing the
+    #: single-threaded event loop on a full TCP window
+    send_timeout_s: float = 30.0
+    #: terminal tenant-record retention (seconds): finished / evicted /
+    #: cancelled records (and their final-state snapshots) expire this long
+    #: after retirement, bounding server memory under sustained traffic.
+    #: 0 disables expiry (the pre-TTL behavior: records live until
+    #: shutdown). An expired tenant answers "unknown tenant" — clients
+    #: must fetch snapshots/frames within the TTL.
+    record_ttl_s: float = 0.0
+    #: crash-safe write-ahead tenant journal (`serve.journal`):
+    #: append-only trajectory-v1 snapshots on
+    #: admit / evict / every `journal_every` rounds. A restarted server
+    #: pointed at the same path re-admits every live tenant from the
+    #: journal with at most `journal_every` rounds of replay. Empty =
+    #: journaling off (the pre-guard behavior: a killed server loses its
+    #: tenants).
+    journal_path: str = ""
+    #: checkpoint cadence (batched rounds) for live lanes when journaling;
+    #: the bound on replay after a crash. Must be >= 1 when journaling.
+    journal_every: int = 8
+    #: allow `chaos` requests (`guard.chaos` fault injection: the chaos
+    #: smoke and the fault-injection tests). NEVER enable in production:
+    #: a chaos request deliberately poisons tenant state.
+    chaos_enabled: bool = False
+    #: per-connection frame-size bound (bytes): a header claiming more
+    #: answers a structured error and the connection survives
+    #: (protocol.FrameDecoder skip mode); the default matches
+    #: protocol.MAX_FRAME_BYTES
+    max_frame_bytes: int = 1 << 31
+
+
+def load_serve_config(path: str) -> ServeConfig:
+    """`[serve]` table of a config TOML -> ServeConfig (defaults when the
+    table is absent; unknown keys rejected — a typo'd knob silently running
+    defaults would mis-size a production service)."""
+    table = toml_io.load(path).get("serve", {})
+    known = {f.name for f in dataclasses.fields(ServeConfig)}
+    unknown = set(table) - known
+    if unknown:
+        raise ValueError(f"{path}: unknown [serve] keys {sorted(unknown)}; "
+                         f"valid keys: {sorted(known)}")
+    cfg = ServeConfig(**table)
+    if cfg.max_lanes < 1:
+        raise ValueError(f"{path}: [serve] max_lanes must be >= 1")
+    if cfg.queue_depth < 0:
+        raise ValueError(f"{path}: [serve] queue_depth must be >= 0")
+    if cfg.batch_impl not in ("vmap", "unroll"):
+        raise ValueError(f"{path}: unknown [serve] batch_impl "
+                         f"{cfg.batch_impl!r}; use 'vmap' or 'unroll'")
+    if any(c < 1 for c in cfg.bucket_capacities):
+        raise ValueError(f"{path}: [serve] bucket_capacities must be >= 1")
+    if cfg.bucket_count < 1:
+        raise ValueError(f"{path}: [serve] bucket_count must be >= 1")
+    if cfg.send_timeout_s <= 0:
+        raise ValueError(f"{path}: [serve] send_timeout_s must be > 0")
+    if cfg.journal_path and cfg.journal_every < 1:
+        raise ValueError(f"{path}: [serve] journal_every must be >= 1 "
+                         "when journal_path is set")
+    if cfg.max_frame_bytes < 1 << 16:
+        raise ValueError(f"{path}: [serve] max_frame_bytes must be >= 64 KiB "
+                         "(a single status response must fit)")
     return cfg
 
 

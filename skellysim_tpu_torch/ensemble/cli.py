@@ -2,7 +2,8 @@
 
 Usage: python -m skellysim_tpu_torch.ensemble --sweep-file=ensemble.toml
            [--output-dir=DIR] [--batch=B] [--batch-impl=vmap|unroll]
-           [--overwrite] [--metrics-file=F] [--device=cuda|cpu]
+           [--overwrite] [--metrics-file=F] [--trace-file=F]
+           [--device=cuda|cpu]
 
 Counterpart of `skellysim_tpu.ensemble.cli`. The sweep spec
 (`config.sweep`) names a base run config and the member expansion
@@ -14,8 +15,10 @@ through the continuous-batching scheduler, or, with dynamic instability,
 through `scenarios.ScenarioEnsemble`. The output directory gets one
 reference-format `<member_id>.out` a member and `ensemble_metrics.jsonl`.
 Runs on the CUDA card unless ``--device=cpu``; a missing card raises.
-``--trace-file`` and ``--profile`` need the telemetry tracer and the
-profiler session, which are not ported yet (ROADMAP.md §1 item 14).
+``--trace-file`` appends the drain's telemetry (`obs.tracer`: lane
+admit / backfill / retire events, one ``ensemble_step`` span a round,
+faults, compile events) as JSON lines; ``--profile`` needs the profiler
+session, which is not ported yet (ROADMAP.md §1 item 14).
 """
 
 from __future__ import annotations
@@ -85,9 +88,14 @@ def _members_from_sweep(sweep_file: str, device=None):
 def run(sweep_file: str, output_dir: str | None = None,
         batch: int | None = None, batch_impl: str | None = None,
         overwrite: bool = False, metrics_path: str | None = None,
+        trace_path: str | None = None,
         device=None) -> list:
-    """Expand and drain a sweep; returns the retired member ids."""
+    """Expand and drain a sweep; returns the retired member ids.
+    ``trace_path`` opens a telemetry stream for the drain."""
+    import contextlib
+
     from ..io.ensemble_io import EnsembleMetricsWriter, MemberTrajectoryWriters
+    from ..obs import tracer as obs_tracer
     from .runner import EnsembleRunner
     from .scheduler import EnsembleScheduler
 
@@ -104,22 +112,30 @@ def run(sweep_file: str, output_dir: str | None = None,
             sys.exit(f"member trajectories already exist ({clobbered[0]}.out"
                      f" + {len(clobbered) - 1} more); pass --overwrite")
     runner = EnsembleRunner(system, batch_impl=batch_impl or spec.batch_impl)
-    with writers, EnsembleMetricsWriter(metrics_path) as metrics:
-        if runner.di_enabled:
-            # growth reseats land on the ladder admission bucketized onto
-            from ..scenarios import ScenarioEnsemble
+    tracer = obs_tracer.Tracer(trace_path) if trace_path else None
+    scope = (obs_tracer.use(tracer) if tracer is not None
+             else contextlib.nullcontext())
+    try:
+        with writers, EnsembleMetricsWriter(metrics_path) as metrics, scope:
+            if runner.di_enabled:
+                # growth reseats land on the ladder admission bucketized
+                # onto
+                from ..scenarios import ScenarioEnsemble
 
-            sched = ScenarioEnsemble(
-                system, members, batch or spec.batch, runner=runner,
-                policy=policy, writer=writers, metrics=metrics,
-                write_initial_frames=True,
-                on_dt_underflow="retire", on_failure="retire")
-        else:
-            sched = EnsembleScheduler(
-                runner, members, batch or spec.batch, writer=writers,
-                metrics=metrics, write_initial_frames=True,
-                on_dt_underflow="retire", on_failure="retire")
-        retired = sched.run()
+                sched = ScenarioEnsemble(
+                    system, members, batch or spec.batch, runner=runner,
+                    policy=policy, writer=writers, metrics=metrics,
+                    write_initial_frames=True,
+                    on_dt_underflow="retire", on_failure="retire")
+            else:
+                sched = EnsembleScheduler(
+                    runner, members, batch or spec.batch, writer=writers,
+                    metrics=metrics, write_initial_frames=True,
+                    on_dt_underflow="retire", on_failure="retire")
+            retired = sched.run()
+    finally:
+        if tracer is not None:
+            tracer.close()
     print(f"ensemble finished: {len(retired)}/{len(members)} members "
           f"retired over {sched.rounds} batched steps")
     return retired
@@ -145,7 +161,8 @@ def main(argv=None) -> None:
                     help="aggregated ensemble metrics JSONL "
                          "(default: <output-dir>/ensemble_metrics.jsonl)")
     ap.add_argument("--trace-file", default=None,
-                    help="not ported yet (ROADMAP.md §1 item 14)")
+                    help="telemetry JSONL (lane/span/fault/compile events; "
+                         "render with skellysim_tpu_torch.obs.summarize)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="not ported yet (ROADMAP.md §1 item 14)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -154,16 +171,14 @@ def main(argv=None) -> None:
     ap.add_argument("--log-level",
                     default=os.environ.get("SKELLYSIM_LOG", "INFO"))
     args = ap.parse_args(argv)
-    for flag, value in (("--trace-file", args.trace_file),
-                        ("--profile", args.profile)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag} needs the telemetry tracer / profiler session, "
-                "which are not ported to skellysim_tpu_torch yet (ROADMAP.md "
-                "§1 item 14)")
+    if args.profile is not None:
+        raise NotImplementedError(
+            "--profile needs the profiler session, which is not ported to "
+            "skellysim_tpu_torch yet (ROADMAP.md §1 item 14)")
     logging.basicConfig(level=args.log_level.upper(),
                         format="[%(asctime)s] [%(levelname)s] %(message)s",
                         stream=sys.stderr)
     run(args.sweep_file, output_dir=args.output_dir, batch=args.batch,
         batch_impl=args.batch_impl, overwrite=args.overwrite,
-        metrics_path=args.metrics_file, device=args.device)
+        metrics_path=args.metrics_file, device=args.device,
+        trace_path=args.trace_file)

@@ -10,7 +10,12 @@ keys are the JAX package's ("start", "step", "retire", "dt_underflow",
 each step record's ``flight`` is the member's decoded flight row and a
 ``failed`` / ``dt_underflow`` record's the ring's tail and provenance
 (`obs.flight.failure_payload`); the rings are read once a round. The
-telemetry tracer is not ported yet (ROADMAP.md §1 item 14).
+telemetry events are the JAX package's (`obs.tracer`): ``lane`` admit /
+backfill (with ``queue_wait_s``), retire and growth, ``fault``
+``lane_failed`` / ``dt_underflow``, ``flight``, and one
+``ensemble_step`` span a round (``round``, ``live``, ``lanes``), which
+covers the round's device work (the runner reads its outcomes on the
+host).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Callable, Optional
 
 from ..guard import verdict as _verdict
 from ..obs import flight as flight_mod
+from ..obs import tracer as obs_tracer
 from ..system.system import SimState, crossed_write_boundary
 from ..utils.rng import SimRNG
 from .runner import EnsembleRunner, lane_state, rng_carry, set_lane
@@ -150,6 +156,12 @@ class EnsembleScheduler:
                                  dt=float(spec.state.dt))
         wait_s = (max(0.0, _time.perf_counter() - spec.enqueued_at)
                   if spec.enqueued_at is not None else 0.0)
+        # "admit" seats a member before the first round, "backfill"
+        # refills a lane freed mid-drain
+        obs_tracer.emit("lane",
+                        action="admit" if self.rounds == 0 else "backfill",
+                        lane=lane, member=spec.member_id,
+                        queue_wait_s=round(wait_s, 6))
         self._emit({"event": "start", "member": spec.member_id, "lane": lane,
                     "t": float(spec.state.time), "t_final": spec.t_final,
                     "queue_wait_s": round(wait_s, 6)})
@@ -168,6 +180,9 @@ class EnsembleScheduler:
                 final_state = lane_state(self.ens.states, lane)
             self.on_retire(ln.spec.member_id, final_state, reason,
                            rng_state=self._rng_state(ln.spec), **extra)
+        obs_tracer.emit("lane", action="retire", lane=lane,
+                        member=ln.spec.member_id, reason=reason,
+                        steps=ln.steps, **extra)
         self._emit({"event": "retire" if reason == "finished" else reason,
                     "member": ln.spec.member_id, "lane": lane, "t": ln.t,
                     "steps": ln.steps, "frames": ln.frames, **extra})
@@ -250,21 +265,24 @@ class EnsembleScheduler:
             return []
         p = self.runner.system.params
         retired_before = len(self.retired)
-        wall0 = _time.perf_counter()
-        self.ens, info = self.step_fn(self.ens)
-        dev = self.runner.system.device
-        if dev.type == "cuda":
-            import torch
+        live = sum(1 for ln in self.lanes if ln is not None)
+        with obs_tracer.span("ensemble_step", round=self.rounds,
+                             live=live, lanes=self.batch):
+            wall0 = _time.perf_counter()
+            self.ens, info = self.step_fn(self.ens)
+            dev = self.runner.system.device
+            if dev.type == "cuda":
+                import torch
 
-            torch.cuda.synchronize(dev)
-        wall_s = _time.perf_counter() - wall0
+                torch.cuda.synchronize(dev)
+            # the members' rings ([B, K, 13] and [B]), one read a round:
+            # the step records' rows and the failure payloads
+            fl = self.ens.states.flight
+            flight_rows = flight_counts = None
+            if fl is not None:
+                flight_rows, flight_counts = flight_mod.read_rows(fl)
+            wall_s = _time.perf_counter() - wall0
         self.rounds += 1
-        # the members' rings ([B, K, 13] and [B]), one read a round: the
-        # step records' rows and the failure payloads
-        fl = self.ens.states.flight
-        flight_rows = flight_counts = None
-        if fl is not None:
-            flight_rows, flight_counts = flight_mod.read_rows(fl)
 
         def payload(lane):
             return (None if flight_rows is None else
@@ -289,6 +307,9 @@ class EnsembleScheduler:
             health = int(info.health[lane])
             if bool(info.needs_growth[lane]):
                 cap = _fiber_capacity(lane_state(self.ens.states, lane))
+                obs_tracer.emit("lane", action="growth", lane=lane,
+                                member=ln.spec.member_id, capacity=cap,
+                                t=ln.t)
                 if self.on_growth == "raise":
                     raise RuntimeError(
                         f"ensemble member {ln.spec.member_id}: nucleation "
@@ -303,6 +324,13 @@ class EnsembleScheduler:
                 verdict_s = _verdict.describe(health)
                 fail = payload(lane)
                 prov = (fail or {}).get("provenance")
+                prov_fields = ({"prov_field": prov.get("field"),
+                                "prov_fiber": prov.get("fiber"),
+                                "prov_node": prov.get("node")}
+                               if prov else {})
+                obs_tracer.emit("fault", kind="lane_failed", lane=lane,
+                                member=ln.spec.member_id, health=health,
+                                verdict=verdict_s, t=ln.t, **prov_fields)
                 if self.on_failure == "raise":
                     raise RuntimeError(
                         f"ensemble member {ln.spec.member_id}: terminal "
@@ -321,6 +349,9 @@ class EnsembleScheduler:
                     raise RuntimeError(
                         f"ensemble member {ln.spec.member_id}: timestep "
                         f"smaller than dt_min ({p.dt_min}) at t={ln.t:.6g}")
+                obs_tracer.emit("fault", kind="dt_underflow", lane=lane,
+                                member=ln.spec.member_id, health=health,
+                                t=ln.t)
                 self._retire_member(lane, reason="dt_underflow",
                                     extra={"health": health,
                                            "verdict":
@@ -330,6 +361,9 @@ class EnsembleScheduler:
             accepted = bool(info.accepted[lane])
             dt_used = float(info.dt_used[lane])
             t_new = float(info.t[lane])
+            flight_row = (None if flight_rows is None else
+                          flight_mod.last_row(flight_rows[lane],
+                                              flight_counts[lane]))
             ln.steps += 1
             self._emit({
                 "event": "step", "member": ln.spec.member_id,
@@ -352,9 +386,10 @@ class EnsembleScheduler:
                 "wall_ms": round(wall_s * 1e3, 3),
                 "gmres_history": (info.history[lane]
                                   if info.history is not None else []),
-                "flight": (None if flight_rows is None else
-                           flight_mod.last_row(flight_rows[lane],
-                                               flight_counts[lane]))})
+                "flight": flight_row})
+            if flight_row is not None:
+                obs_tracer.emit("flight", member=ln.spec.member_id,
+                                lane=lane, **flight_row)
             ln.t = t_new
             ln.dt = float(info.dt_next[lane])
             if (accepted and self.writer is not None

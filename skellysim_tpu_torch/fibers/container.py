@@ -220,7 +220,10 @@ def update_rhs_and_bc(group: FiberGroup, caches: FiberCaches, dt, eta,
     RHS_bc = torch.where(group.active[:, None], RHS_bc, 0.0)
 
     A_lu = A_bc if precond_dtype is None else A_bc.to(precond_dtype)
-    lu, piv = torch.linalg.lu_factor(A_lu)
+    # `_ex`: no check of the pivots. A nonfinite state must reach the
+    # solver's health verdict (as in the JAX package, whose LU never
+    # raises); the CUDA backend's check refuses a NaN matrix outright
+    lu, piv, _ = torch.linalg.lu_factor_ex(A_lu)
     return caches._replace(A_bc=A_bc, RHS=RHS_bc, lu=lu, piv=piv)
 
 

@@ -1,12 +1,14 @@
 """Fault injectors: deliberately break what the guard must survive.
 
-Counterpart of the state, lane and system injectors of
-`skellysim_tpu.guard.chaos`: `poison_state` / `poison_lane` flip NaNs into
-a (lane's) state between rounds, `zero_preconditioner` forces GMRES
-stagnation on a live `System`, `nan_lane_of` poisons the lane a scheduler
-runs a member on. The wire injectors (`garble_frame`, `truncate_frame`,
-`oversized_header`) act on the serve protocol and wait for its port
-(ROADMAP.md). No production path imports this module.
+Counterpart of `skellysim_tpu.guard.chaos`: `poison_state` /
+`poison_lane` flip NaNs into a (lane's) state between rounds,
+`zero_preconditioner` forces GMRES stagnation on a live `System`,
+`nan_lane_of` poisons the lane a scheduler runs a member on (the serve
+``chaos`` request, which stays off unless ``[serve] chaos_enabled``), and
+`garble_frame` / `truncate_frame` / `oversized_header` corrupt client
+frames of the serve protocol. SIGKILL is
+`serve.client.SpawnedServer.kill`. No production path imports this
+module.
 """
 
 from __future__ import annotations
@@ -81,3 +83,33 @@ def nan_lane_of(scheduler, member_id: str, *, value=float("nan")) -> int:
         raise ValueError(f"member {member_id!r} holds no lane")
     scheduler.ens = poison_lane(scheduler.ens, lane, value=value)
     return lane
+
+
+# ------------------------------------------------------------ wire chaos
+
+def garble_frame(payload: bytes, *, seed: int = 0, flips: int = 16) -> bytes:
+    """``payload`` with ``flips`` deterministic byte flips: still a
+    well-framed message, no longer valid msgpack (the server must answer
+    a structured error, not die)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    buf = bytearray(payload)
+    for _ in range(max(1, flips)):
+        i = int(rng.integers(0, len(buf)))
+        buf[i] ^= 0xFF
+    return bytes(buf)
+
+
+def truncate_frame(framed: bytes, keep: int) -> bytes:
+    """The first ``keep`` bytes of a framed (header + payload) message: a
+    mid-frame disconnect or partial delivery."""
+    return framed[:keep]
+
+
+def oversized_header(size: int) -> bytes:
+    """A frame header claiming ``size`` bytes (no body): the hostile or
+    corrupt header the decoder must survive in skip mode."""
+    from ..serve import protocol
+
+    return protocol.HEADER.pack(size)

@@ -7,6 +7,13 @@ included, so a build takes seconds. Libraries are named by a hash of the
 source, the shared headers and the flags, so an edited source never loads a
 stale build, and a
 finished build is reused by later processes. Nothing here runs at import.
+
+Every library `load` builds or loads emits one ``compile`` event to the
+active tracer (`obs.tracer`): the port's counterpart of the JAX package's
+`observed_jit` compile events, with ``name`` ("cuda:<source>"),
+``wall_s`` (build and load) and ``persistent_cache`` (True when the
+library was already built). The service counts such events after its
+warm-up (`serve.metrics`).
 """
 
 from __future__ import annotations
@@ -91,5 +98,14 @@ def build(name: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library."""
-    return ctypes.CDLL(build(name)["path"])
+    """Build (if needed) and load ``csrc/<name>.cu``'s library; one
+    ``compile`` event to the active tracer."""
+    from ..obs import tracer as obs_tracer
+
+    t0 = time.perf_counter()
+    info = build(name)
+    lib = ctypes.CDLL(info["path"])
+    obs_tracer.emit("compile", name=f"cuda:{name}",
+                    wall_s=round(time.perf_counter() - t0, 6),
+                    persistent_cache=info["cached"])
+    return lib

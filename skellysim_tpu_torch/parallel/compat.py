@@ -39,7 +39,10 @@ def fused_ring_mode(impl: str, device: torch.device, mesh=None) -> str:
     launches signal, and two processes on one card have two contexts whose
     kernels take turns on it, never running at once, so such a ring could
     only time out. A mesh whose processes share a card takes
-    ``"ppermute"``; the first such call logs why.
+    ``"ppermute"``; the first such call for a mesh logs why and emits a
+    ``fault`` event (kind ``fused_ring_fallback``, leg ``layout``) to the
+    active tracer, as the JAX package does for its environmental
+    fallbacks.
     """
     override = os.environ.get("SKELLY_FUSED_RING", "").strip().lower()
     if override in ("0", "off", "ppermute"):
@@ -54,5 +57,9 @@ def fused_ring_mode(impl: str, device: torch.device, mesh=None) -> str:
                 "fused ring refused: processes %s share card(s) %s, whose "
                 "contexts take turns on the card; the ring runs hop by hop "
                 "(\"ppermute\")", sorted(set(mesh.processes)), shared)
+            from ..obs import tracer as obs_tracer
+
+            obs_tracer.emit("fault", kind="fused_ring_fallback",
+                            reason=f"shared-cards-{shared}", leg="layout")
         return "ppermute"
     return "fused"

@@ -22,6 +22,7 @@ from ..ensemble.runner import EnsembleRunner
 from ..ensemble.scheduler import EnsembleScheduler, MemberSpec
 from ..fibers import container as fc
 from ..system import buckets as bucket_mod
+from ..obs import tracer as obs_tracer
 from ..system import di_rates, dynamic_instability
 from ..system.system import state_placement
 from .di_device import check_di_state
@@ -161,6 +162,8 @@ class ScenarioEnsemble:
             grown = state._replace(fibers=fc.grow_capacity(
                 state.fibers, new_cap, node_multiple=self.node_multiple))
             self.reseats += 1
+            obs_tracer.emit("lane", action="growth_reseat",
+                            member=member_id, capacity=new_cap)
             logger.info("scenario: member %s reseated %d -> %d fiber slots",
                         member_id, old_cap, new_cap)
             self._sched_for(new_cap, grown).admit(MemberSpec(

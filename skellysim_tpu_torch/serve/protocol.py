@@ -17,8 +17,9 @@ Frame semantics (the reference's):
   away (`read_frame` returns None, never raises).
 
 The serve request schema (`REQUEST_FIELDS`, `make_request`,
-`validate_request`) is the JAX package's, for the simulation service that
-comes next (ROADMAP.md §1); its Prometheus rendering comes with it.
+`validate_request`) and the Prometheus rendering of `/stats`
+(`render_prometheus`) are the JAX package's, for the simulation service
+(`serve.server`).
 """
 
 from __future__ import annotations
@@ -255,3 +256,71 @@ def ok(**fields) -> dict:
 
 def error(message: str, **fields) -> dict:
     return {"ok": False, "error": message, **fields}
+
+
+# -------------------------------------------------- prometheus exposition
+
+#: scalar /stats counters exported to scrapers: stats key ->
+#: (metric name, TYPE, HELP)
+PROMETHEUS_COUNTERS = [
+    ("admitted", "skellysim_serve_admitted_total", "counter",
+     "lane seats granted (admit + backfill)"),
+    ("rejected", "skellysim_serve_rejected_total", "counter",
+     "admission rejections"),
+    ("retired", "skellysim_serve_retired_total", "counter",
+     "lanes freed"),
+    ("rounds", "skellysim_serve_rounds_total", "counter",
+     "batched ensemble rounds"),
+    ("steps", "skellysim_serve_member_steps_total", "counter",
+     "member trial steps (live lanes x rounds)"),
+    ("compiles", "skellysim_serve_compiles_total", "counter",
+     "program compiles"),
+    ("compiles_after_warm", "skellysim_serve_compiles_after_warm_total",
+     "counter", "warm-path retraces (SLO violation when > 0)"),
+    ("frames_streamed_total", "skellysim_serve_frames_streamed_total",
+     "counter", "trajectory frames streamed to clients"),
+    ("loss_of_accuracy_steps", "skellysim_serve_loss_of_accuracy_total",
+     "counter", "steps flagged loss_of_accuracy"),
+    ("growth_reseats", "skellysim_serve_growth_reseats_total", "counter",
+     "DI capacity-growth reseats"),
+    ("tenants", "skellysim_serve_tenants", "gauge",
+     "tenant records currently held"),
+    ("mean_occupancy", "skellysim_serve_mean_occupancy", "gauge",
+     "mean live/lanes per round"),
+]
+
+#: /stats histogram key -> prometheus metric name (obs.hist wire dicts)
+PROMETHEUS_HISTOGRAMS = {
+    "admission_wait_s": "skellysim_serve_admission_wait_seconds",
+    "round_wall_s": "skellysim_serve_round_wall_seconds",
+    "frame_stream_s": "skellysim_serve_frame_stream_seconds",
+}
+
+
+def render_prometheus(stats: dict) -> str:
+    """A `/stats` response body -> Prometheus text exposition (the
+    ``GET /metrics``-style page; `ServeClient.stats_prometheus` and
+    ``python -m skellysim_tpu_torch.serve.client stats --prometheus``
+    render it for scrapers). The JAX package's text, line for line."""
+    from ..obs.hist import render_prometheus_histogram
+
+    out = []
+    for key, name, mtype, help_text in PROMETHEUS_COUNTERS:
+        if key not in stats:
+            continue
+        out.append(f"# HELP {name} {help_text}")
+        out.append(f"# TYPE {name} {mtype}")
+        out.append(f"{name} {float(stats[key]):.6g}")
+    for reason, count in sorted((stats.get("retire_reasons") or {}).items()):
+        out.append('skellysim_serve_retired_by_reason_total'
+                   f'{{reason="{reason}"}} {int(count)}')
+    for kind, count in sorted((stats.get("faults") or {}).items()):
+        out.append(f'skellysim_serve_faults_total{{kind="{kind}"}} '
+                   f'{int(count)}')
+    hists = stats.get("histograms") or {}
+    for key, name in PROMETHEUS_HISTOGRAMS.items():
+        if key in hists:
+            out.extend(render_prometheus_histogram(
+                name, hists[key],
+                help_text=f"{key} distribution (log buckets)"))
+    return "\n".join(out) + "\n"

@@ -1120,7 +1120,8 @@ class System:
         return fn(state)
 
     def run(self, state: SimState, *, writer=None, max_steps: int | None = None,
-            rng=None, metrics_path: str | None = None):
+            rng=None, metrics_path: str | None = None,
+            trace_path: str | None = None):
         """Adaptive time loop (`run`): accept/reject on fiber error and
         collision, scale dt by beta_up/beta_down, keep the previous state as
         the backup for rejected steps. ``writer(state, solution,
@@ -1131,18 +1132,36 @@ class System:
         ``params.dynamic_instability.n_nodes > 0``: the update runs on the
         host before each trial (its seconds are the ``di_s`` log field),
         and a rejected trial restores the state from before it without
-        rewinding the RNG."""
+        rewinding the RNG. ``trace_path`` opens a telemetry stream
+        (`obs.tracer`) for the loop: the spans ``run``,
+        ``dynamic_instability``, ``step`` (a trial, to a device
+        synchronise) and ``write_frame``, ``flight`` rows, ``fault``
+        solver-health events and the ``compile`` events of CUDA libraries
+        loaded meanwhile; with None an installed tracer
+        (`obs.tracer.use`) is honoured."""
+        import contextlib
+
+        from ..obs import tracer as obs_tracer
+
         metrics_fh = open(metrics_path, "a") if metrics_path else None
+        tracer = obs_tracer.Tracer(trace_path) if trace_path else None
+        scope = (obs_tracer.use(tracer) if tracer is not None
+                 else contextlib.nullcontext())
         try:
-            return self._run_loop(state, writer=writer, max_steps=max_steps,
-                                  rng=rng, metrics_fh=metrics_fh)
+            with scope, obs_tracer.span("run", t_final=self.params.t_final):
+                return self._run_loop(state, writer=writer,
+                                      max_steps=max_steps, rng=rng,
+                                      metrics_fh=metrics_fh)
         finally:
+            if tracer is not None:
+                tracer.close()
             if metrics_fh is not None:
                 metrics_fh.close()
 
     def _run_loop(self, state: SimState, *, writer, max_steps, rng,
                   metrics_fh):
         from ..obs import flight as flight_mod
+        from ..obs import tracer as obs_tracer
         from .dynamic_instability import (_count_active,
                                           apply_dynamic_instability)
 
@@ -1163,24 +1182,32 @@ class System:
                 nm = self.mesh.size if self._ring_active() else 1
                 di_stats = {}
                 di0 = _time.perf_counter()
-                state = apply_dynamic_instability(state, p, rng,
-                                                  node_multiple=nm,
-                                                  stats=di_stats)
+                with obs_tracer.span("dynamic_instability"):
+                    state = apply_dynamic_instability(state, p, rng,
+                                                      node_multiple=nm,
+                                                      stats=di_stats)
                 di_s = _time.perf_counter() - di0
             t_cur, dt = state.time, state.dt
-            wall0 = _time.perf_counter()
-            new_state, solution, info = self.step(state)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            wall_s = _time.perf_counter() - wall0
+            with obs_tracer.span("step", step=n_steps) as sp:
+                wall0 = _time.perf_counter()
+                new_state, solution, info = self.step(state)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                wall_s = _time.perf_counter() - wall0
+                sp.note(iters=int(info.iters), residual=float(info.residual))
             n_steps += 1
             dt = info.dt_used
             # the trial's decoded flight row (one small read), for the
-            # metrics column and the fault log's provenance
+            # metrics column, the telemetry stream and the fault's
+            # provenance
             flight_row = None
-            if new_state.flight is not None and (metrics_fh is not None
-                                                 or info.health):
+            if new_state.flight is not None and (
+                    metrics_fh is not None or info.health
+                    or obs_tracer.active() is not None):
                 flight_row = flight_mod.read_last(new_state.flight)
+                if flight_row is not None:
+                    obs_tracer.emit("flight", step=n_steps - 1,
+                                    **flight_row)
 
             dt_new = dt
             accept = True
@@ -1221,6 +1248,14 @@ class System:
                     info.residual, info.residual_true, p.gmres_tol)
             if info.health:
                 prov = (flight_row or {}).get("provenance")
+                obs_tracer.emit(
+                    "fault", kind="solver_health",
+                    verdict=_verdict.describe(info.health),
+                    health=info.health, t=t_cur, dt=dt,
+                    retries=int(info.guard_retries),
+                    **({"prov_field": prov.get("field"),
+                        "prov_fiber": prov.get("fiber"),
+                        "prov_node": prov.get("node")} if prov else {}))
                 logger.warning("solver health verdict at t=%.6g: %s "
                                "(health=%#x, guard retries=%d)%s", t_cur,
                                _verdict.describe(info.health), info.health,
@@ -1263,10 +1298,12 @@ class System:
                                            dt=_in_dtype(dt_new, dtype))
                 if writer is not None and crossed_write_boundary(
                         t_new, dt, p.dt_write):
-                    if rng is not None:
-                        writer(state, solution, rng_state=rng.dump_state())
-                    else:
-                        writer(state, solution)
+                    with obs_tracer.span("write_frame", t=t_new):
+                        if rng is not None:
+                            writer(state, solution,
+                                   rng_state=rng.dump_state())
+                        else:
+                            writer(state, solution)
             else:
                 # a rejected trial rolls back the physics but keeps the
                 # flight ring: its row is the evidence of the trouble

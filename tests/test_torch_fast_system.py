@@ -116,24 +116,29 @@ _BASE = dict(eta=1.0, dt_initial=1e-3, gmres_tol=1e-10,
              ewald_tol=1e-7)
 
 
-def test_fibers_ewald_step_matches_jax():
+@pytest.fixture(scope="module")
+def ewald_fibers():
+    """The fibers' Ewald step in both packages, held against each other
+    once for the module: (JAX system, fibers, background, the step's
+    `_step_both` result)."""
     jsys = JSystem(JParams(**_BASE))
-    jstate = jsys.make_state(fibers=_fibers(),
-                             background=JBackground.make(uniform=(1., 0, 0)))
-    plan = _step_both(jsys, jstate)[0]
+    fibers = _fibers()
+    bg = JBackground.make(uniform=(1.0, 0.0, 0.0))
+    return jsys, fibers, bg, _step_both(
+        jsys, jsys.make_state(fibers=fibers, background=bg))
+
+
+def test_fibers_ewald_step_matches_jax(ewald_fibers):
+    plan = ewald_fibers[3][0]
     assert plan.near_mode == "cells"
 
 
-def test_inactive_padding_is_spread_and_matches_jax():
+def test_inactive_padding_is_spread_and_matches_jax(ewald_fibers):
     """`grow_capacity` padding (inactive slots replicating slot 0): the
     plan reserves fill capacity for the inactive nodes instead of one hot
     cell, the step matches the JAX package's, and the live part of the
     solution is the unpadded one's."""
-    jsys = JSystem(JParams(**_BASE))
-    fibers = _fibers()
-    bg = JBackground.make(uniform=(1.0, 0.0, 0.0))
-    _, _, _, sol_ref, _ = _step_both(
-        jsys, jsys.make_state(fibers=fibers, background=bg))
+    jsys, fibers, bg, (_, _, _, sol_ref, _) = ewald_fibers
     grown = jfc.grow_capacity(fibers, 3 * fibers.n_fibers)
     jstate = jsys.make_state(fibers=grown, background=bg)
     plan, tsys, tstate, sol, _ = _step_both(jsys, jstate)

@@ -563,6 +563,30 @@ def test_small_run_card_vs_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("precision", ["mixed", "full"])
+def test_poisoned_state_reaches_the_nonfinite_verdict(cuda, precision):
+    """A NaN-poisoned state steps on the card to the nonfinite health
+    verdict (the fiber and body LU factors take no pivot check, as the
+    JAX package's never raise) instead of raising in `lu_factor`; the
+    service's quarantine and the chaos smoke stand on it."""
+    from skellysim_tpu_torch.guard import chaos, verdict
+    from skellysim_tpu_torch.params import Params
+    from skellysim_tpu_torch.system import System
+    from skellysim_tpu_torch.testing import make_coupled_scene
+
+    shell, shape, bodies, fibers = make_coupled_scene(
+        shell_n=120, body_n=80, n_bound=4, n_free=2, device="cuda",
+        precond_dtype=torch.float32 if precision == "mixed" else None)
+    system = System(Params(dt_initial=0.02, gmres_tol=1e-10,
+                           solver_precision=precision),
+                    shell_shape=shape, device="cuda")
+    state = chaos.poison_state(system.make_state(fibers=fibers, shell=shell,
+                                                 bodies=bodies))
+    _, _, info = system.step(state)
+    assert info.health & verdict.NONFINITE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["mixed", "full"])
 def test_spmd_step_on_two_shards_matches_step(cuda, precision):
     """`System.step_spmd` on 2 shards of the card against `System.step`
     from the same state, for the small coupled scene (a 120-node shell
@@ -1296,7 +1320,11 @@ def test_port_imports_no_jax():
     for mod in ("mesh", "compat", "ring", "spmd", "multihost"):
         assert f"skellysim_tpu_torch/parallel/{mod}.py" in names
     for mod in ("obs/flight", "serve/protocol", "postprocess/streamline",
-                "listener", "io/listener_client"):
+                "listener", "io/listener_client", "obs/tracer", "obs/hist",
+                "obs/summarize", "serve/__init__", "serve/__main__",
+                "serve/cli", "serve/client", "serve/journal",
+                "serve/metrics", "serve/server", "serve/tenants",
+                "guard/chaos", "guard/smoke"):
         assert f"skellysim_tpu_torch/{mod}.py" in names
     bad = []
     for f in files:

@@ -18,6 +18,8 @@
 * the ring's mxu and df tiles against the JAX ring.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,8 +148,15 @@ def test_mxu_chunks_recenter_like_jax():
     assert _rel(got, ref) < 1e-12
 
 
+@functools.lru_cache(maxsize=1)
+def _coupled_parts():
+    """The JAX coupled scene's shell and body, built once for the
+    module (every step below starts from them)."""
+    return jcoupled_parts(120, 80, jnp.float64)
+
+
 def _coupled_jax(**params):
-    shell, shape, bodies = jcoupled_parts(120, 80, jnp.float64)
+    shell, shape, bodies = _coupled_parts()
     t = np.linspace(0, 1, 16)
     x = np.array([0.0, 2.5, 0.0]) + t[:, None] * np.array([0.0, 0.0, 1.0])
     fibers = jfc.make_group(x[None], lengths=1.0, bending_rigidity=0.01,
