@@ -53,10 +53,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                4, gated on every step accepted with true residual <=
                gmres_tol and health 0, on kernels A-D launching, and on
                frames that carry a finite shell density of 3 x 8,000
-               values; then one more step under `torch.profiler`, which
-               prints the device kernels with the most time and the
-               device-busy share of the step (attribution only: it gates
-               nothing). Before the run, A and B are checked and timed at
+               values; then `python -m skellysim_tpu_torch --profile DIR
+               --trace-file T` on the same config for two steps in a
+               process of its own (`profile_cli`), with `python -m
+               skellysim_tpu_torch.obs profile DIR --json` and `... timeline
+               T --profile DIR -o OUT` after it (in the smoke's process):
+               gated on its frames being
+               the bits of the run's first frames, A-D present by name in
+               `by_op`, >= 90% of the device time attributed to named
+               phases, the shares summing to 1, T holding `device_phase`
+               events and no `device_phase_error`, and the timeline holding
+               a host and a device track; it prints the phase table, A-D's
+               launches and device time, the card's busy share of the
+               profiled loop, the dump's size and the parses' seconds.
+               Before the run, A and B are checked and timed at
                the shape the run launches them with (the fiber nodes as
                sources, every node as targets: 128,000 x 136,000, a partial
                last target block, many source chunks) and with every node
@@ -201,9 +211,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                f32, A and C 0 launches, B and D the f64 prep flows and
                refinement) and in "full" (G and H in f64), each gated
                like 11c on the fibers within 1e-5 of phase 6's first step;
-               the "mixed" one then profiled like phase 6's step (a second
-               step of a built system, under torch.profiler; it gates
-               nothing). At tol 1e-4 G / H are also timed on each target-
+               then the "mixed" config profiled like phase 6's (two CLI
+               steps under --profile, `profile_cli`), gated besides on G
+               and H in `by_op` with every launch under a Krylov phase's
+               tree pass (`gmres/.../near/far`: one launch serves both
+               lists) and B and D under `prep` and `gmres/refine`. At tol
+               1e-4 G / H are also timed on each target-
                lane class's items alone.
                e. the 10k recipe's fibers bent into arcs (curvature 0.5),
                free space, through "tree" cut to 4,000 fibers at the
@@ -272,8 +285,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                "mixed", 4 rounds of dt = 0.01; precomputed on the card; a
                sweep of 8 replicas through 8 lanes (each member its own
                `SimRNG.member(i)` stream); `python -m
-               skellysim_tpu_torch.ensemble` in this process ("vmap"),
-               every launch count set to 0 just before. Gated on every
+               skellysim_tpu_torch.ensemble --profile DIR` in this process
+               ("vmap"; `--profile` on the card only), every launch count
+               set to 0 just before; its dump parsed with A-D present and
+               every launch of theirs under a named phase (the round walls
+               below are under the profiler). Gated on every
                member finishing its rounds converged (true residual <=
                gmres_tol) with health 0, nucleation and a growth reseat
                happening, active = previous + nucleations - catastrophes a
@@ -1142,8 +1158,8 @@ def phase_check_small(torch, device):
 def phase_confined(torch, ck, cuda_build, device, work, args, card):
     """Ellipsoid config: precompute on the device, kernels C and D at its
     shape against their first design (`design_check`), A and B checked at
-    its shapes (`shape_times`), then the run, and one more step under the
-    profiler (`profile_step`). Returns (C's and D's entries, the run's
+    its shapes (`shape_times`), then the run, and two steps of it under
+    `--profile` in a CLI process (`profile_cli`). Returns (C's and D's entries, the run's
     launch counts, the inputs of the ring phases, A's and B's checks by
     kernel name)."""
     import numpy as np
@@ -1199,7 +1215,8 @@ def phase_confined(torch, ck, cuda_build, device, work, args, card):
     if not ok:
         raise SystemExit("the confined trajectory does not hold finite shell "
                          "densities of the expected length in every frame")
-    profile_step(torch, device, cfg_path, run_dir)
+    profile_cli(torch, device, cfg_path, work, "profile",
+                ref_traj=os.path.join(run_dir, "skelly_sim.out"))
     last = reader.load_frame(len(reader) - 1)
     direct_x = np.stack([m["x_"] for m in last["fibers"][1]])
     direct_x1 = np.stack([m["x_"] for m in reader.load_frame(1)["fibers"][1]])
@@ -1209,58 +1226,234 @@ def phase_confined(torch, ck, cuda_build, device, work, args, card):
     return entries, counts, ring_inputs, checks
 
 
-def profile_step(torch, device, cfg_path, run_dir, evaluator="direct",
-                 tag="profile"):
-    """One step of the ellipsoid config through ``evaluator`` under
-    `torch.profiler`, for attribution only (nothing here gates the run):
-    the system is built again from phase 6's precompute
-    (`build_simulation`), takes one step unprofiled, then one profiled;
-    prints the device kernels with the most CUDA time and the device-busy
-    share of the profiled step's wall (the device events' summed time over
-    it; one stream, so they do not overlap). Returns (the profiled step's
-    wall, the busy seconds) or None on the CPU."""
+#: the hand-written kernels' names in a profiler dump (their template
+#: instances: A / C run f32, B / D f64; G / H the tree pass, 3 or 9
+#: payload components)
+PROFILED_KERNELS = {
+    "A": ("stokeslet_chunk_kernel<float,", "stokeslet_reduce_kernel<float>"),
+    "B": ("stokeslet_chunk_kernel<double,",
+          "stokeslet_reduce_kernel<double>"),
+    "C": ("stresslet_chunk_kernel<float,", "stresslet_reduce_kernel<float>"),
+    "D": ("stresslet_chunk_kernel<double,",
+          "stresslet_reduce_kernel<double>"),
+    "G": ("tree_kernel<float, 3>", "tree_kernel<double, 3>"),
+    "H": ("tree_kernel<float, 9>", "tree_kernel<double, 9>"),
+}
+
+
+def kernel_letter(name):
+    """The letter of `PROFILED_KERNELS` a dump's kernel name belongs to,
+    or None."""
+    for letter, marks in PROFILED_KERNELS.items():
+        if any(m in name for m in marks):
+            return letter
+    return None
+
+
+def frames_equal(np, path_a, path_b, n):
+    """The largest |difference| of the fiber nodes and shell densities of
+    the first ``n`` frames of two trajectories (0.0: the same bits)."""
+    from skellysim_tpu_torch.io.trajectory import TrajectoryReader
+
+    ra, rb = TrajectoryReader(path_a), TrajectoryReader(path_b)
+    worst = 0.0
+    try:
+        if len(ra) < n or len(rb) < n:
+            raise SystemExit(f"{path_b}: {len(rb)} frames, {path_a}: "
+                             f"{len(ra)}; {n} needed")
+        for i in range(n):
+            fa, fb = ra.load_frame(i), rb.load_frame(i)
+            xa = np.stack([m["x_"] for m in fa["fibers"][1]])
+            xb = np.stack([m["x_"] for m in fb["fibers"][1]])
+            da = np.asarray(fa["shell"]["solution_vec_"])
+            db = np.asarray(fb["shell"]["solution_vec_"])
+            if xa.shape != xb.shape or da.shape != db.shape:
+                raise SystemExit(f"frame {i}: shapes differ")
+            worst = max(worst, float(np.abs(xa - xb).max()),
+                        float(np.abs(da - db).max()))
+    finally:
+        ra.close()
+        rb.close()
+    return worst
+
+
+def run_obs(argv):
+    """``python -m skellysim_tpu_torch.obs ARGV`` in this process, as
+    `phase_run` runs the main CLI: (exit code, standard output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    saved = sys.argv
+    sys.argv = ["skellysim_tpu_torch.obs", *argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module("skellysim_tpu_torch.obs", run_name="__main__",
+                             alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    finally:
+        sys.argv = saved
+    return rc, out.getvalue()
+
+
+def profile_cli(torch, device, src_cfg, work, tag, evaluator="direct",
+                needed=("A", "B", "C", "D"), ref_traj=None, steps=2,
+                phase_of_kernels=None):
+    """``python -m skellysim_tpu_torch`` on phase 6's ellipsoid config
+    through ``evaluator`` for ``steps`` steps, in a process of its own, with
+    ``--profile DIR --trace-file T``; then ``python -m
+    skellysim_tpu_torch.obs profile DIR --json`` and ``... timeline T
+    --profile DIR -o OUT``. Gated on: the run exiting 0; its frames the
+    bits of ``ref_traj``'s first frames (phase 6's unprofiled run); the
+    kernels ``needed`` in ``by_op`` by name; >= 90% of the device time
+    attributed to named phases; the shares summing to 1; T holding
+    ``device_phase`` events and no ``device_phase_error``; the timeline
+    loading with a host and a device track (the two obs commands run in
+    this process, `run_obs`); ``phase_of_kernels(letter,
+    phase)`` (when given) true for every needed kernel's phases. Prints
+    the phase table, A-H's launches and device time, the dump's size and
+    the parse's seconds. Returns the summary, or None on the CPU."""
+    import numpy as np
+
     if device.type != "cuda":
         log(f"[{tag}] not measured (CPU rehearsal)")
         return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from skellysim_tpu_torch.builder import build_simulation
+    cfg, run_dir = ellipsoid_run_dir(work, src_cfg, tag,
+                                     pair_evaluator=evaluator)
     from skellysim_tpu_torch.config import schema
 
-    config = schema.load_config(cfg_path)
-    config.params.pair_evaluator = evaluator
-    config.params.t_final = 2 * config.params.dt_initial  # the two steps
-    system, state, _ = build_simulation(config, config_dir=run_dir,
-                                        device=device)
-    state = system.run(state, max_steps=1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        system.run(state, max_steps=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    del system, state
-
-    def device_us(e):
-        return (getattr(e, "self_device_time_total", 0)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=device_us, reverse=True)
-    busy = sum(device_us(e) for e in kernels) / 1e6
-    log(f"[{tag}] one {evaluator} ellipsoid step under torch.profiler "
-        f"(the second of the process's steps): wall {wall:.3f} s (the "
-        f"profiler's own cost included), device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}% of the wall), {len(kernels)} device "
-        f"kernels by name")
-    for e in kernels[:12]:
-        log(f"[{tag}]   {device_us(e) / 1e3:9.3f} ms in {e.count:5d} calls "
-            f"({100 * device_us(e) / 1e6 / wall:5.1f}% of the wall): "
-            f"{e.key[:110]}")
-    return wall, busy
+    config = schema.load_config(cfg)
+    config.params.t_final = steps * ELLIPSOID_DT
+    config.save(cfg)
+    del config
+    dump = os.path.join(run_dir, "profile")
+    trace = os.path.join(run_dir, "trace.jsonl")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "skellysim_tpu_torch", f"--config-file={cfg}",
+         f"--profile={dump}", f"--trace-file={trace}", "--log-level=WARNING"],
+        cwd=run_dir, env=env, capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-3000:])
+        raise SystemExit(f"{tag}: the profiled CLI run exited "
+                         f"{proc.returncode}")
+    dumps = [f for f in os.listdir(dump) if f.endswith(".pt.trace.json")]
+    size = sum(os.path.getsize(os.path.join(dump, f)) for f in dumps)
+    t0 = time.perf_counter()
+    rc, text = run_obs(["profile", dump, "--json"])
+    parse_s = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"{tag}: obs profile exited {rc}")
+    doc = json.loads(text)
+    timeline = os.path.join(run_dir, "timeline.json")
+    t0 = time.perf_counter()
+    rc, _ = run_obs(["timeline", trace, "--profile", dump, "-o", timeline])
+    timeline_s = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"{tag}: obs timeline exited {rc}")
+    recs = [json.loads(line) for line in open(trace)]
+    tl_events = json.load(open(timeline))["traceEvents"]
+    run_wall = next(r["dur_s"] for r in recs
+                    if r["ev"] == "span" and r["name"] == "run")
+    dev_s = doc["total_us"] / 1e6
+    inferred = doc["inferred_us"] / max(doc["total_us"], 1e-9)
+    log(f"[{tag}] `python -m skellysim_tpu_torch --profile` on phase 6's "
+        f"config through \"{evaluator}\", {steps} steps: {run_s:.1f} s of "
+        f"process ({run_wall:.3f} s of profiled loop); dump {size / 2**20:.1f}"
+        f" MiB in {len(dumps)} file(s); `obs profile --json` {parse_s:.1f}"
+        f" s, `obs timeline` {timeline_s:.1f} s (each the JSON parse and "
+        f"its report, in this process)")
+    log(f"[{tag}] device time {dev_s * 1e3:.3f} ms over the loop's "
+        f"{run_wall:.3f} s: the card busy {100 * dev_s / run_wall:.1f}% of "
+        f"the wall; {100 * doc['attributed_frac']:.1f}% attributed to named "
+        f"phases ({100 * inferred:.1f}% of it inferred from neighbours)")
+    for g in doc["by_phase"]:
+        log(f"[{tag}]   {g['key']:<28} {g['dur_us'] / 1e3:10.3f} ms "
+            f"{100 * g['share']:6.2f}%  {g['count']:7d} ops")
+    letters = {}
+    for g in doc["by_op"]:
+        letter = kernel_letter(g["key"])
+        if letter is not None:
+            agg = letters.setdefault(letter, {"launches": 0, "ms": 0.0})
+            agg["launches"] += g["count"]
+            agg["ms"] += g["dur_us"] / 1e3
+    log(f"[{tag}] hand-written kernels in by_op (launches, device ms, "
+        f"chunk and reduce kernels together): "
+        + ", ".join(f"{k} {v['launches']} / {v['ms']:.3f} ms"
+                    for k, v in sorted(letters.items())))
+    for g in doc["by_op"][:10]:
+        log(f"[{tag}]   top op {g['dur_us'] / 1e3:9.3f} ms "
+            f"{g['count']:6d}x {g['key'][:100]}")
+    kinds = [r["ev"] for r in recs]
+    host = [e for e in tl_events if e.get("ph") == "X" and e.get("pid") == 1]
+    devt = [e for e in tl_events if e.get("ph") == "X"
+            and e.get("pid") == 100]
+    share_sum = sum(g["share"] for g in doc["by_phase"])
+    missing = [k for k in needed if k not in letters]
+    if missing:
+        raise SystemExit(f"{tag}: kernels {missing} absent from the "
+                         "profile's by_op")
+    if not doc["attributed_frac"] >= 0.9:
+        raise SystemExit(f"{tag}: {doc['attributed_frac']:.4f} of the "
+                         "device time attributed to named phases (< 0.9)")
+    if abs(share_sum - 1.0) > 1e-6:
+        raise SystemExit(f"{tag}: the phase shares sum to {share_sum}")
+    if "device_phase" not in kinds or "device_phase_error" in kinds:
+        raise SystemExit(f"{tag}: the trace holds "
+                         f"{kinds.count('device_phase')} device_phase and "
+                         f"{kinds.count('device_phase_error')} "
+                         "device_phase_error events")
+    if not host or not devt:
+        raise SystemExit(f"{tag}: the timeline holds {len(host)} host and "
+                         f"{len(devt)} device slices")
+    log(f"[{tag}] timeline: {len(host)} host slices, {len(devt)} device "
+        f"slices; trace: {kinds.count('device_phase')} device_phase events")
+    out = {"run_s": run_s, "loop_s": run_wall, "device_s": dev_s,
+           "busy_share": dev_s / run_wall,
+           "attributed_frac": doc["attributed_frac"],
+           "inferred_share": inferred, "dump_mib": size / 2**20,
+           "parse_s": parse_s, "timeline_s": timeline_s,
+           "by_phase": [{k: g[k] for k in ("key", "dur_us", "share",
+                                          "count")}
+                        for g in doc["by_phase"]],
+           "kernels": letters}
+    if phase_of_kernels is not None:
+        # each device slice of the timeline sits on its phase's thread
+        # (" [dev k]" when the card ran several streams)
+        labels = {e["tid"]: re.sub(r" \[dev \d+\]$", "",
+                                   e["args"]["name"])
+                  for e in tl_events if e.get("ph") == "M"
+                  and e.get("pid") == 100 and e.get("name") == "thread_name"}
+        phases = {}
+        for e in devt:
+            letter = kernel_letter(e["name"])
+            if letter in needed:
+                key = labels[e["tid"]]
+                phases.setdefault(letter, {}).setdefault(key, 0)
+                phases[letter][key] += 1
+        log(f"[{tag}] kernels by phase: {phases}")
+        bad = {k: p for k, v in phases.items() for p in v
+               if not phase_of_kernels(k, p)}
+        if bad:
+            raise SystemExit(f"{tag}: kernels under unexpected phases: {bad}")
+        out["kernel_phases"] = phases
+    if ref_traj is not None:
+        dx = frames_equal(np, ref_traj, os.path.join(run_dir,
+                                                     "skelly_sim.out"),
+                          steps + 1)
+        log(f"[{tag}] frames 0-{steps} against phase 6's unprofiled run: "
+            f"max |difference| {dx:.3e} (gate: the same bits)")
+        if dx != 0.0:
+            raise SystemExit(f"{tag}: the profiled run's frames differ from "
+                             f"the unprofiled run's by {dx:.3e}")
+        out["max_diff_vs_unprofiled"] = dx
+    shutil.rmtree(run_dir)
+    return out
 
 
 def family_check(torch, ck, device, family, src, trg, pay, precs, card,
@@ -3908,9 +4101,16 @@ def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
             f"refinement residuals): {launches[tag]['stokeslet_f64']}, "
             f"{launches[tag]['stresslet_f64']}")
         if prec == "auto":
-            # a step of a running process, past the CLI's first-step costs
-            out[tag]["profiled"] = profile_step(
-                torch, device, cfg, run_dir, "tree", "tree_profile")
+            # two profiled steps of the same config in a CLI process of
+            # their own: G / H inside the Krylov loop's pair flows, under
+            # its phases' tree pass (one launch over the near and far
+            # lists: "near/far")
+            out[tag]["profiled"] = profile_cli(
+                torch, device, src_cfg, work, "tree_profile", "tree",
+                needed=("G", "H", "B", "D"),
+                phase_of_kernels=lambda k, p: (
+                    p.startswith("gmres/") and p.endswith("/near/far")
+                    if k in ("G", "H") else p in ("prep", "gmres/refine")))
         shutil.rmtree(run_dir)
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -4248,6 +4448,40 @@ def batched_check(torch, ck, device, family, prec, src, trg, pay, card,
     return fields
 
 
+def ensemble_profile(dump, wall):
+    """Phase 15's drain ran under ``--profile``: its dump parsed
+    (`obs.profile.load_device_trace`, in this process) with A-D (their
+    member-batched launches run the same kernels) present and every one of
+    their launches under a named phase; prints the phase table, A-D's
+    phases, the dump's size and the parse's seconds."""
+    from skellysim_tpu_torch.obs import profile as obs_profile
+
+    t0 = time.perf_counter()
+    dev = obs_profile.load_device_trace(dump)
+    parse_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(dump, f))
+               for f in os.listdir(dump) if f.endswith(".pt.trace.json"))
+    log(f"[ensemble] the drain under --profile: dump {size / 2**20:.1f} MiB,"
+        f" parsed in {parse_s:.1f} s; device time "
+        f"{dev.total_us / 1e3:.3f} ms over the CLI's {wall:.1f} s, "
+        f"{100 * dev.attributed_frac:.1f}% attributed to named phases "
+        f"({100 * dev.inferred_us / max(dev.total_us, 1e-9):.1f}% inferred)")
+    for g in dev.by_phase()[:12]:
+        log(f"[ensemble]   {g['key']:<28} {g['dur_us'] / 1e3:10.3f} ms "
+            f"{100 * g['share']:6.2f}%  {g['count']:7d} ops")
+    phases = {}
+    for r in dev.rows:
+        letter = kernel_letter(r["module"])
+        if letter is not None:
+            key = r["phase"] or "(unattributed)"
+            phases.setdefault(letter, {}).setdefault(key, 0)
+            phases[letter][key] += r["count"]
+    log(f"[ensemble] A-D launches by phase: {phases}")
+    if sorted(phases) != ["A", "B", "C", "D"] or any(
+            "(unattributed)" in v for v in phases.values()):
+        raise SystemExit(f"ensemble: A-D in the profile by phase: {phases}")
+
+
 def phase_ensemble(torch, ck, device, work, args, card, entries):
     """The batched ensemble on the card, through its front door: the
     member scene (`make_ensemble_config`) precomputed on the card, a sweep
@@ -4300,11 +4534,16 @@ def phase_ensemble(torch, ck, device, work, args, card, entries):
         fh.write(f'[ensemble]\nbase_config = "skelly_config.toml"\n'
                  f"replicas = {lanes}\nbatch = {lanes}\n")
     out_dir = os.path.join(run_dir, "out")
+    dump = os.path.join(run_dir, "profile")
     reset_counts(ck)
     argv = sys.argv
+    # on the card the drain runs under the profiler (a CPU rehearsal's
+    # plain kernels are millions of small ops, tens of GB of events); no
+    # trace file, so the dump is parsed once, below, not in the run too
+    profiled = ["--profile=" + dump] if device.type == "cuda" else []
     sys.argv = ["skellysim_tpu_torch.ensemble", f"--sweep-file={sweep}",
                 f"--output-dir={out_dir}", f"--device={device.type}",
-                "--batch-impl=vmap", "--log-level=WARNING"]
+                "--batch-impl=vmap", "--log-level=WARNING", *profiled]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4321,6 +4560,10 @@ def phase_ensemble(torch, ck, device, work, args, card, entries):
     recs = [json.loads(line) for line in
             open(os.path.join(out_dir, "ensemble_metrics.jsonl"))]
     members = sorted({r["member"] for r in recs})
+    if profiled:
+        ensemble_profile(dump, wall)
+    else:
+        log("[ensemble] not profiled (CPU rehearsal)")
     n0 = len(config.fibers)
     log(f"[ensemble] `python -m skellysim_tpu_torch.ensemble`: {lanes} "
         f"members ({config.periphery.n_nodes}-node cortex, "

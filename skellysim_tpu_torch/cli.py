@@ -6,13 +6,16 @@ last frame of the trajectory, its RNG state, an appending writer and a
 resume marker in the metrics file), then the time loop.
 
 Usage: python -m skellysim_tpu_torch [--config-file=...] [--resume]
-       [--overwrite] [--metrics-file=...] [--trace-file=...] [--listen]
-       [--device=cuda|cpu]
+       [--overwrite] [--metrics-file=...] [--trace-file=...]
+       [--profile=DIR] [--listen] [--device=cuda|cpu]
 
 ``--trace-file`` appends the run's telemetry (`obs.tracer`: spans, flight
 rows, faults, compile events) as JSON lines; `obs.summarize` renders it.
-``--profile`` is accepted and refused: the profiler session is ROADMAP.md
-§1 item 14.
+``--profile DIR`` runs the loop under `torch.profiler`
+(`obs.profile.profile_session`), writes Kineto's trace into DIR and
+appends the device time by phase to the trace file as ``device_phase``
+events; ``python -m skellysim_tpu_torch.obs profile DIR`` prints the
+table, ``... timeline TRACE --profile DIR -o OUT`` the merged timeline.
 
 Runs on the CUDA card unless ``--device=cpu`` is given; a missing card
 raises. ``--listen`` serves the post-processing protocol over stdin and
@@ -53,7 +56,8 @@ def _snapshot_path(traj: str, suffix: str) -> str:
 
 def run(config_file: str, resume: bool = False, overwrite: bool = False,
         trajectory_path: str | None = None, metrics_path: str | None = None,
-        device=None, trace_path: str | None = None) -> None:
+        device=None, trace_path: str | None = None,
+        profile_dir: str | None = None) -> None:
     traj = trajectory_path or os.path.join(
         os.path.dirname(os.path.abspath(config_file)) or ".", TRAJECTORY_FILE)
     if os.path.exists(traj) and not (resume or overwrite):
@@ -95,7 +99,8 @@ def run(config_file: str, resume: bool = False, overwrite: bool = False,
         writer.write_frame(state, rng_state=rng.dump_state())
     with writer:
         final = system.run(state, writer=writer.write_frame, rng=rng,
-                           metrics_path=metrics_path, trace_path=trace_path)
+                           metrics_path=metrics_path, trace_path=trace_path,
+                           profile_dir=profile_dir)
     shutil.copyfile(config_file, _snapshot_path(traj, "final_config"))
     print(f"Finished at t={final.time:.6g}")
 
@@ -120,17 +125,18 @@ def main(argv=None) -> None:
                          "events; render with skellysim_tpu_torch.obs"
                          ".summarize)")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP.md §1 item 14)")
+                    help="torch.profiler capture of the whole loop "
+                         "(obs.profile.profile_session); the dump is "
+                         "parsed afterwards and device_phase events are "
+                         "appended to --trace-file. Render with `python -m "
+                         "skellysim_tpu_torch.obs profile DIR` / `obs "
+                         "timeline`")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to run (default: the CUDA card; raises when "
                          "there is none)")
     ap.add_argument("--log-level",
                     default=os.environ.get("SKELLYSIM_LOG", "INFO"))
     args = ap.parse_args(argv)
-    if args.profile is not None:
-        raise NotImplementedError(
-            "--profile needs the profiler session, which is not ported to "
-            "skellysim_tpu_torch yet (ROADMAP.md §1 item 14)")
     logging.basicConfig(level=args.log_level.upper(),
                         format="[%(asctime)s] [%(levelname)s] %(message)s",
                         stream=sys.stderr)
@@ -148,7 +154,7 @@ def main(argv=None) -> None:
         return
     run(args.config_file, resume=args.resume, overwrite=args.overwrite,
         metrics_path=args.metrics_file, device=args.device,
-        trace_path=args.trace_file)
+        trace_path=args.trace_file, profile_dir=args.profile)
 
 
 if __name__ == "__main__":

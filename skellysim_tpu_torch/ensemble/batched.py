@@ -38,6 +38,7 @@ from ..fibers import container as fc
 from ..fibers import fd_fiber
 from ..fibers.matrices import FibMatsRT
 from ..guard import verdict as _verdict
+from ..obs.profile import phase
 from ..ops import kernels
 from ..solver import gmres_batched, gmres_ir_batched
 from ..system.system import StepInfo, _cast_floats
@@ -416,7 +417,12 @@ class BatchedTrial:
         return torch.cat(res, dim=1)
 
     def _precond(self, st, fib, caches, shell, bod, bcaches, x, pair=None):
-        """`System._apply_precond` over the batch."""
+        """`System._apply_precond` over the batch (its phase ``precond``)."""
+        with phase("precond"):
+            return self._precond_impl(st, fib, caches, shell, bod, bcaches,
+                                      x, pair)
+
+    def _precond_impl(self, st, fib, caches, shell, bod, bcaches, x, pair):
         B = x.shape[0]
         nfn, nsn, nbn, fsz, ssz = self._counts
         x_fibs, x_shell, x_bods = self._split(fib, bod, x, fsz, ssz)
@@ -474,51 +480,57 @@ class BatchedTrial:
         self._counts = self._layout(st)
         dtype = sys_._dtype(self._lane0)
         dev = sys_.device
-        fib = [_fold(g, B) for g in _buckets(st.fibers)]
-        bod = [_fold(g, B) for g in _buckets(st.bodies)]
+        # the phases of System._solve_once (`obs.profile.phase`)
+        with phase("prep"):
+            fib = [_fold(g, B) for g in _buckets(st.fibers)]
+            bod = [_fold(g, B) for g in _buckets(st.bodies)]
 
-        def per_row(values, rows_a_member):
-            return torch.as_tensor(np.repeat(values, rows_a_member),
-                                   dtype=dtype, device=dev)
+            def per_row(values, rows_a_member):
+                return torch.as_tensor(np.repeat(values, rows_a_member),
+                                       dtype=dtype, device=dev)
 
-        dt_f = [per_row(st.dt, g.n_fibers // B) for g in fib]
-        time_f = [per_row(st.time, g.n_fibers // B) for g in fib]
-        dt_b = [per_row(st.dt, g.n_bodies // B)[:, None] for g in bod]
-        time_b = [per_row(st.time, g.n_bodies // B) for g in bod]
-        fib, caches, bcaches, rhs = self._prep(st, fib, bod, dt_f, time_f,
-                                               time_b, pair)
+            dt_f = [per_row(st.dt, g.n_fibers // B) for g in fib]
+            time_f = [per_row(st.time, g.n_fibers // B) for g in fib]
+            dt_b = [per_row(st.dt, g.n_bodies // B)[:, None] for g in bod]
+            time_b = [per_row(st.time, g.n_bodies // B) for g in bod]
+            fib, caches, bcaches, rhs = self._prep(st, fib, bod, dt_f, time_f,
+                                                   time_b, pair)
         bs = p.gmres_block_s if block_s is None else block_s
         precision = ("full" if force_full
                      else sys_._precision_for(self._lane0))
-        if precision == "mixed":
-            lo = self._lo_view(st, fib, caches, bod, bcaches)
-            hi_impl = (sys_._refine_impl if dtype == torch.float64
-                       else p.kernel_impl)
-            refine_pair = sys_._refine_pair(pair)
-            result = gmres_ir_batched(
-                lambda v: self._matvec(st, fib, caches, bod, bcaches, v,
-                                       flow_impl=hi_impl, pair=refine_pair),
-                lambda v: self._matvec(st, fib, caches, bod, bcaches, v,
-                                       lo=lo, pair=pair),
-                rhs,
-                precond_lo=lambda v: self._precond(
-                    st, lo[0], lo[1], lo[2], lo[3], lo[4], v, pair=pair),
-                tol=p.gmres_tol, inner_tol=p.inner_tol,
-                restart=p.gmres_restart, maxiter=p.gmres_maxiter,
-                max_refine=p.max_refine, history=p.gmres_history,
-                block_s=bs)
-        else:
-            result = gmres_batched(
-                lambda v: self._matvec(st, fib, caches, bod, bcaches, v,
-                                       pair=pair),
-                rhs,
-                precond=lambda v: self._precond(st, fib, caches, st.shell,
-                                                bod, bcaches, v, pair=pair),
-                tol=p.gmres_tol, restart=p.gmres_restart,
-                maxiter=p.gmres_maxiter, history=p.gmres_history,
-                block_s=bs)
-        new = self._advance(st, fib, bod, result.x, dt_b)
-        return new, result.x, self._infos(st, new, result)
+        with phase("gmres"):
+            if precision == "mixed":
+                lo = self._lo_view(st, fib, caches, bod, bcaches)
+                hi_impl = (sys_._refine_impl if dtype == torch.float64
+                           else p.kernel_impl)
+                refine_pair = sys_._refine_pair(pair)
+                result = gmres_ir_batched(
+                    lambda v: self._matvec(st, fib, caches, bod, bcaches, v,
+                                           flow_impl=hi_impl,
+                                           pair=refine_pair),
+                    lambda v: self._matvec(st, fib, caches, bod, bcaches, v,
+                                           lo=lo, pair=pair),
+                    rhs,
+                    precond_lo=lambda v: self._precond(
+                        st, lo[0], lo[1], lo[2], lo[3], lo[4], v, pair=pair),
+                    tol=p.gmres_tol, inner_tol=p.inner_tol,
+                    restart=p.gmres_restart, maxiter=p.gmres_maxiter,
+                    max_refine=p.max_refine, history=p.gmres_history,
+                    block_s=bs)
+            else:
+                result = gmres_batched(
+                    lambda v: self._matvec(st, fib, caches, bod, bcaches, v,
+                                           pair=pair),
+                    rhs,
+                    precond=lambda v: self._precond(
+                        st, fib, caches, st.shell, bod, bcaches, v,
+                        pair=pair),
+                    tol=p.gmres_tol, restart=p.gmres_restart,
+                    maxiter=p.gmres_maxiter, history=p.gmres_history,
+                    block_s=bs)
+        with phase("advance"):
+            new = self._advance(st, fib, bod, result.x, dt_b)
+            return new, result.x, self._infos(st, new, result)
 
     def _advance(self, st, fib, bod, x, dt_b):
         """`System._solve_once`'s advance over the batch."""

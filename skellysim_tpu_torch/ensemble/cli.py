@@ -3,7 +3,7 @@
 Usage: python -m skellysim_tpu_torch.ensemble --sweep-file=ensemble.toml
            [--output-dir=DIR] [--batch=B] [--batch-impl=vmap|unroll]
            [--overwrite] [--metrics-file=F] [--trace-file=F]
-           [--device=cuda|cpu]
+           [--profile=DIR] [--device=cuda|cpu]
 
 Counterpart of `skellysim_tpu.ensemble.cli`. The sweep spec
 (`config.sweep`) names a base run config and the member expansion
@@ -17,8 +17,9 @@ reference-format `<member_id>.out` a member and `ensemble_metrics.jsonl`.
 Runs on the CUDA card unless ``--device=cpu``; a missing card raises.
 ``--trace-file`` appends the drain's telemetry (`obs.tracer`: lane
 admit / backfill / retire events, one ``ensemble_step`` span a round,
-faults, compile events) as JSON lines; ``--profile`` needs the profiler
-session, which is not ported yet (ROADMAP.md §1 item 14).
+faults, compile events) as JSON lines; ``--profile DIR`` runs the drain
+under `torch.profiler` (`obs.profile.profile_session`) and appends its
+device time by phase to the trace as ``device_phase`` events.
 """
 
 from __future__ import annotations
@@ -89,9 +90,12 @@ def run(sweep_file: str, output_dir: str | None = None,
         batch: int | None = None, batch_impl: str | None = None,
         overwrite: bool = False, metrics_path: str | None = None,
         trace_path: str | None = None,
-        device=None) -> list:
+        device=None, profile_dir: str | None = None) -> list:
     """Expand and drain a sweep; returns the retired member ids.
-    ``trace_path`` opens a telemetry stream for the drain."""
+    ``trace_path`` opens a telemetry stream for the drain; ``profile_dir``
+    wraps the drain in the profiler (`obs.profile.profile_session`) and,
+    after it closes, folds the dump into that stream as ``device_phase``
+    events."""
     import contextlib
 
     from ..io.ensemble_io import EnsembleMetricsWriter, MemberTrajectoryWriters
@@ -115,8 +119,15 @@ def run(sweep_file: str, output_dir: str | None = None,
     tracer = obs_tracer.Tracer(trace_path) if trace_path else None
     scope = (obs_tracer.use(tracer) if tracer is not None
              else contextlib.nullcontext())
+    if profile_dir is not None:
+        from ..obs.profile import profile_session
+
+        prof = profile_session(profile_dir, device=system.device)
+    else:
+        prof = contextlib.nullcontext()
     try:
-        with writers, EnsembleMetricsWriter(metrics_path) as metrics, scope:
+        with writers, EnsembleMetricsWriter(metrics_path) as metrics, \
+                scope, prof:
             if runner.di_enabled:
                 # growth reseats land on the ladder admission bucketized
                 # onto
@@ -133,6 +144,11 @@ def run(sweep_file: str, output_dir: str | None = None,
                     metrics=metrics, write_initial_frames=True,
                     on_dt_underflow="retire", on_failure="retire")
             retired = sched.run()
+        if profile_dir is not None:
+            # the dump is written at prof's exit above
+            from ..obs.profile import emit_device_phases
+
+            emit_device_phases(profile_dir, tracer)
     finally:
         if tracer is not None:
             tracer.close()
@@ -164,21 +180,21 @@ def main(argv=None) -> None:
                     help="telemetry JSONL (lane/span/fault/compile events; "
                          "render with skellysim_tpu_torch.obs.summarize)")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP.md §1 item 14)")
+                    help="torch.profiler capture of the drain "
+                         "(obs.profile.profile_session); the dump is "
+                         "parsed afterwards and device_phase events are "
+                         "appended to --trace-file — render with `obs "
+                         "profile DIR` / `obs timeline`")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to run (default: the CUDA card; raises when "
                          "there is none)")
     ap.add_argument("--log-level",
                     default=os.environ.get("SKELLYSIM_LOG", "INFO"))
     args = ap.parse_args(argv)
-    if args.profile is not None:
-        raise NotImplementedError(
-            "--profile needs the profiler session, which is not ported to "
-            "skellysim_tpu_torch yet (ROADMAP.md §1 item 14)")
     logging.basicConfig(level=args.log_level.upper(),
                         format="[%(asctime)s] [%(levelname)s] %(message)s",
                         stream=sys.stderr)
     run(args.sweep_file, output_dir=args.output_dir, batch=args.batch,
         batch_impl=args.batch_impl, overwrite=args.overwrite,
         metrics_path=args.metrics_file, device=args.device,
-        trace_path=args.trace_file)
+        trace_path=args.trace_file, profile_dir=args.profile)

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..obs.profile import phase
 from .ewald import (_bucket_points, _cell_near_field, _interp_grid,
                     _ladder, _neighbor_ids, _spread_grid,
                     _stokeslet_multiplier, _stresslet_multiplier,
@@ -385,44 +386,54 @@ def _fourier_stokeslet(plan: SpectralPlan, H):
     """rfftn of the spread [3, Mx, My, Mz] grid, the periodic Stokeslet
     multiplier (and the dp column), irfftn."""
     dtype = H.dtype
-    Hk = torch.fft.rfftn(H, dim=(1, 2, 3))
-    kx, ky, kz, k2, scalar = _kgrid_per(plan, dtype, H.device)
-    Uk = _stokeslet_multiplier(kx, ky, kz, k2, -scalar, Hk)
-    if plan.mode == "dp":
-        Uk[:, 0, 0] = _column_stokeslet(plan, Hk[:, 0, 0], dtype)
+    with phase("fft"):
+        Hk = torch.fft.rfftn(H, dim=(1, 2, 3))
+    with phase("kspace"):
+        kx, ky, kz, k2, scalar = _kgrid_per(plan, dtype, H.device)
+        Uk = _stokeslet_multiplier(kx, ky, kz, k2, -scalar, Hk)
+        if plan.mode == "dp":
+            Uk[:, 0, 0] = _column_stokeslet(plan, Hk[:, 0, 0], dtype)
     del Hk
-    return torch.fft.irfftn(Uk, s=plan.M3, dim=(1, 2, 3))
+    with phase("fft"):
+        return torch.fft.irfftn(Uk, s=plan.M3, dim=(1, 2, 3))
 
 
 def _fourier_stresslet(plan: SpectralPlan, H):
     """The stresslet's Fourier stage on the spread [9, Mx, My, Mz] grid."""
     dtype = H.dtype
-    Hk = torch.fft.rfftn(H, dim=(1, 2, 3))
-    kx, ky, kz, k2, scalar = _kgrid_per(plan, dtype, H.device)
-    Uk = _stresslet_multiplier((kx, ky, kz), k2, 1j * scalar, Hk)
-    if plan.mode == "dp":
-        Uk[:, 0, 0] = _column_stresslet(plan, Hk[:, 0, 0], dtype)
+    with phase("fft"):
+        Hk = torch.fft.rfftn(H, dim=(1, 2, 3))
+    with phase("kspace"):
+        kx, ky, kz, k2, scalar = _kgrid_per(plan, dtype, H.device)
+        Uk = _stresslet_multiplier((kx, ky, kz), k2, 1j * scalar, Hk)
+        if plan.mode == "dp":
+            Uk[:, 0, 0] = _column_stresslet(plan, Hk[:, 0, 0], dtype)
     del Hk
-    return torch.fft.irfftn(Uk, s=plan.M3, dim=(1, 2, 3))
+    with phase("fft"):
+        return torch.fft.irfftn(Uk, s=plan.M3, dim=(1, 2, 3))
 
 
 def _far_field(plan: SpectralPlan, lo, r_src, f_src, r_trg):
     """Gridded periodic Stokeslet far field (tp: the lattice multiplier;
     dp: the mixed lattice and the truncated kperp = 0 column)."""
     dtype = r_src.dtype
-    H = _spread(plan, r_src - lo, f_src, dtype)
+    with phase("spread"):
+        H = _spread(plan, r_src - lo, f_src, dtype)
     U = _fourier_stokeslet(plan, H)
     del H
-    return _interp(plan, r_trg - lo, U.to(dtype), dtype)
+    with phase("interp"):
+        return _interp(plan, r_trg - lo, U.to(dtype), dtype)
 
 
 def _far_field_stresslet(plan: SpectralPlan, lo, r_dl, f_dl, r_trg):
     """Gridded periodic stresslet far field (9 channels, the dp column)."""
     dtype = r_dl.dtype
-    H = _spread(plan, r_dl - lo, f_dl.reshape(-1, 9), dtype)
+    with phase("spread"):
+        H = _spread(plan, r_dl - lo, f_dl.reshape(-1, 9), dtype)
     U = _fourier_stresslet(plan, H)
     del H
-    return _interp(plan, r_trg - lo, U.to(dtype), dtype)
+    with phase("interp"):
+        return _interp(plan, r_trg - lo, U.to(dtype), dtype)
 
 
 # ------------------------------------------------------------ entry points
@@ -436,8 +447,9 @@ def stokeslet_impl(plan: SpectralPlan, anchors, r_src, r_trg, f_src,
     lo_cell = anchors[1].to(r_src.dtype)
     src_w = _wrap_positions(plan, lo_cell, r_src)
     trg_w = _wrap_positions(plan, lo_cell, r_trg)
-    u_near = _near_field_per(plan, lo_cell, src_w, f_src, trg_w,
-                             near_fn=stokeslet_disp_block)
+    with phase("near"):
+        u_near = _near_field_per(plan, lo_cell, src_w, f_src, trg_w,
+                                 near_fn=stokeslet_disp_block)
     u_far = _far_field(plan, lo_box, src_w, f_src, trg_w)
     if n_self:
         # a coincident target's wave-space sum holds only the p = 0
@@ -468,8 +480,9 @@ def stresslet_impl(plan: SpectralPlan, anchors, r_dl, r_trg, f_dl, eta):
     lo_cell = anchors[1].to(r_dl.dtype)
     src_w = _wrap_positions(plan, lo_cell, r_dl)
     trg_w = _wrap_positions(plan, lo_cell, r_trg)
-    u_near = _near_field_per(plan, lo_cell, src_w, f_dl, trg_w,
-                             near_fn=stresslet_disp_block_ewald)
+    with phase("near"):
+        u_near = _near_field_per(plan, lo_cell, src_w, f_dl, trg_w,
+                                 near_fn=stresslet_disp_block_ewald)
     u_far = _far_field_stresslet(plan, lo_box, src_w, f_dl, trg_w)
     # no self term: every screened double-layer coefficient vanishes at 0
     return (u_near + u_far) * (plan.eta / eta)

@@ -58,6 +58,7 @@ from functools import lru_cache, partial
 import numpy as np
 import torch
 
+from ..obs.profile import phase
 from . import kernels
 from .ewald import _R2_ALPHAS, _ladder
 
@@ -529,9 +530,10 @@ def _upward(plan: TreePlan, lo, src_b, pay_b, counts, dtype):
     and `_upward_payload` in one call). Returns the flat cross-level proxy
     arrays, positions [T + 1, p^3, 3] and strengths [T + 1, p^3, C], and
     the sources below each of those cells [T + 1]."""
-    up = _upward_geometry(plan, lo, src_b, counts, dtype)
-    proxy_pts, cell_n = _proxy_geometry(plan, lo, counts, dtype)
-    return proxy_pts, _upward_payload(up, pay_b), cell_n
+    with phase("upward"):
+        up = _upward_geometry(plan, lo, src_b, counts, dtype)
+        proxy_pts, cell_n = _proxy_geometry(plan, lo, counts, dtype)
+        return proxy_pts, _upward_payload(up, pay_b), cell_n
 
 
 #: an item's targets in units of 8 by the item sizes of the remainder of a
@@ -656,8 +658,9 @@ def tree_geometry(plan: TreePlan, anchors, r_src, r_trg,
     r_src = r_src.to(dtype)
     src_b, src_order, slot, counts = _bucket_geometry(plan, lo, centers,
                                                       r_src)
-    up = _upward_geometry(plan, lo, src_b, counts, dtype)
-    proxy_pts, cell_n = _proxy_geometry(plan, lo, counts, dtype)
+    with phase("upward"):
+        up = _upward_geometry(plan, lo, src_b, counts, dtype)
+        proxy_pts, cell_n = _proxy_geometry(plan, lo, counts, dtype)
     flat_t = _leaf_ids(plan, lo, r_trg)
     trg_order = torch.argsort(flat_t, stable=True)
     items, segs = _segment_lists(plan, counts, cell_n, flat_t[trg_order],
@@ -674,7 +677,8 @@ def tree_payload(geom: TreeGeometry, payload):
     buckets' scatter, the anterpolation product and the transfers. No host
     sync."""
     pay_b = _bucket_payload(geom.plan, geom.src_order, geom.slot, payload)
-    proxy_f = _upward_payload(geom.up, pay_b)
+    with phase("upward"):
+        proxy_f = _upward_payload(geom.up, pay_b)
     C = payload.shape[-1]
     return torch.cat([pay_b.reshape(-1, C), proxy_f.reshape(-1, C)])
 
@@ -709,7 +713,12 @@ def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
     ``site`` is the caller's call site (`PairEvaluator.at`: the fiber flow,
     the shell's, body bucket j's, a shard's), so the sums that share a key
     share their positions; should positions under a kept key differ all
-    the same, the sum comes back NaN, which the solve reports, not wrong."""
+    the same, the sum comes back NaN, which the solve reports, not wrong.
+
+    Phases (`obs.profile.phase`): the geometry's and the payload's proxy
+    work is ``upward``, as in the JAX package; the JAX package's ``near``
+    and ``far`` are two passes, here they are one launch over both lists,
+    so its phase reads ``near/far``."""
     from . import cuda_kernels
 
     dtype = r_trg.dtype
@@ -723,7 +732,8 @@ def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
     pay = tree_payload(geom, payload.to(dtype))
     prec = "f32" if dtype == torch.float32 else "f64"
     kern = getattr(cuda_kernels, f"tree_{family}_{prec}")
-    u = kern(geom.trg, geom.src, pay, geom.items, geom.segs, eta)
+    with phase("near"), phase("far"):
+        u = kern(geom.trg, geom.src, pay, geom.items, geom.segs, eta)
     if kept:
         moved = (torch.ne(r_src.to(dtype), geom.r_src).any()
                  | torch.ne(r_trg, geom.r_trg).any())

@@ -44,10 +44,12 @@ processes through CUDA IPC mappings of each shard's slots and counters
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
+from ..obs.profile import phase
 from ..ops import cuda_kernels
 from ..ops import kernels
 from ..ops.kernels import DEFAULT_EPS, DEFAULT_REG, pallas_impl_for
@@ -91,26 +93,30 @@ def _ring_accumulate(block_fn, devices, u0, *rotating, mesh=None) -> list:
     shards' devices; on a ``mesh`` that spans processes they are this
     process's shards (``mesh.local``), and the first of them receives from
     the process on its left while the last sends to the one on its
-    right."""
+    right. On more than one shard each hop is the phase ``ring-step``
+    (`obs.profile.phase`), as each ``ppermute`` hop is in the JAX
+    package."""
     n_loc = len(devices)
     spans = mesh is not None and mesh.spans_processes
     n = mesh.size if spans else n_loc
     u = list(u0)
     rot = [list(r) for r in rotating]
     for hop in range(n):
-        nxt = wait = None
-        if hop < n - 1:
-            if spans:
-                nxt, wait = _post_hop(mesh, devices, rot)
-            else:
-                nxt = [[r[(k - 1) % n].to(devices[k], non_blocking=True)
-                        for k in range(n)] for r in rot]
-        u = [u[k] + block_fn(k, *(r[k] for r in rot)) for k in range(n_loc)]
-        if wait is not None:
-            for r, got in zip(nxt, wait()):
-                r[0] = got
-        if nxt is not None:
-            rot = nxt
+        with phase("ring-step") if n > 1 else contextlib.nullcontext():
+            nxt = wait = None
+            if hop < n - 1:
+                if spans:
+                    nxt, wait = _post_hop(mesh, devices, rot)
+                else:
+                    nxt = [[r[(k - 1) % n].to(devices[k], non_blocking=True)
+                            for k in range(n)] for r in rot]
+            u = [u[k] + block_fn(k, *(r[k] for r in rot))
+                 for k in range(n_loc)]
+            if wait is not None:
+                for r, got in zip(nxt, wait()):
+                    r[0] = got
+            if nxt is not None:
+                rot = nxt
     return u
 
 

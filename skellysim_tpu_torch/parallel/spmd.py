@@ -63,6 +63,7 @@ import torch
 from ..bodies import bodies as bd
 from ..fibers import container as fc
 from ..guard import verdict as _verdict
+from ..obs.profile import phase
 from ..periphery import periphery as peri
 from ..solver import gmres, gmres_ir
 from ..system.system import (StepInfo, _rewrap, _rewrap_fibers, body_buckets,
@@ -268,9 +269,12 @@ def _make_rdot(comm: Collectives, nonrep_end: int) -> Callable:
     psum'd, the replicated tail (the same bits on every shard) added
     once."""
     def rdot(A, w):
-        part = comm.psum([a[..., :nonrep_end] @ x[:nonrep_end]
-                          for a, x in zip(A.parts, w.parts)])[0]
-        return part + A.parts[0][..., nonrep_end:] @ w.parts[0][nonrep_end:]
+        # the phase of the solver's collective (`obs.profile.phase`)
+        with phase("psum-dots"):
+            part = comm.psum([a[..., :nonrep_end] @ x[:nonrep_end]
+                              for a, x in zip(A.parts, w.parts)])[0]
+            return (part
+                    + A.parts[0][..., nonrep_end:] @ w.parts[0][nonrep_end:])
     return rdot
 
 
@@ -550,7 +554,8 @@ class _Step:
                 v_rep = _each(operator.add, v_part, v_dense)
 
             if self.sharded_shell:
-                x_full = comm.all_gather(x_shell)
+                with phase("allgather-density"):
+                    x_full = comm.all_gather(x_shell)
             out = []
             for k in range(len(comm.devices)):
                 n_loc = r_loc[k].shape[0]
@@ -611,12 +616,18 @@ class _Step:
         gs = p.precond == "gs" and self.has_shell
 
         def precond(x: ShardVec) -> ShardVec:
+            # scoped as System._apply_precond is
+            with phase("precond"):
+                return precond_impl(x)
+
+        def precond_impl(x: ShardVec) -> ShardVec:
             parts = _each(self.split, sts, x.parts)
             y_shell = [None] * len(comm.devices)
             if self.has_shell:
                 x_shell = [q[1] for q in parts]
                 if self.sharded_shell:
-                    x_full = comm.all_gather(x_shell)
+                    with phase("allgather-density"):
+                        x_full = comm.all_gather(x_shell)
                     y_shell = [(st.shell.M_inv @ xf.to(st.shell.M_inv.dtype))
                                .to(x.dtype) for st, xf in zip(sts, x_full)]
                 else:
@@ -689,109 +700,118 @@ class _Step:
 
     def __call__(self, state: ShardedState):
         sys_, p, comm = self.system, self.system.params, self.comm
-        sts, caches, bcs, shell_rhs, body_rhs = self.prep(list(state.shards))
-        rhs = ShardVec(torch.cat(
-            [c.RHS.reshape(-1) for c in caches[k]]
-            + ([shell_rhs[k]] if shell_rhs[k] is not None else [])
-            + [br.reshape(-1) for br in body_rhs[k]])
-            for k in range(len(comm.devices)))
+        # the phases of System._solve_once (`obs.profile.phase`)
+        with phase("prep"):
+            sts, caches, bcs, shell_rhs, body_rhs = self.prep(
+                list(state.shards))
+            rhs = ShardVec(torch.cat(
+                [c.RHS.reshape(-1) for c in caches[k]]
+                + ([shell_rhs[k]] if shell_rhs[k] is not None else [])
+                + [br.reshape(-1) for br in body_rhs[k]])
+                for k in range(len(comm.devices)))
         fib_size, shell_size, _ = sys_._sizes(sts[0])
         nonrep_end = fib_size + (shell_size if self.sharded_shell else 0)
         rdot = _make_rdot(comm, nonrep_end)
 
-        if self.precision == "mixed":
-            lo_views = _each(sys_._lo_view, sts, caches, bcs)
-            lo = tuple([v[i] for v in lo_views] for i in range(3))
-            result = gmres_ir(
-                # the f64 residual matvec stays dense: tree_tol must not
-                # cap residual_true
-                self.make_matvec(sts, caches, bcs, flow_impl=self.hi_impl),
-                self.make_matvec(sts, caches, bcs, lo=lo, pair=self.pair),
-                rhs, precond_lo=self.make_precond(*lo),
-                tol=p.gmres_tol, inner_tol=p.inner_tol,
-                restart=p.gmres_restart, maxiter=p.gmres_maxiter,
-                max_refine=p.max_refine, history=p.gmres_history,
-                block_s=p.gmres_block_s, rdot=rdot)
-        else:
-            result = gmres(
-                self.make_matvec(sts, caches, bcs, pair=self.pair), rhs,
-                precond=self.make_precond(sts, caches, bcs),
-                tol=p.gmres_tol, restart=p.gmres_restart,
-                maxiter=p.gmres_maxiter, history=p.gmres_history,
-                block_s=p.gmres_block_s, rdot=rdot)
+        with phase("gmres"):
+            if self.precision == "mixed":
+                lo_views = _each(sys_._lo_view, sts, caches, bcs)
+                lo = tuple([v[i] for v in lo_views] for i in range(3))
+                result = gmres_ir(
+                    # the f64 residual matvec stays dense: tree_tol must not
+                    # cap residual_true
+                    self.make_matvec(sts, caches, bcs, flow_impl=self.hi_impl),
+                    self.make_matvec(sts, caches, bcs, lo=lo, pair=self.pair),
+                    rhs, precond_lo=self.make_precond(*lo),
+                    tol=p.gmres_tol, inner_tol=p.inner_tol,
+                    restart=p.gmres_restart, maxiter=p.gmres_maxiter,
+                    max_refine=p.max_refine, history=p.gmres_history,
+                    block_s=p.gmres_block_s, rdot=rdot)
+            else:
+                result = gmres(
+                    self.make_matvec(sts, caches, bcs, pair=self.pair), rhs,
+                    precond=self.make_precond(sts, caches, bcs),
+                    tol=p.gmres_tol, restart=p.gmres_restart,
+                    maxiter=p.gmres_maxiter, history=p.gmres_history,
+                    block_s=p.gmres_block_s, rdot=rdot)
 
-        new_sts, sol_fibs, sol_shell, sol_body = [], [], [], []
-        for st, x in zip(sts, result.x.parts):
-            x_fibs, x_shell, x_bods = self.split(st, x)
-            new = st._replace(fibers=_rewrap_fibers(st.fibers, [
-                fc.step(g, xf) for g, xf in zip(fiber_buckets(st.fibers),
-                                                x_fibs)]))
-            sol_fibs.append(x_fibs)
+        with phase("advance"):
+            new_sts, sol_fibs, sol_shell, sol_body = [], [], [], []
+            for st, x in zip(sts, result.x.parts):
+                x_fibs, x_shell, x_bods = self.split(st, x)
+                new = st._replace(fibers=_rewrap_fibers(st.fibers, [
+                    fc.step(g, xf) for g, xf in zip(fiber_buckets(st.fibers),
+                                                    x_fibs)]))
+                sol_fibs.append(x_fibs)
+                if self.has_shell:
+                    new = new._replace(shell=st.shell._replace(
+                        density=x_shell))
+                    sol_shell.append(x_shell)
+                b_list = body_buckets(st.bodies)
+                if b_list:
+                    sol_body.append(x[fib_size + shell_size:])
+                    new_b = [bd.step(g, xb, st.dt) for g, xb in zip(b_list,
+                                                                    x_bods)]
+                    new = new._replace(bodies=_rewrap(st.bodies, new_b,
+                                                      bd.BodyGroup))
+                    # the shard's fibers re-pin to their (moved) sites
+                    nbt = bd.n_total(new_b)
+                    repinned = list(fiber_buckets(new.fibers))
+                    for gb in new_b:
+                        sites = bd.place(gb)[2]
+                        repinned = [g._replace(x=bd.repin_to_bodies(
+                            bd.local_binding(g, gb, nbt), sites, gb).x)
+                            for g in repinned]
+                    new = new._replace(fibers=_rewrap_fibers(new.fibers,
+                                                             repinned))
+                new_sts.append(new)
+            # pmax: the largest of every shard's buckets
+            fiber_error = max(float(fc.fiber_error(g)) for st in new_sts
+                              for g in fiber_buckets(st.fibers))
+            if self.mesh.spans_processes:
+                fiber_error = _agree_across_processes(result, fiber_error)
+            health = result.health | _verdict.nonfinite_word(fiber_error)
+            if state.shards[0].flight is not None:
+                # the flight row, the same bits on every shard: the reductions
+                # are the collectives' pmax / pmin, the solution norm the
+                # replicated rdot
+                from ..obs import flight as flight_mod
+
+                rings = flight_mod.record_step_sharded(
+                    state.shards, new_sts, result.x.parts, comm=comm,
+                    residual_true=result.residual_true, health=health,
+                    dt_used=sts[0].dt, shell_shape=sys_.shell_shape,
+                    solution_norm=torch.sqrt(rdot(result.x, result.x)),
+                    sol_scan_rows=nonrep_end, shell_sharded=self.sharded_shell)
+                new_sts = [st._replace(flight=r)
+                           for st, r in zip(new_sts, rings)]
+            info = StepInfo(
+                converged=bool(result.converged), iters=result.iters,
+                residual=result.residual, fiber_error=fiber_error,
+                residual_true=result.residual_true,
+                loss_of_accuracy=bool(
+                    result.converged
+                    and result.residual_true > 10.0 * p.gmres_tol),
+                refines=result.refines, cycles=result.cycles,
+                history=result.history, health=health, dt_used=sts[0].dt,
+                guard_retries=0)
+            new_state = ShardedState(tuple(new_sts), self.mesh,
+                                     self.shell_mode)
+            if not self.flat_solution:
+                return new_state, SpmdSolution(
+                    fibers=tuple(tuple(s[i] for s in sol_fibs)
+                                 for i in range(len(sol_fibs[0]))),
+                    shell=tuple(sol_shell) if self.has_shell else None,
+                    bodies=tuple(sol_body) if sol_body else None), info
+            every = self.comm.every_shard
+            parts = [torch.cat(every([s[i] for s in sol_fibs])).reshape(-1)
+                     for i in range(len(sol_fibs[0]))]
             if self.has_shell:
-                new = new._replace(shell=st.shell._replace(density=x_shell))
-                sol_shell.append(x_shell)
-            b_list = body_buckets(st.bodies)
-            if b_list:
-                sol_body.append(x[fib_size + shell_size:])
-                new_b = [bd.step(g, xb, st.dt) for g, xb in zip(b_list,
-                                                                x_bods)]
-                new = new._replace(bodies=_rewrap(st.bodies, new_b,
-                                                  bd.BodyGroup))
-                # the shard's fibers re-pin to their (moved) sites
-                nbt = bd.n_total(new_b)
-                repinned = list(fiber_buckets(new.fibers))
-                for gb in new_b:
-                    sites = bd.place(gb)[2]
-                    repinned = [g._replace(x=bd.repin_to_bodies(
-                        bd.local_binding(g, gb, nbt), sites, gb).x)
-                        for g in repinned]
-                new = new._replace(fibers=_rewrap_fibers(new.fibers,
-                                                         repinned))
-            new_sts.append(new)
-        # pmax: the largest of every shard's buckets
-        fiber_error = max(float(fc.fiber_error(g)) for st in new_sts
-                          for g in fiber_buckets(st.fibers))
-        if self.mesh.spans_processes:
-            fiber_error = _agree_across_processes(result, fiber_error)
-        health = result.health | _verdict.nonfinite_word(fiber_error)
-        if state.shards[0].flight is not None:
-            # the flight row, the same bits on every shard: the reductions
-            # are the collectives' pmax / pmin, the solution norm the
-            # replicated rdot
-            from ..obs import flight as flight_mod
-
-            rings = flight_mod.record_step_sharded(
-                state.shards, new_sts, result.x.parts, comm=comm,
-                residual_true=result.residual_true, health=health,
-                dt_used=sts[0].dt, shell_shape=sys_.shell_shape,
-                solution_norm=torch.sqrt(rdot(result.x, result.x)),
-                sol_scan_rows=nonrep_end, shell_sharded=self.sharded_shell)
-            new_sts = [st._replace(flight=r) for st, r in zip(new_sts, rings)]
-        info = StepInfo(converged=bool(result.converged), iters=result.iters,
-                        residual=result.residual, fiber_error=fiber_error,
-                        residual_true=result.residual_true,
-                        loss_of_accuracy=bool(
-                            result.converged
-                            and result.residual_true > 10.0 * p.gmres_tol),
-                        refines=result.refines, cycles=result.cycles,
-                        history=result.history, health=health,
-                        dt_used=sts[0].dt, guard_retries=0)
-        new_state = ShardedState(tuple(new_sts), self.mesh, self.shell_mode)
-        if not self.flat_solution:
-            return new_state, SpmdSolution(
-                fibers=tuple(tuple(s[i] for s in sol_fibs)
-                             for i in range(len(sol_fibs[0]))),
-                shell=tuple(sol_shell) if self.has_shell else None,
-                bodies=tuple(sol_body) if sol_body else None), info
-        every = self.comm.every_shard
-        parts = [torch.cat(every([s[i] for s in sol_fibs])).reshape(-1)
-                 for i in range(len(sol_fibs[0]))]
-        if self.has_shell:
-            parts.append(torch.cat(every(sol_shell)) if self.sharded_shell
-                         else sol_shell[0])
-        if sol_body:
-            parts.append(sol_body[0])
-        return new_state, torch.cat(parts), info
+                parts.append(torch.cat(every(sol_shell)) if self.sharded_shell
+                             else sol_shell[0])
+            if sol_body:
+                parts.append(sol_body[0])
+            return new_state, torch.cat(parts), info
 
 
 def _agree_across_processes(result, fiber_error: float) -> float:

@@ -38,6 +38,7 @@ import torch
 
 from ..bodies import bodies as bd
 from ..fibers import container as fc, fd_fiber
+from ..obs.profile import phase
 from ..system import di_rates
 from ..utils import rng as rng_mod
 
@@ -160,7 +161,13 @@ def di_update(state, params, di_rng, *, sample_fn=None):
     growth. ``sample_fn(di_rng, lam, capacity, n_sites)`` replaces the
     natural draws (`sample_draws`). The arithmetic runs in float64 and
     casts back to the state's dtype; on ``needs_growth`` the state is
-    returned unchanged."""
+    returned unchanged. The phase ``dynamic-instability``
+    (`obs.profile.phase`)."""
+    with phase("dynamic-instability"):
+        return _di_update_impl(state, params, di_rng, sample_fn=sample_fn)
+
+
+def _di_update_impl(state, params, di_rng, *, sample_fn=None):
     di = params.dynamic_instability
     fibers = state.fibers
     dtype, dev = fibers.x.dtype, fibers.x.device

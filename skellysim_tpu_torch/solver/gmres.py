@@ -25,6 +25,11 @@ provide the few vector operations the solver uses besides ``rdot``:
 ``zeros_like()``, ``basis(rows)``, ``combine(c)`` (the rows' linear
 combination ``c @ V``) and ``apply(fn, *others)`` (``fn`` on each shard's
 rows: the s-step blocks' concatenation, transpose and triangular solve).
+
+The phase scopes are the JAX package's (`obs.profile.phase`): a Krylov
+step's preconditioned matvec is ``arnoldi``, its orthogonalization
+``gram``, its rotations ``givens`` (host arithmetic here), and the
+refinement's high-precision residual ``refine``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from ..guard.verdict import BREAKDOWN, STAGNATION, nonfinite_word
+from ..obs.profile import phase
 
 __all__ = ["GmresResult", "gmres", "gmres_ir", "collective_rounds",
            "BatchedGmresResult", "gmres_batched", "gmres_ir_batched"]
@@ -279,9 +285,10 @@ def _block_rounds(rounds, grams):
     """The two Gram passes of one s-step round and the basis update, for
     each ``(cyc, V, P)`` of ``rounds``: ``P`` holds the round's s
     candidates; V[k+1:k+1+s] receives the orthonormal block; the host
-    recovers the columns (``cyc``). ``grams`` maps a list of (V[:k+1], Q)
-    to the host Grams [V[:k+1]; Q] Q^T, all in one reduction: the BCGS
-    Gram, then the CGS2 pass."""
+    records the Grams' factors (``cyc``), whose `recover` then turns them
+    into the round's columns. ``grams`` maps a list of (V[:k+1], Q) to the
+    host Grams [V[:k+1]; Q] Q^T, all in one reduction: the BCGS Gram, then
+    the CGS2 pass."""
     Q1 = []
     for (cyc, V, P), G in zip(rounds, grams([(V[:cyc.k + 1], P)
                                              for cyc, V, P in rounds])):
@@ -295,7 +302,6 @@ def _block_rounds(rounds, grams):
         W2 = Q - _combine(_coeffs(C2t, Q), V[:k + 1])
         V[k + 1:k + 1 + cyc.s] = _apply(_finite_or_zero,
                                         _apply(_solve_lower(L2), W2))
-        cyc.recover()
 
 
 def _rdot_grams(rdot):
@@ -319,12 +325,16 @@ def _arnoldi_cycle_block(matvec, M, x0, r0, m, s, tol_abs, safe_b_norm,
     V[0] = r0 / safe_beta
     cyc = _BlockCycle(m, s, beta, tol_abs, r0.dtype)
     while cyc.live:
-        P = _basis(r0, s)
-        prev = V[cyc.k]
-        for j in range(s):
-            P[j] = matvec(M(prev))
-            prev = P[j]
-        _block_rounds([(cyc, V, P)], _rdot_grams(rdot))
+        with phase("arnoldi"):
+            P = _basis(r0, s)
+            prev = V[cyc.k]
+            for j in range(s):
+                P[j] = matvec(M(prev))
+                prev = P[j]
+        with phase("gram"):
+            _block_rounds([(cyc, V, P)], _rdot_grams(rdot))
+        with phase("givens"):
+            cyc.recover()
     k = cyc.k
     yt = torch.as_tensor(cyc.solution_coefficients(), dtype=r0.dtype,
                          device=r0.device)
@@ -350,18 +360,21 @@ def _arnoldi_cycle(matvec, M, x0, r0, m, tol_abs, safe_b_norm, rdot, norm):
     k = 0
     done = beta <= tol_abs
     while k < m and not done:
-        w = matvec(M(V[k]))
-        # ICGS: two classical Gram-Schmidt passes against V[:k+1]
-        h = np.zeros(m + 1)
-        for _ in range(2):
-            proj = rdot(V[:k + 1], w)
-            w = w - _combine(proj, V[:k + 1])
-            h[:k + 1] += proj.cpu().numpy()
-        h_norm = norm(w)
-        h[k + 1] = h_norm
-        V[k + 1] = w / (h_norm if h_norm > 0.0 else 1.0)
+        with phase("arnoldi"):
+            w = matvec(M(V[k]))
+        with phase("gram"):
+            # ICGS: two classical Gram-Schmidt passes against V[:k+1]
+            h = np.zeros(m + 1)
+            for _ in range(2):
+                proj = rdot(V[:k + 1], w)
+                w = w - _combine(proj, V[:k + 1])
+                h[:k + 1] += proj.cpu().numpy()
+            h_norm = norm(w)
+            h[k + 1] = h_norm
+            V[k + 1] = w / (h_norm if h_norm > 0.0 else 1.0)
 
-        H[:, k], cs, sn, g = _givens_col(k, h, cs, sn, g)
+        with phase("givens"):
+            H[:, k], cs, sn, g = _givens_col(k, h, cs, sn, g)
         done = abs(g[k + 1]) <= tol_abs
         k += 1
 
@@ -462,8 +475,10 @@ def gmres_ir(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor, *,
         d = gmres(matvec_lo, r, precond=M, tol=inner_tol, restart=restart,
                   maxiter=maxiter, block_s=block_s, rdot=rdot)
         x = x + d.x
-        r = b - matvec_hi(x)
-        r_rel = norm(r) / safe_b_norm
+        # the high-precision residual matvec, the sweep's dominant cost
+        with phase("refine"):
+            r = b - matvec_hi(x)
+            r_rel = norm(r) / safe_b_norm
         # the inner f32 loop stalling at its noise floor is the normal
         # mixed-precision exit: its STAGNATION bit is masked off, and
         # refinement-level stagnation is judged on the sweeps below
@@ -632,19 +647,23 @@ def _batched_block_round(matvec, M, b, V, members, live, s):
     for i in live:
         z[i] = V[i, members[i].cyc.k]
     P = b.new_zeros((B, s, n))
-    for j in range(s):
-        W = matvec(M(z))
-        z = b.new_zeros((B, n))
-        for i in live:
-            P[i, j] = W[i]
-            z[i] = W[i]
+    with phase("arnoldi"):
+        for j in range(s):
+            W = matvec(M(z))
+            z = b.new_zeros((B, n))
+            for i in live:
+                P[i, j] = W[i]
+                z[i] = W[i]
 
     def grams(pairs):
         return _host_rows([torch.cat([Vk, Q]) @ Q.T for Vk, Q in pairs])
 
-    _block_rounds([(members[i].cyc, V[i], P[i]) for i in live], grams)
-    for i in live:
-        members[i].block_done()
+    with phase("gram"):
+        _block_rounds([(members[i].cyc, V[i], P[i]) for i in live], grams)
+    with phase("givens"):
+        for i in live:
+            members[i].cyc.recover()
+            members[i].block_done()
 
 
 def gmres_batched(matvec: Callable, b: torch.Tensor, *,
@@ -691,33 +710,38 @@ def gmres_batched(matvec: Callable, b: torch.Tensor, *,
         if live and block_s > 1:
             _batched_block_round(matvec, M, b, V, members, live, block_s)
         elif live:
-            z = b.new_zeros((B, n))
-            for i in live:
-                z[i] = V[i, members[i].k]
-            W = matvec(M(z))
-            projs, norms = [], []
-            for i in live:
-                k = members[i].k
-                w, Vk = W[i], V[i, :k + 1]
-                passes = []
-                for _ in range(2):
-                    proj = Vk @ w
-                    w = w - proj @ Vk
-                    passes.append(proj)
-                h_norm = torch.linalg.vector_norm(w)
-                V[i, k + 1] = w / torch.where(h_norm > 0.0, h_norm, 1.0)
-                projs.append(torch.stack(passes))
-                norms.append(h_norm)
-            # one transfer for every member of this Arnoldi step
-            host = torch.cat([torch.cat([hn.reshape(1), p.reshape(-1)])
-                              for hn, p in zip(norms, projs)]).cpu().numpy()
-            off = 0
-            for i in live:
-                k = members[i].k
-                size = 1 + 2 * (k + 1)
-                row = host[off:off + size]
-                off += size
-                members[i].arnoldi(row[1:].reshape(2, k + 1), float(row[0]))
+            with phase("arnoldi"):
+                z = b.new_zeros((B, n))
+                for i in live:
+                    z[i] = V[i, members[i].k]
+                W = matvec(M(z))
+            with phase("gram"):
+                projs, norms = [], []
+                for i in live:
+                    k = members[i].k
+                    w, Vk = W[i], V[i, :k + 1]
+                    passes = []
+                    for _ in range(2):
+                        proj = Vk @ w
+                        w = w - proj @ Vk
+                        passes.append(proj)
+                    h_norm = torch.linalg.vector_norm(w)
+                    V[i, k + 1] = w / torch.where(h_norm > 0.0, h_norm, 1.0)
+                    projs.append(torch.stack(passes))
+                    norms.append(h_norm)
+                # one transfer for every member of this Arnoldi step
+                host = torch.cat([torch.cat([hn.reshape(1), p.reshape(-1)])
+                                  for hn, p in zip(norms, projs)]
+                                 ).cpu().numpy()
+            with phase("givens"):
+                off = 0
+                for i in live:
+                    k = members[i].k
+                    size = 1 + 2 * (k + 1)
+                    row = host[off:off + size]
+                    off += size
+                    members[i].arnoldi(row[1:].reshape(2, k + 1),
+                                       float(row[0]))
         closing = [i for i, mb in enumerate(members) if mb.state == "finish"]
         if closing:
             z = b.new_zeros((B, n))
@@ -779,8 +803,9 @@ def gmres_ir_batched(matvec_hi: Callable, matvec_lo: Callable,
         for i in range(B):
             if act[i]:
                 x[i] = x[i] + d.x[i]
-        r_new = b - matvec_hi(x)
-        norms = _row_norms(r_new)
+        with phase("refine"):
+            r_new = b - matvec_hi(x)
+            norms = _row_norms(r_new)
         for i in range(B):
             if not act[i]:
                 continue

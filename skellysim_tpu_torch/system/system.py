@@ -48,6 +48,7 @@ from ..bodies import bodies as bd
 from ..device import resolve_device
 from ..fibers import container as fc
 from ..guard import verdict as _verdict
+from ..obs.profile import phase
 from ..ops.evaluator import EVALUATORS, make_pair
 from ..params import (REFINE_PAIR_IMPLS, Params, resolve_precision,
                       resolve_refine_impl)
@@ -738,7 +739,17 @@ class System:
         the fiber/body block solves. Both coincide without a shell. In
         mixed mode ``state``/``caches`` are the `_lo_view`, and the
         corrections run in its f32 precision.
+
+        The whole application is the phase ``precond``
+        (`obs.profile.phase`), nested under whatever solver phase invoked
+        it (``gmres/arnoldi/precond`` in the Krylov loop).
         """
+        with phase("precond"):
+            return self._apply_precond_impl(state, caches, body_caches,
+                                            x_flat, pair=pair)
+
+    def _apply_precond_impl(self, state: SimState, caches, body_caches,
+                            x_flat, pair=None):
         buckets = fiber_buckets(state.fibers)
         b_list = body_buckets(state.bodies)
         fib_size, shell_size, _ = self._sizes(state)
@@ -824,96 +835,112 @@ class System:
         Arnoldi cycle / with the full-precision operator instead of the
         configured ones (the prep stays the configured precision's, as in
         the JAX package). Nothing here writes into ``state``'s tensors, so
-        a retry from the same state is a fresh solve."""
+        a retry from the same state is a fresh solve. Its phases
+        (`obs.profile.phase`) are the JAX package's: ``prep``, ``gmres``
+        and ``advance``."""
         p = self.params
         bs = p.gmres_block_s if block_s is None else block_s
-        state, caches, body_caches, shell_rhs, body_rhs = self._prep(
-            state, pair=pair)
-        rhs = torch.cat([c.RHS.reshape(-1) for c in caches or []]
-                        + ([shell_rhs] if shell_rhs is not None else [])
-                        + [br.reshape(-1) for br in body_rhs])
+        with phase("prep"):
+            state, caches, body_caches, shell_rhs, body_rhs = self._prep(
+                state, pair=pair)
+            rhs = torch.cat([c.RHS.reshape(-1) for c in caches or []]
+                            + ([shell_rhs] if shell_rhs is not None else [])
+                            + [br.reshape(-1) for br in body_rhs])
 
         precision = "full" if force_full else self._precision_for(state)
-        if precision == "mixed":
-            # f64 state/assembly/refinement residuals; the Krylov loop's
-            # pairwise flows and shell/body dense ops evaluate through f32
-            # copies (the lo seam) while the stiff fiber-local ops stay f64
-            lo = self._lo_view(state, caches, body_caches)
-            hi_impl = (self._refine_impl
-                       if self._dtype(state) == torch.float64
-                       else p.kernel_impl)
-            result = gmres_ir(
-                # the f64 residual matvec (`_refine_pair`: dense in free
-                # space, so ewald_tol cannot cap residual_true)
-                lambda v: self._apply_matvec(state, caches, body_caches, v,
-                                             flow_impl=hi_impl,
-                                             pair=self._refine_pair(pair)),
-                lambda v: self._apply_matvec(state, caches, body_caches, v,
-                                             lo=lo, pair=pair),
-                rhs,
-                precond_lo=lambda v: self._apply_precond(
-                    *lo, v, pair=pair),
-                tol=p.gmres_tol, inner_tol=p.inner_tol,
-                restart=p.gmres_restart, maxiter=p.gmres_maxiter,
-                max_refine=p.max_refine, history=p.gmres_history,
-                block_s=bs)
-        else:
-            result = gmres(
-                lambda v: self._apply_matvec(state, caches, body_caches, v,
-                                             pair=pair),
-                rhs,
-                precond=lambda v: self._apply_precond(
-                    state, caches, body_caches, v, pair=pair),
-                tol=p.gmres_tol, restart=p.gmres_restart,
-                maxiter=p.gmres_maxiter, history=p.gmres_history,
-                block_s=bs)
+        # the f32 lo view is the Krylov solve's own setup: in the JAX
+        # package XLA fuses those casts into the loop that reads them
+        with phase("gmres"):
+            if precision == "mixed":
+                # f64 state/assembly/refinement residuals; the Krylov
+                # loop's pairwise flows and shell/body dense ops evaluate
+                # through f32 copies (the lo seam) while the stiff
+                # fiber-local ops stay f64
+                lo = self._lo_view(state, caches, body_caches)
+                hi_impl = (self._refine_impl
+                           if self._dtype(state) == torch.float64
+                           else p.kernel_impl)
+                result = gmres_ir(
+                    # the f64 residual matvec (`_refine_pair`: dense in free
+                    # space, so ewald_tol cannot cap residual_true)
+                    lambda v: self._apply_matvec(
+                        state, caches, body_caches, v, flow_impl=hi_impl,
+                        pair=self._refine_pair(pair)),
+                    lambda v: self._apply_matvec(state, caches, body_caches,
+                                                 v, lo=lo, pair=pair),
+                    rhs,
+                    precond_lo=lambda v: self._apply_precond(
+                        *lo, v, pair=pair),
+                    tol=p.gmres_tol, inner_tol=p.inner_tol,
+                    restart=p.gmres_restart, maxiter=p.gmres_maxiter,
+                    max_refine=p.max_refine, history=p.gmres_history,
+                    block_s=bs)
+            else:
+                result = gmres(
+                    lambda v: self._apply_matvec(state, caches, body_caches,
+                                                 v, pair=pair),
+                    rhs,
+                    precond=lambda v: self._apply_precond(
+                        state, caches, body_caches, v, pair=pair),
+                    tol=p.gmres_tol, restart=p.gmres_restart,
+                    maxiter=p.gmres_maxiter, history=p.gmres_history,
+                    block_s=bs)
 
-        x_fibs, x_bods = self._split(state, result.x)
-        new_state = state
-        if state.fibers is not None:
-            new_state = new_state._replace(fibers=_rewrap_fibers(
-                state.fibers, [fc.step(g, xf) for g, xf in
-                               zip(fiber_buckets(state.fibers), x_fibs)]))
-        if state.shell is not None:
-            fib_size, shell_size, _ = self._sizes(state)
-            new_state = new_state._replace(shell=state.shell._replace(
-                density=result.x[fib_size:fib_size + shell_size]))
-        if state.bodies is not None:
-            new_b = [bd.step(g, xb, state.dt)
-                     for g, xb in zip(body_buckets(state.bodies), x_bods)]
-            new_state = new_state._replace(
-                bodies=_rewrap(state.bodies, new_b, bd.BodyGroup))
+        with phase("advance"):
+            x_fibs, x_bods = self._split(state, result.x)
+            new_state = state
             if state.fibers is not None:
-                # bound fibers re-pin to their (moved) nucleation sites, one
-                # body bucket at a time (a fiber is bound to at most one)
-                nbt = bd.n_total(new_b)
-                repinned = list(fiber_buckets(new_state.fibers))
-                for gb in new_b:
-                    sites = bd.place(gb)[2]
-                    repinned = [g._replace(x=bd.repin_to_bodies(
-                        bd.local_binding(g, gb, nbt), sites, gb).x)
-                        for g in repinned]
+                new_state = new_state._replace(fibers=_rewrap_fibers(
+                    state.fibers,
+                    [fc.step(g, xf) for g, xf in
+                     zip(fiber_buckets(state.fibers), x_fibs)]))
+            if state.shell is not None:
+                fib_size, shell_size, _ = self._sizes(state)
+                new_state = new_state._replace(shell=state.shell._replace(
+                    density=result.x[fib_size:fib_size + shell_size]))
+            if state.bodies is not None:
+                new_b = [bd.step(g, xb, state.dt) for g, xb
+                         in zip(body_buckets(state.bodies), x_bods)]
                 new_state = new_state._replace(
-                    fibers=_rewrap_fibers(new_state.fibers, repinned))
-        fiber_error = max([float(fc.fiber_error(g))
-                           for g in fiber_buckets(new_state.fibers)],
-                          default=0.0)
-        health = result.health | _verdict.nonfinite_word(fiber_error)
-        info = StepInfo(converged=bool(result.converged), iters=result.iters,
-                        residual=result.residual, fiber_error=fiber_error,
-                        residual_true=result.residual_true,
-                        loss_of_accuracy=bool(
-                            result.converged
-                            and result.residual_true > 10.0 * p.gmres_tol),
-                        refines=result.refines, cycles=result.cycles,
-                        history=result.history, health=health,
-                        dt_used=state.dt, guard_retries=0)
+                    bodies=_rewrap(state.bodies, new_b, bd.BodyGroup))
+                if state.fibers is not None:
+                    # bound fibers re-pin to their (moved) nucleation sites,
+                    # one body bucket at a time (a fiber is bound to at most
+                    # one)
+                    nbt = bd.n_total(new_b)
+                    repinned = list(fiber_buckets(new_state.fibers))
+                    for gb in new_b:
+                        sites = bd.place(gb)[2]
+                        repinned = [g._replace(x=bd.repin_to_bodies(
+                            bd.local_binding(g, gb, nbt), sites, gb).x)
+                            for g in repinned]
+                    new_state = new_state._replace(
+                        fibers=_rewrap_fibers(new_state.fibers, repinned))
+            fiber_error = max([float(fc.fiber_error(g))
+                               for g in fiber_buckets(new_state.fibers)],
+                              default=0.0)
+            health = result.health | _verdict.nonfinite_word(fiber_error)
+            info = StepInfo(
+                converged=bool(result.converged), iters=result.iters,
+                residual=result.residual, fiber_error=fiber_error,
+                residual_true=result.residual_true,
+                loss_of_accuracy=bool(
+                    result.converged
+                    and result.residual_true > 10.0 * p.gmres_tol),
+                refines=result.refines, cycles=result.cycles,
+                history=result.history, health=health, dt_used=state.dt,
+                guard_retries=0)
         return new_state, result.x, info
 
     def _check_collision(self, state: SimState) -> bool:
         """Fiber/shell and body collision gate: body-body (spheres), body
         vs a spherical shell, and any fiber node (a clamped fiber's
-        anchored first node excepted) crossing the shell."""
+        anchored first node excepted) crossing the shell. The phase
+        ``collision`` (`obs.profile.phase`)."""
+        with phase("collision"):
+            return self._check_collision_impl(state)
+
+    def _check_collision_impl(self, state: SimState) -> bool:
         if state.bodies is not None:
             if bd.check_collision_pairwise_multi(state.bodies, 0.0):
                 return True
@@ -1121,7 +1148,7 @@ class System:
 
     def run(self, state: SimState, *, writer=None, max_steps: int | None = None,
             rng=None, metrics_path: str | None = None,
-            trace_path: str | None = None):
+            profile_dir: str | None = None, trace_path: str | None = None):
         """Adaptive time loop (`run`): accept/reject on fiber error and
         collision, scale dt by beta_up/beta_down, keep the previous state as
         the backup for rejected steps. ``writer(state, solution,
@@ -1138,20 +1165,37 @@ class System:
         synchronise) and ``write_frame``, ``flight`` rows, ``fault``
         solver-health events and the ``compile`` events of CUDA libraries
         loaded meanwhile; with None an installed tracer
-        (`obs.tracer.use`) is honoured."""
+        (`obs.tracer.use`) is honoured. ``profile_dir`` wraps the loop in
+        `obs.profile.profile_session` (the card's activity on when the
+        system is on the card) and, once the dump is written, folds it into
+        the telemetry stream as one ``device_phase`` event a phase (or one
+        ``device_phase_error``)."""
         import contextlib
 
         from ..obs import tracer as obs_tracer
 
         metrics_fh = open(metrics_path, "a") if metrics_path else None
+        if profile_dir is not None:
+            from ..obs.profile import profile_session
+
+            prof = profile_session(profile_dir, device=self.device)
+        else:
+            prof = contextlib.nullcontext()
         tracer = obs_tracer.Tracer(trace_path) if trace_path else None
         scope = (obs_tracer.use(tracer) if tracer is not None
                  else contextlib.nullcontext())
         try:
-            with scope, obs_tracer.span("run", t_final=self.params.t_final):
-                return self._run_loop(state, writer=writer,
-                                      max_steps=max_steps, rng=rng,
-                                      metrics_fh=metrics_fh)
+            with scope:
+                with prof, obs_tracer.span("run",
+                                           t_final=self.params.t_final):
+                    state = self._run_loop(state, writer=writer,
+                                           max_steps=max_steps, rng=rng,
+                                           metrics_fh=metrics_fh)
+                if profile_dir is not None:
+                    from ..obs.profile import emit_device_phases
+
+                    emit_device_phases(profile_dir, tracer)
+            return state
         finally:
             if tracer is not None:
                 tracer.close()

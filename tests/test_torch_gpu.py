@@ -12,6 +12,7 @@ chip_smoke.py imports jax or the JAX package.
 """
 
 import ast
+import json
 import math
 import os
 from pathlib import Path
@@ -1300,6 +1301,53 @@ def test_tree_sum_after_its_geometry_makes_no_host_sync(cuda, family):
     assert torch.equal(again, first)
 
 
+@pytest.mark.gpu
+def test_profiled_step_attributes_hand_written_kernels(cuda, tmp_path):
+    """One small "mixed" step of the coupled scene under `System.run(
+    profile_dir=)` on the card: Kineto's dump holds kernel events of A-D
+    whose correlation ids lead to their host launches (``cuda_runtime`` or
+    ``cuda_driver``), and `load_device_trace` files them under named
+    phases of the Krylov solve and the prep; at least 90% of the device
+    time is attributed."""
+    from skellysim_tpu_torch.obs import profile as prof
+    from skellysim_tpu_torch.params import Params
+    from skellysim_tpu_torch.system import System
+    from skellysim_tpu_torch.testing import make_coupled_scene
+
+    p = Params(dt_initial=0.02, t_final=0.02, gmres_tol=1e-12,
+               solver_precision="mixed", kernel_impl="pallas",
+               refine_pair_impl="pallas_df")
+    shell, shape, bodies, fibers = make_coupled_scene(
+        shell_n=120, body_n=80, n_bound=4, n_free=2, device="cuda",
+        precond_dtype=torch.float32)
+    system = System(p, shell_shape=shape, device="cuda")
+    state = system.make_state(fibers=fibers, shell=shell, bodies=bodies)
+    system.run(state, max_steps=1)     # the libraries load outside
+    system.run(state, max_steps=1, profile_dir=str(tmp_path))
+    (path,) = prof.find_profile_files(str(tmp_path))
+    events = json.load(open(path))["traceEvents"]
+    launches = {e["args"]["correlation"]: e["cat"] for e in events
+                if e.get("cat") in prof.LAUNCH_CATEGORIES
+                and "correlation" in e.get("args", {})}
+    ours = [e for e in events if e.get("cat") == "kernel"
+            and ("stokeslet_chunk_kernel" in e["name"]
+                 or "stresslet_chunk_kernel" in e["name"])]
+    assert {"float", "double"} <= {
+        t for e in ours for t in ("float", "double")
+        if f"<{t}," in e["name"]}, [e["name"] for e in ours][:4]
+    assert all(e["args"]["correlation"] in launches for e in ours)
+    trace = prof.load_device_trace(str(tmp_path))
+    phases = {}
+    for e in trace.events:
+        if "_chunk_kernel" in e["name"]:
+            phases.setdefault(e["phase"], 0)
+            phases[e["phase"]] += 1
+    assert None not in phases, phases
+    assert any(k.startswith("gmres/") for k in phases), phases
+    assert "prep" in phases, phases
+    assert trace.attributed_frac >= 0.9, prof.render_table(trace)
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -1324,7 +1372,8 @@ def test_port_imports_no_jax():
                 "obs/summarize", "serve/__init__", "serve/__main__",
                 "serve/cli", "serve/client", "serve/journal",
                 "serve/metrics", "serve/server", "serve/tenants",
-                "guard/chaos", "guard/smoke"):
+                "guard/chaos", "guard/smoke", "obs/profile", "obs/timeline",
+                "obs/cli", "obs/__main__"):
         assert f"skellysim_tpu_torch/{mod}.py" in names
     bad = []
     for f in files:

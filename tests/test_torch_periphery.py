@@ -241,3 +241,29 @@ def test_precompute_defaults_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main([path])
         assert not (tmp_path / "periphery_precompute.npz").exists()
+
+
+def test_mapped_npz_load_equals_a_read(tmp_path):
+    """`builder._load_npz(mapped=True)` (the card's shell build: the
+    uncompressed members memory-mapped) gives the arrays a read gives,
+    value, shape, dtype and order, scalars and empty members included;
+    a compressed npz falls back to the read."""
+    rng = np.random.default_rng(4)
+    data = {"nodes": rng.standard_normal((50, 3)),
+            "M_inv": np.asfortranarray(rng.standard_normal((30, 30))),
+            "radius": np.float64(2.5), "empty": np.zeros((0, 3)),
+            "ids": np.arange(7, dtype=np.int32)}
+    for save in (np.savez, np.savez_compressed):
+        path = str(tmp_path / f"{save.__name__}.npz")
+        save(path, **data)
+        got = tbuilder._load_npz(path, "test", mapped=True)
+        assert sorted(got) == sorted(data)
+        for k, v in data.items():
+            g = np.asarray(got[k])
+            assert g.dtype == v.dtype and g.shape == v.shape, k
+            assert np.array_equal(g, v), k
+            if save is np.savez and v.ndim and v.size:
+                assert isinstance(got[k], np.memmap), k
+        assert got["M_inv"].flags.f_contiguous
+        assert torch.equal(torch.as_tensor(got["M_inv"]).contiguous(),
+                           torch.as_tensor(data["M_inv"]).contiguous())

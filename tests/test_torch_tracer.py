@@ -13,7 +13,8 @@ the service, are held against the JAX server's in
 equal the JAX package's on the same inputs; `obs.summarize` renders a
 stream as the JAX summarize does; with no tracer active nothing is
 emitted and a span is inert; both CLIs' ``--trace-file`` write a stream
-that `obs.summarize` renders, and ``--profile`` is refused by name.
+that `obs.summarize` renders, and ``--profile`` (refused until the
+profiler session was ported) writes a dump `obs.profile` parses.
 """
 
 import json
@@ -225,7 +226,9 @@ def _render(path):
 
 def test_run_cli_trace_file_and_profile_refusal(tmp_path):
     """`python -m skellysim_tpu_torch --trace-file` writes a stream that
-    summarize renders; ``--profile`` is refused naming ROADMAP item 14."""
+    summarize renders; ``--profile`` is no longer refused: it writes a
+    dump that `obs.profile` parses."""
+    from skellysim_tpu_torch.obs import profile as tprofile
     from skellysim_tpu_torch import cli
 
     cfg_path = tmp_path / "skelly_config.toml"
@@ -239,14 +242,17 @@ def test_run_cli_trace_file_and_profile_refusal(tmp_path):
         "step") == 4
     report = _render(trace)
     assert "== spans ==" in report and "run/step" in report
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main([f"--config-file={cfg_path}", "--profile=prof",
-                  "--device=cpu", "--overwrite"])
+    prof = tmp_path / "prof"
+    cli.main([f"--config-file={cfg_path}", f"--profile={prof}",
+              "--device=cpu", "--overwrite", "--log-level=WARNING"])
+    assert tprofile.load_device_trace(str(prof)).total_us > 0
 
 
 def test_ensemble_cli_trace_file_and_profile_refusal(tmp_path):
     """`python -m skellysim_tpu_torch.ensemble --trace-file` writes the
-    drain's lane events and rounds; ``--profile`` is refused."""
+    drain's lane events and rounds; ``--profile`` is no longer refused:
+    it writes a dump that `obs.profile` parses."""
+    from skellysim_tpu_torch.obs import profile as tprofile
     _scene(tconfig).save(str(tmp_path / "skelly_config.toml"))
     sweep = tmp_path / "ensemble.toml"
     sweep.write_text('[ensemble]\nbase_config = "skelly_config.toml"\n'
@@ -259,11 +265,12 @@ def test_ensemble_cli_trace_file_and_profile_refusal(tmp_path):
     try:
         runpy.run_module("skellysim_tpu_torch.ensemble",
                          run_name="__main__", alter_sys=True)
-        sys.argv[1:] = [f"--sweep-file={sweep}", "--profile=prof",
-                        "--device=cpu"]
-        with pytest.raises(NotImplementedError, match="item 14"):
-            runpy.run_module("skellysim_tpu_torch.ensemble",
-                             run_name="__main__", alter_sys=True)
+        sys.argv[1:] = [f"--sweep-file={sweep}",
+                        f"--output-dir={tmp_path / 'prof_out'}",
+                        f"--profile={tmp_path / 'prof'}", "--device=cpu",
+                        "--log-level=WARNING"]
+        runpy.run_module("skellysim_tpu_torch.ensemble",
+                         run_name="__main__", alter_sys=True)
     finally:
         sys.argv = argv
     events = [json.loads(line) for line in open(trace)]
@@ -273,3 +280,4 @@ def test_ensemble_cli_trace_file_and_profile_refusal(tmp_path):
     report = _render(trace)
     assert "ensemble lanes" in report and "admission wait:" in report
     assert os.path.exists(tmp_path / "ensemble_metrics.jsonl")
+    assert tprofile.load_device_trace(str(tmp_path / "prof")).total_us > 0
