@@ -440,6 +440,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                It prints {"serve": ...} before the kernels line; A-D's
                entries carry "launches_serve_batched" (a) and
                "launches_serve_unroll" (b).
+19. cost     — run last: the cost counter and the roofline.
+               a. `python -m skellysim_tpu_torch.obs cost --check` on the
+               card (in this process) over the 12 registered programs
+               against the checked-in baselines, which were counted on
+               the CPU: exit 0, and every program's pair-seam totals
+               (`obs.cost`: 22 / 40 flops a pair at the seam, whatever
+               computes it) equal to the CPU's; each program's counts,
+               drifts and `max_memory_allocated` beside its counted
+               temp_bytes printed; FLOPS_PER_PAIR checked against the
+               seam's.
+               b. phase 6's profiled CLI run (2 "mixed" steps of the
+               ellipsoid) and 12d's ("tree") again in this process, the
+               loop under `obs.cost.CostCounter` (the build outside it):
+               gated on the profiled run's frames bit for bit and its
+               iterations; their counts written as a `--cost-table`
+               sidecar, then `obs roofline DUMP --cost-table T
+               --executions 1` over the profiled dump: gated on exit 0,
+               the "H100" row, one device lane and a window MFU in (0, 1).
+               Prints the per-phase table, rated_as, totals.mfu, hbm_util
+               and the intensity against the ridge.
+               c. a step of phase 6's config with no counter active
+               against the same step with every pair seam's hook taken
+               out, in turns: the same host syncs; then A-D through the
+               direct seam, A over a member axis and E through the ring,
+               warm, under `torch.cuda.set_sync_debug_mode("error")`:
+               none raising.
+               It prints {"cost_roofline": ...} before the kernels line.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -505,7 +532,8 @@ PEAK_FP32 = 67e12
 PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
 #: flops per pair, the Pallas tiles' own cost estimates
-#: (skellysim_tpu/ops/pallas_kernels.py `stokeslet_pallas` / `stresslet_pallas`)
+#: (skellysim_tpu/ops/pallas_kernels.py `stokeslet_pallas` / `stresslet_pallas`);
+#: phase 19 checks them equal to the pair seam's (`obs.cost.PAIR_FLOPS`)
 FLOPS_PER_PAIR = {"stokeslet": 22, "stresslet": 40}
 #: words a source carries: position + force (Stokeslet), position + the 9
 #: stresslet components
@@ -1215,14 +1243,16 @@ def phase_confined(torch, ck, cuda_build, device, work, args, card):
     if not ok:
         raise SystemExit("the confined trajectory does not hold finite shell "
                          "densities of the expected length in every frame")
-    profile_cli(torch, device, cfg_path, work, "profile",
-                ref_traj=os.path.join(run_dir, "skelly_sim.out"))
+    profiled = profile_cli(torch, device, cfg_path, work, "profile",
+                           ref_traj=os.path.join(run_dir, "skelly_sim.out"),
+                           keep=True)
     last = reader.load_frame(len(reader) - 1)
     direct_x = np.stack([m["x_"] for m in last["fibers"][1]])
     direct_x1 = np.stack([m["x_"] for m in reader.load_frame(1)["fibers"][1]])
     ring_inputs = {"fiber_nodes": fiber_nodes, "shell_nodes": shell_nodes,
                    "f_dl": f_dl.reshape(-1, 9), "cfg_path": cfg_path,
-                   "direct_x": direct_x, "direct_x1": direct_x1}
+                   "direct_x": direct_x, "direct_x1": direct_x1,
+                   "profiled": profiled}
     return entries, counts, ring_inputs, checks
 
 
@@ -1300,7 +1330,7 @@ def run_obs(argv):
 
 def profile_cli(torch, device, src_cfg, work, tag, evaluator="direct",
                 needed=("A", "B", "C", "D"), ref_traj=None, steps=2,
-                phase_of_kernels=None):
+                phase_of_kernels=None, keep=False):
     """``python -m skellysim_tpu_torch`` on phase 6's ellipsoid config
     through ``evaluator`` for ``steps`` steps, in a process of its own, with
     ``--profile DIR --trace-file T``; then ``python -m
@@ -1314,7 +1344,9 @@ def profile_cli(torch, device, src_cfg, work, tag, evaluator="direct",
     this process, `run_obs`); ``phase_of_kernels(letter,
     phase)`` (when given) true for every needed kernel's phases. Prints
     the phase table, A-H's launches and device time, the dump's size and
-    the parse's seconds. Returns the summary, or None on the CPU."""
+    the parse's seconds. Returns the summary, or None on the CPU; with
+    ``keep`` the run directory stays (phase 19 rates its dump) and the
+    summary names it ("run_dir", "cfg", "dump", "metrics", "steps")."""
     import numpy as np
 
     if device.type != "cuda":
@@ -1330,11 +1362,13 @@ def profile_cli(torch, device, src_cfg, work, tag, evaluator="direct",
     del config
     dump = os.path.join(run_dir, "profile")
     trace = os.path.join(run_dir, "trace.jsonl")
+    metrics = os.path.join(run_dir, "metrics.jsonl")
     env = dict(os.environ, PYTHONPATH=REPO)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "skellysim_tpu_torch", f"--config-file={cfg}",
-         f"--profile={dump}", f"--trace-file={trace}", "--log-level=WARNING"],
+         f"--profile={dump}", f"--trace-file={trace}",
+         f"--metrics-file={metrics}", "--log-level=WARNING"],
         cwd=run_dir, env=env, capture_output=True, text=True, timeout=600)
     run_s = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -1452,7 +1486,11 @@ def profile_cli(torch, device, src_cfg, work, tag, evaluator="direct",
             raise SystemExit(f"{tag}: the profiled run's frames differ from "
                              f"the unprofiled run's by {dx:.3e}")
         out["max_diff_vs_unprofiled"] = dx
-    shutil.rmtree(run_dir)
+    if keep:
+        out.update(run_dir=run_dir, cfg=cfg, dump=dump, metrics=metrics,
+                   steps=steps)
+    else:
+        shutil.rmtree(run_dir)
     return out
 
 
@@ -4110,7 +4148,8 @@ def phase_tree(torch, ck, cuda_build, device, work, args, nodes, f, a_ms,
                 needed=("G", "H", "B", "D"),
                 phase_of_kernels=lambda k, p: (
                     p.startswith("gmres/") and p.endswith("/near/far")
-                    if k in ("G", "H") else p in ("prep", "gmres/refine")))
+                    if k in ("G", "H") else p in ("prep", "gmres/refine")),
+                keep=True)
         shutil.rmtree(run_dir)
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -6539,6 +6578,311 @@ def phase_serve(torch, ck, device, ring_inputs, work, args, card):
     return out, launches
 
 
+# ------------------------------------------------------- 19. cost, roofline
+
+#: 19a's gate on a program's counted bytes against its CPU baseline (%)
+BYTES_DRIFT_PCT = 1.0
+
+
+def cost_check(torch, device):
+    """19a: `python -m skellysim_tpu_torch.obs cost --check` on ``device``
+    (in this process, `run_obs`) against the checked-in baselines, which
+    were counted on the CPU: exit 0 (every gated metric within its
+    tol_pct), every program's pair-seam totals equal to the baseline's
+    ``[pair_seam]`` exactly, its flops the baseline's and its bytes within
+    `BYTES_DRIFT_PCT`. Prints each program's counts and drifts, and
+    on the card `torch.cuda.max_memory_allocated` beside the counted
+    temp_bytes (not gated). Returns the summary."""
+    from skellysim_tpu_torch.config import toml_io
+    from skellysim_tpu_torch.obs import cost
+
+    if FLOPS_PER_PAIR != cost.PAIR_FLOPS:
+        raise SystemExit(f"19a: the bound column's flops a pair "
+                         f"{FLOPS_PER_PAIR} differ from the pair seam's "
+                         f"{cost.PAIR_FLOPS}")
+    t0 = time.perf_counter()
+    rc, text = run_obs(["cost", "--check", "--json",
+                        f"--device={device.type}"])
+    run_s = time.perf_counter() - t0
+    docs = [json.loads(line) for line in text.splitlines()
+            if line.startswith('{"device"')]
+    if rc != 0 or len(docs) != 1:
+        log(text[-6000:])
+        raise SystemExit(f"19a: obs cost --check exited {rc}")
+    out = {"run_s": run_s, "device": docs[0]["device"], "programs": {}}
+    bad = []
+    for row in docs[0]["rows"]:
+        base = toml_io.load(cost.baseline_path(row["name"]))
+        drift = {k: 100.0 * (row[k] - base["cost"][k])
+                 / max(abs(base["cost"][k]), 1.0) for k in cost.COST_KEYS}
+        seam = {k: row[k] for k in cost.PAIR_KEYS}
+        out["programs"][row["name"]] = dict(
+            {k: row.get(k) for k in (*cost.COST_KEYS, *cost.PAIR_KEYS,
+                                     "ops", "run_s",
+                                     "device_max_allocated")},
+            drift_pct=drift, pair_seam_equal=seam == base["pair_seam"])
+        log(f"[cost] {row['name']:<20} flops {row['flops']:.6e} "
+            f"({drift['flops']:+.3f}% of the CPU's), bytes "
+            f"{row['bytes_accessed']:.6e} ({drift['bytes_accessed']:+.3f}%),"
+            f" pairs {row['pairs']} (CPU {base['pair_seam']['pairs']}), "
+            f"temp {row['temp_bytes']} B ({drift['temp_bytes']:+.3f}%), "
+            f"max_memory_allocated {row.get('device_max_allocated')} B, "
+            f"{row['ops']} ops, {row['run_s']} s")
+        if seam != base["pair_seam"]:
+            bad.append((row["name"], seam, base["pair_seam"]))
+        # the count is the work, not the backend's: flops the CPU's, bytes
+        # within 1% (copies between devices count 0 on both)
+        if (abs(drift["flops"]) > 1e-7
+                or abs(drift["bytes_accessed"]) > BYTES_DRIFT_PCT):
+            bad.append((row["name"], "flops / bytes", drift))
+    log(f"[cost] obs cost --check on {out['device']}: exit {rc}, "
+        f"{len(docs[0]['rows'])} programs in {run_s:.1f} s (the baselines "
+        "are the CPU's)")
+    if bad:
+        raise SystemExit(f"19a: pair-seam totals, flops or bytes differ "
+                         f"from the CPU's: {bad}")
+    return out
+
+
+def counted_roofline(torch, device, prof, tag):
+    """19b: the profiled CLI run ``prof`` (`profile_cli` with ``keep``)
+    again in this process, its loop under `obs.cost.CostCounter` (the
+    build outside it, as outside the profiler's window): gated on the
+    profiled run's frames bit for bit and its iterations step by step.
+    Its counts go into a ``--cost-table`` sidecar, and `obs roofline` rates
+    the profiled dump with it (``--executions 1``): gated on the exit
+    code, the "H100" row, one device lane and a window MFU in (0, 1).
+    Prints the per-phase table, rated_as, totals.mfu and hbm_util."""
+    import numpy as np
+
+    from skellysim_tpu_torch.builder import build_simulation
+    from skellysim_tpu_torch.config import toml_io
+    from skellysim_tpu_torch.config.schema import load_runtime_config
+    from skellysim_tpu_torch.io.trajectory import TrajectoryWriter
+    from skellysim_tpu_torch.obs import cost
+    from skellysim_tpu_torch.system import buckets
+
+    cfg, run_dir = prof["cfg"], prof["run_dir"]
+    here = os.path.join(run_dir, "counted")
+    os.makedirs(here)
+    traj = os.path.join(here, "skelly_sim.out")
+    metrics = os.path.join(here, "metrics.jsonl")
+    t0 = time.perf_counter()
+    system, state, rng = build_simulation(cfg, device=device)
+    policy = buckets.BucketPolicy.from_runtime(load_runtime_config(cfg))
+    system.grid_ladder = policy.grid_ladder
+    state, _ = buckets.bucketize(
+        state, policy, pair_evaluator=system.params.pair_evaluator)
+    build_s = time.perf_counter() - t0
+    writer = TrajectoryWriter(traj)
+    writer.write_frame(state, rng_state=rng.dump_state())
+    arg_b = cost.storage_bytes(state)
+    on_card = device.type == "cuda"
+    with writer:
+        if on_card:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with cost.CostCounter() as counter:
+            counter.exclude(state)
+            final = system.run(state, writer=writer.write_frame, rng=rng,
+                               metrics_path=metrics)
+        if on_card:
+            torch.cuda.synchronize(device)
+        counted_s = time.perf_counter() - t0
+    dx = frames_equal(np, os.path.join(run_dir, "skelly_sim.out"), traj,
+                      prof["steps"] + 1)
+    iters = [json.loads(line)["iters"] for line in open(metrics)]
+    ref_iters = [json.loads(line)["iters"] for line in open(prof["metrics"])]
+    log(f"[{tag}] the profiled run's {prof['steps']} steps again in this "
+        f"process under the cost counter: built in {build_s:.1f} s, "
+        f"counted loop {counted_s:.2f} s (profiled loop "
+        f"{prof['loop_s']:.3f} s); iterations {iters} (profiled "
+        f"{ref_iters}); frames max |difference| {dx:.3e}")
+    if dx != 0.0 or iters != ref_iters:
+        raise SystemExit(f"{tag}: the counted run is not the profiled "
+                         f"run's (frames {dx:.3e}, iterations {iters} "
+                         f"against {ref_iters})")
+    out_b = cost.storage_bytes(final)
+    table = {"flops": counter.flops, "bytes_accessed": counter.bytes_accessed,
+             "argument_bytes": arg_b, "output_bytes": out_b,
+             "temp_bytes": counter.temp_bytes,
+             "peak_bytes": arg_b + out_b + counter.temp_bytes}
+    data = {"program": {"name": tag}, "cost": table,
+            "pair_seam": {"pairs": counter.pairs,
+                          "pair_flops": counter.pair_flops,
+                          "pair_bytes": counter.pair_bytes}}
+    if counter.collectives:
+        data["collectives"] = {k: {"max_bytes": int(v)} for k, v
+                               in sorted(counter.collectives.items())}
+    sidecar = os.path.join(run_dir, "cost_table.toml")
+    toml_io.dump(data, sidecar)
+    log(f"[{tag}] counted: {counter.flops:.6e} flops "
+        f"({counter.pair_flops:.6e} in the pair seams: "
+        + ", ".join(f"{k} {v['calls']} sums, {v['pairs']} pairs"
+                    for k, v in sorted(counter.seams.items()))
+        + f"), {counter.bytes_accessed:.6e} bytes, {counter.ops} aten ops "
+        f"counted, temp {counter.temp_bytes} B")
+    argv = ["roofline", prof["dump"], "--cost-table", sidecar,
+            "--executions", "1"]
+    t0 = time.perf_counter()
+    rc, text = run_obs(argv)
+    rc_json, js = run_obs(argv + ["--json"])
+    roof_s = time.perf_counter() - t0
+    for line in text.rstrip().splitlines():
+        log(f"[{tag}] roofline | {line}")
+    if rc != 0 or rc_json != 0:
+        raise SystemExit(f"{tag}: obs roofline exited {rc} / {rc_json}")
+    doc = json.loads(js)
+    tot = doc["totals"]
+    log(f"[{tag}] rated_as {doc['rated_as']!r} ({doc['device_kind']}), "
+        f"{doc['n_devices']} lane(s): totals.mfu {tot['mfu']}, hbm_util "
+        f"{tot['hbm_util']}, intensity {doc['ai']} flop/B (ridge "
+        f"{doc['ridge_flops_per_byte']}), achieved "
+        f"{tot['achieved_flops_per_s']} flop/s over "
+        f"{doc['total_us'] / 1e3:.3f} ms of device time; both roofline "
+        f"commands {roof_s:.1f} s")
+    verdicts = {p["phase"]: p["verdict"] for p in doc["phases"]}
+    if on_card and (doc["rated_as"] != "H100" or doc["n_devices"] != 1
+                    or not (tot["mfu"] is not None
+                            and 0.0 < tot["mfu"] < 1.0)):
+        raise SystemExit(f"{tag}: roofline rated {doc['rated_as']!r} on "
+                         f"{doc['n_devices']} lanes, mfu {tot['mfu']}")
+    return {"iters": iters, "build_s": build_s, "counted_s": counted_s,
+            "cost": table, "pair_seam": data["pair_seam"],
+            "seams": counter.seams, "ops": counter.ops,
+            "rated_as": doc["rated_as"], "n_devices": doc["n_devices"],
+            "ai": doc["ai"], "ridge": doc["ridge_flops_per_byte"],
+            "total_us": doc["total_us"], "totals": tot,
+            "verdicts": verdicts, "roofline_s": roof_s,
+            "phases": [{k: p[k] for k in ("phase", "wall_us", "share",
+                                          "verdict", "achieved_vs_peak")}
+                       for p in doc["phases"]]}
+
+
+def seam_syncs(torch, ck, device, ring_inputs):
+    """19c: a step of phase 6's config (its first state) by `System.run`
+    with no counter active, in turns (A B B A, after a first step not
+    gated) with the same step with every pair seam's hook taken out (the
+    seams' uncounted bodies in their place: each seam's ``uncounted``,
+    `obs.cost.seamed`): the same host syncs
+    (`count_syncs`). The step under a counter is counted too, not gated.
+    Then each seam's inactive path under
+    `torch.cuda.set_sync_debug_mode("error")`, once warm: A-D through the
+    direct seam, A over a member axis and E through the ring, none
+    raising."""
+    import numpy as np
+
+    from skellysim_tpu_torch.obs import cost
+    from skellysim_tpu_torch.ops import kernels
+    from skellysim_tpu_torch.parallel import make_mesh
+    from skellysim_tpu_torch.parallel.ring import ring_stokeslet
+    from skellysim_tpu_torch.system import System
+
+    params, shape = ring_inputs["system_args"]
+    system = System(params, shell_shape=shape, device=device)
+    state = ring_inputs["state"]
+    names = [w.__name__ for w in (*ck.KERNEL_WRAPPERS, *ck.MEMBER_WRAPPERS)]
+
+    def step():
+        system.run(state, max_steps=1)
+        torch.cuda.synchronize(device)
+
+    def unhooked():
+        saved = (kernels._direct, {n: getattr(ck, n) for n in names})
+        kernels._direct = kernels._direct.uncounted
+        for n in names:
+            setattr(ck, n, getattr(ck, n).uncounted)
+        try:
+            step()
+        finally:
+            kernels._direct = saved[0]
+            for n, w in saved[1].items():
+                setattr(ck, n, w)
+
+    def counted():
+        with cost.CostCounter():
+            step()
+
+    first = count_syncs(torch, step)
+    counts = {"inactive": [], "unhooked": []}
+    for name, fn in (("inactive", step), ("unhooked", unhooked),
+                     ("unhooked", unhooked), ("inactive", step)):
+        counts[name].append(count_syncs(torch, fn))
+    under_counter = count_syncs(torch, counted)
+    log(f"[cost] host syncs of a phase-6 step: {counts['inactive']} with no "
+        f"counter active, {counts['unhooked']} with the seams' hooks taken "
+        f"out, in turns (the first counted step {first}); under a counter "
+        f"{under_counter} (not gated)")
+    if len(set(counts["inactive"] + counts["unhooked"])) != 1:
+        raise SystemExit(f"19c: host syncs {counts}")
+
+    rng = np.random.default_rng(19)
+    n = 4096
+
+    def t(*shape, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device=device)
+
+    src, trg, f, S = t(n, 3), t(n, 3), t(n, 3), t(n, 3, 3)
+    src64, trg64, f64 = src.double(), trg.double(), f.double()
+    mesh = make_mesh(RING_SHARDS, device=device)
+    calls = [
+        ("A", lambda: kernels.stokeslet_direct(src, trg, f, 1.0)),
+        ("B", lambda: kernels.stokeslet_direct(src64, trg64, f64, 1.0)),
+        ("C", lambda: kernels.stresslet_direct(src, trg, S, 1.0)),
+        ("D", lambda: kernels.stresslet_direct(src, trg, S, 1.0,
+                                               impl="pallas_df")),
+        ("A batched", lambda: kernels.stokeslet_direct(
+            src.view(4, n // 4, 3), trg.view(4, n // 4, 3),
+            f.view(4, n // 4, 3), 1.0)),
+        ("E", lambda: ring_stokeslet(src, trg, f, 1.0, mesh=mesh,
+                                     impl="pallas"))]
+    before = read_counts(ck)
+    for _, fn in calls:
+        fn()                      # warm: plans, libraries, casts' inputs
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _, fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(device)
+    after = read_counts(ck)
+    launched = {k: after[k] - before[k] for k in after if after[k] - before[k]}
+    log(f"[cost] {', '.join(c for c, _ in calls)} through their seams with no"
+        f" counter under set_sync_debug_mode(\"error\"): no sync raised; "
+        f"launches {launched}")
+    for name in ("stokeslet_f32", "stokeslet_f64", "stresslet_f32",
+                 "stresslet_f64", "stokeslet_f32_batched",
+                 "ring_stokeslet_f32"):
+        if not launched.get(name):
+            raise SystemExit(f"19c: {name} did not launch")
+    return {"syncs_inactive": counts["inactive"],
+            "syncs_unhooked": counts["unhooked"],
+            "syncs_first": first, "syncs_under_counter": under_counter,
+            "error_mode_calls": [c for c, _ in calls], "launches": launched}
+
+
+def phase_cost_roofline(torch, ck, device, ring_inputs, tree):
+    """Phase 19: 19a (`cost_check`) on the device; on the card 19b
+    (`counted_roofline`) over phase 6's and 12d's profiled runs and 19c
+    (`seam_syncs`). Returns the summary."""
+    out = {"cost_check": cost_check(torch, device)}
+    stamp("phase 19a")
+    if device.type != "cuda":
+        log("[cost] 19b-c not measured (CPU rehearsal: no profiled dump, no "
+            "CUDA syncs)")
+        return out
+    out["ellipsoid"] = counted_roofline(torch, device,
+                                        ring_inputs["profiled"], "profile")
+    out["tree"] = counted_roofline(
+        torch, device, tree["tree_ellipsoid"]["profiled"], "tree_profile")
+    stamp("phase 19b")
+    out["syncs"] = seam_syncs(torch, ck, device, ring_inputs)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--spmd-worker"]:
@@ -6577,8 +6921,8 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
         (entries, launches, smi, fast, tree, spmd, ens, options,
-         flight, serve) = run_phases(torch, ck, cuda_build, TrajectoryReader,
-                                     device, args, work)
+         flight, serve, cost_roof) = run_phases(
+             torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -6597,6 +6941,7 @@ def main(argv=None) -> int:
     print(json.dumps({"options": options}), flush=True)
     print(json.dumps({"flight_listener": flight}, default=str), flush=True)
     print(json.dumps({"serve": serve}, default=str), flush=True)
+    print(json.dumps({"cost_roofline": cost_roof}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6606,10 +6951,11 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-16 (10-14 and 16a-c run after 8, on phase 6's precompute,
-    then 9, then 15 and 16d); returns (kernel entries, launch counts by
-    path, the nvidia-smi line, phase 11's summary, phase 12's, phase 13's
-    with phase 14's, phase 15's, phase 16's)."""
+    """Phases 1-19 (10-14 and 16a-c run after 8, on phase 6's precompute,
+    then 9, then 15, 16d, 17, 18 and 19); returns (kernel entries, launch
+    counts by path, the nvidia-smi line, phase 11's summary, phase 12's,
+    phase 13's with phase 14's, phase 15's, phase 16's, phase 17's, phase
+    18's, phase 19's)."""
     import numpy as np
 
     # 1. device
@@ -6851,12 +7197,23 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
             e["launches_serve_batched"] = launches["serve_vmap"][
                 e["name"] + "_batched"]
             e["launches_serve_unroll"] = launches["serve_unroll"][e["name"]]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 18")
+
+    # 19. cost and roofline: the registry counted on the device against
+    # the CPU's baselines; phase 6's and 12d's profiled runs counted and
+    # their dumps rated against the H100 row; the seams' host syncs
+    t19 = time.perf_counter()
+    cost_roof = phase_cost_roofline(torch, ck, device, ring_inputs, tree)
+    cost_roof["phase_s"] = time.perf_counter() - t19
     del ring_inputs
     shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    stamp("phase 18")
+    stamp("phase 19")
 
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
@@ -6871,7 +7228,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
     return (entries, launches, smi, fast, tree, spmd, ens, options,
-            flight_out, serve)
+            flight_out, serve, cost_roof)
 
 
 if __name__ == "__main__":

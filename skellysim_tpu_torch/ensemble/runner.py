@@ -523,3 +523,35 @@ class EnsembleRunner:
             active_fibers=active, needs_growth=running & growth, di_s=di_s)
         return EnsembleState(states=merged, t_final=ens.t_final,
                              di_rng=di_rng), info
+
+
+# ---------------------------------------------------------------- the registry
+
+def auditable_programs():
+    """The ensemble layer's registry entry: one "vmap" round of B = 4
+    free-fiber members (4 fibers x 8 nodes each), the batched trial and
+    the per-member accept ladder, the JAX package's ``ensemble_step``."""
+    from ..audit import fixtures
+    from ..audit.registry import AuditProgram, BuiltProgram
+
+    def build(device=None):
+        from ..system import BackgroundFlow
+
+        system = fixtures.make_system(device=device)
+        runner = EnsembleRunner(system)
+        dev = system.device
+        states = [system.make_state(
+            fibers=fixtures.make_fibers(n_fibers=4, n_nodes=8, seed=i,
+                                        device=dev),
+            background=BackgroundFlow.make(uniform=(1.0, 0.0, 0.0),
+                                           dtype=torch.float64, device=dev))
+            for i in range(4)]
+        return BuiltProgram(runner.step,
+                            (runner.make_ensemble(states, [1e-2] * 4),),
+                            device=dev)
+
+    return [AuditProgram(
+        name="ensemble_step", layer="ensemble",
+        summary="batched trial round (B=4 free-fiber members, per-member "
+                "accept ladder)",
+        build=build)]

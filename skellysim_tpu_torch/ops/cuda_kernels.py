@@ -72,8 +72,12 @@ blocked displacement forms of `ops.kernels.stokeslet_block` /
 `stresslet_block`); a CUDA tensor launches the kernel. There is no
 fallback: a build or launch failure raises. Each wrapper counts its
 launches in a plain int attribute (``stokeslet_f32.launches``), incremented
-where the kernel is launched and nowhere else. ``eta=None`` returns the
-unscaled sum (the block entry the ring evaluator will use; the stresslet's
+where the kernel is launched and nowhere else. Each wrapper is also a pair
+seam of `obs.cost`: under a counter it counts its sum once, from the
+shapes (the treecode's from its lists), whether the kernel or the plain
+version computes it (`obs.cost.seamed`; ``wrapper.uncounted`` is the call
+without the seam). ``eta=None`` returns the unscaled sum (the block entry
+the ring evaluator will use; the stresslet's
 -3 is part of the sum, as in `stresslet_pallas_block`).
 """
 
@@ -86,6 +90,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..obs import cost as _cost
 from . import cuda_build
 from .kernels import _pair_sum, stokeslet_block, stresslet_block
 
@@ -548,6 +553,7 @@ def _make_wrapper(family: str, prec: str, name: str, launch):
         u = _pair_sum(block, r_trg.to(dtype), (r_src.to(dtype), pay))
         return u if eta is None else u * (_FACTOR / eta)
 
+    @_cost.seamed(family, _cost.dense_work)
     def wrapper(r_src, r_trg, payload, eta=None):
         if r_trg.device.type == "cpu":
             return plain(r_src, r_trg, payload, eta)
@@ -588,6 +594,7 @@ def _batched_wrapper(family: str, prec: str, lone_plain):
         return torch.stack([lone_plain(s, t, p, eta)
                             for s, t, p in zip(r_src, r_trg, payload)])
 
+    @_cost.seamed(family, _cost.dense_work)
     def wrapper(r_src, r_trg, payload, eta=None, *, chunks=None):
         if r_trg.device.type == "cpu":
             return plain(r_src, r_trg, payload, eta)
@@ -1080,6 +1087,7 @@ def _make_ring_wrapper(family: str, name: str):
             [t.device for t in r_trg], u0, list(src), list(payload),
             mesh=mesh)
 
+    @_cost.seamed(family, _cost.ring_lists_work)
     def wrapper(r_trg, src, payload, mesh=None):
         if all(t.device.type == "cpu" for t in r_trg):
             return plain(r_trg, src, payload, mesh)
@@ -1269,6 +1277,7 @@ def _tree_wrapper(family: str, prec: str, v1: bool = False):
         return _tree_plain_sum(terms, trg, src, pay, items, segs) \
             * (_FACTOR / eta)
 
+    @_cost.seamed(family, _cost.tree_work)
     def wrapper(r_trg, src, payload, items, segs, eta):
         if r_trg.device.type == "cpu":
             return plain(r_trg, src, payload, items, segs, eta)

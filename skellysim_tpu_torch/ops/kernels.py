@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from ..obs import cost as _cost
+
 DEFAULT_REG = 5e-3
 DEFAULT_EPS = 1e-5
 
@@ -181,13 +183,19 @@ def pallas_impl_for(impl: str, *arrays) -> str:
     return impl
 
 
+def _direct_work(family, _family, r_src, r_trg, payload, *_):
+    return _cost.dense_work(family, r_src, r_trg, payload)
+
+
+@_cost.seamed(None, _direct_work)
 def _direct(family: str, r_src, r_trg, payload, eta, impl: str):
     """The seam's one routing rule for a pair-sum ``family`` ("stokeslet"
     or "stresslet"): the f64-grade tier ("pallas_df") takes the f64 kernel
     whatever the input dtype and casts back to ``r_trg.dtype`` (the JAX
     package's DF contract: an f32 solve must not silently promote to f64);
     "exact" and "pallas" take the kernel of the operands' own precision,
-    "pallas" with any f64 operand resolving to "exact" first."""
+    "pallas" with any f64 operand resolving to "exact" first. It is the
+    pair seam `obs.cost` counts: one sum, whichever tile computes it."""
     from . import cuda_kernels
 
     # a leading member axis ([B, n, .] operands) takes the batched kernels

@@ -495,3 +495,33 @@ def stresslet_spectral(plan: SpectralPlan, r_dl, r_trg, f_dl):
 
     return make_pair(plan, r_dl.device).stresslet(r_dl, r_trg, f_dl,
                                                   plan.eta)
+
+
+# ---------------------------------------------------------------- the registry
+
+def auditable_programs():
+    """The periodic fast path's registry entry: the spectral Stokeslet on
+    a triply periodic cloud of 256 points (FFT far field and wrapped near
+    tiles, f64), the JAX package's ``stokeslet_spectral``."""
+    from ..audit.registry import AuditProgram, BuiltProgram
+
+    def build(device=None):
+        from ..device import resolve_device
+        from .evaluator import make_pair
+
+        dev = resolve_device(device)
+        rng = np.random.default_rng(17)
+        pts = rng.uniform(0.0, 4.0, (256, 3))
+        f = rng.standard_normal((256, 3))
+        plan = plan_spectral(pts, (4.0, 4.0, 4.0), eta=1.0, tol=1e-4)
+        r = torch.as_tensor(pts, dtype=torch.float64, device=dev)
+        return BuiltProgram(stokeslet_impl, (
+            plan, make_pair(plan, dev).anchors, r, r,
+            torch.as_tensor(f, dtype=torch.float64, device=dev),
+            pts.shape[0], plan.eta), device=dev)
+
+    return [AuditProgram(
+        name="stokeslet_spectral", layer="ops",
+        summary="periodic spectral-Ewald Stokeslet evaluator (triply "
+                "periodic cloud, FFT far field + wrapped near tiles, f64)",
+        build=build)]

@@ -814,3 +814,41 @@ def oseen_tree(plan: TreePlan, r_src, r_trg, density, eta,
     out = torch.empty_like(u)
     out[order] = u
     return out
+
+
+# ---------------------------------------------------------------- the registry
+
+def auditable_programs():
+    """The ops layer's registry entry: the treecode Stokeslet (geometry,
+    payload and one G pass) on a fiber-like clustered cloud of 32 x 16
+    points, the JAX package's ``stokeslet_tree``."""
+    from ..audit.registry import AuditProgram, BuiltProgram
+
+    def build(device=None):
+        from ..device import resolve_device
+        from .evaluator import make_pair
+
+        dev = resolve_device(device)
+        rng = np.random.default_rng(61)
+        nf, nn = 32, 16
+        origins = rng.uniform(-2, 2, (nf, 3))
+        dirs = rng.normal(size=(nf, 3))
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        t = np.linspace(0, 1.0, nn)
+        pts = (origins[:, None, :]
+               + t[None, :, None] * dirs[:, None, :]).reshape(-1, 3)
+        f = rng.standard_normal((len(pts), 3))
+        plan = plan_tree(pts, tol=1e-4)
+        # the depth's static tables are set-up, as the plan is: made here,
+        # the count does not depend on what ran before in the process
+        _device_geometry(plan.depth, dev)
+        r = torch.as_tensor(pts, dtype=torch.float64, device=dev)
+        return BuiltProgram(stokeslet_impl, (
+            plan, make_pair(plan, dev).anchors, r, r,
+            torch.as_tensor(f, dtype=torch.float64, device=dev), 0, 1.0),
+            device=dev)
+
+    return [AuditProgram(
+        name="stokeslet_tree", layer="ops",
+        summary="treecode Stokeslet evaluator (clustered fiber cloud, f64)",
+        build=build)]

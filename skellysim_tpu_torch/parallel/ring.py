@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from ..obs import cost as _cost
 from ..obs.profile import phase
 from ..ops import cuda_kernels
 from ..ops import kernels
@@ -146,7 +147,8 @@ def _ring_or_fused(kind, impl: str, block_fn, mesh: Mesh, r_trg, *rotating,
     zero, in ``acc_dtype`` (default: the targets'). ``r_trg`` and
     ``rotating`` are per-shard lists; returns the unscaled per-shard sums.
     ``kind`` names the fused family ("stokeslet" / "stresslet"; None for
-    tiles it does not serve)."""
+    tiles it does not serve). Under `obs.cost` the fused kernel's wrapper
+    and each hop's block are the pair seams."""
     if (kind is not None and mesh.size > 1
             and fused_ring_mode(impl, r_trg[0].device, mesh) == "fused"):
         return getattr(cuda_kernels, f"ring_{kind}_f32")(
@@ -169,9 +171,10 @@ def _ring_block(impl: str, family: str, dtype):
     if impl == "mxu":
         # the matmul-form tile over the whole rotating block, recentered on
         # its first point as the JAX package's ring tile is
-        return lambda trg, src, pay: kernels.mxu_sum(
-            family, src, trg, _unflat(family, pay),
-            centered_chunk=src.shape[0])
+        return _cost.seamed(family, _cost.block_work)(
+            lambda trg, src, pay: kernels.mxu_sum(
+                family, src, trg, _unflat(family, pay),
+                centered_chunk=src.shape[0]))
     raise ValueError(
         f"ring evaluator has no {impl!r} tile; use 'exact', 'mxu' or "
         "'pallas' (double-float rides ring_stokeslet_df / "
@@ -228,8 +231,9 @@ def _df_ring_block(impl: str, family: str):
         from ..ops import df_kernels
 
         block = getattr(df_kernels, f"{family}_block_df")
-        return lambda trg, src, pay: df_kernels.df_block_sum(
-            block, src, trg, _unflat(family, pay))
+        return _cost.seamed(family, _cost.block_work)(
+            lambda trg, src, pay: df_kernels.df_block_sum(
+                block, src, trg, _unflat(family, pay)))
     raise ValueError(f"DF ring tiles serve 'df' or 'pallas_df', got {impl!r}")
 
 

@@ -63,6 +63,7 @@ import torch
 from ..bodies import bodies as bd
 from ..fibers import container as fc
 from ..guard import verdict as _verdict
+from ..obs import cost as _cost
 from ..obs.profile import phase
 from ..periphery import periphery as peri
 from ..solver import gmres, gmres_ir
@@ -122,6 +123,8 @@ class Collectives:
         return self._fold(operator.add, parts)
 
     def _fold(self, op, parts) -> list:
+        if _cost._ACTIVE is not None:
+            _cost._ACTIVE.collective("all_reduce", parts)
         every = self.every_shard(parts)
         acc = every[0]
         for p in every[1:]:
@@ -143,6 +146,8 @@ class Collectives:
     def all_gather(self, parts) -> list:
         """The shards' ``parts`` concatenated in shard order (tiled along
         the leading axis), each shard's copy."""
+        if _cost._ACTIVE is not None:
+            _cost._ACTIVE.collective("all_gather", parts)
         full = torch.cat(self.every_shard(parts))
         return [full.to(d) for d in self.devices]
 
@@ -151,9 +156,12 @@ class Collectives:
         """Each shard's resident targets ``r_trg[k]`` summed over every
         shard's ``rotating`` blocks: `parallel.ring._ring_or_fused` (the
         fused kernel E / F, or ``block_fn`` a hop)."""
+        rotating = [list(r) for r in rotating]
+        if _cost._ACTIVE is not None:
+            _cost._ACTIVE.collective("collective_permute",
+                                     list(zip(*rotating)))
         return _ring_or_fused(kind, impl, block_fn, self.mesh, list(r_trg),
-                              *[list(r) for r in rotating],
-                              acc_dtype=acc_dtype)
+                              *rotating, acc_dtype=acc_dtype)
 
 
 class ShardVec:
@@ -871,3 +879,32 @@ def spmd_step(system, state: ShardedState, mesh: Mesh, *,
     return build_spmd_step(system, mesh, state,
                            allow_replicated_shell=allow_replicated_shell,
                            flat_solution=flat_solution)(state)
+
+
+# ---------------------------------------------------------------- the registry
+
+def auditable_programs():
+    """The sharded step's registry entries: the coupled step (16 fibers,
+    the 56-node shell row-sharded, one forced body) at ``gmres_block_s =
+    4`` on meshes of 2, 4 and 8 shards of one device
+    (``make_mesh(n, device=...)``), the JAX package's ``step_spmd_d*``."""
+    from ..audit import fixtures
+    from ..audit.registry import AuditProgram, BuiltProgram
+    from .mesh import make_mesh, shard_state
+
+    def build(n_dev):
+        def _build(device=None):
+            system = fixtures.make_system(shell=True, device=device,
+                                          gmres_block_s=4)
+            mesh = make_mesh(n_dev, device=system.device)
+            state = shard_state(fixtures.coupled_state(system), mesh)
+            return BuiltProgram(build_spmd_step(system, mesh, state,
+                                                flat_solution=False),
+                                (state,), device=system.device)
+        return _build
+
+    return [AuditProgram(
+        name=f"step_spmd_d{n_dev}", layer="parallel",
+        summary=f"sharded coupled step on a mesh of {n_dev} shards of one "
+                "device (row-sharded shell)",
+        build=build(n_dev)) for n_dev in (2, 4, 8)]

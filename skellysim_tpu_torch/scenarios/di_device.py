@@ -267,3 +267,51 @@ def _di_update_impl(state, params, di_rng, *, sample_fn=None):
                                 fibers.config_rank))
     return state._replace(fibers=out), DIInfo(
         n_fill, n_die, cap - free_slots + n_fill, False)
+
+
+def auditable_programs():
+    """The scenarios layer's registry entry: one device DI update over a
+    fixture with capacity padding (8 slots, 3 live fibers, one bound to a
+    nucleation site of a 40-node sphere), the JAX package's
+    ``di_device``."""
+    from ..audit.registry import AuditProgram, BuiltProgram
+
+    def build(device=None):
+        from ..params import DynamicInstability, Params
+        from ..periphery.precompute import precompute_body
+        from ..system import System
+
+        params = Params(
+            eta=1.0, dt_initial=0.02, dt_write=0.02, t_final=0.08,
+            gmres_tol=1e-10, adaptive_timestep_flag=False,
+            dynamic_instability=DynamicInstability(
+                n_nodes=8, v_growth=0.2, f_catastrophe=0.5,
+                nucleation_rate=60.0, min_length=0.4, radius=0.0125,
+                bending_rigidity=0.01))
+        system = System(params, device=device)
+        dev = system.device
+        pre = precompute_body("sphere", 40, radius=0.5)
+        rng = np.random.default_rng(11)
+        sites = rng.standard_normal((6, 3))
+        sites = 0.5 * sites / np.linalg.norm(sites, axis=1, keepdims=True)
+        bodies = bd.make_group(pre["node_positions_ref"],
+                               pre["node_normals_ref"], pre["node_weights"],
+                               nucleation_sites_ref=sites[None], radius=0.5,
+                               device=dev)
+        x = np.tile(np.linspace(0.0, 1.0, 8)[None, :, None], (3, 1, 3))
+        x += (1.5 + np.arange(3))[:, None, None]
+        g = fc.grow_capacity(fc.make_group(x, lengths=1.0,
+                                           bending_rigidity=0.01,
+                                           radius=0.0125, device=dev), 8)
+        bb, bs = g.binding_body.clone(), g.binding_site.clone()
+        bb[0], bs[0] = 0, 0          # occupied site: exercises the bitmap
+        g = g._replace(binding_body=bb, binding_site=bs)
+        state = system.make_state(fibers=g, bodies=bodies)
+        return BuiltProgram(di_update, (state, params, [0, 3, 0]),
+                            device=dev)
+
+    return [AuditProgram(
+        name="di_device", layer="scenarios",
+        summary="device DI update (nucleation/catastrophe mask flips over "
+                "an 8-slot capacity batch, 3 live fibers)",
+        build=build)]

@@ -839,3 +839,35 @@ def collective_rounds(iters, cycles, block_s: int = 1,
         return 3 * iters + 2 * boundaries
     return 2 * (-(-iters // block_s)) + 2 * boundaries
 
+
+
+# ---------------------------------------------------------------- the registry
+
+def auditable_programs():
+    """The solver layer's registry entry: a bare f32 GMRES solve on a
+    dense well-conditioned 64 x 64 operator, the program the
+    mixed-precision path embeds as its Krylov inner loop (the JAX
+    package's ``gmres_f32``)."""
+    from ..audit.registry import AuditProgram, BuiltProgram
+
+    def build(device=None):
+        from ..device import resolve_device
+
+        dev = resolve_device(device)
+        rng = np.random.default_rng(11)
+        n = 64
+        A = torch.as_tensor(np.eye(n) + 0.1 * rng.standard_normal((n, n)),
+                            dtype=torch.float32, device=dev)
+        b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device=dev)
+        return BuiltProgram(_registered_solve, (A, b), device=dev)
+
+    return [AuditProgram(
+        name="gmres_f32", layer="solver",
+        summary="bare f32 GMRES on a dense 64x64 operator (the mixed "
+                "path's Krylov inner loop)",
+        build=build)]
+
+
+def _registered_solve(A, b):
+    return gmres(lambda x: A @ x, b, tol=1e-4, restart=32, maxiter=64)

@@ -1468,3 +1468,47 @@ class VelocityField:
                                         device=r_trg.device), idx]
             v = torch.where(inside.any(dim=1)[:, None], pick, v)
         return v
+
+
+# ---------------------------------------------------------------- the registry
+
+def auditable_programs():
+    """This layer's entries in the cost registry (`audit.programs`): the
+    single-device implicit step (and its donating twin's name), the
+    mixed-precision step and the step with the K = 32 flight recorder
+    armed, the JAX package's four. Each ``build(device)`` makes the
+    free-fiber fixture scene on ``device`` and runs `System.trial_step`
+    (prep, GMRES, advance) on it."""
+    from ..audit import fixtures
+    from ..audit.registry import AuditProgram, BuiltProgram
+
+    def build(**overrides):
+        def _build(device=None):
+            system = fixtures.make_system(device=device, **overrides)
+            state = fixtures.free_state(system)
+            return BuiltProgram(system.trial_step, (state,),
+                                device=system.device)
+        return _build
+
+    return [
+        AuditProgram(
+            name="step_single", layer="system",
+            summary="single-device implicit step (free fibers, f64)",
+            build=build()),
+        AuditProgram(
+            # eager torch keeps no program whose inputs it could alias:
+            # the JAX package's donating twin is the same callable here
+            name="step_single_donated", layer="system",
+            summary="step_single's callable under the JAX package's "
+                    "donating twin's name (the port does not donate)",
+            build=build()),
+        AuditProgram(
+            name="step_mixed", layer="system",
+            summary="mixed-precision step (f32 Krylov + f64 df refinement)",
+            build=build(solver_precision="mixed", refine_pair_impl="df")),
+        AuditProgram(
+            name="step_flight", layer="system",
+            summary="single-device implicit step with the K=32 flight "
+                    "recorder armed",
+            build=build(flight_window=32)),
+    ]

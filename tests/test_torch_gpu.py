@@ -1348,6 +1348,60 @@ def test_profiled_step_attributes_hand_written_kernels(cuda, tmp_path):
     assert trace.attributed_frac >= 0.9, prof.render_table(trace)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["exact", "pallas_df", "df", "mxu"])
+def test_counted_pair_sums_on_the_card(cuda, impl):
+    """Under `obs.cost.CostCounter` a direct sum on the card counts what
+    it counts on the CPU (22 / 40 flops a pair, the operands' bytes, no
+    aten op of the tile or its staging) and gives the uncounted bits; A-D
+    still launch where ``impl`` routes to them."""
+    from skellysim_tpu_torch.obs import cost
+    from skellysim_tpu_torch.ops import cuda_kernels as ck
+    from skellysim_tpu_torch.ops import kernels
+
+    counts = {}
+    for dev in ("cpu", "cuda"):
+        src, trg, f = (t.to(torch.float32)
+                       for t in _cloud(3000, 2000, torch.float64, dev))
+        S = f[:, :, None] * f[:, None, :]
+        for family, pay in (("stokeslet", f), ("stresslet", S)):
+            fn = getattr(kernels, f"{family}_direct")
+            ref = fn(src, trg, pay, 1.0, impl=impl)
+            before = sum(w.launches for w in ck.KERNEL_WRAPPERS)
+            with cost.CostCounter() as c:
+                got = fn(src, trg, pay, 1.0, impl=impl)
+            assert torch.equal(got, ref)
+            counts[dev, family] = (c.pairs, c.flops, c.bytes_accessed, c.ops)
+            launched = sum(w.launches for w in ck.KERNEL_WRAPPERS) - before
+            assert launched == (dev == "cuda" and impl in ("exact",
+                                                           "pallas_df"))
+    for family in ("stokeslet", "stresslet"):
+        assert counts["cuda", family] == counts["cpu", family]
+        assert counts["cpu", family][1] == cost.PAIR_FLOPS[family] * 6e6
+        assert counts["cpu", family][3] == 0
+
+
+@pytest.mark.gpu
+def test_cost_check_on_the_card(cuda):
+    """`obs cost --check` on the card against the checked-in CPU
+    baselines: no finding, every program's pair-seam totals and flops the
+    CPU's, its bytes within 1% (a copy between devices counts 0)."""
+    from skellysim_tpu_torch.audit.programs import all_programs
+    from skellysim_tpu_torch.config import toml_io
+    from skellysim_tpu_torch.obs import cost
+
+    rows, findings = cost.audit_costs(all_programs(), device="cuda")
+    assert findings == [], [f.render() for f in findings]
+    for row in rows:
+        base = toml_io.load(cost.baseline_path(row["name"]))
+        assert {k: row[k] for k in cost.PAIR_KEYS} == base["pair_seam"], \
+            row["name"]
+        for key, rel in (("flops", 1e-9), ("bytes_accessed", 1e-2)):
+            assert abs(row[key] - base["cost"][key]) \
+                <= rel * base["cost"][key], (row["name"], key)
+        assert row["device_max_allocated"] > 0
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -1373,7 +1427,9 @@ def test_port_imports_no_jax():
                 "serve/cli", "serve/client", "serve/journal",
                 "serve/metrics", "serve/server", "serve/tenants",
                 "guard/chaos", "guard/smoke", "obs/profile", "obs/timeline",
-                "obs/cli", "obs/__main__"):
+                "obs/cli", "obs/__main__", "audit/__init__", "audit/engine",
+                "audit/registry", "audit/fixtures", "audit/programs",
+                "obs/cost", "obs/roofline"):
         assert f"skellysim_tpu_torch/{mod}.py" in names
     bad = []
     for f in files:
