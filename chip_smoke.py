@@ -397,7 +397,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                integrator steps, velocity evaluations and launches are
                printed from the server's log.
                It prints {"flight_listener": ...} before the kernels line.
-18. serve    — run last, on phase 15's scene and phase 6's first state:
+18. serve    — after 17, on phase 15's scene and phase 6's first state:
                a. 10 DI tenants (phase 15's member scene without its
                cortex: serve tenants bring no periphery; seed and site
                draw differ) submitted to an in-process
@@ -440,7 +440,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                It prints {"serve": ...} before the kernels line; A-D's
                entries carry "launches_serve_batched" (a) and
                "launches_serve_unroll" (b).
-19. cost     — run last: the cost counter and the roofline.
+19. cost     — after 18: the cost counter and the roofline.
                a. `python -m skellysim_tpu_torch.obs cost --check` on the
                card (in this process) over the 12 registered programs
                against the checked-in baselines, which were counted on
@@ -467,6 +467,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                warm, under `torch.cuda.set_sync_debug_mode("error")`:
                none raising.
                It prints {"cost_roofline": ...} before the kernels line.
+20. audit    — after 19: the program auditor on the card.
+               a. `python -m skellysim_tpu_torch.audit` (in this process)
+               over the 12 registered programs and the 6 kernel families
+               (A-H): exit 0. Then each program's observed run
+               (`audit.engine.ProgramRun`) against the same call on a
+               fresh build under `torch.cuda.set_sync_debug_mode("warn")`:
+               the observer's host syncs equal the debug mode's, program
+               by program; the table of both printed.
+               b. the mask check's poisoned runs on the card (dead slots
+               NaN, then +/-inf): every live output keeps the clean run's
+               bits; each padded program's pad classes printed.
+               c. the `dma` check on A-H: each compiled function's
+               registers, shared bytes and spills (the -Xptxas -v
+               report) against the contracts and the card's per-block
+               limit, and 20 back-to-back launches at a ragged shape with
+               the same bits and the plain version's result; the resource
+               table printed.
+               It prints {"audit": ...} before the kernels line; phase 20's
+               wall beside the card's name and power limit.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -6883,6 +6902,150 @@ def phase_cost_roofline(torch, ck, device, ring_inputs, tree):
     return out
 
 
+# ------------------------------------------------------------- 20. audit
+
+def run_audit(argv):
+    """``python -m skellysim_tpu_torch.audit ARGV`` in this process:
+    (exit code, standard output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    saved = sys.argv
+    sys.argv = ["skellysim_tpu_torch.audit", *argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module("skellysim_tpu_torch.audit", run_name="__main__",
+                             alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    finally:
+        sys.argv = saved
+    return rc, out.getvalue()
+
+
+def audit_syncs(torch, device):
+    """20a's second half: each registered program's observed run against
+    the same call on a fresh build (its dead slots made the same way,
+    after a warm run) under the sync debug mode. Returns {program:
+    {"observer", "debug", "kinds"}}; raises on the first that differs."""
+    from skellysim_tpu_torch.audit import maskflow
+    from skellysim_tpu_torch.audit.engine import ProgramRun, load_contract
+    from skellysim_tpu_torch.audit.programs import all_programs
+
+    count_syncs(torch, lambda: None)     # the debug mode's first use
+    rows, bad = {}, []
+    for prog in all_programs():
+        contract, _ = load_contract(prog.name)
+        run = ProgramRun(prog, device, contract)
+        torch.cuda.synchronize(device)
+        built = prog.build(device)
+        args = maskflow.with_dead_slots(built.args, run.axes)
+        torch.cuda.synchronize(device)
+        debug = count_syncs(torch, lambda: built.fn(*args, **built.kwargs))
+        obs = run.observation
+        rows[prog.name] = {"observer": obs.syncs, "debug": debug,
+                           "kinds": obs.sync_events()}
+        log(f"[audit] {prog.name:<20} host syncs: observer {obs.syncs:>3}, "
+            f"set_sync_debug_mode {debug:>3}  {obs.sync_events()}")
+        if obs.syncs != debug:
+            bad.append(prog.name)
+    if bad:
+        raise SystemExit(f"20a: the observer's host syncs differ from the "
+                         f"sync debug mode's for {bad}")
+    return rows
+
+
+def audit_masks(device):
+    """20b: the mask check's poisoned runs of the padded programs on
+    ``device``: no finding (every live output the clean run's bits)."""
+    from skellysim_tpu_torch.audit import maskflow
+    from skellysim_tpu_torch.audit.engine import ProgramRun, load_contract
+    from skellysim_tpu_torch.audit.programs import all_programs
+
+    out = {}
+    for prog in all_programs():
+        contract, _ = load_contract(prog.name)
+        if not contract["mask"].get("axes"):
+            continue
+        run = ProgramRun(prog, device, contract)
+        report = maskflow.analyze(run)
+        classes = {}
+        for cls in report.observed.values():
+            classes[cls] = classes.get(cls, 0) + 1
+        pinned = contract["mask"]["outputs"]
+        out[prog.name] = {"classes": classes, "findings": report.findings,
+                          "pins_equal": report.observed == pinned}
+        log(f"[audit] {prog.name:<20} poisoned dead slots (nan, +/-inf): "
+            f"{classes}, {len(report.findings)} finding(s), pins "
+            f"{'equal' if report.observed == pinned else 'DIFFER'}")
+        if report.findings or report.observed != pinned:
+            raise SystemExit(f"20b: {prog.name}: {report.findings[:3]}")
+    return out
+
+
+def audit_dma(torch, device):
+    """20c: the dma check on A-H (`audit.dmaflow`): the resource table,
+    the repeats and the plain-version gates; each family's contract
+    clean. Returns {family: {"rows", "errors", "observed"}}."""
+    from skellysim_tpu_torch.audit import dmaflow
+    from skellysim_tpu_torch.audit.engine import run_kernel_audit
+    from skellysim_tpu_torch.audit.kernels import all_kernels
+
+    out = {}
+    for kern in all_kernels():
+        t0 = time.perf_counter()
+        rep = dmaflow.analyze(kern.build(device))
+        findings = run_kernel_audit(kern, checks=["dma"], device=device)
+        for row in rep.table:
+            log(f"[audit] dma {kern.kernels:<5} {row['case']:<22} "
+                f"{row['function']:<44} {row['registers']:>3} registers, "
+                f"{row['smem_static']:>6} + {row['smem_dynamic']:>6} shared "
+                f"bytes, {row['spill_bytes']} spilled")
+        log(f"[audit] dma {kern.name}: {dmaflow.REPEATS} launches a case "
+            f"the same bits; from the plain version "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rep.errors.items())
+            + f"; the card's per-block limit {rep.smem_limit} bytes; "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[kern.name] = {"kernels": kern.kernels, "rows": rep.table,
+                          "errors": rep.errors, "observed": rep.observed}
+        if rep.findings or findings:
+            raise SystemExit(f"20c: {kern.name}: {rep.findings or findings}")
+    return out
+
+
+def phase_audit(torch, device, smi):
+    """Phase 20: 20a (the auditor's CLI, then the observer's host syncs
+    against the sync debug mode's), 20b (`audit_masks`), 20c
+    (`audit_dma`, the card only). Returns the summary."""
+    t0 = time.perf_counter()
+    rc, text = run_audit([f"--device={device.type}"])
+    cli_s = time.perf_counter() - t0
+    for line in text.rstrip().splitlines():
+        log(f"[audit] cli | {line}")
+    if rc != 0:
+        raise SystemExit(f"20a: python -m skellysim_tpu_torch.audit exited "
+                         f"{rc}")
+    out = {"cli_rc": rc, "cli_s": cli_s}
+    if device.type == "cuda":
+        out["syncs"] = audit_syncs(torch, device)
+    else:
+        log("[audit] 20a's sync comparison not run (CPU rehearsal: no CUDA "
+            "syncs)")
+    stamp("phase 20a")
+    out["masks"] = audit_masks(device)
+    stamp("phase 20b")
+    if device.type == "cuda":
+        out["dma"] = audit_dma(torch, device)
+    else:
+        log("[audit] 20c not run (CPU rehearsal: dma launches A-H)")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[audit] phase 20: {out['phase_s']:.1f} s (CLI {cli_s:.1f} s) on "
+        f"{smi or 'the CPU'}")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--spmd-worker"]:
@@ -6921,7 +7084,7 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
         (entries, launches, smi, fast, tree, spmd, ens, options,
-         flight, serve, cost_roof) = run_phases(
+         flight, serve, cost_roof, audit) = run_phases(
              torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6942,6 +7105,7 @@ def main(argv=None) -> int:
     print(json.dumps({"flight_listener": flight}, default=str), flush=True)
     print(json.dumps({"serve": serve}, default=str), flush=True)
     print(json.dumps({"cost_roofline": cost_roof}, default=str), flush=True)
+    print(json.dumps({"audit": audit}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6951,11 +7115,11 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-19 (10-14 and 16a-c run after 8, on phase 6's precompute,
-    then 9, then 15, 16d, 17, 18 and 19); returns (kernel entries, launch
-    counts by path, the nvidia-smi line, phase 11's summary, phase 12's,
-    phase 13's with phase 14's, phase 15's, phase 16's, phase 17's, phase
-    18's, phase 19's)."""
+    """Phases 1-20 (10-14 and 16a-c run after 8, on phase 6's precompute,
+    then 9, then 15, 16d, 17, 18, 19 and 20); returns (kernel entries,
+    launch counts by path, the nvidia-smi line, phase 11's summary, phase
+    12's, phase 13's with phase 14's, phase 15's, phase 16's, phase 17's,
+    phase 18's, phase 19's, phase 20's)."""
     import numpy as np
 
     # 1. device
@@ -7215,6 +7379,14 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
 
     stamp("phase 19")
 
+    # 20. the program auditor on the card: the CLI, the observer's host
+    # syncs against the sync debug mode's, the poisoned dead slots, dma
+    audit = phase_audit(torch, device, smi)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 20")
+
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
                "stokeslet_f64": "free_fibers_10k",
@@ -7228,7 +7400,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
     return (entries, launches, smi, fast, tree, spmd, ens, options,
-            flight_out, serve, cost_roof)
+            flight_out, serve, cost_roof, audit)
 
 
 if __name__ == "__main__":

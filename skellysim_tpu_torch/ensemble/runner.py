@@ -532,7 +532,13 @@ def auditable_programs():
     free-fiber members (4 fibers x 8 nodes each), the batched trial and
     the per-member accept ladder, the JAX package's ``ensemble_step``."""
     from ..audit import fixtures
-    from ..audit.registry import AuditProgram, BuiltProgram
+    from ..audit.registry import AuditProgram, BuiltProgram, probe_twice
+
+    def retrace_probe(device=None):
+        # the round on the fixture, then on the ensemble it returned
+        built = build(device)
+        return probe_twice(lambda: built.fn(*built.args),
+                           lambda out: built.fn(out[0]))
 
     def build(device=None):
         from ..system import BackgroundFlow
@@ -554,4 +560,4 @@ def auditable_programs():
         name="ensemble_step", layer="ensemble",
         summary="batched trial round (B=4 free-fiber members, per-member "
                 "accept ladder)",
-        build=build)]
+        build=build, retrace_probe=retrace_probe)]

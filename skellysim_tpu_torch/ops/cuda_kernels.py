@@ -1328,3 +1328,56 @@ YARDSTICK_WRAPPERS = (stokeslet_f32_tiled, stokeslet_f64_tiled,
                       ring_stokeslet_f32_v1, ring_stresslet_f32_v1,
                       tree_stokeslet_f32_v1, tree_stokeslet_f64_v1,
                       tree_stresslet_f32_v1, tree_stresslet_f64_v1)
+
+
+# ---------------------------------------------------------------- the registry
+
+def _ragged_cloud(seed, n, cols=3, dtype=torch.float64, device=None):
+    import numpy as np
+
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (n, cols)), dtype=dtype, device=device)
+
+
+def auditable_kernels():
+    """This module's entries in the kernel registry (`audit.kernels`): A /
+    B under the JAX package's ``stokeslet_pallas_tiles`` and C / D under
+    its ``stresslet_pallas_tiles``, each at a ragged shape (1,237 targets,
+    2,011 sources: no multiple of a tile, a chunk or a warp)."""
+    from ..audit.registry import AuditKernel, BuiltKernel, KernelCase
+
+    def build(family, letters):
+        def _build(device=None):
+            from ..device import resolve_device
+
+            dev = resolve_device(device)
+            cols = _FAMILIES[family][1]
+            cases = []
+            for letter, prec, rtol in zip(letters, ("f32", "f64"),
+                                          (1e-4, 1e-12)):
+                dtype = _DTYPES[prec]
+                mangled = "f" if prec == "f32" else "d"   # float / double
+                args = (_ragged_cloud(1, 2011, dtype=dtype, device=dev),
+                        _ragged_cloud(2, 1237, dtype=dtype, device=dev),
+                        _ragged_cloud(3, 2011, cols, dtype, dev), 1.0)
+                cases.append(KernelCase(
+                    label=f"{letter} {family}_{prec}",
+                    wrapper=globals()[f"{family}_{prec}"],
+                    plain=globals()[f"{family}_{prec}_plain"], args=args,
+                    rtol=rtol,
+                    entries=(rf"{family}_chunk_kernelI{mangled}",
+                             rf"{family}_reduce_kernelI{mangled}")))
+            return BuiltKernel(source=f"{family}_sums", cases=cases,
+                               device=dev)
+        return _build
+
+    return [
+        AuditKernel(name="stokeslet_pallas_tiles", layer="ops",
+                    summary="Stokeslet pair sums A (f32) / B (f64), "
+                            "csrc/stokeslet_sums.cu",
+                    kernels="A / B", build=build("stokeslet", "AB")),
+        AuditKernel(name="stresslet_pallas_tiles", layer="ops",
+                    summary="stresslet pair sums C (f32) / D (f64), "
+                            "csrc/stresslet_sums.cu",
+                    kernels="C / D", build=build("stresslet", "CD")),
+    ]

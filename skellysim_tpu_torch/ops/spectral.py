@@ -116,6 +116,11 @@ def _fill_positions_np(plan_like, n):
     return np.asarray(cell_lo) + frac * extent
 
 
+#: host plans made so far in this process (the audit's retrace probe
+#: counts them: `audit.registry.rebuild_counts`)
+REBUILDS = {"plan_spectral": 0}
+
+
 def plan_spectral(points, box, eta, tol=1e-6, max_grid=512, target_occ=32.0,
                   n_fill=0, grid_ladder=()):
     """Choose (xi, rc, grid M3, window P, cell lattice) for a target
@@ -125,6 +130,7 @@ def plan_spectral(points, box, eta, tol=1e-6, max_grid=512, target_occ=32.0,
     ``box``: 3 lengths -> triply periodic, 2 lengths (Lx, Ly) -> doubly
     periodic slab with z free (extent measured from the cloud).
     """
+    REBUILDS["plan_spectral"] += 1
     box = tuple(float(b) for b in box)
     if len(box) not in (2, 3):
         raise ValueError(
@@ -503,7 +509,17 @@ def auditable_programs():
     """The periodic fast path's registry entry: the spectral Stokeslet on
     a triply periodic cloud of 256 points (FFT far field and wrapped near
     tiles, f64), the JAX package's ``stokeslet_spectral``."""
-    from ..audit.registry import AuditProgram, BuiltProgram
+    from ..audit.registry import AuditProgram, BuiltProgram, probe_twice
+
+    def retrace_probe(device=None):
+        # a cell-lattice anchor hop with drifted positions (the JAX
+        # package's probe)
+        built = build(device)
+        plan, anchors, r, _, f, n_self, eta = built.args
+        return probe_twice(
+            lambda: stokeslet_impl(*built.args),
+            lambda _: stokeslet_impl(plan, anchors + plan.cell_size3[0],
+                                     r + 0.01, r + 0.01, f, n_self, eta))
 
     def build(device=None):
         from ..device import resolve_device
@@ -524,4 +540,4 @@ def auditable_programs():
         name="stokeslet_spectral", layer="ops",
         summary="periodic spectral-Ewald Stokeslet evaluator (triply "
                 "periodic cloud, FFT far field + wrapped near tiles, f64)",
-        build=build)]
+        build=build, retrace_probe=retrace_probe)]

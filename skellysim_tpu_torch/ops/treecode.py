@@ -127,12 +127,18 @@ def order_for_tol(tol: float, max_order: int = 12) -> int:
     return int(min(max(p, 2), max_order))
 
 
+#: host plans and kept-geometry misses so far in this process (the audit's
+#: retrace probe counts them: `audit.registry.rebuild_counts`)
+REBUILDS = {"plan_tree": 0, "tree_geometry_miss": 0}
+
+
 def plan_tree(points, tol=1e-4, target_occ=32.0, max_depth=5, n_fill=0,
               max_order=12):
     """Choose (depth, order, box, leaf capacity) for a target relative
     accuracy: the JAX package's `plan_tree`, rule for rule (its docstring
     gives the rules), on the host in numpy. ``n_fill`` reserves occupancy
     for that many zero-strength padding nodes placed by `fill_positions`."""
+    REBUILDS["plan_tree"] += 1
     pts = np.asarray(points, dtype=np.float64)
     lo = pts.min(axis=0)
     hi = pts.max(axis=0)
@@ -728,6 +734,7 @@ def _tree_sum(family: str, plan: TreePlan, anchors, r_src, payload, r_trg,
     if not kept:
         geom = tree_geometry(plan, anchors, r_src, r_trg)
         if geometry is not None:
+            REBUILDS["tree_geometry_miss"] += 1
             geometry[key] = geom
     pay = tree_payload(geom, payload.to(dtype))
     prec = "f32" if dtype == torch.float32 else "f64"
@@ -822,7 +829,18 @@ def auditable_programs():
     """The ops layer's registry entry: the treecode Stokeslet (geometry,
     payload and one G pass) on a fiber-like clustered cloud of 32 x 16
     points, the JAX package's ``stokeslet_tree``."""
-    from ..audit.registry import AuditProgram, BuiltProgram
+    from ..audit.registry import AuditProgram, BuiltProgram, probe_twice
+
+    def retrace_probe(device=None):
+        # a leaf-lattice anchor hop with drifted positions: the plan's
+        # static tables serve both calls
+        built = build(device)
+        plan, anchors, r, _, f, n_self, eta = built.args
+        leaf = plan.box_L / 2 ** plan.depth
+        return probe_twice(
+            lambda: stokeslet_impl(*built.args),
+            lambda _: stokeslet_impl(plan, anchors + leaf, r + 0.01,
+                                     r + 0.01, f, n_self, eta))
 
     def build(device=None):
         from ..device import resolve_device
@@ -851,4 +869,62 @@ def auditable_programs():
     return [AuditProgram(
         name="stokeslet_tree", layer="ops",
         summary="treecode Stokeslet evaluator (clustered fiber cloud, f64)",
-        build=build)]
+        build=build, retrace_probe=retrace_probe)]
+
+
+def auditable_kernels():
+    """This module's entries in the kernel registry (`audit.kernels`): the
+    treecode's pair passes G (``stokeslet_tree_pass``) and H
+    (``stresslet_tree_pass``), the port's own names (the JAX package's tree
+    is plain XLA, no Pallas kernel), each in f32 and f64 over the segment
+    lists of a depth-2 plan of a clustered cloud of 1,999 points (ragged
+    leaves: items of 64 / 32 / 16 / 8 targets)."""
+    from ..audit.registry import AuditKernel, BuiltKernel, KernelCase
+    from . import cuda_kernels
+
+    def build(family, letter):
+        def _build(device=None):
+            from ..device import resolve_device
+            from .evaluator import make_pair
+
+            dev = resolve_device(device)
+            rng = np.random.default_rng(23)
+            pts = np.concatenate([rng.normal(c, 0.3, (n, 3)) for c, n in
+                                  ((-1.0, 1000), (1.0, 999))])
+            cols = 3 if family == "stokeslet" else 9
+            pay = rng.standard_normal((len(pts), cols))
+            plan = plan_tree(pts, tol=1e-4, max_depth=2)
+            anchors = make_pair(plan, dev).anchors
+            cases = []
+            for prec, dtype, rtol in (("f32", torch.float32, 1e-4),
+                                      ("f64", torch.float64, 1e-12)):
+                r = torch.as_tensor(pts, dtype=dtype, device=dev)
+                trg, src, p, items, segs, _, _ = tree_operands(
+                    plan, anchors, r, torch.as_tensor(pay, dtype=dtype,
+                                                      device=dev), r,
+                    fields=("near", "far"))
+                name = f"tree_{family}_{prec}"
+                mangled = "f" if prec == "f32" else "d"   # float / double
+                cases.append(KernelCase(
+                    label=f"{letter} {name}",
+                    wrapper=getattr(cuda_kernels, name),
+                    plain=getattr(cuda_kernels, f"{name}_plain"),
+                    args=(trg, src, p, items, segs, 1.0), rtol=rtol,
+                    entries=(rf"11tree_kernelI{mangled}Li{cols}E",),
+                    dynamic_smem=(cuda_kernels.tree_shared_bytes(family,
+                                                                 prec)
+                                  if dev.type == "cuda" else 0)))
+            return BuiltKernel(source=cuda_kernels.TREE_SOURCE, cases=cases,
+                               device=dev)
+        return _build
+
+    return [
+        AuditKernel(name="stokeslet_tree_pass", layer="ops",
+                    summary="treecode Stokeslet pass G (f32 / f64), "
+                            "csrc/tree_sums.cu",
+                    kernels="G", build=build("stokeslet", "G")),
+        AuditKernel(name="stresslet_tree_pass", layer="ops",
+                    summary="treecode stresslet pass H (f32 / f64), "
+                            "csrc/tree_sums.cu",
+                    kernels="H", build=build("stresslet", "H")),
+    ]

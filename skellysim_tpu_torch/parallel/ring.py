@@ -322,3 +322,54 @@ def ring_oseen_contract(r_src, r_trg, density, eta, reg=DEFAULT_REG,
     u = _ring_or_fused(None, "exact", block, mesh, _shard(r_trg, mesh),
                        _shard(r_src, mesh), _shard(density, mesh))
     return _gather(u, r_trg.device, mesh)
+
+
+# ---------------------------------------------------------------- the registry
+
+def auditable_kernels():
+    """This layer's entries in the kernel registry (`audit.kernels`): the
+    fused ring kernels E (``ring_stokeslet_fused``) and F
+    (``ring_stresslet_fused``), the JAX package's names, on a mesh of 4
+    shards of one card at a ragged shape (1,237 targets and 509 sources a
+    shard)."""
+    from ..audit.registry import AuditKernel, BuiltKernel, KernelCase
+
+    def build(family, letter):
+        def _build(device=None):
+            from ..device import resolve_device
+            from .mesh import make_mesh
+
+            dev = resolve_device(device)
+            mesh = make_mesh(4, device=dev)
+            cols = 3 if family == "stokeslet" else 9
+            gen = torch.Generator().manual_seed(5)
+
+            def cloud(n, c):
+                return [torch.randn((n, c), generator=gen,
+                                    dtype=torch.float32).to(d)
+                        for d in mesh.devices]
+
+            # one process: the lists alone (a mesh argument is for a ring
+            # across processes)
+            args = (cloud(1237, 3), cloud(509, 3), cloud(509, cols))
+            name = f"ring_{family}_f32"
+            tiles = "StokesletTiles" if family == "stokeslet" \
+                else "StressletTiles"
+            return BuiltKernel(
+                source=cuda_kernels.RING_SOURCE, device=dev,
+                cases=[KernelCase(
+                    label=f"{letter} {name}",
+                    wrapper=getattr(cuda_kernels, name),
+                    plain=getattr(cuda_kernels, f"{name}_plain"), args=args,
+                    rtol=1e-4, entries=(rf"ring_kernelINS_8TilePathINS_\d+"
+                                        rf"{tiles}", r"ring_reduce_kernel"))])
+        return _build
+
+    return [
+        AuditKernel(name="ring_stokeslet_fused", layer="parallel",
+                    summary="fused Stokeslet ring E, csrc/ring_sums.cu",
+                    kernels="E", build=build("stokeslet", "E")),
+        AuditKernel(name="ring_stresslet_fused", layer="parallel",
+                    summary="fused stresslet ring F, csrc/ring_sums.cu",
+                    kernels="F", build=build("stresslet", "F")),
+    ]

@@ -54,12 +54,14 @@ served: the step always rings over its mesh.
 
 from __future__ import annotations
 
+import math
 import operator
 import warnings
 from typing import Callable, NamedTuple
 
 import torch
 
+from ..audit import observe as _observe
 from ..bodies import bodies as bd
 from ..fibers import container as fc
 from ..guard import verdict as _verdict
@@ -129,7 +131,10 @@ class Collectives:
         acc = every[0]
         for p in every[1:]:
             acc = op(acc, p)
-        return [acc.to(d) for d in self.devices]
+        out = [acc.to(d) for d in self.devices]
+        if _observe.ACTIVE is not None:
+            _observe.ACTIVE.collective("all_reduce", parts, out)
+        return out
 
     def pmax(self, parts) -> list:
         """The elementwise largest of the shards' ``parts`` (NaN wins, as
@@ -149,7 +154,10 @@ class Collectives:
         if _cost._ACTIVE is not None:
             _cost._ACTIVE.collective("all_gather", parts)
         full = torch.cat(self.every_shard(parts))
-        return [full.to(d) for d in self.devices]
+        out = [full.to(d) for d in self.devices]
+        if _observe.ACTIVE is not None:
+            _observe.ACTIVE.collective("all_gather", parts, out)
+        return out
 
     def ring(self, kind, impl: str, block_fn, r_trg, *rotating,
              acc_dtype=None) -> list:
@@ -160,6 +168,9 @@ class Collectives:
         if _cost._ACTIVE is not None:
             _cost._ACTIVE.collective("collective_permute",
                                      list(zip(*rotating)))
+        if _observe.ACTIVE is not None:
+            _observe.ACTIVE.collective("collective_permute",
+                                       list(zip(*rotating)))
         return _ring_or_fused(kind, impl, block_fn, self.mesh, list(r_trg),
                               *rotating, acc_dtype=acc_dtype)
 
@@ -773,9 +784,12 @@ class _Step:
                     new = new._replace(fibers=_rewrap_fibers(new.fibers,
                                                              repinned))
                 new_sts.append(new)
-            # pmax: the largest of every shard's buckets
-            fiber_error = max(float(fc.fiber_error(g)) for st in new_sts
-                              for g in fiber_buckets(st.fibers))
+            # pmax over the shards' buckets, read to the host once: NaN
+            # wins there, where a Python max over each shard's float (one
+            # host read a shard) dropped a NaN that was not first
+            fiber_error = float(comm.pmax([torch.stack([
+                fc.fiber_error(g) for g in fiber_buckets(st.fibers)]).max()
+                for st in new_sts])[0])
             if self.mesh.spans_processes:
                 fiber_error = _agree_across_processes(result, fiber_error)
             health = result.health | _verdict.nonfinite_word(fiber_error)
@@ -839,7 +853,8 @@ def _agree_across_processes(result, fiber_error: float) -> float:
             "the processes of the sharded step disagree on their solve "
             "(iterations, sweeps, cycles, converged, health, residual, true "
             f"residual by process): {[d for d, _ in every]}")
-    return max(e for _, e in every)
+    errors = [e for _, e in every]
+    return math.nan if any(math.isnan(e) for e in errors) else max(errors)
 
 
 def build_spmd_step(system, mesh: Mesh, state: ShardedState, *,
@@ -889,8 +904,14 @@ def auditable_programs():
     4`` on meshes of 2, 4 and 8 shards of one device
     (``make_mesh(n, device=...)``), the JAX package's ``step_spmd_d*``."""
     from ..audit import fixtures
-    from ..audit.registry import AuditProgram, BuiltProgram
+    from ..audit.registry import AuditProgram, BuiltProgram, probe_twice
     from .mesh import make_mesh, shard_state
+
+    def retrace_probe(device=None):
+        # the built step on the fixture, then on the state it returned
+        built = build(2)(device)
+        return probe_twice(lambda: built.fn(*built.args),
+                           lambda out: built.fn(out[0]))
 
     def build(n_dev):
         def _build(device=None):
@@ -907,4 +928,6 @@ def auditable_programs():
         name=f"step_spmd_d{n_dev}", layer="parallel",
         summary=f"sharded coupled step on a mesh of {n_dev} shards of one "
                 "device (row-sharded shell)",
-        build=build(n_dev)) for n_dev in (2, 4, 8)]
+        build=build(n_dev),
+        retrace_probe=retrace_probe if n_dev == 2 else None)
+        for n_dev in (2, 4, 8)]

@@ -848,7 +848,7 @@ def auditable_programs():
     dense well-conditioned 64 x 64 operator, the program the
     mixed-precision path embeds as its Krylov inner loop (the JAX
     package's ``gmres_f32``)."""
-    from ..audit.registry import AuditProgram, BuiltProgram
+    from ..audit.registry import AuditProgram, BuiltProgram, probe_twice
 
     def build(device=None):
         from ..device import resolve_device
@@ -862,11 +862,18 @@ def auditable_programs():
                             device=dev)
         return BuiltProgram(_registered_solve, (A, b), device=dev)
 
+    def retrace_probe(device=None):
+        # a second right-hand side of the same shape
+        built = build(device)
+        A, b = built.args
+        return probe_twice(lambda: _registered_solve(A, b),
+                           lambda _: _registered_solve(A, 1.5 * b + 0.25))
+
     return [AuditProgram(
         name="gmres_f32", layer="solver",
         summary="bare f32 GMRES on a dense 64x64 operator (the mixed "
                 "path's Krylov inner loop)",
-        build=build)]
+        build=build, retrace_probe=retrace_probe)]
 
 
 def _registered_solve(A, b):

@@ -1478,9 +1478,10 @@ def auditable_programs():
     mixed-precision step and the step with the K = 32 flight recorder
     armed, the JAX package's four. Each ``build(device)`` makes the
     free-fiber fixture scene on ``device`` and runs `System.trial_step`
-    (prep, GMRES, advance) on it."""
+    (prep, GMRES, advance) on it. The retrace probes step the fixture,
+    then its new state (same structure, new values)."""
     from ..audit import fixtures
-    from ..audit.registry import AuditProgram, BuiltProgram
+    from ..audit.registry import AuditProgram, BuiltProgram, probe_twice
 
     def build(**overrides):
         def _build(device=None):
@@ -1490,11 +1491,19 @@ def auditable_programs():
                                 device=system.device)
         return _build
 
+    def retrace_probe(**overrides):
+        def _probe(device=None):
+            system = fixtures.make_system(device=device, **overrides)
+            return probe_twice(
+                lambda: system.trial_step(fixtures.free_state(system)),
+                lambda out: system.trial_step(out[0]))
+        return _probe
+
     return [
         AuditProgram(
             name="step_single", layer="system",
             summary="single-device implicit step (free fibers, f64)",
-            build=build()),
+            build=build(), retrace_probe=retrace_probe()),
         AuditProgram(
             # eager torch keeps no program whose inputs it could alias:
             # the JAX package's donating twin is the same callable here
@@ -1510,5 +1519,6 @@ def auditable_programs():
             name="step_flight", layer="system",
             summary="single-device implicit step with the K=32 flight "
                     "recorder armed",
-            build=build(flight_window=32)),
+            build=build(flight_window=32),
+            retrace_probe=retrace_probe(flight_window=32)),
     ]

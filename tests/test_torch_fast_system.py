@@ -24,6 +24,7 @@ CLI and the JAX package's to the same frames, as does one that says
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -212,13 +213,20 @@ def test_kept_geometry_is_keyed_by_call_site():
     assert torch.isnan(moved).all()
 
 
+@functools.lru_cache(maxsize=None)
+def _coupled_scene(shell_n, body_n):
+    """The shell-and-body scene, built once for the module at each size
+    (the tree tests share the 150 / 60 one; its tensors are only read)."""
+    return ttesting.make_coupled_scene(shell_n=shell_n, body_n=body_n,
+                                       n_bound=2, n_free=2)
+
+
 def _shell_and_body_step(evaluator, shell_n=60, body_n=40, extra_bodies=()):
     from skellysim_tpu.bodies.bodies import BodyGroup as JBodies
     from skellysim_tpu.fibers.container import FiberGroup as JFibers
     from skellysim_tpu.periphery import periphery as jperi
 
-    shell, shape, bodies, fibers = ttesting.make_coupled_scene(
-        shell_n=shell_n, body_n=body_n, n_bound=2, n_free=2)
+    shell, shape, bodies, fibers = _coupled_scene(shell_n, body_n)
     params = JParams(**dict(_BASE, dt_initial=0.02, gmres_tol=1e-11,
                             ewald_tol=1e-4, ewald_min_sources=0,
                             pair_evaluator=evaluator, tree_tol=1e-3))

@@ -1429,7 +1429,10 @@ def test_port_imports_no_jax():
                 "guard/chaos", "guard/smoke", "obs/profile", "obs/timeline",
                 "obs/cli", "obs/__main__", "audit/__init__", "audit/engine",
                 "audit/registry", "audit/fixtures", "audit/programs",
-                "obs/cost", "obs/roofline"):
+                "obs/cost", "obs/roofline", "audit/observe",
+                "audit/checks", "audit/maskflow", "audit/repflow",
+                "audit/dmaflow", "audit/kernels", "audit/cli",
+                "audit/__main__"):
         assert f"skellysim_tpu_torch/{mod}.py" in names
     bad = []
     for f in files:
@@ -1438,3 +1441,58 @@ def test_port_imports_no_jax():
             if top in ("jax", "jaxlib", "skellysim_tpu"):
                 bad.append(f"{os.path.relpath(f, REPO)}: {mod}")
     assert not bad, bad
+
+
+# ------------------------------------------------------------- the auditor
+
+@pytest.mark.gpu
+def test_audit_host_syncs_match_the_sync_debug_mode(cuda):
+    """The auditor's observer (`audit.observe`) counts every host sync of a
+    registered program's run that `torch.cuda.set_sync_debug_mode("warn")`
+    warns about, program by program, on the card."""
+    import warnings
+
+    from skellysim_tpu_torch.audit import maskflow
+    from skellysim_tpu_torch.audit.engine import ProgramRun, load_contract
+    from skellysim_tpu_torch.audit.programs import all_programs
+
+    def debug_syncs(fn):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in seen)
+
+    debug_syncs(lambda: None)
+    for prog in all_programs():
+        contract, _ = load_contract(prog.name)
+        run = ProgramRun(prog, cuda, contract)
+        built = prog.build(cuda)
+        args = maskflow.with_dead_slots(built.args, run.axes)
+        torch.cuda.synchronize()
+        assert debug_syncs(lambda: built.fn(*args, **built.kwargs)) \
+            == run.observation.syncs, prog.name
+
+
+@pytest.mark.gpu
+def test_audit_dma_runs_on_a_to_h(cuda):
+    """The dma check on every registered kernel family (A-H): the
+    resources within the pins and the card's limits, 20 repeats with the
+    same bits and the plain version's result; the CLI clean on the
+    card."""
+    from skellysim_tpu_torch.audit import dmaflow
+    from skellysim_tpu_torch.audit.cli import main as audit_main
+    from skellysim_tpu_torch.audit.engine import run_kernel_audit
+    from skellysim_tpu_torch.audit.kernels import all_kernels
+
+    letters = set()
+    for kern in all_kernels():
+        rep = dmaflow.analyze(kern.build(cuda))
+        assert rep.findings == [], kern.name
+        assert run_kernel_audit(kern, checks=["dma"], device=cuda) == []
+        letters |= {c.label.split()[0] for c in kern.build(cuda).cases}
+    assert letters == set("ABCDEFGH")
+    assert audit_main(["--check", "dma"]) == 0
