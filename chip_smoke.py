@@ -486,6 +486,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                table printed.
                It prints {"audit": ...} before the kernels line; phase 20's
                wall beside the card's name and power limit.
+21. surface  — after 20: the rest of the JAX package's user surface.
+               a. phase 4's last state (kept with its trajectory since
+               phase 4; the directory goes after 21a): `frame_bytes`
+               through the native encoder (native/frameenc.cpp, built by
+               g++ at first use) against the numpy one, and `build_index`
+               of the trajectory through the native scanner
+               (native/trajscan.cpp) against the Python scan, each the
+               median of 3 in host ms beside phase 4's step wall: the
+               same bytes, the same offsets and times; both libraries
+               built into skellysim_tpu_torch/_build/ and loaded.
+               b. 17b's velocity field (card tensors) written by
+               `io.trajectory.FieldWriter` and read back by
+               skellysim_tpu_torch/paraview_utils/trajectory_utility.py
+               exec'd standalone (`get_frame_info`, `load_field_frame`):
+               the field's values exactly; phase 6's frames through
+               `get_frame_info` / `load_frame` equal to
+               `TrajectoryReader`'s.
+               c. `fibers.container.flow` of phase 4's state in f32
+               (kernel A) equal to `flow_multi`'s bits; its pair sums
+               (no self block subtracted) of the fibers after
+               `sort_fibers_morton`, permuted back, within 1e-5 of the
+               unsorted ones (A's f32 sums reordered); A's launches in the
+               flow under "container_flow_10k".
+               d. the Chebyshev penalty fiber (`fibers.chebyshev_fiber
+               .evolve`, N = 20, 20 steps, f64) on the card against the
+               CPU within 1e-10, with its wall.
+               It prints {"completion": ...} before the kernels line.
 
 Then one JSON line {"kernels": [...]}: a kernel's ms, bound, errors and
 shape are those of its check phase (3, 6 or 7); A's, B's, C's and D's
@@ -512,8 +539,8 @@ phase 13's sharded runs included ("spmd_ellipsoid", "spmd_ellipsoid_full",
 ("sstep_full", "sstep_mixed", "sstep_spmd_full", "sstep_spmd_mixed",
 "ladder_stagnation", "ladder_healthy", "member_mesh_vmap",
 "member_mesh_unroll") and phase 17's ("flight_ellipsoid": the armed steps;
-"velocity_grid": the grid's pair sums) and phase 18's ("serve_vmap",
-"serve_unroll").
+"velocity_grid": the grid's pair sums), phase 18's ("serve_vmap",
+"serve_unroll") and phase 21's ("container_flow_10k": 21c's flow).
 Every run is gated on the yardstick kernels launching 0 times. Then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Without a CUDA
 card the script exits 2 before printing any result. Every file a phase
@@ -5833,6 +5860,8 @@ def phase_velocity(torch, ck, device, system, frame_state, work, out):
     if device.type == "cuda" and not (tcounts.get("tree_stokeslet_f64")
                                       and tcounts.get("tree_stresslet_f64")):
         raise SystemExit(f"velocity: G / H did not launch: {tcounts}")
+    # the field itself is kept for phase 21b (FieldWriter)
+    out["_field"] = (grid, v, float(frame_state.time))
     del field, v, v_again, v_tree, grid
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -7046,6 +7075,293 @@ def phase_audit(torch, device, smi):
     return out
 
 
+# ----------------------------------------------- 21. the rest of the surface
+
+#: phase 21a: each encode and scan timed this many times (the median kept)
+SURFACE_REPEATS = 3
+#: 21c: the Morton-sorted fibers' flow against the unsorted flow (A's f32
+#: sums taken in another order)
+MORTON_GATE = 1e-5
+#: 21d: the Chebyshev fiber's run (tests/test_chebyshev_fiber.py's), card
+#: against CPU
+CHEB_N, CHEB_STEPS, CHEB_DT = 20, 20, 5e-3
+CHEB_GATE = 1e-10
+def median_s(fn, reps=SURFACE_REPEATS):
+    """(median wall seconds of ``reps`` calls of ``fn``, its last result)."""
+    times, res = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], res
+
+
+def surface_state(torch, device, traj):
+    """The last frame of ``traj`` as a fibers-only f64 state on
+    ``device``."""
+    import numpy as np
+
+    from skellysim_tpu_torch.fibers import container as fc
+    from skellysim_tpu_torch.io.trajectory import (TrajectoryReader,
+                                                   frame_to_state)
+    from skellysim_tpu_torch.system import SimState
+
+    with TrajectoryReader(traj) as reader:
+        frame = reader.load_frame(len(reader) - 1)
+    n = int(frame["fibers"][1][0]["n_nodes_"])
+    template = SimState(time=0.0, dt=0.0, fibers=fc.make_group(
+        np.zeros((1, n, 3)), 1.0, 0.01, 0.0125, dtype=torch.float64,
+        device=device))
+    return frame_to_state(frame, template)
+
+
+def surface_natives(torch, device, state, traj, step_s, out):
+    """21a: `frame_bytes` of phase 4's last state (on the card), native
+    against numpy, and `build_index` of its trajectory, native against
+    Python: host seconds and the same bytes / offsets; both libraries built
+    into skellysim_tpu_torch/_build/ and loaded."""
+    from pathlib import Path
+    from unittest import mock
+
+    from skellysim_tpu_torch.io import trajectory as tt
+    from skellysim_tpu_torch.native import build as nbuild
+
+    g = state.fibers
+    enc_nat_s, raw_nat = median_s(lambda: tt.frame_bytes(state))
+    with mock.patch.object(tt, "_fiber_array_bytes_native", lambda g: None):
+        enc_py_s, raw_py = median_s(lambda: tt.frame_bytes(state))
+    idx_nat_s, idx_nat = median_s(lambda: tt.build_index(traj))
+    idx_py_s, idx_py = median_s(lambda: tt.build_index(traj,
+                                                       use_native=False))
+    libs = {}
+    for name in ("frameenc", "trajscan"):
+        path = nbuild.library_path(name)
+        lib = nbuild._CACHE.get(name)
+        libs[name] = os.path.relpath(path, REPO)
+        if not (lib is not None and lib._name == str(path) and path.exists()
+                and path.parent == Path(REPO, "skellysim_tpu_torch",
+                                        "_build")):
+            raise SystemExit(f"21a: native/{name}.cpp was not built into "
+                             f"skellysim_tpu_torch/_build/ and loaded: {path}")
+    out["natives"] = {
+        "fibers": g.n_fibers, "nodes": g.n_nodes, "frame_bytes": len(raw_nat),
+        "encode_native_ms": 1e3 * enc_nat_s, "encode_numpy_ms": 1e3 * enc_py_s,
+        "trajectory_bytes": os.path.getsize(traj), "frames": len(idx_nat[0]),
+        "index_native_ms": 1e3 * idx_nat_s, "index_python_ms": 1e3 * idx_py_s,
+        "step_wall_s": step_s, "libraries": libs}
+    log(f"[surface] 21a {g.n_fibers} x {g.n_nodes}-node state on "
+        f"{device.type}: frame_bytes {len(raw_nat)} bytes, native "
+        f"{1e3 * enc_nat_s:.1f} ms against numpy {1e3 * enc_py_s:.1f} ms "
+        f"(median of {SURFACE_REPEATS}; the host copies of the fields "
+        f"included); build_index over the {os.path.getsize(traj)}-byte "
+        f"trajectory ({len(idx_nat[0])} frames): native "
+        f"{1e3 * idx_nat_s:.1f} ms against Python {1e3 * idx_py_s:.1f} ms; "
+        f"phase 4's step {step_s:.3f} s; libraries {libs}")
+    if raw_nat != raw_py:
+        raise SystemExit("21a: the native frame bytes differ from numpy's")
+    if idx_nat != idx_py:
+        raise SystemExit(f"21a: the native index differs: {idx_nat} "
+                         f"against {idx_py}")
+
+
+def paraview_utility():
+    """The port's `paraview_utils/trajectory_utility.py` exec'd standalone,
+    as ParaView runs it (it imports `msgpack` and nothing of the repo)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "trajectory_utility", os.path.join(
+            REPO, "skellysim_tpu_torch", "paraview_utils",
+            "trajectory_utility.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def surface_paraview(torch, device, work, field, traj6, out):
+    """21b: phase 17b's velocity field written by `FieldWriter` (card
+    tensors) and read back by the port's `trajectory_utility`
+    (`load_field_frame`): the field's values exactly; phase 6's frames
+    through `get_frame_info` / `load_frame` equal to `TrajectoryReader`'s."""
+    import numpy as np
+
+    from skellysim_tpu_torch.io.trajectory import (FieldWriter,
+                                                   TrajectoryReader)
+
+    pts, vel, t_frame = field
+    path = os.path.join(work, "skelly_sim.vf")
+    t0 = time.perf_counter()
+    with FieldWriter(path) as fw:
+        fw.write_frame(t_frame, pts, vel)
+    write_s = time.perf_counter() - t0
+    util = paraview_utility()
+    t0 = time.perf_counter()
+    fhs, fpos, times = util.get_frame_info([path])
+    got = util.load_field_frame(fhs, fpos, 0)[0]
+    read_s = time.perf_counter() - t0
+    for fh in fhs:
+        fh.close()
+    n = pts.shape[0]
+    same = (times == [t_frame] and got["x_grid"][:3] == ["__eigen__", 3, n]
+            and got["v_grid"][:3] == ["__eigen__", 3, n]
+            and np.array_equal(np.asarray(got["x_grid"][3:]),
+                               pts.cpu().numpy().astype(np.float64).ravel())
+            and np.array_equal(np.asarray(got["v_grid"][3:]),
+                               vel.cpu().numpy().astype(np.float64).ravel()))
+
+    fhs, fpos, times6 = util.get_frame_info([traj6])
+    with TrajectoryReader(traj6) as reader:
+        same6 = times6 == reader.times and len(times6) > 0
+        for i in range(len(times6)):
+            a, b = util.load_frame(fhs, fpos, i), reader.load_frame(i)
+            same6 &= (a["time"] == b["time"] and a["dt"] == b["dt"]
+                      and len(a["fibers"]) == len(b["fibers"][1])
+                      and all(np.array_equal(np.asarray(fa["x_"][3:]),
+                                             fb["x_"].ravel())
+                              for fa, fb in zip(a["fibers"],
+                                                b["fibers"][1]))
+                      and np.array_equal(
+                          np.asarray(a["shell"]["solution_vec_"][3:]),
+                          b["shell"]["solution_vec_"].ravel())
+                      and len(a["bodies"]) == sum(map(len, b["bodies"])))
+    for fh in fhs:
+        fh.close()
+    out["paraview"] = {"field_points": n, "field_bytes": os.path.getsize(path),
+                       "write_s": write_s, "read_s": read_s,
+                       "field_equal": bool(same), "phase6_frames": len(times6),
+                       "phase6_equal": bool(same6)}
+    log(f"[surface] 21b phase 17b's field at {n} points through FieldWriter "
+        f"({os.path.getsize(path)} bytes) in {write_s:.3f} s, read back by "
+        f"paraview_utils/trajectory_utility.py (standalone) in "
+        f"{read_s:.3f} s: equal "
+        f"{same}; phase 6's {len(times6)} frames through get_frame_info / "
+        f"load_frame against TrajectoryReader: equal {same6}")
+    os.remove(path)
+    if not (same and same6):
+        raise SystemExit(f"21b: the ParaView reader disagrees: "
+                         f"{out['paraview']}")
+
+
+def surface_flow(torch, ck, device, state, out):
+    """21c: `container.flow` of phase 4's last state in f32 (kernel A on the
+    card) against `flow_multi`'s bits, and the pair sums of the
+    Morton-sorted fibers (`sort_fibers_morton`) against the unsorted ones.
+    Returns the flow's launch counts."""
+    import numpy as np
+
+    from skellysim_tpu_torch.fibers import container as fc
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    g = state.fibers
+    g = type(g)(*[v.float() if torch.is_tensor(v) and v.is_floating_point()
+                  else v for v in g])
+    nf = g.n_fibers
+    caches = fc.update_cache(g, T_FINAL, 1.0)
+    forces = torch.as_tensor(np.random.default_rng(21).standard_normal(
+        tuple(g.x.shape)), dtype=torch.float32, device=device)
+    trg = fc.node_positions(g)
+    sync()
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    v = fc.flow(g, caches, trg, forces, 1.0)
+    sync()
+    flow_s = time.perf_counter() - t0
+    counts = read_counts(ck)
+    same = torch.equal(v, fc.flow_multi((g,), (caches,), trg, (forces,),
+                                        1.0))
+    t0 = time.perf_counter()
+    gs = fc.sort_fibers_morton(g)
+    sync()
+    sort_s = time.perf_counter() - t0
+    order = gs.config_rank.long()
+    cs = type(caches)(*[c[order] if torch.is_tensor(c) and c.shape[:1] == (nf,)
+                        else c for c in caches])
+    # the pair sums alone (no self block subtracted, whose cancellation
+    # would scale A's roundoff by the near field's size), sorted and not
+    vp = fc.flow(g, caches, trg, forces, 1.0, subtract_self=False)
+    vs = fc.flow(gs, cs, fc.node_positions(gs), forces[order], 1.0,
+                 subtract_self=False)
+    back = torch.empty_like(vp).reshape(nf, -1, 3)
+    back[order] = vs.reshape(nf, -1, 3)
+    rel = float((back.reshape(-1, 3) - vp).abs().max() / vp.abs().max())
+    moved = int((order != torch.arange(nf, device=device)).sum())
+    out["flow"] = {"fibers": nf, "nodes": g.n_nodes, "flow_s": flow_s,
+                   "equal_to_flow_multi": bool(same), "sort_s": sort_s,
+                   "sorted_moved": moved, "sorted_rel": rel,
+                   "gate": MORTON_GATE,
+                   "launches": {k: c for k, c in counts.items() if c}}
+    log(f"[surface] 21c container.flow of phase 4's last state in f32 "
+        f"({nf} x {g.n_nodes} nodes, self subtracted): {flow_s:.3f} s, "
+        f"launches {out['flow']['launches']}, flow_multi's bits: {same}; "
+        f"sort_fibers_morton {sort_s:.3f} s moved {moved} fibers; the pair "
+        f"sums (no self block subtracted) of the sorted fibers against the "
+        f"unsorted max |dv| / max |v| = {rel:.3e} (gate {MORTON_GATE})")
+    if not (same and rel <= MORTON_GATE and moved > 0):
+        raise SystemExit(f"21c: container.flow failed: {out['flow']}")
+    if device.type == "cuda" and not counts["stokeslet_f32"]:
+        raise SystemExit(f"21c: kernel A did not launch: {counts}")
+    if any(counts[w.__name__] for w in ck.YARDSTICK_WRAPPERS):
+        raise SystemExit(f"21c: a yardstick kernel launched: {counts}")
+    return counts
+
+
+def surface_chebyshev(torch, device, out):
+    """21d: the Chebyshev penalty fiber's evolve on the device against the
+    same run on the CPU."""
+    from skellysim_tpu_torch.fibers import chebyshev_fiber as cf
+
+    def run(dev):
+        solver, XX = cf.setup_solver_initialstate(CHEB_N, 1.0, device=dev)
+        t0 = time.perf_counter()
+        final, errs = cf.evolve(solver, XX, L=1.0, zeta=1.0, dt=CHEB_DT,
+                                n_steps=CHEB_STEPS)
+        final, errs = final.cpu(), errs.cpu()
+        return time.perf_counter() - t0, final, errs
+
+    dev_s, final, errs = run(device)
+    cpu_s, final_c, errs_c = run("cpu")
+    rel = max(float((final - final_c).abs().max() / final_c.abs().max()),
+              float((errs - errs_c).abs().max() / errs_c.abs().max()))
+    out["chebyshev"] = {"n": CHEB_N, "steps": CHEB_STEPS, "device_s": dev_s,
+                        "cpu_s": cpu_s, "rel": rel, "gate": CHEB_GATE,
+                        "ext_error": float(errs[-1])}
+    log(f"[surface] 21d Chebyshev fiber N={CHEB_N}, {CHEB_STEPS} steps of "
+        f"dt {CHEB_DT} (f64): {device.type} {dev_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s; max rel difference {rel:.3e} (gate {CHEB_GATE}); "
+        f"extensibility error {float(errs[-1]):.3e}")
+    if not (rel <= CHEB_GATE and torch.isfinite(final).all()):
+        raise SystemExit(f"21d: the Chebyshev fiber disagrees: {rel:.3e}")
+
+
+def phase_surface(torch, ck, device, work, p4_dir, step_s, field, traj6,
+                  smi):
+    """Phase 21: 21a (`surface_natives`, then phase 4's directory goes),
+    21b (`surface_paraview`), 21c (`surface_flow`), 21d
+    (`surface_chebyshev`). Returns (summary, 21c's launch counts)."""
+    t0 = time.perf_counter()
+    traj = os.path.join(p4_dir, "skelly_sim.out")
+    out = {}
+    state = surface_state(torch, device, traj)
+    surface_natives(torch, device, state, traj, step_s, out)
+    shutil.rmtree(p4_dir)
+    stamp("phase 21a")
+    surface_paraview(torch, device, work, field, traj6, out)
+    stamp("phase 21b")
+    counts = surface_flow(torch, ck, device, state, out)
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    stamp("phase 21c")
+    surface_chebyshev(torch, device, out)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[surface] phase 21: {out['phase_s']:.1f} s on "
+        f"{smi or 'the CPU'}")
+    return out, counts
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--spmd-worker"]:
@@ -7084,7 +7400,7 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="skelly_smoke_")
     try:
         (entries, launches, smi, fast, tree, spmd, ens, options,
-         flight, serve, cost_roof, audit) = run_phases(
+         flight, serve, cost_roof, audit, completion) = run_phases(
              torch, ck, cuda_build, TrajectoryReader, device, args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -7106,6 +7422,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": serve}, default=str), flush=True)
     print(json.dumps({"cost_roofline": cost_roof}, default=str), flush=True)
     print(json.dumps({"audit": audit}, default=str), flush=True)
+    print(json.dumps({"completion": completion}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7115,11 +7432,11 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
-    """Phases 1-20 (10-14 and 16a-c run after 8, on phase 6's precompute,
-    then 9, then 15, 16d, 17, 18, 19 and 20); returns (kernel entries,
+    """Phases 1-21 (10-14 and 16a-c run after 8, on phase 6's precompute,
+    then 9, then 15, 16d, 17, 18, 19, 20 and 21); returns (kernel entries,
     launch counts by path, the nvidia-smi line, phase 11's summary, phase
     12's, phase 13's with phase 14's, phase 15's, phase 16's, phase 17's,
-    phase 18's, phase 19's, phase 20's)."""
+    phase 18's, phase 19's, phase 20's, phase 21's)."""
     import numpy as np
 
     # 1. device
@@ -7200,7 +7517,9 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     if (len(reader) != len(steps) + 1 or abs(last["time"] - T_FINAL) > 1e-9
             or xs.shape != (args.fibers, 64, 3) or not np.isfinite(xs).all()):
         raise SystemExit("the trajectory does not hold the expected frames")
-    shutil.rmtree(run_dir)
+    reader.close()
+    # phase 21a reads this trajectory again, then removes the directory
+    p4_dir, p4_step_s = run_dir, steps[-1]["wall_s"]
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -7342,6 +7661,8 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
         torch, ck, device, ring_inputs, mesh_inputs, work)
     flight_out["phase_s"] = time.perf_counter() - t17
     launches.update(flight_launches)
+    # 17b's field (on the card), which phase 21b writes through FieldWriter
+    field = flight_out["velocity"].pop("_field")
     del mesh_inputs
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -7372,6 +7693,10 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     t19 = time.perf_counter()
     cost_roof = phase_cost_roofline(torch, ck, device, ring_inputs, tree)
     cost_roof["phase_s"] = time.perf_counter() - t19
+    # phase 6's trajectory outlives its directory: phase 21b reads it
+    traj6 = os.path.join(work, "phase6_skelly_sim.out")
+    os.replace(os.path.join(os.path.dirname(ring_inputs["cfg_path"]),
+                            "skelly_sim.out"), traj6)
     del ring_inputs
     shutil.rmtree(os.path.join(work, "ellipsoid"))
     if device.type == "cuda":
@@ -7387,6 +7712,18 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
 
     stamp("phase 20")
 
+    # 21. the rest of the surface: the trajectory natives on phase 4's
+    # trajectory, FieldWriter and the ParaView reader on 17b's field and
+    # phase 6's frames, container.flow and the Morton sort on phase 4's
+    # state, the Chebyshev fiber
+    completion, launches["container_flow_10k"] = phase_surface(
+        torch, ck, device, work, p4_dir, p4_step_s, field, traj6, smi)
+    del field
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    stamp("phase 21")
+
     # each kernel's launches: those of the path its slice ported it for
     path_of = {"stokeslet_f32": "free_fibers_10k",
                "stokeslet_f64": "free_fibers_10k",
@@ -7400,7 +7737,7 @@ def run_phases(torch, ck, cuda_build, TrajectoryReader, device, args, work):
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
     return (entries, launches, smi, fast, tree, spmd, ens, options,
-            flight_out, serve, cost_roof, audit)
+            flight_out, serve, cost_roof, audit, completion)
 
 
 if __name__ == "__main__":

@@ -27,3 +27,14 @@ def all_kernels():
                          f"{', '.join(sorted(dupes))}")
     return kerns
 
+
+
+def get_kernel(name: str):
+    """The registered `AuditKernel` named ``name``; KeyError naming the
+    registered ones otherwise."""
+    for k in all_kernels():
+        if k.name == name:
+            return k
+    raise KeyError(
+        f"no auditable kernel named {name!r} "
+        f"(registered: {', '.join(k.name for k in all_kernels())})")

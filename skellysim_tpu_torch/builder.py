@@ -146,10 +146,9 @@ def build_bodies(cfg_bodies: list, config_dir: str, dtype, device,
     if not cfg_bodies:
         return None
     if any(b.shape == "deformable" for b in cfg_bodies):
-        raise NotImplementedError(
-            "deformable bodies are declared but not implemented (matching "
-            "the reference stub: `body_deformable.cpp:13-41`, "
-            "flow_deformable throws at `body_container.cpp:449-463`)")
+        from .bodies import deformable
+
+        deformable.make_group()  # raises: the reference's unimplemented stub
     def load(b):
         path = os.path.join(config_dir, b.precompute_file)
         if (synthesize_precompute and not os.path.exists(path)

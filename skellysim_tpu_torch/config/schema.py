@@ -20,6 +20,8 @@ from dataclasses import dataclass, field, fields, is_dataclass
 from typing import List
 
 import numpy as np
+from scipy.optimize import brentq
+from scipy.special import ellipe, ellipeinc
 
 from . import param_tools, toml_io
 from .. import params as runtime_params
@@ -32,7 +34,8 @@ __all__ = ["Fiber", "DynamicInstability", "PeripheryBinding", "Params",
            "ConfigEllipsoidal", "ConfigRevolution", "load_config",
            "config_from_data", "unpack", "to_runtime_params", "SweepAxis",
            "EnsembleSweep", "normalized_member_params", "RuntimeConfig",
-           "load_runtime_config", "ServeConfig", "load_serve_config"]
+           "load_runtime_config", "ServeConfig", "load_serve_config",
+           "perturbed_fiber_positions"]
 
 
 def _vec3() -> List[float]:
@@ -50,6 +53,65 @@ def _quat_identity() -> List[float]:
 def _random_unit_vector(rng: np.random.Generator) -> np.ndarray:
     v = rng.normal(size=3)
     return v / np.linalg.norm(v)
+
+
+def _random_orthogonal(normal: np.ndarray,
+                       rng: np.random.Generator) -> np.ndarray:
+    off = (np.array([1.0, 0, 0]) if (normal[1] or normal[2])
+           else np.array([0, 1.0, 0]))
+    b = np.cross(normal, off)
+    b /= np.linalg.norm(b)
+    c = np.cross(normal, b)
+    c /= np.linalg.norm(c)
+    theta = 2 * np.pi * rng.uniform()
+    return b * np.cos(theta) + c * np.sin(theta)
+
+
+def _sin_arc_length(amplitude: float, xf: float) -> float:
+    """Arc length of amplitude*sin(2 pi x/xf) over one period [0, xf]."""
+    a2 = (2 * np.pi * amplitude / xf) ** 2
+    return xf / np.pi * (ellipe(-a2) + np.sqrt(1 + a2) * ellipe(a2 / (1 + a2)))
+
+
+def _cos_arc_length(amplitude: float, xi: float, xf: float,
+                    x_max: float) -> float:
+    """Arc length of amplitude*cos(2 pi x/x_max) on [xi, xf]."""
+    k = 2 * np.pi / x_max
+    a2 = (k * amplitude) ** 2
+    return (ellipeinc(k * xf, -a2) - ellipeinc(k * xi, -a2)) / k
+
+
+def perturbed_fiber_positions(amplitude: float, length: float, x0, normal,
+                              n_nodes: int, ortho=None,
+                              rng: np.random.Generator | None = None
+                              ) -> np.ndarray:
+    """[n_nodes, 3] fiber nodes: straight along `normal` with a one-period
+    cosine perturbation of the given amplitude, arc-length-parameterized so
+    node spacing is uniform in arc length and the total equals `length`
+    (the reference's `perturbed_fiber_positions`; the same draw as
+    `skellysim_tpu.config.schema.perturbed_fiber_positions`)."""
+    rng = rng or np.random.default_rng()
+    x0 = np.asarray(x0, dtype=float)
+    normal = np.asarray(normal, dtype=float)
+
+    # axial extent x_max such that the perturbed curve has the right length
+    x_max = brentq(lambda xf: _sin_arc_length(amplitude, xf) - length,
+                   1e-3 * length, length)
+    if ortho is None:
+        ortho = _random_orthogonal(normal, rng)
+
+    # nodes at equal arc-length increments, by inverting s(x)
+    ds = length / (n_nodes - 1)
+    xs = np.zeros(n_nodes)
+    for i in range(1, n_nodes):
+        lo = xs[i - 1]
+        xs[i] = brentq(
+            lambda xf: _cos_arc_length(amplitude, lo, xf, x_max) - ds,
+            lo, x_max + 1e-9) if i < n_nodes - 1 else x_max
+    positions = np.outer(xs, normal)
+    positions += np.outer(amplitude * (np.cos(2 * np.pi * xs / x_max) - 1.0),
+                          ortho)
+    return positions + x0
 
 
 def _min_sep_ok(x0: np.ndarray, minus_ends: list, ds_min: float) -> bool:
@@ -367,8 +429,9 @@ class Config:
             if getattr(b, "shape", None) == "deformable":
                 problems.append(
                     f"bodies[{j}].shape: 'deformable' is declared but "
-                    "unimplemented in the reference; use shape = 'sphere' "
-                    "or 'ellipsoid'")
+                    "unimplemented in the reference (the stub "
+                    "skellysim_tpu_torch/bodies/deformable.py); use shape = "
+                    "'sphere' or 'ellipsoid'")
         return problems
 
     def save(self, filename: str = "skelly_config.toml") -> None:

@@ -237,6 +237,19 @@ def weighted_forces(group: FiberGroup, forces) -> torch.Tensor:
                        0.0)
 
 
+def flow(group: FiberGroup, caches: FiberCaches, r_trg, forces, eta,
+         subtract_self: bool = True, evaluator: str = "direct", mesh=None,
+         impl: str = "exact", pair=None) -> torch.Tensor:
+    """Velocity at targets from every node of one bucket
+    (`skellysim_tpu.fibers.container.flow`): `flow_multi` over
+    ``(group,)``, through the same pair seam (kernel A / B on the card for
+    the direct sum). ``forces`` is [nf, n, 3]; with ``subtract_self`` the
+    leading nf * n targets are the fiber nodes."""
+    return flow_multi((group,), (caches,), r_trg, (forces,), eta,
+                      subtract_self=subtract_self, evaluator=evaluator,
+                      mesh=mesh, impl=impl, pair=pair)
+
+
 def _spread_inactive(buckets, pos, fills):
     """Replace inactive slots' node rows with the planner's spread fill
     sequence, indexed by compacted rank among the inactive nodes so the
@@ -451,6 +464,49 @@ def fiber_error(group: FiberGroup) -> torch.Tensor:
 
 def solution_size(group: FiberGroup) -> int:
     return group.n_fibers * 4 * group.n_nodes
+
+
+def sort_fibers_morton(group: FiberGroup) -> FiberGroup:
+    """Reorder the fibers by the Morton (Z-order) code of their centroids
+    (`skellysim_tpu.fibers.container.sort_fibers_morton`), so consecutive
+    fibers, and so the source chunks of the pair sums, are compact in
+    space. Every per-fiber tensor rides along (``config_rank`` too, so
+    ``config_rank[i]`` names the slot that fiber i came from); nothing
+    indexes fibers by position. Host-side: the codes are computed on the
+    host from one copy of the centroids; call it at setup, not a step."""
+    nf = group.n_fibers
+    if nf <= 1:
+        return group
+    # f64 codes whatever the group's dtype (an f32 span floored with a
+    # denormal underflows to 0 and makes the codes NaN); node-padded groups
+    # take the centroid over their live nodes only
+    nm = torch.as_tensor(node_mask_np(group), device=group.x.device)
+    cent = group.x[:, nm, :].mean(dim=1).cpu().numpy().astype(np.float64)
+    lo = cent.min(axis=0)
+    span = np.maximum(cent.max(axis=0) - lo, np.finfo(np.float64).tiny)
+    q = np.clip((cent - lo) / span * 1023.0, 0, 1023).astype(np.uint64)
+
+    def spread(v):
+        # interleave 10 bits with two zero bits (the Morton dilation)
+        v = (v | (v << 16)) & np.uint64(0x030000FF)
+        v = (v | (v << 8)) & np.uint64(0x0300F00F)
+        v = (v | (v << 4)) & np.uint64(0x030C30C3)
+        v = (v | (v << 2)) & np.uint64(0x09249249)
+        return v
+
+    code = (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
+            | (spread(q[:, 2]) << np.uint64(2)))
+    order = torch.as_tensor(np.argsort(code, kind="stable"),
+                            device=group.x.device)
+
+    def permute(leaf):
+        # the group-level runtime matrices carry no fiber axis
+        if (not torch.is_tensor(leaf) or leaf.ndim == 0
+                or leaf.shape[0] != nf):
+            return leaf
+        return leaf[order]
+
+    return type(group)(*[permute(leaf) for leaf in group])
 
 
 def grow_capacity(group: FiberGroup, new_cap: int,

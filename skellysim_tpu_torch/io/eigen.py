@@ -14,12 +14,19 @@ import numpy as np
 from .msgpack_lite import array_header, map_header, packb
 
 __all__ = ["mp_array_header", "mp_map_header", "mp_doubles", "pack_matrix",
-           "pack_matrix_bytes", "unpack_matrix", "decode_tree"]
-
-mp_array_header = array_header
-mp_map_header = map_header
+           "pack_matrix_bytes", "unpack_matrix", "pack_quat", "decode_tree"]
 
 EIGEN_TAG = packb("__eigen__")
+
+
+def mp_array_header(n: int) -> bytes:
+    """Raw msgpack array header (fixarray / array16 / array32)."""
+    return array_header(n)
+
+
+def mp_map_header(n: int) -> bytes:
+    """Raw msgpack map header (fixmap / map16 / map32)."""
+    return map_header(n)
 
 
 def mp_doubles(a: np.ndarray) -> np.ndarray:
@@ -73,6 +80,12 @@ def unpack_matrix(d: list) -> np.ndarray:
     if rows == 3:
         return data.reshape(cols, rows)
     return data.reshape(cols, rows).T
+
+
+def pack_quat(q) -> list:
+    """Encode a (w, x, y, z) quaternion as a ``__quat__`` list."""
+    q = np.asarray(q, dtype=np.float64)
+    return ["__quat__"] + q.tolist()
 
 
 def decode_tree(d):

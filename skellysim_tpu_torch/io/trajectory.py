@@ -1,23 +1,33 @@
 """Trajectory writer/reader (reference trajectory format v1).
 
-Counterpart of `skellysim_tpu.io.trajectory` through its pure-Python
-field-vectorized encoder: a header map, then one msgpack map per frame
-{time, dt, rng_state, fibers, bodies, shell}. Fibers are written in config
-order (`config_rank`), active slots only; bodies as [spheres, deformables,
-ellipsoids], each kind in config order; the shell as its density. So the
-wire matches the JAX package's and decodes with `skellysim_tpu.io.trajectory`
-and the reference tools.
+Counterpart of `skellysim_tpu.io.trajectory`: a header map, then one
+msgpack map per frame {time, dt, rng_state, fibers, bodies, shell}. Fibers
+are written in config order (`config_rank`), active slots only; bodies as
+[spheres, deformables, ellipsoids], each kind in config order; the shell as
+its density. So the wire matches the JAX package's and decodes with
+`skellysim_tpu.io.trajectory` and the reference tools. `state_to_frame`
+gives the frame as an object map; `frame_bytes` gives its bytes directly,
+through the native C++ encoder (`native/frameenc.cpp`) where the fibers are
+one bucket in config order, as in the JAX package, else through the numpy
+field-vectorized encoder. `FieldWriter` writes velocity-field frames
+(``skelly_sim.vf``) for `paraview_utils/field_reader.py`.
 
 The trajectory doubles as the checkpoint: `resume_state` rebuilds a
 `SimState` from the last frame (`--resume`). The reader seeks through a
 ``<path>.cindex`` side file {mtime, size, offsets, times}, the JAX package's
-and the reference's index format, built by `build_index` when missing or
-stale; frames are decoded from a memory map, so reading one frame of a
-large trajectory touches only that frame's bytes.
+and the reference's index format, built by `build_index` (the native
+scanner, `native/trajscan.cpp`, or a Python scan) when missing or stale;
+frames are decoded from a memory map, so reading one frame of a large
+trajectory touches only that frame's bytes.
+
+The native helpers are built with ``g++`` at first use; with no ``g++`` on
+``PATH`` the numpy paths run (one warning), and any other failure of the
+native build raises (`native.build`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import mmap
 import os
 import platform
@@ -26,6 +36,7 @@ import time as _time
 import numpy as np
 
 from .. import TRAJECTORY_VERSION, __version__
+from ..native import load_library
 from . import eigen
 from .msgpack_lite import OutOfData, packb, unpack_at
 
@@ -44,6 +55,103 @@ _SCALAR_FIELDS = ("radius", "length", "length_prev", "bending_rigidity",
 def _np(t, dtype=None):
     a = t.detach().cpu().numpy()
     return a if dtype is None else a.astype(dtype)
+
+
+def _bucket_list(fibers) -> list:
+    """SimState.fibers as a list of buckets, masked node padding stripped:
+    a bucketized run writes an unpadded run's frames."""
+    from ..fibers.container import as_buckets, strip_node_padding
+
+    return [strip_node_padding(g) for g in as_buckets(fibers)]
+
+
+def _active_ranks(group) -> np.ndarray:
+    """Config-order ranks of the active slots (slot order)."""
+    active = _np(group.active)
+    if group.config_rank is None:
+        return np.flatnonzero(active)
+    return _np(group.config_rank)[active]
+
+
+def _fiber_maps(group) -> list:
+    """Per-active-fiber msgpack maps (the reference's field set), one host
+    transfer per field."""
+    x = _np(group.x, np.float64)
+    tension = _np(group.tension, np.float64)
+    n_nodes = int(x.shape[1])
+    scalars = [_np(getattr(group, f), np.float64).tolist()
+               for f in _SCALAR_FIELDS]
+    binding = np.stack([_np(group.binding_body), _np(group.binding_site)],
+                       axis=1).tolist()
+    minus_clamped = _np(group.minus_clamped).tolist()
+    return [{
+        "n_nodes_": n_nodes,
+        **{k: scalars[j][i] for j, k in enumerate(_FIBER_KEYS[1:8])},
+        "binding_site_": binding[i],
+        "tension_": eigen.pack_matrix(tension[i]),
+        "x_": eigen.pack_matrix(x[i]),
+        "minus_clamped_": minus_clamped[i],
+    } for i in np.nonzero(_np(group.active))[0]]
+
+
+def _body_maps(bodies):
+    """Bodies as [spherical, deformable, ellipsoidal] lists of maps, each
+    kind in config order (`config_rank`) across buckets."""
+    from ..bodies.bodies import as_buckets
+
+    entries = []                       # (rank, is_sphere, map)
+    for g in as_buckets(bodies):
+        pos = _np(g.position, np.float64)
+        orient = _np(g.orientation, np.float64)
+        sol = _np(g.solution, np.float64)
+        radius = _np(g.radius, np.float64).tolist()
+        kind_sphere = _np(g.kind_sphere).tolist()
+        ranks = _np(g.config_rank).tolist()
+        for i in range(pos.shape[0]):
+            entries.append((ranks[i], kind_sphere[i], {
+                "radius_": radius[i],
+                "position_": eigen.pack_matrix(pos[i]),
+                "orientation_": eigen.pack_quat(orient[i]),
+                "solution_vec_": eigen.pack_matrix(sol[i]),
+            }))
+    entries.sort(key=lambda t: t[0])
+    return [[m for _, s, m in entries if s], [],
+            [m for _, s, m in entries if not s]]
+
+
+def _shell_wire_density(state) -> np.ndarray:
+    """The shell density as the wire carries it: live quadrature rows
+    only (a padded shell's masked rows hold exact zeros)."""
+    if state.shell is None:
+        return np.zeros(0)
+    density = _np(state.shell.density, np.float64)
+    if state.shell.node_mask is not None:
+        density = density[:3 * int(state.shell.node_mask.sum())]
+    return density
+
+
+def state_to_frame(state, rng_state=None) -> dict:
+    """A SimState as a trajectory-v1 frame map; fibers of several buckets
+    merge back into config order. ``packb(state_to_frame(s))`` equals
+    ``frame_bytes(s)``."""
+    buckets = _bucket_list(state.fibers)
+    if buckets:
+        entries = []
+        for g in buckets:
+            entries.extend(zip(_active_ranks(g).tolist(), _fiber_maps(g)))
+        entries.sort(key=lambda t: t[0])
+        fibers_field = [FIBER_TYPE_FINITE_DIFFERENCE, [m for _, m in entries]]
+    else:
+        fibers_field = [FIBER_TYPE_NONE, []]
+    return {
+        "time": float(state.time),
+        "dt": float(state.dt),
+        "rng_state": rng_state if rng_state is not None else [],
+        "fibers": fibers_field,
+        "bodies": _body_maps(state.bodies),
+        "shell": {"solution_vec_": eigen.pack_matrix(
+            _shell_wire_density(state))},
+    }
 
 
 def _fiber_chunk_bytes(group) -> list:
@@ -84,41 +192,79 @@ def _fiber_chunk_bytes(group) -> list:
     return out
 
 
-def _body_maps(bodies):
-    """Bodies as [spherical, deformable, ellipsoidal] lists of maps, each
-    kind in config order (`config_rank`) across buckets."""
-    from ..bodies.bodies import as_buckets
+def _fiber_array_bytes_py(group) -> bytes:
+    """msgpack bytes of the active-fiber map array (slot order), numpy
+    field-vectorized."""
+    chunks = _fiber_chunk_bytes(group)
+    return (eigen.mp_array_header(len(chunks))
+            + b"".join(c for _, c in chunks))
 
-    entries = []                       # (rank, is_sphere, map)
-    for g in as_buckets(bodies):
-        pos = _np(g.position, np.float64)
-        orient = _np(g.orientation, np.float64)
-        sol = _np(g.solution, np.float64)
-        radius = _np(g.radius, np.float64).tolist()
-        kind_sphere = _np(g.kind_sphere).tolist()
-        ranks = _np(g.config_rank).tolist()
-        for i in range(pos.shape[0]):
-            entries.append((ranks[i], kind_sphere[i], {
-                "radius_": radius[i],
-                "position_": eigen.pack_matrix(pos[i]),
-                "orientation_": ["__quat__"] + orient[i].tolist(),
-                "solution_vec_": eigen.pack_matrix(sol[i]),
-            }))
-    entries.sort(key=lambda t: t[0])
-    return [[m for _, s, m in entries if s], [],
-            [m for _, s, m in entries if not s]]
+
+def _fiber_array_bytes_native(group):
+    """The same bytes from the C++ encoder (`native/frameenc.cpp`); None
+    when there is no ``g++``."""
+    lib = load_library("frameenc")
+    if lib is None:
+        return None
+    dbl = ctypes.POINTER(ctypes.c_double)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.frameenc_fibers.restype = ctypes.c_int64
+    lib.frameenc_fibers.argtypes = [dbl] * 9 + [
+        ctypes.POINTER(ctypes.c_int32), u8, u8, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(u8), ctypes.POINTER(ctypes.c_uint64)]
+    lib.frameenc_free.restype = None
+    lib.frameenc_free.argtypes = [u8]
+
+    def host(t, dtype):
+        return np.ascontiguousarray(_np(t, dtype))
+
+    x = host(group.x, np.float64)
+    nf, n = x.shape[0], x.shape[1]
+    doubles = [x, host(group.tension, np.float64)] + [
+        host(getattr(group, f), np.float64) for f in _SCALAR_FIELDS]
+    binding = np.ascontiguousarray(np.stack(
+        [_np(group.binding_body), _np(group.binding_site)],
+        axis=1).astype(np.int32))
+    active = host(group.active, np.uint8)
+    mclamp = host(group.minus_clamped, np.uint8)
+    out_p = u8()
+    out_len = ctypes.c_uint64()
+    rc = lib.frameenc_fibers(
+        *[a.ctypes.data_as(dbl) for a in doubles],
+        binding.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        active.ctypes.data_as(u8), mclamp.ctypes.data_as(u8),
+        nf, n, ctypes.byref(out_p), ctypes.byref(out_len))
+    if rc < 0:
+        raise RuntimeError(f"frameenc_fibers failed ({rc}) on {nf} fibers "
+                           f"x {n} nodes")
+    try:
+        return ctypes.string_at(out_p, out_len.value)
+    finally:
+        lib.frameenc_free(out_p)
+
+
+def _fiber_array_bytes(group) -> bytes:
+    """msgpack bytes of the active-fiber map array: the native encoder,
+    or the numpy one where there is no ``g++``."""
+    native = _fiber_array_bytes_native(group)
+    return native if native is not None else _fiber_array_bytes_py(group)
 
 
 def frame_bytes(state, rng_state=None) -> bytes:
-    """Raw msgpack bytes of a trajectory-v1 frame."""
-    from ..fibers.container import as_buckets, strip_node_padding
-
-    entries = []
-    for g in as_buckets(state.fibers):
-        # masked node padding never reaches the wire: a bucketized run
-        # writes an unpadded run's frames
-        entries.extend(_fiber_chunk_bytes(strip_node_padding(g)))
-    if entries:
+    """Raw msgpack bytes of a trajectory-v1 frame, equal to
+    ``packb(state_to_frame(state, rng_state))``."""
+    buckets = _bucket_list(state.fibers)
+    if len(buckets) == 1 and np.all(np.diff(_active_ranks(buckets[0])) > 0):
+        # one bucket in config order: the native encoder's case
+        fibers_b = (eigen.mp_array_header(2)
+                    + packb(FIBER_TYPE_FINITE_DIFFERENCE)
+                    + _fiber_array_bytes(buckets[0]))
+    elif buckets:
+        # several resolutions (or permuted ranks): per-fiber chunks merged
+        # back into config order
+        entries = []
+        for g in buckets:
+            entries.extend(_fiber_chunk_bytes(g))
         entries.sort(key=lambda t: t[0])
         fibers_b = (eigen.mp_array_header(2)
                     + packb(FIBER_TYPE_FINITE_DIFFERENCE)
@@ -137,17 +283,6 @@ def frame_bytes(state, rng_state=None) -> bytes:
         eigen.mp_map_header(1) + packb("solution_vec_")
         + eigen.pack_matrix_bytes(_shell_wire_density(state)),
     ])
-
-
-def _shell_wire_density(state) -> np.ndarray:
-    """The shell density as the wire carries it: live quadrature rows
-    only (a padded shell's masked rows hold exact zeros)."""
-    if state.shell is None:
-        return np.zeros(0)
-    density = _np(state.shell.density, np.float64)
-    if state.shell.node_mask is not None:
-        density = density[:3 * int(state.shell.node_mask.sum())]
-    return density
 
 
 class TrajectoryWriter:
@@ -185,6 +320,50 @@ class TrajectoryWriter:
         self.close()
 
 
+class FieldWriter:
+    """Appends velocity-field frames {time, dt, x_grid, v_grid} in the
+    reference's ``skelly_sim.vf`` layout (point clouds in the 3 x n
+    ``__eigen__`` encoding), read by `paraview_utils/field_reader.py`.
+    ``positions`` / ``velocities`` may be card tensors: a frame takes one
+    copy to the host and no other sync."""
+
+    def __init__(self, path: str = "skelly_sim.vf", *, append: bool = False):
+        self.path = path
+        self._fh = open(path, "ab" if append else "wb")
+
+    def write_frame(self, time: float, positions, velocities, dt: float = 0.0):
+        import torch
+
+        def host(a):
+            a = _np(a) if torch.is_tensor(a) else np.asarray(a)
+            return a.astype(np.float64).reshape(-1, 3)
+
+        if torch.is_tensor(positions) and torch.is_tensor(velocities):
+            n = positions.reshape(-1, 3).shape[0]
+            both = host(torch.cat([positions.reshape(-1, 3),
+                                   velocities.reshape(-1, 3)]))
+            x, v = both[:n], both[n:]
+        else:
+            x, v = host(positions), host(velocities)
+        self._fh.write(b"".join([
+            eigen.mp_map_header(4),
+            packb("time"), packb(float(time)),
+            packb("dt"), packb(float(dt)),
+            packb("x_grid"), eigen.pack_matrix_bytes(x),
+            packb("v_grid"), eigen.pack_matrix_bytes(v),
+        ]))
+        self._fh.flush()
+
+    def close(self):
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def _scan(data):
     """(offsets, times) of every frame map in a trajectory buffer, each
     top-level object decoded in turn; a truncated last object (a write cut
@@ -203,22 +382,60 @@ def _scan(data):
     return offsets, times
 
 
+def _scan_native(mm):
+    """`_scan` by the C++ scanner (`native/trajscan.cpp`), which skips
+    payloads undecoded; None when there is no ``g++``."""
+    lib = load_library("trajscan")
+    if lib is None:
+        return None
+    lib.trajscan_buffer.restype = ctypes.c_int64
+    lib.trajscan_buffer.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_double))]
+    lib.trajscan_free.restype = None
+    lib.trajscan_free.argtypes = [ctypes.c_void_p]
+    offsets_p = ctypes.POINTER(ctypes.c_uint64)()
+    times_p = ctypes.POINTER(ctypes.c_double)()
+    buf = np.frombuffer(mm, dtype=np.uint8)
+    try:
+        n = lib.trajscan_buffer(buf.ctypes.data, buf.size,
+                                ctypes.byref(offsets_p), ctypes.byref(times_p))
+    finally:
+        del buf                        # the map closes only once unexported
+    try:
+        if n < 0:
+            raise RuntimeError(f"trajscan_buffer failed ({n})")
+        offsets = np.ctypeslib.as_array(offsets_p, shape=(max(n, 1),))[:n]
+        times = np.ctypeslib.as_array(times_p, shape=(max(n, 1),))[:n]
+        return offsets.tolist(), times.tolist()
+    finally:
+        lib.trajscan_free(offsets_p)
+        lib.trajscan_free(times_p)
+
+
 def _map(path: str):
     with open(path, "rb") as fh:
         return mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
 
 
-def build_index(path: str):
+def build_index(path: str, use_native: bool = True):
     """Frame (offsets, times), written to ``<path>.cindex`` in the JAX
     package's format ({mtime: int, size, offsets, times}), which its reader
-    and the reference's take without a rebuild. The file is stat'ed before
-    the scan, so a frame appended meanwhile invalidates the index."""
+    and the reference's take without a rebuild. ``use_native`` scans with
+    the C++ scanner where there is a ``g++``, else in Python. The file is
+    stat'ed before the scan, so a frame appended meanwhile invalidates the
+    index."""
     st = os.stat(path)
-    mm = _map(path)
-    try:
-        offsets, times = _scan(mm)
-    finally:
-        mm.close()
+    if st.st_size == 0:
+        offsets, times = [], []
+    else:
+        mm = _map(path)
+        try:
+            res = _scan_native(mm) if use_native else None
+            offsets, times = res if res is not None else _scan(mm)
+        finally:
+            mm.close()
     with open(path + ".cindex", "wb") as fh:
         fh.write(packb({"mtime": int(st.st_mtime), "size": st.st_size,
                         "offsets": offsets, "times": times}))

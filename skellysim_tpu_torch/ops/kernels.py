@@ -4,8 +4,10 @@ Counterpart of `skellysim_tpu.ops.kernels` for the families the port runs:
 the singular Stokeslet sum (`stokeslet_direct`, the matvec's hot loop), the
 singular stresslet double-layer sum (`stresslet_direct`, the shell and body
 flows), the regularized Oseen tensor (`oseen_tensor`, each fiber's dense
-self-mobility block), the point-source flows (`oseen_contract`, `rotlet`) and
-the dense shell/body operator builders (`stresslet_times_normal_blocked`,
+self-mobility block; `oseen_block`, one block pair of its contraction), the
+point-source flows (`oseen_contract`, `rotlet`) and the dense shell/body
+operator builders (`stresslet_times_normal` and its row-blocked form
+`stresslet_times_normal_blocked`,
 `stresslet_times_normal_times_density`, `subtract_singularity_columns`).
 Arrays are row-major ``[n, 3]`` like the JAX package; conventions are
 documented there.
@@ -296,11 +298,7 @@ def oseen_contract(r_src, r_trg, density, eta, reg=DEFAULT_REG,
                    epsilon_distance=DEFAULT_EPS):
     """Regularized Oseen tensor contracted with a density -> [n_trg, 3]."""
     def block(trg, src, dens):
-        d = trg[:, None, :] - src[None, :, :]
-        r2 = torch.sum(d * d, dim=-1)
-        fr, gr = _regularized_frgr(r2, eta, reg, epsilon_distance)
-        df = torch.einsum("tsk,sk->ts", d, dens)
-        return fr @ dens + torch.einsum("ts,tsk->tk", gr * df, d)
+        return oseen_block(trg, src, dens, eta, reg, epsilon_distance)
 
     return _pair_sum(block, r_trg, (r_src, density))
 
@@ -319,6 +317,38 @@ def rotlet(r_src, r_trg, density, eta, reg=DEFAULT_REG,
         return torch.einsum("ts,tsk->tk", rinv * rinv * rinv, cross)
 
     return _pair_sum(block, r_trg, (r_src, density)) * factor
+
+
+def oseen_block(trg, src, density, eta, reg, epsilon_distance):
+    """Regularized-Oseen partial sum of one (target-block, source-block)
+    pair -> [t, 3], eta-scaled through fr / gr
+    (`skellysim_tpu.ops.kernels.oseen_block`)."""
+    d = trg[:, None, :] - src[None, :, :]
+    r2 = torch.sum(d * d, dim=-1)
+    fr, gr = _regularized_frgr(r2, eta, reg, epsilon_distance)
+    df = torch.einsum("tsk,sk->ts", d, density)
+    return fr @ density + torch.einsum("ts,tsk->tk", gr * df, d)
+
+
+def stresslet_times_normal(r, normals, eta, reg=DEFAULT_REG,
+                           epsilon_distance=DEFAULT_EPS):
+    """Dense stresslet-contracted-with-normal operator [n, 3, n, 3]:
+    ``M[i, :, j, :] = -3/(4 pi) (d.n_j) / r^5 d d^T`` with ``d = r_i -
+    r_j`` and zero diagonal blocks (`skellysim_tpu.ops.kernels
+    .stresslet_times_normal`; no eta dependence). The unblocked form of
+    `stresslet_times_normal_blocked`, equal to it after ``.reshape(3n,
+    3n)``; it holds [n, n, 3, 3] at once, so it suits small point sets."""
+    factor = -3.0 / (4.0 * math.pi)
+    n = r.shape[0]
+    d = r[:, None, :] - r[None, :, :]
+    r2 = torch.sum(d * d, dim=-1)
+    offdiag = ~torch.eye(n, dtype=torch.bool, device=r.device)
+    rinv = _reg_rinv(r2, reg, epsilon_distance, inclusive=False,
+                     drop_self=False)
+    dn = torch.einsum("ijk,jk->ij", d, normals)
+    coeff = torch.where(offdiag, factor * dn * rinv**5, 0.0)
+    M = coeff[:, :, None, None] * d[:, :, :, None] * d[:, :, None, :]
+    return M.permute(0, 2, 1, 3)
 
 
 def _operator_rows(n: int) -> int:

@@ -1414,7 +1414,9 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_jax():
     """Walk the AST of every port module and chip_smoke.py: no import of
-    jax (or jaxlib) and none of the JAX package `skellysim_tpu`."""
+    jax (or jaxlib) and none of the JAX package `skellysim_tpu`; the
+    ParaView scripts under `paraview_utils/` import neither package (and
+    nothing relative)."""
     files = sorted((REPO / "skellysim_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
@@ -1432,14 +1434,30 @@ def test_port_imports_no_jax():
                 "obs/cost", "obs/roofline", "audit/observe",
                 "audit/checks", "audit/maskflow", "audit/repflow",
                 "audit/dmaflow", "audit/kernels", "audit/cli",
-                "audit/__main__"):
+                "audit/__main__", "io/eigen", "io/trajectory",
+                "native/__init__", "native/build", "config/param_tools",
+                "config/schema", "ops/kernels", "fibers/container",
+                "bodies/deformable", "fibers/chebyshev",
+                "fibers/chebyshev_fiber"):
         assert f"skellysim_tpu_torch/{mod}.py" in names
+    # the ParaView scripts run outside either package: vtk, never a package
+    scripts = ("__init__", "trajectory_utility", "fiber_reader",
+               "fiber_reader_request", "body_reader", "field_reader",
+               "field_reader_request")
+    for mod in scripts:
+        assert f"skellysim_tpu_torch/paraview_utils/{mod}.py" in names
     bad = []
     for f in files:
+        script = os.path.relpath(f, REPO).startswith(
+            "skellysim_tpu_torch/paraview_utils/")
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "skellysim_tpu"):
+            if top in ("jax", "jaxlib", "skellysim_tpu") or (
+                    script and top == "skellysim_tpu_torch"):
                 bad.append(f"{os.path.relpath(f, REPO)}: {mod}")
+        if script:
+            assert not any(isinstance(n, ast.ImportFrom) and n.level
+                           for n in ast.walk(ast.parse(f.read_text()))), f
     assert not bad, bad
 
 
